@@ -1,0 +1,301 @@
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. device: require CUDA and print the card's name and power limit;
+2. build: compile the CUDA kernels of ``transflow_tpu_torch/csrc`` (into the
+   git-ignored ``transflow_tpu_torch/_build``);
+3. kernel vs plain: the correlation kernel against its plain PyTorch
+   version at the five shapes LiteFlowNet gives it on a 1088x1920 frame,
+   in each dtype pair, with CUDA-event timings of both;
+4. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
+   weights and one moveref layer over panned synthetic frames, counting
+   the kernel's launches;
+5. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
+   the CPU slice, and the compositor on both devices on one flow.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Imports no JAX.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+HEIGHT, WIDTH = 1080, 1920
+# (H, W, C, stride, name) of the correlation at each LiteFlowNet level of a
+# 1088x1920 network input (the 1080p frame resized up to a multiple of 32)
+CORR_SHAPES = ((34, 60, 192, 1, "L6"), (68, 120, 128, 1, "L5"),
+               (136, 240, 96, 1, "L4"), (272, 480, 64, 2, "L3"),
+               (544, 960, 64, 2, "L2"))
+BF16, F32 = torch.bfloat16, torch.float32
+# the dtype pair the slice gives each level: L6 correlates two bf16
+# features, L2-L5 a bf16 feature with an f32 backwarped one
+MAIN_PAIR = {"L6": (BF16, BF16), "L5": (BF16, F32), "L4": (BF16, F32),
+             "L3": (BF16, F32), "L2": (BF16, F32)}
+DTYPE_PAIRS = ((BF16, BF16), (BF16, F32), (F32, F32))
+# kernel vs plain: both f32 math, different summation order
+CORR_ATOL = CORR_RTOL = 1e-5
+EQUIV_FLOW_ATOL = 1e-3
+SLICE_FRAMES = 8
+EQUIV_FRAMES = 4
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip()
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median ms of ``fn()`` over ``reps`` launches, timed with CUDA
+    events around each launch."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+    card = card_line()
+    print(f"card: {card}")
+    return card
+
+
+def phase_build() -> None:
+    from transflow_tpu_torch._device import kernel_library
+    lib = kernel_library()
+    print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s")
+    for line in lib.build_log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"  ptxas: {line.strip()}")
+
+
+def phase_kernels(device) -> list[dict]:
+    from transflow_tpu_torch.ops.correlation import (correlation7x7,
+                                                     correlation7x7_cuda)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = []
+    for h, w, c, stride, level in CORR_SHAPES:
+        for t1, t2 in DTYPE_PAIRS:
+            f1 = torch.randn((h, w, c), generator=gen, device=device).to(t1)
+            f2 = torch.randn((h, w, c), generator=gen, device=device).to(t2)
+            got = correlation7x7_cuda(f1, f2, stride)
+            want = correlation7x7(f1, f2, stride)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, atol=CORR_ATOL, rtol=CORR_RTOL)
+            ms = cuda_ms(lambda: correlation7x7_cuda(f1, f2, stride))
+            plain_ms = cuda_ms(lambda: correlation7x7(f1, f2, stride),
+                               reps=10)
+            pair = f"{str(t1)[6:]}/{str(t2)[6:]}"
+            print(f"corr {level} ({h},{w},{c}) s{stride} {pair}: "
+                  f"max_abs_err {err:.3e} kernel {ms:.4f} ms "
+                  f"plain {plain_ms:.4f} ms")
+            if not ok:
+                raise AssertionError(
+                    f"correlation kernel disagrees at {level} {pair}: "
+                    f"max_abs_err {err}")
+            rows.append({"level": level, "pair": (t1, t2), "err": err,
+                         "ms": ms, "plain_ms": plain_ms})
+    return rows
+
+
+def panned_frames(n: int, height: int, width: int, device,
+                  step: int = 3) -> torch.Tensor:
+    """(n, H, W, 3) uint8 frames: a smooth random texture panned by
+    ``step`` pixels per frame along both axes, made on the device."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    margin = step * n
+    coarse = torch.rand((1, 3, (height + margin) // 16 + 2,
+                         (width + margin) // 16 + 2), generator=gen,
+                        device=device)
+    canvas = torch.nn.functional.interpolate(
+        coarse, size=(height + margin, width + margin), mode="bicubic",
+        align_corners=False)[0].permute(1, 2, 0)
+    noise = torch.rand(canvas.shape, generator=gen, device=device)
+    canvas = (canvas * 200 + noise * 55).clamp(0, 255).to(torch.uint8)
+    return torch.stack([canvas[i * step:i * step + height,
+                               i * step:i * step + width]
+                        for i in range(n)])
+
+
+def flagship_model(height: int, width: int, device):
+    from transflow_tpu_torch.config import LayerConfig
+    from transflow_tpu_torch.model import FlowTransferModel
+    return FlowTransferModel(
+        height, width,
+        [LayerConfig(0, reset_mode="random", reset_random_factor=0.01)],
+        method="liteflownet", device=device)
+
+
+def run_frames(model, frames, pixmaps, generator):
+    """``model.step`` over frames[1:] from frames[0]; returns (frames out,
+    raw flows)."""
+    state = model.init_state(frames[0])
+    numbers = model.default_frame_numbers()
+    outs, flows = [], []
+    for idx in range(1, len(frames)):
+        state, rgb = model.step(state, frames[idx], pixmaps,
+                                idx / model.framerate, generator, numbers)
+        outs.append(rgb)
+        flows.append(state["prev_flow"])
+    return outs, flows
+
+
+def phase_slice(device, card: str) -> int:
+    from transflow_tpu_torch.ops.correlation import correlation7x7_cuda
+    os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
+    model = flagship_model(HEIGHT, WIDTH, device)
+    frames = panned_frames(SLICE_FRAMES + 2, HEIGHT, WIDTH, device)
+    pixmaps = model.default_pixmaps(SEED)
+    numbers = model.default_frame_numbers()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    correlation7x7_cuda.launches = 0
+    state, _ = model.step(model.init_state(frames[0]), frames[1], pixmaps,
+                          0.0, gen, numbers)  # warm-up frame
+    # per-frame checks reduce on the card; one readback at the end
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    checksum = torch.zeros((), dtype=torch.int64, device=device)
+    max_flow = torch.zeros((), device=device)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for idx in range(2, SLICE_FRAMES + 2):
+        state, rgb = model.step(state, frames[idx], pixmaps,
+                                idx / model.framerate, gen, numbers)
+        flow = state["prev_flow"]
+        if rgb.shape != (HEIGHT, WIDTH, 3) or rgb.dtype != torch.uint8:
+            raise AssertionError(f"bad frame {rgb.shape} {rgb.dtype}")
+        if flow.shape != (HEIGHT, WIDTH, 2):
+            raise AssertionError(f"bad flow shape {tuple(flow.shape)}")
+        finite &= torch.isfinite(flow).all()
+        checksum += rgb.sum(dtype=torch.int64)
+        max_flow = torch.maximum(max_flow, flow.abs().max())
+    finite, checksum, max_flow = (finite.item(), checksum.item(),
+                                  max_flow.item())
+    seconds = time.perf_counter() - start
+    launches = correlation7x7_cuda.launches
+    frames_run = 1 + SLICE_FRAMES
+    if not finite:
+        raise AssertionError("non-finite flow")
+    if launches != 5 * frames_run:
+        raise AssertionError(f"{launches} correlation launches over "
+                             f"{frames_run} frames, expected 5 per frame")
+    ms = 1e3 * seconds / SLICE_FRAMES
+    print(f"slice {HEIGHT}x{WIDTH} liteflownet->moveref: {ms:.2f} ms/frame "
+          f"{1e3 / ms:.2f} frames/s over {SLICE_FRAMES} frames "
+          f"(max |flow| {max_flow:.4g}, checksum {checksum}) on {card}")
+    print(f"correlation launches: {launches} over {frames_run} frames")
+    return launches
+
+
+def phase_equivalence(device) -> None:
+    from transflow_tpu_torch.compositor.core import (
+        build_compositor, make_layer_params, update_moveref)
+    from transflow_tpu_torch.config import LayerConfig
+    from transflow_tpu_torch.flow.transforms import clip_to_frame
+    os.environ["TRANSFLOW_LITEFLOWNET_BF16"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    h, w = 128, 192
+    frames = panned_frames(EQUIV_FRAMES + 1, h, w, "cpu")
+    flows = {}
+    for dev in (device, "cpu"):
+        model = flagship_model(h, w, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        _, got = run_frames(model, frames.to(dev),
+                            model.default_pixmaps(SEED), gen)
+        flows[dev] = torch.stack(got).cpu()
+    err = (flows[device] - flows["cpu"]).abs().max().item()
+    print(f"equivalence {h}x{w} f32 slice cuda vs cpu: max |dflow| "
+          f"{err:.3e} over {EQUIV_FRAMES} frames")
+    if not err <= EQUIV_FLOW_ATOL:
+        raise AssertionError(f"CUDA and CPU flows differ by {err}")
+
+    # the compositor on one flow: large integer and half-integer motion
+    # on top of the estimated flow, with the reset draw fed to both
+    rng = np.random.default_rng(SEED)
+    cfg = LayerConfig(0, reset_mode="random", reset_random_factor=0.05,
+                      moving_pixels_leave_empty_spot=True)
+    results = {}
+    for dev in (device, "cpu"):
+        params = make_layer_params([cfg], h, w, {0: [(3, None)]},
+                                   device=dev)
+        init_fn, step_fn = build_compositor(params, h, w, device=dev)
+        state = init_fn()
+        pixmap = torch.from_numpy(
+            np.random.default_rng(SEED).integers(0, 256, (h, w, 3),
+                                                 np.uint8)).to(dev)
+        rng = np.random.default_rng(SEED)
+        for idx in range(EQUIV_FRAMES):
+            motion = (rng.integers(-6, 7, (h, w, 2))
+                      + 0.5 * rng.integers(0, 2, (h, w, 2)))
+            flow = clip_to_frame(flows["cpu"][idx].to(dev)
+                                 + torch.from_numpy(motion).float().to(dev))
+            rand = torch.from_numpy(
+                rng.random((h, w), dtype=np.float32)).to(dev)
+            state = [update_moveref(params[0], state[0], flow, (pixmap,),
+                                    rand)]
+            state, rgb = step_fn.render(state)
+        results[dev] = ({k: v.cpu() for k, v in state[0].items()},
+                        rgb.cpu())
+    (s_dev, rgb_dev), (s_cpu, rgb_cpu) = results[device], results["cpu"]
+    for key in s_cpu:
+        if not torch.equal(s_dev[key], s_cpu[key]):
+            raise AssertionError(f"compositor state {key!r} differs")
+    if not torch.equal(rgb_dev, rgb_cpu):
+        raise AssertionError("compositor frames differ")
+    print(f"equivalence compositor cuda vs cpu: states and frames "
+          f"bit-equal over {EQUIV_FRAMES} frames")
+
+
+def main() -> int:
+    card = phase_device()
+    device = torch.device("cuda", 0)
+    phase_build()
+    rows = phase_kernels(device)
+    launches = phase_slice(device, card)
+    phase_equivalence(device)
+    main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
+    record = {"kernels": [{
+        "name": "correlation7x7",
+        "route": "cuda",
+        "source": "transflow_tpu_torch/csrc/correlation.cu",
+        "replaces": "transflow_tpu/ops/pallas_correlation.py:110",
+        "launches": launches,
+        "max_abs_err": max(r["err"] for r in rows),
+        # per frame: the five levels in the slice's dtype pairs
+        "ms": sum(r["ms"] for r in main_rows),
+        "plain_ms": sum(r["plain_ms"] for r in main_rows),
+    }]}
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

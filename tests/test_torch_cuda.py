@@ -1,0 +1,85 @@
+"""Card-only tests of the port: each CUDA kernel against its plain PyTorch
+version, and the slice on the card against the slice on the CPU.
+
+They skip without a CUDA card (the kernels have no CPU mode). This file
+imports no JAX, so on a machine without it run
+``python -m pytest --noconftest tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from transflow_tpu_torch.ops.correlation import (correlation,
+                                                 correlation7x7,
+                                                 correlation7x7_cuda)
+
+pytestmark = pytest.mark.cuda
+
+BF16, F32 = torch.bfloat16, torch.float32
+PAIRS = [(F32, F32), (BF16, BF16), (BF16, F32)]
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def exact_f32(monkeypatch):
+    """f32 convolutions without TF32, on both devices."""
+    monkeypatch.setenv("TRANSFLOW_LITEFLOWNET_BF16", "0")
+    monkeypatch.setenv("TRANSFLOW_LITEFLOWNET_RANDOM", "1")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: "/".join(
+    str(t)[6:] for t in p))
+@pytest.mark.parametrize("shape", [(16, 24, 8, 1), (32, 48, 16, 2),
+                                   (4, 6, 192, 1), (9, 37, 20, 2),
+                                   (68, 120, 128, 1), (136, 240, 64, 2)],
+                         ids=str)
+def test_kernel_matches_plain(device, shape, pair):
+    h, w, c, stride = shape
+    gen = torch.Generator(device=device).manual_seed(0)
+    f1 = torch.randn((h, w, c), generator=gen, device=device).to(pair[0])
+    f2 = torch.randn((h, w, c), generator=gen, device=device).to(pair[1])
+    before = correlation7x7_cuda.launches
+    got = correlation(f1, f2, stride)
+    torch.cuda.synchronize()
+    assert correlation7x7_cuda.launches == before + 1
+    want = correlation7x7(f1, f2, stride)
+    assert got.shape == want.shape
+    # f32 math on both sides, different summation order
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_slice_on_card_matches_cpu(device, exact_f32):
+    from transflow_tpu_torch.config import LayerConfig
+    from transflow_tpu_torch.model import FlowTransferModel
+    h, w, frames = 64, 96, 3
+    rng = np.random.default_rng(0)
+    canvas = torch.from_numpy(rng.integers(0, 256, (h + 8, w + 8, 3),
+                                           dtype=np.uint8))
+    clip = [canvas[2 * i:2 * i + h, 2 * i:2 * i + w] for i in range(frames)]
+    flows = {}
+    for dev in (device, torch.device("cpu")):
+        model = FlowTransferModel(h, w, [LayerConfig(0)],
+                                  method="liteflownet", device=dev)
+        state = model.init_state(clip[0])
+        pix = model.default_pixmaps()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        before = correlation7x7_cuda.launches
+        out = []
+        for frame in clip[1:]:
+            state, rgb = model.step(state, frame, pix, 0.0, gen,
+                                    model.default_frame_numbers())
+            out.append(state["prev_flow"].cpu())
+        launches = correlation7x7_cuda.launches - before
+        assert launches == (5 * (frames - 1) if dev.type == "cuda" else 0)
+        flows[dev.type] = torch.stack(out)
+    assert torch.isfinite(flows["cuda"]).all()
+    torch.testing.assert_close(flows["cuda"], flows["cpu"], atol=1e-3,
+                               rtol=1e-3)

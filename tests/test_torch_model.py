@@ -1,0 +1,159 @@
+"""The port's FlowTransferModel against the JAX package's, and the port's
+import boundary.
+
+Random LiteFlowNet weights (the same in both packages) give sub-pixel
+flows, so this checks the estimator inside the step and the step's
+plumbing; tests/test_torch_compositor.py carries the motion.
+"""
+import inspect
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from transflow_tpu.config import LayerConfig as JaxLayerConfig
+from transflow_tpu.flow import Direction
+from transflow_tpu.flow.estimators import liteflownet as jlfn
+from transflow_tpu.model import FlowTransferModel as JaxModel
+from transflow_tpu.ops.image import upscale_flow as jax_upscale_flow
+from transflow_tpu_torch.config import LayerConfig
+from transflow_tpu_torch.model import FlowTransferModel
+from transflow_tpu_torch.ops.image import upscale_flow
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+H, W = 64, 96
+FRAMES = 4
+# f32 network on both sides (tests/test_torch_liteflownet.py's bar)
+FLOW_TOL = 1e-3
+
+
+@pytest.fixture
+def random_weights(monkeypatch):
+    monkeypatch.setenv("TRANSFLOW_LITEFLOWNET_RANDOM", "1")
+    monkeypatch.delenv(jlfn.WEIGHTS_ENV, raising=False)
+    monkeypatch.delenv("TRANSFLOW_LITEFLOWNET_BF16", raising=False)
+    monkeypatch.setattr(jlfn, "_CACHE", {})
+
+
+def _frames(n, h=H, w=W, step=2):
+    """(n, h, w, 3) uint8: a random texture panned by ``step`` px/frame."""
+    rng = np.random.default_rng(0)
+    canvas = rng.integers(0, 256, (h + n * step, w + n * step, 3),
+                          dtype=np.uint8)
+    return np.stack([canvas[i * step:i * step + h, i * step:i * step + w]
+                     for i in range(n)])
+
+
+def test_model_matches_jax(random_weights):
+    frames = _frames(FRAMES + 1)
+    jmodel = JaxModel(H, W, method="liteflownet")
+    model = FlowTransferModel(H, W, method="liteflownet")
+    jstate = jmodel.init_state(frames[0])
+    state = model.init_state(torch.from_numpy(frames[0]))
+    jpix, pix = jmodel.default_pixmaps(), model.default_pixmaps()
+    for a, b in zip(jpix[0], pix[0]):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    key = jax.random.key(0)
+    gen = torch.Generator().manual_seed(0)
+    for idx in range(1, FRAMES + 1):
+        t = idx / 30.0
+        jstate, jrgb = jmodel.step(jstate, jnp.asarray(frames[idx]), jpix,
+                                   jnp.float32(t), key,
+                                   jmodel.default_frame_numbers())
+        state, rgb = model.step(state, torch.from_numpy(frames[idx]), pix,
+                                t, gen, model.default_frame_numbers())
+        np.testing.assert_allclose(state["prev_flow"].numpy(),
+                                   np.asarray(jstate["prev_flow"]),
+                                   atol=FLOW_TOL, rtol=FLOW_TOL)
+        assert rgb.dtype == torch.uint8 and rgb.shape == (H, W, 3)
+        # a flow at a rounding edge (.5) may round apart: <= 1% of pixels
+        differ = (rgb.numpy() != np.asarray(jrgb)).any(axis=-1).mean()
+        assert differ <= 0.01
+
+
+def test_scan_equals_steps(random_weights):
+    frames = torch.from_numpy(_frames(FRAMES + 1))
+    model = FlowTransferModel(
+        H, W, [LayerConfig(0, reset_mode="random", reset_random_factor=0.2)],
+        method="liteflownet", width_factor=2)
+    pix = model.default_pixmaps()
+    state_a, rgbs = model.scan(model.init_state(frames[0]), frames[1:], pix,
+                               0.0, torch.Generator().manual_seed(3))
+    state_b = model.init_state(frames[0])
+    gen = torch.Generator().manual_seed(3)
+    for idx in range(FRAMES):
+        state_b, rgb = model.step(state_b, frames[idx + 1], pix, idx / 30.0,
+                                  gen, model.default_frame_numbers(idx))
+        assert torch.equal(rgbs[idx], rgb)
+    assert rgbs.shape == (FRAMES, H, 2 * W, 3)
+    assert torch.equal(state_a["prev_flow"], state_b["prev_flow"])
+    for key, value in state_a["comp"][0].items():
+        assert torch.equal(value, state_b["comp"][0][key]), key
+
+
+def test_upscale_flow_matches_jax():
+    flow = np.random.default_rng(1).standard_normal((5, 7, 2)) \
+        .astype(np.float32)
+    got = upscale_flow(torch.from_numpy(flow), 3, 2)
+    want = np.asarray(jax_upscale_flow(jnp.asarray(flow), 3, 2))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"method": "farneback"},
+    {"method": "horn-schunck"},
+    {"method": "liteflownet", "direction": Direction.FORWARD},
+    {"method": "liteflownet", "flow_filters": "scale=2"},
+    {"method": "liteflownet", "mask": np.ones((H, W), np.float32)},
+    {"method": "liteflownet", "kernel": np.ones((3, 3), np.float32)},
+    {"method": "liteflownet", "halo": 4},
+    {"method": "liteflownet",
+     "layer_cfgs": [LayerConfig(0, classname="introduction")]},
+], ids=["farneback", "horn-schunck", "forward", "filters", "mask", "kernel",
+        "halo", "introduction"])
+def test_unported_options_raise(random_weights, kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FlowTransferModel(H, W, **kwargs)
+
+
+def test_port_imports_no_jax():
+    """The port and its slice modules import neither jax, flax nor cv2."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import transflow_tpu_torch, transflow_tpu_torch.model\n"
+        "import transflow_tpu_torch.flow.estimators.liteflownet\n"
+        "import transflow_tpu_torch.compositor.core\n"
+        "import transflow_tpu_torch.ops.correlation\n"
+        "import transflow_tpu_torch.ops.image\n"
+        "import transflow_tpu_torch.ops.scatter\n"
+        "import transflow_tpu_torch.flow.transforms\n"
+        "import transflow_tpu_torch.flow.merge\n"
+        "import transflow_tpu_torch.config\n"
+        "bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]\n"
+        "print('IMPORTED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_layer_config_pinned_to_jax():
+    assert LayerConfig._FIELDS == JaxLayerConfig._FIELDS
+    assert LayerConfig.CLASSNAMES == JaxLayerConfig.CLASSNAMES
+    assert (inspect.signature(LayerConfig.__init__)
+            == inspect.signature(JaxLayerConfig.__init__))
+    assert vars(LayerConfig(0)) == vars(JaxLayerConfig(0))
+    values = {"index": 2, "classname": "moveref", "reset_mode": "random",
+              "reset_random_factor": 0.25, "reset_source": "yes",
+              "transparent_pixels_can_move": "on",
+              "pixels_can_move_to_empty_spot": 0}
+    assert (LayerConfig.fromdict(values).todict()
+            == JaxLayerConfig.fromdict(values).todict())

@@ -1,0 +1,11 @@
+"""transflow_tpu_torch: the PyTorch/CUDA port of transflow_tpu.
+
+The JAX package ``transflow_tpu`` is the reference; this package mirrors
+its layout and names, runs on PyTorch, and replaces each Pallas TPU kernel
+with a CUDA kernel written for Hopper (``csrc/``). It imports no JAX.
+
+Ported so far: the LiteFlowNet -> moveref flagship step through
+``model.FlowTransferModel``. ROADMAP.md lists what comes next.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,105 @@
+"""Device and dtype helpers, and the build of the package's CUDA kernels.
+
+The kernels under ``csrc/`` have a plain C interface. The first launch of
+any of them compiles every ``csrc/*.cu`` with ``nvcc`` into one shared
+library under ``_build/`` (named by a hash of the sources and flags, so an
+edited source builds anew) and loads it with ``ctypes``. Nothing is built
+when a module is imported: the CPU paths never need ``nvcc``.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel dtype codes shared with csrc/*.cu
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# the C entry points and their argument types; pointers and the stream are
+# c_void_p so ctypes never narrows them to 32-bit ints
+_SIGNATURES = {
+    # f1, dtype1, f2, dtype2, out, H, W, C, stride, stream
+    "transflow_corr7x7": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+}
+
+
+def nvcc_path() -> str:
+    for candidate in (shutil.which("nvcc"),
+                      os.path.join(os.environ.get("CUDA_HOME",
+                                                  "/usr/local/cuda"),
+                                   "bin", "nvcc")):
+        if candidate and os.path.isfile(candidate):
+            return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+class KernelLibrary:
+    """The compiled ``csrc/`` kernels, loaded with ctypes."""
+
+    def __init__(self, path: Path, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self._lib = ctypes.CDLL(str(path))
+        self._lib.transflow_cuda_error_string.argtypes = (_I,)
+        self._lib.transflow_cuda_error_string.restype = ctypes.c_char_p
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
+
+    def call(self, name: str, *args) -> None:
+        """Launch ``name`` and raise if the launch reported an error."""
+        err = getattr(self._lib, name)(*args)
+        if err != 0:
+            msg = self._lib.transflow_cuda_error_string(err).decode()
+            raise RuntimeError(f"{name} failed to launch: CUDA error {err} "
+                               f"({msg})")
+
+
+def _build() -> KernelLibrary:
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    path = BUILD_DIR / f"libtransflow_kernels-{digest.hexdigest()[:16]}.so"
+    log = ""
+    start = time.perf_counter()
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True, check=False)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)
+    return KernelLibrary(path, time.perf_counter() - start, log)
+
+
+@functools.cache
+def kernel_library() -> KernelLibrary:
+    """Build (at first use) and load the CUDA kernels; one per process."""
+    return _build()
+
+
+def cuda_stream(tensor: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``tensor``'s device."""
+    return torch.cuda.current_stream(tensor.device).cuda_stream

@@ -1,0 +1,531 @@
+"""LiteFlowNet (Hui et al., CVPR'18) in PyTorch.
+
+Counterpart of transflow_tpu/flow/estimators/liteflownet.py, with the same
+module tree and parameter names (``features.one0``, ``matching2.main0``,
+...). Activations keep the JAX layout, (H, W, C) or (N, H, W, C)
+contiguous; a convolution views them as NCHW in ``channels_last`` memory
+format, so the (H, W, C) operands of the correlation cost no copy.
+
+Plain convolutions are ``F.conv2d``; the 7x7 correlation is the CUDA kernel
+of ``ops/correlation.py`` on the card and its plain version on the CPU.
+Parameters are f32; convolutions compute in ``_compute_dtype`` (bf16 on
+CUDA, f32 on the CPU), and everything else keeps JAX's dtype promotion so
+the correlation sees the same operand dtypes as on the TPU.
+"""
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.correlation import check_kernel, correlation
+from ...ops.image import torch_bilinear_resize as bilinear_resize
+
+_LEVELS = (2, 3, 4, 5, 6)
+_FLT_BACKWARP = {2: 10.0, 3: 5.0, 4: 2.5, 5: 1.25, 6: 0.625}
+_KERNEL = {2: 7, 3: 5, 4: 5, 5: 3, 6: 3}
+_PAD = {2: 3, 3: 2, 4: 2, 5: 1, 6: 1}
+_DIST_CH = {2: 49, 3: 25, 4: 25, 5: 9, 6: 9}
+_FEAT_CH = {2: 32, 3: 64, 4: 96, 5: 128, 6: 192}
+
+_MEAN_ONE = (0.411618, 0.434631, 0.454253)
+_MEAN_TWO = (0.410782, 0.433645, 0.452793)
+
+WEIGHTS_ENV = "TRANSFLOW_LITEFLOWNET_WEIGHTS"
+RANDOM_ENV = "TRANSFLOW_LITEFLOWNET_RANDOM"
+
+
+def _leaky(x):
+    return F.leaky_relu(x, negative_slope=0.1)
+
+
+def _compute_dtype(device) -> torch.dtype:
+    """bf16 on CUDA, f32 on the CPU; TRANSFLOW_LITEFLOWNET_BF16=0 forces
+    f32 everywhere."""
+    if os.environ.get("TRANSFLOW_LITEFLOWNET_BF16", "1") == "0":
+        return torch.float32
+    return torch.bfloat16 if torch.device(device).type == "cuda" \
+        else torch.float32
+
+
+class _Conv(nn.Module):
+    """Flax ``nn.Conv`` counterpart on (N, H, W, C) or (H, W, C): f32
+    parameters (OIHW), computed in the dtype the caller gives."""
+
+    def __init__(self, cin: int, cout: int, kernel, stride: int = 1,
+                 pad=None):
+        super().__init__()
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+        if pad is None:
+            pad = kh // 2
+        self.padding = (pad, pad) if isinstance(pad, int) else tuple(pad)
+        self.stride = stride
+        self.weight = nn.Parameter(torch.zeros(cout, cin, kh, kw))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x, dtype):
+        batched = x.dim() == 4
+        x = x if batched else x[None]
+        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
+                     self.bias.to(dtype), self.stride, self.padding)
+        y = y.permute(0, 2, 3, 1).contiguous()
+        return y if batched else y[0]
+
+
+def backwarp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Bilinear warp ``image[(i, j) + flow]`` with zero padding, exact path
+    of the JAX function (its bounded Pallas mode is not ported).
+
+    (H, W, C) image in any float dtype, (H, W, 2) flow in pixels; the result
+    is f32 (the bilinear weights are f32). Edge semantics follow JAX: the
+    four taps are read at the clamped (y0, x0) anchor, so on the low edges
+    the +1 taps fall back to the anchor slot, and the in-bounds masks use
+    the raw float floors."""
+    h, w, c = image.shape
+    zrow = image.new_zeros((1, w, c))
+    zcol = image.new_zeros((h, 1, c))
+    right = torch.cat([image[:, 1:], zcol], dim=1)
+    down = torch.cat([image[1:], zrow], dim=0)
+    downright = torch.cat([right[1:], zrow], dim=0)
+    v4 = torch.cat([image, right, down, downright], dim=-1)
+    yy = torch.arange(h, dtype=torch.float32, device=image.device)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=image.device)[None, :]
+    sx = xx + flow[..., 0]
+    sy = yy + flow[..., 1]
+    x0f = torch.floor(sx)
+    y0f = torch.floor(sy)
+    wx = (sx - x0f)[..., None]
+    wy = (sy - y0f)[..., None]
+    x0 = x0f.clamp(-1, w).long()
+    y0 = y0f.clamp(-1, h).long()
+    g = v4[y0.clamp(0, h - 1), x0.clamp(0, w - 1)]
+    t00, t01, t10, t11 = g.split(c, dim=-1)
+    mx = (x0 < 0)[..., None]
+    my = (y0 < 0)[..., None]
+    t01e = torch.where(mx, t00, t01)
+    t10e = torch.where(my, t00, t10)
+    t11e = torch.where(mx & my, t00,
+                       torch.where(mx, t10, torch.where(my, t01, t11)))
+
+    def inb(xi, yi):
+        return (((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1))
+                .float()[..., None])
+
+    return (t00 * (1 - wx) * (1 - wy) * inb(x0f, y0f)
+            + t01e * wx * (1 - wy) * inb(x0f + 1, y0f)
+            + t10e * (1 - wx) * wy * inb(x0f, y0f + 1)
+            + t11e * wx * wy * inb(x0f + 1, y0f + 1))
+
+
+def _upsample2x_phases(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``ConvTranspose2d(k=4, s=2, p=1, groups=C, bias=False)`` on (H, W, C).
+
+    ``weight``: (C, 1, 4, 4), the torch layout. The exact phase
+    decomposition of the JAX function: each output parity phase (r, s) is
+    four shift-multiply-accumulates of the half-res plane, summed in f32 in
+    the JAX order; reads and output keep x's dtype (bf16 or f32)."""
+    h, w, c = x.shape
+    out_dtype = x.dtype if x.dtype in (torch.bfloat16, torch.float32) \
+        else torch.float32
+    x = x.to(out_dtype)
+    # (4, 4, C) taps, flipped: the transposed conv as a correlation
+    rhs = weight[:, 0].permute(1, 2, 0).flip(0, 1).float()
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    rows = []
+    for r in (0, 1):
+        cols = []
+        for s in (0, 1):
+            acc = None
+            for ki, di in ((r, r - 1), (r + 2, r)):
+                for kj, dj in ((s, s - 1), (s + 2, s)):
+                    term = rhs[ki, kj] * xp[di + 1:di + 1 + h,
+                                            dj + 1:dj + 1 + w]
+                    acc = term if acc is None else acc + term
+            cols.append(acc)
+        rows.append(torch.stack(cols, dim=2))      # (h, w, 2s, c)
+    out = torch.stack(rows, dim=1)                 # (h, 2r, w, 2s, c)
+    return out.reshape(2 * h, 2 * w, c).to(out_dtype)
+
+
+def _bilinear_deconv_taps(channels: int) -> torch.Tensor:
+    """Bilinear-upsampling taps in the (C, 1, 4, 4) layout."""
+    taps = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32) / 16.0
+    return torch.from_numpy(taps).expand(channels, 1, 4, 4).clone()
+
+
+class Features(nn.Module):
+    """6-level feature pyramid. Parity: liteflownet.py:417-461."""
+
+    def __init__(self):
+        super().__init__()
+        self.one0 = _Conv(3, 32, 7)
+        self.two0 = _Conv(32, 32, 3, 2)
+        self.two1 = _Conv(32, 32, 3)
+        self.two2 = _Conv(32, 32, 3)
+        self.thr0 = _Conv(32, 64, 3, 2)
+        self.thr1 = _Conv(64, 64, 3)
+        self.fou0 = _Conv(64, 96, 3, 2)
+        self.fou1 = _Conv(96, 96, 3)
+        self.fiv0 = _Conv(96, 128, 3, 2)
+        self.six0 = _Conv(128, 192, 3, 2)
+
+    def forward(self, x, dtype):
+        one = _leaky(self.one0(x, dtype))
+        two = _leaky(self.two0(one, dtype))
+        two = _leaky(self.two1(two, dtype))
+        two = _leaky(self.two2(two, dtype))
+        thr = _leaky(self.thr0(two, dtype))
+        thr = _leaky(self.thr1(thr, dtype))
+        fou = _leaky(self.fou0(thr, dtype))
+        fou = _leaky(self.fou1(fou, dtype))
+        fiv = _leaky(self.fiv0(fou, dtype))
+        six = _leaky(self.six0(fiv, dtype))
+        return [one, two, thr, fou, fiv, six]
+
+
+class Matching(nn.Module):
+    """Cost-volume matching head. Parity: liteflownet.py:463-503."""
+
+    def __init__(self, level: int):
+        super().__init__()
+        self.level = level
+        if level == 2:
+            self.feat0 = _Conv(32, 64, 1, pad=0)
+        if level != 6:
+            self.upflow_kernel = nn.Parameter(_bilinear_deconv_taps(2))
+        if level < 4:
+            self.upcorr_kernel = nn.Parameter(_bilinear_deconv_taps(49))
+        self.main0 = _Conv(49, 128, 3)
+        self.main1 = _Conv(128, 64, 3)
+        self.main2 = _Conv(64, 32, 3)
+        self.main3 = _Conv(32, 2, _KERNEL[level], pad=_PAD[level])
+
+    def forward(self, feat1, feat2, flow, dtype):
+        lvl = self.level
+        if lvl == 2:
+            both = _leaky(self.feat0(torch.stack([feat1, feat2]), dtype))
+            feat1, feat2 = both[0], both[1]
+        if flow is not None:
+            flow = _upsample2x_phases(flow, self.upflow_kernel)
+            feat2 = backwarp(feat2, flow * _FLT_BACKWARP[lvl])
+        corr = _leaky(correlation(feat1, feat2, stride=1 if lvl >= 4 else 2))
+        if lvl < 4:
+            corr = _upsample2x_phases(corr, self.upcorr_kernel)
+        x = _leaky(self.main0(corr, dtype))
+        x = _leaky(self.main1(x, dtype))
+        x = _leaky(self.main2(x, dtype))
+        delta = self.main3(x, dtype)
+        return delta if flow is None else flow + delta
+
+
+class Subpixel(nn.Module):
+    """Sub-pixel refinement head. Parity: liteflownet.py:505-531."""
+
+    def __init__(self, level: int):
+        super().__init__()
+        self.level = level
+        feat = 64 if level == 2 else _FEAT_CH[level]
+        if level == 2:
+            self.feat0 = _Conv(32, 64, 1, pad=0)
+        self.main0 = _Conv(2 * feat + 2, 128, 3)
+        self.main1 = _Conv(128, 64, 3)
+        self.main2 = _Conv(64, 32, 3)
+        self.main3 = _Conv(32, 2, _KERNEL[level], pad=_PAD[level])
+
+    def forward(self, feat1, feat2, flow, dtype):
+        lvl = self.level
+        if lvl == 2:
+            both = _leaky(self.feat0(torch.stack([feat1, feat2]), dtype))
+            feat1, feat2 = both[0], both[1]
+        warped = backwarp(feat2, flow * _FLT_BACKWARP[lvl])
+        x = torch.cat([feat1, warped, flow], dim=-1)
+        x = _leaky(self.main0(x, dtype))
+        x = _leaky(self.main1(x, dtype))
+        x = _leaky(self.main2(x, dtype))
+        return flow + self.main3(x, dtype)
+
+
+class Regularization(nn.Module):
+    """Feature-driven local flow regularization, with the fused tap apply
+    of the JAX module (``fused_apply``, its default). Parity:
+    liteflownet.py:533-579."""
+
+    def __init__(self, level: int):
+        super().__init__()
+        self.level = level
+        size, pad, dch = _KERNEL[level], _PAD[level], _DIST_CH[level]
+        if level < 5:
+            self.feat0 = _Conv(_FEAT_CH[level], 128, 1, pad=0)
+        self.main0 = _Conv(131 if level < 6 else 195, 128, 3)
+        self.main1 = _Conv(128, 128, 3)
+        self.main2 = _Conv(128, 64, 3)
+        self.main3 = _Conv(64, 64, 3)
+        self.main4 = _Conv(64, 32, 3)
+        self.main5 = _Conv(32, 32, 3)
+        if level >= 5:
+            self.dist0 = _Conv(32, dch, size, pad=pad)
+        else:
+            self.dist0 = _Conv(32, dch, (size, 1), pad=(pad, 0))
+            self.dist1 = _Conv(dch, dch, (1, size), pad=(0, pad))
+        self.scalex = _Conv(size * size, 1, 1, pad=0)
+        self.scaley = _Conv(size * size, 1, 1, pad=0)
+
+    def forward(self, img1, img2, feat1, flow, dtype):
+        lvl = self.level
+        size = _KERNEL[lvl]
+        difference = torch.sqrt(torch.sum(torch.square(
+            img1 - backwarp(img2, flow * _FLT_BACKWARP[lvl])), dim=-1,
+            keepdim=True))
+        if lvl < 5:
+            feat1 = _leaky(self.feat0(feat1, dtype))
+        x = torch.cat([difference,
+                       flow - flow.mean(dim=(0, 1), keepdim=True), feat1],
+                      dim=-1)
+        for conv in (self.main0, self.main1, self.main2, self.main3,
+                     self.main4, self.main5):
+            x = _leaky(conv(x, dtype))
+        dist = self.dist0(x, dtype)
+        if lvl < 5:
+            dist = self.dist1(dist, dtype)
+        dist = -torch.square(dist.float())
+        dist = torch.exp(dist - dist.amax(dim=-1, keepdim=True))
+        divisor = 1.0 / dist.sum(dim=-1, keepdim=True)
+        wx, bx = self.scalex.weight[0, :, 0, 0], self.scalex.bias[0]
+        wy, by = self.scaley.weight[0, :, 0, 0], self.scaley.bias[0]
+        pad = (size - 1) // 2
+        h, w = flow.shape[0], flow.shape[1]
+        px = F.pad(flow[..., 0], (pad, pad, pad, pad))
+        py = F.pad(flow[..., 1], (pad, pad, pad, pad))
+        acc_x = torch.zeros((h, w), dtype=torch.float32, device=flow.device)
+        acc_y = torch.zeros_like(acc_x)
+        k = 0
+        for dy in range(size):
+            for dx in range(size):
+                d = dist[..., k]
+                acc_x = acc_x + (wx[k] * d) * px[dy:dy + h, dx:dx + w]
+                acc_y = acc_y + (wy[k] * d) * py[dy:dy + h, dx:dx + w]
+                k += 1
+        scale_x = (acc_x + bx)[..., None]
+        scale_y = (acc_y + by)[..., None]
+        return torch.cat([scale_x * divisor, scale_y * divisor], dim=-1)
+
+
+class LiteFlowNet(nn.Module):
+    """Full pyramid network. Parity: liteflownet.py:581-611.
+
+    ``forward(img1, img2)`` takes two (H, W, 3) f32 images in [0, 1], H and
+    W multiples of 32, and returns the (H/2, W/2, 2) f32 flow."""
+
+    def __init__(self):
+        super().__init__()
+        self.features = Features()
+        for lvl in _LEVELS:
+            setattr(self, f"matching{lvl}", Matching(lvl))
+            setattr(self, f"subpixel{lvl}", Subpixel(lvl))
+            setattr(self, f"regularization{lvl}", Regularization(lvl))
+
+    def forward(self, img1, img2):
+        dtype = _compute_dtype(img1.device)
+        img1 = img1 - torch.tensor(_MEAN_ONE, device=img1.device)
+        img2 = img2 - torch.tensor(_MEAN_TWO, device=img2.device)
+        feats = self.features(torch.stack([img1, img2]), dtype)
+        feats1 = [f[0] for f in feats]
+        feats2 = [f[1] for f in feats]
+        pair = [torch.cat([img1, img2], dim=-1)]
+        for lvl in range(1, 6):
+            shape = feats1[lvl].shape
+            pair.append(bilinear_resize(pair[-1], shape[0], shape[1]))
+        imgs1 = [p[..., :3] for p in pair]
+        imgs2 = [p[..., 3:] for p in pair]
+        flow = None
+        for idx in (-1, -2, -3, -4, -5):
+            lvl = _LEVELS[idx]
+            flow = getattr(self, f"matching{lvl}")(
+                feats1[idx], feats2[idx], flow, dtype)
+            flow = getattr(self, f"subpixel{lvl}")(
+                feats1[idx], feats2[idx], flow, dtype)
+            flow = getattr(self, f"regularization{lvl}")(
+                imgs1[idx], imgs2[idx], feats1[idx], flow, dtype)
+        return flow * 20.0
+
+
+# ---------------------------------------------------------------------------
+# weights: from the JAX package's pytree, the JAX random branch, or the
+# published torch checkpoint
+# ---------------------------------------------------------------------------
+
+def _flax_leaf(key: str) -> tuple:
+    """Port state-dict key -> Flax parameter path (under 'params')."""
+    *modules, leaf = key.split(".")
+    if leaf == "weight":
+        leaf = "kernel"
+    return tuple(modules) + (leaf,)
+
+
+def _from_flax(key: str, value: np.ndarray) -> torch.Tensor:
+    """One Flax leaf in the port's layout: HWIO -> OIHW for convolutions,
+    (4, 4, C) -> (C, 1, 4, 4) for the deconvolution taps."""
+    value = np.asarray(value, dtype=np.float32)
+    if key.endswith("_kernel"):
+        return torch.from_numpy(value.transpose(2, 0, 1)[:, None].copy())
+    if key.endswith(".weight"):
+        return torch.from_numpy(value.transpose(3, 2, 0, 1).copy())
+    return torch.from_numpy(value.copy())
+
+
+def _flax_shape(key: str, shape) -> tuple:
+    """The Flax shape of the port parameter ``key`` of ``shape``."""
+    if key.endswith("_kernel"):
+        return (shape[2], shape[3], shape[0])
+    if key.endswith(".weight"):
+        return (shape[2], shape[3], shape[1], shape[0])
+    return tuple(shape)
+
+
+def params_from_jax(variables: dict) -> dict:
+    """The JAX package's Flax variables (numpy or jax leaves) as the port's
+    state dict."""
+    params = variables["params"]
+    state = {}
+    for key in LiteFlowNet().state_dict():
+        node = params
+        for part in _flax_leaf(key):
+            node = node[part]
+        state[key] = _from_flax(key, np.asarray(node))
+    return state
+
+
+def random_params(seed: int = 0) -> dict:
+    """The deterministic random weights of the JAX random branch
+    (liteflownet.py::_get_variables): ``0.02 * standard_normal`` from
+    ``np.random.default_rng(seed)``, drawn in jax's leaf order (sorted
+    keys) with the Flax shapes, so both packages hold the same weights."""
+    shapes = {key: _flax_shape(key, value.shape)
+              for key, value in LiteFlowNet().state_dict().items()}
+    rng = np.random.default_rng(seed)
+    state = {}
+    for key in sorted(shapes, key=_flax_leaf):
+        value = (0.02 * rng.standard_normal(shapes[key])).astype(np.float32)
+        state[key] = _from_flax(key, value)
+    return state
+
+
+def _torch_key_map() -> dict:
+    """Port key prefix -> key prefix of the sniklaus checkpoint (with
+    'module' already renamed 'net'); liteflownet.py::convert_torch_state."""
+    names = {"features.one0": "netFeatures.netOne.0",
+             "features.two0": "netFeatures.netTwo.0",
+             "features.two1": "netFeatures.netTwo.2",
+             "features.two2": "netFeatures.netTwo.4",
+             "features.thr0": "netFeatures.netThr.0",
+             "features.thr1": "netFeatures.netThr.2",
+             "features.fou0": "netFeatures.netFou.0",
+             "features.fou1": "netFeatures.netFou.2",
+             "features.fiv0": "netFeatures.netFiv.0",
+             "features.six0": "netFeatures.netSix.0"}
+    for idx, lvl in enumerate(_LEVELS):
+        mat, sub = f"netMatching.{idx}", f"netSubpixel.{idx}"
+        reg = f"netRegularization.{idx}"
+        if lvl == 2:
+            names[f"matching{lvl}.feat0"] = f"{mat}.netFeat.0"
+            names[f"subpixel{lvl}.feat0"] = f"{sub}.netFeat.0"
+        if lvl != 6:
+            names[f"matching{lvl}.upflow_kernel"] = f"{mat}.netUpflow.weight"
+        if lvl < 4:
+            names[f"matching{lvl}.upcorr_kernel"] = f"{mat}.netUpcorr.weight"
+        for i, t in enumerate((0, 2, 4, 6)):
+            names[f"matching{lvl}.main{i}"] = f"{mat}.netMain.{t}"
+            names[f"subpixel{lvl}.main{i}"] = f"{sub}.netMain.{t}"
+        if lvl < 5:
+            names[f"regularization{lvl}.feat0"] = f"{reg}.netFeat.0"
+            names[f"regularization{lvl}.dist1"] = f"{reg}.netDist.1"
+        for i, t in enumerate((0, 2, 4, 6, 8, 10)):
+            names[f"regularization{lvl}.main{i}"] = f"{reg}.netMain.{t}"
+        names[f"regularization{lvl}.dist0"] = f"{reg}.netDist.0"
+        names[f"regularization{lvl}.scalex"] = f"{reg}.netScaleX"
+        names[f"regularization{lvl}.scaley"] = f"{reg}.netScaleY"
+    return names
+
+
+def params_from_torch_state(state: dict) -> dict:
+    """The sniklaus state dict (``network-default.pytorch`` layout; conv
+    weights are already OIHW) as the port's state dict."""
+    state = {key.replace("module", "net"): value
+             for key, value in state.items()}
+    names = _torch_key_map()
+    out = {}
+    for key in LiteFlowNet().state_dict():
+        prefix, leaf = key.rsplit(".", 1)
+        src = names[key] if key.endswith("_kernel") \
+            else f"{names[prefix]}.{leaf}"
+        out[key] = torch.as_tensor(state[src], dtype=torch.float32)
+    return out
+
+
+def load_torch_weights(path: str) -> dict:
+    """Load the published checkpoint (zip or legacy format) as the port's
+    state dict. ``weights_only`` refuses anything but tensors."""
+    return params_from_torch_state(
+        torch.load(path, map_location="cpu", weights_only=True))
+
+
+def get_weights(allow_random: bool = False, device="cpu") -> LiteFlowNet:
+    """The network with its weights: the checkpoint named by
+    TRANSFLOW_LITEFLOWNET_WEIGHTS, else (``allow_random`` or
+    TRANSFLOW_LITEFLOWNET_RANDOM set) the JAX package's random weights."""
+    path = os.environ.get(WEIGHTS_ENV)
+    if path and os.path.isfile(path):
+        state = load_torch_weights(path)
+    elif allow_random or os.environ.get(RANDOM_ENV):
+        state = random_params(0)
+    else:
+        raise FileNotFoundError(
+            "LiteFlowNet weights not found. Download network-default.pytorch"
+            f" (sniklaus/pytorch-liteflownet) and point {WEIGHTS_ENV} at it, "
+            f"or set {RANDOM_ENV}=1 for random weights.")
+    net = LiteFlowNet()
+    net.load_state_dict(state)
+    return net.to(device).eval().requires_grad_(False)
+
+
+def _to_rgb01(image) -> torch.Tensor:
+    """uint8 (H, W, 3) RGB or (H, W) gray -> f32 BGR in [0, 1] (the
+    reference feeds the network BGR)."""
+    if image.dim() == 2:
+        image = image[..., None].expand(-1, -1, 3)
+    return image.flip(-1).float() / 255.0
+
+
+@torch.no_grad()
+def liteflownet(prev_gray_or_rgb, next_gray_or_rgb, *, net=None,
+                allow_random: bool = False, warp_bound: int | None = None,
+                corr_kernel: str | None = None,
+                scale: float = 1.0) -> torch.Tensor:
+    """Estimate the (H, W, 2) f32 flow between two uint8 frames, RGB
+    (H, W, 3) or gray (H, W), on the device of ``net``.
+
+    Parity: liteflownet.py::liteflownet: resize to a multiple of 32, run,
+    resize back, rescale magnitudes. ``net`` is a ``LiteFlowNet`` with its
+    weights (``get_weights``); None builds one from the environment."""
+    if warp_bound:
+        raise NotImplementedError(
+            "lfn_warp_bound > 0 (the bounded Pallas backwarp, kernel A3) is "
+            "not ported yet: ROADMAP Queue 1, item 11 and Queue 2, A3")
+    check_kernel(corr_kernel)
+    if not 0.0 < scale <= 1.0:
+        raise ValueError(f"lfn_scale must be in (0, 1], got {scale}")
+    if net is None:
+        net = get_weights(allow_random)
+    device = next(net.parameters()).device
+    img1 = _to_rgb01(torch.as_tensor(prev_gray_or_rgb, device=device))
+    img2 = _to_rgb01(torch.as_tensor(next_gray_or_rgb, device=device))
+    h, w = img1.shape[:2]
+    ph = max(32, int(np.ceil(h * scale / 32.0) * 32))
+    pw = max(32, int(np.ceil(w * scale / 32.0) * 32))
+    if (ph, pw) != (h, w):
+        img1 = bilinear_resize(img1, ph, pw)
+        img2 = bilinear_resize(img2, ph, pw)
+    flow = bilinear_resize(net(img1, img2), h, w)
+    return flow * torch.tensor([w / pw, h / ph], dtype=torch.float32,
+                               device=device)

@@ -1,0 +1,141 @@
+"""FlowTransferModel of the port: the flagship per-frame step.
+
+Counterpart of transflow_tpu/model.py: estimator -> post-process -> merge
+-> upscale -> compositor update -> render, for one frame (``step``) or a
+chunk (``scan``, a Python loop over ``step``). PyTorch runs eagerly, so
+there is no jit form; the JAX ``key`` becomes a ``torch.Generator`` on the
+model's device.
+
+Ported: LiteFlowNet, backward direction, no filters, mask or kernel, the
+``first`` merge and moveref layers. Anything else raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .compositor.core import build_compositor, make_layer_params
+from .config import LayerConfig
+from .flow import Direction
+from .flow.estimators import get_estimator
+from .flow.estimators.liteflownet import get_weights
+from .flow.merge import get_merge_function
+from .flow.transforms import make_postprocess
+from .ops.image import upscale_flow
+
+
+class FlowTransferModel:
+
+    def __init__(self,
+                 height: int,
+                 width: int,
+                 layer_cfgs: Sequence[LayerConfig] | None = None,
+                 sources_by_layer: dict | None = None,
+                 method: str = "farneback",
+                 estimator_kwargs: dict | None = None,
+                 direction: Direction = Direction.BACKWARD,
+                 flow_filters: str | None = None,
+                 mask: np.ndarray | None = None,
+                 kernel: np.ndarray | None = None,
+                 background_color: str = "#ffffff",
+                 width_factor: int = 1,
+                 height_factor: int = 1,
+                 framerate: float = 30.0,
+                 halo: int | None = None,
+                 mesh=None,
+                 device="cpu"):
+        self.height = height
+        self.width = width
+        self.out_height = height * height_factor
+        self.out_width = width * width_factor
+        self.framerate = framerate
+        self.device = torch.device(device)
+        estimator = get_estimator(method)
+        postprocess = make_postprocess(flow_filters, mask, kernel, direction)
+        merge = get_merge_function("first")
+        if layer_cfgs is None:
+            layer_cfgs = [LayerConfig(0)]
+        if sources_by_layer is None:
+            sources_by_layer = {
+                0: [(3, np.ones((self.out_height, self.out_width), bool))]}
+        self.layer_params = make_layer_params(
+            layer_cfgs, self.out_height, self.out_width, sources_by_layer,
+            device=self.device)
+        init_fn, comp_step = build_compositor(
+            self.layer_params, self.out_height, self.out_width,
+            background_color, halo=halo, mesh=mesh, device=self.device)
+        self._comp_init = init_fn
+        self._comp_step = comp_step
+        estimator_kwargs = dict(estimator_kwargs or {})
+        # the weights: a checkpoint, or the random weights the environment
+        # allows (liteflownet.py::get_weights)
+        self.net = get_weights(device=self.device)
+        wf, hf = width_factor, height_factor
+
+        def step(state, frame, pixmaps, t, generator, frame_numbers,
+                 params_list):
+            # backward: the flow maps the current frame onto the previous
+            raw = estimator(frame, state["prev_gray"], net=self.net,
+                            **estimator_kwargs)
+            flow = merge([postprocess(raw, t)])
+            if wf != 1 or hf != 1:
+                flow = upscale_flow(flow, wf, hf)
+            comp = self._comp_step.update(state["comp"], flow, pixmaps,
+                                          generator, frame_numbers,
+                                          params_list)
+            comp, rgb = self._comp_step.render(comp, params_list)
+            new_state = {"comp": comp, "prev_gray": frame, "prev_flow": raw}
+            return new_state, rgb
+
+        self._step = step
+
+    # ------------------------------------------------------------------
+
+    def init_state(self, first_gray) -> dict:
+        return {
+            "comp": self._comp_init(),
+            "prev_gray": torch.as_tensor(first_gray, dtype=torch.uint8,
+                                         device=self.device),
+            "prev_flow": torch.zeros((self.height, self.width, 2),
+                                     dtype=torch.float32, device=self.device),
+        }
+
+    def default_pixmaps(self, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        return tuple(
+            tuple(torch.as_tensor(
+                rng.integers(0, 256, (self.out_height, self.out_width,
+                                      channels), dtype=np.uint8),
+                device=self.device)
+                  for channels in params.channel_counts)
+            for params in self.layer_params)
+
+    def default_frame_numbers(self, value: int = 0):
+        return tuple(tuple(value for _ in params.channel_counts)
+                     for params in self.layer_params)
+
+    def step(self, state, gray, pixmaps, t, generator, frame_numbers,
+             params_list=None):
+        """One frame: (state, (H, W, 3) uint8 frame) -> (state, rgb).
+        ``generator`` is a ``torch.Generator`` on the model's device."""
+        if params_list is None:
+            params_list = self.layer_params
+        gray = torch.as_tensor(gray, dtype=torch.uint8, device=self.device)
+        return self._step(state, gray, pixmaps, t, generator, frame_numbers,
+                          params_list)
+
+    def scan(self, state, grays, pixmaps, t0, generator, params_list=None,
+             frame0: int = 0):
+        """Process a (K, H, W[, 3]) chunk of frames in order; returns
+        (state, (K, H', W', 3) uint8 frames)."""
+        rgbs = []
+        for idx in range(len(grays)):
+            fno = frame0 + idx
+            frame_numbers = tuple(tuple(fno for _ in p.channel_counts)
+                                  for p in self.layer_params)
+            t = t0 + idx / self.framerate
+            state, rgb = self.step(state, grays[idx], pixmaps, t, generator,
+                                   frame_numbers, params_list)
+            rgbs.append(rgb)
+        return state, torch.stack(rgbs)
