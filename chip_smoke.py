@@ -10,10 +10,19 @@ Phases, in order; any failure exits non-zero:
 3. kernel vs plain: the correlation kernel against its plain PyTorch
    version at the five shapes LiteFlowNet gives it on a 1088x1920 frame,
    in each dtype pair, with CUDA-event timings of both;
-4. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
+4. bounded backwarp vs plain: kernel A3 at the five shapes the bounded
+   path gives it on a 1088x1920 frame (base bound 16), bf16 and f32
+   images, flows within the bound and with a fifth of the pixels beyond;
+5. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
-   the kernel's launches;
-5. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
+   the correlation kernel's launches;
+6. engine: ``Engine`` at 1080x1920 over a frame source with
+   ``CvFlowConfig(method="liteflownet", lfn_warp_bound=16)``, one moveref
+   layer with random reset 0.01: a warm-up chunk, a timed chunk of 8
+   frames, then ``process_frame`` calls, counting 9 A3 and 5 correlation
+   launches per frame; then the same Engine with ``lfn_warp_bound=0``
+   (the exact gather) on the same frames;
+7. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
    the CPU slice, and the compositor on both devices on one flow.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -44,8 +53,21 @@ MAIN_PAIR = {"L6": (BF16, BF16), "L5": (BF16, F32), "L4": (BF16, F32),
 DTYPE_PAIRS = ((BF16, BF16), (BF16, F32), (F32, F32))
 # kernel vs plain: both f32 math, different summation order
 CORR_ATOL = CORR_RTOL = 1e-5
+# (H, W, C, bound, name) of the bounded backwarp at each level of a
+# 1088x1920 network input with lfn_warp_bound=16, and its launches per
+# frame there (matching and subpixel; level 6 has no matching warp)
+WARP_SHAPES = ((34, 60, 192, 3, "L6"), (68, 120, 128, 3, "L5"),
+               (136, 240, 96, 4, "L4"), (272, 480, 64, 8, "L3"),
+               (544, 960, 64, 16, "L2"))
+WARP_PER_FRAME = {"L6": 1, "L5": 2, "L4": 2, "L3": 2, "L2": 2}
+# kernel vs plain: the same bf16 staging and f32 terms in the same order
+WARP_ATOL = WARP_RTOL = 1e-5
+WARP_BOUND = 16
 EQUIV_FLOW_ATOL = 1e-3
 SLICE_FRAMES = 8
+ENGINE_WARMUP = 2
+ENGINE_FRAMES = 8
+ENGINE_CALLS = 3
 EQUIV_FRAMES = 4
 
 
@@ -119,6 +141,59 @@ def phase_kernels(device) -> list[dict]:
                     f"max_abs_err {err}")
             rows.append({"level": level, "pair": (t1, t2), "err": err,
                          "ms": ms, "plain_ms": plain_ms})
+    return rows
+
+
+def warp_flow(h: int, w: int, bound: int, beyond: bool, gen, device):
+    """(h, w, 2) f32 flow with floors inside [-bound, bound]; with
+    ``beyond``, a fifth of the pixels move up to 3 bounds further."""
+    flow = bound * (2 * torch.rand((h, w, 2), generator=gen,
+                                   device=device) - 1)
+    if beyond:
+        far = torch.rand((h, w, 1), generator=gen, device=device) < 0.2
+        step = bound + 1 + 2 * bound * torch.rand(
+            (h, w, 2), generator=gen, device=device)
+        flow = torch.where(far, torch.sign(flow) * step, flow)
+    return flow
+
+
+def phase_warp_kernels(device) -> list[dict]:
+    from transflow_tpu_torch.ops.warp import (bounded_backwarp_cuda,
+                                              bounded_backwarp_plain)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = []
+    for h, w, c, bound, level in WARP_SHAPES:
+        for dtype in (BF16, F32):
+            image = torch.randn((h, w, c), generator=gen,
+                                device=device).to(dtype)
+            for beyond in (False, True):
+                flow = warp_flow(h, w, bound, beyond, gen, device)
+                clamped = (torch.floor(flow).abs() > bound).float().mean()
+                got = bounded_backwarp_cuda(image, flow, bound)
+                want = bounded_backwarp_plain(image, flow, bound)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                ok = torch.allclose(got, want, atol=WARP_ATOL,
+                                    rtol=WARP_RTOL)
+                ms = cuda_ms(lambda: bounded_backwarp_cuda(image, flow,
+                                                           bound))
+                plain_ms = cuda_ms(
+                    lambda: bounded_backwarp_plain(image, flow, bound),
+                    reps=10)
+                kind = "beyond" if beyond else "within"
+                print(f"warp {level} ({h},{w},{c}) K={bound} "
+                      f"{str(dtype)[6:]} {kind} (clamped "
+                      f"{clamped.item():.3f}): max_abs_err {err:.3e} "
+                      f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                if not ok:
+                    raise AssertionError(
+                        f"bounded backwarp disagrees at {level} "
+                        f"{dtype} {kind}: max_abs_err {err}")
+                if beyond and not clamped.item() > 0.1:
+                    raise AssertionError(f"the clamp did not run at {level}")
+                rows.append({"level": level, "dtype": dtype,
+                             "beyond": beyond, "err": err, "ms": ms,
+                             "plain_ms": plain_ms})
     return rows
 
 
@@ -211,6 +286,132 @@ def phase_slice(device, card: str) -> int:
     return launches
 
 
+def frame_source(frames, bound: int):
+    """A ``FlowSource`` over (N, H, W, 3) uint8 frames on the device, with
+    a LiteFlowNet config at ``lfn_warp_bound=bound``: the first item after
+    a rewind carries a priming frame, as the cv2 source's do."""
+    from transflow_tpu_torch.flow.sources.base import FlowItem, FlowSource
+    from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+
+    class PannedFrameSource(FlowSource):
+        yields_frames = True
+
+        def _open_reader(self):
+            self.height, self.width = frames.shape[1:3]
+            self.base_length = len(frames) - 1
+
+        def _rewind_reader(self, frame_index):
+            self.pos = frame_index
+            self.primed = False
+
+        def _read_item(self):
+            prime = None
+            if not self.primed:
+                prime = frames[self.pos]
+                self.pos += 1
+                self.primed = True
+            if self.pos >= len(frames):
+                raise StopIteration
+            self.pos += 1
+            return FlowItem(FlowItem.FRAME, frames[self.pos - 1],
+                            prime=prime)
+
+    source = PannedFrameSource(direction="backward")
+    source.config = CvFlowConfig(method="liteflownet", lfn_warp_bound=bound)
+    return source.open()
+
+
+def run_engine(device, frames, pixmap, bound: int) -> dict:
+    """The Engine over ``frames``: a warm-up chunk, a timed chunk, then
+    ``process_frame`` calls, with the kernels' launches counted from just
+    before the timed chunk."""
+    from transflow_tpu_torch.compositor.core import make_layer_params
+    from transflow_tpu_torch.config import Config, LayerConfig
+    from transflow_tpu_torch.engine import Engine
+    from transflow_tpu_torch.ops.correlation import correlation7x7_cuda
+    from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
+    source = frame_source(frames, bound)
+    layer_params = make_layer_params(
+        [LayerConfig(0, reset_mode="random", reset_random_factor=0.01)],
+        HEIGHT, WIDTH, {0: [(3, None)]}, device=device)
+    engine = Engine(Config("synthetic", direction="backward", seed=SEED),
+                    [source], layer_params, HEIGHT, WIDTH,
+                    export_flows=True, device=device)
+    pixmaps, slots = ((pixmap,),), ((None,),)
+    items = iter(source)
+    warm = [next(items) for _ in range(ENGINE_WARMUP)]
+    engine.runtimes[0].reset(warm[0].prime)
+    engine.process_chunk([torch.stack([it.array for it in warm])], pixmaps,
+                         slots, 0, 0)
+    chunk = torch.stack([next(items).array for _ in range(ENGINE_FRAMES)])
+    torch.cuda.synchronize()
+    bounded_backwarp_cuda.launches = 0
+    correlation7x7_cuda.launches = 0
+    start = time.perf_counter()
+    out, flows = engine.process_chunk([chunk], pixmaps, slots,
+                                      ENGINE_WARMUP, ENGINE_WARMUP)
+    finite = torch.isfinite(flows).all()
+    max_flow = flows.abs().max()
+    checksum = out.sum(dtype=torch.int64)
+    finite, max_flow, checksum = (finite.item(), max_flow.item(),
+                                  checksum.item())
+    seconds = time.perf_counter() - start
+    chunk_launches = (bounded_backwarp_cuda.launches,
+                      correlation7x7_cuda.launches)
+    for k in range(ENGINE_CALLS):
+        fno = ENGINE_WARMUP + ENGINE_FRAMES + k
+        frame, flow = engine.process_frame([next(items)], pixmaps,
+                                           fno / 30.0, ((fno,),))
+        if frame.shape != (HEIGHT, WIDTH, 3) or frame.dtype != torch.uint8:
+            raise AssertionError(f"bad frame {frame.shape} {frame.dtype}")
+        finite = finite and torch.isfinite(flow).all().item()
+    torch.cuda.synchronize()
+    return {"ms": 1e3 * seconds / ENGINE_FRAMES, "out": out, "flows": flows,
+            "finite": finite, "max_flow": max_flow, "checksum": checksum,
+            "chunk_launches": chunk_launches,
+            "launches": (bounded_backwarp_cuda.launches,
+                         correlation7x7_cuda.launches)}
+
+
+def phase_engine(device, card: str) -> tuple[int, int]:
+    """Returns the (A3, correlation) launches of the bounded run."""
+    os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
+    n = 1 + ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS
+    frames = panned_frames(n, HEIGHT, WIDTH, device)
+    pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
+    runs = {bound: run_engine(device, frames, pixmap, bound)
+            for bound in (WARP_BOUND, 0)}
+    frames_run = ENGINE_FRAMES + ENGINE_CALLS
+    for bound, run in runs.items():
+        a3, corr = run["chunk_launches"]
+        print(f"engine {HEIGHT}x{WIDTH} liteflownet lfn_warp_bound={bound} "
+              f"->moveref: {run['ms']:.2f} ms/frame "
+              f"{1e3 / run['ms']:.2f} frames/s over a chunk of "
+              f"{ENGINE_FRAMES} (max |flow| {run['max_flow']:.4g}, "
+              f"checksum {run['checksum']}) on {card}")
+        print(f"engine lfn_warp_bound={bound} launches over the chunk: "
+              f"bounded_backwarp {a3}, correlation7x7 {corr}; with "
+              f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
+        per_frame = 9 if bound else 0
+        if (a3, corr) != (per_frame * ENGINE_FRAMES, 5 * ENGINE_FRAMES) or \
+                run["launches"] != (per_frame * frames_run, 5 * frames_run):
+            raise AssertionError(
+                f"lfn_warp_bound={bound}: launches {run['chunk_launches']} "
+                f"over the chunk, {run['launches']} in all; expected "
+                f"{per_frame} bounded_backwarp and 5 correlation per frame")
+        if not run["finite"]:
+            raise AssertionError(f"non-finite flow at bound {bound}")
+        if run["out"].shape != (ENGINE_FRAMES, HEIGHT, WIDTH, 3) or \
+                run["out"].dtype != torch.uint8:
+            raise AssertionError(f"bad frames {tuple(run['out'].shape)} "
+                                 f"{run['out'].dtype}")
+    diff = (runs[WARP_BOUND]["flows"] - runs[0]["flows"]).abs().max().item()
+    print(f"engine max |flow(lfn_warp_bound={WARP_BOUND}) - "
+          f"flow(lfn_warp_bound=0)| {diff:.3e} over the chunk")
+    return runs[WARP_BOUND]["launches"]
+
+
 def phase_equivalence(device) -> None:
     from transflow_tpu_torch.compositor.core import (
         build_compositor, make_layer_params, update_moveref)
@@ -276,19 +477,35 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     rows = phase_kernels(device)
-    launches = phase_slice(device, card)
+    warp_rows = phase_warp_kernels(device)
+    slice_launches = phase_slice(device, card)
+    warp_launches, engine_corr_launches = phase_engine(device, card)
     phase_equivalence(device)
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
+    # one frame's launches: bf16 features, flows within the bound
+    main_warp = [(WARP_PER_FRAME[r["level"]], r) for r in warp_rows
+                 if r["dtype"] == BF16 and not r["beyond"]]
     record = {"kernels": [{
         "name": "correlation7x7",
         "route": "cuda",
         "source": "transflow_tpu_torch/csrc/correlation.cu",
         "replaces": "transflow_tpu/ops/pallas_correlation.py:110",
-        "launches": launches,
+        # the slice's and the bounded Engine's runs
+        "launches": slice_launches + engine_corr_launches,
         "max_abs_err": max(r["err"] for r in rows),
         # per frame: the five levels in the slice's dtype pairs
         "ms": sum(r["ms"] for r in main_rows),
         "plain_ms": sum(r["plain_ms"] for r in main_rows),
+    }, {
+        "name": "bounded_backwarp",
+        "route": "cuda",
+        "source": "transflow_tpu_torch/csrc/bounded_warp.cu",
+        "replaces": "transflow_tpu/ops/pallas_warp.py:117",
+        "launches": warp_launches,
+        "max_abs_err": max(r["err"] for r in warp_rows),
+        # per frame: nine launches over the five levels
+        "ms": sum(n * r["ms"] for n, r in main_warp),
+        "plain_ms": sum(n * r["plain_ms"] for n, r in main_warp),
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

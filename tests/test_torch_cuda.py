@@ -12,6 +12,9 @@ import torch
 from transflow_tpu_torch.ops.correlation import (correlation,
                                                  correlation7x7,
                                                  correlation7x7_cuda)
+from transflow_tpu_torch.ops.warp import (bounded_backwarp,
+                                          bounded_backwarp_cuda,
+                                          bounded_backwarp_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +57,30 @@ def test_kernel_matches_plain(device, shape, pair):
     assert got.shape == want.shape
     # f32 math on both sides, different summation order
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(9, 37, 24, 3), (20, 30, 18, 4),
+                                   (544, 960, 64, 16)], ids=str)
+def test_bounded_backwarp_matches_plain(device, shape, dtype):
+    """Kernel A3 against its plain version, with a fifth of the pixels
+    beyond the bound so the clamp runs. Both round the image to bf16 and
+    add the same f32 terms in the same order: bit-equal."""
+    h, w, c, bound = shape
+    gen = torch.Generator(device=device).manual_seed(1)
+    image = torch.randn((h, w, c), generator=gen, device=device).to(dtype)
+    flow = bound * (2 * torch.rand((h, w, 2), generator=gen,
+                                   device=device) - 1)
+    far = torch.rand((h, w, 1), generator=gen, device=device) < 0.2
+    flow = torch.where(far, 3 * bound * torch.randn(
+        (h, w, 2), generator=gen, device=device), flow)
+    before = bounded_backwarp_cuda.launches
+    got = bounded_backwarp(image, flow, bound)
+    torch.cuda.synchronize()
+    assert bounded_backwarp_cuda.launches == before + 1
+    want = bounded_backwarp_plain(image, flow, bound)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 def test_slice_on_card_matches_cpu(device, exact_f32):

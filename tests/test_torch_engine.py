@@ -1,0 +1,432 @@
+"""The port's Engine against the JAX package's, on the CPU.
+
+A flow-yielding stub source feeds both Engines the same raw flows, so the
+post-process, compositor and renderers must match bit for bit (moveref with
+the constant and linear resets, which draw no random numbers). A
+LiteFlowNet frame source at ``lfn_warp_bound=8`` runs the bounded backwarp
+through both Engines; its flows meet the network bar. The random reset
+draws from a ``torch.Generator`` in the port, so with it the port is held
+to itself: chunked equals per-frame, and a checkpoint resume equals an
+uninterrupted run.
+"""
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from transflow_tpu import config as jconfig
+from transflow_tpu import engine as jengine
+from transflow_tpu.compositor import core as jcore
+from transflow_tpu.flow.estimators import liteflownet as jlfn
+from transflow_tpu.flow.sources import base as jbase
+from transflow_tpu.flow.sources import cv as jcv
+from transflow_tpu.ops import render as jrender
+from transflow_tpu_torch import config, engine
+from transflow_tpu_torch.compositor import core
+from transflow_tpu_torch.flow import Direction
+from transflow_tpu_torch.flow.sources import base, cv
+from transflow_tpu_torch.ops import render, warp
+
+H, W = 24, 32
+FRAMES = 10
+FPS = 30.0
+# f32 network on both sides (tests/test_torch_liteflownet.py's bar)
+NET_TOL = 1e-3
+
+
+def _source(module, data, kind, config=None, **kwargs):
+    """A FlowSource of ``module`` over in-memory ``data``: frames
+    (primed after each rewind, as the cv2 source) or raw flows."""
+
+    class Stub(module.FlowSource):
+        yields_frames = kind == "frame"
+
+        def _open_reader(self):
+            self.height, self.width = data.shape[1:3]
+            self.framerate = FPS
+            self.base_length = len(data) - (kind == "frame")
+
+        def _rewind_reader(self, frame_index):
+            self.pos = frame_index
+            self.primed = False
+
+        def _read_item(self):
+            prime = None
+            if kind == "frame" and not self.primed:
+                prime = data[self.pos]
+                self.pos += 1
+                self.primed = True
+            if self.pos >= len(data):
+                raise StopIteration
+            item = module.FlowItem(
+                module.FlowItem.FRAME if kind == "frame"
+                else module.FlowItem.FLOW, data[self.pos], prime=prime)
+            self.pos += 1
+            return item
+
+    src = Stub(direction="backward", **kwargs)
+    src.config = config
+    return src.open()
+
+
+def _flows(n, h=H, w=W, seed=0):
+    """Integer and half-integer motion with sub-pixel noise, reaching off
+    the frame."""
+    rng = np.random.default_rng(seed)
+    flow = (rng.integers(-6, 7, (n, h, w, 2))
+            + 0.5 * rng.integers(0, 2, (n, h, w, 2))
+            + 0.1 * rng.standard_normal((n, h, w, 2)))
+    return flow.astype(np.float32)
+
+
+def _video(n, h, w, seed=0, step=2):
+    rng = np.random.default_rng(seed)
+    canvas = rng.integers(0, 256, (h + n * step, w + n * step, 3),
+                          dtype=np.uint8)
+    return np.stack([canvas[i * step:i * step + h, i * step:i * step + w]
+                     for i in range(n)])
+
+
+def _pixmap(h, w, seed=1):
+    return np.random.default_rng(seed).integers(0, 256, (h, w, 3),
+                                                dtype=np.uint8)
+
+
+def _engines(layer_kwargs, cfg_kwargs, sources, h=H, w=W, wf=1,
+             export=True):
+    """(port Engine, JAX Engine) over (port source, JAX source) pairs."""
+    out_h, out_w = h, w * wf
+    lp = core.make_layer_params([config.LayerConfig(0, **layer_kwargs)],
+                                out_h, out_w, {0: [(3, None)]})
+    jlp = jcore.make_layer_params([jconfig.LayerConfig(0, **layer_kwargs)],
+                                  out_h, out_w, {0: [(3, None)]})
+    eng = engine.Engine(config.Config("in.mp4", **cfg_kwargs),
+                        [s for s, _ in sources], lp, out_h, out_w,
+                        width_factor=wf, export_flows=export)
+    jeng = jengine.Engine(jconfig.Config("in.mp4", **cfg_kwargs),
+                          [j for _, j in sources], jlp, out_h, out_w,
+                          width_factor=wf, export_flows=export)
+    eng._framerate = jeng._framerate = FPS
+    return eng, jeng
+
+
+def _assert_states_equal(state, jstate):
+    for layer, jlayer in zip(state, jstate):
+        assert set(layer) == set(jlayer)
+        for key, value in layer.items():
+            np.testing.assert_array_equal(value.numpy(),
+                                          np.asarray(jlayer[key]),
+                                          err_msg=key)
+
+
+ENGINE_CASES = {
+    "constant-frame": (dict(reset_mode="constant", reset_constant_step=2),
+                       {}, 1, "frame"),
+    "constant-chunk": (dict(reset_mode="constant", reset_constant_step=2),
+                       {}, 1, "chunk"),
+    "linear-frame": (dict(reset_mode="linear", reset_linear_factor=0.3,
+                          moving_pixels_leave_empty_spot=True), {}, 1,
+                     "frame"),
+    "linear-chunk": (dict(reset_mode="linear", reset_linear_factor=0.3,
+                          moving_pixels_leave_empty_spot=True), {}, 1,
+                     "chunk"),
+    "view-flow-frame": (dict(reset_mode="constant"),
+                        dict(view_flow=True, render_scale=0.25), 1, "frame"),
+    "magnitude-upscaled-chunk": (
+        dict(reset_mode="linear"),
+        dict(view_flow_magnitude=True, render_scale=0.2,
+             render_colors="#102030,#f0e0d0"), 2, "chunk"),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_flow_source_engine_matches_jax(case):
+    layer_kwargs, cfg_kwargs, wf, path = ENGINE_CASES[case]
+    flows = _flows(FRAMES)
+    cfg_kwargs = dict(cfg_kwargs, direction="backward", seed=0)
+    eng, jeng = _engines(layer_kwargs, cfg_kwargs,
+                         [(_source(base, flows, "flow"),
+                           _source(jbase, flows, "flow"))], wf=wf)
+    pix = _pixmap(H, W * wf)
+    if path == "frame":
+        frames, jframes, out, jout = [], [], [], []
+        for idx, (item, jitem) in enumerate(zip(eng.runtimes[0].source,
+                                                jeng.runtimes[0].source)):
+            t = idx / FPS
+            frame, flow = eng.process_frame(
+                [item], ((torch.from_numpy(pix),),), t, ((idx,),))
+            jframe, jflow = jeng.process_frame(
+                [jitem], ((jnp.asarray(pix),),), t, ((idx,),))
+            frames.append(frame)
+            jframes.append(jframe)
+            out.append(flow)
+            jout.append(jflow)
+        frames, jframes = torch.stack(frames), np.stack(jframes)
+        out, jout = torch.stack(out), np.stack(jout)
+    else:
+        frames, out = eng.process_chunk([flows], ((pix,),), ((None,),), 0,
+                                        0)
+        jframes, jout = jeng.process_chunk([flows], ((jnp.asarray(pix),),),
+                                           ((None,),), 0, 0)
+    assert frames.shape == (FRAMES, H, W * wf, 3)
+    assert frames.dtype == torch.uint8
+    np.testing.assert_array_equal(frames.numpy(), np.asarray(jframes))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    _assert_states_equal(eng.comp_state, jeng.comp_state)
+    assert len(np.unique(frames.numpy())) > 2      # the frames move
+
+
+@pytest.fixture
+def random_weights(monkeypatch):
+    monkeypatch.setenv("TRANSFLOW_LITEFLOWNET_RANDOM", "1")
+    monkeypatch.delenv(jlfn.WEIGHTS_ENV, raising=False)
+    monkeypatch.delenv("TRANSFLOW_LITEFLOWNET_BF16", raising=False)
+    monkeypatch.delenv("TRANSFLOW_LITEFLOWNET_WARP_BOUND", raising=False)
+    monkeypatch.setattr(jlfn, "_CACHE", {})
+
+
+def test_liteflownet_engine_matches_jax(random_weights, monkeypatch):
+    """A LiteFlowNet frame source at lfn_warp_bound=8 through both
+    Engines: 9 bounded warps per frame in the port, exported flows within
+    the network bar."""
+    calls = []
+    plain = warp.bounded_backwarp_plain
+    monkeypatch.setattr(warp, "bounded_backwarp_plain",
+                        lambda *a: calls.append(a[2]) or plain(*a))
+    h, w = 64, 96
+    video = _video(3, h, w)
+    settings = dict(method="liteflownet", lfn_warp_bound=8)
+    eng, jeng = _engines(
+        dict(reset_mode="constant"), dict(direction="backward", seed=0),
+        [(_source(base, video, "frame", cv.CvFlowConfig(**settings)),
+          _source(jbase, video, "frame", jcv.CvFlowConfig(**settings)))],
+        h=h, w=w)
+    pix = _pixmap(h, w)
+    for idx, (item, jitem) in enumerate(zip(eng.runtimes[0].source,
+                                            jeng.runtimes[0].source)):
+        frame, flow = eng.process_frame([item], ((torch.from_numpy(pix),),),
+                                        idx / FPS, ((idx,),))
+        jframe, jflow = jeng.process_frame([jitem], ((jnp.asarray(pix),),),
+                                           idx / FPS, ((idx,),))
+        assert frame.shape == (h, w, 3) and frame.dtype == torch.uint8
+        np.testing.assert_allclose(flow.numpy(), np.asarray(jflow),
+                                   atol=NET_TOL, rtol=NET_TOL)
+        assert len(calls) == 9 * (idx + 1)
+
+
+def _lfn_engine(video, seed=5, reset=0.2):
+    src = _source(base, video, "frame",
+                  cv.CvFlowConfig(method="liteflownet", lfn_warp_bound=8))
+    h, w = video.shape[1:3]
+    lp = core.make_layer_params(
+        [config.LayerConfig(0, reset_mode="random",
+                            reset_random_factor=reset)], h, w,
+        {0: [(3, None)]})
+    eng = engine.Engine(config.Config("in.mp4", direction="backward",
+                                      seed=seed), [src], lp, h, w,
+                        export_flows=True)
+    eng._framerate = FPS
+    return eng
+
+
+def _assert_engines_equal(a, b):
+    for layer_a, layer_b in zip(a.comp_state, b.comp_state):
+        for key in layer_a:
+            assert torch.equal(layer_a[key], layer_b[key]), key
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+def test_chunk_equals_frames_with_random_reset(random_weights):
+    video = _video(6, 64, 96, seed=2)
+    chunked, stepped = _lfn_engine(video), _lfn_engine(video)
+    items = list(chunked.runtimes[0].source)
+    pix = torch.from_numpy(_pixmap(64, 96))
+    chunked.runtimes[0].reset(items[0].prime)
+    frames, flows = chunked.process_chunk(
+        [np.stack([it.array for it in items])], ((pix,),), ((None,),), 1, 1)
+    for k, item in enumerate(items):
+        frame, flow = stepped.process_frame([item], ((pix,),),
+                                            (1 + k) / FPS, ((1 + k,),))
+        assert torch.equal(frames[k], frame)
+        assert torch.equal(flows[k], flow)
+    _assert_engines_equal(chunked, stepped)
+    assert torch.equal(chunked.runtimes[0].last_raw,
+                       stepped.runtimes[0].last_raw)
+    assert torch.equal(chunked.runtimes[0].prev_gray,
+                       stepped.runtimes[0].prev_gray)
+
+
+def test_state_arrays_match_jax_names_and_dtypes():
+    flows = _flows(2)
+    eng, jeng = _engines(dict(reset_mode="random"),
+                         dict(direction="backward", seed=0),
+                         [(_source(base, flows, "flow"),
+                           _source(jbase, flows, "flow"))])
+    arrays = eng.state_arrays()
+    jarrays = jeng.state_arrays()
+    layers = {k: (v.dtype, v.shape) for k, v in arrays.items()
+              if k.startswith("layer")}
+    jlayers = {k: (v.dtype, v.shape) for k, v in jarrays.items()
+               if k.startswith("layer")}
+    assert layers == jlayers and len(layers) == 5
+    assert set(arrays) - set(layers) == {engine.RNG_STATE_KEY}
+    assert set(jarrays) - set(jlayers) == {"rng_key"}
+
+
+def test_checkpoint_resume_is_bit_equal(random_weights, tmp_path):
+    video = _video(7, 64, 96, seed=3)
+    pix = ((torch.from_numpy(_pixmap(64, 96)),),)
+    whole = _lfn_engine(video)
+    items = list(whole.runtimes[0].source)
+    outs = [whole.process_frame([it], pix, k / FPS, ((k,),))[0]
+            for k, it in enumerate(items)]
+    first = _lfn_engine(video)
+    for k, item in enumerate(items[:3]):
+        first.process_frame([item], pix, k / FPS, ((k,),))
+    path = tmp_path / "ckpt.npz"
+    np.savez(path, **first.state_arrays())
+    resumed = _lfn_engine(video, seed=99)     # the generator state loads
+    resumed.load_state_arrays(dict(np.load(path)))
+    resumed.runtimes[0].reset(items[2].array)
+    for k, item in enumerate(items[3:], start=3):
+        frame, _ = resumed.process_frame([item], pix, k / FPS, ((k,),))
+        assert torch.equal(frame, outs[k]), k
+    _assert_engines_equal(resumed, whole)
+
+
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+def test_checkpoints_cross_load(direction, caplog):
+    """The compositor leaves load into either package; the other package's
+    RNG entry is ignored (the JAX key with a logged warning)."""
+    flows = _flows(4)
+    eng, jeng = _engines(dict(reset_mode="linear"),
+                         dict(direction="backward", seed=0),
+                         [(_source(base, flows, "flow"),
+                           _source(jbase, flows, "flow"))])
+    pix = _pixmap(H, W)
+    eng.process_chunk([flows], ((pix,),), ((None,),), 0, 0)
+    jeng.process_chunk([flows[::-1].copy()], ((jnp.asarray(pix),),),
+                       ((None,),), 0, 0)
+    if direction == "jax-to-port":
+        generator = eng.generator.get_state()
+        with caplog.at_level(logging.WARNING, logger=engine.__name__):
+            eng.load_state_arrays(jeng.state_arrays())
+        assert "rng_key" in caplog.text
+        assert torch.equal(eng.generator.get_state(), generator)
+    else:
+        jeng.load_state_arrays(eng.state_arrays())
+    _assert_states_equal(eng.comp_state, jeng.comp_state)
+
+
+# ---------------------------------------------------------------------------
+# SourceRuntime: replay and live re-tuning (ports of tests/test_engine.py)
+# ---------------------------------------------------------------------------
+
+def _runtime(h=64, w=96):
+    config_ = cv.CvFlowConfig(method="liteflownet")
+    source = _source(base, _video(2, h, w), "frame", config_)
+    step = engine.make_estimator_step("liteflownet",
+                                      config_.estimator_kwargs(),
+                                      source.direction)
+    return engine.SourceRuntime(source, step), config_
+
+
+def test_rejit_only_on_version_bump(random_weights):
+    runtime, config_ = _runtime()
+    original = runtime.estimator_step
+    runtime._maybe_rejit()
+    assert runtime.estimator_step is original
+    config_.update("lfn_warp_bound", 8)  # bumps version
+    runtime._maybe_rejit()
+    assert runtime.estimator_step is not original
+    assert runtime.estimator_step.params is original.params
+    rebuilt = runtime.estimator_step
+    runtime._maybe_rejit()
+    assert runtime.estimator_step is rebuilt
+
+
+def test_rejit_changes_estimation(random_weights):
+    runtime, config_ = _runtime()
+    video = _video(2, 64, 96, seed=4)
+    runtime.reset(video[0])
+    flow1 = runtime.ingest(base.FlowItem(base.FlowItem.FRAME, video[1]))
+    config_.update("lfn_scale", 0.5)
+    runtime.reset(video[0])
+    flow2 = runtime.ingest(base.FlowItem(base.FlowItem.FRAME, video[1]))
+    assert flow1.shape == flow2.shape == (64, 96, 2)
+    assert not torch.equal(flow1, flow2)
+
+
+def test_replay_before_first_flow_raises(random_weights):
+    runtime, _ = _runtime()
+    with pytest.raises(RuntimeError, match="Lock replay"):
+        runtime.ingest(base.FlowItem(base.FlowItem.REPLAY, locked=True))
+
+
+def test_replay_returns_last_flow_and_advances_discarded(random_weights):
+    runtime, _ = _runtime()
+    video = _video(3, 64, 96, seed=1)
+    runtime.reset(video[0])
+    flow_b = runtime.ingest(base.FlowItem(base.FlowItem.FRAME, video[1]))
+    # lock skip: the discarded frame advances prev_gray, output replays
+    replay = runtime.ingest(base.FlowItem(
+        base.FlowItem.REPLAY, locked=True,
+        discarded=base.FlowItem(base.FlowItem.FRAME, video[2])))
+    assert torch.equal(replay, flow_b)
+    np.testing.assert_array_equal(runtime.prev_gray.numpy(), video[2])
+
+
+@pytest.mark.parametrize("direction", [Direction.FORWARD, Direction.BACKWARD])
+def test_estimator_step_frame_order(direction, monkeypatch):
+    """Forward pairs (prev, next), backward pairs (next, prev)."""
+    monkeypatch.setattr(engine, "get_estimator",
+                        lambda method: lambda left, right, **kw: (left,
+                                                                  right))
+    step = engine.make_estimator_step("lukas-kanade", {}, direction)
+    assert step.params == ()
+    want = ("prev", "next") if direction == Direction.FORWARD \
+        else ("next", "prev")
+    assert step("prev", "next", None) == want
+
+
+def test_mesh_is_not_ported():
+    cfg = cv.CvFlowConfig(method="liteflownet", lfn_warp_bound=12)
+    assert engine.mesh_safe_estimator_kwargs(cfg, None) == {
+        "warp_bound": 12, "scale": 1.0}
+    with pytest.raises(NotImplementedError, match="item 12"):
+        engine.mesh_safe_estimator_kwargs(cfg, object())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        engine.Engine(config.Config("in.mp4", seed=0), [], [], H, W,
+                      mesh=object())
+
+
+# ---------------------------------------------------------------------------
+# renderers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("scale,colors", [(1.0, None), (0.3, None),
+                                          (2.5, ("#123456", "#fedcba",
+                                                 "#00ff80", "#808080"))],
+                         ids=["default", "scaled", "colors"])
+def test_renderers_match_jax(scale, colors):
+    flow = (3 * np.random.default_rng(7).standard_normal((20, 30, 2))) \
+        .astype(np.float32)
+    tflow, jflow = torch.from_numpy(flow), jnp.asarray(flow)
+    np.testing.assert_array_equal(
+        render.render2d(tflow, scale, colors).numpy(),
+        np.asarray(jrender.render2d(jflow, scale, colors)))
+    # XLA's CPU backend fuses the square-sum into a multiply-add: 1 ulp
+    mag = render.flow_magnitude(tflow)
+    np.testing.assert_allclose(mag.numpy(),
+                               np.asarray(jrender.flow_magnitude(jflow)),
+                               rtol=2.4e-7, atol=0)
+    colors_1d = None if colors is None else colors[:2]
+    for binary in (False, True):
+        got = render.render1d(mag, scale, colors_1d, binary)
+        want = jrender.render1d(jnp.asarray(mag.numpy()), scale, colors_1d,
+                                binary)
+        assert got.dtype == torch.uint8 and got.shape == (20, 30, 3)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -234,6 +234,33 @@ def test_compute_dtype(monkeypatch):
 def test_unported_options_raise(port_net):
     a = torch.zeros(32, 32, 3, dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lfn.liteflownet(a, a, net=port_net, warp_bound=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         lfn.liteflownet(a, a, net=port_net, corr_kernel="pallas_halo")
+
+
+def test_bf16_conv_bias_order_matches_flax():
+    """The conv is rounded to bf16, then the bias is added in bf16, as in
+    Flax's ``nn.Conv(dtype=bfloat16)``. The case tells the orders apart: a
+    1x1 conv whose exact f32 sum 1 + 2^-8 lies half-way between two bf16
+    values (it rounds to even, 1.0) and a bias of 2^-9, which rounds back
+    to 1.0 when added after the rounding, and up to 1 + 2^-7 when added
+    before it."""
+    import flax.linen as nn
+    x = np.array([[[[1.0, 1.0]]]], np.float32)         # (N, H, W, 2)
+    w = np.array([1.0, 2.0 ** -8], np.float32)
+    b = np.array([2.0 ** -9], np.float32)
+    flax_conv = nn.Conv(1, (1, 1), dtype=jnp.bfloat16,
+                        param_dtype=jnp.float32)
+    want = flax_conv.apply(
+        {"params": {"kernel": jnp.asarray(w.reshape(1, 1, 2, 1)),
+                    "bias": jnp.asarray(b)}}, jnp.asarray(x))
+    conv = lfn._Conv(2, 1, 1, pad=0)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(w.reshape(1, 2, 1, 1)))
+        conv.bias.copy_(torch.from_numpy(b))
+        got = conv(torch.from_numpy(x), torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    assert got.item() == 1.0
+    rounded_once = torch.tensor(1 + 2.0 ** -8 + 2.0 ** -9).bfloat16()
+    assert rounded_once.item() == 1 + 2.0 ** -7

@@ -136,6 +136,13 @@ def test_port_imports_no_jax():
         "import transflow_tpu_torch.flow.transforms\n"
         "import transflow_tpu_torch.flow.merge\n"
         "import transflow_tpu_torch.config\n"
+        "import transflow_tpu_torch.engine\n"
+        "import transflow_tpu_torch.ops.warp\n"
+        "import transflow_tpu_torch.ops.render\n"
+        "import transflow_tpu_torch.flow.sources.base\n"
+        "import transflow_tpu_torch.flow.sources.cv\n"
+        "import transflow_tpu_torch.utils.expr\n"
+        "import transflow_tpu_torch.utils.misc\n"
         "bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]\n"
         "print('IMPORTED', bad)\n"
         "sys.exit(1 if bad else 0)\n")

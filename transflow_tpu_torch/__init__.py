@@ -5,7 +5,9 @@ its layout and names, runs on PyTorch, and replaces each Pallas TPU kernel
 with a CUDA kernel written for Hopper (``csrc/``). It imports no JAX.
 
 Ported so far: the LiteFlowNet -> moveref flagship step through
-``model.FlowTransferModel``. ROADMAP.md lists what comes next.
+``model.FlowTransferModel``, and the device ``engine.Engine`` over flow
+sources whose ``CvFlowConfig`` selects LiteFlowNet (with the bounded
+backwarp behind ``lfn_warp_bound``). ROADMAP.md lists what comes next.
 """
 
 __version__ = "0.1.0"

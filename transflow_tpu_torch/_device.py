@@ -1,10 +1,11 @@
 """Device and dtype helpers, and the build of the package's CUDA kernels.
 
 The kernels under ``csrc/`` have a plain C interface. The first launch of
-any of them compiles every ``csrc/*.cu`` with ``nvcc`` into one shared
+any of them compiles every ``csrc/*.cu`` with ``nvcc``, one process per
+source, all started together, and links the objects into one shared
 library under ``_build/`` (named by a hash of the sources and flags, so an
-edited source builds anew) and loads it with ``ctypes``. Nothing is built
-when a module is imported: the CPU paths never need ``nvcc``.
+edited source builds anew), loaded with ``ctypes``. Nothing is built when a
+module is imported: the CPU paths never need ``nvcc``.
 """
 import ctypes
 import functools
@@ -21,7 +22,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel dtype codes shared with csrc/*.cu
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -33,6 +34,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # f1, dtype1, f2, dtype2, out, H, W, C, stride, stream
     "transflow_corr7x7": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    # image, dtype, flow, out, H, W, C, bound, stream
+    "transflow_bounded_backwarp": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -77,19 +80,39 @@ def _build() -> KernelLibrary:
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    path = BUILD_DIR / f"libtransflow_kernels-{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    path = BUILD_DIR / f"libtransflow_kernels-{tag}.so"
     log = ""
     start = time.perf_counter()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        suffix = f"{tag}.{os.getpid()}"
+        objects = [BUILD_DIR / f"{src.stem}-{suffix}.o" for src in sources]
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        # one nvcc per source, all at once; then one link
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)]
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(logs)
+        failed = [f"{src.name}: nvcc failed ({proc.returncode}):\n{out}"
+                  for src, proc, out in zip(sources, procs, logs)
+                  if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                capture_output=True, text=True, check=False)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed.append(f"link failed ({link.returncode}):\n"
+                              f"{link.stdout}{link.stderr}")
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError("\n".join(failed))
         os.replace(tmp, path)
     return KernelLibrary(path, time.perf_counter() - start, log)
 

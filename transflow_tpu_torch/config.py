@@ -1,10 +1,18 @@
-"""Layer configuration of the port.
+"""Configuration tree of the port.
 
 ``transflow_tpu.config`` imports JAX (through ``transflow_tpu.utils``), so
-the port re-declares what its slice needs: ``LayerConfig`` with the same
-fields, defaults and dict round-trip (transflow_tpu/config.py:79-142).
-tests/test_torch_model.py pins it to the original.
+the port re-declares it: ``PixmapSourceConfig``, ``LayerConfig`` and
+``Config`` with the same fields, defaults, validation and dict round-trip
+(transflow_tpu/config.py). tests/test_torch_model.py and
+tests/test_torch_sources.py pin them to the originals. The output-path
+helpers wait for the Pipeline.
 """
+import random
+import sys
+import time
+
+from .flow import Direction, LockMode
+from .utils import parse_size, parse_timestamp
 
 
 def parse_bool_arg(arg, default: bool) -> bool:
@@ -15,7 +23,51 @@ def parse_bool_arg(arg, default: bool) -> bool:
     return bool(arg)
 
 
-class LayerConfig:
+class _DictSchema:
+    """Dict round-trip derived from ``_FIELDS``: ``(key, default)`` rows
+    where every key is both the JSON name and the attribute name, the first
+    row is the single required positional, and ``default`` is what
+    ``fromdict`` feeds the constructor when the key is absent."""
+
+    _FIELDS: tuple = ()
+
+    def todict(self) -> dict:
+        return {key: getattr(self, key) for key, _ in self._FIELDS}
+
+    @classmethod
+    def fromdict(cls, d: dict):
+        (required, _), *rest = cls._FIELDS
+        return cls(d[required], **{k: d.get(k, dv) for k, dv in rest})
+
+
+class PixmapSourceConfig(_DictSchema):
+    """One pixmap source bound to one or more layers."""
+
+    _FIELDS = (
+        ("path", None),
+        ("seek_time", None),
+        ("alteration_path", None),
+        ("introduction_path", None),
+        ("repeat", 1),
+        ("layers", None),
+    )
+
+    def __init__(self,
+                 path: str,
+                 seek_time: float | str | None = None,
+                 alteration_path: str | None = None,
+                 introduction_path: str | None = None,
+                 repeat: int | None = 1,
+                 layers: list[int] | None = None):
+        self.path = path
+        self.seek_time = parse_timestamp(seek_time)
+        self.alteration_path = alteration_path
+        self.introduction_path = introduction_path
+        self.repeat = 1 if repeat is None else repeat
+        self.layers = [0] if layers is None else layers
+
+
+class LayerConfig(_DictSchema):
     """One compositor layer: class, movement flags, reset and introduction
     rules."""
 
@@ -78,10 +130,164 @@ class LayerConfig:
         self.introduce_on_all_filled_spots = parse_bool_arg(introduce_on_all_filled_spots, False)
         self.introduce_on_all_empty_spots = parse_bool_arg(introduce_on_all_empty_spots, False)
 
-    def todict(self) -> dict:
-        return {key: getattr(self, key) for key, _ in self._FIELDS}
+
+class Config(_DictSchema):
+    """Top-level render configuration (flow + pixmaps + layers + outputs)."""
+
+    _FIELDS = (
+        # flow
+        ("flow_path", None),
+        ("extra_flow_paths", None),
+        ("flows_merging_function", "first"),
+        ("use_mvs", False),
+        ("mask_path", None),
+        ("kernel_path", None),
+        ("cv_config", None),
+        ("flow_filters", None),
+        ("direction", "forward"),
+        ("seek_time", None),
+        ("duration_time", None),
+        ("repeat", 1),
+        ("lock_expr", None),
+        ("lock_mode", None),
+        # pixmaps + compositor (nested fields overridden below)
+        ("pixmap_sources", None),
+        ("layers", None),
+        ("compositor_background", None),
+        # outputs
+        ("output_path", None),
+        ("vcodec", "h264"),
+        ("size", None),
+        ("view_flow", False),
+        ("view_flow_magnitude", False),
+        ("render_scale", 1),
+        ("render_colors", None),
+        ("render_binary", False),
+        # general + device layout
+        ("seed", None),
+        ("batch_frames", None),
+        ("mesh", None),
+        ("halo", None),
+    )
+
+    def __init__(self,
+                 flow_path: str,
+                 extra_flow_paths: list[str] | None = None,
+                 flows_merging_function: str = "first",
+                 use_mvs: bool = False,
+                 mask_path: str | None = None,
+                 kernel_path: str | None = None,
+                 cv_config: str | None = None,
+                 flow_filters: str | None = None,
+                 direction="forward",
+                 seek_time=None,
+                 duration_time=None,
+                 to_time=None,
+                 repeat: int = 1,
+                 lock_expr: str | None = None,
+                 lock_mode=None,
+                 pixmap_sources: list[PixmapSourceConfig] | None = None,
+                 layers: list[LayerConfig] | None = None,
+                 compositor_background: str | None = None,
+                 output_path=None,
+                 vcodec: str = "h264",
+                 size=None,
+                 view_flow: bool = False,
+                 view_flow_magnitude: bool = False,
+                 render_scale: float = 1,
+                 render_colors=None,
+                 render_binary: bool = False,
+                 seed: int | None = None,
+                 batch_frames: int | None = None,
+                 mesh: str | None = None,
+                 halo: int | None = None):
+        # Flow args
+        self.flow_path = flow_path
+        self.extra_flow_paths = [] if extra_flow_paths is None else extra_flow_paths
+        self.flows_merging_function = flows_merging_function
+        if not self.extra_flow_paths:
+            self.flows_merging_function = "first"
+        self.use_mvs = use_mvs
+        self.mask_path = mask_path
+        self.kernel_path = kernel_path
+        self.cv_config = cv_config
+        self.flow_filters = flow_filters
+        self.direction = Direction.from_arg(direction)
+        parsed_seek = parse_timestamp(seek_time)
+        self.seek_time: float = 0 if parsed_seek is None else parsed_seek
+        parsed_duration = parse_timestamp(duration_time)
+        parsed_to = parse_timestamp(to_time)
+        if parsed_to is not None:
+            self.duration_time = parsed_to - self.seek_time
+        else:
+            self.duration_time = parsed_duration
+        if self.duration_time is not None and self.duration_time < 0:
+            raise ValueError(f"Duration must be positive (got {self.duration_time})")
+        self.repeat = repeat
+        self.lock_expr = lock_expr
+        self.lock_mode = LockMode.from_arg(lock_mode)
+
+        # Pixmap args
+        self.pixmap_sources = [] if pixmap_sources is None else pixmap_sources
+
+        # Compositor args
+        self.layers = [] if layers is None else layers
+        layer_indices = set()
+        for layer in self.layers:
+            if layer.index in layer_indices:
+                raise ValueError(f"Duplicate layer index {layer.index}")
+            layer_indices.add(layer.index)
+        for pixmap_config in self.pixmap_sources:
+            for layer_index in pixmap_config.layers:
+                if layer_index not in layer_indices:
+                    self.layers.append(LayerConfig(layer_index))
+                    layer_indices.add(layer_index)
+        self.compositor_background = (
+            "#ffffff" if compositor_background is None else compositor_background)
+
+        # Output args
+        self.output_path = (
+            None if (isinstance(output_path, list) and not output_path)
+            else output_path)
+        self.vcodec = vcodec
+        self.size = parse_size(size)
+        self.view_flow = view_flow
+        self.view_flow_magnitude = view_flow_magnitude
+        self.render_scale = render_scale
+        if isinstance(render_colors, str):
+            render_colors = tuple(render_colors.split(","))
+        elif isinstance(render_colors, list):
+            render_colors = tuple(render_colors)
+        self.render_colors = render_colors
+        self.render_binary = render_binary
+
+        # General args
+        self.seed: int = random.randint(0, 2 ** 32 - 1) if seed is None else seed
+        # frames per chunk (None = auto) and the multi-device layout (mesh
+        # size or "STREAMxSPACE", halo rows); the port runs one device and
+        # its Engine refuses a mesh
+        self.batch_frames = batch_frames
+        self.mesh = mesh
+        self.halo = halo
 
     @classmethod
-    def fromdict(cls, d: dict):
-        (required, _), *rest = cls._FIELDS
-        return cls(d[required], **{k: d.get(k, dv) for k, dv in rest})
+    def fromdict(cls, d: dict) -> "Config":
+        kwargs = {k: d.get(k, dv) for k, dv in cls._FIELDS[1:]}
+        kwargs.update(
+            to_time=d.get("to_time"),  # constructor-only: folds into duration
+            pixmap_sources=[PixmapSourceConfig.fromdict(x)
+                            for x in d.get("pixmap_sources") or []],
+            layers=[LayerConfig.fromdict(x) for x in d.get("layers") or []])
+        return cls(d["flow_path"], **kwargs)
+
+    def todict(self) -> dict:
+        d = super().todict()
+        d.update(
+            direction=self.direction.value,
+            lock_mode=self.lock_mode.value,
+            pixmap_sources=[x.todict() for x in self.pixmap_sources],
+            layers=[x.todict() for x in self.layers],
+            # provenance extras (ignored by fromdict)
+            timestamp=time.time(),
+            command={"executable": sys.executable, "argv": sys.argv})
+        return d

@@ -1,7 +1,9 @@
-"""Flow subsystem of the port: estimators, merge and post-processing.
+"""Flow subsystem of the port: estimators, sources, merge and
+post-processing.
 
-``Direction`` is the JAX package's own enum: its module imports no JAX.
+``Direction`` and ``LockMode`` are the JAX package's own enums: their
+module imports no JAX.
 """
-from transflow_tpu.flow import Direction
+from transflow_tpu.flow import Direction, LockMode
 
-__all__ = ["Direction"]
+__all__ = ["Direction", "LockMode"]

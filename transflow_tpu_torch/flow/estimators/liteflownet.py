@@ -7,7 +7,8 @@ contiguous; a convolution views them as NCHW in ``channels_last`` memory
 format, so the (H, W, C) operands of the correlation cost no copy.
 
 Plain convolutions are ``F.conv2d``; the 7x7 correlation is the CUDA kernel
-of ``ops/correlation.py`` on the card and its plain version on the CPU.
+of ``ops/correlation.py`` on the card and its plain version on the CPU, and
+so is the bounded backwarp of ``ops/warp.py`` (``warp_bound``, opt-in).
 Parameters are f32; convolutions compute in ``_compute_dtype`` (bf16 on
 CUDA, f32 on the CPU), and everything else keeps JAX's dtype promotion so
 the correlation sees the same operand dtypes as on the TPU.
@@ -21,6 +22,7 @@ from torch import nn
 
 from ...ops.correlation import check_kernel, correlation
 from ...ops.image import torch_bilinear_resize as bilinear_resize
+from ...ops.warp import bounded_backwarp
 
 _LEVELS = (2, 3, 4, 5, 6)
 _FLT_BACKWARP = {2: 10.0, 3: 5.0, 4: 2.5, 5: 1.25, 6: 0.625}
@@ -34,6 +36,8 @@ _MEAN_TWO = (0.410782, 0.433645, 0.452793)
 
 WEIGHTS_ENV = "TRANSFLOW_LITEFLOWNET_WEIGHTS"
 RANDOM_ENV = "TRANSFLOW_LITEFLOWNET_RANDOM"
+WARP_BOUND_ENV = "TRANSFLOW_LITEFLOWNET_WARP_BOUND"
+WARP_KERNEL_ENV = "TRANSFLOW_LITEFLOWNET_WARP_KERNEL"
 
 
 def _leaky(x):
@@ -51,7 +55,12 @@ def _compute_dtype(device) -> torch.dtype:
 
 class _Conv(nn.Module):
     """Flax ``nn.Conv`` counterpart on (N, H, W, C) or (H, W, C): f32
-    parameters (OIHW), computed in the dtype the caller gives."""
+    parameters (OIHW), computed in the dtype the caller gives.
+
+    Flax's order: the convolution is rounded to ``dtype``, then the bias,
+    cast to ``dtype``, is added in ``dtype``. Passing the bias into
+    ``F.conv2d`` would leave the order to the backend (a fused bias is
+    added before the one rounding)."""
 
     def __init__(self, cin: int, cout: int, kernel, stride: int = 1,
                  pad=None):
@@ -68,20 +77,67 @@ class _Conv(nn.Module):
         batched = x.dim() == 4
         x = x if batched else x[None]
         y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
-                     self.bias.to(dtype), self.stride, self.padding)
-        y = y.permute(0, 2, 3, 1).contiguous()
+                     None, self.stride, self.padding)
+        y = (y.permute(0, 2, 3, 1) + self.bias.to(dtype)).contiguous()
         return y if batched else y[0]
 
 
-def backwarp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Bilinear warp ``image[(i, j) + flow]`` with zero padding, exact path
-    of the JAX function (its bounded Pallas mode is not ported).
+def _env_warp_bound() -> int:
+    """TRANSFLOW_LITEFLOWNET_WARP_BOUND parsed with context (0 if unset)."""
+    value = os.environ.get(WARP_BOUND_ENV)
+    if not value:
+        return 0
+    try:
+        return int(value)
+    except ValueError:
+        raise ValueError(
+            f"{WARP_BOUND_ENV}={value!r} is not an integer (pixels at level "
+            "2; 0 disables)") from None
+
+
+def _warp_bound(level: int, base: int | None = None) -> int | None:
+    """Per-level displacement bound of the bounded backwarp.
+
+    ``base`` is the level-2 bound; coarser levels halve it, floored at 3.
+    None falls back to TRANSFLOW_LITEFLOWNET_WARP_BOUND; 0 (or an unset
+    env) means the exact gather. Parity: liteflownet.py::_warp_bound."""
+    if base is None:
+        base = _env_warp_bound()
+    if base < 0:
+        raise ValueError(
+            f"lfn_warp_bound must be >= 0, got {base} (0 disables the "
+            "bounded kernel)")
+    if not base:
+        return None
+    return max(3, int(base) >> (level - 2))
+
+
+def backwarp(image: torch.Tensor, flow: torch.Tensor,
+             bound: int | None = None,
+             kernel: str | None = None) -> torch.Tensor:
+    """Bilinear warp ``image[(i, j) + flow]`` with zero padding.
 
     (H, W, C) image in any float dtype, (H, W, 2) flow in pixels; the result
-    is f32 (the bilinear weights are f32). Edge semantics follow JAX: the
-    four taps are read at the clamped (y0, x0) anchor, so on the low edges
-    the +1 taps fall back to the anchor slot, and the in-bounds masks use
-    the raw float floors."""
+    is f32 (the bilinear weights are f32). Edge semantics of the exact path
+    follow JAX: the four taps are read at the clamped (y0, x0) anchor, so on
+    the low edges the +1 taps fall back to the anchor slot, and the
+    in-bounds masks use the raw float floors.
+
+    ``bound``: honoured when the image has at least 16 channels, as in JAX.
+    The warp then goes through ``ops/warp.py::bounded_backwarp`` (kernel
+    A3), which clamps each axis's displacement floor to ``[-bound,
+    bound]``. ``kernel`` names its variant, falling back to
+    TRANSFLOW_LITEFLOWNET_WARP_KERNEL; 'select' is the only one."""
+    if bound is not None and image.shape[-1] >= 16:
+        if kernel is None:
+            kernel = os.environ.get(WARP_KERNEL_ENV)
+        kernel = kernel or "select"
+        if kernel != "select":
+            raise ValueError(
+                f"warp kernel must be 'select', got {kernel!r} (the 'mxu' "
+                "variant was removed: it never compiled on the real TPU "
+                "toolchain)")
+        return bounded_backwarp(image, flow, int(bound))
     h, w, c = image.shape
     zrow = image.new_zeros((1, w, c))
     zcol = image.new_zeros((h, 1, c))
@@ -201,14 +257,17 @@ class Matching(nn.Module):
         self.main2 = _Conv(64, 32, 3)
         self.main3 = _Conv(32, 2, _KERNEL[level], pad=_PAD[level])
 
-    def forward(self, feat1, feat2, flow, dtype):
+    def forward(self, feat1, feat2, flow, dtype, warp_bound=None,
+                warp_kernel=None):
         lvl = self.level
         if lvl == 2:
             both = _leaky(self.feat0(torch.stack([feat1, feat2]), dtype))
             feat1, feat2 = both[0], both[1]
         if flow is not None:
             flow = _upsample2x_phases(flow, self.upflow_kernel)
-            feat2 = backwarp(feat2, flow * _FLT_BACKWARP[lvl])
+            feat2 = backwarp(feat2, flow * _FLT_BACKWARP[lvl],
+                             bound=_warp_bound(lvl, warp_bound),
+                             kernel=warp_kernel)
         corr = _leaky(correlation(feat1, feat2, stride=1 if lvl >= 4 else 2))
         if lvl < 4:
             corr = _upsample2x_phases(corr, self.upcorr_kernel)
@@ -233,12 +292,15 @@ class Subpixel(nn.Module):
         self.main2 = _Conv(64, 32, 3)
         self.main3 = _Conv(32, 2, _KERNEL[level], pad=_PAD[level])
 
-    def forward(self, feat1, feat2, flow, dtype):
+    def forward(self, feat1, feat2, flow, dtype, warp_bound=None,
+                warp_kernel=None):
         lvl = self.level
         if lvl == 2:
             both = _leaky(self.feat0(torch.stack([feat1, feat2]), dtype))
             feat1, feat2 = both[0], both[1]
-        warped = backwarp(feat2, flow * _FLT_BACKWARP[lvl])
+        warped = backwarp(feat2, flow * _FLT_BACKWARP[lvl],
+                          bound=_warp_bound(lvl, warp_bound),
+                          kernel=warp_kernel)
         x = torch.cat([feat1, warped, flow], dim=-1)
         x = _leaky(self.main0(x, dtype))
         x = _leaky(self.main1(x, dtype))
@@ -315,7 +377,10 @@ class LiteFlowNet(nn.Module):
     """Full pyramid network. Parity: liteflownet.py:581-611.
 
     ``forward(img1, img2)`` takes two (H, W, 3) f32 images in [0, 1], H and
-    W multiples of 32, and returns the (H/2, W/2, 2) f32 flow."""
+    W multiples of 32, and returns the (H/2, W/2, 2) f32 flow.
+    ``warp_bound`` (the level-2 bound of the bounded backwarp, see
+    ``_warp_bound``; None falls back to the env, 0 disables) and
+    ``warp_kernel`` reach the matching and subpixel heads."""
 
     def __init__(self):
         super().__init__()
@@ -325,7 +390,7 @@ class LiteFlowNet(nn.Module):
             setattr(self, f"subpixel{lvl}", Subpixel(lvl))
             setattr(self, f"regularization{lvl}", Regularization(lvl))
 
-    def forward(self, img1, img2):
+    def forward(self, img1, img2, warp_bound=None, warp_kernel=None):
         dtype = _compute_dtype(img1.device)
         img1 = img1 - torch.tensor(_MEAN_ONE, device=img1.device)
         img2 = img2 - torch.tensor(_MEAN_TWO, device=img2.device)
@@ -342,9 +407,11 @@ class LiteFlowNet(nn.Module):
         for idx in (-1, -2, -3, -4, -5):
             lvl = _LEVELS[idx]
             flow = getattr(self, f"matching{lvl}")(
-                feats1[idx], feats2[idx], flow, dtype)
+                feats1[idx], feats2[idx], flow, dtype, warp_bound,
+                warp_kernel)
             flow = getattr(self, f"subpixel{lvl}")(
-                feats1[idx], feats2[idx], flow, dtype)
+                feats1[idx], feats2[idx], flow, dtype, warp_bound,
+                warp_kernel)
             flow = getattr(self, f"regularization{lvl}")(
                 imgs1[idx], imgs2[idx], feats1[idx], flow, dtype)
         return flow * 20.0
@@ -500,6 +567,7 @@ def _to_rgb01(image) -> torch.Tensor:
 @torch.no_grad()
 def liteflownet(prev_gray_or_rgb, next_gray_or_rgb, *, net=None,
                 allow_random: bool = False, warp_bound: int | None = None,
+                warp_kernel: str | None = None,
                 corr_kernel: str | None = None,
                 scale: float = 1.0) -> torch.Tensor:
     """Estimate the (H, W, 2) f32 flow between two uint8 frames, RGB
@@ -507,12 +575,14 @@ def liteflownet(prev_gray_or_rgb, next_gray_or_rgb, *, net=None,
 
     Parity: liteflownet.py::liteflownet: resize to a multiple of 32, run,
     resize back, rescale magnitudes. ``net`` is a ``LiteFlowNet`` with its
-    weights (``get_weights``); None builds one from the environment."""
-    if warp_bound:
-        raise NotImplementedError(
-            "lfn_warp_bound > 0 (the bounded Pallas backwarp, kernel A3) is "
-            "not ported yet: ROADMAP Queue 1, item 11 and Queue 2, A3")
+    weights (``get_weights``); None builds one from the environment.
+    ``warp_bound`` and ``warp_kernel`` fall back to their environment
+    variables on each call (config key ``lfn_warp_bound``)."""
     check_kernel(corr_kernel)
+    if warp_bound is None:
+        warp_bound = _env_warp_bound() or None
+    if warp_kernel is None:
+        warp_kernel = os.environ.get(WARP_KERNEL_ENV) or None
     if not 0.0 < scale <= 1.0:
         raise ValueError(f"lfn_scale must be in (0, 1], got {scale}")
     if net is None:
@@ -526,6 +596,6 @@ def liteflownet(prev_gray_or_rgb, next_gray_or_rgb, *, net=None,
     if (ph, pw) != (h, w):
         img1 = bilinear_resize(img1, ph, pw)
         img2 = bilinear_resize(img2, ph, pw)
-    flow = bilinear_resize(net(img1, img2), h, w)
+    flow = bilinear_resize(net(img1, img2, warp_bound, warp_kernel), h, w)
     return flow * torch.tensor([w / pw, h / ph], dtype=torch.float32,
                                device=device)

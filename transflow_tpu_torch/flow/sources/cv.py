@@ -1,0 +1,92 @@
+"""Estimator selection and hyper-parameters of a frame source.
+
+Counterpart of transflow_tpu/flow/sources/cv.py's ``CvFlowConfig``: the
+same methods, defaults, validation, JSON round-trip and estimator kwargs,
+free of cv2. The live-tuning window is not ported (``show_window=True``
+raises); ``CvFlowSource``, the cv2 decoder, waits for the codec path.
+"""
+import json
+
+METHODS = ("farneback", "horn-schunck", "lukas-kanade", "liteflownet")
+
+
+class CvFlowConfig:
+    """Estimator selection + hyper-parameters, JSON round-trip."""
+
+    DEFAULTS = dict(
+        method="farneback",
+        fb_pyr_scale=0.5, fb_levels=3, fb_winsize=15, fb_iterations=3,
+        fb_poly_n=5, fb_poly_sigma=1.2, fb_flags=0, fb_downscale=1,
+        fb_select_warp=0,
+        hs_alpha=1.0, hs_iterations=3, hs_decay=0.0, hs_delta=1.0,
+        lk_window_size=15, lk_max_level=2, lk_step=1,
+        lfn_warp_bound=0, lfn_scale=1.0,
+    )
+
+    def __init__(self, show_window: bool = False, **kwargs):
+        if show_window:
+            raise NotImplementedError(
+                "the live-tuning window is not ported yet: ROADMAP Queue 1, "
+                "item 5 (Pipeline and CLI)")
+        unknown = set(kwargs) - set(self.DEFAULTS)
+        if unknown:
+            raise ValueError(f"Unknown cv_config keys: {sorted(unknown)}")
+        for key, default in self.DEFAULTS.items():
+            setattr(self, key, kwargs.get(key, default))
+        if self.method not in METHODS:
+            raise ValueError(f"Unknown flow method {self.method!r}")
+        if int(self.lfn_warp_bound) < 0:
+            raise ValueError(
+                f"lfn_warp_bound must be >= 0, got {self.lfn_warp_bound}")
+        if not 0.0 < float(self.lfn_scale) <= 1.0:
+            raise ValueError(
+                f"lfn_scale must be in (0, 1], got {self.lfn_scale}")
+        if int(self.fb_downscale) < 1:
+            raise ValueError(
+                f"fb_downscale must be >= 1, got {self.fb_downscale}")
+        if int(self.fb_select_warp) < 0:
+            raise ValueError(
+                f"fb_select_warp must be >= 0, got {self.fb_select_warp}")
+        self.show_window = show_window
+        self.version = 0  # bumped by update(); the engine rebuilds its step
+
+    def update(self, name, value):
+        setattr(self, name, value)
+        self.version += 1
+
+    def to_dict(self) -> dict:
+        return {key: getattr(self, key) for key in self.DEFAULTS}
+
+    def to_file(self, path: str):
+        with open(path, "w", encoding="utf8") as file:
+            json.dump(self.to_dict(), file, indent=4)
+
+    @classmethod
+    def from_file(cls, path: str) -> "CvFlowConfig":
+        with open(path, "r", encoding="utf8") as file:
+            return cls(**json.load(file))
+
+    def estimator_kwargs(self) -> dict:
+        """Static kwargs for the device estimator (flow/estimators/)."""
+        if self.method == "farneback":
+            return dict(pyr_scale=self.fb_pyr_scale, levels=int(self.fb_levels),
+                        winsize=int(self.fb_winsize),
+                        iterations=int(self.fb_iterations),
+                        poly_n=int(self.fb_poly_n),
+                        poly_sigma=self.fb_poly_sigma,
+                        flags=int(self.fb_flags),
+                        downscale=int(self.fb_downscale),
+                        select_warp=int(self.fb_select_warp))
+        if self.method == "horn-schunck":
+            return dict(alpha=self.hs_alpha, max_iters=int(self.hs_iterations),
+                        decay=self.hs_decay, delta=self.hs_delta)
+        if self.method == "lukas-kanade":
+            return dict(win_size=int(self.lk_window_size),
+                        max_level=int(self.lk_max_level),
+                        step=int(self.lk_step))
+        if self.method == "liteflownet":
+            # the level-2 bound of the bounded backwarp (kernel A3), passed
+            # even when 0 so the config overrides the environment fallback
+            return dict(warp_bound=int(self.lfn_warp_bound),
+                        scale=float(self.lfn_scale))
+        return {}
