@@ -13,17 +13,27 @@ Phases, in order; any failure exits non-zero:
 4. bounded backwarp vs plain: kernel A3 at the five shapes the bounded
    path gives it on a 1088x1920 frame (base bound 16), bf16 and f32
    images, flows within the bound and with a fifth of the pixels beyond;
-5. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
+5. sharded correlation: kernel A2 (``sharded_correlation7x7``) at the five
+   correlation shapes in the slice's dtype pairs, over 4 and 2 shards that
+   repeat the card (a level whose H does not shard is skipped, as the
+   Engine skips it), bit-equal to A1 and within 1e-5 of plain; over
+   distinct cards too where the machine has more than one;
+6. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
-6. engine: ``Engine`` at 1080x1920 over a frame source with
+7. engine: ``Engine`` at 1080x1920 over a frame source with
    ``CvFlowConfig(method="liteflownet", lfn_warp_bound=16)``, one moveref
    layer with random reset 0.01: a warm-up chunk, a timed chunk of 8
    frames, then ``process_frame`` calls, counting 9 A3 and 5 correlation
    launches per frame; then the same Engine with ``lfn_warp_bound=0``
    (the exact gather) on the same frames;
-7. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
-   the CPU slice, and the compositor on both devices on one flow.
+8. mesh engine: the bound-16 Engine under ``make_space_mesh(4)`` over
+   four shards of the card with ``halo=8``: the bound is stripped, and
+   each frame launches 16 A2 shard kernels (levels 2-5), 1 A1 (level 6)
+   and no A3; its flows and frames against the bound-0 run of phase 7;
+9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
+   the CPU slice, the compositor on both devices on one flow, and the
+   1080x1920 threefry draw of the random reset on both devices.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -63,6 +73,14 @@ WARP_PER_FRAME = {"L6": 1, "L5": 2, "L4": 2, "L3": 2, "L2": 2}
 # kernel vs plain: the same bf16 staging and f32 terms in the same order
 WARP_ATOL = WARP_RTOL = 1e-5
 WARP_BOUND = 16
+# the mesh Engine: four shards of one card, a halo of 8 rows (1080 / 4 =
+# 270 >= 8, so the sharded movement gather runs); A2 launches per frame
+MESH_SHARDS = 4
+MESH_HALO = 8
+A2_PER_FRAME = 16
+# A2 against A1: the same products in the same order
+A2_ATOL = 0.0
+MESH_FLOW_ATOL = 1e-5
 EQUIV_FLOW_ATOL = 1e-3
 SLICE_FRAMES = 8
 ENGINE_WARMUP = 2
@@ -225,32 +243,35 @@ def flagship_model(height: int, width: int, device):
         method="liteflownet", device=device)
 
 
-def run_frames(model, frames, pixmaps, generator):
-    """``model.step`` over frames[1:] from frames[0]; returns (frames out,
-    raw flows)."""
+def run_frames(model, frames, pixmaps, key):
+    """``model.step`` over frames[1:] from frames[0], ``key`` split once
+    per frame; returns (frames out, raw flows)."""
+    from transflow_tpu_torch import prng
     state = model.init_state(frames[0])
     numbers = model.default_frame_numbers()
     outs, flows = [], []
     for idx in range(1, len(frames)):
+        key, sub = prng.split(key)
         state, rgb = model.step(state, frames[idx], pixmaps,
-                                idx / model.framerate, generator, numbers)
+                                idx / model.framerate, sub, numbers)
         outs.append(rgb)
         flows.append(state["prev_flow"])
     return outs, flows
 
 
 def phase_slice(device, card: str) -> int:
+    from transflow_tpu_torch import prng
     from transflow_tpu_torch.ops.correlation import correlation7x7_cuda
     os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
     model = flagship_model(HEIGHT, WIDTH, device)
     frames = panned_frames(SLICE_FRAMES + 2, HEIGHT, WIDTH, device)
     pixmaps = model.default_pixmaps(SEED)
     numbers = model.default_frame_numbers()
-    gen = torch.Generator(device=device).manual_seed(SEED)
+    keys = prng.split(prng.key(SEED), SLICE_FRAMES + 2)
     torch.cuda.synchronize()
     correlation7x7_cuda.launches = 0
     state, _ = model.step(model.init_state(frames[0]), frames[1], pixmaps,
-                          0.0, gen, numbers)  # warm-up frame
+                          0.0, keys[1], numbers)  # warm-up frame
     # per-frame checks reduce on the card; one readback at the end
     finite = torch.ones((), dtype=torch.bool, device=device)
     checksum = torch.zeros((), dtype=torch.int64, device=device)
@@ -259,7 +280,7 @@ def phase_slice(device, card: str) -> int:
     start = time.perf_counter()
     for idx in range(2, SLICE_FRAMES + 2):
         state, rgb = model.step(state, frames[idx], pixmaps,
-                                idx / model.framerate, gen, numbers)
+                                idx / model.framerate, keys[idx], numbers)
         flow = state["prev_flow"]
         if rgb.shape != (HEIGHT, WIDTH, 3) or rgb.dtype != torch.uint8:
             raise AssertionError(f"bad frame {rgb.shape} {rgb.dtype}")
@@ -321,22 +342,38 @@ def frame_source(frames, bound: int):
     return source.open()
 
 
-def run_engine(device, frames, pixmap, bound: int) -> dict:
+def _launch_counters():
+    from transflow_tpu_torch.ops.correlation import (correlation7x7_cuda,
+                                                     sharded_correlation7x7)
+    from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
+    return bounded_backwarp_cuda, correlation7x7_cuda, sharded_correlation7x7
+
+
+def _launches() -> tuple[int, int, int]:
+    """(A3, A1, A2) launches since the counts were last set to 0."""
+    return tuple(fn.launches for fn in _launch_counters())
+
+
+def _zero_launches() -> None:
+    for fn in _launch_counters():
+        fn.launches = 0
+
+
+def run_engine(device, frames, pixmap, bound: int, mesh=None,
+               halo: int | None = None) -> dict:
     """The Engine over ``frames``: a warm-up chunk, a timed chunk, then
-    ``process_frame`` calls, with the kernels' launches counted from just
-    before the timed chunk."""
+    ``process_frame`` calls, with the kernels' (A3, A1, A2) launches
+    counted from just before the timed chunk."""
     from transflow_tpu_torch.compositor.core import make_layer_params
     from transflow_tpu_torch.config import Config, LayerConfig
     from transflow_tpu_torch.engine import Engine
-    from transflow_tpu_torch.ops.correlation import correlation7x7_cuda
-    from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
     source = frame_source(frames, bound)
     layer_params = make_layer_params(
         [LayerConfig(0, reset_mode="random", reset_random_factor=0.01)],
         HEIGHT, WIDTH, {0: [(3, None)]}, device=device)
     engine = Engine(Config("synthetic", direction="backward", seed=SEED),
                     [source], layer_params, HEIGHT, WIDTH,
-                    export_flows=True, device=device)
+                    export_flows=True, device=device, mesh=mesh, halo=halo)
     pixmaps, slots = ((pixmap,),), ((None,),)
     items = iter(source)
     warm = [next(items) for _ in range(ENGINE_WARMUP)]
@@ -345,8 +382,7 @@ def run_engine(device, frames, pixmap, bound: int) -> dict:
                          slots, 0, 0)
     chunk = torch.stack([next(items).array for _ in range(ENGINE_FRAMES)])
     torch.cuda.synchronize()
-    bounded_backwarp_cuda.launches = 0
-    correlation7x7_cuda.launches = 0
+    _zero_launches()
     start = time.perf_counter()
     out, flows = engine.process_chunk([chunk], pixmaps, slots,
                                       ENGINE_WARMUP, ENGINE_WARMUP)
@@ -356,8 +392,8 @@ def run_engine(device, frames, pixmap, bound: int) -> dict:
     finite, max_flow, checksum = (finite.item(), max_flow.item(),
                                   checksum.item())
     seconds = time.perf_counter() - start
-    chunk_launches = (bounded_backwarp_cuda.launches,
-                      correlation7x7_cuda.launches)
+    chunk_launches = _launches()
+    call_frames, call_flows = [], []
     for k in range(ENGINE_CALLS):
         fno = ENGINE_WARMUP + ENGINE_FRAMES + k
         frame, flow = engine.process_frame([next(items)], pixmaps,
@@ -365,16 +401,38 @@ def run_engine(device, frames, pixmap, bound: int) -> dict:
         if frame.shape != (HEIGHT, WIDTH, 3) or frame.dtype != torch.uint8:
             raise AssertionError(f"bad frame {frame.shape} {frame.dtype}")
         finite = finite and torch.isfinite(flow).all().item()
+        call_frames.append(frame)
+        call_flows.append(flow)
     torch.cuda.synchronize()
     return {"ms": 1e3 * seconds / ENGINE_FRAMES, "out": out, "flows": flows,
+            "call_frames": torch.stack(call_frames),
+            "call_flows": torch.stack(call_flows),
             "finite": finite, "max_flow": max_flow, "checksum": checksum,
-            "chunk_launches": chunk_launches,
-            "launches": (bounded_backwarp_cuda.launches,
-                         correlation7x7_cuda.launches)}
+            "chunk_launches": chunk_launches, "launches": _launches()}
 
 
-def phase_engine(device, card: str) -> tuple[int, int]:
-    """Returns the (A3, correlation) launches of the bounded run."""
+def _check_engine_run(name: str, run: dict, per_frame: tuple) -> None:
+    """Launches (A3, A1, A2) per frame over the chunk and over all calls,
+    finite flows and well-formed frames."""
+    frames_run = ENGINE_FRAMES + ENGINE_CALLS
+    want_chunk = tuple(n * ENGINE_FRAMES for n in per_frame)
+    want_all = tuple(n * frames_run for n in per_frame)
+    if run["chunk_launches"] != want_chunk or run["launches"] != want_all:
+        raise AssertionError(
+            f"{name}: (A3, A1, A2) launches {run['chunk_launches']} over "
+            f"the chunk, {run['launches']} in all; expected {per_frame} per "
+            "frame")
+    if not run["finite"]:
+        raise AssertionError(f"{name}: non-finite flow")
+    if run["out"].shape != (ENGINE_FRAMES, HEIGHT, WIDTH, 3) or \
+            run["out"].dtype != torch.uint8:
+        raise AssertionError(f"{name}: bad frames {tuple(run['out'].shape)} "
+                             f"{run['out'].dtype}")
+
+
+def phase_engine(device, card: str) -> dict:
+    """The Engine at lfn_warp_bound=16 and =0 on the same frames; returns
+    the runs, the frames and the pixmap."""
     os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
     n = 1 + ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS
     frames = panned_frames(n, HEIGHT, WIDTH, device)
@@ -382,39 +440,168 @@ def phase_engine(device, card: str) -> tuple[int, int]:
         0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
     runs = {bound: run_engine(device, frames, pixmap, bound)
             for bound in (WARP_BOUND, 0)}
-    frames_run = ENGINE_FRAMES + ENGINE_CALLS
     for bound, run in runs.items():
-        a3, corr = run["chunk_launches"]
+        a3, a1, a2 = run["chunk_launches"]
         print(f"engine {HEIGHT}x{WIDTH} liteflownet lfn_warp_bound={bound} "
               f"->moveref: {run['ms']:.2f} ms/frame "
               f"{1e3 / run['ms']:.2f} frames/s over a chunk of "
               f"{ENGINE_FRAMES} (max |flow| {run['max_flow']:.4g}, "
               f"checksum {run['checksum']}) on {card}")
         print(f"engine lfn_warp_bound={bound} launches over the chunk: "
-              f"bounded_backwarp {a3}, correlation7x7 {corr}; with "
-              f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
-        per_frame = 9 if bound else 0
-        if (a3, corr) != (per_frame * ENGINE_FRAMES, 5 * ENGINE_FRAMES) or \
-                run["launches"] != (per_frame * frames_run, 5 * frames_run):
-            raise AssertionError(
-                f"lfn_warp_bound={bound}: launches {run['chunk_launches']} "
-                f"over the chunk, {run['launches']} in all; expected "
-                f"{per_frame} bounded_backwarp and 5 correlation per frame")
-        if not run["finite"]:
-            raise AssertionError(f"non-finite flow at bound {bound}")
-        if run["out"].shape != (ENGINE_FRAMES, HEIGHT, WIDTH, 3) or \
-                run["out"].dtype != torch.uint8:
-            raise AssertionError(f"bad frames {tuple(run['out'].shape)} "
-                                 f"{run['out'].dtype}")
+              f"bounded_backwarp {a3}, correlation7x7 {a1}, "
+              f"sharded_correlation7x7 {a2}; with {ENGINE_CALLS} "
+              f"process_frame calls: {run['launches']}")
+        _check_engine_run(f"lfn_warp_bound={bound}", run,
+                          (9 if bound else 0, 5, 0))
     diff = (runs[WARP_BOUND]["flows"] - runs[0]["flows"]).abs().max().item()
     print(f"engine max |flow(lfn_warp_bound={WARP_BOUND}) - "
           f"flow(lfn_warp_bound=0)| {diff:.3e} over the chunk")
-    return runs[WARP_BOUND]["launches"]
+    return {"runs": runs, "frames": frames, "pixmap": pixmap}
+
+
+def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
+    """The lfn_warp_bound=16 Engine under a 4-shard mesh of the card with
+    halo=8, on phase 7's frames, against its meshless bound-0 run."""
+    from transflow_tpu_torch.parallel import make_space_mesh
+    mesh = make_space_mesh(MESH_SHARDS, devices=[device] * MESH_SHARDS)
+    run = run_engine(device, engine_phase["frames"], engine_phase["pixmap"],
+                     WARP_BOUND, mesh=mesh, halo=MESH_HALO)
+    ref = engine_phase["runs"][0]
+    a3, a1, a2 = run["chunk_launches"]
+    print(f"mesh engine {HEIGHT}x{WIDTH} {mesh} halo={MESH_HALO} "
+          f"liteflownet (lfn_warp_bound={WARP_BOUND} stripped) ->moveref: "
+          f"{run['ms']:.2f} ms/frame against {ref['ms']:.2f} meshless "
+          f"(lfn_warp_bound=0) over a chunk of {ENGINE_FRAMES} (max |flow| "
+          f"{run['max_flow']:.4g}, checksum {run['checksum']}) on {card}")
+    print(f"mesh engine launches over the chunk: bounded_backwarp {a3}, "
+          f"correlation7x7 {a1}, sharded_correlation7x7 {a2}; with "
+          f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
+    _check_engine_run("mesh engine", run, (0, 1, A2_PER_FRAME))
+    diff = max((run["flows"] - ref["flows"]).abs().max().item(),
+               (run["call_flows"] - ref["call_flows"]).abs().max().item())
+    same = (torch.equal(run["out"], ref["out"])
+            and torch.equal(run["call_frames"], ref["call_frames"]))
+    print(f"mesh engine vs meshless: max |dflow| {diff:.3e}, frames "
+          f"{'bit-equal' if same else 'DIFFER'} over "
+          f"{ENGINE_FRAMES + ENGINE_CALLS} frames")
+    if not diff <= MESH_FLOW_ATOL:
+        raise AssertionError(f"mesh engine flows differ by {diff}")
+    if not same:
+        raise AssertionError("mesh engine frames differ from meshless")
+    return run
+
+
+def a2_plain(f1, f2, mesh, stride: int):
+    """The plain version of A2: the library's split and halo exchange,
+    ``correlation7x7_band`` on each shard, join."""
+    from transflow_tpu_torch.ops.correlation import (MAX_DISP, _stage_dtype,
+                                                     correlation7x7_band)
+    from transflow_tpu_torch.parallel import exchange_rows
+    pad = MAX_DISP * stride
+    f1_bands = mesh.split(_stage_dtype(f1))
+    f2_bands = mesh.split(_stage_dtype(f2))
+    outs = [correlation7x7_band(a, torch.cat([top, b, bottom]), stride, pad)
+            for a, b, (top, bottom) in zip(
+                f1_bands, f2_bands, exchange_rows(f2_bands, pad, mesh))]
+    return mesh.join(outs, f1.device)
+
+
+def phase_sharded_kernels(device) -> list[dict]:
+    """Kernel A2 against A1 (bit-equal) and its plain version (1e-5) at
+    the five correlation shapes in the slice's dtype pairs."""
+    from transflow_tpu_torch.ops.correlation import (correlation7x7_cuda,
+                                                     sharded_correlation7x7,
+                                                     sharded_ok)
+    from transflow_tpu_torch.parallel import make_space_mesh
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    rows = []
+    for h, w, c, stride, level in CORR_SHAPES:
+        t1, t2 = MAIN_PAIR[level]
+        f1 = torch.randn((h, w, c), generator=gen, device=device).to(t1)
+        f2 = torch.randn((h, w, c), generator=gen, device=device).to(t2)
+        a1 = correlation7x7_cuda(f1, f2, stride)
+        for n in (MESH_SHARDS, 2):
+            if not sharded_ok(h, n, stride):
+                print(f"a2 {level} ({h},{w},{c}) s{stride} x{n}: H does not "
+                      "shard (sharded_ok false), unsharded A1 runs there")
+                continue
+            mesh = make_space_mesh(n, devices=[device] * n)
+            got = sharded_correlation7x7(f1, f2, mesh, stride)
+            plain = a2_plain(f1, f2, mesh, stride)
+            torch.cuda.synchronize()
+            err_a1 = (got - a1).abs().max().item()
+            err = (got - plain).abs().max().item()
+            ok = torch.allclose(got, plain, atol=CORR_ATOL, rtol=CORR_RTOL)
+            ms = cuda_ms(lambda: sharded_correlation7x7(f1, f2, mesh, stride))
+            a1_ms = cuda_ms(lambda: correlation7x7_cuda(f1, f2, stride))
+            plain_ms = cuda_ms(lambda: a2_plain(f1, f2, mesh, stride),
+                               reps=10)
+            print(f"a2 {level} ({h},{w},{c}) s{stride} x{n} "
+                  f"{str(t1)[6:]}/{str(t2)[6:]}: |A2-A1| {err_a1:.3e} "
+                  f"|A2-plain| {err:.3e} A2 {ms:.4f} ms A1 {a1_ms:.4f} ms "
+                  f"plain {plain_ms:.4f} ms")
+            if err_a1 > A2_ATOL or not ok:
+                raise AssertionError(
+                    f"A2 disagrees at {level} x{n}: |A2-A1| {err_a1}, "
+                    f"|A2-plain| {err}")
+            rows.append({"level": level, "shards": n, "err": err,
+                         "err_a1": err_a1, "ms": ms, "a1_ms": a1_ms,
+                         "plain_ms": plain_ms})
+    count = torch.cuda.device_count()
+    if count >= 2:
+        h, w, c, stride, level = CORR_SHAPES[-1]
+        n = min(MESH_SHARDS, count)
+        f1 = torch.randn((h, w, c), generator=gen, device=device).to(BF16)
+        f2 = torch.randn((h, w, c), generator=gen, device=device)
+        got = sharded_correlation7x7(f1, f2, make_space_mesh(n), stride)
+        err = (got - correlation7x7_cuda(f1, f2, stride)).abs().max().item()
+        print(f"a2 {level} over {n} cards: |A2-A1| {err:.3e}")
+        if err > A2_ATOL:
+            raise AssertionError(f"A2 over {n} cards disagrees: {err}")
+    return rows
+
+
+def phase_draw(device) -> dict:
+    """The random reset's 1080x1920 threefry draw on the card against the
+    CPU's, with its time and its launches (ATen ops that run a kernel)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from transflow_tpu_torch import prng
+
+    class CountOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    key = prng.split(prng.key(SEED))[1]
+    got = prng.uniform(key, (HEIGHT, WIDTH), device)
+    same = torch.equal(got.cpu(), prng.uniform(key, (HEIGHT, WIDTH)))
+    with CountOps() as counter:
+        prng.uniform(key, (HEIGHT, WIDTH), device)
+    ms = cuda_ms(lambda: prng.uniform(key, (HEIGHT, WIDTH), device))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(20):
+        prng.uniform(key, (HEIGHT, WIDTH), device)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - start) / 20
+    print(f"draw {HEIGHT}x{WIDTH} threefry uniform cuda vs cpu: "
+          f"{'bit-equal' if same else 'DIFFER'}; {ms:.4f} ms (events) "
+          f"{host_ms:.4f} ms (host, synced) and {counter.ops} launches per "
+          "frame (one random layer)")
+    if not same:
+        raise AssertionError("the threefry draw differs between the card "
+                             "and the CPU")
+    return {"ms": ms, "host_ms": host_ms, "launches": counter.ops}
 
 
 def phase_equivalence(device) -> None:
-    from transflow_tpu_torch.compositor.core import (
-        build_compositor, make_layer_params, update_moveref)
+    from transflow_tpu_torch import prng
+    from transflow_tpu_torch.compositor.core import (build_compositor,
+                                                     make_layer_params)
     from transflow_tpu_torch.config import LayerConfig
     from transflow_tpu_torch.flow.transforms import clip_to_frame
     os.environ["TRANSFLOW_LITEFLOWNET_BF16"] = "0"
@@ -425,9 +612,8 @@ def phase_equivalence(device) -> None:
     flows = {}
     for dev in (device, "cpu"):
         model = flagship_model(h, w, dev)
-        gen = torch.Generator(device=dev).manual_seed(SEED)
         _, got = run_frames(model, frames.to(dev),
-                            model.default_pixmaps(SEED), gen)
+                            model.default_pixmaps(SEED), prng.key(SEED))
         flows[dev] = torch.stack(got).cpu()
     err = (flows[device] - flows["cpu"]).abs().max().item()
     print(f"equivalence {h}x{w} f32 slice cuda vs cpu: max |dflow| "
@@ -436,7 +622,8 @@ def phase_equivalence(device) -> None:
         raise AssertionError(f"CUDA and CPU flows differ by {err}")
 
     # the compositor on one flow: large integer and half-integer motion
-    # on top of the estimated flow, with the reset draw fed to both
+    # on top of the estimated flow, the random reset drawn on each device
+    # from one key chain
     rng = np.random.default_rng(SEED)
     cfg = LayerConfig(0, reset_mode="random", reset_random_factor=0.05,
                       moving_pixels_leave_empty_spot=True)
@@ -450,16 +637,14 @@ def phase_equivalence(device) -> None:
             np.random.default_rng(SEED).integers(0, 256, (h, w, 3),
                                                  np.uint8)).to(dev)
         rng = np.random.default_rng(SEED)
+        key = prng.key(SEED)
         for idx in range(EQUIV_FRAMES):
             motion = (rng.integers(-6, 7, (h, w, 2))
                       + 0.5 * rng.integers(0, 2, (h, w, 2)))
             flow = clip_to_frame(flows["cpu"][idx].to(dev)
                                  + torch.from_numpy(motion).float().to(dev))
-            rand = torch.from_numpy(
-                rng.random((h, w), dtype=np.float32)).to(dev)
-            state = [update_moveref(params[0], state[0], flow, (pixmap,),
-                                    rand)]
-            state, rgb = step_fn.render(state)
+            key, sub = prng.split(key)
+            state, rgb = step_fn(state, flow, ((pixmap,),), sub, ((0,),))
         results[dev] = ({k: v.cpu() for k, v in state[0].items()},
                         rgb.cpu())
     (s_dev, rgb_dev), (s_cpu, rgb_cpu) = results[device], results["cpu"]
@@ -478,20 +663,32 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(device)
     warp_rows = phase_warp_kernels(device)
+    a2_rows = phase_sharded_kernels(device)
     slice_launches = phase_slice(device, card)
-    warp_launches, engine_corr_launches = phase_engine(device, card)
+    engine_phase = phase_engine(device, card)
+    mesh_run = phase_mesh_engine(device, card, engine_phase)
     phase_equivalence(device)
+    phase_draw(device)
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound
     main_warp = [(WARP_PER_FRAME[r["level"]], r) for r in warp_rows
                  if r["dtype"] == BF16 and not r["beyond"]]
+    # one frame of the mesh Engine: levels 2-5 over four shards
+    mesh_a2 = [r for r in a2_rows if r["shards"] == MESH_SHARDS]
+    runs = engine_phase["runs"]
+    print(f"a2 per frame at {MESH_SHARDS} shards (levels "
+          f"{', '.join(r['level'] for r in mesh_a2)}): A2 "
+          f"{sum(r['ms'] for r in mesh_a2):.4f} ms, A1 on the same levels "
+          f"{sum(r['a1_ms'] for r in mesh_a2):.4f} ms, plain "
+          f"{sum(r['plain_ms'] for r in mesh_a2):.4f} ms")
     record = {"kernels": [{
         "name": "correlation7x7",
         "route": "cuda",
         "source": "transflow_tpu_torch/csrc/correlation.cu",
         "replaces": "transflow_tpu/ops/pallas_correlation.py:110",
-        # the slice's and the bounded Engine's runs
-        "launches": slice_launches + engine_corr_launches,
+        # the slice's and the three Engine runs'
+        "launches": slice_launches + sum(
+            run["launches"][1] for run in (*runs.values(), mesh_run)),
         "max_abs_err": max(r["err"] for r in rows),
         # per frame: the five levels in the slice's dtype pairs
         "ms": sum(r["ms"] for r in main_rows),
@@ -501,11 +698,22 @@ def main() -> int:
         "route": "cuda",
         "source": "transflow_tpu_torch/csrc/bounded_warp.cu",
         "replaces": "transflow_tpu/ops/pallas_warp.py:117",
-        "launches": warp_launches,
+        "launches": runs[WARP_BOUND]["launches"][0],
         "max_abs_err": max(r["err"] for r in warp_rows),
         # per frame: nine launches over the five levels
         "ms": sum(n * r["ms"] for n, r in main_warp),
         "plain_ms": sum(n * r["plain_ms"] for n, r in main_warp),
+    }, {
+        "name": "sharded_correlation7x7",
+        "route": "cuda",
+        "source": "transflow_tpu_torch/csrc/correlation.cu",
+        "replaces": "transflow_tpu/ops/pallas_correlation.py:138",
+        # the mesh Engine's run
+        "launches": mesh_run["launches"][2],
+        "max_abs_err": max(r["err"] for r in a2_rows),
+        # per frame: split, exchange, kernels and join at levels 2-5
+        "ms": sum(r["ms"] for r in mesh_a2),
+        "plain_ms": sum(r["plain_ms"] for r in mesh_a2),
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """The port's moveref compositor against the JAX package's, bit for bit.
 
 Both get the same flows (large integer and half-integer motion, clipped
-to the frame) and, for the random reset, the same uniform draw: the one
-``jax.random.uniform`` makes from the JAX step's per-layer key
-(core.py:518, :278), fed to the port.
+to the frame) and the same key: the port's ``update`` splits it into
+per-layer keys and draws the random reset with ``prng.uniform``, as the
+JAX step does with ``jax.random`` (core.py:518, :278).
 """
 import numpy as np
 import pytest
@@ -79,12 +79,8 @@ def _run_both(cfg_kwargs: dict, sources: str, seed: int = 0):
     for (jflow, flow), key in zip(_flows(seed), keys):
         jstate = jstep.update(jstate, jflow, jpix, key, numbers)
         jstate, jrgb = jstep.render(jstate)
-        rand = None
-        if params[0].cfg.reset_mode == "random":
-            layer_key = jax.random.split(key, 1)[0]
-            rand = torch.from_numpy(np.array(
-                jax.random.uniform(layer_key, (H, W))))
-        state = [core.update_moveref(params[0], state[0], flow, tpix, rand)]
+        state = step.update(state, flow, (tpix,),
+                            np.asarray(jax.random.key_data(key)), numbers)
         state, rgb = step.render(state)
         _assert_state_equal(state[0], jstate[0])
         np.testing.assert_array_equal(rgb.numpy(), np.asarray(jrgb))
@@ -129,30 +125,37 @@ def test_pixmap_layouts_bit_exact(sources, reset):
 
 
 def test_update_draws_from_the_generator():
-    """step_fn.update draws the random reset per layer from the caller's
-    generator: the same seed gives the same frames."""
+    """step_fn draws each layer's random reset from its own split of the
+    caller's key, as the JAX step does: two random layers and a linear one
+    over four frames, bit-equal to the JAX compositor."""
     cfgs = [LayerConfig(0, reset_mode="random", reset_random_factor=0.3),
-            LayerConfig(1, reset_mode="linear")]
-    params = core.make_layer_params(cfgs, H, W, {0: [(3, None)],
-                                                 1: [(4, None)]})
+            LayerConfig(1, reset_mode="linear"),
+            LayerConfig(2, reset_mode="random", reset_random_factor=0.6)]
+    srcs = {0: [(3, None)], 1: [(4, None)], 2: [(3, None)]}
+    params = core.make_layer_params(cfgs, H, W, srcs)
+    jparams = jcore.make_layer_params(
+        [JaxLayerConfig(c.index, **{k: v for k, v in vars(c).items()
+                                    if k in ("reset_mode",
+                                             "reset_random_factor")})
+         for c in cfgs], H, W, srcs)
     init, step = core.build_compositor(params, H, W)
+    jinit, jstep = jcore.build_compositor(jparams, H, W)
     rng = np.random.default_rng(0)
-    pix = (tuple([torch.from_numpy(rng.integers(0, 256, (H, W, 3),
-                                                dtype=np.uint8))]),
-           tuple([torch.from_numpy(rng.integers(0, 256, (H, W, 4),
-                                                dtype=np.uint8))]))
-    runs = []
-    for _ in range(2):
-        gen = torch.Generator().manual_seed(7)
-        state = init()
-        for _, flow in _flows(1)[:4]:
-            state, rgb = step(state, flow, pix, gen, ((0,), (0,)))
-        runs.append((state, rgb))
-    assert torch.equal(runs[0][1], runs[1][1])
-    for a, b in zip(runs[0][0], runs[1][0]):
-        for key in a:
-            assert torch.equal(a[key], b[key])
-    assert runs[0][1].dtype == torch.uint8 and runs[0][1].shape == (H, W, 3)
+    pix = [rng.integers(0, 256, (H, W, c), dtype=np.uint8) for c in (3, 4, 3)]
+    tpix = tuple((torch.from_numpy(p),) for p in pix)
+    jpix = tuple((jnp.asarray(p),) for p in pix)
+    numbers = ((0,), (0,), (0,))
+    state, jstate = init(), jinit()
+    key = jax.random.key(7)
+    for jflow, flow in _flows(1)[:4]:
+        key, sub = jax.random.split(key)
+        state, rgb = step(state, flow, tpix,
+                          np.asarray(jax.random.key_data(sub)), numbers)
+        jstate, jrgb = jstep(jstate, jflow, jpix, sub, numbers)
+        np.testing.assert_array_equal(rgb.numpy(), np.asarray(jrgb))
+        for layer, jlayer in zip(state, jstate):
+            _assert_state_equal(layer, jlayer)
+    assert rgb.dtype == torch.uint8 and rgb.shape == (H, W, 3)
 
 
 def test_scatter_any_matches_jax():
@@ -183,6 +186,3 @@ def test_unported_layers_and_masks_raise():
             [LayerConfig(0, classname=classname)], H, W, {0: [(3, None)]})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             core.build_compositor(params, H, W)
-    params = core.make_layer_params([LayerConfig(0)], H, W, {0: [(3, None)]})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        core.build_compositor(params, H, W, halo=4)

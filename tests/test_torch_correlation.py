@@ -76,12 +76,22 @@ def test_odd_sizes_stride2_take_ceil():
 
 
 def test_unported_overrides_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """JAX's checks of an override: an unknown name, and 'pallas_halo'
+    without a mesh that has a 'space' axis, raise ValueError."""
+    for kernel in (None, "xla", "pallas"):
+        check_kernel(kernel)
+    with pytest.raises(ValueError, match="must be"):
+        check_kernel("mxu")
+    with pytest.raises(ValueError, match="needs a mesh"):
         check_kernel("pallas_halo")
-    with pytest.raises(ValueError):
-        check_kernel("xla")
+
+    class StreamOnly:
+        shape = {"stream": 2}
+
+    with pytest.raises(ValueError, match="'space'"):
+        check_kernel("pallas_halo", StreamOnly())
     f = torch.zeros(4, 4, 2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs a mesh"):
         correlation(f, f, kernel="pallas_halo")
 
 

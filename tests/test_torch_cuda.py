@@ -9,12 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from transflow_tpu_torch import prng
 from transflow_tpu_torch.ops.correlation import (correlation,
                                                  correlation7x7,
-                                                 correlation7x7_cuda)
+                                                 correlation7x7_cuda,
+                                                 sharded_correlation7x7)
 from transflow_tpu_torch.ops.warp import (bounded_backwarp,
                                           bounded_backwarp_cuda,
                                           bounded_backwarp_plain)
+from transflow_tpu_torch.parallel import make_space_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +86,38 @@ def test_bounded_backwarp_matches_plain(device, shape, dtype):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: "/".join(
+    str(t)[6:] for t in p))
+@pytest.mark.parametrize("shape", [(64, 48, 16, 1, 4), (128, 48, 32, 2, 4),
+                                   (136, 240, 96, 1, 4), (272, 480, 64, 2, 4),
+                                   (68, 120, 128, 1, 2)], ids=str)
+def test_sharded_kernel_equals_unsharded(device, shape, pair):
+    """Kernel A2 over shards that repeat one card: every output pixel sums
+    the same products in the same order as kernel A1, so bit-equal."""
+    h, w, c, stride, n = shape
+    gen = torch.Generator(device=device).manual_seed(2)
+    f1 = torch.randn((h, w, c), generator=gen, device=device).to(pair[0])
+    f2 = torch.randn((h, w, c), generator=gen, device=device).to(pair[1])
+    mesh = make_space_mesh(n, devices=[device] * n)
+    before = (sharded_correlation7x7.launches, correlation7x7_cuda.launches)
+    got = sharded_correlation7x7(f1, f2, mesh, stride)
+    torch.cuda.synchronize()
+    assert (sharded_correlation7x7.launches,
+            correlation7x7_cuda.launches) == (before[0] + n, before[1])
+    want = correlation7x7_cuda(f1, f2, stride)
+    assert got.shape == want.shape and got.device == f1.device
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_uniform_on_card_matches_cpu(device):
+    """The threefry draw on the card is the CPU's, bit for bit."""
+    key = prng.split(prng.key(7), 3)[1]
+    got = prng.uniform(key, (1080, 1920), device)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), prng.uniform(key, (1080, 1920)),
+                               atol=0, rtol=0)
+
+
 def test_slice_on_card_matches_cpu(device, exact_f32):
     from transflow_tpu_torch.config import LayerConfig
     from transflow_tpu_torch.model import FlowTransferModel
@@ -97,11 +132,11 @@ def test_slice_on_card_matches_cpu(device, exact_f32):
                                   method="liteflownet", device=dev)
         state = model.init_state(clip[0])
         pix = model.default_pixmaps()
-        gen = torch.Generator(device=dev).manual_seed(0)
+        keys = prng.split(prng.key(0), len(clip) - 1)
         before = correlation7x7_cuda.launches
         out = []
-        for frame in clip[1:]:
-            state, rgb = model.step(state, frame, pix, 0.0, gen,
+        for frame, key in zip(clip[1:], keys):
+            state, rgb = model.step(state, frame, pix, 0.0, key,
                                     model.default_frame_numbers())
             out.append(state["prev_flow"].cpu())
         launches = correlation7x7_cuda.launches - before

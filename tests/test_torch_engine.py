@@ -1,13 +1,11 @@
 """The port's Engine against the JAX package's, on the CPU.
 
 A flow-yielding stub source feeds both Engines the same raw flows, so the
-post-process, compositor and renderers must match bit for bit (moveref with
-the constant and linear resets, which draw no random numbers). A
-LiteFlowNet frame source at ``lfn_warp_bound=8`` runs the bounded backwarp
-through both Engines; its flows meet the network bar. The random reset
-draws from a ``torch.Generator`` in the port, so with it the port is held
-to itself: chunked equals per-frame, and a checkpoint resume equals an
-uninterrupted run.
+post-process, compositor and renderers must match bit for bit, the random
+reset included: both Engines split JAX's threefry key of the seed once per
+frame. A LiteFlowNet frame source at ``lfn_warp_bound=8`` runs the bounded
+backwarp through both Engines; its flows meet the network bar. A
+checkpoint of either package resumes in the other.
 """
 import logging
 
@@ -15,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from transflow_tpu import config as jconfig
@@ -139,6 +138,16 @@ ENGINE_CASES = {
         dict(reset_mode="linear"),
         dict(view_flow_magnitude=True, render_scale=0.2,
              render_colors="#102030,#f0e0d0"), 2, "chunk"),
+    "random-frame": (dict(reset_mode="random", reset_random_factor=0.05),
+                     {}, 1, "frame"),
+    "random-chunk": (dict(reset_mode="random", reset_random_factor=0.05),
+                     {}, 1, "chunk"),
+    "random-high-frame": (dict(reset_mode="random", reset_random_factor=0.7,
+                               moving_pixels_leave_empty_spot=True,
+                               reset_source=True), {}, 1, "frame"),
+    "random-high-chunk": (dict(reset_mode="random", reset_random_factor=0.7,
+                               moving_pixels_leave_empty_spot=True,
+                               reset_source=True), {}, 1, "chunk"),
 }
 
 
@@ -176,6 +185,8 @@ def test_flow_source_engine_matches_jax(case):
     np.testing.assert_array_equal(frames.numpy(), np.asarray(jframes))
     np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
     _assert_states_equal(eng.comp_state, jeng.comp_state)
+    np.testing.assert_array_equal(eng.key,
+                                  np.asarray(jax.random.key_data(jeng.key)))
     assert len(np.unique(frames.numpy())) > 2      # the frames move
 
 
@@ -236,7 +247,7 @@ def _assert_engines_equal(a, b):
     for layer_a, layer_b in zip(a.comp_state, b.comp_state):
         for key in layer_a:
             assert torch.equal(layer_a[key], layer_b[key]), key
-    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    np.testing.assert_array_equal(a.key, b.key)
 
 
 def test_chunk_equals_frames_with_random_reset(random_weights):
@@ -274,6 +285,9 @@ def test_state_arrays_match_jax_names_and_dtypes():
     assert layers == jlayers and len(layers) == 5
     assert set(arrays) - set(layers) == {engine.RNG_STATE_KEY}
     assert set(jarrays) - set(jlayers) == {"rng_key"}
+    key, jkey = arrays["rng_key"], jarrays["rng_key"]
+    assert key.dtype == jkey.dtype and key.shape == jkey.shape
+    np.testing.assert_array_equal(key, jkey)
 
 
 def test_checkpoint_resume_is_bit_equal(random_weights, tmp_path):
@@ -288,7 +302,7 @@ def test_checkpoint_resume_is_bit_equal(random_weights, tmp_path):
         first.process_frame([item], pix, k / FPS, ((k,),))
     path = tmp_path / "ckpt.npz"
     np.savez(path, **first.state_arrays())
-    resumed = _lfn_engine(video, seed=99)     # the generator state loads
+    resumed = _lfn_engine(video, seed=99)     # the key loads
     resumed.load_state_arrays(dict(np.load(path)))
     resumed.runtimes[0].reset(items[2].array)
     for k, item in enumerate(items[3:], start=3):
@@ -298,27 +312,58 @@ def test_checkpoint_resume_is_bit_equal(random_weights, tmp_path):
 
 
 @pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
-def test_checkpoints_cross_load(direction, caplog):
-    """The compositor leaves load into either package; the other package's
-    RNG entry is ignored (the JAX key with a logged warning)."""
-    flows = _flows(4)
-    eng, jeng = _engines(dict(reset_mode="linear"),
-                         dict(direction="backward", seed=0),
+def test_checkpoints_cross_load(direction):
+    """A checkpoint written by either package resumes in the other: after
+    loading it, the reader renders the writer's following frames bit for
+    bit, random resets included (the key travels as ``rng_key``)."""
+    flows = _flows(8)
+    eng, jeng = _engines(dict(reset_mode="random", reset_random_factor=0.3,
+                              moving_pixels_leave_empty_spot=True),
+                         dict(direction="backward", seed=3),
                          [(_source(base, flows, "flow"),
                            _source(jbase, flows, "flow"))])
     pix = _pixmap(H, W)
-    eng.process_chunk([flows], ((pix,),), ((None,),), 0, 0)
-    jeng.process_chunk([flows[::-1].copy()], ((jnp.asarray(pix),),),
-                       ((None,),), 0, 0)
+    tpix, jpix = ((pix,),), ((jnp.asarray(pix),),)
+    head, tail = flows[:4], flows[4:]
+    # the writer runs the head; the reader other frames, so its key and
+    # state differ until it loads the checkpoint
     if direction == "jax-to-port":
-        generator = eng.generator.get_state()
-        with caplog.at_level(logging.WARNING, logger=engine.__name__):
-            eng.load_state_arrays(jeng.state_arrays())
-        assert "rng_key" in caplog.text
-        assert torch.equal(eng.generator.get_state(), generator)
+        jeng.process_chunk([head], jpix, ((None,),), 0, 0)
+        eng.process_chunk([flows[::-1][:3].copy()], tpix, ((None,),), 0, 0)
+        eng.load_state_arrays(jeng.state_arrays())
     else:
+        eng.process_chunk([head], tpix, ((None,),), 0, 0)
+        jeng.process_chunk([flows[::-1][:3].copy()], jpix, ((None,),), 0, 0)
         jeng.load_state_arrays(eng.state_arrays())
     _assert_states_equal(eng.comp_state, jeng.comp_state)
+    frames, _ = eng.process_chunk([tail], tpix, ((None,),), 4, 4)
+    jframes, _ = jeng.process_chunk([tail], jpix, ((None,),), 4, 4)
+    np.testing.assert_array_equal(frames.numpy(), np.asarray(jframes))
+    _assert_states_equal(eng.comp_state, jeng.comp_state)
+    np.testing.assert_array_equal(eng.key,
+                                  np.asarray(jax.random.key_data(jeng.key)))
+
+
+def test_legacy_generator_state_is_ignored(caplog):
+    """An earlier port's checkpoint holds a torch generator state instead
+    of ``rng_key``: its compositor leaves load, the key stays, and a
+    warning says so."""
+    flows = _flows(2)
+    eng, _ = _engines(dict(reset_mode="linear"),
+                      dict(direction="backward", seed=0),
+                      [(_source(base, flows, "flow"),
+                        _source(jbase, flows, "flow"))])
+    arrays = eng.state_arrays()
+    key = arrays.pop(engine.RNG_STATE_KEY)
+    arrays["torch_generator_state"] = torch.Generator().get_state().numpy()
+    arrays["layer0.alpha"] = np.zeros_like(arrays["layer0.alpha"])
+    eng.key = np.array([1, 2], np.uint32)
+    with caplog.at_level(logging.WARNING, logger=engine.__name__):
+        eng.load_state_arrays(arrays)
+    assert "torch_generator_state" in caplog.text
+    np.testing.assert_array_equal(eng.key, [1, 2])
+    assert not eng.comp_state[0]["alpha"].any()
+    assert key.dtype == np.uint32
 
 
 # ---------------------------------------------------------------------------
@@ -390,17 +435,6 @@ def test_estimator_step_frame_order(direction, monkeypatch):
     want = ("prev", "next") if direction == Direction.FORWARD \
         else ("next", "prev")
     assert step("prev", "next", None) == want
-
-
-def test_mesh_is_not_ported():
-    cfg = cv.CvFlowConfig(method="liteflownet", lfn_warp_bound=12)
-    assert engine.mesh_safe_estimator_kwargs(cfg, None) == {
-        "warp_bound": 12, "scale": 1.0}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine.mesh_safe_estimator_kwargs(cfg, object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine.Engine(config.Config("in.mp4", seed=0), [], [], H, W,
-                      mesh=object())
 
 
 # ---------------------------------------------------------------------------

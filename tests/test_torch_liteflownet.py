@@ -232,9 +232,13 @@ def test_compute_dtype(monkeypatch):
 
 
 def test_unported_options_raise(port_net):
+    """Overrides are checked before the network runs: 'pallas_halo' needs
+    a mesh, and an unknown correlation kernel is refused."""
     a = torch.zeros(32, 32, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         lfn.liteflownet(a, a, net=port_net, corr_kernel="pallas_halo")
+    with pytest.raises(ValueError, match="must be"):
+        lfn.liteflownet(a, a, net=port_net, corr_kernel="cuda")
 
 
 def test_bf16_conv_bias_order_matches_flax():

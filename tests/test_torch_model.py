@@ -22,6 +22,7 @@ from transflow_tpu.flow import Direction
 from transflow_tpu.flow.estimators import liteflownet as jlfn
 from transflow_tpu.model import FlowTransferModel as JaxModel
 from transflow_tpu.ops.image import upscale_flow as jax_upscale_flow
+from transflow_tpu_torch import prng
 from transflow_tpu_torch.config import LayerConfig
 from transflow_tpu_torch.model import FlowTransferModel
 from transflow_tpu_torch.ops.image import upscale_flow
@@ -52,22 +53,27 @@ def _frames(n, h=H, w=W, step=2):
 
 def test_model_matches_jax(random_weights):
     frames = _frames(FRAMES + 1)
-    jmodel = JaxModel(H, W, method="liteflownet")
-    model = FlowTransferModel(H, W, method="liteflownet")
+    layers = [dict(reset_mode="random", reset_random_factor=0.2)]
+    jmodel = JaxModel(H, W, [JaxLayerConfig(0, **layers[0])],
+                      method="liteflownet")
+    model = FlowTransferModel(H, W, [LayerConfig(0, **layers[0])],
+                              method="liteflownet")
     jstate = jmodel.init_state(frames[0])
     state = model.init_state(torch.from_numpy(frames[0]))
     jpix, pix = jmodel.default_pixmaps(), model.default_pixmaps()
     for a, b in zip(jpix[0], pix[0]):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
-    key = jax.random.key(0)
-    gen = torch.Generator().manual_seed(0)
+    jkeys = jax.random.split(jax.random.key(0), FRAMES)
+    keys = prng.split(prng.key(0), FRAMES)
+    np.testing.assert_array_equal(keys, np.asarray(jax.random.key_data(jkeys)))
     for idx in range(1, FRAMES + 1):
         t = idx / 30.0
         jstate, jrgb = jmodel.step(jstate, jnp.asarray(frames[idx]), jpix,
-                                   jnp.float32(t), key,
+                                   jnp.float32(t), jkeys[idx - 1],
                                    jmodel.default_frame_numbers())
         state, rgb = model.step(state, torch.from_numpy(frames[idx]), pix,
-                                t, gen, model.default_frame_numbers())
+                                t, keys[idx - 1],
+                                model.default_frame_numbers())
         np.testing.assert_allclose(state["prev_flow"].numpy(),
                                    np.asarray(jstate["prev_flow"]),
                                    atol=FLOW_TOL, rtol=FLOW_TOL)
@@ -84,12 +90,12 @@ def test_scan_equals_steps(random_weights):
         method="liteflownet", width_factor=2)
     pix = model.default_pixmaps()
     state_a, rgbs = model.scan(model.init_state(frames[0]), frames[1:], pix,
-                               0.0, torch.Generator().manual_seed(3))
+                               0.0, prng.key(3))
     state_b = model.init_state(frames[0])
-    gen = torch.Generator().manual_seed(3)
+    keys = prng.split(prng.key(3), FRAMES)     # model.py:183
     for idx in range(FRAMES):
         state_b, rgb = model.step(state_b, frames[idx + 1], pix, idx / 30.0,
-                                  gen, model.default_frame_numbers(idx))
+                                  keys[idx], model.default_frame_numbers(idx))
         assert torch.equal(rgbs[idx], rgb)
     assert rgbs.shape == (FRAMES, H, 2 * W, 3)
     assert torch.equal(state_a["prev_flow"], state_b["prev_flow"])
@@ -112,11 +118,12 @@ def test_upscale_flow_matches_jax():
     {"method": "liteflownet", "flow_filters": "scale=2"},
     {"method": "liteflownet", "mask": np.ones((H, W), np.float32)},
     {"method": "liteflownet", "kernel": np.ones((3, 3), np.float32)},
-    {"method": "liteflownet", "halo": 4},
+    {"method": "liteflownet",
+     "layer_cfgs": [LayerConfig(0, classname="sum")]},
     {"method": "liteflownet",
      "layer_cfgs": [LayerConfig(0, classname="introduction")]},
 ], ids=["farneback", "horn-schunck", "forward", "filters", "mask", "kernel",
-        "halo", "introduction"])
+        "sum", "introduction"])
 def test_unported_options_raise(random_weights, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FlowTransferModel(H, W, **kwargs)
@@ -143,6 +150,9 @@ def test_port_imports_no_jax():
         "import transflow_tpu_torch.flow.sources.cv\n"
         "import transflow_tpu_torch.utils.expr\n"
         "import transflow_tpu_torch.utils.misc\n"
+        "import transflow_tpu_torch.prng\n"
+        "import transflow_tpu_torch.parallel\n"
+        "import transflow_tpu_torch.ops.halo_gather\n"
         "bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]\n"
         "print('IMPORTED', bad)\n"
         "sys.exit(1 if bad else 0)\n")

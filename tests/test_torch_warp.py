@@ -178,7 +178,17 @@ def _pair(h, w, seed):
     return base[4:4 + h, 4:4 + w], base[:h, 2:2 + w]
 
 
-def test_liteflownet_bounded_matches_jax(nets, monkeypatch):
+@pytest.fixture
+def fresh_jax_traces():
+    """The JAX network's jitted entry keeps its traces for the life of the
+    process, and the JAX package's own tests count the kernel calls that a
+    new trace makes (tests/test_pallas_warp.py): leave no trace behind."""
+    yield
+    jlfn._run.clear_cache()
+
+
+def test_liteflownet_bounded_matches_jax(nets, monkeypatch,
+                                         fresh_jax_traces):
     """``liteflownet(warp_bound=8)`` at 64x96 in f32: 9 bounded warps per
     frame with the per-level bounds of ``_warp_bound`` ([8, 4, 3, 3, 3]
     for levels 2-6), and flows within the network bar of JAX's."""

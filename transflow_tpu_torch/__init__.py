@@ -7,7 +7,9 @@ with a CUDA kernel written for Hopper (``csrc/``). It imports no JAX.
 Ported so far: the LiteFlowNet -> moveref flagship step through
 ``model.FlowTransferModel``, and the device ``engine.Engine`` over flow
 sources whose ``CvFlowConfig`` selects LiteFlowNet (with the bounded
-backwarp behind ``lfn_warp_bound``). ROADMAP.md lists what comes next.
+backwarp behind ``lfn_warp_bound``), under a ``parallel.SpaceMesh`` too
+(the sharded correlation and movement gather), with JAX's own random
+numbers (``prng``). ROADMAP.md lists what comes next.
 """
 
 __version__ = "0.1.0"

@@ -32,8 +32,8 @@ _I = ctypes.c_int
 # the C entry points and their argument types; pointers and the stream are
 # c_void_p so ctypes never narrows them to 32-bit ints
 _SIGNATURES = {
-    # f1, dtype1, f2, dtype2, out, H, W, C, stride, stream
-    "transflow_corr7x7": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    # f1, dtype1, f2, dtype2, out, H, W, C, stride, f2_row0, f2_rows, stream
+    "transflow_corr7x7": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     # image, dtype, flow, out, H, W, C, bound, stream
     "transflow_bounded_backwarp": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -5,8 +5,9 @@ function of the layer's state dict of tensors, as in JAX; the reference's
 scatter permutation is the same masked gather (``new[p] = data[p +
 flow[p]]`` for targets p), and the only scatter left writes a constant
 (``ops/scatter.py::scatter_any``). Everything is integer or selection logic
-and matches the JAX package bit for bit given the same flow and, for the
-random reset, the same uniform draw.
+and matches the JAX package bit for bit given the same flow and key: the
+random reset draws ``prng.uniform`` from the same threefry key as
+``jax.random.uniform``.
 
 Ported: the moveref class with its four reset modes. The introduction, sum
 and static classes and mask files wait for ROADMAP Queue 1 (items 7 and 4).
@@ -16,7 +17,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import prng
 from ..config import LayerConfig
+from ..ops.halo_gather import (bounded_row_gather, clamped_rows,
+                               sharded_bounded_gather)
 from ..ops.scatter import scatter_any
 from ..utils import parse_color
 
@@ -102,11 +106,16 @@ def init_layer_state(params: LayerParams) -> dict:
 
 
 def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
-              flow: torch.Tensor):
+              flow: torch.Tensor, halo: int | None = None, mesh=None):
     """Apply the flow permutation to ``channels`` + ``alpha``.
 
     Parity: transflow/compositor/layers/movement.py:20-64 as a masked
-    gather. Returns (channels, alpha, (moving, src_i, src_j))."""
+    gather. Returns (channels, alpha, (moving, src_i, src_j)).
+
+    ``halo``: source reads go through the bounded-displacement gather
+    (ops/halo_gather.py), exact for |flow_y| <= halo; under a ``mesh``
+    whose ``space`` axis splits H into shards of at least ``halo`` rows,
+    through its sharded form (JAX's rule, core.py:191-204)."""
     cfg = params.cfg
     h, w = params.height, params.width
     di = torch.round(flow[..., 1]).to(torch.int32)
@@ -115,10 +124,24 @@ def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
     ii, jj = _base_coords(h, w, flow.device)
     src_i = (ii + di).clamp(0, h - 1)
     src_j = (jj + dj).clamp(0, w - 1)
-    flat_src = (src_i.long() * w + src_j.long()).reshape(-1)
+    n = mesh.shape.get("space", 1) if mesh is not None else 1
+    if halo is None:
+        eff_i = src_i
+        flat_src = (src_i.long() * w + src_j.long()).reshape(-1)
 
-    def gather(x):
-        return x.reshape((h * w,) + x.shape[2:])[flat_src].reshape(x.shape)
+        def gather(x):
+            return x.reshape((h * w,) + x.shape[2:])[flat_src] \
+                .reshape(x.shape)
+    else:
+        # the row the bounded gather reads; the leave-empty scatter
+        # vacates that same row (core.py:224-230)
+        eff_i = clamped_rows(src_i, halo)
+        if n > 1 and h % n == 0 and 1 <= halo <= h // n:
+            def gather(x):
+                return sharded_bounded_gather(x, src_i, src_j, halo, mesh)
+        else:
+            def gather(x):
+                return bounded_row_gather(x, src_i, src_j, halo)
 
     filled = alpha != 0
     g_alpha = gather(alpha)
@@ -137,7 +160,8 @@ def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
     out = {k: sel(is_target, g_channels[k], v) for k, v in channels.items()}
     new_alpha = torch.where(is_target, g_alpha, alpha)
     if cfg.moving_pixels_leave_empty_spot:
-        is_source = scatter_any((h, w), flat_src, is_target)
+        flat_eff = (eff_i.long() * w + src_j.long()).reshape(-1)
+        is_source = scatter_any((h, w), flat_eff, is_target)
         new_alpha = torch.where(is_source, torch.zeros_like(new_alpha),
                                 new_alpha)
     arrived = is_target & (g_alpha != 0) if cfg.transparent_pixels_can_move \
@@ -158,8 +182,9 @@ def _gather_pixmap_slices(params: LayerParams, pixmaps, gi, gj):
 def _reset(params: LayerParams, state: dict, rand=None) -> dict:
     """Parity: transflow/compositor/layers/reference.py:58-91.
 
-    ``rand``: the (H, W) f32 uniform draw of the random mode (the caller's
-    generator; core.py draws it with ``jax.random.uniform``)."""
+    ``rand``: the (H, W) f32 uniform draw of the random mode
+    (``build_compositor`` draws it with ``prng.uniform`` from the layer's
+    key, as core.py does with ``jax.random.uniform``)."""
     cfg = params.cfg
     mode = cfg.reset_mode
     if mode == "off":
@@ -240,12 +265,14 @@ def _reference_rgba(params: LayerParams, state: dict, pixmaps) -> dict:
 
 
 def update_moveref(params: LayerParams, state: dict, flow, pixmaps,
-                   rand=None) -> dict:
+                   rand=None, halo: int | None = None, mesh=None) -> dict:
     """MoveReferenceLayer.update (move_reference.py:12-14). ``rand`` is the
-    random reset's uniform draw (only read in that mode)."""
+    random reset's uniform draw (only read in that mode); ``halo`` and
+    ``mesh`` select the movement gather (``_movement``)."""
     channels = {"pos_i": state["pos_i"], "pos_j": state["pos_j"],
                 "source": state["source"]}
-    channels, alpha, _ = _movement(params, channels, state["alpha"], flow)
+    channels, alpha, _ = _movement(params, channels, state["alpha"], flow,
+                                   halo, mesh)
     state = dict(state, **channels, alpha=alpha)
     state = _reset(params, state, rand)
     return _reference_rgba(params, state, pixmaps)
@@ -264,17 +291,17 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
 
     Returns (init_fn, step_fn) where
       init_fn() -> state (list of layer state dicts)
-      step_fn(state, flow, pixmaps, generator, frame_numbers, render=True)
+      step_fn(state, flow, pixmaps, key, frame_numbers, render=True)
           -> (state, rgb | None)
     with ``step_fn.update`` and ``step_fn.render``. ``pixmaps`` holds one
-    tuple per layer of (H, W, C) uint8 tensors, one per source; the random
-    reset draws its uniforms per layer from ``generator``.
+    tuple per layer of (H, W, C) uint8 tensors, one per source. ``key`` is
+    a ``prng`` key; it splits into one key per layer, and a random-reset
+    layer draws its uniforms from its own (core.py:518, :278).
+
+    ``halo``: the bounded movement gather for H-sharded runs, under
+    ``mesh`` (a ``SpaceMesh``) its sharded form; see ``_movement``.
 
     Parity: transflow/compositor/compositor.py:17-53."""
-    if halo is not None or mesh is not None:
-        raise NotImplementedError(
-            "halo/mesh (sharded movement) is not ported yet: ROADMAP "
-            "Queue 1, item 12 (multi-GPU)")
     for params in layer_params:
         _require_moveref(params.cfg)
     device = torch.device(device)
@@ -285,17 +312,20 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
     def init_fn():
         return [init_layer_state(p) for p in default_params]
 
-    def update_fn(state, flow, pixmaps, generator, frame_numbers,
+    def update_fn(state, flow, pixmaps, key, frame_numbers,
                   params_list=None):
         params_list = default_params if params_list is None else params_list
+        if not params_list:
+            return []
+        keys = prng.split(key, len(params_list))
         new_state = []
         for idx, params in enumerate(params_list):
             rand = None
             if params.cfg.reset_mode == "random":
-                rand = torch.rand((params.height, params.width),
-                                  generator=generator, device=flow.device)
+                rand = prng.uniform(keys[idx], (params.height, params.width),
+                                    flow.device)
             new_state.append(update_moveref(params, state[idx], flow,
-                                            pixmaps[idx], rand))
+                                            pixmaps[idx], rand, halo, mesh))
         return new_state
 
     def render_fn(state, params_list=None):
@@ -309,9 +339,9 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
                                 rgba[..., :3], image)
         return new_state, image
 
-    def step_fn(state, flow, pixmaps, generator, frame_numbers, render=True,
+    def step_fn(state, flow, pixmaps, key, frame_numbers, render=True,
                 params_list=None):
-        state = update_fn(state, flow, pixmaps, generator, frame_numbers,
+        state = update_fn(state, flow, pixmaps, key, frame_numbers,
                           params_list)
         if not render:
             return state, None

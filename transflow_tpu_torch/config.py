@@ -264,8 +264,8 @@ class Config(_DictSchema):
         # General args
         self.seed: int = random.randint(0, 2 ** 32 - 1) if seed is None else seed
         # frames per chunk (None = auto) and the multi-device layout (mesh
-        # size or "STREAMxSPACE", halo rows); the port runs one device and
-        # its Engine refuses a mesh
+        # size or "STREAMxSPACE", halo rows); the port's Engine takes a
+        # one-axis SpaceMesh and a halo (parallel/mesh.py)
         self.batch_frames = batch_frames
         self.mesh = mesh
         self.halo = halo

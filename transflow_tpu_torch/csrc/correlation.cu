@@ -7,9 +7,20 @@
 //       (1/C) * sum_c f1[y*s, x*s, c] * f2[(y+dy)*s, (x+dx)*s, c]
 //
 // for dy, dx in [-3, 3], with zeros outside the frame and stride s >= 1.
-// f1 and f2 are (H, W, C) row-major, each in its own dtype (float32 or
-// bfloat16); the output is (ceil(H/s), ceil(W/s), 49) float32. All products
-// and sums are float32, as in the Pallas kernel's staging rule.
+// f1 is (H, W, C) and f2 (f2_rows, W, C), row-major, each in its own dtype
+// (float32 or bfloat16); the output is (ceil(H/s), ceil(W/s), 49) float32.
+// All products and sums are float32, as in the Pallas kernel's staging
+// rule.
+//
+// The row window serves both TPU entry points. f2 row r of the formula is
+// buffer row r + f2_row0, and rows outside [0, f2_rows) of the buffer read
+// as zeros. The unsharded correlation (pallas_correlation7x7) passes the
+// whole f2, (f2_row0, f2_rows) = (0, H). The H-sharded one
+// (sharded_pallas_correlation7x7) passes one shard's f1 rows and its
+// haloed f2 band, (3s, H/n + 6s): the band holds 3s rows of each
+// neighbouring shard, or zeros at the frame's edges, so every output pixel
+// sums the same float32 products in the same order as the unsharded call,
+// and the two agree bit for bit.
 //
 // Bound on the H100. At LiteFlowNet's level 2 of a 1088x1920 frame (f1
 // 544x960x64 bf16, f2 the same in f32, stride 2) the kernel has to read
@@ -62,8 +73,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 template <typename T1, typename T2>
 __global__ void __launch_bounds__(kThreads)
     corr7x7_kernel(const T1* __restrict__ f1, const T2* __restrict__ f2,
-                   float* __restrict__ out, int H, int W, int C, int stride,
-                   int OH, int OW) {
+                   float* __restrict__ out, int W, int C, int stride,
+                   int f2_row0, int f2_rows, int OH, int OW) {
   // f2 halo tile as [channel][halo pixel] while accumulating, then the
   // block's 49-wide output rows as [pixel][tap] for the store
   __shared__ float stage[kStageFloats];
@@ -87,10 +98,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < kF2Floats; i += kThreads) {
       const int c = i % kChunk;
       const int p = i / kChunk;
-      const int gy = (oy0 - kDisp + p / kHaloX) * stride;
+      const int gy = (oy0 - kDisp + p / kHaloX) * stride + f2_row0;
       const int gx = (ox0 - kDisp + p % kHaloX) * stride;
       float v = 0.f;
-      if (c0 + c < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
+      if (c0 + c < C && gy >= 0 && gy < f2_rows && gx >= 0 && gx < W)
         v = to_f32(f2[((size_t)gy * W + gx) * C + c0 + c]);
       stage[c * kHaloPix + p] = v;
     }
@@ -129,38 +140,43 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T1, typename T2>
 cudaError_t launch(const void* f1, const void* f2, void* out, int H, int W,
-                   int C, int stride, cudaStream_t stream) {
+                   int C, int stride, int f2_row0, int f2_rows,
+                   cudaStream_t stream) {
   const int OH = (H + stride - 1) / stride;
   const int OW = (W + stride - 1) / stride;
   const dim3 grid((OW + kTileX - 1) / kTileX, (OH + kTileY - 1) / kTileY);
   corr7x7_kernel<T1, T2><<<grid, kThreads, 0, stream>>>(
       static_cast<const T1*>(f1), static_cast<const T2*>(f2),
-      static_cast<float*>(out), H, W, C, stride, OH, OW);
+      static_cast<float*>(out), W, C, stride, f2_row0, f2_rows, OH, OW);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// dtype codes: 0 = float32, 1 = bfloat16. f1 is (H, W, C); f2 holds
+// f2_rows rows of width W, and its row f2_row0 lines up with f1's row 0.
+// Returns a cudaError_t.
 extern "C" int transflow_corr7x7(const void* f1, int dtype1, const void* f2,
                                  int dtype2, void* out, int H, int W, int C,
-                                 int stride, void* stream) {
-  if (H < 1 || W < 1 || C < 1 || stride < 1 || dtype1 < 0 || dtype1 > 1 ||
-      dtype2 < 0 || dtype2 > 1)
+                                 int stride, int f2_row0, int f2_rows,
+                                 void* stream) {
+  if (H < 1 || W < 1 || C < 1 || stride < 1 || f2_rows < 1 ||
+      dtype1 < 0 || dtype1 > 1 || dtype2 < 0 || dtype2 > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype1 * 2 + dtype2) {
     case 0:
-      return (int)launch<float, float>(f1, f2, out, H, W, C, stride, s);
+      return (int)launch<float, float>(f1, f2, out, H, W, C, stride, f2_row0,
+                                       f2_rows, s);
     case 1:
       return (int)launch<float, __nv_bfloat16>(f1, f2, out, H, W, C, stride,
-                                               s);
+                                               f2_row0, f2_rows, s);
     case 2:
       return (int)launch<__nv_bfloat16, float>(f1, f2, out, H, W, C, stride,
-                                               s);
+                                               f2_row0, f2_rows, s);
     default:
-      return (int)launch<__nv_bfloat16, __nv_bfloat16>(f1, f2, out, H, W, C,
-                                                       stride, s);
+      return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+          f1, f2, out, H, W, C, stride, f2_row0, f2_rows, s);
   }
 }
 

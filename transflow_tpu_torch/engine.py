@@ -3,10 +3,14 @@ compositor per frame, owning all device-resident state.
 
 Counterpart of transflow_tpu/engine.py. PyTorch runs eagerly, so there is
 no jit: ``process_frame`` runs the per-frame device step once and
-``process_chunk`` is a Python loop over the same step. The JAX key becomes
-a ``torch.Generator`` on the Engine's device, seeded from ``cfg.seed``; the
-random reset draws from it in the same order on both paths, so a chunk is
-bit-equal to the same frames one by one.
+``process_chunk`` is a Python loop over the same step. The Engine's key is
+JAX's threefry key of ``cfg.seed`` (``prng``), split once per frame on both
+paths as in the JAX Engine, so the random reset draws the JAX Engine's
+numbers and a chunk is bit-equal to the same frames one by one.
+
+Under a ``SpaceMesh`` the estimator's correlation and the compositor's
+movement gather are sharded over the mesh's devices (``mesh_safe_kwargs``,
+``halo``); everything else runs on ``mesh.devices[0]``.
 """
 import logging
 from typing import Sequence
@@ -14,6 +18,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import prng
 from .compositor.core import LayerParams, build_compositor
 from .config import Config
 from .flow import Direction
@@ -22,14 +27,14 @@ from .flow.merge import get_merge_function
 from .flow.sources.base import FlowItem, FlowSource
 from .ops.image import upscale_flow
 from .ops.render import flow_magnitude, render1d, render2d
+from .parallel.mesh import mesh_device
 
 logger = logging.getLogger(__name__)
 
-# the checkpoint entry of the Engine's generator state; the JAX package
-# stores its key under ``rng_key``, which the port ignores
-RNG_STATE_KEY = "torch_generator_state"
-_MESH_NOT_PORTED = ("a device mesh (multi-GPU) is not ported yet: ROADMAP "
-                    "Queue 1, item 12")
+# the checkpoint entry of the Engine's key, the JAX Engine's entry
+RNG_STATE_KEY = "rng_key"
+# the generator state an earlier port's checkpoints hold instead
+_LEGACY_RNG_KEY = "torch_generator_state"
 
 
 def _to_device(array, device, dtype: torch.dtype | None = None):
@@ -51,10 +56,12 @@ def _tree_to_device(tree, device):
 class SourceRuntime:
     """Device-side state for one flow source."""
 
-    def __init__(self, source: FlowSource, estimator_step, device="cpu"):
+    def __init__(self, source: FlowSource, estimator_step, device="cpu",
+                 mesh=None):
         self.source = source
         self.estimator_step = estimator_step  # None for flow-yielding sources
         self.device = torch.device(device)
+        self.mesh = mesh
         self.prev_gray = None
         self.prev_flow = None
         self.last_raw = None
@@ -73,7 +80,7 @@ class SourceRuntime:
         params = (old.params if old is not None
                   and old.method == config.method else None)
         self.estimator_step = make_estimator_step(
-            config.method, mesh_safe_estimator_kwargs(config, None),
+            config.method, mesh_safe_estimator_kwargs(config, self.mesh),
             self.source.direction, device=self.device, params=params)
 
     def reset(self, prime_frame):
@@ -110,11 +117,22 @@ class SourceRuntime:
 
 
 def mesh_safe_kwargs(kwargs: dict, method: str, mesh) -> dict:
-    """Estimator kwargs for execution under ``mesh``. Off-mesh (None) they
-    pass through; a mesh raises (multi-GPU is not ported)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
-    return dict(kwargs)
+    """Estimator kwargs for execution under ``mesh`` (None off-mesh, where
+    they pass through). Parity: engine.py::mesh_safe_kwargs. The bounded
+    warp behind lfn_warp_bound is stripped, with a warning, as in the JAX
+    package (whose Pallas warp has no SPMD rule); LiteFlowNet's
+    correlation runs sharded over the mesh ('pallas_halo')."""
+    kwargs = dict(kwargs)
+    if mesh is not None and kwargs.get("warp_bound"):
+        logger.warning(
+            "lfn_warp_bound=%s is ignored under a mesh (the bounded warp "
+            "is not sharded, as in the JAX package); using the exact "
+            "gather path", kwargs["warp_bound"])
+        kwargs["warp_bound"] = 0
+    if mesh is not None and method == "liteflownet":
+        kwargs["corr_kernel"] = "pallas_halo"
+        kwargs["corr_mesh"] = mesh
+    return kwargs
 
 
 def mesh_safe_estimator_kwargs(config, mesh) -> dict:
@@ -170,20 +188,23 @@ class Engine:
                  export_flows: bool = False,
                  mesh=None,
                  halo: int | None = None,
-                 device="cpu"):
-        """``layer_params`` live on ``device``. ``mesh`` and ``halo`` (the
-        multi-chip layout of the JAX Engine) are not ported and raise."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+                 device=None):
+        """``layer_params`` live on ``device``. ``mesh``: a ``SpaceMesh``;
+        the network and the state then live on ``mesh.devices[0]`` (the
+        default ``device``; one that disagrees raises), LiteFlowNet's
+        correlation is sharded over the mesh and, with ``halo``, so is the
+        movement gather. ``halo``: the bounded movement-gather
+        displacement; pair it with a clip filter for exactness."""
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = mesh_device(mesh, device)
+        self.mesh = mesh
+        self.halo = halo
         self.out_height = out_height
         self.out_width = out_width
         self.width_factor = width_factor
         self.height_factor = height_factor
         self.export_flows = export_flows
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.seed)
+        self.key = prng.key(cfg.seed)
         self.runtimes: list[SourceRuntime] = []
         for source in flow_sources:
             estimator_step = None
@@ -193,7 +214,8 @@ class Engine:
                     mesh_safe_estimator_kwargs(source.config, mesh),
                     source.direction, device=self.device)
             self.runtimes.append(
-                SourceRuntime(source, estimator_step, device=self.device))
+                SourceRuntime(source, estimator_step, device=self.device,
+                              mesh=mesh))
         postprocesses = [src.build_postprocess() for src in flow_sources]
         merge = get_merge_function(cfg.flows_merging_function)
         self.layer_params = list(layer_params)
@@ -209,16 +231,15 @@ class Engine:
         self.render_mode = render_mode
         wf, hf = width_factor, height_factor
 
-        def device_step(comp_state, raw_flows, t, pixmaps, frame_numbers,
-                        params_list):
+        def device_step(comp_state, raw_flows, t, pixmaps, key,
+                        frame_numbers, params_list):
             processed = [pp(raw, t) for pp, raw in zip(postprocesses,
                                                       raw_flows)]
             flow = merge(processed)
             if wf != 1 or hf != 1:
                 flow = upscale_flow(flow, wf, hf)
-            comp_state = comp_step.update(comp_state, flow, pixmaps,
-                                          self.generator, frame_numbers,
-                                          params_list)
+            comp_state = comp_step.update(comp_state, flow, pixmaps, key,
+                                          frame_numbers, params_list)
             if render_mode == "flow":
                 frame = render2d(flow, cfg.render_scale, cfg.render_colors)
             elif render_mode == "magnitude":
@@ -281,8 +302,9 @@ class Engine:
             fno = frame0 + k
             frame_numbers = tuple(tuple(fno for _ in p.channel_counts)
                                   for p in self.layer_params)
+            self.key, sub = prng.split(self.key)
             self.comp_state, frame, flow = self._device_step(
-                self.comp_state, tuple(raws), t, pixmaps, frame_numbers,
+                self.comp_state, tuple(raws), t, pixmaps, sub, frame_numbers,
                 self.layer_params)
             frames.append(frame)
             if self.export_flows:
@@ -301,9 +323,10 @@ class Engine:
         on the device; ``frame_numbers`` mirrors it with ints."""
         raw_flows = tuple(rt.ingest(item)
                           for rt, item in zip(self.runtimes, items))
+        self.key, sub = prng.split(self.key)
         self.comp_state, frame, flow = self._device_step(
             self.comp_state, raw_flows, np.float32(t),
-            _tree_to_device(pixmaps, self.device), frame_numbers,
+            _tree_to_device(pixmaps, self.device), sub, frame_numbers,
             self.layer_params)
         return frame, flow
 
@@ -312,24 +335,29 @@ class Engine:
     # ------------------------------------------------------------------
 
     def state_arrays(self) -> dict:
-        """Compositor state and generator state as named numpy arrays. The
-        compositor leaves keep the JAX Engine's names and dtypes."""
-        out = {RNG_STATE_KEY: self.generator.get_state().numpy()}
+        """Compositor state and key as named numpy arrays, with the JAX
+        Engine's names and dtypes: a checkpoint of either package resumes
+        in the other."""
+        out = {RNG_STATE_KEY: self.key.copy()}
         for idx, layer_state in enumerate(self.comp_state):
             for name, value in layer_state.items():
                 out[f"layer{idx}.{name}"] = value.cpu().numpy()
         return out
 
     def load_state_arrays(self, arrays: dict):
-        """Load ``state_arrays`` of either package. The JAX Engine's RNG
-        key (``rng_key``) cannot seed a torch generator and is ignored."""
+        """Load ``state_arrays`` of either package. The generator state of
+        an earlier port's checkpoint cannot become a key and is ignored."""
         if RNG_STATE_KEY in arrays:
-            self.generator.set_state(torch.from_numpy(
-                np.array(arrays[RNG_STATE_KEY], dtype=np.uint8)))
-        elif "rng_key" in arrays:
+            key = np.array(arrays[RNG_STATE_KEY])
+            if key.shape != (2,):
+                raise ValueError(f"checkpoint {RNG_STATE_KEY!r} has shape "
+                                 f"{key.shape}, expected (2,)")
+            self.key = key.astype(np.uint32)
+        elif _LEGACY_RNG_KEY in arrays:
             logger.warning(
-                "checkpoint RNG entry 'rng_key' (a JAX key) is ignored: the "
-                "port's generator keeps its state under %r", RNG_STATE_KEY)
+                "checkpoint RNG entry %r (a torch generator state) is "
+                "ignored: the Engine keeps its key under %r",
+                _LEGACY_RNG_KEY, RNG_STATE_KEY)
         new_state = []
         for idx, layer_state in enumerate(self.comp_state):
             loaded = {}

@@ -7,7 +7,8 @@ contiguous; a convolution views them as NCHW in ``channels_last`` memory
 format, so the (H, W, C) operands of the correlation cost no copy.
 
 Plain convolutions are ``F.conv2d``; the 7x7 correlation is the CUDA kernel
-of ``ops/correlation.py`` on the card and its plain version on the CPU, and
+of ``ops/correlation.py`` on the card and its plain version on the CPU
+(``corr_kernel='pallas_halo'`` with a ``corr_mesh`` shards it over H), and
 so is the bounded backwarp of ``ops/warp.py`` (``warp_bound``, opt-in).
 Parameters are f32; convolutions compute in ``_compute_dtype`` (bf16 on
 CUDA, f32 on the CPU), and everything else keeps JAX's dtype promotion so
@@ -258,7 +259,7 @@ class Matching(nn.Module):
         self.main3 = _Conv(32, 2, _KERNEL[level], pad=_PAD[level])
 
     def forward(self, feat1, feat2, flow, dtype, warp_bound=None,
-                warp_kernel=None):
+                warp_kernel=None, corr_kernel=None, corr_mesh=None):
         lvl = self.level
         if lvl == 2:
             both = _leaky(self.feat0(torch.stack([feat1, feat2]), dtype))
@@ -268,7 +269,8 @@ class Matching(nn.Module):
             feat2 = backwarp(feat2, flow * _FLT_BACKWARP[lvl],
                              bound=_warp_bound(lvl, warp_bound),
                              kernel=warp_kernel)
-        corr = _leaky(correlation(feat1, feat2, stride=1 if lvl >= 4 else 2))
+        corr = _leaky(correlation(feat1, feat2, stride=1 if lvl >= 4 else 2,
+                                  kernel=corr_kernel, mesh=corr_mesh))
         if lvl < 4:
             corr = _upsample2x_phases(corr, self.upcorr_kernel)
         x = _leaky(self.main0(corr, dtype))
@@ -380,7 +382,9 @@ class LiteFlowNet(nn.Module):
     W multiples of 32, and returns the (H/2, W/2, 2) f32 flow.
     ``warp_bound`` (the level-2 bound of the bounded backwarp, see
     ``_warp_bound``; None falls back to the env, 0 disables) and
-    ``warp_kernel`` reach the matching and subpixel heads."""
+    ``warp_kernel`` reach the matching and subpixel heads, ``corr_kernel``
+    and ``corr_mesh`` (see ``ops/correlation.py::correlation``) the
+    matching heads' correlation."""
 
     def __init__(self):
         super().__init__()
@@ -390,7 +394,8 @@ class LiteFlowNet(nn.Module):
             setattr(self, f"subpixel{lvl}", Subpixel(lvl))
             setattr(self, f"regularization{lvl}", Regularization(lvl))
 
-    def forward(self, img1, img2, warp_bound=None, warp_kernel=None):
+    def forward(self, img1, img2, warp_bound=None, warp_kernel=None,
+                corr_kernel=None, corr_mesh=None):
         dtype = _compute_dtype(img1.device)
         img1 = img1 - torch.tensor(_MEAN_ONE, device=img1.device)
         img2 = img2 - torch.tensor(_MEAN_TWO, device=img2.device)
@@ -408,7 +413,7 @@ class LiteFlowNet(nn.Module):
             lvl = _LEVELS[idx]
             flow = getattr(self, f"matching{lvl}")(
                 feats1[idx], feats2[idx], flow, dtype, warp_bound,
-                warp_kernel)
+                warp_kernel, corr_kernel, corr_mesh)
             flow = getattr(self, f"subpixel{lvl}")(
                 feats1[idx], feats2[idx], flow, dtype, warp_bound,
                 warp_kernel)
@@ -568,7 +573,7 @@ def _to_rgb01(image) -> torch.Tensor:
 def liteflownet(prev_gray_or_rgb, next_gray_or_rgb, *, net=None,
                 allow_random: bool = False, warp_bound: int | None = None,
                 warp_kernel: str | None = None,
-                corr_kernel: str | None = None,
+                corr_kernel: str | None = None, corr_mesh=None,
                 scale: float = 1.0) -> torch.Tensor:
     """Estimate the (H, W, 2) f32 flow between two uint8 frames, RGB
     (H, W, 3) or gray (H, W), on the device of ``net``.
@@ -577,8 +582,9 @@ def liteflownet(prev_gray_or_rgb, next_gray_or_rgb, *, net=None,
     resize back, rescale magnitudes. ``net`` is a ``LiteFlowNet`` with its
     weights (``get_weights``); None builds one from the environment.
     ``warp_bound`` and ``warp_kernel`` fall back to their environment
-    variables on each call (config key ``lfn_warp_bound``)."""
-    check_kernel(corr_kernel)
+    variables on each call (config key ``lfn_warp_bound``). ``corr_kernel``
+    and ``corr_mesh`` (a ``SpaceMesh``) reach the correlation."""
+    check_kernel(corr_kernel, corr_mesh)
     if warp_bound is None:
         warp_bound = _env_warp_bound() or None
     if warp_kernel is None:
@@ -596,6 +602,7 @@ def liteflownet(prev_gray_or_rgb, next_gray_or_rgb, *, net=None,
     if (ph, pw) != (h, w):
         img1 = bilinear_resize(img1, ph, pw)
         img2 = bilinear_resize(img2, ph, pw)
-    flow = bilinear_resize(net(img1, img2, warp_bound, warp_kernel), h, w)
+    flow = bilinear_resize(net(img1, img2, warp_bound, warp_kernel,
+                               corr_kernel, corr_mesh), h, w)
     return flow * torch.tensor([w / pw, h / ph], dtype=torch.float32,
                                device=device)

@@ -3,18 +3,20 @@
 Counterpart of transflow_tpu/model.py: estimator -> post-process -> merge
 -> upscale -> compositor update -> render, for one frame (``step``) or a
 chunk (``scan``, a Python loop over ``step``). PyTorch runs eagerly, so
-there is no jit form; the JAX ``key`` becomes a ``torch.Generator`` on the
-model's device.
+there is no jit form. ``key`` is a ``prng`` key, JAX's threefry key data,
+so the random reset draws the JAX model's numbers.
 
 Ported: LiteFlowNet, backward direction, no filters, mask or kernel, the
-``first`` merge and moveref layers. Anything else raises
-``NotImplementedError`` naming its ROADMAP item.
+``first`` merge and moveref layers, and the ``halo``/``mesh`` movement
+gather. Anything else raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from . import prng
 from .compositor.core import build_compositor, make_layer_params
 from .config import LayerConfig
 from .flow import Direction
@@ -23,6 +25,7 @@ from .flow.estimators.liteflownet import get_weights
 from .flow.merge import get_merge_function
 from .flow.transforms import make_postprocess
 from .ops.image import upscale_flow
+from .parallel.mesh import mesh_device
 
 
 class FlowTransferModel:
@@ -44,13 +47,18 @@ class FlowTransferModel:
                  framerate: float = 30.0,
                  halo: int | None = None,
                  mesh=None,
-                 device="cpu"):
+                 device=None):
+        """``halo``: the bounded movement gather; ``mesh``: a
+        ``SpaceMesh``, under which the gather is sharded and everything
+        else runs on ``mesh.devices[0]`` (``device`` defaults to it, and
+        to the CPU without a mesh). ``estimator_kwargs`` reach the
+        estimator as they are (``corr_kernel``, ``corr_mesh``, ...)."""
         self.height = height
         self.width = width
         self.out_height = height * height_factor
         self.out_width = width * width_factor
         self.framerate = framerate
-        self.device = torch.device(device)
+        self.device = mesh_device(mesh, device)
         estimator = get_estimator(method)
         postprocess = make_postprocess(flow_filters, mask, kernel, direction)
         merge = get_merge_function("first")
@@ -73,17 +81,15 @@ class FlowTransferModel:
         self.net = get_weights(device=self.device)
         wf, hf = width_factor, height_factor
 
-        def step(state, frame, pixmaps, t, generator, frame_numbers,
-                 params_list):
+        def step(state, frame, pixmaps, t, key, frame_numbers, params_list):
             # backward: the flow maps the current frame onto the previous
             raw = estimator(frame, state["prev_gray"], net=self.net,
                             **estimator_kwargs)
             flow = merge([postprocess(raw, t)])
             if wf != 1 or hf != 1:
                 flow = upscale_flow(flow, wf, hf)
-            comp = self._comp_step.update(state["comp"], flow, pixmaps,
-                                          generator, frame_numbers,
-                                          params_list)
+            comp = self._comp_step.update(state["comp"], flow, pixmaps, key,
+                                          frame_numbers, params_list)
             comp, rgb = self._comp_step.render(comp, params_list)
             new_state = {"comp": comp, "prev_gray": frame, "prev_flow": raw}
             return new_state, rgb
@@ -115,27 +121,29 @@ class FlowTransferModel:
         return tuple(tuple(value for _ in params.channel_counts)
                      for params in self.layer_params)
 
-    def step(self, state, gray, pixmaps, t, generator, frame_numbers,
+    def step(self, state, gray, pixmaps, t, key, frame_numbers,
              params_list=None):
         """One frame: (state, (H, W, 3) uint8 frame) -> (state, rgb).
-        ``generator`` is a ``torch.Generator`` on the model's device."""
+        ``key`` is a ``prng`` key (uint32 (2,))."""
         if params_list is None:
             params_list = self.layer_params
         gray = torch.as_tensor(gray, dtype=torch.uint8, device=self.device)
-        return self._step(state, gray, pixmaps, t, generator, frame_numbers,
+        return self._step(state, gray, pixmaps, t, key, frame_numbers,
                           params_list)
 
-    def scan(self, state, grays, pixmaps, t0, generator, params_list=None,
+    def scan(self, state, grays, pixmaps, t0, key, params_list=None,
              frame0: int = 0):
-        """Process a (K, H, W[, 3]) chunk of frames in order; returns
-        (state, (K, H', W', 3) uint8 frames)."""
+        """Process a (K, H, W[, 3]) chunk of frames in order, ``key`` split
+        into one key per frame (model.py:183); returns (state, (K, H', W',
+        3) uint8 frames)."""
+        keys = prng.split(key, len(grays))
         rgbs = []
         for idx in range(len(grays)):
             fno = frame0 + idx
             frame_numbers = tuple(tuple(fno for _ in p.channel_counts)
                                   for p in self.layer_params)
             t = t0 + idx / self.framerate
-            state, rgb = self.step(state, grays[idx], pixmaps, t, generator,
+            state, rgb = self.step(state, grays[idx], pixmaps, t, keys[idx],
                                    frame_numbers, params_list)
             rgbs.append(rgb)
         return state, torch.stack(rgbs)
