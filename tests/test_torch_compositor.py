@@ -64,9 +64,10 @@ def _run_both(cfg_kwargs: dict, sources: str, seed: int = 0):
     jparams = jcore.make_layer_params([JaxLayerConfig(0, **cfg_kwargs)],
                                       H, W, srcs)
     params = core.make_layer_params([LayerConfig(0, **cfg_kwargs)], H, W,
-                                    srcs)
+                                    srcs, device="cpu")
     jinit, jstep = jcore.build_compositor(jparams, H, W, "#204060")
-    init, step = core.build_compositor(params, H, W, "#204060")
+    init, step = core.build_compositor(params, H, W, "#204060",
+                                       device="cpu")
     rng = np.random.default_rng(seed + 100)
     pix = [rng.integers(0, 256, (H, W, c), dtype=np.uint8)
            for c in params[0].channel_counts]
@@ -132,13 +133,13 @@ def test_update_draws_from_the_generator():
             LayerConfig(1, reset_mode="linear"),
             LayerConfig(2, reset_mode="random", reset_random_factor=0.6)]
     srcs = {0: [(3, None)], 1: [(4, None)], 2: [(3, None)]}
-    params = core.make_layer_params(cfgs, H, W, srcs)
+    params = core.make_layer_params(cfgs, H, W, srcs, device="cpu")
     jparams = jcore.make_layer_params(
         [JaxLayerConfig(c.index, **{k: v for k, v in vars(c).items()
                                     if k in ("reset_mode",
                                              "reset_random_factor")})
          for c in cfgs], H, W, srcs)
-    init, step = core.build_compositor(params, H, W)
+    init, step = core.build_compositor(params, H, W, device="cpu")
     jinit, jstep = jcore.build_compositor(jparams, H, W)
     rng = np.random.default_rng(0)
     pix = [rng.integers(0, 256, (H, W, c), dtype=np.uint8) for c in (3, 4, 3)]
@@ -180,9 +181,10 @@ def test_parse_color_matches_jax():
 def test_unported_layers_and_masks_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         core.make_layer_params([LayerConfig(0, mask_src="mask.png")], H, W,
-                               {0: [(3, None)]})
+                               {0: [(3, None)]}, device="cpu")
     for classname in ("introduction", "sum", "static"):
         params = core.make_layer_params(
-            [LayerConfig(0, classname=classname)], H, W, {0: [(3, None)]})
+            [LayerConfig(0, classname=classname)], H, W, {0: [(3, None)]},
+            device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            core.build_compositor(params, H, W)
+            core.build_compositor(params, H, W, device="cpu")

@@ -99,12 +99,12 @@ def _engines(layer_kwargs, cfg_kwargs, sources, h=H, w=W, wf=1,
     """(port Engine, JAX Engine) over (port source, JAX source) pairs."""
     out_h, out_w = h, w * wf
     lp = core.make_layer_params([config.LayerConfig(0, **layer_kwargs)],
-                                out_h, out_w, {0: [(3, None)]})
+                                out_h, out_w, {0: [(3, None)]}, device="cpu")
     jlp = jcore.make_layer_params([jconfig.LayerConfig(0, **layer_kwargs)],
                                   out_h, out_w, {0: [(3, None)]})
     eng = engine.Engine(config.Config("in.mp4", **cfg_kwargs),
                         [s for s, _ in sources], lp, out_h, out_w,
-                        width_factor=wf, export_flows=export)
+                        width_factor=wf, export_flows=export, device="cpu")
     jeng = jengine.Engine(jconfig.Config("in.mp4", **cfg_kwargs),
                           [j for _, j in sources], jlp, out_h, out_w,
                           width_factor=wf, export_flows=export)
@@ -235,10 +235,10 @@ def _lfn_engine(video, seed=5, reset=0.2):
     lp = core.make_layer_params(
         [config.LayerConfig(0, reset_mode="random",
                             reset_random_factor=reset)], h, w,
-        {0: [(3, None)]})
+        {0: [(3, None)]}, device="cpu")
     eng = engine.Engine(config.Config("in.mp4", direction="backward",
                                       seed=seed), [src], lp, h, w,
-                        export_flows=True)
+                        export_flows=True, device="cpu")
     eng._framerate = FPS
     return eng
 
@@ -375,8 +375,8 @@ def _runtime(h=64, w=96):
     source = _source(base, _video(2, h, w), "frame", config_)
     step = engine.make_estimator_step("liteflownet",
                                       config_.estimator_kwargs(),
-                                      source.direction)
-    return engine.SourceRuntime(source, step), config_
+                                      source.direction, device="cpu")
+    return engine.SourceRuntime(source, step, device="cpu"), config_
 
 
 def test_rejit_only_on_version_bump(random_weights):
@@ -430,7 +430,8 @@ def test_estimator_step_frame_order(direction, monkeypatch):
     monkeypatch.setattr(engine, "get_estimator",
                         lambda method: lambda left, right, **kw: (left,
                                                                   right))
-    step = engine.make_estimator_step("lukas-kanade", {}, direction)
+    step = engine.make_estimator_step("lukas-kanade", {}, direction,
+                                      device="cpu")
     assert step.params == ()
     want = ("prev", "next") if direction == Direction.FORWARD \
         else ("next", "prev")

@@ -126,12 +126,13 @@ def _run_compositors(flags, halo, n_mesh, flow, frames=3, with_jax=True):
     pixmap = np.random.default_rng(17).integers(0, 256, (h, w, 3),
                                                 dtype=np.uint8)
     params = core.make_layer_params([LayerConfig(0, **cfg)], h, w,
-                                    {0: [(3, None)]})
+                                    {0: [(3, None)]}, device="cpu")
     jparams = jcore.make_layer_params([JaxLayerConfig(0, **cfg)], h, w,
                                       {0: [(3, np.ones((h, w), bool))]})
     mesh = SpaceMesh(["cpu"] * n_mesh) if n_mesh else None
     jmesh = jax_space_mesh(n_mesh) if n_mesh else None
-    init, step = core.build_compositor(params, h, w, halo=halo, mesh=mesh)
+    init, step = core.build_compositor(params, h, w, halo=halo, mesh=mesh,
+                                       device="cpu")
     jinit, jstep = jcore.build_compositor(jparams, h, w, halo=halo,
                                           mesh=jmesh)
     state, jstate = init(), jinit()
@@ -194,7 +195,7 @@ def test_leave_empty_vacates_clamped_row_with_halo(n_mesh):
     h, w, halo = 16, 8, 2
     params = core.make_layer_params(
         [LayerConfig(0, moving_pixels_leave_empty_spot=True)], h, w,
-        {0: [(3, None)]})[0]
+        {0: [(3, None)]}, device="cpu")[0]
     flow = torch.zeros((h, w, 2))
     flow[4, 3, 1] = 5.0            # dy=5 > halo=2: the gather reads row 6
     alpha = torch.ones((h, w), dtype=torch.uint8)

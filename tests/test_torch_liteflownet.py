@@ -208,7 +208,7 @@ def test_checkpoint_loader(golden, tmp_path, monkeypatch, legacy):
     for key in want:
         assert torch.equal(got[key], want[key]), key
     monkeypatch.setenv(lfn.WEIGHTS_ENV, path)
-    net = lfn.get_weights()
+    net = lfn.get_weights(device="cpu")
     for key, value in net.state_dict().items():
         assert torch.equal(value, want[key]), key
 
@@ -217,9 +217,9 @@ def test_get_weights_needs_a_source(monkeypatch):
     monkeypatch.delenv(lfn.WEIGHTS_ENV, raising=False)
     monkeypatch.delenv(lfn.RANDOM_ENV, raising=False)
     with pytest.raises(FileNotFoundError, match="network-default"):
-        lfn.get_weights()
+        lfn.get_weights(device="cpu")
     monkeypatch.setenv(lfn.RANDOM_ENV, "1")
-    net = lfn.get_weights()
+    net = lfn.get_weights(device="cpu")
     assert torch.equal(net.features.one0.weight,
                        lfn.random_params(0)["features.one0.weight"])
 

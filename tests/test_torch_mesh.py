@@ -106,9 +106,13 @@ def test_exchange_rows_keeps_dtype_and_checks_rows():
         exchange_rows(bands[:1], 1, mesh)
 
 
-def test_mesh_device():
+def test_mesh_device(monkeypatch):
+    """Without a mesh or a device, the current CUDA device; with no card
+    that raises (never the CPU)."""
     mesh = SpaceMesh(["cpu"] * 2)
-    assert mesh_device(None) == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh_device(None)
     assert mesh_device(None, "cpu") == torch.device("cpu")
     assert mesh_device(mesh) == torch.device("cpu")
     assert mesh_device(mesh, "cpu") == torch.device("cpu")

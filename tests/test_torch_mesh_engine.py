@@ -36,7 +36,7 @@ HALO = 4
 
 def _mesh_engines(layer_kwargs, sources, h=H, w=W, n=2, halo=HALO):
     lp = core.make_layer_params([config.LayerConfig(0, **layer_kwargs)],
-                                h, w, {0: [(3, None)]})
+                                h, w, {0: [(3, None)]}, device="cpu")
     jlp = jcore.make_layer_params([jconfig.LayerConfig(0, **layer_kwargs)],
                                   h, w, {0: [(3, None)]})
     cfg = dict(direction="backward", seed=5)

@@ -18,12 +18,14 @@ import jax
 import jax.numpy as jnp
 
 from transflow_tpu.config import LayerConfig as JaxLayerConfig
-from transflow_tpu.flow import Direction
+from transflow_tpu import flow as jflow
 from transflow_tpu.flow.estimators import liteflownet as jlfn
 from transflow_tpu.model import FlowTransferModel as JaxModel
 from transflow_tpu.ops.image import upscale_flow as jax_upscale_flow
-from transflow_tpu_torch import prng
-from transflow_tpu_torch.config import LayerConfig
+from transflow_tpu_torch import flow, prng
+from transflow_tpu_torch.config import Config, LayerConfig
+from transflow_tpu_torch.engine import Engine
+from transflow_tpu_torch.flow import Direction
 from transflow_tpu_torch.model import FlowTransferModel
 from transflow_tpu_torch.ops.image import upscale_flow
 
@@ -57,7 +59,7 @@ def test_model_matches_jax(random_weights):
     jmodel = JaxModel(H, W, [JaxLayerConfig(0, **layers[0])],
                       method="liteflownet")
     model = FlowTransferModel(H, W, [LayerConfig(0, **layers[0])],
-                              method="liteflownet")
+                              method="liteflownet", device="cpu")
     jstate = jmodel.init_state(frames[0])
     state = model.init_state(torch.from_numpy(frames[0]))
     jpix, pix = jmodel.default_pixmaps(), model.default_pixmaps()
@@ -87,7 +89,7 @@ def test_scan_equals_steps(random_weights):
     frames = torch.from_numpy(_frames(FRAMES + 1))
     model = FlowTransferModel(
         H, W, [LayerConfig(0, reset_mode="random", reset_random_factor=0.2)],
-        method="liteflownet", width_factor=2)
+        method="liteflownet", width_factor=2, device="cpu")
     pix = model.default_pixmaps()
     state_a, rgbs = model.scan(model.init_state(frames[0]), frames[1:], pix,
                                0.0, prng.key(3))
@@ -126,36 +128,28 @@ def test_upscale_flow_matches_jax():
         "sum", "introduction"])
 def test_unported_options_raise(random_weights, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlowTransferModel(H, W, **kwargs)
+        FlowTransferModel(H, W, device="cpu", **kwargs)
 
 
 def test_port_imports_no_jax():
-    """The port and its slice modules import neither jax, flax nor cv2."""
+    """Every module of the port, and chip_smoke.py, import neither jax,
+    flax nor cv2, nor the JAX package: with ``transflow_tpu`` blocked in
+    ``sys.modules`` any import of it fails."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
-        "import transflow_tpu_torch, transflow_tpu_torch.model\n"
-        "import transflow_tpu_torch.flow.estimators.liteflownet\n"
-        "import transflow_tpu_torch.compositor.core\n"
-        "import transflow_tpu_torch.ops.correlation\n"
-        "import transflow_tpu_torch.ops.image\n"
-        "import transflow_tpu_torch.ops.scatter\n"
-        "import transflow_tpu_torch.flow.transforms\n"
-        "import transflow_tpu_torch.flow.merge\n"
-        "import transflow_tpu_torch.config\n"
-        "import transflow_tpu_torch.engine\n"
-        "import transflow_tpu_torch.ops.warp\n"
-        "import transflow_tpu_torch.ops.render\n"
-        "import transflow_tpu_torch.flow.sources.base\n"
-        "import transflow_tpu_torch.flow.sources.cv\n"
-        "import transflow_tpu_torch.utils.expr\n"
-        "import transflow_tpu_torch.utils.misc\n"
-        "import transflow_tpu_torch.prng\n"
-        "import transflow_tpu_torch.parallel\n"
-        "import transflow_tpu_torch.ops.halo_gather\n"
-        "bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]\n"
-        "print('IMPORTED', bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "sys.modules['transflow_tpu'] = None\n"
+        "import transflow_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    transflow_tpu_torch.__path__, 'transflow_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'cv2', 'transflow_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "print('MODULES', len(names), 'IMPORTED', bad)\n"
+        "sys.exit(1 if bad or len(names) < 25 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=REPO, timeout=120)
@@ -174,3 +168,31 @@ def test_layer_config_pinned_to_jax():
               "pixels_can_move_to_empty_spot": 0}
     assert (LayerConfig.fromdict(values).todict()
             == JaxLayerConfig.fromdict(values).todict())
+
+
+@pytest.mark.parametrize("name", ["Direction", "LockMode"])
+def test_flow_enums_pinned_to_jax(name):
+    """The port's own enums carry the JAX package's names and values, and
+    ``from_arg`` reads the same arguments."""
+    mine, theirs = getattr(flow, name), getattr(jflow, name)
+    assert mine is not theirs
+    assert ([(m.name, m.value) for m in mine]
+            == [(m.name, m.value) for m in theirs])
+    for member in theirs:
+        for arg in (member.value, member.name.lower(), None):
+            assert mine.from_arg(arg).name == theirs.from_arg(arg).name
+    with pytest.raises(ValueError):
+        mine.from_arg("sideways")
+
+
+@pytest.mark.parametrize("entry", ["model", "engine"])
+def test_entry_points_need_a_card_by_default(entry, monkeypatch,
+                                             random_weights):
+    """With no ``device`` the entry points run on the card; without one
+    they raise instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "model":
+            FlowTransferModel(H, W, method="liteflownet")
+        else:
+            Engine(Config("in.mp4"), [], [], H, W)

@@ -123,6 +123,21 @@ def kernel_library() -> KernelLibrary:
     return _build()
 
 
+def default_device() -> torch.device:
+    """Where the port's entry points run when the caller names no device:
+    the current CUDA device. Raises without one; never the CPU, which a
+    caller asks for by name (``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device, ``default_device()`` when None."""
+    return default_device() if device is None else torch.device(device)
+
+
 def cuda_stream(tensor: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on ``tensor``'s device."""
     return torch.cuda.current_stream(tensor.device).cuda_stream

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import prng
+from .._device import resolve_device
 from ..config import LayerConfig
 from ..ops.halo_gather import (bounded_row_gather, clamped_rows,
                                sharded_bounded_gather)
@@ -48,7 +49,7 @@ class LayerParams:
 
     def __init__(self, cfg: LayerConfig, height: int, width: int,
                  intro_masks: Sequence[np.ndarray],
-                 channel_counts: Sequence[int], device="cpu"):
+                 channel_counts: Sequence[int], device=None):
         for name in _MASKS:
             if getattr(cfg, name) is not None:
                 raise NotImplementedError(
@@ -58,7 +59,7 @@ class LayerParams:
         self.cfg = cfg
         self.height = height
         self.width = width
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.mask_alpha = self.mask_src = self.mask_dst = None
         self.reset_mask = None
         self.intro_masks = tuple(
@@ -286,7 +287,7 @@ def render_layer(params: LayerParams, state: dict):
 
 def build_compositor(layer_params: Sequence[LayerParams], height: int,
                      width: int, background_color: str = "#ffffff",
-                     halo: int | None = None, mesh=None, device="cpu"):
+                     halo: int | None = None, mesh=None, device=None):
     """Build the compositor functions.
 
     Returns (init_fn, step_fn) where
@@ -304,7 +305,7 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
     Parity: transflow/compositor/compositor.py:17-53."""
     for params in layer_params:
         _require_moveref(params.cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     bg_color = torch.tensor(parse_color(background_color), dtype=torch.uint8,
                             device=device)
     default_params = list(layer_params)
@@ -355,7 +356,7 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
 
 def make_layer_params(layer_cfgs: Sequence[LayerConfig], height: int,
                       width: int, sources_by_layer: dict,
-                      device="cpu") -> list[LayerParams]:
+                      device=None) -> list[LayerParams]:
     """Assemble LayerParams for each config.
 
     ``sources_by_layer`` maps layer index (cfg.index) to a list of

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import prng
+from ._device import resolve_device
 from .compositor.core import LayerParams, build_compositor
 from .config import Config
 from .flow import Direction
@@ -56,11 +57,11 @@ def _tree_to_device(tree, device):
 class SourceRuntime:
     """Device-side state for one flow source."""
 
-    def __init__(self, source: FlowSource, estimator_step, device="cpu",
+    def __init__(self, source: FlowSource, estimator_step, device=None,
                  mesh=None):
         self.source = source
         self.estimator_step = estimator_step  # None for flow-yielding sources
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.mesh = mesh
         self.prev_gray = None
         self.prev_flow = None
@@ -141,7 +142,7 @@ def mesh_safe_estimator_kwargs(config, mesh) -> dict:
 
 
 def make_estimator_step(method: str, estimator_kwargs: dict,
-                        direction: Direction, device="cpu", params=None):
+                        direction: Direction, device=None, params=None):
     """(prev_gray, gray, prev_flow) -> raw flow for one source.
 
     Frame ordering parity: transflow/flow/sources/cv.py:467-474 (forward
@@ -189,11 +190,12 @@ class Engine:
                  mesh=None,
                  halo: int | None = None,
                  device=None):
-        """``layer_params`` live on ``device``. ``mesh``: a ``SpaceMesh``;
-        the network and the state then live on ``mesh.devices[0]`` (the
-        default ``device``; one that disagrees raises), LiteFlowNet's
-        correlation is sharded over the mesh and, with ``halo``, so is the
-        movement gather. ``halo``: the bounded movement-gather
+        """``layer_params`` live on ``device``, the current CUDA device
+        by default (no card and no ``device`` raises). ``mesh``: a
+        ``SpaceMesh``; the network and the state then live on
+        ``mesh.devices[0]`` (the default ``device``; one that disagrees
+        raises), LiteFlowNet's correlation is sharded over the mesh and,
+        with ``halo``, so is the movement gather. ``halo``: the bounded movement-gather
         displacement; pair it with a clip filter for exactness."""
         self.cfg = cfg
         self.device = mesh_device(mesh, device)

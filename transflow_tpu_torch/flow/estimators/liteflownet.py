@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..._device import resolve_device
 from ...ops.correlation import check_kernel, correlation
 from ...ops.image import torch_bilinear_resize as bilinear_resize
 from ...ops.warp import bounded_backwarp
@@ -542,7 +543,7 @@ def load_torch_weights(path: str) -> dict:
         torch.load(path, map_location="cpu", weights_only=True))
 
 
-def get_weights(allow_random: bool = False, device="cpu") -> LiteFlowNet:
+def get_weights(allow_random: bool = False, device=None) -> LiteFlowNet:
     """The network with its weights: the checkpoint named by
     TRANSFLOW_LITEFLOWNET_WEIGHTS, else (``allow_random`` or
     TRANSFLOW_LITEFLOWNET_RANDOM set) the JAX package's random weights."""
@@ -558,7 +559,7 @@ def get_weights(allow_random: bool = False, device="cpu") -> LiteFlowNet:
             f"or set {RANDOM_ENV}=1 for random weights.")
     net = LiteFlowNet()
     net.load_state_dict(state)
-    return net.to(device).eval().requires_grad_(False)
+    return net.to(resolve_device(device)).eval().requires_grad_(False)
 
 
 def _to_rgb01(image) -> torch.Tensor:
@@ -580,7 +581,8 @@ def liteflownet(prev_gray_or_rgb, next_gray_or_rgb, *, net=None,
 
     Parity: liteflownet.py::liteflownet: resize to a multiple of 32, run,
     resize back, rescale magnitudes. ``net`` is a ``LiteFlowNet`` with its
-    weights (``get_weights``); None builds one from the environment.
+    weights (``get_weights``); None builds one from the environment, on
+    the current CUDA device.
     ``warp_bound`` and ``warp_kernel`` fall back to their environment
     variables on each call (config key ``lfn_warp_bound``). ``corr_kernel``
     and ``corr_mesh`` (a ``SpaceMesh``) reach the correlation."""

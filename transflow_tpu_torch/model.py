@@ -51,7 +51,9 @@ class FlowTransferModel:
         """``halo``: the bounded movement gather; ``mesh``: a
         ``SpaceMesh``, under which the gather is sharded and everything
         else runs on ``mesh.devices[0]`` (``device`` defaults to it, and
-        to the CPU without a mesh). ``estimator_kwargs`` reach the
+        without a mesh to the current CUDA device: with no card and no
+        ``device`` the constructor raises; pass ``device="cpu"`` for the
+        CPU). ``estimator_kwargs`` reach the
         estimator as they are (``corr_kernel``, ``corr_mesh``, ...)."""
         self.height = height
         self.width = width

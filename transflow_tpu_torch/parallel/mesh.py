@@ -20,6 +20,8 @@ from typing import Sequence
 
 import torch
 
+from .._device import resolve_device
+
 
 def _device(spec) -> torch.device:
     device = torch.device(spec)
@@ -59,10 +61,11 @@ class SpaceMesh:
 
 def mesh_device(mesh: SpaceMesh | None, device=None) -> torch.device:
     """Where a run puts what it does not shard: ``mesh.devices[0]`` under a
-    mesh (a ``device`` that disagrees raises), else ``device``, the CPU by
-    default."""
+    mesh (a ``device`` that disagrees raises), else ``device``, the
+    current CUDA device by default (``_device.default_device``, which
+    raises without a card)."""
     if mesh is None:
-        return torch.device("cpu" if device is None else device)
+        return resolve_device(device)
     first = mesh.devices[0]
     if device is not None and _device(device) != first:
         raise ValueError(f"device {device} disagrees with the mesh, whose "
