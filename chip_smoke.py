@@ -9,11 +9,16 @@ Phases, in order; any failure exits non-zero:
    git-ignored ``transflow_tpu_torch/_build``);
 3. kernel vs plain: the correlation kernel against its plain PyTorch
    version at the five shapes LiteFlowNet gives it on a 1088x1920 frame,
-   in each dtype pair, with CUDA-event timings of both;
+   in each dtype pair, with its ``device_ms``, its bound and its share of
+   the bound (below);
 4. bounded backwarp vs plain: kernel A3 at the five shapes the bounded
    path gives it on a 1088x1920 frame (base bound 16), bf16 and f32
    images, flows within the bound and with a fifth of the pixels beyond;
-5. sharded correlation: kernel A2 (``sharded_correlation7x7``) at the five
+   within the bound also ``F.grid_sample`` on the same image and flow
+   (the library call that computes the same function there, timed only
+   here as a yardstick);
+5. sharded correlation: kernel A2 (``sharded_correlation7x7``, one launch
+   per card that reads each shard's halo rows in place) at the five
    correlation shapes in the slice's dtype pairs, over 4 and 2 shards that
    repeat the card (a level whose H does not shard is skipped, as the
    Engine skips it), bit-equal to A1 and within 1e-5 of plain; over
@@ -29,11 +34,24 @@ Phases, in order; any failure exits non-zero:
    (the exact gather) on the same frames;
 8. mesh engine: the bound-16 Engine under ``make_space_mesh(4)`` over
    four shards of the card with ``halo=8``: the bound is stripped, and
-   each frame launches 16 A2 shard kernels (levels 2-5), 1 A1 (level 6)
-   and no A3; its flows and frames against the bound-0 run of phase 7;
+   each frame launches 4 A2 kernels (levels 2-5, one per level), 1 A1
+   (level 6) and no A3; its flows and frames against the bound-0 run of
+   phase 7; then the mesh and meshless Engines in turns (four ABBA rounds
+   of 3-frame ``process_frame`` windows) for the mesh's cost per frame;
 9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
    the CPU slice, the compositor on both devices on one flow, and the
    1080x1920 threefry draw of the random reset on both devices.
+
+Timings. ``device_ms`` is CUDA events around N back-to-back calls, over
+N: the card's time per call where the host keeps ahead of it, else the
+host's issue rate; ``torch.profiler``'s summed kernel durations tell the
+two apart at the correlation's levels (``kernel_ms``). ``call_ms`` is the
+median of single calls between two events, host time included. The
+bound (``bound_ms``) is the least time the card could take for the work:
+the larger of the bytes moved (each input byte read once, on the even
+grid at stride 2, each output byte written once) over 3.35 TB/s and the
+operations over 67 TFLOP/s (f32 outside the tensor cores), the H100 SXM's
+published peaks; ``share`` is bound over ``device_ms``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -77,7 +95,7 @@ WARP_BOUND = 16
 # 270 >= 8, so the sharded movement gather runs); A2 launches per frame
 MESH_SHARDS = 4
 MESH_HALO = 8
-A2_PER_FRAME = 16
+A2_PER_FRAME = 4
 # A2 against A1: the same products in the same order
 A2_ATOL = 0.0
 MESH_FLOW_ATOL = 1e-5
@@ -87,6 +105,13 @@ ENGINE_WARMUP = 2
 ENGINE_FRAMES = 8
 ENGINE_CALLS = 3
 EQUIV_FRAMES = 4
+TURN_WINDOW = 3    # process_frame calls per window of the in-turns timing
+TURN_ROUNDS = 4    # ABBA rounds of the in-turns timing
+# the H100 SXM's published peaks (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+DEVICE_LAUNCHES = 100
+PLAIN_LAUNCHES = 3
 
 
 def card_line() -> str:
@@ -97,9 +122,69 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median ms of ``fn()`` over ``reps`` launches, timed with CUDA
-    events around each launch."""
+def device_ms(fn, launches: int = DEVICE_LAUNCHES, warmup: int = 3
+              ) -> float:
+    """ms per call of ``fn()`` over ``launches`` back-to-back calls between
+    two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def kernel_ms(fn, pattern: str, launches: int = DEVICE_LAUNCHES
+              ) -> float | None:
+    """The summed durations of the kernels whose name holds ``pattern``
+    over ``launches`` calls under ``torch.profiler``, per call; None where
+    the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for event in prof.key_averages():
+        if pattern in event.key:
+            total += (getattr(event, "device_time_total", 0)
+                      or getattr(event, "cuda_time_total", 0))
+    return total / 1e3 / launches if total else None
+
+
+def corr_bound_ms(h: int, w: int, c: int, stride: int, t1, t2
+                  ) -> tuple[float, str]:
+    """The correlation's bound: f1 and f2 on the even grid read once, the
+    49-wide f32 output written once, 2 * 49 * C operations per pixel."""
+    pixels = -(-h // stride) * -(-w // stride)
+    nbytes = pixels * (c * (t1.itemsize + t2.itemsize) + 49 * 4)
+    return _bound(nbytes, 2 * 49 * c * pixels)
+
+
+def warp_bound_ms(h: int, w: int, c: int, dtype) -> tuple[float, str]:
+    """The bounded backwarp's bound: the image and the f32 flow read once,
+    the f32 output written once, 4 taps of 2 operations per value."""
+    nbytes = h * w * (c * dtype.itemsize + 2 * 4 + c * 4)
+    return _bound(nbytes, 8 * h * w * c)
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median ms of ``fn()`` over ``reps`` calls, each timed alone between
+    two CUDA events: host time included."""
     for _ in range(warmup):
         fn()
     times = []
@@ -127,9 +212,20 @@ def phase_build() -> None:
     from transflow_tpu_torch._device import kernel_library
     lib = kernel_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s")
+    kernel = ""
     for line in lib.build_log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"  ptxas: {line.strip()}")
+        # the correlation's 98 sums per thread must stay in registers
+        if ("corr7x7" in kernel and "spill" in line
+                and "0 bytes spill stores, 0 bytes spill loads" not in line):
+            raise AssertionError(f"{kernel} spills: {line.strip()}")
+
+
+def _pair(t1, t2) -> str:
+    return f"{str(t1)[6:]}/{str(t2)[6:]}"
 
 
 def phase_kernels(device) -> list[dict]:
@@ -146,19 +242,33 @@ def phase_kernels(device) -> list[dict]:
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             ok = torch.allclose(got, want, atol=CORR_ATOL, rtol=CORR_RTOL)
-            ms = cuda_ms(lambda: correlation7x7_cuda(f1, f2, stride))
-            plain_ms = cuda_ms(lambda: correlation7x7(f1, f2, stride),
-                               reps=10)
-            pair = f"{str(t1)[6:]}/{str(t2)[6:]}"
-            print(f"corr {level} ({h},{w},{c}) s{stride} {pair}: "
-                  f"max_abs_err {err:.3e} kernel {ms:.4f} ms "
-                  f"plain {plain_ms:.4f} ms")
             if not ok:
                 raise AssertionError(
-                    f"correlation kernel disagrees at {level} {pair}: "
-                    f"max_abs_err {err}")
-            rows.append({"level": level, "pair": (t1, t2), "err": err,
-                         "ms": ms, "plain_ms": plain_ms})
+                    f"correlation kernel disagrees at {level} "
+                    f"{_pair(t1, t2)}: max_abs_err {err}")
+            row = {"level": level, "pair": (t1, t2), "err": err}
+            row["bound_ms"], row["bound_by"] = corr_bound_ms(h, w, c, stride,
+                                                             t1, t2)
+            row["device_ms"] = device_ms(
+                lambda: correlation7x7_cuda(f1, f2, stride))
+            row["call_ms"] = call_ms(
+                lambda: correlation7x7_cuda(f1, f2, stride))
+            row["plain_ms"] = device_ms(
+                lambda: correlation7x7(f1, f2, stride), PLAIN_LAUNCHES)
+            row["kernel_ms"] = None
+            if (t1, t2) == MAIN_PAIR[level]:
+                row["kernel_ms"] = kernel_ms(
+                    lambda: correlation7x7_cuda(f1, f2, stride), "corr7x7")
+            kernel = ("not measured" if row["kernel_ms"] is None
+                      else f"{row['kernel_ms']:.5f}")
+            print(f"corr {level} ({h},{w},{c}) s{stride} {_pair(t1, t2)}: "
+                  f"max_abs_err {err:.3e} device_ms {row['device_ms']:.5f} "
+                  f"(profiler kernel {kernel}) bound {row['bound_ms']:.5f} "
+                  f"({row['bound_by']}) share "
+                  f"{row['bound_ms'] / row['device_ms']:.1%}; call "
+                  f"{row['call_ms']:.4f} ms (host-inclusive); plain "
+                  f"{row['plain_ms']:.4f} ms")
+            rows.append(row)
     return rows
 
 
@@ -173,6 +283,23 @@ def warp_flow(h: int, w: int, bound: int, beyond: bool, gen, device):
             (h, w, 2), generator=gen, device=device)
         flow = torch.where(far, torch.sign(flow) * step, flow)
     return flow
+
+
+def grid_sample_warp(image, flow):
+    """``F.grid_sample`` (bilinear, zero padding, corners aligned) of the
+    (H, W, C) image at pixel + flow: bounded_backwarp's function while
+    every floor lies within the bound. Returns the call on prepared
+    inputs: an (1, C, H, W) view of the image in f32 and the normalised
+    grid."""
+    h, w = flow.shape[:2]
+    ys = torch.arange(h, device=flow.device, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=flow.device, dtype=torch.float32)[None, :]
+    grid = torch.stack([(xs + flow[..., 0]) * (2 / (w - 1)) - 1,
+                        (ys + flow[..., 1]) * (2 / (h - 1)) - 1], -1)[None]
+    nchw = image.float().permute(2, 0, 1)[None]
+    return lambda: torch.nn.functional.grid_sample(
+        nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True)
 
 
 def phase_warp_kernels(device) -> list[dict]:
@@ -193,25 +320,42 @@ def phase_warp_kernels(device) -> list[dict]:
                 err = (got - want).abs().max().item()
                 ok = torch.allclose(got, want, atol=WARP_ATOL,
                                     rtol=WARP_RTOL)
-                ms = cuda_ms(lambda: bounded_backwarp_cuda(image, flow,
-                                                           bound))
-                plain_ms = cuda_ms(
-                    lambda: bounded_backwarp_plain(image, flow, bound),
-                    reps=10)
                 kind = "beyond" if beyond else "within"
-                print(f"warp {level} ({h},{w},{c}) K={bound} "
-                      f"{str(dtype)[6:]} {kind} (clamped "
-                      f"{clamped.item():.3f}): max_abs_err {err:.3e} "
-                      f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
                 if not ok:
                     raise AssertionError(
                         f"bounded backwarp disagrees at {level} "
                         f"{dtype} {kind}: max_abs_err {err}")
                 if beyond and not clamped.item() > 0.1:
                     raise AssertionError(f"the clamp did not run at {level}")
-                rows.append({"level": level, "dtype": dtype,
-                             "beyond": beyond, "err": err, "ms": ms,
-                             "plain_ms": plain_ms})
+                row = {"level": level, "dtype": dtype, "beyond": beyond,
+                       "err": err}
+                row["bound_ms"], row["bound_by"] = warp_bound_ms(h, w, c,
+                                                                 dtype)
+                row["device_ms"] = device_ms(
+                    lambda: bounded_backwarp_cuda(image, flow, bound))
+                row["call_ms"] = call_ms(
+                    lambda: bounded_backwarp_cuda(image, flow, bound))
+                row["plain_ms"] = device_ms(
+                    lambda: bounded_backwarp_plain(image, flow, bound),
+                    PLAIN_LAUNCHES)
+                library = ""
+                row["library_ms"] = None
+                if not beyond:
+                    sample = grid_sample_warp(image, flow)
+                    lib_err = (sample()[0].permute(1, 2, 0)
+                               - got).abs().max().item()
+                    row["library_ms"] = device_ms(sample)
+                    library = (f"; grid_sample {row['library_ms']:.5f} ms "
+                               f"(|diff| {lib_err:.3e})")
+                print(f"warp {level} ({h},{w},{c}) K={bound} "
+                      f"{str(dtype)[6:]} {kind} (clamped "
+                      f"{clamped.item():.3f}): max_abs_err {err:.3e} "
+                      f"device_ms {row['device_ms']:.5f} bound "
+                      f"{row['bound_ms']:.5f} share "
+                      f"{row['bound_ms'] / row['device_ms']:.1%}; call "
+                      f"{row['call_ms']:.4f} ms (host-inclusive); plain "
+                      f"{row['plain_ms']:.4f} ms{library}")
+                rows.append(row)
     return rows
 
 
@@ -359,11 +503,10 @@ def _zero_launches() -> None:
         fn.launches = 0
 
 
-def run_engine(device, frames, pixmap, bound: int, mesh=None,
-               halo: int | None = None) -> dict:
-    """The Engine over ``frames``: a warm-up chunk, a timed chunk, then
-    ``process_frame`` calls, with the kernels' (A3, A1, A2) launches
-    counted from just before the timed chunk."""
+def make_engine(device, frames, bound: int, mesh=None,
+                halo: int | None = None):
+    """(Engine, its frame source) at ``lfn_warp_bound=bound``, one moveref
+    layer with random reset 0.01."""
     from transflow_tpu_torch.compositor.core import make_layer_params
     from transflow_tpu_torch.config import Config, LayerConfig
     from transflow_tpu_torch.engine import Engine
@@ -374,6 +517,15 @@ def run_engine(device, frames, pixmap, bound: int, mesh=None,
     engine = Engine(Config("synthetic", direction="backward", seed=SEED),
                     [source], layer_params, HEIGHT, WIDTH,
                     export_flows=True, device=device, mesh=mesh, halo=halo)
+    return engine, source
+
+
+def run_engine(device, frames, pixmap, bound: int, mesh=None,
+               halo: int | None = None) -> dict:
+    """The Engine over ``frames``: a warm-up chunk, a timed chunk, then
+    ``process_frame`` calls, with the kernels' (A3, A1, A2) launches
+    counted from just before the timed chunk."""
+    engine, source = make_engine(device, frames, bound, mesh, halo)
     pixmaps, slots = ((pixmap,),), ((None,),)
     items = iter(source)
     warm = [next(items) for _ in range(ENGINE_WARMUP)]
@@ -488,27 +640,64 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
         raise AssertionError(f"mesh engine flows differ by {diff}")
     if not same:
         raise AssertionError("mesh engine frames differ from meshless")
+    run["turns"] = engines_in_turns(device, card, engine_phase, mesh)
     return run
 
 
+def engines_in_turns(device, card: str, engine_phase: dict, mesh) -> dict:
+    """The meshless bound-0 Engine (A) and the mesh Engine (B) on one
+    panned clip, ``process_frame`` windows of ``TURN_WINDOW`` frames in
+    ``TURN_ROUNDS`` rounds of ABBA after a warm-up frame each: host clock
+    around each window, which ends in a synchronize. Returns each
+    Engine's median ms/frame."""
+    pixmap = engine_phase["pixmap"]
+    frames = panned_frames(2 + 2 * TURN_ROUNDS * TURN_WINDOW, HEIGHT, WIDTH,
+                           device)
+    engines = {"meshless": make_engine(device, frames, 0),
+               "mesh": make_engine(device, frames, WARP_BOUND, mesh,
+                                   MESH_HALO)}
+    streams, fnos, times = {}, {}, {name: [] for name in engines}
+    for name, (engine, source) in engines.items():
+        streams[name] = iter(source)
+        engine.process_frame([next(streams[name])], ((pixmap,),), 0.0,
+                             ((0,),))
+        fnos[name] = 1
+    torch.cuda.synchronize()
+    for name in ("meshless", "mesh", "mesh", "meshless") * TURN_ROUNDS:
+        engine = engines[name][0]
+        start = time.perf_counter()
+        for _ in range(TURN_WINDOW):
+            fno = fnos[name]
+            engine.process_frame([next(streams[name])], ((pixmap,),),
+                                 fno / 30.0, ((fno,),))
+            fnos[name] += 1
+        torch.cuda.synchronize()
+        times[name].append(1e3 * (time.perf_counter() - start) / TURN_WINDOW)
+    result = {name: statistics.median(t) for name, t in times.items()}
+    print(f"engines in turns ({TURN_ROUNDS} x ABBA, {TURN_WINDOW}-frame "
+          "windows): "
+          f"meshless {result['meshless']:.2f} ms/frame, mesh x{MESH_SHARDS} "
+          f"{result['mesh']:.2f} ms/frame (medians; windows "
+          f"{[round(t, 2) for t in times['meshless']]} and "
+          f"{[round(t, 2) for t in times['mesh']]}) on {card}")
+    return result
+
+
 def a2_plain(f1, f2, mesh, stride: int):
-    """The plain version of A2: the library's split and halo exchange,
-    ``correlation7x7_band`` on each shard, join."""
-    from transflow_tpu_torch.ops.correlation import (MAX_DISP, _stage_dtype,
-                                                     correlation7x7_band)
-    from transflow_tpu_torch.parallel import exchange_rows
-    pad = MAX_DISP * stride
-    f1_bands = mesh.split(_stage_dtype(f1))
-    f2_bands = mesh.split(_stage_dtype(f2))
-    outs = [correlation7x7_band(a, torch.cat([top, b, bottom]), stride, pad)
-            for a, b, (top, bottom) in zip(
-                f1_bands, f2_bands, exchange_rows(f2_bands, pad, mesh))]
-    return mesh.join(outs, f1.device)
+    """The plain version of A2: the library's shard segments,
+    ``correlation7x7_segments`` on each shard, joined."""
+    from transflow_tpu_torch.ops.correlation import (_stage_dtype,
+                                                     correlation7x7_segments,
+                                                     shard_segments)
+    shards = shard_segments(_stage_dtype(f1), _stage_dtype(f2), mesh, stride)
+    return torch.cat([correlation7x7_segments(*s[:4], stride).to(f1.device)
+                      for s in shards])
 
 
 def phase_sharded_kernels(device) -> list[dict]:
     """Kernel A2 against A1 (bit-equal) and its plain version (1e-5) at
-    the five correlation shapes in the slice's dtype pairs."""
+    the five correlation shapes in the slice's dtype pairs; one launch per
+    call on one card."""
     from transflow_tpu_torch.ops.correlation import (correlation7x7_cuda,
                                                      sharded_correlation7x7,
                                                      sharded_ok)
@@ -526,27 +715,39 @@ def phase_sharded_kernels(device) -> list[dict]:
                       "shard (sharded_ok false), unsharded A1 runs there")
                 continue
             mesh = make_space_mesh(n, devices=[device] * n)
+            before = sharded_correlation7x7.launches
             got = sharded_correlation7x7(f1, f2, mesh, stride)
+            launches = sharded_correlation7x7.launches - before
             plain = a2_plain(f1, f2, mesh, stride)
             torch.cuda.synchronize()
             err_a1 = (got - a1).abs().max().item()
             err = (got - plain).abs().max().item()
             ok = torch.allclose(got, plain, atol=CORR_ATOL, rtol=CORR_RTOL)
-            ms = cuda_ms(lambda: sharded_correlation7x7(f1, f2, mesh, stride))
-            a1_ms = cuda_ms(lambda: correlation7x7_cuda(f1, f2, stride))
-            plain_ms = cuda_ms(lambda: a2_plain(f1, f2, mesh, stride),
-                               reps=10)
-            print(f"a2 {level} ({h},{w},{c}) s{stride} x{n} "
-                  f"{str(t1)[6:]}/{str(t2)[6:]}: |A2-A1| {err_a1:.3e} "
-                  f"|A2-plain| {err:.3e} A2 {ms:.4f} ms A1 {a1_ms:.4f} ms "
-                  f"plain {plain_ms:.4f} ms")
-            if err_a1 > A2_ATOL or not ok:
+            if err_a1 > A2_ATOL or not ok or launches != 1:
                 raise AssertionError(
                     f"A2 disagrees at {level} x{n}: |A2-A1| {err_a1}, "
-                    f"|A2-plain| {err}")
-            rows.append({"level": level, "shards": n, "err": err,
-                         "err_a1": err_a1, "ms": ms, "a1_ms": a1_ms,
-                         "plain_ms": plain_ms})
+                    f"|A2-plain| {err}, {launches} launches (expected 1)")
+            row = {"level": level, "shards": n, "err": err,
+                   "err_a1": err_a1}
+            row["bound_ms"], row["bound_by"] = corr_bound_ms(h, w, c, stride,
+                                                             t1, t2)
+            call = lambda: sharded_correlation7x7(f1, f2, mesh, stride)
+            row["device_ms"] = device_ms(call)
+            row["kernel_ms"] = kernel_ms(call, "corr7x7")
+            row["a1_device_ms"] = device_ms(
+                lambda: correlation7x7_cuda(f1, f2, stride))
+            row["call_ms"] = call_ms(call)
+            row["plain_ms"] = device_ms(
+                lambda: a2_plain(f1, f2, mesh, stride), PLAIN_LAUNCHES)
+            kernel = ("not measured" if row["kernel_ms"] is None
+                      else f"{row['kernel_ms']:.5f}")
+            print(f"a2 {level} ({h},{w},{c}) s{stride} x{n} {_pair(t1, t2)}: "
+                  f"|A2-A1| {err_a1:.3e} |A2-plain| {err:.3e}; device_ms A2 "
+                  f"{row['device_ms']:.5f} (profiler kernel {kernel}) A1 "
+                  f"{row['a1_device_ms']:.5f} bound {row['bound_ms']:.5f}; "
+                  f"call {row['call_ms']:.4f} ms (host-inclusive); plain "
+                  f"{row['plain_ms']:.4f} ms")
+            rows.append(row)
     count = torch.cuda.device_count()
     if count >= 2:
         h, w, c, stride, level = CORR_SHAPES[-1]
@@ -581,7 +782,7 @@ def phase_draw(device) -> dict:
     same = torch.equal(got.cpu(), prng.uniform(key, (HEIGHT, WIDTH)))
     with CountOps() as counter:
         prng.uniform(key, (HEIGHT, WIDTH), device)
-    ms = cuda_ms(lambda: prng.uniform(key, (HEIGHT, WIDTH), device))
+    ms = device_ms(lambda: prng.uniform(key, (HEIGHT, WIDTH), device), 20)
     torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(20):
@@ -589,7 +790,7 @@ def phase_draw(device) -> dict:
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - start) / 20
     print(f"draw {HEIGHT}x{WIDTH} threefry uniform cuda vs cpu: "
-          f"{'bit-equal' if same else 'DIFFER'}; {ms:.4f} ms (events) "
+          f"{'bit-equal' if same else 'DIFFER'}; {ms:.4f} ms (device_ms) "
           f"{host_ms:.4f} ms (host, synced) and {counter.ops} launches per "
           "frame (one random layer)")
     if not same:
@@ -657,6 +858,21 @@ def phase_equivalence(device) -> None:
           f"bit-equal over {EQUIV_FRAMES} frames")
 
 
+def _bound_by(rows) -> str:
+    """What bounds the largest of the rows' bounds."""
+    return max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+
+
+def _per_frame(rows, key: str, weight=None) -> float | None:
+    """Sum of ``key`` over rows (one frame's launches), each times its
+    launches per frame; None where a row lacks it."""
+    values = [r[key] for r in rows]
+    if any(v is None for v in values):
+        return None
+    weights = [1] * len(rows) if weight is None else weight
+    return sum(n * v for n, v in zip(weights, values))
+
+
 def main() -> int:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -669,18 +885,28 @@ def main() -> int:
     mesh_run = phase_mesh_engine(device, card, engine_phase)
     phase_equivalence(device)
     phase_draw(device)
+    # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound
-    main_warp = [(WARP_PER_FRAME[r["level"]], r) for r in warp_rows
+    main_warp = [r for r in warp_rows
                  if r["dtype"] == BF16 and not r["beyond"]]
+    warp_n = [WARP_PER_FRAME[r["level"]] for r in main_warp]
     # one frame of the mesh Engine: levels 2-5 over four shards
     mesh_a2 = [r for r in a2_rows if r["shards"] == MESH_SHARDS]
-    runs = engine_phase["runs"]
+    a1_same = sum(r["a1_device_ms"] for r in mesh_a2)
     print(f"a2 per frame at {MESH_SHARDS} shards (levels "
-          f"{', '.join(r['level'] for r in mesh_a2)}): A2 "
-          f"{sum(r['ms'] for r in mesh_a2):.4f} ms, A1 on the same levels "
-          f"{sum(r['a1_ms'] for r in mesh_a2):.4f} ms, plain "
-          f"{sum(r['plain_ms'] for r in mesh_a2):.4f} ms")
+          f"{', '.join(r['level'] for r in mesh_a2)}): device_ms A2 "
+          f"{_per_frame(mesh_a2, 'device_ms'):.5f}, A1 on the same levels "
+          f"{a1_same:.5f}, bound {_per_frame(mesh_a2, 'bound_ms'):.5f}, "
+          f"plain {_per_frame(mesh_a2, 'plain_ms'):.4f}")
+    for name, group, weight in (("correlation7x7", main_rows, None),
+                                ("bounded_backwarp", main_warp, warp_n)):
+        print(f"{name} per frame: device_ms "
+              f"{_per_frame(group, 'device_ms', weight):.5f}, bound "
+              f"{_per_frame(group, 'bound_ms', weight):.5f}, call "
+              f"{_per_frame(group, 'call_ms', weight):.4f} (host-inclusive)")
+    no_library = "none: no single PyTorch call computes the cost volume"
+    runs = engine_phase["runs"]
     record = {"kernels": [{
         "name": "correlation7x7",
         "route": "cuda",
@@ -691,8 +917,15 @@ def main() -> int:
             run["launches"][1] for run in (*runs.values(), mesh_run)),
         "max_abs_err": max(r["err"] for r in rows),
         # per frame: the five levels in the slice's dtype pairs
-        "ms": sum(r["ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows),
+        "ms": _per_frame(main_rows, "device_ms"),
+        "device_ms": _per_frame(main_rows, "device_ms"),
+        "kernel_ms": _per_frame(main_rows, "kernel_ms"),
+        "call_ms": _per_frame(main_rows, "call_ms"),
+        "plain_ms": _per_frame(main_rows, "plain_ms"),
+        "bound_ms": _per_frame(main_rows, "bound_ms"),
+        "bound_by": _bound_by(main_rows),
+        "library_ms": None,
+        "library": no_library,
     }, {
         "name": "bounded_backwarp",
         "route": "cuda",
@@ -701,8 +934,15 @@ def main() -> int:
         "launches": runs[WARP_BOUND]["launches"][0],
         "max_abs_err": max(r["err"] for r in warp_rows),
         # per frame: nine launches over the five levels
-        "ms": sum(n * r["ms"] for n, r in main_warp),
-        "plain_ms": sum(n * r["plain_ms"] for n, r in main_warp),
+        "ms": _per_frame(main_warp, "device_ms", warp_n),
+        "device_ms": _per_frame(main_warp, "device_ms", warp_n),
+        "call_ms": _per_frame(main_warp, "call_ms", warp_n),
+        "plain_ms": _per_frame(main_warp, "plain_ms", warp_n),
+        "bound_ms": _per_frame(main_warp, "bound_ms", warp_n),
+        "bound_by": _bound_by(main_warp),
+        "library_ms": _per_frame(main_warp, "library_ms", warp_n),
+        "library": "torch.nn.functional.grid_sample (bilinear, zeros, "
+                   "align_corners=True) on an f32 NCHW view",
     }, {
         "name": "sharded_correlation7x7",
         "route": "cuda",
@@ -711,9 +951,16 @@ def main() -> int:
         # the mesh Engine's run
         "launches": mesh_run["launches"][2],
         "max_abs_err": max(r["err"] for r in a2_rows),
-        # per frame: split, exchange, kernels and join at levels 2-5
-        "ms": sum(r["ms"] for r in mesh_a2),
-        "plain_ms": sum(r["plain_ms"] for r in mesh_a2),
+        # per frame: one call per level at levels 2-5
+        "ms": _per_frame(mesh_a2, "device_ms"),
+        "device_ms": _per_frame(mesh_a2, "device_ms"),
+        "kernel_ms": _per_frame(mesh_a2, "kernel_ms"),
+        "call_ms": _per_frame(mesh_a2, "call_ms"),
+        "plain_ms": _per_frame(mesh_a2, "plain_ms"),
+        "bound_ms": _per_frame(mesh_a2, "bound_ms"),
+        "bound_by": _bound_by(mesh_a2),
+        "library_ms": None,
+        "library": no_library,
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

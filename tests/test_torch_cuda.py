@@ -45,7 +45,14 @@ def exact_f32(monkeypatch):
     str(t)[6:] for t in p))
 @pytest.mark.parametrize("shape", [(16, 24, 8, 1), (32, 48, 16, 2),
                                    (4, 6, 192, 1), (9, 37, 20, 2),
-                                   (68, 120, 128, 1), (136, 240, 64, 2)],
+                                   (68, 120, 128, 1), (136, 240, 64, 2),
+                                   # off the tile grid: W not a multiple
+                                   # of a tile, odd H at stride 2; C = 24
+                                   # (one channel group), 200 (four, the
+                                   # last one short), 18 (rows of 72 or 36
+                                   # bytes: the element-wise staging)
+                                   (17, 45, 24, 2), (11, 29, 200, 1),
+                                   (13, 21, 18, 1), (35, 61, 96, 2)],
                          ids=str)
 def test_kernel_matches_plain(device, shape, pair):
     h, w, c, stride = shape
@@ -90,10 +97,13 @@ def test_bounded_backwarp_matches_plain(device, shape, dtype):
     str(t)[6:] for t in p))
 @pytest.mark.parametrize("shape", [(64, 48, 16, 1, 4), (128, 48, 32, 2, 4),
                                    (136, 240, 96, 1, 4), (272, 480, 64, 2, 4),
-                                   (68, 120, 128, 1, 2)], ids=str)
+                                   (68, 120, 128, 1, 2), (64, 37, 24, 1, 2),
+                                   (128, 45, 200, 1, 8), (272, 96, 64, 2, 8),
+                                   (136, 240, 96, 1, 8)], ids=str)
 def test_sharded_kernel_equals_unsharded(device, shape, pair):
-    """Kernel A2 over shards that repeat one card: every output pixel sums
-    the same products in the same order as kernel A1, so bit-equal."""
+    """Kernel A2 over shards that repeat one card, in one launch that
+    reads the halos in place: every output pixel sums the same products
+    in the same order as kernel A1, so bit-equal."""
     h, w, c, stride, n = shape
     gen = torch.Generator(device=device).manual_seed(2)
     f1 = torch.randn((h, w, c), generator=gen, device=device).to(pair[0])
@@ -103,10 +113,26 @@ def test_sharded_kernel_equals_unsharded(device, shape, pair):
     got = sharded_correlation7x7(f1, f2, mesh, stride)
     torch.cuda.synchronize()
     assert (sharded_correlation7x7.launches,
-            correlation7x7_cuda.launches) == (before[0] + n, before[1])
+            correlation7x7_cuda.launches) == (before[0] + 1, before[1])
     want = correlation7x7_cuda(f1, f2, stride)
     assert got.shape == want.shape and got.device == f1.device
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_kernel_unaligned_rows_equal_aligned(device, dtype):
+    """An f2 whose base is not on 16 bytes is staged element by element;
+    the sums are those of the 16-byte copies of an aligned f2, bit for
+    bit."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    h, w, c = 34, 60, 64
+    f1 = torch.randn((h, w, c), generator=gen, device=device).to(BF16)
+    flat = torch.randn(h * w * c + 1, generator=gen, device=device).to(dtype)
+    shifted = flat[1:].view(h, w, c)
+    assert shifted.data_ptr() % 16
+    torch.testing.assert_close(correlation7x7_cuda(f1, shifted, 1),
+                               correlation7x7_cuda(f1, shifted.clone(), 1),
+                               atol=0, rtol=0)
 
 
 def test_uniform_on_card_matches_cpu(device):
@@ -145,3 +171,16 @@ def test_slice_on_card_matches_cpu(device, exact_f32):
     assert torch.isfinite(flows["cuda"]).all()
     torch.testing.assert_close(flows["cuda"], flows["cpu"], atol=1e-3,
                                rtol=1e-3)
+
+
+def test_entry_points_default_to_the_card(device, exact_f32):
+    """With no ``device`` the model and the Engine run on the current CUDA
+    device, the network included."""
+    from transflow_tpu_torch.config import Config
+    from transflow_tpu_torch.engine import Engine
+    from transflow_tpu_torch.model import FlowTransferModel
+    model = FlowTransferModel(32, 48, method="liteflownet")
+    assert model.device == device
+    assert next(model.net.parameters()).device == device
+    assert model.layer_params[0].intro_masks[0].device == device
+    assert Engine(Config("in.mp4"), [], [], 32, 48).device == device

@@ -205,3 +205,62 @@ def test_liteflownet_corr_mesh_matches_jax(jax_variables, count_bands,
     assert got.shape == want.shape == (64, 96, 2)
     np.testing.assert_allclose(got.numpy(), want, atol=NET_TOL, rtol=NET_TOL)
     assert count_bands == [(16, 48, 64)] * 2
+
+
+@pytest.mark.parametrize("pair", [("bf16", np.float32), ("bf16", "bf16")],
+                         ids=["bf16/f32", "bf16/bf16"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("edge", ["first", "middle", "last", "alone"])
+def test_segments_plain_equals_band(edge, stride, pair):
+    """``correlation7x7_segments`` (the CPU twin of the kernel's sharded
+    entry) equals ``correlation7x7_band`` over the concatenated band bit
+    for bit; an absent halo stands for the frame's zero rows."""
+    pad = 3 * stride
+    f1, f2, _, _ = _pair((16, 24, 8), 12, *pair)
+    _, halo, _, _ = _pair((2 * pad, 24, 8), 13, *pair)
+    top = None if edge in ("first", "alone") else halo[:pad]
+    bottom = None if edge in ("last", "alone") else halo[pad:]
+    zeros = torch.zeros((pad, 24, 8), dtype=f2.dtype)
+    band = torch.cat([zeros if top is None else top, f2,
+                      zeros if bottom is None else bottom])
+    got = corr.correlation7x7_segments(f1, top, f2, bottom, stride)
+    np.testing.assert_array_equal(
+        got.numpy(), corr.correlation7x7_band(f1, band, stride, pad).numpy())
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_shard_descriptors(n, stride):
+    """The sharded entry's descriptors: each shard's f1 rows, its own f2
+    rows and its neighbours' 3s halo rows as views of the operands (read
+    in place: no copy, no zero rows; none at the frame's edges), and its
+    first output row."""
+    h, w, c = 16 * n * stride, 10, 8
+    pad, rows, out_rows = 3 * stride, h // n, h // n // stride
+    f1 = torch.zeros((h, w, c), dtype=torch.bfloat16)
+    f2 = torch.zeros((h, w, c))
+    out = torch.empty((h // stride, w // stride, 49))
+    shards = corr.shard_segments(f1, f2, SpaceMesh(["cpu"] * n), stride)
+    table = corr.shard_table(shards, out, [s.out_row0 for s in shards])
+    assert len(shards) == n and len(table) == 9 * n
+    f1_row, f2_row = w * c * 2, w * c * 4
+    out_row = (w // stride) * 49 * 4
+    for i, s in enumerate(shards):
+        top = (f2.data_ptr() + (i * rows - pad) * f2_row, pad) if i else (0, 0)
+        bottom = ((f2.data_ptr() + (i + 1) * rows * f2_row, pad)
+                  if i < n - 1 else (0, 0))
+        assert s.out_row0 == i * out_rows
+        assert table[9 * i:9 * i + 9] == [
+            f1.data_ptr() + i * rows * f1_row, rows, *top,
+            f2.data_ptr() + i * rows * f2_row, rows, *bottom,
+            out.data_ptr() + i * out_rows * out_row]
+    # the one-card builder gives the same descriptors from addresses alone
+    assert corr.one_card_table(f1, f2, out, n, stride) == table
+
+
+def test_sharded_launch_refuses_cpu_tensors():
+    """The sharded entry runs on CUDA tensors only: no CPU fallback."""
+    f = torch.zeros(32, 8, 4)
+    shards = corr.shard_segments(f, f, SpaceMesh(["cpu"] * 2), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        corr._launch_shards(shards, torch.empty(32, 8, 49), [0, 16], 1)

@@ -34,6 +34,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # f1, dtype1, f2, dtype2, out, H, W, C, stride, f2_row0, f2_rows, stream
     "transflow_corr7x7": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
+    # table (9 int64 per shard), shards, dtype1, dtype2, W, C, stride,
+    # stream
+    "transflow_corr7x7_shards": (_P, _I, _I, _I, _I, _I, _I, _P),
     # image, dtype, flow, out, H, W, C, bound, stream
     "transflow_bounded_backwarp": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -136,6 +139,18 @@ def default_device() -> torch.device:
 def resolve_device(device) -> torch.device:
     """``device`` as a torch device, ``default_device()`` when None."""
     return default_device() if device is None else torch.device(device)
+
+
+def launch(device: torch.device, name: str, *args) -> None:
+    """Launch the kernel library's entry ``name`` with ``args`` while
+    ``device`` is the current CUDA device (made so for the call only where
+    it is not: the switch costs host time on every launch)."""
+    lib = kernel_library()
+    if device.index == torch.cuda.current_device():
+        lib.call(name, *args)
+    else:
+        with torch.cuda.device(device):
+            lib.call(name, *args)
 
 
 def cuda_stream(tensor: torch.Tensor) -> int:

@@ -15,7 +15,7 @@ clamped-anchor edge rule of the exact ``liteflownet.backwarp``.
 """
 import torch
 
-from .._device import DTYPE_CODES, cuda_stream, kernel_library
+from .._device import DTYPE_CODES, cuda_stream, launch
 
 
 def bounded_backwarp_plain(image: torch.Tensor, flow: torch.Tensor,
@@ -68,11 +68,9 @@ def bounded_backwarp_cuda(image: torch.Tensor, flow: torch.Tensor,
                          "flow")
     h, w, c = image.shape
     out = torch.empty((h, w, c), dtype=torch.float32, device=image.device)
-    with torch.cuda.device(image.device):
-        kernel_library().call(
-            "transflow_bounded_backwarp", image.data_ptr(),
-            DTYPE_CODES[image.dtype], flow.data_ptr(), out.data_ptr(), h, w,
-            c, int(bound), cuda_stream(image))
+    launch(image.device, "transflow_bounded_backwarp", image.data_ptr(),
+           DTYPE_CODES[image.dtype], flow.data_ptr(), out.data_ptr(), h, w,
+           c, int(bound), cuda_stream(image))
     bounded_backwarp_cuda.launches += 1
     return out
 
