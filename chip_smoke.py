@@ -36,16 +36,20 @@ Phases, in order; any failure exits non-zero:
    four shards of the card with ``halo=8``: the bound is stripped, and
    each frame launches 4 A2 kernels (levels 2-5, one per level), 1 A1
    (level 6) and no A3; its flows and frames against the bound-0 run of
-   phase 7; then the mesh and meshless Engines in turns (four ABBA rounds
+   phase 7; then the mesh and meshless Engines in turns (eight ABBA rounds
    of 3-frame ``process_frame`` windows) for the mesh's cost per frame;
 9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
    the CPU slice, the compositor on both devices on one flow, and the
-   1080x1920 threefry draw of the random reset on both devices.
+   1080x1920 threefry draw of the random reset on both devices;
+10. kernel time: ``torch.profiler``'s kernel durations of A1 (the slice's
+   dtype pairs) and A2 (every sharded case) on phases 3 and 5's inputs.
+   It runs last, after every timed run of the main path, so that the
+   profiler's hooks cannot reach those timings.
 
 Timings. ``device_ms`` is CUDA events around N back-to-back calls, over
 N: the card's time per call where the host keeps ahead of it, else the
 host's issue rate; ``torch.profiler``'s summed kernel durations tell the
-two apart at the correlation's levels (``kernel_ms``). ``call_ms`` is the
+two apart at the correlation's levels (``kernel_ms``, phase 10). ``call_ms`` is the
 median of single calls between two events, host time included. The
 bound (``bound_ms``) is the least time the card could take for the work:
 the larger of the bytes moved (each input byte read once, on the even
@@ -56,6 +60,7 @@ published peaks; ``share`` is bound over ``device_ms``.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
+import functools
 import json
 import os
 import statistics
@@ -106,7 +111,7 @@ ENGINE_FRAMES = 8
 ENGINE_CALLS = 3
 EQUIV_FRAMES = 4
 TURN_WINDOW = 3    # process_frame calls per window of the in-turns timing
-TURN_ROUNDS = 4    # ABBA rounds of the in-turns timing
+TURN_ROUNDS = 8    # ABBA rounds of the in-turns timing
 # the H100 SXM's published peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -255,15 +260,12 @@ def phase_kernels(device) -> list[dict]:
                 lambda: correlation7x7_cuda(f1, f2, stride))
             row["plain_ms"] = device_ms(
                 lambda: correlation7x7(f1, f2, stride), PLAIN_LAUNCHES)
-            row["kernel_ms"] = None
-            if (t1, t2) == MAIN_PAIR[level]:
-                row["kernel_ms"] = kernel_ms(
-                    lambda: correlation7x7_cuda(f1, f2, stride), "corr7x7")
-            kernel = ("not measured" if row["kernel_ms"] is None
-                      else f"{row['kernel_ms']:.5f}")
+            if (t1, t2) == MAIN_PAIR[level]:  # profiled in phase 10
+                row["call"] = functools.partial(correlation7x7_cuda, f1, f2,
+                                                stride)
             print(f"corr {level} ({h},{w},{c}) s{stride} {_pair(t1, t2)}: "
                   f"max_abs_err {err:.3e} device_ms {row['device_ms']:.5f} "
-                  f"(profiler kernel {kernel}) bound {row['bound_ms']:.5f} "
+                  f"bound {row['bound_ms']:.5f} "
                   f"({row['bound_by']}) share "
                   f"{row['bound_ms'] / row['device_ms']:.1%}; call "
                   f"{row['call_ms']:.4f} ms (host-inclusive); plain "
@@ -731,19 +733,18 @@ def phase_sharded_kernels(device) -> list[dict]:
                    "err_a1": err_a1}
             row["bound_ms"], row["bound_by"] = corr_bound_ms(h, w, c, stride,
                                                              t1, t2)
-            call = lambda: sharded_correlation7x7(f1, f2, mesh, stride)
+            call = functools.partial(sharded_correlation7x7, f1, f2, mesh,
+                                     stride)
+            row["call"] = call  # profiled in phase 10
             row["device_ms"] = device_ms(call)
-            row["kernel_ms"] = kernel_ms(call, "corr7x7")
             row["a1_device_ms"] = device_ms(
                 lambda: correlation7x7_cuda(f1, f2, stride))
             row["call_ms"] = call_ms(call)
             row["plain_ms"] = device_ms(
                 lambda: a2_plain(f1, f2, mesh, stride), PLAIN_LAUNCHES)
-            kernel = ("not measured" if row["kernel_ms"] is None
-                      else f"{row['kernel_ms']:.5f}")
             print(f"a2 {level} ({h},{w},{c}) s{stride} x{n} {_pair(t1, t2)}: "
                   f"|A2-A1| {err_a1:.3e} |A2-plain| {err:.3e}; device_ms A2 "
-                  f"{row['device_ms']:.5f} (profiler kernel {kernel}) A1 "
+                  f"{row['device_ms']:.5f} A1 "
                   f"{row['a1_device_ms']:.5f} bound {row['bound_ms']:.5f}; "
                   f"call {row['call_ms']:.4f} ms (host-inclusive); plain "
                   f"{row['plain_ms']:.4f} ms")
@@ -858,6 +859,20 @@ def phase_equivalence(device) -> None:
           f"bit-equal over {EQUIV_FRAMES} frames")
 
 
+def phase_kernel_time(rows, a2_rows) -> None:
+    """``kernel_ms`` of every row that phases 3 and 5 left a call in."""
+    for row in rows + a2_rows:
+        if "call" not in row:
+            continue
+        row["kernel_ms"] = kernel_ms(row.pop("call"), "corr7x7")
+        name = (f"a2 {row['level']} x{row['shards']}" if "shards" in row
+                else f"corr {row['level']} {_pair(*row['pair'])}")
+        kernel = ("not measured" if row["kernel_ms"] is None
+                  else f"{row['kernel_ms']:.5f} ms")
+        print(f"kernel time {name}: {kernel} (torch.profiler, per call) "
+              f"against device_ms {row['device_ms']:.5f}")
+
+
 def _bound_by(rows) -> str:
     """What bounds the largest of the rows' bounds."""
     return max(rows, key=lambda r: r["bound_ms"])["bound_by"]
@@ -885,6 +900,7 @@ def main() -> int:
     mesh_run = phase_mesh_engine(device, card, engine_phase)
     phase_equivalence(device)
     phase_draw(device)
+    phase_kernel_time(rows, a2_rows)
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound

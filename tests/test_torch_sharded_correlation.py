@@ -169,10 +169,11 @@ def test_sharded_entry_rejects_indivisible():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """The band kernel runs on CUDA tensors only: no CPU fallback."""
+    """The correlation kernel runs on CUDA tensors only: no CPU
+    fallback."""
     f = torch.zeros(8, 8, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        corr._launch(f, f, 1, 0)
+        corr.correlation7x7_cuda(f, f, 1)
 
 
 @pytest.fixture(scope="module")
@@ -254,7 +255,7 @@ def test_shard_descriptors(n, stride):
             f1.data_ptr() + i * rows * f1_row, rows, *top,
             f2.data_ptr() + i * rows * f2_row, rows, *bottom,
             out.data_ptr() + i * out_rows * out_row]
-    # the one-card builder gives the same descriptors from addresses alone
+    # ``one_card_table`` gives the same descriptors from addresses alone
     assert corr.one_card_table(f1, f2, out, n, stride) == table
 
 

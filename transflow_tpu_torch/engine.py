@@ -195,8 +195,9 @@ class Engine:
         ``SpaceMesh``; the network and the state then live on
         ``mesh.devices[0]`` (the default ``device``; one that disagrees
         raises), LiteFlowNet's correlation is sharded over the mesh and,
-        with ``halo``, so is the movement gather. ``halo``: the bounded movement-gather
-        displacement; pair it with a clip filter for exactness."""
+        with ``halo``, so is the movement gather. ``halo``: the bounded
+        movement-gather displacement; pair it with a clip filter for
+        exactness."""
         self.cfg = cfg
         self.device = mesh_device(mesh, device)
         self.mesh = mesh

@@ -74,17 +74,18 @@ def correlation7x7_band(f1: torch.Tensor, f2_band: torch.Tensor,
     return _taps(f1, f2p, stride)
 
 
-def _launch(f1: torch.Tensor, f2: torch.Tensor, stride: int,
-            row0: int) -> torch.Tensor:
-    """Launch the kernel on the (H, W, C) f1 and the (R, W, C) f2 buffer
-    whose row ``row0`` lines up with f1's row 0; counts nothing."""
+def correlation7x7_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                        stride: int = 1) -> torch.Tensor:
+    """Launch the CUDA kernel on (H, W, C) CUDA tensors of one shape,
+    contiguous, each float32 or bfloat16. ``correlation7x7_cuda.launches``
+    counts launches."""
     if not (f1.is_cuda and f2.is_cuda) or f1.device != f2.device:
         raise ValueError("the correlation kernel needs both operands on one "
                          f"CUDA device, got {f1.device} and {f2.device}")
-    if f1.dim() != 3 or f2.dim() != 3 or f1.shape[1:] != f2.shape[1:]:
-        raise ValueError("the correlation kernel needs (H, W, C) operands "
-                         f"of one width and depth, got {tuple(f1.shape)} "
-                         f"and {tuple(f2.shape)}")
+    if f1.dim() != 3 or f1.shape != f2.shape:
+        raise ValueError("the correlation kernel needs two (H, W, C) "
+                         f"tensors of one shape, got {tuple(f1.shape)} and "
+                         f"{tuple(f2.shape)}")
     if stride < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")
     f1, f2 = _stage_dtype(f1), _stage_dtype(f2)
@@ -94,23 +95,10 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, stride: int,
     h, w, c = f1.shape
     out = torch.empty((-(-h // stride), -(-w // stride), WINDOW * WINDOW),
                       dtype=torch.float32, device=f1.device)
+    # the C entry's row window (f2_row0, f2_rows) is the whole frame here
     launch(f1.device, "transflow_corr7x7", f1.data_ptr(),
            DTYPE_CODES[f1.dtype], f2.data_ptr(), DTYPE_CODES[f2.dtype],
-           out.data_ptr(), h, w, c, stride, row0, f2.shape[0],
-           cuda_stream(f1))
-    return out
-
-
-def correlation7x7_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                        stride: int = 1) -> torch.Tensor:
-    """Launch the CUDA kernel on (H, W, C) CUDA tensors of one shape,
-    contiguous, each float32 or bfloat16. ``correlation7x7_cuda.launches``
-    counts launches."""
-    if f1.shape != f2.shape:
-        raise ValueError("correlation7x7_cuda needs two (H, W, C) tensors "
-                         f"of one shape, got {tuple(f1.shape)} and "
-                         f"{tuple(f2.shape)}")
-    out = _launch(f1, f2, stride, 0)
+           out.data_ptr(), h, w, c, stride, 0, h, cuda_stream(f1))
     correlation7x7_cuda.launches += 1
     return out
 
