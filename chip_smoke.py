@@ -1,72 +1,86 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against CSRC_DIR]
 
 Phases, in order; any failure exits non-zero:
 
 1. device: require CUDA and print the card's name and power limit;
 2. build: compile the CUDA kernels of ``transflow_tpu_torch/csrc`` (into the
-   git-ignored ``transflow_tpu_torch/_build``);
-3. kernel vs plain: the correlation kernel against its plain PyTorch
-   version at the five shapes LiteFlowNet gives it on a 1088x1920 frame,
-   in each dtype pair, with its ``device_ms``, its bound and its share of
-   the bound (below);
-4. bounded backwarp vs plain: kernel A3 at the five shapes the bounded
-   path gives it on a 1088x1920 frame (base bound 16), bf16 and f32
-   images, flows within the bound and with a fifth of the pixels beyond;
-   within the bound also ``F.grid_sample`` on the same image and flow
-   (the library call that computes the same function there, timed only
-   here as a yardstick);
-5. sharded correlation: kernel A2 (``sharded_correlation7x7``, one launch
-   per card that reads each shard's halo rows in place) at the five
-   correlation shapes in the slice's dtype pairs, over 4 and 2 shards that
-   repeat the card (a level whose H does not shard is skipped, as the
-   Engine skips it), bit-equal to A1 and within 1e-5 of plain; over
-   distinct cards too where the machine has more than one;
-6. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
+   git-ignored ``transflow_tpu_torch/_build``); fails unless ptxas
+   reported the correlation kernel free of spills;
+3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
-7. engine: ``Engine`` at 1080x1920 over a frame source with
+4. engine: ``Engine`` at 1080x1920 over a frame source with
    ``CvFlowConfig(method="liteflownet", lfn_warp_bound=16)``, one moveref
    layer with random reset 0.01: a warm-up chunk, a timed chunk of 8
    frames, then ``process_frame`` calls, counting 9 A3 and 5 correlation
    launches per frame; then the same Engine with ``lfn_warp_bound=0``
    (the exact gather) on the same frames;
-8. mesh engine: the bound-16 Engine under ``make_space_mesh(4)`` over
+5. mesh engine: the bound-16 Engine under ``make_space_mesh(4)`` over
    four shards of the card with ``halo=8``: the bound is stripped, and
    each frame launches 4 A2 kernels (levels 2-5, one per level), 1 A1
    (level 6) and no A3; its flows and frames against the bound-0 run of
-   phase 7; then the mesh and meshless Engines in turns (eight ABBA rounds
+   phase 4; then the mesh and meshless Engines in turns (eight ABBA rounds
    of 3-frame ``process_frame`` windows) for the mesh's cost per frame;
+6. kernel vs plain: the correlation kernel against its plain PyTorch
+   version at the five shapes LiteFlowNet gives it on a 1088x1920 frame,
+   in each dtype pair, with its ``device_ms``, its bound and its share of
+   the bound (below);
+7. bounded backwarp vs plain: kernel A3 at the five shapes the bounded
+   path gives it on a 1088x1920 frame (base bound 16), bf16 and f32
+   images, flows within the bound and with a fifth of the pixels beyond;
+   within the bound also ``F.grid_sample`` on the same image (rounded to
+   bf16, as A3 reads it) and flow, the library call that computes the
+   same function there, held to A3 and timed only here as a yardstick;
+8. sharded correlation: kernel A2 (``sharded_correlation7x7``, one launch
+   per card that reads each shard's halo rows in place) at the five
+   correlation shapes in the slice's dtype pairs, over 4 and 2 shards that
+   repeat the card (a level whose H does not shard is skipped, as the
+   Engine skips it), bit-equal to A1 and within 1e-5 of plain; beside
+   it the same launch from the views' descriptors of the cross-card path
+   (``a2_views``, bit-equal to A1 too), timed for what the one-card
+   descriptors save the host; over distinct cards too where the machine
+   has more than one;
 9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
    the CPU slice, the compositor on both devices on one flow, and the
    1080x1920 threefry draw of the random reset on both devices;
 10. kernel time: ``torch.profiler``'s kernel durations of A1 (the slice's
-   dtype pairs) and A2 (every sharded case) on phases 3 and 5's inputs.
-   It runs last, after every timed run of the main path, so that the
-   profiler's hooks cannot reach those timings.
+   dtype pairs) and A2 (every sharded case) on phases 6 and 8's inputs;
+11. with ``--against CSRC_DIR`` only: the correlation kernel against
+   another tree's ``correlation.cu`` (for example the parent commit's,
+   from ``git archive`` under the git-ignored ``_local/``), built with the
+   package's flags, both through the raw C entry, ``device_ms`` in turns.
+
+The main path (phases 3-5) runs right after the build: the kernel
+phases' timing loops, plain versions and profiler come after every timed
+run of it, so they cannot reach those timings.
 
 Timings. ``device_ms`` is CUDA events around N back-to-back calls, over
 N: the card's time per call where the host keeps ahead of it, else the
 host's issue rate; ``torch.profiler``'s summed kernel durations tell the
-two apart at the correlation's levels (``kernel_ms``, phase 10). ``call_ms`` is the
-median of single calls between two events, host time included. The
-bound (``bound_ms``) is the least time the card could take for the work:
-the larger of the bytes moved (each input byte read once, on the even
-grid at stride 2, each output byte written once) over 3.35 TB/s and the
-operations over 67 TFLOP/s (f32 outside the tensor cores), the H100 SXM's
-published peaks; ``share`` is bound over ``device_ms``.
+two apart at the correlation's levels (``kernel_ms``, phase 10).
+``call_ms`` is the median of single calls between two events, host time
+included. The bound (``bound_ms``) is the least time the card could take
+for the work: the larger of the bytes moved (each input byte read once,
+on the even grid at stride 2, each output byte written once) over 3.35
+TB/s and the operations over 67 TFLOP/s (f32 outside the tensor cores),
+the H100 SXM's published peaks; ``share`` is bound over ``device_ms``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
+import argparse
+import ctypes
 import functools
+import hashlib
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -96,6 +110,12 @@ WARP_PER_FRAME = {"L6": 1, "L5": 2, "L4": 2, "L3": 2, "L2": 2}
 # kernel vs plain: the same bf16 staging and f32 terms in the same order
 WARP_ATOL = WARP_RTOL = 1e-5
 WARP_BOUND = 16
+# F.grid_sample against A3 within the bound: grid_sample finds each tap
+# from a normalised position ((x + u) * 2 / (W - 1) - 1, unnormalised
+# again), so its fractions carry a few ulp of the frame's size where A3's
+# come from the flow alone; a value moves by at most that error times the
+# image's range, per axis
+GRID_SAMPLE_ULPS = 4
 # the mesh Engine: four shards of one card, a halo of 8 rows (1080 / 4 =
 # 270 >= 8, so the sharded movement gather runs); A2 launches per frame
 MESH_SHARDS = 4
@@ -117,6 +137,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 DEVICE_LAUNCHES = 100
 PLAIN_LAUNCHES = 3
+AGAINST_ROUNDS = 3   # rounds of (other, this, this, other) in phase 11
 
 
 def card_line() -> str:
@@ -217,16 +238,20 @@ def phase_build() -> None:
     from transflow_tpu_torch._device import kernel_library
     lib = kernel_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s")
-    kernel = ""
+    kernel, checked = "", 0
     for line in lib.build_log.splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"  ptxas: {line.strip()}")
         # the correlation's 98 sums per thread must stay in registers
-        if ("corr7x7" in kernel and "spill" in line
-                and "0 bytes spill stores, 0 bytes spill loads" not in line):
-            raise AssertionError(f"{kernel} spills: {line.strip()}")
+        if "corr7x7" in kernel and "spill" in line:
+            checked += 1
+            if "0 bytes spill stores, 0 bytes spill loads" not in line:
+                raise AssertionError(f"{kernel} spills: {line.strip()}")
+    if not checked:
+        raise AssertionError("the build log holds no ptxas report for the "
+                             "correlation kernel: its spills are unchecked")
 
 
 def _pair(t1, t2) -> str:
@@ -289,19 +314,27 @@ def warp_flow(h: int, w: int, bound: int, beyond: bool, gen, device):
 
 def grid_sample_warp(image, flow):
     """``F.grid_sample`` (bilinear, zero padding, corners aligned) of the
-    (H, W, C) image at pixel + flow: bounded_backwarp's function while
-    every floor lies within the bound. Returns the call on prepared
-    inputs: an (1, C, H, W) view of the image in f32 and the normalised
-    grid."""
+    (H, W, C) image, rounded to bf16 as bounded_backwarp reads it, at
+    pixel + flow: bounded_backwarp's function while every floor lies
+    within the bound. Returns the call on prepared inputs: an
+    (1, C, H, W) view of the image in f32 and the normalised grid."""
     h, w = flow.shape[:2]
     ys = torch.arange(h, device=flow.device, dtype=torch.float32)[:, None]
     xs = torch.arange(w, device=flow.device, dtype=torch.float32)[None, :]
     grid = torch.stack([(xs + flow[..., 0]) * (2 / (w - 1)) - 1,
                         (ys + flow[..., 1]) * (2 / (h - 1)) - 1], -1)[None]
-    nchw = image.float().permute(2, 0, 1)[None]
+    nchw = image.to(BF16).float().permute(2, 0, 1)[None]
     return lambda: torch.nn.functional.grid_sample(
         nchw, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True)
+
+
+def grid_sample_tol(image, h: int, w: int) -> float:
+    """How far ``grid_sample_warp`` may lie from A3: ``GRID_SAMPLE_ULPS``
+    ulp of the frame's height and width, each times the image's range."""
+    spread = (image.max() - image.min()).float().item()
+    ulps = np.spacing(np.float32(h)) + np.spacing(np.float32(w))
+    return float(GRID_SAMPLE_ULPS * ulps * spread)
 
 
 def phase_warp_kernels(device) -> list[dict]:
@@ -346,9 +379,14 @@ def phase_warp_kernels(device) -> list[dict]:
                     sample = grid_sample_warp(image, flow)
                     lib_err = (sample()[0].permute(1, 2, 0)
                                - got).abs().max().item()
+                    tol = grid_sample_tol(image, h, w)
+                    if not lib_err <= tol:
+                        raise AssertionError(
+                            f"grid_sample disagrees with A3 at {level} "
+                            f"{dtype}: |diff| {lib_err} > {tol}")
                     row["library_ms"] = device_ms(sample)
                     library = (f"; grid_sample {row['library_ms']:.5f} ms "
-                               f"(|diff| {lib_err:.3e})")
+                               f"(|diff| {lib_err:.3e} <= {tol:.3e})")
                 print(f"warp {level} ({h},{w},{c}) K={bound} "
                       f"{str(dtype)[6:]} {kind} (clamped "
                       f"{clamped.item():.3f}): max_abs_err {err:.3e} "
@@ -615,7 +653,7 @@ def phase_engine(device, card: str) -> dict:
 
 def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
     """The lfn_warp_bound=16 Engine under a 4-shard mesh of the card with
-    halo=8, on phase 7's frames, against its meshless bound-0 run."""
+    halo=8, on phase 4's frames, against its meshless bound-0 run."""
     from transflow_tpu_torch.parallel import make_space_mesh
     mesh = make_space_mesh(MESH_SHARDS, devices=[device] * MESH_SHARDS)
     run = run_engine(device, engine_phase["frames"], engine_phase["pixmap"],
@@ -696,10 +734,30 @@ def a2_plain(f1, f2, mesh, stride: int):
                       for s in shards])
 
 
+def a2_views(f1, f2, mesh, stride: int):
+    """A2's launch on a one-card mesh from the descriptors that serve
+    shards across cards (``shard_segments``' views through
+    ``shard_table``) in place of ``one_card_table``'s addresses: the same
+    kernel and output, with the host work that the one-card descriptors
+    spare. Counts nothing."""
+    from transflow_tpu_torch.ops.correlation import (WINDOW, _launch_shards,
+                                                     _stage_dtype,
+                                                     shard_segments)
+    f1, f2 = _stage_dtype(f1), _stage_dtype(f2)
+    h, w = f1.shape[:2]
+    out = torch.empty((-(-h // stride), -(-w // stride), WINDOW * WINDOW),
+                      device=f1.device)
+    shards = shard_segments(f1, f2, mesh, stride)
+    _launch_shards(shards, out, [s.out_row0 for s in shards], stride)
+    return out
+
+
 def phase_sharded_kernels(device) -> list[dict]:
     """Kernel A2 against A1 (bit-equal) and its plain version (1e-5) at
     the five correlation shapes in the slice's dtype pairs; one launch per
-    call on one card."""
+    call on one card. Beside it, the same launch from the views'
+    descriptors (``a2_views``), bit-equal to A1 too, for what the one-card
+    descriptors save the host."""
     from transflow_tpu_torch.ops.correlation import (correlation7x7_cuda,
                                                      sharded_correlation7x7,
                                                      sharded_ok)
@@ -721,14 +779,17 @@ def phase_sharded_kernels(device) -> list[dict]:
             got = sharded_correlation7x7(f1, f2, mesh, stride)
             launches = sharded_correlation7x7.launches - before
             plain = a2_plain(f1, f2, mesh, stride)
+            views = a2_views(f1, f2, mesh, stride)
             torch.cuda.synchronize()
-            err_a1 = (got - a1).abs().max().item()
+            err_a1 = max((got - a1).abs().max().item(),
+                         (views - a1).abs().max().item())
             err = (got - plain).abs().max().item()
             ok = torch.allclose(got, plain, atol=CORR_ATOL, rtol=CORR_RTOL)
             if err_a1 > A2_ATOL or not ok or launches != 1:
                 raise AssertionError(
-                    f"A2 disagrees at {level} x{n}: |A2-A1| {err_a1}, "
-                    f"|A2-plain| {err}, {launches} launches (expected 1)")
+                    f"A2 disagrees at {level} x{n}: |A2-A1| {err_a1} (both "
+                    f"descriptors), |A2-plain| {err}, {launches} launches "
+                    "(expected 1)")
             row = {"level": level, "shards": n, "err": err,
                    "err_a1": err_a1}
             row["bound_ms"], row["bound_by"] = corr_bound_ms(h, w, c, stride,
@@ -737,6 +798,8 @@ def phase_sharded_kernels(device) -> list[dict]:
                                      stride)
             row["call"] = call  # profiled in phase 10
             row["device_ms"] = device_ms(call)
+            row["views_device_ms"] = device_ms(
+                lambda: a2_views(f1, f2, mesh, stride))
             row["a1_device_ms"] = device_ms(
                 lambda: correlation7x7_cuda(f1, f2, stride))
             row["call_ms"] = call_ms(call)
@@ -744,7 +807,8 @@ def phase_sharded_kernels(device) -> list[dict]:
                 lambda: a2_plain(f1, f2, mesh, stride), PLAIN_LAUNCHES)
             print(f"a2 {level} ({h},{w},{c}) s{stride} x{n} {_pair(t1, t2)}: "
                   f"|A2-A1| {err_a1:.3e} |A2-plain| {err:.3e}; device_ms A2 "
-                  f"{row['device_ms']:.5f} A1 "
+                  f"{row['device_ms']:.5f} (from views "
+                  f"{row['views_device_ms']:.5f}) A1 "
                   f"{row['a1_device_ms']:.5f} bound {row['bound_ms']:.5f}; "
                   f"call {row['call_ms']:.4f} ms (host-inclusive); plain "
                   f"{row['plain_ms']:.4f} ms")
@@ -860,7 +924,7 @@ def phase_equivalence(device) -> None:
 
 
 def phase_kernel_time(rows, a2_rows) -> None:
-    """``kernel_ms`` of every row that phases 3 and 5 left a call in."""
+    """``kernel_ms`` of every row that phases 6 and 8 left a call in."""
     for row in rows + a2_rows:
         if "call" not in row:
             continue
@@ -871,6 +935,86 @@ def phase_kernel_time(rows, a2_rows) -> None:
                   else f"{row['kernel_ms']:.5f} ms")
         print(f"kernel time {name}: {kernel} (torch.profiler, per call) "
               f"against device_ms {row['device_ms']:.5f}")
+
+
+def build_other_correlation(csrc: Path) -> ctypes.CDLL:
+    """``csrc/correlation.cu`` of another tree (with the same C entry
+    ``transflow_corr7x7``), built with the package's nvcc flags into its
+    own library under ``_build/``."""
+    from transflow_tpu_torch._device import (BUILD_DIR, NVCC_FLAGS,
+                                             _SIGNATURES, nvcc_path)
+    source = csrc / "correlation.cu"
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    path = BUILD_DIR / f"other-correlation-{tag}.so"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        run = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-shared", "-o",
+                              str(path), str(source)],
+                             capture_output=True, text=True, check=False)
+        if run.returncode:
+            raise RuntimeError(f"nvcc failed on {source}:\n{run.stdout}"
+                               f"{run.stderr}")
+    lib = ctypes.CDLL(str(path))
+    lib.transflow_corr7x7.argtypes = _SIGNATURES["transflow_corr7x7"]
+    lib.transflow_corr7x7.restype = ctypes.c_int
+    return lib
+
+
+def corr_entry(lib: ctypes.CDLL, f1, f2, out, stride: int):
+    """A call of ``lib``'s raw C entry ``transflow_corr7x7`` into the
+    preallocated ``out``: no wrapper and no launch count."""
+    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
+    h, w, c = f1.shape
+    args = (f1.data_ptr(), DTYPE_CODES[f1.dtype], f2.data_ptr(),
+            DTYPE_CODES[f2.dtype], out.data_ptr(), h, w, c, stride, 0, h,
+            cuda_stream(f1))
+
+    def call():
+        err = lib.transflow_corr7x7(*args)
+        if err:
+            raise RuntimeError(f"transflow_corr7x7 failed: CUDA error {err}")
+    return call
+
+
+def phase_against(device, csrc: Path, card: str) -> None:
+    """This tree's correlation kernel against ``csrc``'s at the five level
+    shapes in the slice's dtype pairs: ``device_ms`` of each through the
+    raw C entry, in turns (other, this, this, other) over
+    ``AGAINST_ROUNDS`` rounds, medians; the outputs within 1e-5."""
+    from transflow_tpu_torch._device import kernel_library
+    libs = {"this": kernel_library()._lib,
+            "other": build_other_correlation(csrc)}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    total = {"this": 0.0, "other": 0.0, "bound": 0.0}
+    for h, w, c, stride, level in CORR_SHAPES:
+        t1, t2 = MAIN_PAIR[level]
+        f1 = torch.randn((h, w, c), generator=gen, device=device).to(t1)
+        f2 = torch.randn((h, w, c), generator=gen, device=device).to(t2)
+        outs = {name: torch.empty((-(-h // stride), -(-w // stride), 49),
+                                  device=device) for name in libs}
+        calls = {name: corr_entry(lib, f1, f2, outs[name], stride)
+                 for name, lib in libs.items()}
+        times = {name: [] for name in libs}
+        for _ in range(AGAINST_ROUNDS):
+            for name in ("other", "this", "this", "other"):
+                times[name].append(device_ms(calls[name]))
+        torch.cuda.synchronize()
+        diff = (outs["this"] - outs["other"]).abs().max().item()
+        if not torch.allclose(outs["this"], outs["other"], atol=CORR_ATOL,
+                              rtol=CORR_RTOL):
+            raise AssertionError(f"{level}: the two kernels differ by {diff}")
+        ms = {name: statistics.median(t) for name, t in times.items()}
+        bound = corr_bound_ms(h, w, c, stride, t1, t2)[0]
+        for name, value in (*ms.items(), ("bound", bound)):
+            total[name] += value
+        print(f"against {level} ({h},{w},{c}) s{stride} {_pair(t1, t2)}: "
+              f"device_ms this {ms['this']:.5f} other {ms['other']:.5f} "
+              f"bound {bound:.5f} (share this {bound / ms['this']:.1%}, "
+              f"other {bound / ms['other']:.1%}); |diff| {diff:.3e}; "
+              f"rounds this {[round(t, 5) for t in times['this']]} other "
+              f"{[round(t, 5) for t in times['other']]}")
+    print(f"against per frame: device_ms this {total['this']:.5f} other "
+          f"{total['other']:.5f} bound {total['bound']:.5f} on {card}")
 
 
 def _bound_by(rows) -> str:
@@ -889,18 +1033,25 @@ def _per_frame(rows, key: str, weight=None) -> float | None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", type=Path, metavar="CSRC_DIR",
+                        help="also time the correlation kernel against "
+                             "this directory's correlation.cu (phase 11)")
+    args = parser.parse_args()
     card = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
-    rows = phase_kernels(device)
-    warp_rows = phase_warp_kernels(device)
-    a2_rows = phase_sharded_kernels(device)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
     mesh_run = phase_mesh_engine(device, card, engine_phase)
+    rows = phase_kernels(device)
+    warp_rows = phase_warp_kernels(device)
+    a2_rows = phase_sharded_kernels(device)
     phase_equivalence(device)
     phase_draw(device)
     phase_kernel_time(rows, a2_rows)
+    if args.against is not None:
+        phase_against(device, args.against, card)
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound
@@ -912,7 +1063,9 @@ def main() -> int:
     a1_same = sum(r["a1_device_ms"] for r in mesh_a2)
     print(f"a2 per frame at {MESH_SHARDS} shards (levels "
           f"{', '.join(r['level'] for r in mesh_a2)}): device_ms A2 "
-          f"{_per_frame(mesh_a2, 'device_ms'):.5f}, A1 on the same levels "
+          f"{_per_frame(mesh_a2, 'device_ms'):.5f} (from views "
+          f"{_per_frame(mesh_a2, 'views_device_ms'):.5f}), A1 on the same "
+          "levels "
           f"{a1_same:.5f}, bound {_per_frame(mesh_a2, 'bound_ms'):.5f}, "
           f"plain {_per_frame(mesh_a2, 'plain_ms'):.4f}")
     for name, group, weight in (("correlation7x7", main_rows, None),

@@ -228,3 +228,30 @@ def test_liteflownet_env_bound_per_call(nets, monkeypatch):
     monkeypatch.setenv(lfn.WARP_BOUND_ENV, "16")
     lfn.liteflownet(img, img, net=net)
     assert max(calls) == 16 and min(calls) == 3 and len(calls) == 9
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,bound", [((34, 60, 8), 3),
+                                         ((136, 240, 4), 4)], ids=str)
+def test_grid_sample_yardstick_is_a3(shape, bound, dtype):
+    """chip_smoke's library yardstick for A3, ``F.grid_sample`` on the
+    bf16-rounded image, computes A3's function within the bound, within
+    its stated tolerance; the other corner convention lies well outside
+    it."""
+    import chip_smoke
+    h, w, c = shape
+    image = torch.from_numpy(_image(shape, 21)).to(dtype)
+    flow = torch.from_numpy(_flow("within", (h, w), bound, 22))
+    want = bounded_backwarp_plain(image, flow, bound)
+    got = chip_smoke.grid_sample_warp(image, flow)()[0].permute(1, 2, 0)
+    tol = chip_smoke.grid_sample_tol(image, h, w)
+    assert (got - want).abs().max().item() <= tol
+    nchw = image.to(torch.bfloat16).float().permute(2, 0, 1)[None]
+    ys = torch.arange(h, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, dtype=torch.float32)[None, :]
+    grid = torch.stack([(xs + flow[..., 0]) * (2 / (w - 1)) - 1,
+                        (ys + flow[..., 1]) * (2 / (h - 1)) - 1], -1)[None]
+    other = torch.nn.functional.grid_sample(
+        nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=False)[0].permute(1, 2, 0)
+    assert (other - want).abs().max().item() > 100 * tol

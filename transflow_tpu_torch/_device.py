@@ -85,9 +85,13 @@ def _build() -> KernelLibrary:
         digest.update(src.read_bytes())
     tag = digest.hexdigest()[:16]
     path = BUILD_DIR / f"libtransflow_kernels-{tag}.so"
-    log = ""
+    # nvcc's output (ptxas's registers and spills) is kept beside the
+    # library and read back when the library is already built
+    log_path = path.with_suffix(".log")
     start = time.perf_counter()
-    if not path.exists():
+    if path.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+    else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         suffix = f"{tag}.{os.getpid()}"
@@ -116,6 +120,9 @@ def _build() -> KernelLibrary:
         if failed:
             tmp.unlink(missing_ok=True)
             raise RuntimeError("\n".join(failed))
+        log_tmp = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, log_path)
         os.replace(tmp, path)
     return KernelLibrary(path, time.perf_counter() - start, log)
 

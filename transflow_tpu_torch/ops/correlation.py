@@ -180,7 +180,9 @@ def one_card_table(f1: torch.Tensor, f2: torch.Tensor, out: torch.Tensor,
                    n: int, stride: int) -> list[int]:
     """``shard_table`` for n shards of contiguous f1, f2 and ``out`` that
     lie on one device, from their addresses alone (no views: this is the
-    host's part of every sharded launch on one card)."""
+    host's part of every sharded launch on one card, where building
+    ``shard_segments``' views costs the host more than the kernel takes;
+    chip_smoke.py's sharded phase times both)."""
     h, w, c = f1.shape
     rows, pad = h // n, MAX_DISP * stride
     row1, row2 = w * c * f1.element_size(), w * c * f2.element_size()
