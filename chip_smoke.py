@@ -7,7 +7,17 @@ Phases, in order; any failure exits non-zero:
 1. device: require CUDA and print the card's name and power limit;
 2. build: compile the CUDA kernels of ``transflow_tpu_torch/csrc`` (into the
    git-ignored ``transflow_tpu_torch/_build``); fails unless ptxas
-   reported the correlation kernel free of spills;
+   reported the correlation kernel free of spills, and prints any spill of
+   the Farneback kernels;
+F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
+   ``CvFlowConfig()`` (Farneback with cv2's defaults, the headline
+   command's estimator), one moveref layer with random reset 0.01 over
+   frames panned 3 px per frame: a warm-up chunk, a timed chunk of 8
+   frames and ``process_frame`` calls, counting 8 B1, 12 B2a and 12 B2b
+   launches per frame, the interior median flow of every frame within
+   0.5 px of the pan; then the same Engine with ``assets/configs/
+   fast.json``, ``fastest.json`` and ``fb_select_warp=16``, and with
+   ``CvFlowConfig()`` once more (the first run of a process reads slower);
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
@@ -42,17 +52,25 @@ Phases, in order; any failure exits non-zero:
    (``a2_views``, bit-equal to A1 too), timed for what the one-card
    descriptors save the host; over distinct cards too where the machine
    has more than one;
+B. farneback kernels vs plain: B1 (``poly_expansion``), B2a
+   (``update_equations``, select radius 0 and 16) and B2b
+   (``aggregate_solve``, box and Gaussian) at the four level shapes of a
+   1080p frame in bf16 and float32 storage, on B1's own planes;
 9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
-   the CPU slice, the compositor on both devices on one flow, and the
-   1080x1920 threefry draw of the random reset on both devices;
+   the CPU slice, Farneback on both devices, the compositor on both
+   devices on one flow, and the 1080x1920 threefry draw of the random
+   reset on both devices;
 10. kernel time: ``torch.profiler``'s kernel durations of A1 (the slice's
-   dtype pairs) and A2 (every sharded case) on phases 6 and 8's inputs;
+   dtype pairs), A2 (every sharded case), A3 beside ``F.grid_sample`` at
+   L2-L6 (phase 7's bf16 inputs within the bound) and B1, B2a, B2b at the
+   four levels; then the Farneback Engine's device events, busy time and
+   idle share per frame over three ``process_frame`` calls;
 11. with ``--against CSRC_DIR`` only: the correlation kernel against
    another tree's ``correlation.cu`` (for example the parent commit's,
    from ``git archive`` under the git-ignored ``_local/``), built with the
    package's flags, both through the raw C entry, ``device_ms`` in turns.
 
-The main path (phases 3-5) runs right after the build: the kernel
+The main path (phases F and 3-5) runs right after the build: the kernel
 phases' timing loops, plain versions and profiler come after every timed
 run of it, so they cannot reach those timings.
 
@@ -66,6 +84,11 @@ for the work: the larger of the bytes moved (each input byte read once,
 on the even grid at stride 2, each output byte written once) over 3.35
 TB/s and the operations over 67 TFLOP/s (f32 outside the tensor cores),
 the H100 SXM's published peaks; ``share`` is bound over ``device_ms``.
+
+For B1, B2a and B2b the bound counts each input and output byte once per
+level and the float32 operations of their correlations, lerps and
+algebra; they are hand-written for jnp code (no Pallas source) and no
+single PyTorch call computes any of them.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -125,6 +148,9 @@ A2_PER_FRAME = 4
 A2_ATOL = 0.0
 MESH_FLOW_ATOL = 1e-5
 EQUIV_FLOW_ATOL = 1e-3
+# Farneback on the card against the CPU: tests/test_torch_farneback.py's
+# bar against JAX (PSNR at an 8 px peak)
+FB_EQUIV_PSNR = 60.0
 SLICE_FRAMES = 8
 ENGINE_WARMUP = 2
 ENGINE_FRAMES = 8
@@ -138,6 +164,33 @@ F32_FLOPS = 67e12
 DEVICE_LAUNCHES = 100
 PLAIN_LAUNCHES = 3
 AGAINST_ROUNDS = 3   # rounds of (other, this, this, other) in phase 11
+# the Farneback Engine (phase F): frames panned FB_PAN px per frame along
+# both axes, so the backward flow is (FB_PAN, FB_PAN) inside the frame
+FB_PAN = 3
+FB_PAN_TOL = 0.5
+FB_MARGIN = 64        # rows and columns left out of the median check
+# B1, B2a, B2b launches per frame of CvFlowConfig(): 2 images x 4 levels,
+# 3 iterations x 4 levels, 3 x 4
+FB_DEFAULT_PER_FRAME = (8, 12, 12)
+FB_PROFILE_CALLS = 3  # process_frame calls under the profiler (phase 10)
+FB_SYNC_CALLS = 1     # process_frame calls that count the host's syncs
+# (H, W, name) of the pyramid of a 1080p frame at pyr_scale 0.5, levels 3
+FB_LEVELS = ((1080, 1920, "L0"), (540, 960, "L1"), (270, 480, "L2"),
+             (135, 240, "L3"))
+FB_POLY_N, FB_POLY_SIGMA, FB_WINSIZE, FB_RADIUS = 5, 1.2, 15, 16
+# float32 operations per pixel. B1: nine correlations of 2n+1 taps (a
+# product and a sum each), five 6-term dot products and the halving. B2a:
+# the sample of five planes (coordinates, weights, three lerps of three
+# operations per plane; the select warp lerps two rows per column tap) and
+# the algebra (the averages, b, A'A, A'b, the weight). B2b: per plane a
+# vertical and a horizontal correlation of the window's taps, then the
+# solve.
+B1_OPS = 18 * (2 * FB_POLY_N + 1) + 5 * 11 + 1
+B2A_OPS = {0: 53 + 46, FB_RADIUS: 65 + 46}
+B2B_OPS = 6 * 4 * FB_WINSIZE + 14
+# launches per level and frame of each Farneback kernel (CvFlowConfig())
+FB_PER_LEVEL = {"poly_expansion": 2, "update_equations": 3,
+                "aggregate_solve": 3}
 
 
 def card_line() -> str:
@@ -169,7 +222,10 @@ def kernel_ms(fn, pattern: str, launches: int = DEVICE_LAUNCHES
               ) -> float | None:
     """The summed durations of the kernels whose name holds ``pattern``
     over ``launches`` calls under ``torch.profiler``, per call; None where
-    the profiler saw no device time."""
+    the profiler saw no device time. Only device events count: the CPU ops
+    that launch a library kernel (``aten::grid_sampler_2d``) carry its
+    time too."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -178,11 +234,9 @@ def kernel_ms(fn, pattern: str, launches: int = DEVICE_LAUNCHES
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for event in prof.key_averages():
-        if pattern in event.key:
-            total += (getattr(event, "device_time_total", 0)
-                      or getattr(event, "cuda_time_total", 0))
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if getattr(e, "device_type", None) == DeviceType.CUDA
+                and pattern in e.name)
     return total / 1e3 / launches if total else None
 
 
@@ -238,20 +292,30 @@ def phase_build() -> None:
     from transflow_tpu_torch._device import kernel_library
     lib = kernel_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s")
-    kernel, checked = "", 0
+    kernel, checked, fb_checked, fb_spills = "", 0, 0, []
     for line in lib.build_log.splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"  ptxas: {line.strip()}")
+        spills = ("spill" in line
+                  and "0 bytes spill stores, 0 bytes spill loads" not in line)
         # the correlation's 98 sums per thread must stay in registers
         if "corr7x7" in kernel and "spill" in line:
             checked += 1
-            if "0 bytes spill stores, 0 bytes spill loads" not in line:
+            if spills:
                 raise AssertionError(f"{kernel} spills: {line.strip()}")
+        # a Farneback kernel that spills is reported, not failed
+        if any(name in kernel for name in FB_PER_LEVEL) and "spill" in line:
+            fb_checked += 1
+            if spills:
+                fb_spills.append(f"{kernel}: {line.strip()}")
     if not checked:
         raise AssertionError("the build log holds no ptxas report for the "
                              "correlation kernel: its spills are unchecked")
+    print(f"build: farneback kernels, {fb_checked} ptxas reports, "
+          f"{len(fb_spills)} with spills"
+          + "".join(f"\n  SPILL {s}" for s in fb_spills))
 
 
 def _pair(t1, t2) -> str:
@@ -387,6 +451,10 @@ def phase_warp_kernels(device) -> list[dict]:
                     row["library_ms"] = device_ms(sample)
                     library = (f"; grid_sample {row['library_ms']:.5f} ms "
                                f"(|diff| {lib_err:.3e} <= {tol:.3e})")
+                    if dtype == BF16:  # profiled in phase 10
+                        row["call"] = functools.partial(
+                            bounded_backwarp_cuda, image, flow, bound)
+                        row["library_call"] = sample
                 print(f"warp {level} ({h},{w},{c}) K={bound} "
                       f"{str(dtype)[6:]} {kind} (clamped "
                       f"{clamped.item():.3f}): max_abs_err {err:.3e} "
@@ -491,12 +559,17 @@ def phase_slice(device, card: str) -> int:
     return launches
 
 
-def frame_source(frames, bound: int):
-    """A ``FlowSource`` over (N, H, W, 3) uint8 frames on the device, with
-    a LiteFlowNet config at ``lfn_warp_bound=bound``: the first item after
-    a rewind carries a priming frame, as the cv2 source's do."""
-    from transflow_tpu_torch.flow.sources.base import FlowItem, FlowSource
+def lfn_config(bound: int):
+    """LiteFlowNet's flow config at ``lfn_warp_bound=bound``."""
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    return CvFlowConfig(method="liteflownet", lfn_warp_bound=bound)
+
+
+def frame_source(frames, config):
+    """A ``FlowSource`` over (N, H, W[, 3]) uint8 frames on the device with
+    the flow config ``config``: the first item after a rewind carries a
+    priming frame, as the cv2 source's do."""
+    from transflow_tpu_torch.flow.sources.base import FlowItem, FlowSource
 
     class PannedFrameSource(FlowSource):
         yields_frames = True
@@ -522,19 +595,29 @@ def frame_source(frames, bound: int):
                             prime=prime)
 
     source = PannedFrameSource(direction="backward")
-    source.config = CvFlowConfig(method="liteflownet", lfn_warp_bound=bound)
+    source.config = config
     return source.open()
 
 
 def _launch_counters():
     from transflow_tpu_torch.ops.correlation import (correlation7x7_cuda,
                                                      sharded_correlation7x7)
+    from transflow_tpu_torch.ops.farneback import (aggregate_solve_cuda,
+                                                   poly_expansion_cuda,
+                                                   update_equations_cuda)
     from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
-    return bounded_backwarp_cuda, correlation7x7_cuda, sharded_correlation7x7
+    return (bounded_backwarp_cuda, correlation7x7_cuda,
+            sharded_correlation7x7, poly_expansion_cuda,
+            update_equations_cuda, aggregate_solve_cuda)
 
 
-def _launches() -> tuple[int, int, int]:
-    """(A3, A1, A2) launches since the counts were last set to 0."""
+# the names of _launches()'s entries
+KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b")
+
+
+def _launches() -> tuple[int, ...]:
+    """(A3, A1, A2, B1, B2a, B2b) launches since the counts were last set
+    to 0."""
     return tuple(fn.launches for fn in _launch_counters())
 
 
@@ -543,14 +626,13 @@ def _zero_launches() -> None:
         fn.launches = 0
 
 
-def make_engine(device, frames, bound: int, mesh=None,
-                halo: int | None = None):
-    """(Engine, its frame source) at ``lfn_warp_bound=bound``, one moveref
-    layer with random reset 0.01."""
+def make_engine(device, frames, config, mesh=None, halo: int | None = None):
+    """(Engine, its frame source) with the flow config ``config``, one
+    moveref layer with random reset 0.01."""
     from transflow_tpu_torch.compositor.core import make_layer_params
     from transflow_tpu_torch.config import Config, LayerConfig
     from transflow_tpu_torch.engine import Engine
-    source = frame_source(frames, bound)
+    source = frame_source(frames, config)
     layer_params = make_layer_params(
         [LayerConfig(0, reset_mode="random", reset_random_factor=0.01)],
         HEIGHT, WIDTH, {0: [(3, None)]}, device=device)
@@ -560,12 +642,13 @@ def make_engine(device, frames, bound: int, mesh=None,
     return engine, source
 
 
-def run_engine(device, frames, pixmap, bound: int, mesh=None,
+def run_engine(device, frames, pixmap, config, mesh=None,
                halo: int | None = None) -> dict:
-    """The Engine over ``frames``: a warm-up chunk, a timed chunk, then
-    ``process_frame`` calls, with the kernels' (A3, A1, A2) launches
-    counted from just before the timed chunk."""
-    engine, source = make_engine(device, frames, bound, mesh, halo)
+    """The Engine over ``frames`` with the flow config ``config``: a
+    warm-up chunk, a timed chunk, then ``process_frame`` calls, with the
+    kernels' launches (``KERNEL_NAMES``) counted from just before the timed
+    chunk. The Engine and its remaining items stay in the result."""
+    engine, source = make_engine(device, frames, config, mesh, halo)
     pixmaps, slots = ((pixmap,),), ((None,),)
     items = iter(source)
     warm = [next(items) for _ in range(ENGINE_WARMUP)]
@@ -600,18 +683,20 @@ def run_engine(device, frames, pixmap, bound: int, mesh=None,
             "call_frames": torch.stack(call_frames),
             "call_flows": torch.stack(call_flows),
             "finite": finite, "max_flow": max_flow, "checksum": checksum,
-            "chunk_launches": chunk_launches, "launches": _launches()}
+            "chunk_launches": chunk_launches, "launches": _launches(),
+            "engine": engine, "items": items, "pixmaps": pixmaps,
+            "next_fno": ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS}
 
 
 def _check_engine_run(name: str, run: dict, per_frame: tuple) -> None:
-    """Launches (A3, A1, A2) per frame over the chunk and over all calls,
-    finite flows and well-formed frames."""
+    """Launches (``KERNEL_NAMES``) per frame over the chunk and over all
+    calls, finite flows and well-formed frames."""
     frames_run = ENGINE_FRAMES + ENGINE_CALLS
     want_chunk = tuple(n * ENGINE_FRAMES for n in per_frame)
     want_all = tuple(n * frames_run for n in per_frame)
     if run["chunk_launches"] != want_chunk or run["launches"] != want_all:
         raise AssertionError(
-            f"{name}: (A3, A1, A2) launches {run['chunk_launches']} over "
+            f"{name}: {KERNEL_NAMES} launches {run['chunk_launches']} over "
             f"the chunk, {run['launches']} in all; expected {per_frame} per "
             "frame")
     if not run["finite"]:
@@ -622,6 +707,89 @@ def _check_engine_run(name: str, run: dict, per_frame: tuple) -> None:
                              f"{run['out'].dtype}")
 
 
+def _per_frame_text(run: dict) -> str:
+    """The chunk's launches per frame of every kernel that ran."""
+    return ", ".join(f"{name} {n / ENGINE_FRAMES:g}"
+                     for name, n in zip(KERNEL_NAMES, run["chunk_launches"])
+                     if n) or "none"
+
+
+def gray_frames(n: int, height: int, width: int, device) -> torch.Tensor:
+    """(n, H, W) uint8 gray frames: the first channel of ``panned_frames``,
+    panned by ``FB_PAN`` pixels per frame along both axes."""
+    return panned_frames(n, height, width, device,
+                         step=FB_PAN)[..., 0].contiguous()
+
+
+def fb_per_frame(config, height: int, width: int) -> tuple[int, int, int]:
+    """(B1, B2a, B2b) launches per frame of a Farneback config at H x W:
+    2 per level, and ``iterations`` each per level (the estimator's level
+    rule: sizes rounded, levels kept while above the poly_n window)."""
+    kw = config.estimator_kwargs()
+    h = int(round(height / kw["downscale"]))
+    w = int(round(width / kw["downscale"]))
+    levels = 0
+    for k in range(kw["levels"] + 1):
+        scale = kw["pyr_scale"] ** k
+        if min(int(round(h * scale)), int(round(w * scale))) \
+                <= 2 * kw["poly_n"] + 1:
+            break
+        levels += 1
+    return (2 * levels, kw["iterations"] * levels,
+            kw["iterations"] * levels)
+
+
+def phase_farneback_engine(device, card: str) -> dict:
+    """The 1080p Engine over CvFlowConfig() (the main path: the headline
+    command's estimator), then over the fast, fastest and select-warp
+    settings and over CvFlowConfig() again, on the same frames; returns the
+    runs by name."""
+    from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    configs = Path(__file__).resolve().parent / "assets" / "configs"
+    settings = {"CvFlowConfig()": CvFlowConfig(),
+                "fast.json": CvFlowConfig.from_file(configs / "fast.json"),
+                "fastest.json": CvFlowConfig.from_file(
+                    configs / "fastest.json"),
+                "fb_select_warp=16": CvFlowConfig(fb_select_warp=FB_RADIUS),
+                # the first run of a process reads slower: the default again
+                "CvFlowConfig() again": CvFlowConfig()}
+    n = (1 + ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS + FB_SYNC_CALLS
+         + FB_PROFILE_CALLS)
+    frames = gray_frames(n, HEIGHT, WIDTH, device)
+    pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
+    runs = {}
+    for name, config in settings.items():
+        run = run_engine(device, frames, pixmap, config)
+        per_frame = fb_per_frame(config, HEIGHT, WIDTH)
+        default = name.startswith("CvFlowConfig()")
+        if default and per_frame != FB_DEFAULT_PER_FRAME:
+            raise AssertionError(f"CvFlowConfig() gives {per_frame} B1, B2a, "
+                                 f"B2b launches, not {FB_DEFAULT_PER_FRAME}")
+        _check_engine_run(f"farneback {name}", run, (0, 0, 0, *per_frame))
+        m = FB_MARGIN
+        inner = torch.cat([run["flows"], run["call_flows"]])[:, m:-m, m:-m]
+        medians = inner.reshape(len(inner), -1, 2).median(dim=1).values
+        worst = (medians - FB_PAN).abs().max().item()
+        print(f"farneback engine {HEIGHT}x{WIDTH} {name} ->moveref: "
+              f"{run['ms']:.2f} ms/frame {1e3 / run['ms']:.2f} frames/s over "
+              f"a chunk of {ENGINE_FRAMES} (max |flow| "
+              f"{run['max_flow']:.4g}, checksum {run['checksum']}) on {card}")
+        print(f"farneback engine {name} launches per frame: "
+              f"{_per_frame_text(run)}; interior median flow per frame "
+              f"{[tuple(round(v, 3) for v in r) for r in medians.tolist()]} "
+              f"(pan {FB_PAN}, worst |median - pan| {worst:.4f})")
+        if default and not worst <= FB_PAN_TOL:
+            raise AssertionError(f"farneback {name}: an interior median flow "
+                                 f"is {worst} px from the {FB_PAN} px pan")
+        run["syncs"] = host_syncs(run, FB_SYNC_CALLS)
+        print(f"farneback engine {name}: {run['syncs']:g} host syncs per "
+              f"frame (torch.cuda.set_sync_debug_mode, {FB_SYNC_CALLS} "
+              "process_frame call)")
+        runs[name] = run
+    return runs
+
+
 def phase_engine(device, card: str) -> dict:
     """The Engine at lfn_warp_bound=16 and =0 on the same frames; returns
     the runs, the frames and the pixmap."""
@@ -630,10 +798,10 @@ def phase_engine(device, card: str) -> dict:
     frames = panned_frames(n, HEIGHT, WIDTH, device)
     pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
-    runs = {bound: run_engine(device, frames, pixmap, bound)
+    runs = {bound: run_engine(device, frames, pixmap, lfn_config(bound))
             for bound in (WARP_BOUND, 0)}
     for bound, run in runs.items():
-        a3, a1, a2 = run["chunk_launches"]
+        a3, a1, a2 = run["chunk_launches"][:3]
         print(f"engine {HEIGHT}x{WIDTH} liteflownet lfn_warp_bound={bound} "
               f"->moveref: {run['ms']:.2f} ms/frame "
               f"{1e3 / run['ms']:.2f} frames/s over a chunk of "
@@ -644,7 +812,7 @@ def phase_engine(device, card: str) -> dict:
               f"sharded_correlation7x7 {a2}; with {ENGINE_CALLS} "
               f"process_frame calls: {run['launches']}")
         _check_engine_run(f"lfn_warp_bound={bound}", run,
-                          (9 if bound else 0, 5, 0))
+                          (9 if bound else 0, 5, 0, 0, 0, 0))
     diff = (runs[WARP_BOUND]["flows"] - runs[0]["flows"]).abs().max().item()
     print(f"engine max |flow(lfn_warp_bound={WARP_BOUND}) - "
           f"flow(lfn_warp_bound=0)| {diff:.3e} over the chunk")
@@ -657,9 +825,9 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
     from transflow_tpu_torch.parallel import make_space_mesh
     mesh = make_space_mesh(MESH_SHARDS, devices=[device] * MESH_SHARDS)
     run = run_engine(device, engine_phase["frames"], engine_phase["pixmap"],
-                     WARP_BOUND, mesh=mesh, halo=MESH_HALO)
+                     lfn_config(WARP_BOUND), mesh=mesh, halo=MESH_HALO)
     ref = engine_phase["runs"][0]
-    a3, a1, a2 = run["chunk_launches"]
+    a3, a1, a2 = run["chunk_launches"][:3]
     print(f"mesh engine {HEIGHT}x{WIDTH} {mesh} halo={MESH_HALO} "
           f"liteflownet (lfn_warp_bound={WARP_BOUND} stripped) ->moveref: "
           f"{run['ms']:.2f} ms/frame against {ref['ms']:.2f} meshless "
@@ -668,7 +836,7 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
     print(f"mesh engine launches over the chunk: bounded_backwarp {a3}, "
           f"correlation7x7 {a1}, sharded_correlation7x7 {a2}; with "
           f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
-    _check_engine_run("mesh engine", run, (0, 1, A2_PER_FRAME))
+    _check_engine_run("mesh engine", run, (0, 1, A2_PER_FRAME, 0, 0, 0))
     diff = max((run["flows"] - ref["flows"]).abs().max().item(),
                (run["call_flows"] - ref["call_flows"]).abs().max().item())
     same = (torch.equal(run["out"], ref["out"])
@@ -693,9 +861,9 @@ def engines_in_turns(device, card: str, engine_phase: dict, mesh) -> dict:
     pixmap = engine_phase["pixmap"]
     frames = panned_frames(2 + 2 * TURN_ROUNDS * TURN_WINDOW, HEIGHT, WIDTH,
                            device)
-    engines = {"meshless": make_engine(device, frames, 0),
-               "mesh": make_engine(device, frames, WARP_BOUND, mesh,
-                                   MESH_HALO)}
+    engines = {"meshless": make_engine(device, frames, lfn_config(0)),
+               "mesh": make_engine(device, frames, lfn_config(WARP_BOUND),
+                                   mesh, MESH_HALO)}
     streams, fnos, times = {}, {}, {name: [] for name in engines}
     for name, (engine, source) in engines.items():
         streams[name] = iter(source)
@@ -827,6 +995,135 @@ def phase_sharded_kernels(device) -> list[dict]:
     return rows
 
 
+def fb_bound_ms(kernel: str, h: int, w: int, storage, in_dtype=None,
+                variant=0) -> tuple[float, str]:
+    """A Farneback kernel's bound at (h, w): each input and output byte
+    once (B1: the image in, five planes out; B2a: the flow, both images'
+    planes, six planes out; B2b: six planes and the flow in, the flow out)
+    and its float32 operations (``B1_OPS``, ``B2A_OPS``, ``B2B_OPS``)."""
+    px, st = h * w, storage.itemsize
+    if kernel == "poly_expansion":
+        return _bound(px * (in_dtype.itemsize + 5 * st), B1_OPS * px)
+    if kernel == "update_equations":
+        return _bound(px * (8 + 16 * st), B2A_OPS[variant] * px)
+    return _bound(px * (6 * st + 16), B2B_OPS * px)
+
+
+def _fb_tolerance(want: torch.Tensor, storage) -> float:
+    """A Farneback kernel against its plain version on one plane: both keep
+    the JAX function's rounding points, so what may differ is summation
+    order: 1e-5 of the plane's largest |value| in float32, one bf16 ulp of
+    it in bf16. (The kernels add in the plain versions' order, so they are
+    meant to be bit-equal.)"""
+    scale = want.float().abs().max().item()
+    if scale == 0 or not np.isfinite(scale):
+        return 0.0
+    if storage == BF16:
+        return 2.0 ** (int(np.floor(np.log2(scale))) - 7)
+    return 1e-5 * scale
+
+
+def _fb_compare(name: str, got, want, storage, planes) -> float:
+    """Max |got - want| over the planes (``planes(t)`` yields them), each
+    held to ``_fb_tolerance``."""
+    worst = 0.0
+    for k, (g, p) in enumerate(zip(planes(got), planes(want))):
+        err = (g.float() - p.float()).abs().max().item()
+        tol = _fb_tolerance(p, storage)
+        if not err <= tol:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on plane {k}: {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_farneback_kernels(device) -> list[dict]:
+    """B1, B2a (radius 0 and 16) and B2b (box and Gaussian) against their
+    plain versions at the four level shapes of a 1080p frame, in bf16 and
+    float32 storage. B1's input is the storage-dtype frame at L0 and a
+    float32 resized image below, as on the main path; B2a reads B1's
+    planes of two images and a flow with a fifth of its pixels moving
+    beyond 4 px, B2b B2a's planes."""
+    from transflow_tpu_torch.ops import farneback as fb
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    rows = []
+
+    def record(kernel, level, h, w, storage, variant, err, call, plain,
+               bound, main):
+        row = {"kernel": kernel, "level": level, "storage": storage,
+               "variant": variant, "err": err}
+        row["bound_ms"], row["bound_by"] = bound
+        row["device_ms"] = device_ms(call)
+        row["call_ms"] = call_ms(call)
+        row["plain_ms"] = device_ms(plain, PLAIN_LAUNCHES)
+        if main:  # profiled in phase 10
+            row["call"] = call
+        print(f"fb {kernel} {level} ({h},{w}) {str(storage)[6:]} {variant}: "
+              f"max_abs_err {err:.3e} device_ms {row['device_ms']:.5f} bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}) share "
+              f"{row['bound_ms'] / row['device_ms']:.1%}; call "
+              f"{row['call_ms']:.4f} ms (host-inclusive); plain "
+              f"{row['plain_ms']:.4f} ms")
+        rows.append(row)
+
+    def stack_planes(t):
+        return t.unbind(-1)
+
+    for h, w, level in FB_LEVELS:
+        flow = warp_flow(h, w, 4, True, gen, device)
+        for storage in (BF16, F32):
+            main = storage == BF16
+            images = [torch.rand((h, w), generator=gen, device=device) * 255
+                      for _ in range(2)]
+            if level == "L0":
+                images = [img.to(storage) for img in images]
+            args = (FB_POLY_N, FB_POLY_SIGMA, storage)
+            polys = [fb.poly_expansion_cuda(img, *args) for img in images]
+            want = fb.poly_expansion_plain(images[0], *args)
+            err = _fb_compare(f"B1 {level} {storage}", polys[0], want,
+                              storage, stack_planes)
+            record("poly_expansion", level, h, w, storage,
+                   f"in {str(images[0].dtype)[6:]}", err,
+                   functools.partial(fb.poly_expansion_cuda, images[0],
+                                     *args),
+                   functools.partial(fb.poly_expansion_plain, images[0],
+                                     *args),
+                   fb_bound_ms("poly_expansion", h, w, storage,
+                               images[0].dtype), main)
+            planes = None
+            for radius in (0, FB_RADIUS):
+                got = fb.update_equations_cuda(*polys, flow, radius)
+                want = fb.update_equations_plain(*polys, flow, radius)
+                err = _fb_compare(f"B2a {level} {storage} r{radius}", got,
+                                  want, storage, lambda t: t.unbind(0))
+                record("update_equations", level, h, w, storage,
+                       f"radius {radius}", err,
+                       functools.partial(fb.update_equations_cuda, *polys,
+                                         flow, radius),
+                       functools.partial(fb.update_equations_plain, *polys,
+                                         flow, radius),
+                       fb_bound_ms("update_equations", h, w, storage,
+                                   variant=radius), main and radius == 0)
+                if radius == 0:
+                    planes = got
+            for gaussian in (False, True):
+                args = (planes, flow, FB_WINSIZE, gaussian)
+                got = fb.aggregate_solve_cuda(*args)
+                want = fb.aggregate_solve_plain(*args)
+                # the new flow is float32 in both storages
+                err = _fb_compare(f"B2b {level} {storage} gaussian={gaussian}",
+                                  got, want, F32, stack_planes)
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"B2b {level}: non-finite flow")
+                record("aggregate_solve", level, h, w, storage,
+                       "gaussian" if gaussian else "box", err,
+                       functools.partial(fb.aggregate_solve_cuda, *args),
+                       functools.partial(fb.aggregate_solve_plain, *args),
+                       fb_bound_ms("aggregate_solve", h, w, storage),
+                       main and not gaussian)
+    return rows
+
+
 def phase_draw(device) -> dict:
     """The random reset's 1080x1920 threefry draw on the card against the
     CPU's, with its time and its launches (ATen ops that run a kernel)."""
@@ -887,6 +1184,30 @@ def phase_equivalence(device) -> None:
     if not err <= EQUIV_FLOW_ATOL:
         raise AssertionError(f"CUDA and CPU flows differ by {err}")
 
+    # Farneback in float32 storage: the kernels on the card, their plain
+    # versions on the CPU; held to the CPU tests' bar against JAX
+    from transflow_tpu_torch.flow.estimators.farneback import farneback
+    saved = os.environ.get("TRANSFLOW_FARNEBACK_BF16")
+    os.environ["TRANSFLOW_FARNEBACK_BF16"] = "0"
+    try:
+        gray = gray_frames(EQUIV_FRAMES + 1, h, w, "cpu")
+        fb_flows = {dev: torch.stack([
+            farneback(gray[k + 1].to(dev), gray[k].to(dev)).cpu()
+            for k in range(EQUIV_FRAMES)]) for dev in (device, "cpu")}
+    finally:
+        if saved is None:
+            os.environ.pop("TRANSFLOW_FARNEBACK_BF16")
+        else:
+            os.environ["TRANSFLOW_FARNEBACK_BF16"] = saved
+    diff = fb_flows[device] - fb_flows["cpu"]
+    mse = float((diff ** 2).mean())
+    psnr = 10 * np.log10(8.0 ** 2 / mse) if mse else float("inf")
+    print(f"equivalence {h}x{w} f32 farneback cuda vs cpu: PSNR {psnr:.2f} "
+          f"dB at an 8 px peak, max |dflow| {diff.abs().max().item():.3e} "
+          f"over {EQUIV_FRAMES} pairs")
+    if not psnr >= FB_EQUIV_PSNR:
+        raise AssertionError(f"CUDA and CPU Farneback flows: {psnr} dB")
+
     # the compositor on one flow: large integer and half-integer motion
     # on top of the estimated flow, the random reset drawn on each device
     # from one key chain
@@ -923,18 +1244,105 @@ def phase_equivalence(device) -> None:
           f"bit-equal over {EQUIV_FRAMES} frames")
 
 
-def phase_kernel_time(rows, a2_rows) -> None:
-    """``kernel_ms`` of every row that phases 6 and 8 left a call in."""
+def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows) -> None:
+    """``kernel_ms`` of every row that phases 6, 7, 8 and B left a call in;
+    A3's beside ``F.grid_sample``'s."""
     for row in rows + a2_rows:
         if "call" not in row:
             continue
         row["kernel_ms"] = kernel_ms(row.pop("call"), "corr7x7")
         name = (f"a2 {row['level']} x{row['shards']}" if "shards" in row
                 else f"corr {row['level']} {_pair(*row['pair'])}")
-        kernel = ("not measured" if row["kernel_ms"] is None
-                  else f"{row['kernel_ms']:.5f} ms")
-        print(f"kernel time {name}: {kernel} (torch.profiler, per call) "
-              f"against device_ms {row['device_ms']:.5f}")
+        print(f"kernel time {name}: {_ms_text(row['kernel_ms'])} "
+              f"(torch.profiler, per call) against device_ms "
+              f"{row['device_ms']:.5f}")
+    for row in warp_rows:
+        if "call" not in row:
+            continue
+        row["kernel_ms"] = kernel_ms(row.pop("call"), "bounded_backwarp")
+        # every device event of the library call: cuDNN's sampler (whose
+        # name is cuDNN's) and any copy it makes
+        row["library_kernel_ms"] = kernel_ms(row.pop("library_call"), "")
+        print(f"kernel time warp {row['level']} bf16 within: A3 "
+              f"{_ms_text(row['kernel_ms'])}, grid_sample "
+              f"{_ms_text(row['library_kernel_ms'])} (torch.profiler, per "
+              f"call) against device_ms A3 {row['device_ms']:.5f}, "
+              f"grid_sample {row['library_ms']:.5f}")
+    for row in fb_rows:
+        if "call" not in row:
+            continue
+        row["kernel_ms"] = kernel_ms(row.pop("call"),
+                                     f"{row['kernel']}_kernel")
+        print(f"kernel time fb {row['kernel']} {row['level']} bf16 "
+              f"{row['variant']}: {_ms_text(row['kernel_ms'])} "
+              f"(torch.profiler, per call) against device_ms "
+              f"{row['device_ms']:.5f}")
+
+
+def _ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
+def host_syncs(run: dict, calls: int) -> float:
+    """Host waits for the card per frame in the Engine of ``run`` over its
+    next ``calls`` frames (``torch.cuda.set_sync_debug_mode`` warns at
+    each)."""
+    import warnings
+    engine, items, pixmaps = run["engine"], run["items"], run["pixmaps"]
+    fno0 = run["next_fno"]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for k in range(calls):
+                engine.process_frame([next(items)], pixmaps,
+                                     (fno0 + k) / 30.0, ((fno0 + k,),))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    run["next_fno"] = fno0 + calls
+    return sum("synchroniz" in str(w.message) for w in caught) / calls
+
+
+def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
+    """The Engine of ``run`` over its next ``calls`` frames under
+    ``torch.profiler``: device events (kernels, copies, sets), busy time
+    (their intervals merged) and idle share per frame, against the host
+    clock around the window (which ends in a synchronize)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    engine, items, pixmaps = run["engine"], run["items"], run["pixmaps"]
+    fno0 = run["next_fno"]
+    run["next_fno"] = fno0 + calls
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for k in range(calls):
+            fno = fno0 + k
+            engine.process_frame([next(items)], pixmaps, fno / 30.0,
+                                 ((fno,),))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - start) / calls
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    result = {"events": len(spans) / calls, "busy_ms": busy / 1e3 / calls,
+              "wall_ms": wall_ms}
+    if not spans:
+        print(f"profile {name}: no device events (busy share not measured)")
+        return result
+    result["idle"] = 1 - result["busy_ms"] / wall_ms
+    print(f"profile {name} ({calls} process_frame calls, torch.profiler): "
+          f"{result['events']:.1f} device events, {result['busy_ms']:.3f} ms "
+          f"busy, {wall_ms:.3f} ms host clock per frame: busy share "
+          f"{1 - result['idle']:.1%}, idle {result['idle']:.1%} on {card}")
+    return result
 
 
 def build_other_correlation(csrc: Path) -> ctypes.CDLL:
@@ -1041,15 +1449,19 @@ def main() -> int:
     card = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
+    fb_runs = phase_farneback_engine(device, card)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
     mesh_run = phase_mesh_engine(device, card, engine_phase)
     rows = phase_kernels(device)
     warp_rows = phase_warp_kernels(device)
     a2_rows = phase_sharded_kernels(device)
+    fb_rows = phase_farneback_kernels(device)
     phase_equivalence(device)
     phase_draw(device)
-    phase_kernel_time(rows, a2_rows)
+    phase_kernel_time(rows, a2_rows, warp_rows, fb_rows)
+    engine_profile("farneback engine CvFlowConfig()",
+                   fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS, card)
     if args.against is not None:
         phase_against(device, args.against, card)
     # one frame of the slice: the five levels in its dtype pairs
@@ -1068,12 +1480,22 @@ def main() -> int:
           "levels "
           f"{a1_same:.5f}, bound {_per_frame(mesh_a2, 'bound_ms'):.5f}, "
           f"plain {_per_frame(mesh_a2, 'plain_ms'):.4f}")
-    for name, group, weight in (("correlation7x7", main_rows, None),
-                                ("bounded_backwarp", main_warp, warp_n)):
+    # one frame of the Farneback Engine (CvFlowConfig()): bf16 storage,
+    # the gather warp, the box window, FB_PER_LEVEL launches per level
+    fb_main = {name: [r for r in fb_rows if r["kernel"] == name
+                      and r["storage"] == BF16 and "kernel_ms" in r]
+               for name in FB_PER_LEVEL}
+    groups = [("correlation7x7", main_rows, None),
+              ("bounded_backwarp", main_warp, warp_n)]
+    groups += [(name, group, [FB_PER_LEVEL[name]] * len(group))
+               for name, group in fb_main.items()]
+    for name, group, weight in groups:
         print(f"{name} per frame: device_ms "
-              f"{_per_frame(group, 'device_ms', weight):.5f}, bound "
+              f"{_per_frame(group, 'device_ms', weight):.5f}, kernel_ms "
+              f"{_ms_text(_per_frame(group, 'kernel_ms', weight))}, bound "
               f"{_per_frame(group, 'bound_ms', weight):.5f}, call "
-              f"{_per_frame(group, 'call_ms', weight):.4f} (host-inclusive)")
+              f"{_per_frame(group, 'call_ms', weight):.4f} (host-inclusive), "
+              f"plain {_per_frame(group, 'plain_ms', weight):.4f}")
     no_library = "none: no single PyTorch call computes the cost volume"
     runs = engine_phase["runs"]
     record = {"kernels": [{
@@ -1105,6 +1527,9 @@ def main() -> int:
         # per frame: nine launches over the five levels
         "ms": _per_frame(main_warp, "device_ms", warp_n),
         "device_ms": _per_frame(main_warp, "device_ms", warp_n),
+        "kernel_ms": _per_frame(main_warp, "kernel_ms", warp_n),
+        "library_kernel_ms": _per_frame(main_warp, "library_kernel_ms",
+                                        warp_n),
         "call_ms": _per_frame(main_warp, "call_ms", warp_n),
         "plain_ms": _per_frame(main_warp, "plain_ms", warp_n),
         "bound_ms": _per_frame(main_warp, "bound_ms", warp_n),
@@ -1131,6 +1556,37 @@ def main() -> int:
         "library_ms": None,
         "library": no_library,
     }]}
+    fb_sources = {"poly_expansion": "farneback.py:74 poly_expansion",
+                  "update_equations": "farneback.py:102 _update_flow, "
+                                      "warp and normal equations",
+                  "aggregate_solve": "farneback.py:149 _update_flow, "
+                                     "window sums and solve"}
+    for k, (name, group) in enumerate(fb_main.items()):
+        weight = [FB_PER_LEVEL[name]] * len(group)
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "transflow_tpu_torch/csrc/farneback.cu",
+            "replaces": "transflow_tpu/flow/estimators/"
+                        + fb_sources[name].split(" ")[0],
+            "replaces_function": fb_sources[name],
+            # the four Farneback Engine runs'
+            "launches": sum(run["launches"][3 + k]
+                            for run in fb_runs.values()),
+            "max_abs_err": max(r["err"] for r in fb_rows
+                               if r["kernel"] == name),
+            # per frame: the four levels at FB_PER_LEVEL launches each
+            "ms": _per_frame(group, "device_ms", weight),
+            "device_ms": _per_frame(group, "device_ms", weight),
+            "kernel_ms": _per_frame(group, "kernel_ms", weight),
+            "call_ms": _per_frame(group, "call_ms", weight),
+            "plain_ms": _per_frame(group, "plain_ms", weight),
+            "bound_ms": _per_frame(group, "bound_ms", weight),
+            "bound_by": _bound_by(group),
+            "library_ms": None,
+            "library": "none: hand-written for jnp code (no Pallas source); "
+                       "no single PyTorch call computes it",
+        })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

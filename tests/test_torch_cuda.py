@@ -173,6 +173,74 @@ def test_slice_on_card_matches_cpu(device, exact_f32):
                                rtol=1e-3)
 
 
+FB_SHAPES = [(13, 21), (37, 45), (64, 96), (135, 240)]
+
+
+@pytest.mark.parametrize("storage", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FB_SHAPES, ids=str)
+def test_farneback_kernels_match_plain(device, shape, storage):
+    """B1 (float32 and storage-dtype input, poly_n 5 and 2), B2a (select
+    radius 0, 3 and 16, flows moving off the frame) and B2b (box of 15 and
+    4, Gaussian) against their plain versions. Both keep the JAX function's
+    rounding points and add every sum in the same order with no fused
+    multiply-add: bit-equal."""
+    from transflow_tpu_torch.ops import farneback as fb
+    h, w = shape
+    gen = torch.Generator(device=device).manual_seed(4)
+    images = [torch.rand((h, w), generator=gen, device=device) * 255
+              for _ in range(2)]
+    for n in (5, 2):
+        for image in (images[0], images[0].to(storage)):
+            before = fb.poly_expansion_cuda.launches
+            got = fb.poly_expansion(image, n, 1.2, storage)
+            torch.cuda.synchronize()
+            assert fb.poly_expansion_cuda.launches == before + 1
+            assert got.dtype == storage and got.shape == (h, w, 5)
+            torch.testing.assert_close(
+                got, fb.poly_expansion_plain(image, n, 1.2, storage),
+                atol=0, rtol=0)
+    polys = [fb.poly_expansion(image, 5, 1.2, storage) for image in images]
+    flow = 6 * torch.randn((h, w, 2), generator=gen, device=device)
+    for radius in (0, 3, 16):
+        before = fb.update_equations_cuda.launches
+        planes = fb.update_equations(*polys, flow, radius)
+        torch.cuda.synchronize()
+        assert fb.update_equations_cuda.launches == before + 1
+        assert planes.dtype == storage and planes.shape == (6, h, w)
+        torch.testing.assert_close(
+            planes, fb.update_equations_plain(*polys, flow, radius),
+            atol=0, rtol=0)
+    for winsize, gaussian in ((15, False), (4, False), (15, True)):
+        before = fb.aggregate_solve_cuda.launches
+        got = fb.aggregate_solve(planes, flow, winsize, gaussian)
+        torch.cuda.synchronize()
+        assert fb.aggregate_solve_cuda.launches == before + 1
+        torch.testing.assert_close(
+            got, fb.aggregate_solve_plain(planes, flow, winsize, gaussian),
+            atol=0, rtol=0)
+
+
+def test_farneback_on_card_matches_cpu(device, monkeypatch):
+    """The estimator on the card (the kernels; cuDNN for the pyramid's blur
+    with TF32 off) against the CPU (the plain versions), float32 storage:
+    >= 60 dB at an 8 px peak, the CPU tests' bar against JAX."""
+    from transflow_tpu_torch.flow.estimators.farneback import farneback
+    from transflow_tpu_torch.ops import farneback as fb
+    monkeypatch.setenv("TRANSFLOW_FARNEBACK_BF16", "0")
+    rng = np.random.default_rng(0)
+    canvas = torch.from_numpy(rng.integers(0, 256, (100, 140),
+                                           dtype=np.uint8)).float()
+    canvas = torch.nn.functional.avg_pool2d(canvas[None, None], 5, 1, 2)
+    canvas = canvas[0, 0].round().to(torch.uint8)
+    a, b = canvas[4:100, 6:134], canvas[2:98, 3:131]
+    before = fb.poly_expansion_cuda.launches
+    got = farneback(a.to(device), b.to(device), select_warp=0).cpu()
+    assert fb.poly_expansion_cuda.launches == before + 8
+    want = farneback(a, b)
+    mse = float(((got - want) ** 2).mean())
+    assert mse == 0 or 10 * np.log10(64 / mse) >= 60.0
+
+
 def test_entry_points_default_to_the_card(device, exact_f32):
     """With no ``device`` the model and the Engine run on the current CUDA
     device, the network included."""

@@ -228,6 +228,89 @@ def test_liteflownet_engine_matches_jax(random_weights, monkeypatch):
         assert len(calls) == 9 * (idx + 1)
 
 
+def _gray_video(n, h, w, seed=0, step=2):
+    """(n, h, w) uint8 gray frames: a smooth texture panned by ``step`` px
+    per frame along both axes."""
+    import scipy.ndimage as ndi
+    rng = np.random.default_rng(seed)
+    tex = ndi.gaussian_filter(rng.standard_normal((h + n * step,
+                                                   w + n * step)), 2.0)
+    tex = ((tex - tex.min()) / np.ptp(tex) * 255).astype(np.uint8)
+    return np.stack([tex[i * step:i * step + h, i * step:i * step + w]
+                     for i in range(n)])
+
+
+FARNEBACK_SETTINGS = {"defaults": {}, "fastest": dict(fb_downscale=4,
+                                                      fb_iterations=2),
+                      "select-warp": dict(fb_select_warp=16)}
+
+
+@pytest.mark.parametrize("setting", list(FARNEBACK_SETTINGS))
+def test_farneback_engine_matches_jax(setting):
+    """A Farneback frame source over ``CvFlowConfig()`` and two of its
+    knobs through both Engines, one frame at a time: the exported flows
+    within 60 dB PSNR at an 8 px peak of JAX's (measured 140-148 dB), the
+    frames equal but for flows that round apart at a .5 edge (<= 1 % of
+    pixels; measured equal), the keys equal."""
+    h, w = 64, 96
+    video = _gray_video(5, h, w)
+    settings = FARNEBACK_SETTINGS[setting]
+    eng, jeng = _engines(
+        dict(reset_mode="random", reset_random_factor=0.05),
+        dict(direction="backward", seed=0),
+        [(_source(base, video, "frame", cv.CvFlowConfig(**settings)),
+          _source(jbase, video, "frame", jcv.CvFlowConfig(**settings)))],
+        h=h, w=w)
+    pix = _pixmap(h, w)
+    for idx, (item, jitem) in enumerate(zip(eng.runtimes[0].source,
+                                            jeng.runtimes[0].source)):
+        frame, flow = eng.process_frame([item], ((torch.from_numpy(pix),),),
+                                        idx / FPS, ((idx,),))
+        jframe, jflow = jeng.process_frame([jitem], ((jnp.asarray(pix),),),
+                                           idx / FPS, ((idx,),))
+        jflow = np.asarray(jflow)
+        mse = float(np.mean((flow.numpy() - jflow) ** 2))
+        assert mse == 0 or 10 * np.log10(64.0 / mse) >= 60.0, idx
+        assert np.abs(jflow).max() > 1.0      # the pan is found
+        differ = (frame.numpy() != np.asarray(jframe)).any(axis=-1).mean()
+        assert differ <= 0.01, idx
+    np.testing.assert_array_equal(eng.key,
+                                  np.asarray(jax.random.key_data(jeng.key)))
+
+
+def test_farneback_chunk_equals_frames():
+    """``process_chunk`` equals the same frames one by one, the warm start
+    (prev_flow) and random reset included."""
+    video = _gray_video(6, 64, 96, seed=2)
+    runs = []
+    for _ in range(2):
+        src = _source(base, video, "frame",
+                      cv.CvFlowConfig(fb_flags=4 | 256))
+        lp = core.make_layer_params(
+            [config.LayerConfig(0, reset_mode="random",
+                                reset_random_factor=0.2)], 64, 96,
+            {0: [(3, None)]}, device="cpu")
+        eng = engine.Engine(config.Config("in.mp4", direction="backward",
+                                          seed=5), [src], lp, 64, 96,
+                            export_flows=True, device="cpu")
+        eng._framerate = FPS
+        runs.append(eng)
+    chunked, stepped = runs
+    items = list(chunked.runtimes[0].source)
+    pix = torch.from_numpy(_pixmap(64, 96))
+    chunked.runtimes[0].reset(items[0].prime)
+    frames, flows = chunked.process_chunk(
+        [np.stack([it.array for it in items])], ((pix,),), ((None,),), 1, 1)
+    for k, item in enumerate(items):
+        frame, flow = stepped.process_frame([item], ((pix,),),
+                                            (1 + k) / FPS, ((1 + k,),))
+        assert torch.equal(frames[k], frame)
+        assert torch.equal(flows[k], flow)
+    _assert_engines_equal(chunked, stepped)
+    assert torch.equal(chunked.runtimes[0].prev_flow,
+                       stepped.runtimes[0].prev_flow)
+
+
 def _lfn_engine(video, seed=5, reset=0.2):
     src = _source(base, video, "frame",
                   cv.CvFlowConfig(method="liteflownet", lfn_warp_bound=8))

@@ -4,12 +4,14 @@ The JAX package ``transflow_tpu`` is the reference; this package mirrors
 its layout and names, runs on PyTorch, and replaces each Pallas TPU kernel
 with a CUDA kernel written for Hopper (``csrc/``). It imports no JAX.
 
-Ported so far: the LiteFlowNet -> moveref flagship step through
-``model.FlowTransferModel``, and the device ``engine.Engine`` over flow
-sources whose ``CvFlowConfig`` selects LiteFlowNet (with the bounded
-backwarp behind ``lfn_warp_bound``), under a ``parallel.SpaceMesh`` too
-(the sharded correlation and movement gather), with JAX's own random
-numbers (``prng``). ROADMAP.md lists what comes next.
+Ported so far: Farneback (kernels B1, B2a and B2b for its polynomial
+expansion, warp and solve) and LiteFlowNet (with the bounded backwarp
+behind ``lfn_warp_bound``), through the flagship step
+``model.FlowTransferModel`` and the device ``engine.Engine`` over flow
+sources whose ``CvFlowConfig`` selects the estimator, under a
+``parallel.SpaceMesh`` too (the sharded correlation and movement gather),
+with JAX's own random numbers (``prng``). ROADMAP.md lists what comes
+next.
 """
 
 __version__ = "0.1.0"

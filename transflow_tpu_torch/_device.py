@@ -39,6 +39,14 @@ _SIGNATURES = {
     "transflow_corr7x7_shards": (_P, _I, _I, _I, _I, _I, _I, _P),
     # image, dtype, flow, out, H, W, C, bound, stream
     "transflow_bounded_backwarp": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # image, dtype, out, storage dtype, H, W, n, params (host), stream
+    "transflow_poly_expansion": (_P, _I, _P, _I, _I, _I, _I, _P, _P),
+    # poly1, poly2, dtype, flow, planes, H, W, select radius, stream
+    "transflow_update_equations": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
+    # planes, dtype, flow, out, H, W, taps, symmetric, round the vertical
+    # sum, vertical taps (host), horizontal taps (host), stream
+    "transflow_aggregate_solve": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                  _P),
 }
 
 

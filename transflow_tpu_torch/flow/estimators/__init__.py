@@ -1,13 +1,15 @@
-"""Optical-flow estimators of the port. Only LiteFlowNet is ported so far."""
+"""Optical-flow estimators of the port: Farneback and LiteFlowNet so far."""
 
 _NOT_PORTED = {
-    "farneback": "ROADMAP Queue 1, item 3 (Farneback)",
     "horn-schunck": "ROADMAP Queue 1, item 10 (secondary estimators)",
     "lukas-kanade": "ROADMAP Queue 1, item 10 (secondary estimators)",
 }
 
 
 def get_estimator(method: str):
+    if method == "farneback":
+        from .farneback import farneback
+        return farneback
     if method == "liteflownet":
         from .liteflownet import liteflownet
         return liteflownet

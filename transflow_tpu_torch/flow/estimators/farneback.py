@@ -1,0 +1,131 @@
+"""Farneback dense optical flow (polynomial expansion) in PyTorch.
+
+Counterpart of transflow_tpu/flow/estimators/farneback.py, the default
+estimator (transflow's cv2.calcOpticalFlowFarneback with the fb_* hyper-
+parameters):
+
+1. per level, the quadratic polynomial expansion of both images (kernel
+   B1, ``ops/farneback.py::poly_expansion``);
+2. ``iterations`` displacement updates: image 2's coefficients warped to
+   x + d and the normal equations (kernel B2a, ``update_equations``), then
+   the window aggregation and the 2x2 solve (kernel B2b,
+   ``aggregate_solve``);
+3. a coarse-to-fine pyramid with any ``pyr_scale``.
+
+The pyramid's blurs and resizes, and the flow's resizes between levels,
+stay PyTorch (``F.conv2d`` with TF32 off, ``F.interpolate``), as the JAX
+package leaves them to XLA outside any kernel. On a CPU tensor every step
+runs the plain versions; on a CUDA tensor the three kernels run.
+"""
+import os
+
+import torch
+
+from ...ops.farneback import aggregate_solve, poly_expansion, update_equations
+from ...ops.image import bilinear_resize, gaussian_blur
+
+__all__ = ["farneback", "poly_expansion", "OPTFLOW_USE_INITIAL_FLOW",
+           "OPTFLOW_FARNEBACK_GAUSSIAN"]
+
+OPTFLOW_USE_INITIAL_FLOW = 4  # cv2 flag value
+OPTFLOW_FARNEBACK_GAUSSIAN = 256  # cv2 flag value
+
+
+def _storage_dtype(device) -> torch.dtype:
+    """Dtype of the materialised planes: bf16 on the card, float32 on the
+    CPU, as the JAX package stores bf16 on accelerators. Sums, the lerp
+    weights, the displacement algebra, the solve and the flow stay float32.
+    ``TRANSFLOW_FARNEBACK_BF16=0`` forces float32 everywhere."""
+    if os.environ.get("TRANSFLOW_FARNEBACK_BF16", "1") == "0":
+        return torch.float32
+    return torch.float32 if torch.device(device).type == "cpu" \
+        else torch.bfloat16
+
+
+def _update_flow(poly1: torch.Tensor, poly2: torch.Tensor, flow: torch.Tensor,
+                 winsize: int, use_gaussian: bool,
+                 select_radius: int = 0) -> torch.Tensor:
+    """One displacement update at one level: B2a then B2b.
+
+    ``poly1``, ``poly2``: the (H, W, 5) coefficient stacks of both images
+    in the storage dtype; image 2's stack is sampled as it is (the JAX
+    package's tap pack is a workaround for the TPU's gather)."""
+    planes = update_equations(poly1, poly2, flow, select_radius)
+    return aggregate_solve(planes, flow, winsize, use_gaussian)
+
+
+def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
+              levels: int = 3, winsize: int = 15, iterations: int = 3,
+              poly_n: int = 5, poly_sigma: float = 1.2, flags: int = 0,
+              downscale: int = 1, select_warp: int = 0) -> torch.Tensor:
+    """Estimate the (H, W, 2) float32 flow between two (H, W) uint8
+    grayscale frames, on their device.
+
+    Arguments mirror cv2.calcOpticalFlowFarneback; ``prev_flow`` is honoured
+    only with OPTFLOW_USE_INITIAL_FLOW, like OpenCV. ``downscale`` runs the
+    estimator at 1/downscale resolution and upsamples the flow (magnitudes
+    rescaled); ``select_warp`` > 0 samples image 2 by the two-pass warp with
+    that displacement radius (``ops/select_warp.py``), 0 by the exact
+    clamped-anchor bilinear sample."""
+    prev_gray = torch.as_tensor(prev_gray)
+    next_gray = torch.as_tensor(next_gray, device=prev_gray.device)
+    h, w = prev_gray.shape
+    sdt = _storage_dtype(prev_gray.device)
+    # uint8 -> bf16 is exact (integers <= 256)
+    prev = prev_gray.to(sdt)
+    nxt = next_gray.to(sdt)
+    use_gaussian = bool(flags & OPTFLOW_FARNEBACK_GAUSSIAN)
+
+    downscale = int(downscale)
+    full_h, full_w = h, w
+    if downscale > 1:
+        h = int(round(full_h / downscale))
+        w = int(round(full_w / downscale))
+        if min(h, w) <= 2 * poly_n + 1:
+            raise ValueError(
+                f"downscale={downscale} reduces {full_h}x{full_w} below the "
+                f"poly_n={poly_n} expansion window; lower fb_downscale")
+        # same anti-alias rule as the pyramid levels below
+        sigma = (downscale - 1) * 0.5
+        prev = bilinear_resize(gaussian_blur(prev, sigma), h, w)
+        nxt = bilinear_resize(gaussian_blur(nxt, sigma), h, w)
+        if prev_flow is not None:
+            prev_flow = bilinear_resize(
+                torch.as_tensor(prev_flow).float(), h, w) * (1.0 / downscale)
+
+    # level sizes, coarsest last; drop levels that get degenerate
+    level_shapes = []
+    for k in range(levels + 1):
+        scale = pyr_scale ** k
+        lh, lw = int(round(h * scale)), int(round(w * scale))
+        if min(lh, lw) <= 2 * poly_n + 1:
+            break
+        level_shapes.append((lh, lw, scale))
+
+    lh, lw, scale = level_shapes[-1]
+    if flags & OPTFLOW_USE_INITIAL_FLOW and prev_flow is not None:
+        flow = torch.as_tensor(prev_flow, device=prev.device).float()
+        flow = bilinear_resize(flow, lh, lw) * scale
+    else:
+        flow = torch.zeros((lh, lw, 2), dtype=torch.float32,
+                           device=prev.device)
+
+    for k in range(len(level_shapes) - 1, -1, -1):
+        lh, lw, scale = level_shapes[k]
+        if tuple(flow.shape[:2]) != (lh, lw):
+            prev_scale = level_shapes[k + 1][2]
+            flow = bilinear_resize(flow, lh, lw) * (scale / prev_scale)
+        if scale != 1.0:
+            sigma = (1.0 / scale - 1.0) * 0.5
+            img1 = bilinear_resize(gaussian_blur(prev, sigma), lh, lw)
+            img2 = bilinear_resize(gaussian_blur(nxt, sigma), lh, lw)
+        else:
+            img1, img2 = prev, nxt
+        poly1 = poly_expansion(img1, poly_n, poly_sigma, sdt)
+        poly2 = poly_expansion(img2, poly_n, poly_sigma, sdt)
+        for _ in range(iterations):
+            flow = _update_flow(poly1, poly2, flow, winsize, use_gaussian,
+                                select_warp)
+    if downscale > 1:
+        flow = bilinear_resize(flow, full_h, full_w) * float(downscale)
+    return flow

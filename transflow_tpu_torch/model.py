@@ -6,7 +6,9 @@ chunk (``scan``, a Python loop over ``step``). PyTorch runs eagerly, so
 there is no jit form. ``key`` is a ``prng`` key, JAX's threefry key data,
 so the random reset draws the JAX model's numbers.
 
-Ported: LiteFlowNet, backward direction, no filters, mask or kernel, the
+Ported: Farneback (``takes_prev``: the previous raw flow warm-starts it
+with flag 4) and LiteFlowNet (its weights loaded only for that method),
+backward direction, no filters, mask or kernel, the
 ``first`` merge and moveref layers, and the ``halo``/``mesh`` movement
 gather. Anything else raises ``NotImplementedError`` naming its ROADMAP
 item.
@@ -21,7 +23,6 @@ from .compositor.core import build_compositor, make_layer_params
 from .config import LayerConfig
 from .flow import Direction
 from .flow.estimators import get_estimator
-from .flow.estimators.liteflownet import get_weights
 from .flow.merge import get_merge_function
 from .flow.transforms import make_postprocess
 from .ops.image import upscale_flow
@@ -78,15 +79,30 @@ class FlowTransferModel:
         self._comp_init = init_fn
         self._comp_step = comp_step
         estimator_kwargs = dict(estimator_kwargs or {})
-        # the weights: a checkpoint, or the random weights the environment
-        # allows (liteflownet.py::get_weights)
-        self.net = get_weights(device=self.device)
         wf, hf = width_factor, height_factor
+        takes_prev = method in ("farneback", "horn-schunck")
+        # LiteFlowNet's weights: a checkpoint, or the random weights the
+        # environment allows (liteflownet.py::get_weights); None for the
+        # classic estimators
+        self.net = None
+        if method == "liteflownet":
+            from .flow.estimators.liteflownet import get_weights
+            self.net = get_weights(device=self.device)
+
+        def estimate(prev_gray, gray, prev_flow):
+            if direction == Direction.FORWARD:
+                left, right = prev_gray, gray
+            else:
+                left, right = gray, prev_gray
+            if method == "liteflownet":
+                return estimator(left, right, net=self.net,
+                                 **estimator_kwargs)
+            if takes_prev:
+                return estimator(left, right, prev_flow, **estimator_kwargs)
+            return estimator(left, right, **estimator_kwargs)
 
         def step(state, frame, pixmaps, t, key, frame_numbers, params_list):
-            # backward: the flow maps the current frame onto the previous
-            raw = estimator(frame, state["prev_gray"], net=self.net,
-                            **estimator_kwargs)
+            raw = estimate(state["prev_gray"], frame, state["prev_flow"])
             flow = merge([postprocess(raw, t)])
             if wf != 1 or hf != 1:
                 flow = upscale_flow(flow, wf, hf)
