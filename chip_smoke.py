@@ -6,15 +6,16 @@ Phases, in order; any failure exits non-zero:
 
 1. device: require CUDA and print the card's name and power limit;
 2. build: compile the CUDA kernels of ``transflow_tpu_torch/csrc`` (into the
-   git-ignored ``transflow_tpu_torch/_build``); fails unless ptxas
-   reported the correlation kernel free of spills, and prints any spill of
-   the Farneback kernels;
+   git-ignored ``transflow_tpu_torch/_build``); prints each kernel
+   instantiation's registers, shared memory and spills as ptxas reported
+   them, and fails unless ptxas reported the correlation kernel and
+   Farneback's B1 and B2b free of spills;
 F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    ``CvFlowConfig()`` (Farneback with cv2's defaults, the headline
    command's estimator), one moveref layer with random reset 0.01 over
    frames panned 3 px per frame: a warm-up chunk, a timed chunk of 8
-   frames and ``process_frame`` calls, counting 8 B1, 12 B2a and 12 B2b
-   launches per frame, the interior median flow of every frame within
+   frames and ``process_frame`` calls, counting 4 B1 (one per level, both
+   images), 12 B2a and 12 B2b launches per frame, the interior median flow of every frame within
    0.5 px of the pan; then the same Engine with ``assets/configs/
    fast.json``, ``fastest.json`` and ``fb_select_warp=16``, and with
    ``CvFlowConfig()`` once more (the first run of a process reads slower);
@@ -52,10 +53,11 @@ F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    (``a2_views``, bit-equal to A1 too), timed for what the one-card
    descriptors save the host; over distinct cards too where the machine
    has more than one;
-B. farneback kernels vs plain: B1 (``poly_expansion``), B2a
-   (``update_equations``, select radius 0 and 16) and B2b
-   (``aggregate_solve``, box and Gaussian) at the four level shapes of a
-   1080p frame in bf16 and float32 storage, on B1's own planes;
+B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
+   of a level in one launch), B2a (``update_equations``, select radius 0
+   and 16) and B2b (``aggregate_solve``, box and Gaussian) at the four
+   level shapes of a 1080p frame in bf16 and float32 storage, on B1's own
+   planes, each bit-equal to its plain version;
 9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
    the CPU slice, Farneback on both devices, the compositor on both
    devices on one flow, and the 1080x1920 threefry draw of the random
@@ -65,10 +67,15 @@ B. farneback kernels vs plain: B1 (``poly_expansion``), B2a
    L2-L6 (phase 7's bf16 inputs within the bound) and B1, B2a, B2b at the
    four levels; then the Farneback Engine's device events, busy time and
    idle share per frame over three ``process_frame`` calls;
-11. with ``--against CSRC_DIR`` only: the correlation kernel against
-   another tree's ``correlation.cu`` (for example the parent commit's,
-   from ``git archive`` under the git-ignored ``_local/``), built with the
-   package's flags, both through the raw C entry, ``device_ms`` in turns.
+11. with ``--against CSRC_DIR`` only: the correlation kernel, B1 and B2b
+   against another tree's ``correlation.cu`` and ``farneback.cu`` (for
+   example the parent commit's, from ``git archive`` under the git-ignored
+   ``_local/``), built with the package's flags, all through the raw C
+   entries, ``device_ms`` in turns (other, this, this, other): the
+   correlation at its five level shapes; B1 (both images of a level:
+   ``transflow_poly_expansion_pair`` where the other tree has it, else two
+   ``transflow_poly_expansion`` calls) and B2b (the box) at the four 1080p
+   level shapes in bf16, bit-equal between the trees.
 
 The main path (phases F and 3-5) runs right after the build: the kernel
 phases' timing loops, plain versions and profiler come after every timed
@@ -99,6 +106,7 @@ import functools
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -169,16 +177,16 @@ AGAINST_ROUNDS = 3   # rounds of (other, this, this, other) in phase 11
 FB_PAN = 3
 FB_PAN_TOL = 0.5
 FB_MARGIN = 64        # rows and columns left out of the median check
-# B1, B2a, B2b launches per frame of CvFlowConfig(): 2 images x 4 levels,
-# 3 iterations x 4 levels, 3 x 4
-FB_DEFAULT_PER_FRAME = (8, 12, 12)
+# B1, B2a, B2b launches per frame of CvFlowConfig(): 4 levels (both
+# images in one launch), 3 iterations x 4 levels, 3 x 4
+FB_DEFAULT_PER_FRAME = (4, 12, 12)
 FB_PROFILE_CALLS = 3  # process_frame calls under the profiler (phase 10)
 FB_SYNC_CALLS = 1     # process_frame calls that count the host's syncs
 # (H, W, name) of the pyramid of a 1080p frame at pyr_scale 0.5, levels 3
 FB_LEVELS = ((1080, 1920, "L0"), (540, 960, "L1"), (270, 480, "L2"),
              (135, 240, "L3"))
 FB_POLY_N, FB_POLY_SIGMA, FB_WINSIZE, FB_RADIUS = 5, 1.2, 15, 16
-# float32 operations per pixel. B1: nine correlations of 2n+1 taps (a
+# float32 operations per pixel and image. B1: nine correlations of 2n+1 taps (a
 # product and a sum each), five 6-term dot products and the halving. B2a:
 # the sample of five planes (coordinates, weights, three lerps of three
 # operations per plane; the select warp lerps two rows per column tap) and
@@ -189,7 +197,7 @@ B1_OPS = 18 * (2 * FB_POLY_N + 1) + 5 * 11 + 1
 B2A_OPS = {0: 53 + 46, FB_RADIUS: 65 + 46}
 B2B_OPS = 6 * 4 * FB_WINSIZE + 14
 # launches per level and frame of each Farneback kernel (CvFlowConfig())
-FB_PER_LEVEL = {"poly_expansion": 2, "update_equations": 3,
+FB_PER_LEVEL = {"poly_expansion": 1, "update_equations": 3,
                 "aggregate_solve": 3}
 
 
@@ -288,34 +296,73 @@ def phase_device() -> str:
     return card
 
 
-def phase_build() -> None:
+def _demangled(names: list[str]) -> list[str]:
+    """Kernel names as ``c++filt`` reads them, short of namespaces and
+    parameters; the mangled names where it is missing."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    short = []
+    for name in out:
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ")
+        short.append(name.split("(")[0].replace("__nv_bfloat16", "bf16"))
+    return short if len(short) == len(names) else names
+
+
+def ptxas_reports(log: str) -> list[dict]:
+    """Each kernel instantiation's ptxas report in nvcc's log (``-Xptxas
+    -v``): its mangled name, registers, static shared memory (bytes) and
+    spill stores and loads (bytes)."""
+    reports = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            reports.append({"kernel": line.split("'")[1], "registers": None,
+                            "smem": 0, "spills": None})
+        elif not reports:
+            continue
+        elif "spill stores" in line:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            reports[-1]["spills"] = (int(found[1]), int(found[2]))
+        elif "Used" in line and "registers" in line:
+            reports[-1]["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+            found = re.search(r"(\d+) bytes smem", line)
+            reports[-1]["smem"] = int(found[1]) if found else 0
+    for report, name in zip(reports, _demangled([r["kernel"]
+                                                 for r in reports])):
+        report["name"] = name
+    return reports
+
+
+# kernels whose ptxas report must show no spill: the correlation's 98 sums
+# per thread and the register windows of B1 and B2b stay in registers
+NO_SPILL = ("corr7x7", "poly_expansion", "aggregate_solve")
+
+
+def phase_build() -> list[dict]:
     from transflow_tpu_torch._device import kernel_library
     lib = kernel_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s")
-    kernel, checked, fb_checked, fb_spills = "", 0, 0, []
-    for line in lib.build_log.splitlines():
-        if "Compiling entry function" in line:
-            kernel = line.split("'")[1]
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
-        spills = ("spill" in line
-                  and "0 bytes spill stores, 0 bytes spill loads" not in line)
-        # the correlation's 98 sums per thread must stay in registers
-        if "corr7x7" in kernel and "spill" in line:
-            checked += 1
-            if spills:
-                raise AssertionError(f"{kernel} spills: {line.strip()}")
-        # a Farneback kernel that spills is reported, not failed
-        if any(name in kernel for name in FB_PER_LEVEL) and "spill" in line:
-            fb_checked += 1
-            if spills:
-                fb_spills.append(f"{kernel}: {line.strip()}")
-    if not checked:
-        raise AssertionError("the build log holds no ptxas report for the "
-                             "correlation kernel: its spills are unchecked")
-    print(f"build: farneback kernels, {fb_checked} ptxas reports, "
-          f"{len(fb_spills)} with spills"
-          + "".join(f"\n  SPILL {s}" for s in fb_spills))
+    reports = ptxas_reports(lib.build_log)
+    for r in reports:
+        print(f"  ptxas {r['name']}: {r['registers']} registers, "
+              f"{r['smem']} bytes smem, spills {r['spills']}")
+    for key in NO_SPILL:
+        mine = [r for r in reports if key in r["kernel"]]
+        if not mine or any(r["spills"] is None for r in mine):
+            raise AssertionError(f"the build log holds no ptxas report of "
+                                 f"spills for {key}: they are unchecked")
+        spilled = [r["name"] for r in mine if r["spills"] != (0, 0)]
+        if spilled:
+            raise AssertionError(f"{key} spills: {spilled}")
+    print(f"build: {len(reports)} ptxas reports, no spill in "
+          f"{', '.join(NO_SPILL)}")
+    return reports
 
 
 def _pair(t1, t2) -> str:
@@ -723,8 +770,9 @@ def gray_frames(n: int, height: int, width: int, device) -> torch.Tensor:
 
 def fb_per_frame(config, height: int, width: int) -> tuple[int, int, int]:
     """(B1, B2a, B2b) launches per frame of a Farneback config at H x W:
-    2 per level, and ``iterations`` each per level (the estimator's level
-    rule: sizes rounded, levels kept while above the poly_n window)."""
+    1 per level (both images), and ``iterations`` each per level (the
+    estimator's level rule: sizes rounded, levels kept while above the
+    poly_n window)."""
     kw = config.estimator_kwargs()
     h = int(round(height / kw["downscale"]))
     w = int(round(width / kw["downscale"]))
@@ -735,8 +783,7 @@ def fb_per_frame(config, height: int, width: int) -> tuple[int, int, int]:
                 <= 2 * kw["poly_n"] + 1:
             break
         levels += 1
-    return (2 * levels, kw["iterations"] * levels,
-            kw["iterations"] * levels)
+    return (levels, kw["iterations"] * levels, kw["iterations"] * levels)
 
 
 def phase_farneback_engine(device, card: str) -> dict:
@@ -998,52 +1045,36 @@ def phase_sharded_kernels(device) -> list[dict]:
 def fb_bound_ms(kernel: str, h: int, w: int, storage, in_dtype=None,
                 variant=0) -> tuple[float, str]:
     """A Farneback kernel's bound at (h, w): each input and output byte
-    once (B1: the image in, five planes out; B2a: the flow, both images'
-    planes, six planes out; B2b: six planes and the flow in, the flow out)
-    and its float32 operations (``B1_OPS``, ``B2A_OPS``, ``B2B_OPS``)."""
+    once (B1: both images in, five planes of each out; B2a: the flow, both
+    images' planes, six planes out; B2b: six planes and the flow in, the
+    flow out) and its float32 operations (``B1_OPS`` per image,
+    ``B2A_OPS``, ``B2B_OPS``)."""
     px, st = h * w, storage.itemsize
     if kernel == "poly_expansion":
-        return _bound(px * (in_dtype.itemsize + 5 * st), B1_OPS * px)
+        return _bound(2 * px * (in_dtype.itemsize + 5 * st), 2 * B1_OPS * px)
     if kernel == "update_equations":
         return _bound(px * (8 + 16 * st), B2A_OPS[variant] * px)
     return _bound(px * (6 * st + 16), B2B_OPS * px)
 
 
-def _fb_tolerance(want: torch.Tensor, storage) -> float:
-    """A Farneback kernel against its plain version on one plane: both keep
-    the JAX function's rounding points, so what may differ is summation
-    order: 1e-5 of the plane's largest |value| in float32, one bf16 ulp of
-    it in bf16. (The kernels add in the plain versions' order, so they are
-    meant to be bit-equal.)"""
-    scale = want.float().abs().max().item()
-    if scale == 0 or not np.isfinite(scale):
-        return 0.0
-    if storage == BF16:
-        return 2.0 ** (int(np.floor(np.log2(scale))) - 7)
-    return 1e-5 * scale
-
-
-def _fb_compare(name: str, got, want, storage, planes) -> float:
-    """Max |got - want| over the planes (``planes(t)`` yields them), each
-    held to ``_fb_tolerance``."""
-    worst = 0.0
-    for k, (g, p) in enumerate(zip(planes(got), planes(want))):
-        err = (g.float() - p.float()).abs().max().item()
-        tol = _fb_tolerance(p, storage)
-        if not err <= tol:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"on plane {k}: {err} > {tol}")
-        worst = max(worst, err)
-    return worst
+def _fb_compare(name: str, got, want) -> float:
+    """Max |got - want|: a Farneback kernel and its plain version keep the
+    JAX function's rounding points and add every sum in one order, so they
+    must be bit-equal."""
+    if not torch.equal(got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"{name} differs from its plain version: max "
+                             f"|diff| {err}")
+    return 0.0
 
 
 def phase_farneback_kernels(device) -> list[dict]:
-    """B1, B2a (radius 0 and 16) and B2b (box and Gaussian) against their
-    plain versions at the four level shapes of a 1080p frame, in bf16 and
-    float32 storage. B1's input is the storage-dtype frame at L0 and a
-    float32 resized image below, as on the main path; B2a reads B1's
-    planes of two images and a flow with a fifth of its pixels moving
-    beyond 4 px, B2b B2a's planes."""
+    """B1 (both images in one launch), B2a (radius 0 and 16) and B2b (box
+    and Gaussian) against their plain versions at the four level shapes of
+    a 1080p frame, in bf16 and float32 storage. B1's input is the
+    storage-dtype frame at L0 and a float32 resized image below, as on the
+    main path; B2a reads B1's planes of the two images and a flow with a
+    fifth of its pixels moving beyond 4 px, B2b B2a's planes."""
     from transflow_tpu_torch.ops import farneback as fb
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     rows = []
@@ -1066,9 +1097,6 @@ def phase_farneback_kernels(device) -> list[dict]:
               f"{row['plain_ms']:.4f} ms")
         rows.append(row)
 
-    def stack_planes(t):
-        return t.unbind(-1)
-
     for h, w, level in FB_LEVELS:
         flow = warp_flow(h, w, 4, True, gen, device)
         for storage in (BF16, F32):
@@ -1077,17 +1105,15 @@ def phase_farneback_kernels(device) -> list[dict]:
                       for _ in range(2)]
             if level == "L0":
                 images = [img.to(storage) for img in images]
-            args = (FB_POLY_N, FB_POLY_SIGMA, storage)
-            polys = [fb.poly_expansion_cuda(img, *args) for img in images]
-            want = fb.poly_expansion_plain(images[0], *args)
-            err = _fb_compare(f"B1 {level} {storage}", polys[0], want,
-                              storage, stack_planes)
+            args = (*images, FB_POLY_N, FB_POLY_SIGMA, storage)
+            polys = fb.poly_expansion_pair_cuda(*args)
+            want = fb.poly_expansion_pair_plain(*args)
+            err = max(_fb_compare(f"B1 {level} {storage} image {k}", got, ref)
+                      for k, (got, ref) in enumerate(zip(polys, want)))
             record("poly_expansion", level, h, w, storage,
-                   f"in {str(images[0].dtype)[6:]}", err,
-                   functools.partial(fb.poly_expansion_cuda, images[0],
-                                     *args),
-                   functools.partial(fb.poly_expansion_plain, images[0],
-                                     *args),
+                   f"in {str(images[0].dtype)[6:]}, both images", err,
+                   functools.partial(fb.poly_expansion_pair_cuda, *args),
+                   functools.partial(fb.poly_expansion_pair_plain, *args),
                    fb_bound_ms("poly_expansion", h, w, storage,
                                images[0].dtype), main)
             planes = None
@@ -1095,7 +1121,7 @@ def phase_farneback_kernels(device) -> list[dict]:
                 got = fb.update_equations_cuda(*polys, flow, radius)
                 want = fb.update_equations_plain(*polys, flow, radius)
                 err = _fb_compare(f"B2a {level} {storage} r{radius}", got,
-                                  want, storage, lambda t: t.unbind(0))
+                                  want)
                 record("update_equations", level, h, w, storage,
                        f"radius {radius}", err,
                        functools.partial(fb.update_equations_cuda, *polys,
@@ -1110,9 +1136,8 @@ def phase_farneback_kernels(device) -> list[dict]:
                 args = (planes, flow, FB_WINSIZE, gaussian)
                 got = fb.aggregate_solve_cuda(*args)
                 want = fb.aggregate_solve_plain(*args)
-                # the new flow is float32 in both storages
                 err = _fb_compare(f"B2b {level} {storage} gaussian={gaussian}",
-                                  got, want, F32, stack_planes)
+                                  got, want)
                 if not torch.isfinite(got).all():
                     raise AssertionError(f"B2b {level}: non-finite flow")
                 record("aggregate_solve", level, h, w, storage,
@@ -1276,7 +1301,8 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows) -> None:
         print(f"kernel time fb {row['kernel']} {row['level']} bf16 "
               f"{row['variant']}: {_ms_text(row['kernel_ms'])} "
               f"(torch.profiler, per call) against device_ms "
-              f"{row['device_ms']:.5f}")
+              f"{row['device_ms']:.5f} and bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']})")
 
 
 def _ms_text(ms: float | None) -> str:
@@ -1345,53 +1371,130 @@ def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
     return result
 
 
-def build_other_correlation(csrc: Path) -> ctypes.CDLL:
-    """``csrc/correlation.cu`` of another tree (with the same C entry
-    ``transflow_corr7x7``), built with the package's nvcc flags into its
-    own library under ``_build/``."""
+def build_other(csrc: Path) -> ctypes.CDLL:
+    """``correlation.cu`` and ``farneback.cu`` of another tree, built with
+    the package's nvcc flags (one nvcc each, both at once) into one library
+    under ``_build/``, with the argument types of the C entries it has."""
     from transflow_tpu_torch._device import (BUILD_DIR, NVCC_FLAGS,
                                              _SIGNATURES, nvcc_path)
-    source = csrc / "correlation.cu"
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    path = BUILD_DIR / f"other-correlation-{tag}.so"
+    sources = [csrc / "correlation.cu", csrc / "farneback.cu"]
+    digest = hashlib.sha256()
+    for source in sources:
+        digest.update(source.read_bytes())
+    path = BUILD_DIR / f"other-{digest.hexdigest()[:16]}.so"
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        run = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-shared", "-o",
-                              str(path), str(source)],
-                             capture_output=True, text=True, check=False)
-        if run.returncode:
-            raise RuntimeError(f"nvcc failed on {source}:\n{run.stdout}"
-                               f"{run.stderr}")
+        objects = [path.with_name(f"{path.stem}-{s.stem}.o") for s in sources]
+        procs = [subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-c", "-o",
+                                   str(obj), str(src)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objects)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        link = subprocess.run([nvcc_path(), "-shared", "-o", str(path),
+                               *map(str, objects)], capture_output=True,
+                              text=True, check=False)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+        if link.returncode:
+            raise RuntimeError(f"link failed:\n{link.stdout}{link.stderr}")
     lib = ctypes.CDLL(str(path))
-    lib.transflow_corr7x7.argtypes = _SIGNATURES["transflow_corr7x7"]
-    lib.transflow_corr7x7.restype = ctypes.c_int
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def corr_entry(lib: ctypes.CDLL, f1, f2, out, stride: int):
-    """A call of ``lib``'s raw C entry ``transflow_corr7x7`` into the
-    preallocated ``out``: no wrapper and no launch count."""
-    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
-    h, w, c = f1.shape
-    args = (f1.data_ptr(), DTYPE_CODES[f1.dtype], f2.data_ptr(),
-            DTYPE_CODES[f2.dtype], out.data_ptr(), h, w, c, stride, 0, h,
-            cuda_stream(f1))
+def _entry(lib: ctypes.CDLL, name: str, *args):
+    """A call of ``lib``'s raw C entry ``name`` on ``args``: no wrapper
+    and no launch count."""
+    fn = getattr(lib, name)
 
     def call():
-        err = lib.transflow_corr7x7(*args)
+        err = fn(*args)
         if err:
-            raise RuntimeError(f"transflow_corr7x7 failed: CUDA error {err}")
+            raise RuntimeError(f"{name} failed: CUDA error {err}")
     return call
 
 
+def corr_entry(lib: ctypes.CDLL, f1, f2, out, stride: int):
+    """The correlation's raw C entry into the preallocated ``out``."""
+    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
+    h, w, c = f1.shape
+    return _entry(lib, "transflow_corr7x7", f1.data_ptr(),
+                  DTYPE_CODES[f1.dtype], f2.data_ptr(),
+                  DTYPE_CODES[f2.dtype], out.data_ptr(), h, w, c, stride, 0,
+                  h, cuda_stream(f1))
+
+
+def b1_entry(lib: ctypes.CDLL, images, outs):
+    """B1 on both images of a level into ``outs`` (bf16 storage, poly_n
+    ``FB_POLY_N``): one call of ``transflow_poly_expansion_pair`` where
+    ``lib`` has it, else two of ``transflow_poly_expansion``."""
+    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
+    from transflow_tpu_torch.ops.farneback import _poly_params
+    params = _poly_params(FB_POLY_N, FB_POLY_SIGMA, BF16).ctypes.data_as(
+        ctypes.c_void_p)
+    h, w = images[0].shape
+    code, stream = DTYPE_CODES[images[0].dtype], cuda_stream(images[0])
+    if hasattr(lib, "transflow_poly_expansion_pair"):
+        return _entry(lib, "transflow_poly_expansion_pair",
+                      images[0].data_ptr(), images[1].data_ptr(), code,
+                      outs[0].data_ptr(), outs[1].data_ptr(),
+                      DTYPE_CODES[BF16], h, w, FB_POLY_N, params, stream)
+    calls = [_entry(lib, "transflow_poly_expansion", image.data_ptr(), code,
+                    out.data_ptr(), DTYPE_CODES[BF16], h, w, FB_POLY_N,
+                    params, stream) for image, out in zip(images, outs)]
+    return lambda: [call() for call in calls]
+
+
+def b2b_entry(lib: ctypes.CDLL, planes, flow, out):
+    """B2b (the box of ``FB_WINSIZE``) on bf16 planes into ``out``."""
+    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
+    from transflow_tpu_torch.ops.farneback import _window_params
+    vtaps, htaps, symmetric = _window_params(FB_WINSIZE, False, BF16)
+    h, w = flow.shape[:2]
+    return _entry(lib, "transflow_aggregate_solve", planes.data_ptr(),
+                  DTYPE_CODES[planes.dtype], flow.data_ptr(), out.data_ptr(),
+                  h, w, len(vtaps), int(symmetric), 1,
+                  vtaps.ctypes.data_as(ctypes.c_void_p),
+                  htaps.ctypes.data_as(ctypes.c_void_p), cuda_stream(flow))
+
+
+def in_turns(calls: dict) -> dict:
+    """``device_ms`` of the calls ``other`` and ``this`` in
+    ``AGAINST_ROUNDS`` rounds of (other, this, this, other): the medians
+    and every round's times."""
+    times = {name: [] for name in calls}
+    for _ in range(AGAINST_ROUNDS):
+        for name in ("other", "this", "this", "other"):
+            times[name].append(device_ms(calls[name]))
+    torch.cuda.synchronize()
+    return {"ms": {name: statistics.median(t) for name, t in times.items()},
+            "times": times}
+
+
+def _turns_text(turns: dict) -> str:
+    return (f"device_ms this {turns['ms']['this']:.5f} other "
+            f"{turns['ms']['other']:.5f}; rounds this "
+            f"{[round(t, 5) for t in turns['times']['this']]} other "
+            f"{[round(t, 5) for t in turns['times']['other']]}")
+
+
 def phase_against(device, csrc: Path, card: str) -> None:
-    """This tree's correlation kernel against ``csrc``'s at the five level
-    shapes in the slice's dtype pairs: ``device_ms`` of each through the
-    raw C entry, in turns (other, this, this, other) over
-    ``AGAINST_ROUNDS`` rounds, medians; the outputs within 1e-5."""
+    """This tree's correlation kernel, B1 and B2b against ``csrc``'s, all
+    through the raw C entries, ``device_ms`` in turns: the correlation at
+    the five level shapes in the slice's dtype pairs (outputs within
+    1e-5); B1 on both images of a level and B2b's box at the four 1080p
+    level shapes in bf16, as the main path gives them (outputs
+    bit-equal)."""
     from transflow_tpu_torch._device import kernel_library
-    libs = {"this": kernel_library()._lib,
-            "other": build_other_correlation(csrc)}
+    from transflow_tpu_torch.ops import farneback as fb
+    libs = {"this": kernel_library()._lib, "other": build_other(csrc)}
     gen = torch.Generator(device=device).manual_seed(SEED)
     total = {"this": 0.0, "other": 0.0, "bound": 0.0}
     for h, w, c, stride, level in CORR_SHAPES:
@@ -1400,29 +1503,60 @@ def phase_against(device, csrc: Path, card: str) -> None:
         f2 = torch.randn((h, w, c), generator=gen, device=device).to(t2)
         outs = {name: torch.empty((-(-h // stride), -(-w // stride), 49),
                                   device=device) for name in libs}
-        calls = {name: corr_entry(lib, f1, f2, outs[name], stride)
-                 for name, lib in libs.items()}
-        times = {name: [] for name in libs}
-        for _ in range(AGAINST_ROUNDS):
-            for name in ("other", "this", "this", "other"):
-                times[name].append(device_ms(calls[name]))
-        torch.cuda.synchronize()
+        turns = in_turns({name: corr_entry(lib, f1, f2, outs[name], stride)
+                          for name, lib in libs.items()})
         diff = (outs["this"] - outs["other"]).abs().max().item()
         if not torch.allclose(outs["this"], outs["other"], atol=CORR_ATOL,
                               rtol=CORR_RTOL):
             raise AssertionError(f"{level}: the two kernels differ by {diff}")
-        ms = {name: statistics.median(t) for name, t in times.items()}
         bound = corr_bound_ms(h, w, c, stride, t1, t2)[0]
-        for name, value in (*ms.items(), ("bound", bound)):
+        for name, value in (*turns["ms"].items(), ("bound", bound)):
             total[name] += value
-        print(f"against {level} ({h},{w},{c}) s{stride} {_pair(t1, t2)}: "
-              f"device_ms this {ms['this']:.5f} other {ms['other']:.5f} "
-              f"bound {bound:.5f} (share this {bound / ms['this']:.1%}, "
-              f"other {bound / ms['other']:.1%}); |diff| {diff:.3e}; "
-              f"rounds this {[round(t, 5) for t in times['this']]} other "
-              f"{[round(t, 5) for t in times['other']]}")
-    print(f"against per frame: device_ms this {total['this']:.5f} other "
-          f"{total['other']:.5f} bound {total['bound']:.5f} on {card}")
+        print(f"against corr {level} ({h},{w},{c}) s{stride} "
+              f"{_pair(t1, t2)}: {_turns_text(turns)}; bound {bound:.5f}; "
+              f"|diff| {diff:.3e}")
+    print(f"against corr per frame: device_ms this {total['this']:.5f} "
+          f"other {total['other']:.5f} bound {total['bound']:.5f} on {card}")
+
+    fb_total = {k: {"this": 0.0, "other": 0.0, "bound": 0.0}
+                for k in ("B1", "B2b")}
+    for h, w, level in FB_LEVELS:
+        images = [torch.rand((h, w), generator=gen, device=device) * 255
+                  for _ in range(2)]
+        if level == "L0":
+            images = [img.to(BF16) for img in images]
+        flow = warp_flow(h, w, 4, True, gen, device)
+        polys = fb.poly_expansion_pair_cuda(*images, FB_POLY_N, FB_POLY_SIGMA,
+                                            BF16)
+        planes = fb.update_equations_cuda(*polys, flow, 0)
+        cases = {
+            "B1": ({name: [torch.empty((h, w, 5), dtype=BF16, device=device)
+                           for _ in images] for name in libs},
+                   lambda lib, out: b1_entry(lib, images, out),
+                   fb_bound_ms("poly_expansion", h, w, BF16, images[0].dtype),
+                   FB_PER_LEVEL["poly_expansion"]),
+            "B2b": ({name: [torch.empty((h, w, 2), device=device)]
+                     for name in libs},
+                    lambda lib, out: b2b_entry(lib, planes, flow, out[0]),
+                    fb_bound_ms("aggregate_solve", h, w, BF16),
+                    FB_PER_LEVEL["aggregate_solve"]),
+        }
+        for kernel, (outs, entry, bound, per_level) in cases.items():
+            turns = in_turns({name: entry(lib, outs[name])
+                              for name, lib in libs.items()})
+            same = all(torch.equal(a, b)
+                       for a, b in zip(outs["this"], outs["other"]))
+            if not same:
+                raise AssertionError(f"against {kernel} {level}: the two "
+                                     "trees' outputs differ")
+            for name, value in (*turns["ms"].items(), ("bound", bound[0])):
+                fb_total[kernel][name] += per_level * value
+            print(f"against {kernel} {level} ({h},{w}) bf16: "
+                  f"{_turns_text(turns)}; bound {bound[0]:.5f} "
+                  f"({bound[1]}); outputs bit-equal")
+    for kernel, t in fb_total.items():
+        print(f"against {kernel} per frame: device_ms this {t['this']:.5f} "
+              f"other {t['other']:.5f} bound {t['bound']:.5f} on {card}")
 
 
 def _bound_by(rows) -> str:
@@ -1443,8 +1577,9 @@ def _per_frame(rows, key: str, weight=None) -> float | None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", type=Path, metavar="CSRC_DIR",
-                        help="also time the correlation kernel against "
-                             "this directory's correlation.cu (phase 11)")
+                        help="also time the correlation kernel, B1 and B2b "
+                             "against this directory's correlation.cu and "
+                             "farneback.cu (phase 11)")
     args = parser.parse_args()
     card = phase_device()
     device = torch.device("cuda", 0)

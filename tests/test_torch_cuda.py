@@ -173,33 +173,43 @@ def test_slice_on_card_matches_cpu(device, exact_f32):
                                rtol=1e-3)
 
 
-FB_SHAPES = [(13, 21), (37, 45), (64, 96), (135, 240)]
+# the B1/B2b tiles are 32x64 (where the grid gives every SM a block) and
+# 16x32 outputs: levels smaller than one tile, one row or column past a
+# tile, rows that do not start on 16 bytes (W = 45, 37, 961), and a
+# 540x960 level (the 32x64 tiles) with one row and column more
+FB_SHAPES = [(13, 21), (9, 37), (37, 45), (17, 33), (33, 65), (64, 96),
+             (135, 240), (540, 960), (541, 961)]
 
 
 @pytest.mark.parametrize("storage", [F32, BF16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", FB_SHAPES, ids=str)
 def test_farneback_kernels_match_plain(device, shape, storage):
-    """B1 (float32 and storage-dtype input, poly_n 5 and 2), B2a (select
-    radius 0, 3 and 16, flows moving off the frame) and B2b (box of 15 and
-    4, Gaussian) against their plain versions. Both keep the JAX function's
-    rounding points and add every sum in the same order with no fused
-    multiply-add: bit-equal."""
+    """Every instantiation against its plain version: B1 with poly_n 5 and
+    7 (register windows) and 2 (runtime count), float32 and storage-dtype
+    input, one image and both in one launch; B2a (select radius 0, 3 and
+    16, flows moving off the frame); B2b with a box of 15 (register
+    windows), 4 and 21 (runtime count) and a Gaussian of 15 (register
+    windows), on planes with a flat band where the old flow stays. Both
+    keep the JAX function's rounding points and add every sum in the same
+    order, fused multiply-adds only where the product is exact:
+    bit-equal."""
     from transflow_tpu_torch.ops import farneback as fb
     h, w = shape
     gen = torch.Generator(device=device).manual_seed(4)
     images = [torch.rand((h, w), generator=gen, device=device) * 255
               for _ in range(2)]
-    for n in (5, 2):
-        for image in (images[0], images[0].to(storage)):
+    for n in (5, 7, 2):
+        for pair in (images, [image.to(storage) for image in images]):
             before = fb.poly_expansion_cuda.launches
-            got = fb.poly_expansion(image, n, 1.2, storage)
+            got = fb.poly_expansion_pair(*pair, n, 1.2, storage)
+            single = fb.poly_expansion(pair[1], n, 1.2, storage)
             torch.cuda.synchronize()
-            assert fb.poly_expansion_cuda.launches == before + 1
-            assert got.dtype == storage and got.shape == (h, w, 5)
-            torch.testing.assert_close(
-                got, fb.poly_expansion_plain(image, n, 1.2, storage),
-                atol=0, rtol=0)
-    polys = [fb.poly_expansion(image, 5, 1.2, storage) for image in images]
+            assert fb.poly_expansion_cuda.launches == before + 2
+            want = fb.poly_expansion_pair_plain(*pair, n, 1.2, storage)
+            for out, ref in zip((*got, single), (*want, want[1])):
+                assert out.dtype == storage and out.shape == (h, w, 5)
+                torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    polys = fb.poly_expansion_pair(*images, 5, 1.2, storage)
     flow = 6 * torch.randn((h, w, 2), generator=gen, device=device)
     for radius in (0, 3, 16):
         before = fb.update_equations_cuda.launches
@@ -210,7 +220,9 @@ def test_farneback_kernels_match_plain(device, shape, storage):
         torch.testing.assert_close(
             planes, fb.update_equations_plain(*polys, flow, radius),
             atol=0, rtol=0)
-    for winsize, gaussian in ((15, False), (4, False), (15, True)):
+    planes[:, :, :w // 3] = 0
+    for winsize, gaussian in ((15, False), (4, False), (21, False),
+                              (15, True)):
         before = fb.aggregate_solve_cuda.launches
         got = fb.aggregate_solve(planes, flow, winsize, gaussian)
         torch.cuda.synchronize()
@@ -223,7 +235,8 @@ def test_farneback_kernels_match_plain(device, shape, storage):
 def test_farneback_on_card_matches_cpu(device, monkeypatch):
     """The estimator on the card (the kernels; cuDNN for the pyramid's blur
     with TF32 off) against the CPU (the plain versions), float32 storage:
-    >= 60 dB at an 8 px peak, the CPU tests' bar against JAX."""
+    >= 60 dB at an 8 px peak, the CPU tests' bar against JAX. B1 takes
+    both images of a level in one launch."""
     from transflow_tpu_torch.flow.estimators.farneback import farneback
     from transflow_tpu_torch.ops import farneback as fb
     monkeypatch.setenv("TRANSFLOW_FARNEBACK_BF16", "0")
@@ -235,7 +248,7 @@ def test_farneback_on_card_matches_cpu(device, monkeypatch):
     a, b = canvas[4:100, 6:134], canvas[2:98, 3:131]
     before = fb.poly_expansion_cuda.launches
     got = farneback(a.to(device), b.to(device), select_warp=0).cpu()
-    assert fb.poly_expansion_cuda.launches == before + 8
+    assert fb.poly_expansion_cuda.launches == before + 4  # one per level
     want = farneback(a, b)
     mse = float(((got - want) ** 2).mean())
     assert mse == 0 or 10 * np.log10(64 / mse) >= 60.0

@@ -273,6 +273,116 @@ def test_poly_expansion_matches_jax(shape, storage):
             rel * scale[k] + 1e-30)
 
 
+@pytest.mark.parametrize("storage", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [5, 7])
+def test_poly_expansion_pair_matches_plain_and_jax(n, storage):
+    """``poly_expansion_pair`` (kernel B1 on both images of a level in one
+    launch on the card) on the CPU: two ``poly_expansion_plain`` calls, bit
+    for bit, and JAX's ``poly_expansion`` of each image under
+    test_poly_expansion_matches_jax's bars."""
+    rng = np.random.default_rng(9)
+    imgs = [rng.uniform(0, 255, (29, 43)).astype(np.float32)
+            for _ in range(2)]
+    got = ops_fb.poly_expansion_pair(*map(torch.from_numpy, imgs), n, 1.2,
+                                     storage)
+    rel = 3e-6 if storage == F32 else 2.0 ** -8
+    for x, out in zip(imgs, got):
+        plain = ops_fb.poly_expansion_plain(torch.from_numpy(x), n, 1.2,
+                                            storage)
+        assert out.dtype == storage and torch.equal(out, plain)
+        want = np.stack([np.asarray(p, np.float32) for p in jfb.poly_expansion(
+            jnp.asarray(x), n, 1.2, storage=JAX_DTYPE[storage])], axis=-1)
+        scale = np.abs(want).max(axis=(0, 1))
+        for k in range(5):
+            np.testing.assert_array_less(
+                np.abs(out[..., k].float().numpy() - want[..., k]),
+                rel * scale[k] + 1e-30)
+
+
+def _fma32(a, b, c):
+    """float32 ``fma(a, b, c)``, rounded once: the float64 product of two
+    float32 values is exact and TwoSum gives the float64 sum's error. A
+    float32 midpoint is a float64 value, so the float64 sum lies on the
+    same side of it as the exact one, and rounding it to float32 is right
+    except where it lies on a midpoint and the error is not 0: there the
+    error's sign picks the neighbour."""
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    p = a.astype(np.float64) * b
+    c64 = c.astype(np.float64)
+    s = p + c64
+    z = s - p
+    err = (p - (s - z)) + (c64 - z)
+    r = s.astype(np.float32)
+    q = np.nextafter(r, np.where(s > r, np.float32(np.inf),
+                                 np.float32(-np.inf)))
+    tie = (s != r) & (s == (r.astype(np.float64) + q) / 2) & (err != 0)
+    return np.where(tie, np.where(err > 0, np.maximum(r, q),
+                                  np.minimum(r, q)), r)
+
+
+def test_fma32_rounds_once():
+    """``_fma32`` keeps what a rounded product loses ((1 + 2^-12)^2 - 1
+    keeps its 2^-24), and where the float64 sum lies on a float32 midpoint
+    it rounds the exact sum, not the float64 one."""
+    a = np.float32(1 + 2.0 ** -12)
+    assert _fma32(a, a, -1) == np.float32(2.0 ** -11 + 2.0 ** -24)
+    assert np.float32(a * a) - np.float32(1) == np.float32(2.0 ** -11)
+    # (1 + 2^-23) + (1 + 2^-23)(2^-24 - 2^-47): 2^-70 below the midpoint
+    # of 1 + 2^-23 and 1 + 2^-22, where float64 lands
+    a, b = np.float32(1 + 2.0 ** -23), np.float32(2.0 ** -24 - 2.0 ** -47)
+    assert _fma32(a, b, a) == a
+    assert np.float32(np.float64(a) * np.float64(b) + np.float64(a)) == \
+        np.float32(1 + 2.0 ** -22)
+
+
+def _fma_correlate(x, taps, axis, storage):
+    """``ops/farneback.py::_correlate`` (symmetric padding) with every
+    product added by ``_fma32``, rounded to ``storage`` as B1 rounds it."""
+    n = x.shape[axis]
+    lo = (len(taps) - 1) // 2
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (lo, len(taps) - 1 - lo)
+    padded = np.pad(x, pad, mode="symmetric")
+    take = lambda k: np.take(padded, np.arange(k, k + n), axis=axis)
+    acc = (take(0) * np.float32(taps[0])).astype(np.float32)
+    for k in range(1, len(taps)):
+        acc = _fma32(take(k), np.full_like(acc, taps[k]), acc)
+    return torch.from_numpy(acc).to(storage).float().numpy()
+
+
+@pytest.mark.parametrize("n", [5, 7])
+def test_bf16_products_make_fma_exact(n):
+    """The premise of the kernels' fused multiply-adds in bf16 storage: B1
+    whose nine correlations add each product by an exactly emulated fused
+    multiply-add (``_fma32``) equals ``poly_expansion_plain``, which rounds
+    each product, bit for bit on seeded images: bf16 values times bf16
+    taps are exact in float32. In float32 storage the same swap changes
+    the result, so the kernels keep rounded products there."""
+    rng = np.random.default_rng(10)
+    x = ndi.gaussian_filter(rng.uniform(0, 255, (40, 52)), 1.0).astype(
+        np.float32)
+    g, xg, xxg, ginv = ops_fb.poly_exp_consts(n, 1.2)
+    for storage, exact in ((BF16, True), (F32, False)):
+        taps = [image.rounded_taps(k, storage).numpy() for k in (g, xg, xxg)]
+        f = torch.from_numpy(x).to(storage).float().numpy()
+        fy = [_fma_correlate(f, t, 0, storage) for t in taps]
+        moments = [_fma_correlate(fy[i], taps[t], 1, storage)
+                   for i, t in ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0),
+                                (1, 1))]
+        coeffs = []
+        for k in range(1, 6):   # the fit: bf16 moments times f32 ginv
+            acc = moments[0] * np.float32(ginv[k, 0])
+            for m in range(1, 6):
+                acc = (acc + moments[m] * np.float32(ginv[k, m])).astype(
+                    np.float32)
+            coeffs.append(torch.from_numpy(acc).to(storage))
+        coeffs[4] = coeffs[4] * 0.5
+        got = torch.stack(coeffs, dim=-1)
+        want = ops_fb.poly_expansion_plain(torch.from_numpy(x), n, 1.2,
+                                           storage)
+        assert torch.equal(got, want) == exact, storage
+
+
 def _poly_pair(rng, h, w, storage):
     """Coefficient stacks of two related images, in ``storage``."""
     a = ndi.gaussian_filter(rng.uniform(0, 255, (h + 8, w + 8)), 2.0)
@@ -374,6 +484,33 @@ def test_translation_and_warm_start():
     assert abs(np.median(warm[16:-16, 16:-16, 0]) - 2) < 0.7
 
 
+@pytest.mark.parametrize("case", ["downscale-2", "downscale-4-it2"])
+def test_downscale_resizes_no_unused_prev_flow(case, monkeypatch):
+    """Without flag 4 the warm start is unused, so a ``prev_flow`` given
+    with ``downscale`` > 1 is not resized (no ``bilinear_resize`` of a
+    full-size flow); the flow equals the one without ``prev_flow`` and
+    meets the bar against JAX's ``farneback``, which receives it."""
+    a, b, _ = _warped_pair(96, 144, seed=5)
+    prev = (2 * np.random.default_rng(8).standard_normal((96, 144, 2))
+            ).astype(np.float32)
+    kwargs = E2E_CASES[case]
+    resized = []
+    plain_resize = fb.bilinear_resize
+
+    def counted(x, h, w):
+        resized.append(tuple(x.shape))
+        return plain_resize(x, h, w)
+
+    monkeypatch.setattr(fb, "bilinear_resize", counted)
+    got = _port(a, b, prev, **kwargs)
+    assert (96, 144, 2) not in resized
+    without = len(resized)
+    resized.clear()
+    assert np.array_equal(got, _port(a, b, **kwargs))
+    assert len(resized) == without
+    assert _flow_psnr(got, _jax(a, b, prev, **kwargs)) >= 60.0
+
+
 def test_get_estimator_returns_the_port():
     assert get_estimator("farneback") is fb.farneback
     for method in ("horn-schunck", "lukas-kanade"):
@@ -428,10 +565,11 @@ def test_select_warp_quality():
 def test_chip_smoke_launch_rule(settings, monkeypatch):
     """chip_smoke's launches per frame of each kernel (``fb_per_frame``, the
     count it asserts on the card) equal the calls the estimator makes, here
-    to the kernels' plain versions, and are 8, 12, 12 at 1080p defaults."""
+    to the kernels' plain versions (B1: one call per level for both
+    images), and are 4, 12, 12 at 1080p defaults."""
     import chip_smoke
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
-    calls = {name: 0 for name in ("poly_expansion", "update_equations",
+    calls = {name: 0 for name in ("poly_expansion_pair", "update_equations",
                                   "aggregate_solve")}
     for name in calls:
         plain = getattr(ops_fb, f"{name}_plain")
@@ -447,4 +585,4 @@ def test_chip_smoke_launch_rule(settings, monkeypatch):
                  **config.estimator_kwargs())
     assert tuple(calls.values()) == chip_smoke.fb_per_frame(config, 90, 160)
     assert chip_smoke.fb_per_frame(CvFlowConfig(), 1080, 1920) == \
-        chip_smoke.FB_DEFAULT_PER_FRAME == (8, 12, 12)
+        chip_smoke.FB_DEFAULT_PER_FRAME == (4, 12, 12)

@@ -41,6 +41,10 @@ _SIGNATURES = {
     "transflow_bounded_backwarp": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     # image, dtype, out, storage dtype, H, W, n, params (host), stream
     "transflow_poly_expansion": (_P, _I, _P, _I, _I, _I, _I, _P, _P),
+    # image1, image2, dtype, out1, out2, storage dtype, H, W, n, params
+    # (host), stream
+    "transflow_poly_expansion_pair": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _P,
+                                      _P),
     # poly1, poly2, dtype, flow, planes, H, W, select radius, stream
     "transflow_update_equations": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
     # planes, dtype, flow, out, H, W, taps, symmetric, round the vertical

@@ -5,7 +5,7 @@ estimator (transflow's cv2.calcOpticalFlowFarneback with the fb_* hyper-
 parameters):
 
 1. per level, the quadratic polynomial expansion of both images (kernel
-   B1, ``ops/farneback.py::poly_expansion``);
+   B1, ``ops/farneback.py::poly_expansion_pair``: one launch per level);
 2. ``iterations`` displacement updates: image 2's coefficients warped to
    x + d and the normal equations (kernel B2a, ``update_equations``), then
    the window aggregation and the 2x2 solve (kernel B2b,
@@ -21,7 +21,8 @@ import os
 
 import torch
 
-from ...ops.farneback import aggregate_solve, poly_expansion, update_equations
+from ...ops.farneback import (aggregate_solve, poly_expansion,
+                               poly_expansion_pair, update_equations)
 from ...ops.image import bilinear_resize, gaussian_blur
 
 __all__ = ["farneback", "poly_expansion", "OPTFLOW_USE_INITIAL_FLOW",
@@ -89,7 +90,7 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
         sigma = (downscale - 1) * 0.5
         prev = bilinear_resize(gaussian_blur(prev, sigma), h, w)
         nxt = bilinear_resize(gaussian_blur(nxt, sigma), h, w)
-        if prev_flow is not None:
+        if flags & OPTFLOW_USE_INITIAL_FLOW and prev_flow is not None:
             prev_flow = bilinear_resize(
                 torch.as_tensor(prev_flow).float(), h, w) * (1.0 / downscale)
 
@@ -121,8 +122,8 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
             img2 = bilinear_resize(gaussian_blur(nxt, sigma), lh, lw)
         else:
             img1, img2 = prev, nxt
-        poly1 = poly_expansion(img1, poly_n, poly_sigma, sdt)
-        poly2 = poly_expansion(img2, poly_n, poly_sigma, sdt)
+        poly1, poly2 = poly_expansion_pair(img1, img2, poly_n, poly_sigma,
+                                           sdt)
         for _ in range(iterations):
             flow = _update_flow(poly1, poly2, flow, winsize, use_gaussian,
                                 select_warp)

@@ -7,7 +7,9 @@ Counterpart of transflow_tpu/flow/estimators/farneback.py's
 the plain PyTorch version; ``*_cuda``, which launches the hand-written
 kernel of ``csrc/farneback.cu`` and counts its launches; and the
 dispatcher, which sends CPU tensors to the first and CUDA tensors to the
-second, with no fallback between them.
+second, with no fallback between them. ``poly_expansion_pair`` runs B1 on
+both images of a level: one launch on the card, two calls of
+``poly_expansion_plain`` on the CPU.
 
 The plain versions compute what the JAX functions compute, with the same
 rounding points to the storage dtype (bf16 or float32), and add every sum
@@ -133,27 +135,47 @@ def _poly_params(n: int, sigma: float, storage: torch.dtype) -> np.ndarray:
                                 np.float32)
 
 
-def poly_expansion_cuda(image: torch.Tensor, n: int, sigma: float,
-                        storage: torch.dtype) -> torch.Tensor:
-    """Launch kernel B1 on a contiguous (H, W) float32 or bf16 image on a
-    CUDA device. ``poly_expansion_cuda.launches`` counts launches."""
-    _check_cuda("poly_expansion_cuda", image)
-    if image.dim() != 2 or image.dtype not in DTYPE_CODES:
-        raise ValueError("poly_expansion_cuda needs an (H, W) float32 or "
-                         f"bf16 image, got {tuple(image.shape)} "
-                         f"{image.dtype}")
+def _poly_launch(images, n: int, sigma: float,
+                 storage: torch.dtype) -> list[torch.Tensor]:
+    """One launch of kernel B1 over one or two contiguous (H, W) images of
+    one shape and dtype (float32 or bf16) on one CUDA device; counted on
+    ``poly_expansion_cuda.launches``."""
+    _check_cuda("poly_expansion_cuda", *images)
+    image = images[0]
+    if image.dim() != 2 or image.dtype not in DTYPE_CODES or any(
+            t.shape != image.shape or t.dtype != image.dtype
+            for t in images):
+        raise ValueError("poly_expansion_cuda needs (H, W) float32 or bf16 "
+                         "images of one shape and dtype, got "
+                         f"{[(tuple(t.shape), t.dtype) for t in images]}")
     if storage not in DTYPE_CODES:
         raise ValueError(f"storage must be float32 or bf16, got {storage}")
     if not 1 <= n <= MAX_POLY_N:
         raise ValueError(f"poly_n must be in [1, {MAX_POLY_N}], got {n}")
     h, w = image.shape
-    params = _poly_params(n, float(sigma), storage)
-    out = torch.empty((h, w, 5), dtype=storage, device=image.device)
-    launch(image.device, "transflow_poly_expansion", image.data_ptr(),
-           DTYPE_CODES[image.dtype], out.data_ptr(), DTYPE_CODES[storage], h,
-           w, n, params.ctypes.data_as(ctypes.c_void_p), cuda_stream(image))
+    params = _poly_params(n, float(sigma), storage).ctypes.data_as(
+        ctypes.c_void_p)
+    outs = [torch.empty((h, w, 5), dtype=storage, device=image.device)
+            for _ in images]
+    if len(images) == 1:
+        launch(image.device, "transflow_poly_expansion", image.data_ptr(),
+               DTYPE_CODES[image.dtype], outs[0].data_ptr(),
+               DTYPE_CODES[storage], h, w, n, params, cuda_stream(image))
+    else:
+        launch(image.device, "transflow_poly_expansion_pair",
+               images[0].data_ptr(), images[1].data_ptr(),
+               DTYPE_CODES[image.dtype], outs[0].data_ptr(),
+               outs[1].data_ptr(), DTYPE_CODES[storage], h, w, n, params,
+               cuda_stream(image))
     poly_expansion_cuda.launches += 1
-    return out
+    return outs
+
+
+def poly_expansion_cuda(image: torch.Tensor, n: int, sigma: float,
+                        storage: torch.dtype) -> torch.Tensor:
+    """Launch kernel B1 on a contiguous (H, W) float32 or bf16 image on a
+    CUDA device. ``poly_expansion_cuda.launches`` counts launches."""
+    return _poly_launch([image], n, sigma, storage)[0]
 
 
 poly_expansion_cuda.launches = 0
@@ -165,6 +187,31 @@ def poly_expansion(image: torch.Tensor, n: int, sigma: float,
     fn = _dispatch("poly_expansion", poly_expansion_plain,
                    poly_expansion_cuda, image)
     return fn(image, n, sigma, storage)
+
+
+def poly_expansion_pair_plain(image1: torch.Tensor, image2: torch.Tensor,
+                              n: int, sigma: float, storage: torch.dtype
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both images of a level through ``poly_expansion_plain``."""
+    return (poly_expansion_plain(image1, n, sigma, storage),
+            poly_expansion_plain(image2, n, sigma, storage))
+
+
+def poly_expansion_pair_cuda(image1: torch.Tensor, image2: torch.Tensor,
+                             n: int, sigma: float, storage: torch.dtype
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B1 on both images of a level (one shape and dtype) in one
+    launch, counted once on ``poly_expansion_cuda.launches``."""
+    return tuple(_poly_launch([image1, image2], n, sigma, storage))
+
+
+def poly_expansion_pair(image1: torch.Tensor, image2: torch.Tensor, n: int,
+                        sigma: float, storage: torch.dtype = torch.float32
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatcher of B1 over both images of a level by their device."""
+    fn = _dispatch("poly_expansion_pair", poly_expansion_pair_plain,
+                   poly_expansion_pair_cuda, image1, image2)
+    return fn(image1, image2, n, sigma, storage)
 
 
 # ---------------------------------------------------------------------------
