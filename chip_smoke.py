@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero:
    git-ignored ``transflow_tpu_torch/_build``); prints each kernel
    instantiation's registers, shared memory and spills as ptxas reported
    them, and fails unless ptxas reported the correlation kernel and
-   Farneback's B1 and B2b free of spills;
+   Farneback's B1, B2a and B2b free of spills;
 F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    ``CvFlowConfig()`` (Farneback with cv2's defaults, the headline
    command's estimator), one moveref layer with random reset 0.01 over
@@ -55,8 +55,9 @@ F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    has more than one;
 B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    of a level in one launch), B2a (``update_equations``, select radius 0
-   and 16) and B2b (``aggregate_solve``, box and Gaussian) at the four
-   level shapes of a 1080p frame in bf16 and float32 storage, on B1's own
+   and 16, on a random flow and on the Engine's pan scaled to the level)
+   and B2b (``aggregate_solve``, box and Gaussian) at the four level
+   shapes of a 1080p frame in bf16 and float32 storage, on B1's own
    planes, each bit-equal to its plain version;
 9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
    the CPU slice, Farneback on both devices, the compositor on both
@@ -66,16 +67,18 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    dtype pairs), A2 (every sharded case), A3 beside ``F.grid_sample`` at
    L2-L6 (phase 7's bf16 inputs within the bound) and B1, B2a, B2b at the
    four levels; then the Farneback Engine's device events, busy time and
-   idle share per frame over three ``process_frame`` calls;
-11. with ``--against CSRC_DIR`` only: the correlation kernel, B1 and B2b
-   against another tree's ``correlation.cu`` and ``farneback.cu`` (for
+   idle share per frame over three ``process_frame`` calls, and its
+   device time per frame by kernel name (the ten largest);
+11. with ``--against CSRC_DIR`` only: the correlation kernel, B1, B2a and
+   B2b against another tree's ``correlation.cu`` and ``farneback.cu`` (for
    example the parent commit's, from ``git archive`` under the git-ignored
    ``_local/``), built with the package's flags, all through the raw C
    entries, ``device_ms`` in turns (other, this, this, other): the
    correlation at its five level shapes; B1 (both images of a level:
    ``transflow_poly_expansion_pair`` where the other tree has it, else two
-   ``transflow_poly_expansion`` calls) and B2b (the box) at the four 1080p
-   level shapes in bf16, bit-equal between the trees.
+   ``transflow_poly_expansion`` calls), B2a (select radius 0, on a random
+   flow and on the pan) and B2b (the box) at the four 1080p level shapes
+   in bf16, bit-equal between the trees.
 
 The main path (phases F and 3-5) runs right after the build: the kernel
 phases' timing loops, plain versions and profiler come after every timed
@@ -104,6 +107,7 @@ import argparse
 import ctypes
 import functools
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -340,8 +344,10 @@ def ptxas_reports(log: str) -> list[dict]:
 
 
 # kernels whose ptxas report must show no spill: the correlation's 98 sums
-# per thread and the register windows of B1 and B2b stay in registers
-NO_SPILL = ("corr7x7", "poly_expansion", "aggregate_solve")
+# per thread, the register windows of B1 and B2b and B2a's row-pair words
+# stay in registers
+NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
+            "aggregate_solve")
 
 
 def phase_build() -> list[dict]:
@@ -421,6 +427,13 @@ def warp_flow(h: int, w: int, bound: int, beyond: bool, gen, device):
             (h, w, 2), generator=gen, device=device)
         flow = torch.where(far, torch.sign(flow) * step, flow)
     return flow
+
+
+def pan_flow(h: int, w: int, device) -> torch.Tensor:
+    """(h, w, 2) f32 flow of the Farneback Engine's pan (phase F) at a
+    level h x w of the 1080p frame: ``FB_PAN`` px along both axes at L0,
+    scaled with the level's width."""
+    return torch.full((h, w, 2), FB_PAN * w / WIDTH, device=device)
 
 
 def grid_sample_warp(image, flow):
@@ -1074,15 +1087,16 @@ def phase_farneback_kernels(device) -> list[dict]:
     a 1080p frame, in bf16 and float32 storage. B1's input is the
     storage-dtype frame at L0 and a float32 resized image below, as on the
     main path; B2a reads B1's planes of the two images and a flow with a
-    fifth of its pixels moving beyond 4 px, B2b B2a's planes."""
+    fifth of its pixels moving beyond 4 px, then the Engine's pan at the
+    level (``pan_flow``), B2b B2a's planes of the first."""
     from transflow_tpu_torch.ops import farneback as fb
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     rows = []
 
     def record(kernel, level, h, w, storage, variant, err, call, plain,
-               bound, main):
+               bound, main, flow="random"):
         row = {"kernel": kernel, "level": level, "storage": storage,
-               "variant": variant, "err": err}
+               "variant": variant, "err": err, "flow": flow}
         row["bound_ms"], row["bound_by"] = bound
         row["device_ms"] = device_ms(call)
         row["call_ms"] = call_ms(call)
@@ -1099,6 +1113,7 @@ def phase_farneback_kernels(device) -> list[dict]:
 
     for h, w, level in FB_LEVELS:
         flow = warp_flow(h, w, 4, True, gen, device)
+        flows = {"random": flow, "smooth": pan_flow(h, w, device)}
         for storage in (BF16, F32):
             main = storage == BF16
             images = [torch.rand((h, w), generator=gen, device=device) * 255
@@ -1117,20 +1132,22 @@ def phase_farneback_kernels(device) -> list[dict]:
                    fb_bound_ms("poly_expansion", h, w, storage,
                                images[0].dtype), main)
             planes = None
-            for radius in (0, FB_RADIUS):
-                got = fb.update_equations_cuda(*polys, flow, radius)
-                want = fb.update_equations_plain(*polys, flow, radius)
-                err = _fb_compare(f"B2a {level} {storage} r{radius}", got,
-                                  want)
+            for radius, (kind, f) in itertools.product((0, FB_RADIUS),
+                                                       flows.items()):
+                got = fb.update_equations_cuda(*polys, f, radius)
+                want = fb.update_equations_plain(*polys, f, radius)
+                err = _fb_compare(f"B2a {level} {storage} r{radius} {kind}",
+                                  got, want)
                 record("update_equations", level, h, w, storage,
-                       f"radius {radius}", err,
+                       f"radius {radius}, {kind} flow", err,
                        functools.partial(fb.update_equations_cuda, *polys,
-                                         flow, radius),
+                                         f, radius),
                        functools.partial(fb.update_equations_plain, *polys,
-                                         flow, radius),
+                                         f, radius),
                        fb_bound_ms("update_equations", h, w, storage,
-                                   variant=radius), main and radius == 0)
-                if radius == 0:
+                                   variant=radius), main and radius == 0,
+                       kind)
+                if radius == 0 and kind == "random":
                     planes = got
             for gaussian in (False, True):
                 args = (planes, flow, FB_WINSIZE, gaussian)
@@ -1330,11 +1347,15 @@ def host_syncs(run: dict, calls: int) -> float:
     return sum("synchroniz" in str(w.message) for w in caught) / calls
 
 
+PROFILE_TOP = 10  # kernel names in the Engine's device time by name
+
+
 def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
     """The Engine of ``run`` over its next ``calls`` frames under
     ``torch.profiler``: device events (kernels, copies, sets), busy time
     (their intervals merged) and idle share per frame, against the host
-    clock around the window (which ends in a synchronize)."""
+    clock around the window (which ends in a synchronize); and the device
+    time per frame by event name, the ``PROFILE_TOP`` largest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     engine, items, pixmaps = run["engine"], run["items"], run["pixmaps"]
@@ -1350,9 +1371,15 @@ def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
                                  ((fno,),))
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - start) / calls
+    device_events = [e for e in prof.events()
+                     if getattr(e, "device_type", None) == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+                   for e in device_events)
+    by_name = {}
+    for e in device_events:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us() / 1e3 / calls
+        entry[1] += 1
     busy, end = 0.0, float("-inf")
     for lo, hi in spans:
         if hi > end:
@@ -1368,6 +1395,12 @@ def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
           f"{result['events']:.1f} device events, {result['busy_ms']:.3f} ms "
           f"busy, {wall_ms:.3f} ms host clock per frame: busy share "
           f"{1 - result['idle']:.1%}, idle {result['idle']:.1%} on {card}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
+    print(f"profile {name}: device time per frame by name, the "
+          f"{len(top)} largest of {len(by_name)} names (ms, events per "
+          "frame):")
+    for k, (ms, n) in top:
+        print(f"  {ms:.5f} ms, {n / calls:g} events: {k[:120]}")
     return result
 
 
@@ -1452,6 +1485,15 @@ def b1_entry(lib: ctypes.CDLL, images, outs):
     return lambda: [call() for call in calls]
 
 
+def b2a_entry(lib: ctypes.CDLL, polys, flow, out):
+    """B2a (select radius 0) on both images' stacks into ``out``."""
+    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
+    h, w = flow.shape[:2]
+    return _entry(lib, "transflow_update_equations", polys[0].data_ptr(),
+                  polys[1].data_ptr(), DTYPE_CODES[polys[0].dtype],
+                  flow.data_ptr(), out.data_ptr(), h, w, 0, cuda_stream(flow))
+
+
 def b2b_entry(lib: ctypes.CDLL, planes, flow, out):
     """B2b (the box of ``FB_WINSIZE``) on bf16 planes into ``out``."""
     from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
@@ -1486,12 +1528,12 @@ def _turns_text(turns: dict) -> str:
 
 
 def phase_against(device, csrc: Path, card: str) -> None:
-    """This tree's correlation kernel, B1 and B2b against ``csrc``'s, all
-    through the raw C entries, ``device_ms`` in turns: the correlation at
-    the five level shapes in the slice's dtype pairs (outputs within
-    1e-5); B1 on both images of a level and B2b's box at the four 1080p
-    level shapes in bf16, as the main path gives them (outputs
-    bit-equal)."""
+    """This tree's correlation kernel, B1, B2a and B2b against ``csrc``'s,
+    all through the raw C entries, ``device_ms`` in turns: the correlation
+    at the five level shapes in the slice's dtype pairs (outputs within
+    1e-5); B1 on both images of a level, B2a at select radius 0 on a
+    random flow and on the pan, and B2b's box at the four 1080p level
+    shapes in bf16, as the main path gives them (outputs bit-equal)."""
     from transflow_tpu_torch._device import kernel_library
     from transflow_tpu_torch.ops import farneback as fb
     libs = {"this": kernel_library()._lib, "other": build_other(csrc)}
@@ -1519,7 +1561,7 @@ def phase_against(device, csrc: Path, card: str) -> None:
           f"other {total['other']:.5f} bound {total['bound']:.5f} on {card}")
 
     fb_total = {k: {"this": 0.0, "other": 0.0, "bound": 0.0}
-                for k in ("B1", "B2b")}
+                for k in ("B1", "B2a random", "B2a smooth", "B2b")}
     for h, w, level in FB_LEVELS:
         images = [torch.rand((h, w), generator=gen, device=device) * 255
                   for _ in range(2)]
@@ -1529,12 +1571,20 @@ def phase_against(device, csrc: Path, card: str) -> None:
         polys = fb.poly_expansion_pair_cuda(*images, FB_POLY_N, FB_POLY_SIGMA,
                                             BF16)
         planes = fb.update_equations_cuda(*polys, flow, 0)
+        b2a_flows = {"random": flow, "smooth": pan_flow(h, w, device)}
         cases = {
             "B1": ({name: [torch.empty((h, w, 5), dtype=BF16, device=device)
                            for _ in images] for name in libs},
                    lambda lib, out: b1_entry(lib, images, out),
                    fb_bound_ms("poly_expansion", h, w, BF16, images[0].dtype),
                    FB_PER_LEVEL["poly_expansion"]),
+            **{f"B2a {kind}": (
+                {name: [torch.empty((6, h, w), dtype=BF16, device=device)]
+                 for name in libs},
+                lambda lib, out, f=f: b2a_entry(lib, polys, f, out[0]),
+                fb_bound_ms("update_equations", h, w, BF16),
+                FB_PER_LEVEL["update_equations"])
+               for kind, f in b2a_flows.items()},
             "B2b": ({name: [torch.empty((h, w, 2), device=device)]
                      for name in libs},
                     lambda lib, out: b2b_entry(lib, planes, flow, out[0]),
@@ -1577,9 +1627,9 @@ def _per_frame(rows, key: str, weight=None) -> float | None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", type=Path, metavar="CSRC_DIR",
-                        help="also time the correlation kernel, B1 and B2b "
-                             "against this directory's correlation.cu and "
-                             "farneback.cu (phase 11)")
+                        help="also time the correlation kernel, B1, B2a and "
+                             "B2b against this directory's correlation.cu "
+                             "and farneback.cu (phase 11)")
     args = parser.parse_args()
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -1616,14 +1666,21 @@ def main() -> int:
           f"{a1_same:.5f}, bound {_per_frame(mesh_a2, 'bound_ms'):.5f}, "
           f"plain {_per_frame(mesh_a2, 'plain_ms'):.4f}")
     # one frame of the Farneback Engine (CvFlowConfig()): bf16 storage,
-    # the gather warp, the box window, FB_PER_LEVEL launches per level
+    # the gather warp (on the random flow), the box window, FB_PER_LEVEL
+    # launches per level
     fb_main = {name: [r for r in fb_rows if r["kernel"] == name
-                      and r["storage"] == BF16 and "kernel_ms" in r]
+                      and r["storage"] == BF16 and "kernel_ms" in r
+                      and r["flow"] == "random"]
                for name in FB_PER_LEVEL}
     groups = [("correlation7x7", main_rows, None),
               ("bounded_backwarp", main_warp, warp_n)]
     groups += [(name, group, [FB_PER_LEVEL[name]] * len(group))
                for name, group in fb_main.items()]
+    smooth = [r for r in fb_rows if r["kernel"] == "update_equations"
+              and r["storage"] == BF16 and "kernel_ms" in r
+              and r["flow"] == "smooth"]
+    groups.append(("update_equations on the pan", smooth,
+                   [FB_PER_LEVEL["update_equations"]] * len(smooth)))
     for name, group, weight in groups:
         print(f"{name} per frame: device_ms "
               f"{_per_frame(group, 'device_ms', weight):.5f}, kernel_ms "

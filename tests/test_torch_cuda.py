@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from transflow_tpu_torch import prng
+from transflow_tpu_torch.ops import farneback as fb
 from transflow_tpu_torch.ops.correlation import (correlation,
                                                  correlation7x7,
                                                  correlation7x7_cuda,
@@ -193,7 +194,6 @@ def test_farneback_kernels_match_plain(device, shape, storage):
     keep the JAX function's rounding points and add every sum in the same
     order, fused multiply-adds only where the product is exact:
     bit-equal."""
-    from transflow_tpu_torch.ops import farneback as fb
     h, w = shape
     gen = torch.Generator(device=device).manual_seed(4)
     images = [torch.rand((h, w), generator=gen, device=device) * 255
@@ -232,13 +232,103 @@ def test_farneback_kernels_match_plain(device, shape, storage):
             atol=0, rtol=0)
 
 
+# B2a's blocks: 32x8 outputs, one a thread: one row and column past a
+# block (9x33, 17x65, 545x1025, and 545x968 with 8-byte rows), odd widths
+# (37, 45, 961: rows that start on 2 bytes), and a 1080p level
+B2A_SHAPES = [(9, 33), (17, 65), (9, 37), (37, 45), (135, 240), (541, 961),
+              (545, 968), (545, 1025)]
+B2A_FLOWS = ["zero", "pan", "smooth", "random", "edges", "corner", "far"]
+
+
+def _b2a_flow(kind: str, h: int, w: int, gen, device) -> torch.Tensor:
+    """(h, w, 2) f32 flows for B2a: none; the Engine's 3 px pan; a smooth
+    field around it; 6 px normal; samples at random just inside and just
+    outside each edge of the frame (the right edge's taps coincide); every
+    sample on the stack's last pixel pair (whose words end the stack); every
+    sample far off the frame, either side."""
+    yy = torch.arange(h, device=device, dtype=F32)[:, None].expand(h, w)
+    xx = torch.arange(w, device=device, dtype=F32)[None, :].expand(h, w)
+    pos = torch.stack([xx, yy], -1)
+    size = torch.tensor([w, h], device=device, dtype=F32)
+
+    def pick(n):
+        return torch.randint(0, n, (h, w, 2), generator=gen, device=device)
+
+    if kind == "zero":
+        flow = torch.zeros((h, w, 2), device=device)
+    elif kind == "pan":
+        flow = torch.full((h, w, 2), 3.0, device=device)
+    elif kind == "smooth":
+        flow = torch.stack([3 + 0.7 * torch.sin(xx / 5),
+                            3 + 0.7 * torch.cos(yy / 4)], -1)
+    elif kind == "random":
+        flow = 6 * torch.randn((h, w, 2), generator=gen, device=device)
+    elif kind == "edges":
+        # targets -0.5, 0.25, S - 1.25, S - 0.75 and S + 2 on an axis of S
+        k = pick(5)
+        offset = torch.tensor([-0.5, 0.25, -1.25, -0.75, 2.0], device=device)
+        flow = offset[k] + (k >= 2) * size - pos
+    elif kind == "corner":
+        flow = size - torch.tensor([1.5, 1.25], device=device) - pos
+    else:
+        flow = (2 * pick(2) - 1) * (
+            size + torch.tensor([5.5, 7.25], device=device))
+    return flow.contiguous()
+
+
+@pytest.mark.parametrize("kind", B2A_FLOWS)
+@pytest.mark.parametrize("storage", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", B2A_SHAPES, ids=str)
+def test_update_equations_matches_plain_on_edge_flows(device, shape,
+                                                      storage, kind):
+    """Kernel B2a at select radius 0, 3 and 16 against its plain version
+    where its blocks end, on flows that read the stack's rows in pairs
+    from every offset, at the frame's edges (one tap where the right edge
+    holds the pair) and at the stack's end: the same values in the same
+    order, so bit-equal."""
+    h, w = shape
+    gen = torch.Generator(device=device).manual_seed(5)
+    polys = [(100 * torch.randn((h, w, 5), generator=gen, device=device)
+              ).to(storage) for _ in range(2)]
+    flow = _b2a_flow(kind, h, w, gen, device)
+    for radius in (0, 3, 16):
+        before = fb.update_equations_cuda.launches
+        got = fb.update_equations(*polys, flow, radius)
+        torch.cuda.synchronize()
+        assert fb.update_equations_cuda.launches == before + 1
+        assert got.dtype == storage and got.shape == (6, h, w)
+        torch.testing.assert_close(
+            got, fb.update_equations_plain(*polys, flow, radius), atol=0,
+            rtol=0)
+
+
+@pytest.mark.parametrize("storage", [F32, BF16], ids=["f32", "bf16"])
+def test_update_equations_unaligned_stacks(device, storage):
+    """Stacks, flow and planes whose base is not on 16 bytes take B2a's
+    value-by-value paths: the same bits as the plain version."""
+    h, w = 64, 96
+    gen = torch.Generator(device=device).manual_seed(6)
+
+    def shifted(shape, scale, dtype):
+        n = int(np.prod(shape))
+        flat = scale * torch.randn(n + 1, generator=gen, device=device)
+        return flat.to(dtype)[1:].view(shape)
+
+    polys = [shifted((h, w, 5), 100, storage) for _ in range(2)]
+    flow = shifted((h, w, 2), 4, F32)
+    assert all(t.data_ptr() % 16 for t in (*polys, flow))
+    for radius in (0, 16):
+        torch.testing.assert_close(
+            fb.update_equations(*polys, flow, radius),
+            fb.update_equations_plain(*polys, flow, radius), atol=0, rtol=0)
+
+
 def test_farneback_on_card_matches_cpu(device, monkeypatch):
     """The estimator on the card (the kernels; cuDNN for the pyramid's blur
     with TF32 off) against the CPU (the plain versions), float32 storage:
     >= 60 dB at an 8 px peak, the CPU tests' bar against JAX. B1 takes
     both images of a level in one launch."""
     from transflow_tpu_torch.flow.estimators.farneback import farneback
-    from transflow_tpu_torch.ops import farneback as fb
     monkeypatch.setenv("TRANSFLOW_FARNEBACK_BF16", "0")
     rng = np.random.default_rng(0)
     canvas = torch.from_numpy(rng.integers(0, 256, (100, 140),

@@ -392,20 +392,11 @@ def _poly_pair(rng, h, w, storage):
                  for x in (img1, img2))
 
 
-@pytest.mark.parametrize("radius", [0, 16])
-@pytest.mark.parametrize("gaussian", [False, True], ids=["box", "gaussian"])
-@pytest.mark.parametrize("storage", [F32, BF16], ids=["f32", "bf16"])
-def test_update_flow_matches_jax(storage, gaussian, radius):
-    """One displacement update (B2a then B2b) against JAX's ``_update_flow``
-    on the same coefficient planes: JAX gets its tap pack (radius 0) or
-    the raw stack, the port the raw stack. f32: within 60 dB PSNR of the
-    8 px peak (measured 142-147 dB); bf16: the same bar (measured equal
-    with the box, 142-144 dB with the Gaussian)."""
-    rng = np.random.default_rng(7)
-    h, w = 40, 56
-    poly1, poly2 = _poly_pair(rng, h, w, storage)
-    flow = (1.5 * rng.standard_normal((h, w, 2))).astype(np.float32)
-    flow[:3] = 30.0  # some samples far outside the frame
+def _update_flow_pair(poly1, poly2, flow, storage, gaussian, radius):
+    """One displacement update (B2a then B2b) by the port and by JAX's
+    ``_update_flow`` on the same coefficient planes and (H, W, 2) numpy
+    flow: JAX gets its tap pack (radius 0) or the raw stack, the port the
+    raw stack. Returns (port, JAX) flows."""
     got = fb._update_flow(poly1, poly2, torch.from_numpy(flow), 15, gaussian,
                           radius)
     jdt = JAX_DTYPE[storage]
@@ -416,10 +407,69 @@ def test_update_flow_matches_jax(storage, gaussian, radius):
     want = np.asarray(jfb._update_flow(jpoly1, jpack, jnp.asarray(flow), 15,
                                        gaussian, storage=jdt,
                                        select_radius=radius))
-    assert got.dtype == F32 and got.shape == (h, w, 2)
+    assert got.dtype == F32 and got.shape == flow.shape
     assert np.isfinite(got.numpy()).all()
-    assert _flow_psnr(got.numpy(), want) >= 60.0
-    assert not np.array_equal(got.numpy(), flow)
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("radius", [0, 16])
+@pytest.mark.parametrize("gaussian", [False, True], ids=["box", "gaussian"])
+@pytest.mark.parametrize("storage", [F32, BF16], ids=["f32", "bf16"])
+def test_update_flow_matches_jax(storage, gaussian, radius):
+    """One displacement update against JAX's on the same coefficient
+    planes. f32: within 60 dB PSNR of the 8 px peak (measured 142-147 dB);
+    bf16: the same bar (measured equal with the box, 142-144 dB with the
+    Gaussian)."""
+    rng = np.random.default_rng(7)
+    h, w = 40, 56
+    poly1, poly2 = _poly_pair(rng, h, w, storage)
+    flow = (1.5 * rng.standard_normal((h, w, 2))).astype(np.float32)
+    flow[:3] = 30.0  # some samples far outside the frame
+    got, want = _update_flow_pair(poly1, poly2, flow, storage, gaussian,
+                                  radius)
+    assert _flow_psnr(got, want) >= 60.0
+    assert not np.array_equal(got, flow)
+
+
+def _b2a_flow(kind: str, h: int, w: int, rng) -> np.ndarray:
+    """tests/test_torch_cuda.py's edge flows for kernel B2a, in numpy:
+    none; the Engine's 3 px pan; samples just inside and just outside each
+    edge of the frame; every sample on the stack's last pixel pair; every
+    sample far off the frame."""
+    pos = np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)
+    size = np.array([w, h], np.float64)
+    if kind == "zero":
+        flow = np.zeros((h, w, 2))
+    elif kind == "pan":
+        flow = np.full((h, w, 2), 3.0)
+    elif kind == "edges":
+        # targets -0.5, 0.25, S - 1.25, S - 0.75 and S + 2 on an axis of S
+        k = rng.integers(0, 5, (h, w, 2))
+        offset = np.array([-0.5, 0.25, -1.25, -0.75, 2.0])
+        flow = offset[k] + (k >= 2) * size - pos
+    elif kind == "corner":
+        flow = size - np.array([1.5, 1.25]) - pos
+    else:
+        flow = rng.choice([-1.0, 1.0], (h, w, 2)) * (size + [5.5, 7.25])
+    return np.ascontiguousarray(flow, np.float32)
+
+
+@pytest.mark.parametrize("kind", ["zero", "pan", "edges", "corner", "far"])
+@pytest.mark.parametrize("storage", [F32, BF16], ids=["f32", "bf16"])
+def test_update_flow_matches_jax_on_edge_flows(storage, kind):
+    """The plain B2a, which the kernel is held to bit for bit on the card,
+    meets JAX's update on the flows that test the kernel's edges, at select
+    radius 0 and 16 with the box: the same 60 dB bar. Off the frame every
+    sample has zero weight and both keep the flow."""
+    rng = np.random.default_rng(11)
+    h, w = 40, 56
+    poly1, poly2 = _poly_pair(rng, h, w, storage)
+    flow = _b2a_flow(kind, h, w, rng)
+    for radius in (0, 16):
+        got, want = _update_flow_pair(poly1, poly2, flow, storage, False,
+                                      radius)
+        assert _flow_psnr(got, want) >= 60.0
+        assert np.array_equal(got, flow) == (kind == "far")
 
 
 E2E_CASES = {
