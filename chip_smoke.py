@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--against CSRC_DIR]
+    python3 chip_smoke.py [--against [NAME=]CSRC_DIR ...]
 
 Phases, in order; any failure exits non-zero:
 
@@ -69,16 +69,18 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    four levels; then the Farneback Engine's device events, busy time and
    idle share per frame over three ``process_frame`` calls, and its
    device time per frame by kernel name (the ten largest);
-11. with ``--against CSRC_DIR`` only: the correlation kernel, B1, B2a and
-   B2b against another tree's ``correlation.cu`` and ``farneback.cu`` (for
-   example the parent commit's, from ``git archive`` under the git-ignored
-   ``_local/``), built with the package's flags, all through the raw C
-   entries, ``device_ms`` in turns (other, this, this, other): the
-   correlation at its five level shapes; B1 (both images of a level:
-   ``transflow_poly_expansion_pair`` where the other tree has it, else two
-   ``transflow_poly_expansion`` calls), B2a (select radius 0, on a random
-   flow and on the pan) and B2b (the box) at the four 1080p level shapes
-   in bf16, bit-equal between the trees.
+11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
+   kernel, B1, B2a and B2b against other trees' ``correlation.cu`` and
+   ``farneback.cu`` (for example the parent commit's, from ``git archive``
+   under the git-ignored ``_local/``), built with the package's flags, all
+   through the raw C entries, ``device_ms`` in turns (others, this, this,
+   others): the correlation at its five level shapes; B1 (both images of
+   a level: ``transflow_poly_expansion_pair`` where the other tree has it,
+   else two ``transflow_poly_expansion`` calls), B2a (select radius 0, on
+   a random flow and on the pan) and B2b (the box) at the four 1080p level
+   shapes in bf16; then B2a on the inputs of each of its 12 launches in a
+   frame of phase F's ``CvFlowConfig()`` Engine; bit-equal between the
+   trees.
 
 The main path (phases F and 3-5) runs right after the build: the kernel
 phases' timing loops, plain versions and profiler come after every timed
@@ -175,7 +177,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 DEVICE_LAUNCHES = 100
 PLAIN_LAUNCHES = 3
-AGAINST_ROUNDS = 3   # rounds of (other, this, this, other) in phase 11
+AGAINST_ROUNDS = 3   # rounds of (others, this, this, others) in phase 11
 # the Farneback Engine (phase F): frames panned FB_PAN px per frame along
 # both axes, so the backward flow is (FB_PAN, FB_PAN) inside the frame
 FB_PAN = 3
@@ -344,8 +346,8 @@ def ptxas_reports(log: str) -> list[dict]:
 
 
 # kernels whose ptxas report must show no spill: the correlation's 98 sums
-# per thread, the register windows of B1 and B2b and B2a's row-pair words
-# stay in registers
+# per thread, the register windows of B1 and B2b and B2a's twenty tap loads
+# a sample stay in registers
 NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
             "aggregate_solve")
 
@@ -813,8 +815,9 @@ def phase_farneback_engine(device, card: str) -> dict:
                 "fb_select_warp=16": CvFlowConfig(fb_select_warp=FB_RADIUS),
                 # the first run of a process reads slower: the default again
                 "CvFlowConfig() again": CvFlowConfig()}
+    # and one frame for phase 11's capture of B2a's inputs
     n = (1 + ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS + FB_SYNC_CALLS
-         + FB_PROFILE_CALLS)
+         + FB_PROFILE_CALLS + 1)
     frames = gray_frames(n, HEIGHT, WIDTH, device)
     pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
@@ -1404,29 +1407,42 @@ def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
     return result
 
 
-def build_other(csrc: Path) -> ctypes.CDLL:
-    """``correlation.cu`` and ``farneback.cu`` of another tree, built with
-    the package's nvcc flags (one nvcc each, both at once) into one library
-    under ``_build/``, with the argument types of the C entries it has."""
+def build_others(csrcs: list[Path], mine: list[dict]) -> list[ctypes.CDLL]:
+    """``correlation.cu`` and ``farneback.cu`` of other trees, built with
+    the package's nvcc flags (one nvcc per source, all at once) into one
+    library per tree under ``_build/``, with the argument types of the C
+    entries each has. Prints ptxas's report of every instantiation that
+    differs from this tree's (``mine``)."""
     from transflow_tpu_torch._device import (BUILD_DIR, NVCC_FLAGS,
                                              _SIGNATURES, nvcc_path)
-    sources = [csrc / "correlation.cu", csrc / "farneback.cu"]
-    digest = hashlib.sha256()
-    for source in sources:
-        digest.update(source.read_bytes())
-    path = BUILD_DIR / f"other-{digest.hexdigest()[:16]}.so"
-    if not path.exists():
+    paths, jobs = [], {}
+    for csrc in csrcs:
+        sources = [csrc / "correlation.cu", csrc / "farneback.cu"]
+        digest = hashlib.sha256()
+        for source in sources:
+            digest.update(source.read_bytes())
+        path = BUILD_DIR / f"other-{digest.hexdigest()[:16]}.so"
+        paths.append(path)
+        if path.exists() or path in jobs:
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         objects = [path.with_name(f"{path.stem}-{s.stem}.o") for s in sources]
-        procs = [subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-c", "-o",
-                                   str(obj), str(src)],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(sources, objects)]
+        jobs[path] = (sources, objects, [
+            subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)])
+    known = {(r["name"], r["registers"], r["smem"], r["spills"]) for r in mine}
+    for path, (sources, objects, procs) in jobs.items():
         logs = [proc.communicate()[0] for proc in procs]
         for src, proc, log in zip(sources, procs, logs):
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        for r in ptxas_reports("\n".join(logs)):
+            if (r["name"], r["registers"], r["smem"], r["spills"]) not in known:
+                print(f"  {sources[0].parent} ptxas {r['name']}: "
+                      f"{r['registers']} registers, {r['smem']} bytes smem, "
+                      f"spills {r['spills']}")
         link = subprocess.run([nvcc_path(), "-shared", "-o", str(path),
                                *map(str, objects)], capture_output=True,
                               text=True, check=False)
@@ -1434,12 +1450,15 @@ def build_other(csrc: Path) -> ctypes.CDLL:
             obj.unlink(missing_ok=True)
         if link.returncode:
             raise RuntimeError(f"link failed:\n{link.stdout}{link.stderr}")
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        if hasattr(lib, name):
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
-    return lib
+    libs = []
+    for path in paths:
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = ctypes.c_int
+        libs.append(lib)
+    return libs
 
 
 def _entry(lib: ctypes.CDLL, name: str, *args):
@@ -1508,12 +1527,14 @@ def b2b_entry(lib: ctypes.CDLL, planes, flow, out):
 
 
 def in_turns(calls: dict) -> dict:
-    """``device_ms`` of the calls ``other`` and ``this`` in
-    ``AGAINST_ROUNDS`` rounds of (other, this, this, other): the medians
-    and every round's times."""
-    times = {name: [] for name in calls}
+    """``device_ms`` of ``calls`` (this tree's first) in ``AGAINST_ROUNDS``
+    rounds that run the others, this tree twice, then the others back
+    (other, this, this, other for one): the medians and every round's
+    times."""
+    names = list(calls)
+    times = {name: [] for name in names}
     for _ in range(AGAINST_ROUNDS):
-        for name in ("other", "this", "this", "other"):
+        for name in (*names[::-1], *names):
             times[name].append(device_ms(calls[name]))
     torch.cuda.synchronize()
     return {"ms": {name: statistics.median(t) for name, t in times.items()},
@@ -1521,46 +1542,106 @@ def in_turns(calls: dict) -> dict:
 
 
 def _turns_text(turns: dict) -> str:
-    return (f"device_ms this {turns['ms']['this']:.5f} other "
-            f"{turns['ms']['other']:.5f}; rounds this "
-            f"{[round(t, 5) for t in turns['times']['this']]} other "
-            f"{[round(t, 5) for t in turns['times']['other']]}")
+    medians = " ".join(f"{name} {ms:.5f}" for name, ms in turns["ms"].items())
+    rounds = " ".join(f"{name} {[round(t, 5) for t in times]}"
+                      for name, times in turns["times"].items())
+    return f"device_ms {medians}; rounds {rounds}"
 
 
-def phase_against(device, csrc: Path, card: str) -> None:
-    """This tree's correlation kernel, B1, B2a and B2b against ``csrc``'s,
-    all through the raw C entries, ``device_ms`` in turns: the correlation
-    at the five level shapes in the slice's dtype pairs (outputs within
-    1e-5); B1 on both images of a level, B2a at select radius 0 on a
-    random flow and on the pan, and B2b's box at the four 1080p level
-    shapes in bf16, as the main path gives them (outputs bit-equal)."""
+def _totals_text(total: dict) -> str:
+    return " ".join(f"{name} {ms:.5f}" for name, ms in total.items())
+
+
+def engine_b2a_inputs(run: dict) -> list[tuple]:
+    """The (poly1, poly2, flow) of every B2a launch of the Engine of
+    ``run`` (phase F's ``CvFlowConfig()``) over its next frame, copied as
+    the estimator passes them to ``update_equations``."""
+    from transflow_tpu_torch.flow.estimators import farneback as estimator
+    engine, items, pixmaps = run["engine"], run["items"], run["pixmaps"]
+    fno = run["next_fno"]
+    run["next_fno"] = fno + 1
+    update, inputs = estimator.update_equations, []
+
+    def record(poly1, poly2, flow, radius):
+        if radius:
+            raise AssertionError("CvFlowConfig() runs B2a at radius 0")
+        inputs.append((poly1.clone(), poly2.clone(), flow.clone()))
+        return update(poly1, poly2, flow, radius)
+    estimator.update_equations = record
+    try:
+        engine.process_frame([next(items)], pixmaps, fno / 30.0, ((fno,),))
+    finally:
+        estimator.update_equations = update
+    torch.cuda.synchronize()
+    if len(inputs) != FB_DEFAULT_PER_FRAME[1]:
+        raise AssertionError(f"captured {len(inputs)} B2a launches of a "
+                             f"frame, not {FB_DEFAULT_PER_FRAME[1]}")
+    return inputs
+
+
+def one_row_warps(flow) -> float:
+    """Share of B2a's warps (32 pixels of a row) whose samples all take
+    their taps from one pair of rows."""
+    h, w = flow.shape[:2]
+    ys = torch.arange(h, device=flow.device, dtype=torch.float32)[:, None]
+    rows = torch.floor(ys + flow[..., 1]).clamp(0, h - 1)
+    rows = torch.nn.functional.pad(rows[None], (0, -w % 32),
+                                   mode="replicate")[0].view(h, -1, 32)
+    return (rows.amax(-1) == rows.amin(-1)).float().mean().item()
+
+
+def _check_outputs(label: str, outs: dict, exact: bool = True) -> None:
+    """Each tree's outputs (``outs[name]``, a list of tensors) against this
+    tree's: bit-equal, or within the correlation's tolerance."""
+    for name, out in outs.items():
+        for a, b in zip(outs["this"], out):
+            same = torch.equal(a, b) if exact else torch.allclose(
+                a, b, atol=CORR_ATOL, rtol=CORR_RTOL)
+            if not same:
+                raise AssertionError(f"against {label}: {name}'s outputs "
+                                     "differ from this tree's")
+
+
+def phase_against(device, others: list[tuple[str, Path]], card: str,
+                  mine: list[dict], fb_run: dict) -> None:
+    """This tree's correlation kernel, B1, B2a and B2b against the
+    ``others``' (name, csrc directory), all through the raw C entries,
+    ``device_ms`` in turns: the correlation at the five level shapes in
+    the slice's dtype pairs (outputs within 1e-5); B1 on both images of a
+    level, B2a at select radius 0 on a random flow and on the pan, and
+    B2b's box at the four 1080p level shapes in bf16, as the main path
+    gives them; then B2a on the inputs of each of its launches in one frame
+    of the Farneback Engine (``fb_run``), with the share of its warps whose
+    samples share their tap rows (``one_row_warps``); Farneback outputs
+    bit-equal."""
     from transflow_tpu_torch._device import kernel_library
     from transflow_tpu_torch.ops import farneback as fb
-    libs = {"this": kernel_library()._lib, "other": build_other(csrc)}
+    libs = {"this": kernel_library()._lib}
+    libs.update(zip((name for name, _ in others),
+                    build_others([csrc for _, csrc in others], mine)))
     gen = torch.Generator(device=device).manual_seed(SEED)
-    total = {"this": 0.0, "other": 0.0, "bound": 0.0}
+    total = dict.fromkeys([*libs, "bound"], 0.0)
     for h, w, c, stride, level in CORR_SHAPES:
         t1, t2 = MAIN_PAIR[level]
         f1 = torch.randn((h, w, c), generator=gen, device=device).to(t1)
         f2 = torch.randn((h, w, c), generator=gen, device=device).to(t2)
-        outs = {name: torch.empty((-(-h // stride), -(-w // stride), 49),
-                                  device=device) for name in libs}
-        turns = in_turns({name: corr_entry(lib, f1, f2, outs[name], stride)
+        outs = {name: [torch.empty((-(-h // stride), -(-w // stride), 49),
+                                   device=device)] for name in libs}
+        turns = in_turns({name: corr_entry(lib, f1, f2, outs[name][0], stride)
                           for name, lib in libs.items()})
-        diff = (outs["this"] - outs["other"]).abs().max().item()
-        if not torch.allclose(outs["this"], outs["other"], atol=CORR_ATOL,
-                              rtol=CORR_RTOL):
-            raise AssertionError(f"{level}: the two kernels differ by {diff}")
+        _check_outputs(f"corr {level}", outs, exact=False)
+        diff = max((outs["this"][0] - out[0]).abs().max().item()
+                   for out in outs.values())
         bound = corr_bound_ms(h, w, c, stride, t1, t2)[0]
         for name, value in (*turns["ms"].items(), ("bound", bound)):
             total[name] += value
         print(f"against corr {level} ({h},{w},{c}) s{stride} "
               f"{_pair(t1, t2)}: {_turns_text(turns)}; bound {bound:.5f}; "
               f"|diff| {diff:.3e}")
-    print(f"against corr per frame: device_ms this {total['this']:.5f} "
-          f"other {total['other']:.5f} bound {total['bound']:.5f} on {card}")
+    print(f"against corr per frame: device_ms {_totals_text(total)} on "
+          f"{card}")
 
-    fb_total = {k: {"this": 0.0, "other": 0.0, "bound": 0.0}
+    fb_total = {k: dict.fromkeys([*libs, "bound"], 0.0)
                 for k in ("B1", "B2a random", "B2a smooth", "B2b")}
     for h, w, level in FB_LEVELS:
         images = [torch.rand((h, w), generator=gen, device=device) * 255
@@ -1577,36 +1658,54 @@ def phase_against(device, csrc: Path, card: str) -> None:
                            for _ in images] for name in libs},
                    lambda lib, out: b1_entry(lib, images, out),
                    fb_bound_ms("poly_expansion", h, w, BF16, images[0].dtype),
-                   FB_PER_LEVEL["poly_expansion"]),
+                   FB_PER_LEVEL["poly_expansion"], ""),
             **{f"B2a {kind}": (
                 {name: [torch.empty((6, h, w), dtype=BF16, device=device)]
                  for name in libs},
                 lambda lib, out, f=f: b2a_entry(lib, polys, f, out[0]),
                 fb_bound_ms("update_equations", h, w, BF16),
-                FB_PER_LEVEL["update_equations"])
+                FB_PER_LEVEL["update_equations"],
+                f"; one-row warps {one_row_warps(f):.1%}")
                for kind, f in b2a_flows.items()},
             "B2b": ({name: [torch.empty((h, w, 2), device=device)]
                      for name in libs},
                     lambda lib, out: b2b_entry(lib, planes, flow, out[0]),
                     fb_bound_ms("aggregate_solve", h, w, BF16),
-                    FB_PER_LEVEL["aggregate_solve"]),
+                    FB_PER_LEVEL["aggregate_solve"], ""),
         }
-        for kernel, (outs, entry, bound, per_level) in cases.items():
+        for kernel, (outs, entry, bound, per_level, note) in cases.items():
             turns = in_turns({name: entry(lib, outs[name])
                               for name, lib in libs.items()})
-            same = all(torch.equal(a, b)
-                       for a, b in zip(outs["this"], outs["other"]))
-            if not same:
-                raise AssertionError(f"against {kernel} {level}: the two "
-                                     "trees' outputs differ")
+            _check_outputs(f"{kernel} {level}", outs)
             for name, value in (*turns["ms"].items(), ("bound", bound[0])):
                 fb_total[kernel][name] += per_level * value
             print(f"against {kernel} {level} ({h},{w}) bf16: "
                   f"{_turns_text(turns)}; bound {bound[0]:.5f} "
-                  f"({bound[1]}); outputs bit-equal")
+                  f"({bound[1]}){note}; outputs bit-equal")
     for kernel, t in fb_total.items():
-        print(f"against {kernel} per frame: device_ms this {t['this']:.5f} "
-              f"other {t['other']:.5f} bound {t['bound']:.5f} on {card}")
+        print(f"against {kernel} per frame: device_ms {_totals_text(t)} on "
+              f"{card}")
+
+    levels = {(h, w): level for h, w, level in FB_LEVELS}
+    engine_total = dict.fromkeys([*libs, "bound"], 0.0)
+    for k, (poly1, poly2, flow) in enumerate(engine_b2a_inputs(fb_run)):
+        h, w = flow.shape[:2]
+        outs = {name: [torch.empty((6, h, w), dtype=poly1.dtype,
+                                   device=device)] for name in libs}
+        turns = in_turns({name: b2a_entry(lib, (poly1, poly2), flow,
+                                          outs[name][0])
+                          for name, lib in libs.items()})
+        label = f"B2a engine {levels.get((h, w), (h, w))} launch {k}"
+        _check_outputs(label, outs)
+        bound = fb_bound_ms("update_equations", h, w, poly1.dtype)[0]
+        for name, value in (*turns["ms"].items(), ("bound", bound)):
+            engine_total[name] += value
+        print(f"against {label} ({h},{w}) {str(poly1.dtype)[6:]}: "
+              f"{_turns_text(turns)}; bound {bound:.5f}; one-row warps "
+              f"{one_row_warps(flow):.1%}, max |flow| "
+              f"{flow.abs().max().item():.3f}; outputs bit-equal")
+    print(f"against B2a engine per frame: device_ms "
+          f"{_totals_text(engine_total)} on {card}")
 
 
 def _bound_by(rows) -> str:
@@ -1624,16 +1723,25 @@ def _per_frame(rows, key: str, weight=None) -> float | None:
     return sum(n * v for n, v in zip(weights, values))
 
 
+def against_arg(text: str) -> tuple[str, Path]:
+    """``--against``'s value ``[NAME=]CSRC_DIR`` as (name, directory); the
+    name defaults to the directory."""
+    name, sep, path = text.partition("=")
+    return (name, Path(path)) if sep else (text, Path(text))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--against", type=Path, metavar="CSRC_DIR",
+    parser.add_argument("--against", type=against_arg, action="append",
+                        default=[], metavar="[NAME=]CSRC_DIR",
                         help="also time the correlation kernel, B1, B2a and "
                              "B2b against this directory's correlation.cu "
-                             "and farneback.cu (phase 11)")
+                             "and farneback.cu (phase 11); repeat it for "
+                             "several trees")
     args = parser.parse_args()
     card = phase_device()
     device = torch.device("cuda", 0)
-    phase_build()
+    reports = phase_build()
     fb_runs = phase_farneback_engine(device, card)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
@@ -1647,8 +1755,9 @@ def main() -> int:
     phase_kernel_time(rows, a2_rows, warp_rows, fb_rows)
     engine_profile("farneback engine CvFlowConfig()",
                    fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS, card)
-    if args.against is not None:
-        phase_against(device, args.against, card)
+    if args.against:
+        phase_against(device, args.against, card, reports,
+                      fb_runs["CvFlowConfig()"])
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound

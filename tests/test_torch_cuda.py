@@ -233,8 +233,8 @@ def test_farneback_kernels_match_plain(device, shape, storage):
 
 
 # B2a's blocks: 32x8 outputs, one a thread: one row and column past a
-# block (9x33, 17x65, 545x1025, and 545x968 with 8-byte rows), odd widths
-# (37, 45, 961: rows that start on 2 bytes), and a 1080p level
+# block (9x33, 17x65, 545x1025, 545x968), odd widths (37, 45, 961: rows
+# that start on 2 bytes), and a 1080p level
 B2A_SHAPES = [(9, 33), (17, 65), (9, 37), (37, 45), (135, 240), (541, 961),
               (545, 968), (545, 1025)]
 B2A_FLOWS = ["zero", "pan", "smooth", "random", "edges", "corner", "far"]
@@ -244,8 +244,8 @@ def _b2a_flow(kind: str, h: int, w: int, gen, device) -> torch.Tensor:
     """(h, w, 2) f32 flows for B2a: none; the Engine's 3 px pan; a smooth
     field around it; 6 px normal; samples at random just inside and just
     outside each edge of the frame (the right edge's taps coincide); every
-    sample on the stack's last pixel pair (whose words end the stack); every
-    sample far off the frame, either side."""
+    sample on the stack's last pixel pair; every sample far off the frame,
+    either side."""
     yy = torch.arange(h, device=device, dtype=F32)[:, None].expand(h, w)
     xx = torch.arange(w, device=device, dtype=F32)[None, :].expand(h, w)
     pos = torch.stack([xx, yy], -1)
@@ -282,10 +282,10 @@ def _b2a_flow(kind: str, h: int, w: int, gen, device) -> torch.Tensor:
 def test_update_equations_matches_plain_on_edge_flows(device, shape,
                                                       storage, kind):
     """Kernel B2a at select radius 0, 3 and 16 against its plain version
-    where its blocks end, on flows that read the stack's rows in pairs
-    from every offset, at the frame's edges (one tap where the right edge
-    holds the pair) and at the stack's end: the same values in the same
-    order, so bit-equal."""
+    where its blocks end, on flows whose warps share their tap rows or
+    scatter, at the frame's edges (one tap where the right edge holds the
+    pair) and at the stack's end: the same values in the same order, so
+    bit-equal."""
     h, w = shape
     gen = torch.Generator(device=device).manual_seed(5)
     polys = [(100 * torch.randn((h, w, 5), generator=gen, device=device)
@@ -304,8 +304,8 @@ def test_update_equations_matches_plain_on_edge_flows(device, shape,
 
 @pytest.mark.parametrize("storage", [F32, BF16], ids=["f32", "bf16"])
 def test_update_equations_unaligned_stacks(device, storage):
-    """Stacks, flow and planes whose base is not on 16 bytes take B2a's
-    value-by-value paths: the same bits as the plain version."""
+    """B2a on stacks and a flow whose base is not on 16 bytes: the same
+    bits as the plain version."""
     h, w = 64, 96
     gen = torch.Generator(device=device).manual_seed(6)
 

@@ -636,3 +636,33 @@ def test_chip_smoke_launch_rule(settings, monkeypatch):
     assert tuple(calls.values()) == chip_smoke.fb_per_frame(config, 90, 160)
     assert chip_smoke.fb_per_frame(CvFlowConfig(), 1080, 1920) == \
         chip_smoke.FB_DEFAULT_PER_FRAME == (4, 12, 12)
+
+
+def test_chip_smoke_captures_engine_b2a_inputs(monkeypatch):
+    """chip_smoke's ``engine_b2a_inputs`` (what ``--against`` times B2a on)
+    records the 12 inputs of one Engine frame over ``CvFlowConfig()``,
+    coarse level first, and leaves the estimator as it was;
+    ``one_row_warps`` reads 1 on a pan and about 0 on scattered flows."""
+    import chip_smoke as cs
+    from transflow_tpu_torch.flow.estimators import farneback as estimator
+    from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    h, w = 96, 128
+    monkeypatch.setattr(cs, "HEIGHT", h)
+    monkeypatch.setattr(cs, "WIDTH", w)
+    frames = cs.gray_frames(15, h, w, "cpu")
+    pixmap = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (h, w, 3), dtype=np.uint8))
+    run = cs.run_engine("cpu", frames, pixmap, CvFlowConfig())
+    update = estimator.update_equations
+    inputs = cs.engine_b2a_inputs(run)
+    assert estimator.update_equations is update
+    assert [tuple(f.shape) for _, _, f in inputs] == [
+        (h >> k, w >> k, 2) for k in (3, 2, 1, 0) for _ in range(3)]
+    assert all(p1.shape == p2.shape == (*f.shape[:2], 5)
+               for p1, p2, f in inputs)
+    assert cs.one_row_warps(cs.pan_flow(h, w + 5, "cpu")) == 1.0
+    rng = np.random.default_rng(1)
+    scattered = torch.from_numpy(
+        6 * rng.standard_normal((h, w, 2)).astype(np.float32))
+    assert cs.one_row_warps(scattered) < 0.05

@@ -61,24 +61,17 @@
 //
 // B2a is bound by bytes too, but its taps are a gather: the 2x2 pixels of
 // image 2's (H, W, 5) stack around x + d, a different place for every
-// pixel. On smooth flows (the main path's) a warp's taps fall on a few
-// neighbouring lines, and one thread a pixel with 2-byte loads reads them
-// near the bound: latency-bound, where occupancy decides. On scattered
-// flows each lane's 20 tap loads a sample touch lines of their own, and
-// L1's line throughput decides. Measured on the H100 (PERF.md §6):
-// staging image 2's tile with a margin in shared memory, or 2-4 outputs a
-// thread with vector loads and stores, took more registers and lost on
-// the pan more than they gained on scattered flows. So B2a keeps one
-// thread a pixel (32x8 blocks; 32 registers in bf16, 40 in float32) and
-// picks its tap reads per warp:
-//  * a warp whose samples all start on one row reads value by value, as
-//    the lanes' loads then share lines;
-//  * any other warp reads each row's two taps, ten consecutive values, as
-//    the aligned 8-byte words that hold them (bf16: four words and a 16-bit
-//    funnel shift; float32: six words), 8 loads a sample in place of 20;
-//    value by value where the right edge folds the two taps into one pixel
-//    and where the words would leave the stack.
-// Both read the same values, so the choice changes no bit.
+// pixel. It keeps one thread a pixel (32x8 blocks, 32 registers) reading
+// each tap's five values as 2-byte loads through L1. On smooth flows, the
+// main path's, a warp's samples fall on two or three neighbouring rows and
+// its loads share a few lines, so it reads near the bound at the large
+// levels; at the small ones it is launch latency. Measured on the H100
+// (PERF.md §6), each bit-equal: staging image 2's tile with a margin in
+// shared memory with several outputs a thread, wide flow loads and plane
+// stores; 2 or 4 outputs a thread with 8-byte tap words; and a per-warp
+// choice between 8-byte tap words and these loads. Each took more
+// registers or instructions and was no faster on the main path's flows;
+// only scattered flows, whose lanes touch a line each, gained.
 //
 // Fused multiply-adds. In bf16 storage both factors of every product of
 // B1's correlations are bf16 (the image is rounded to bf16 at staging, the
@@ -105,7 +98,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// the runtime-count kernels: 32x8 threads, 16x32 outputs
+// the runtime-count kernels and B2a: 32x8 threads, 16x32 outputs
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kThreads = kBlockX * kBlockY;
@@ -609,114 +602,7 @@ cudaError_t launch_poly(const PolyArgs& a, int n, const PolyParams& p,
 // B2a: warp of image 2's planes and the normal equations
 // ---------------------------------------------------------------------------
 
-// B2a's blocks: 32 x kEqRows threads, one output pixel each
-constexpr int kEqRows = 8;
-
-// bf16 values are the high halves of floats: the two of a 32-bit word
-__device__ __forceinline__ void bf16_pair(unsigned w, float* v) {
-  v[0] = __uint_as_float(w << 16);
-  v[1] = __uint_as_float(w & 0xffff0000u);
-}
-
-// The five values of pixels xa (at v[0..4]) and xb (v[5..9]) of row y of
-// image 2's (H, W, 5) stack (n = H * W pixels). Where xb = xa + 1 the two
-// pixels are ten consecutive values: bf16 reads the four aligned 8-byte
-// words that hold them and shifts them into place, float32 reads six and
-// takes ten. Where xb = xa (the frame's right edge), or those words would
-// leave the stack, value by value.
-template <typename T>
-__device__ __forceinline__ void tap_pair(const T* __restrict__ poly,
-                                         long long n, int W, int y, int xa,
-                                         int xb, float* v);
-
-template <>
-__device__ __forceinline__ void tap_pair<bf16>(const bf16* __restrict__ poly,
-                                               long long n, int W, int y,
-                                               int xa, int xb, float* v) {
-  const bf16* p = poly + ((long long)y * W + xa) * 5;
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  const uintptr_t a8 = a & ~(uintptr_t)7;
-  if (xb == xa + 1 && a8 >= reinterpret_cast<uintptr_t>(poly) &&
-      a8 + 32 <= reinterpret_cast<uintptr_t>(poly + n * 5)) {
-    const uint2* w64 = reinterpret_cast<const uint2*>(a8);
-    unsigned w[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint2 q = w64[i];
-      w[2 * i] = q.x;
-      w[2 * i + 1] = q.y;
-    }
-    // the 16-bit values off .. off + 9 of w, off = (a - a8) / 2 in 0..3
-    const int off = (int)(a - a8) >> 1;
-    const bool odd_word = off >> 1;
-    const unsigned shift = 16 * (off & 1);
-    unsigned s[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) s[i] = odd_word ? w[i + 1] : w[i];
-#pragma unroll
-    for (int i = 0; i < 5; ++i)
-      bf16_pair(__funnelshift_r(s[i], s[i + 1], shift), v + 2 * i);
-    return;
-  }
-  const bf16* pb = poly + ((long long)y * W + xb) * 5;
-#pragma unroll
-  for (int c = 0; c < 5; ++c) {
-    v[c] = load(p + c);
-    v[5 + c] = load(pb + c);
-  }
-}
-
-template <>
-__device__ __forceinline__ void tap_pair<float>(
-    const float* __restrict__ poly, long long n, int W, int y, int xa, int xb,
-    float* v) {
-  const float* p = poly + ((long long)y * W + xa) * 5;
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  const uintptr_t a8 = a & ~(uintptr_t)7;
-  if (xb == xa + 1 && a8 >= reinterpret_cast<uintptr_t>(poly) &&
-      a8 + 48 <= reinterpret_cast<uintptr_t>(poly + n * 5)) {
-    const float2* w64 = reinterpret_cast<const float2*>(a8);
-    float f[12];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      const float2 q = w64[i];
-      f[2 * i] = q.x;
-      f[2 * i + 1] = q.y;
-    }
-    const bool odd = a != a8;
-#pragma unroll
-    for (int k = 0; k < 10; ++k) v[k] = odd ? f[k + 1] : f[k];
-    return;
-  }
-  const float* pb = poly + ((long long)y * W + xb) * 5;
-#pragma unroll
-  for (int c = 0; c < 5; ++c) {
-    v[c] = p[c];
-    v[5 + c] = pb[c];
-  }
-}
-
-// t[c] = v(y, xa)[c] * ax + v(y, xb)[c] * wx over image 2's five planes,
-// read with ``tap_pair``
-template <typename T>
-__device__ __forceinline__ void row_lerp(const T* __restrict__ poly, int H,
-                                         int W, int y, int xa, int xb,
-                                         float ax, float wx, float* t) {
-  float v[10];  // (y, xa), (y, xb)
-  tap_pair(poly, (long long)H * W, W, y, xa, xb, v);
-#pragma unroll
-  for (int c = 0; c < 5; ++c) t[c] = add(mul(v[c], ax), mul(v[5 + c], wx));
-}
-
-// image 2's five planes at (y + dy, x + dx), clamped anchors. A warp whose
-// samples all start on one row reads its four taps value by value: the
-// lanes' loads share a few lines, and with no order between the rows a
-// sample's twenty loads go out together. Any other warp reads each row's
-// two taps with ``tap_pair`` (scattered lanes touch a line each; the wide
-// reads make 4 such loads a row in bf16 in place of 10), one row's lerp
-// before the next row's reads, which keeps bf16 at 32 registers.
-// ``tap_pair`` keeps its own value-by-value fallback: a shared one took
-// bf16 to 46 registers, slower on the pan. The same values either way.
+// image 2's five planes at (y + dy, x + dx), clamped anchors
 template <typename T>
 __device__ __forceinline__ void sample_clamped(const T* __restrict__ poly,
                                                int H, int W, float sy,
@@ -731,26 +617,16 @@ __device__ __forceinline__ void sample_clamped(const T* __restrict__ poly,
   const int xb = min(xa + 1, W - 1);
   const float ax = sub(1.f, wx);
   const float ay = sub(1.f, wy);
-  const unsigned lanes = __activemask();
-  const int first_row = __shfl_sync(lanes, ya, __ffs(lanes) - 1);
-  if (__all_sync(lanes, ya == first_row)) {
-    const T* p00 = poly + ((long long)ya * W + xa) * 5;
-    const T* p01 = poly + ((long long)ya * W + xb) * 5;
-    const T* p10 = poly + ((long long)yb * W + xa) * 5;
-    const T* p11 = poly + ((long long)yb * W + xb) * 5;
+  const T* p00 = poly + ((long long)ya * W + xa) * 5;
+  const T* p01 = poly + ((long long)ya * W + xb) * 5;
+  const T* p10 = poly + ((long long)yb * W + xa) * 5;
+  const T* p11 = poly + ((long long)yb * W + xb) * 5;
 #pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      const float top = add(mul(load(p00 + c), ax), mul(load(p01 + c), wx));
-      const float bot = add(mul(load(p10 + c), ax), mul(load(p11 + c), wx));
-      v[c] = add(mul(top, ay), mul(bot, wy));
-    }
-    return;
+  for (int c = 0; c < 5; ++c) {
+    const float top = add(mul(load(p00 + c), ax), mul(load(p01 + c), wx));
+    const float bot = add(mul(load(p10 + c), ax), mul(load(p11 + c), wx));
+    v[c] = add(mul(top, ay), mul(bot, wy));
   }
-  float t[5], b[5];
-  row_lerp(poly, H, W, ya, xa, xb, ax, wx, t);
-  row_lerp(poly, H, W, yb, xa, xb, ax, wx, b);
-#pragma unroll
-  for (int c = 0; c < 5; ++c) v[c] = add(mul(t[c], ay), mul(b[c], wy));
 }
 
 // the same sample by the two-pass clamped warp: the column pass at (y, x)
@@ -792,17 +668,15 @@ __device__ __forceinline__ void sample_select(const T* __restrict__ poly,
     v[k] = add(mul(row[0][k], ax), mul(row[1][k], wx));
 }
 
-// Block: 32 x kEqRows output pixels, one a thread; a warp takes 32 pixels
-// of one row.
 template <typename T>
-__global__ void __launch_bounds__(32 * kEqRows)
+__global__ void __launch_bounds__(kThreads)
     update_equations_kernel(const T* __restrict__ poly1,
                             const T* __restrict__ poly2,
                             const float* __restrict__ flow,
                             T* __restrict__ planes, int H, int W,
                             int radius) {
-  const int x = blockIdx.x * 32 + threadIdx.x % 32;
-  const int y = blockIdx.y * kEqRows + threadIdx.x / 32;
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= W || y >= H) return;
   const long long q = (long long)y * W + x;
   const float dx = flow[2 * q];
@@ -842,8 +716,8 @@ template <typename T>
 cudaError_t launch_equations(const void* poly1, const void* poly2,
                              const float* flow, void* planes, int H, int W,
                              int radius, cudaStream_t stream) {
-  const dim3 grid((W + 31) / 32, (H + kEqRows - 1) / kEqRows);
-  update_equations_kernel<T><<<grid, 32 * kEqRows, 0, stream>>>(
+  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
+  update_equations_kernel<T><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
       static_cast<const T*>(poly1), static_cast<const T*>(poly2), flow,
       static_cast<T*>(planes), H, W, radius);
   return cudaGetLastError();
