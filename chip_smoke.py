@@ -19,6 +19,25 @@ F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    0.5 px of the pan; then the same Engine with ``assets/configs/
    fast.json``, ``fastest.json`` and ``fb_select_warp=16``, and with
    ``CvFlowConfig()`` once more (the first run of a process reads slower);
+P. pipeline: the port's CLI disk to disk in a temporary directory over 24
+   P5 frames at 1080x1920 panned as in phase F. P1: ``cli.main`` with
+   the headline command's defaults, ``-p noise -r random 0.01 --seed 0
+   -o out/%04d.ppm -F -C``: 23 frames that decode to 1080x1920x3, 4 B1
+   + 12 B2a + 12 B2b launches per frame, every exported flow's interior
+   median within 0.5 px of the pan, the Engine's state on the card; the
+   same cut to 12 frames (``-t 00:00:00.480``), whose frames must be
+   P1's first and whose host syncs against P1's give the syncs a frame
+   adds. P2: ``--batch-frames 1``, frames and ``-F`` bit-equal to P1's.
+   P3: ``--checkpoint-every 12``, frames bit-equal to P1's, then the
+   checkpoint at 12 resumed: its frames bit-equal to P1's (a ``-t`` cut
+   stores its duration in the checkpoint's config, so its resume renders
+   nothing, as in the JAX package). P4: the replay of P1's ``.flow.zip``
+   with the same pixmap and seed, frames bit-equal to P1's, no Farneback
+   launch. P5: one ``python3 -m transflow_tpu_torch`` process over the
+   first 4 frames with a 24-frame ``pix/%04d.ppm`` pixmap sequence,
+   flows bit-equal to P1's first. Prints the disk-to-disk frames/s and
+   ``StageTimers``' split per frame of P1, P2 and P4, and the bare
+   Engine's ms/frame on the same frames;
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
@@ -82,7 +101,7 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    frame of phase F's ``CvFlowConfig()`` Engine; bit-equal between the
    trees.
 
-The main path (phases F and 3-5) runs right after the build: the kernel
+The main path (phases F, P and 3-5) runs right after the build: the kernel
 phases' timing loops, plain versions and profiler come after every timed
 run of it, so they cannot reach those timings.
 
@@ -851,6 +870,228 @@ def phase_farneback_engine(device, card: str) -> dict:
               "process_frame call)")
         runs[name] = run
     return runs
+
+
+# phase P: the CLI disk to disk over a netpbm sequence
+P_FRAMES = 24         # P5 frames written; 23 flows
+P_CUT = "00:00:00.480"  # -t: 12 frames at the sequence's 25 frames/s
+P_CUT_FRAMES = 12
+P_CHECKPOINT = 12     # --checkpoint-every of the run P3 resumes
+P5_CUT = "00:00:00.160"  # -t of the subprocess run: 4 frames
+P5_FRAMES = 4
+P_TIMEOUT = 300       # seconds for the subprocess run
+
+
+def _p_frames(directory: Path, n: int) -> list[np.ndarray]:
+    """The ``n`` frames of a ``%04d.ppm`` output, each checked to decode
+    to HEIGHT x WIDTH x 3."""
+    from transflow_tpu_torch.utils.imageio import read_netpbm
+    frames = []
+    for i in range(n):
+        frame = read_netpbm(str(directory / f"{i:04d}.ppm"))
+        if frame.shape != (HEIGHT, WIDTH, 3):
+            raise AssertionError(f"{directory}/{i:04d}.ppm decodes to "
+                                 f"{frame.shape}")
+        frames.append(frame)
+    if (directory / f"{n:04d}.ppm").exists():
+        raise AssertionError(f"{directory} holds more than {n} frames")
+    return frames
+
+
+def _p_flows(path: Path) -> np.ndarray:
+    """The (N, H, W, 2) flows of a ``.flow.zip``, read by the port."""
+    from transflow_tpu_torch.flow.sources.archive import ArchiveFlowSource
+    source = ArchiveFlowSource(str(path)).open()
+    try:
+        return np.stack([np.array(item.array) for item in source])
+    finally:
+        source.close()
+
+
+def _p_equal(name: str, got: list, want: list) -> None:
+    if len(got) != len(want) or not all(
+            np.array_equal(a, b) for a, b in zip(got, want)):
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if not np.array_equal(a, b)]
+        raise AssertionError(f"{name}: {len(got)} arrays against "
+                             f"{len(want)}, unequal at {bad[:8]}")
+
+
+def _p_run(argv: list[str], count_syncs: bool = False) -> dict:
+    """``cli.main(argv)`` on the card with the launches counted from 0
+    (and the host's syncs where asked); returns the Pipeline, the wall
+    time, the launches and the syncs."""
+    import warnings
+    from transflow_tpu_torch import cli
+    torch.cuda.synchronize()
+    _zero_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            start = time.perf_counter()
+            pipeline = cli.main(argv + ["--no-exec", "--overwrite"])
+            seconds = time.perf_counter() - start
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return {"pipeline": pipeline, "seconds": seconds,
+            "launches": _launches(),
+            "syncs": sum("synchroniz" in str(w.message) for w in caught)}
+
+
+def _p_split(run: dict, frames: int) -> str:
+    """The disk-to-disk rate and StageTimers' split of a run: each
+    stage's total ms over the run and per frame (the main thread's setup,
+    decode_wait, device_step, checkpoint and flush; the readback
+    thread's readback and flow_export; the encode thread's encode)."""
+    stages = run["pipeline"].timers.report()["stages"]
+    split = ", ".join(f"{name} {row['total_s'] * 1e3:.1f} "
+                      f"({row['total_s'] * 1e3 / frames:.3f}/frame)"
+                      for name, row in stages.items())
+    return (f"{frames / run['seconds']:.2f} frames/s disk to disk "
+            f"({run['seconds'] * 1e3 / frames:.2f} ms/frame, setup "
+            f"included; stage ms: {split})")
+
+
+def phase_pipeline(device, card: str) -> dict:
+    """Phase P: the port's CLI (``cli.main``) disk to disk at 1080x1920
+    over 24 P5 frames panned 3 px per frame, with the headline command's
+    defaults (CvFlowConfig(), backward flow, one moveref layer), a seeded
+    noise pixmap, random reset 0.01, ``%04d.ppm`` frames, ``-F`` and
+    ``-C``; then per frame (P2), the checkpoint and its resume (P3), the
+    replay of P1's flows (P4) and ``python3 -m transflow_tpu_torch`` over
+    a pixmap sequence (P5). Returns the rates."""
+    import tempfile
+    from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    from transflow_tpu_torch.utils.imageio import write_netpbm
+    flows_n = P_FRAMES - 1
+    per_frame = (0, 0, 0, *FB_DEFAULT_PER_FRAME)
+    gray = gray_frames(P_FRAMES, HEIGHT, WIDTH, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p_") as tmp:
+        root = Path(tmp)
+        (root / "frames").mkdir()
+        for i, frame in enumerate(gray.cpu().numpy()):
+            write_netpbm(str(root / "frames" / f"{i:04d}.pgm"), frame)
+        frames_arg = str(root / "frames" / "%04d.pgm")
+
+        def argv(out: str, *extra: str) -> list[str]:
+            (root / out).mkdir(exist_ok=True)
+            return [frames_arg, "-p", "noise", "-r", "random", "0.01",
+                    "--seed", str(SEED), "-o", str(root / out / "%04d.ppm"),
+                    "-F", "-C", *extra]
+
+        # P1: the headline command, auto-chunked
+        p1 = _p_run(argv("p1"), count_syncs=True)
+        if p1["launches"] != tuple(n * flows_n for n in per_frame):
+            raise AssertionError(
+                f"P1: {KERNEL_NAMES} launches {p1['launches']}, expected "
+                f"{per_frame} per frame over {flows_n} frames")
+        engine = p1["pipeline"].engine
+        places = {t.device for layer in engine.comp_state
+                  for t in layer.values()} | {engine.device}
+        if places != {device}:
+            raise AssertionError(f"P1: the Engine's state is on {places}, "
+                                 f"not {device}")
+        frames1 = _p_frames(root / "p1", flows_n)
+        flows1 = _p_flows(root / "p1" / "%04d.flow.zip")
+        m = FB_MARGIN
+        medians = np.median(flows1[:, m:-m, m:-m].reshape(flows_n, -1, 2),
+                            axis=1)
+        worst = float(np.abs(medians - FB_PAN).max())
+        if flows1.shape != (flows_n, HEIGHT, WIDTH, 2) or \
+                not worst <= FB_PAN_TOL:
+            raise AssertionError(f"P1: flows {flows1.shape}, worst "
+                                 f"|median - pan| {worst}")
+        print(f"pipeline P1 {HEIGHT}x{WIDTH} CLI {flows_n} frames: "
+              f"{_p_split(p1, flows_n)}; launches per frame "
+              f"{tuple(n / flows_n for n in p1['launches'])} "
+              f"{KERNEL_NAMES}; worst |median - pan| {worst:.4f}; on {card}")
+        # P3's cut: the same with -t, as a baseline for the syncs a frame
+        # adds, and its frames must be P1's first ones
+        cut = _p_run(argv("p3cut", "-t", P_CUT), count_syncs=True)
+        _p_equal("P3 cut frames", _p_frames(root / "p3cut", P_CUT_FRAMES),
+                 frames1[:P_CUT_FRAMES])
+        marginal = (p1["syncs"] - cut["syncs"]) / (flows_n - P_CUT_FRAMES)
+        print(f"pipeline host syncs: {p1['syncs']} over P1's {flows_n} "
+              f"frames, {cut['syncs']} over the {P_CUT_FRAMES}-frame cut "
+              f"(-t {P_CUT}), so {marginal:g} per frame beyond setup "
+              "(torch.cuda.set_sync_debug_mode)")
+        # P2: the same, one frame at a time
+        p2 = _p_run(argv("p2", "--batch-frames", "1"))
+        if p2["pipeline"]._batch_size != 1 or \
+                p1["pipeline"]._batch_size <= 1:
+            raise AssertionError("P1 ran unchunked or P2 chunked")
+        _p_equal("P2 frames", _p_frames(root / "p2", flows_n), frames1)
+        _p_equal("P2 flows", list(_p_flows(root / "p2" / "%04d.flow.zip")),
+                 list(flows1))
+        print(f"pipeline P2 (--batch-frames 1): {_p_split(p2, flows_n)}; "
+              "frames and flows bit-equal to P1's")
+        # P3: a checkpoint at frame 12, resumed
+        _p_run(argv("p3", "--checkpoint-every", str(P_CHECKPOINT)))
+        _p_equal("P3 frames", _p_frames(root / "p3", flows_n), frames1)
+        for i in range(P_CHECKPOINT, flows_n):
+            (root / "p3" / f"{i:04d}.ppm").unlink()
+        ckpt = root / "p3" / f"%04d_{P_CHECKPOINT:05d}.ckpt.zip"
+        resumed = _p_run([str(ckpt)])
+        if resumed["pipeline"].cursor != flows_n - P_CHECKPOINT:
+            raise AssertionError(f"P3: the resume rendered "
+                                 f"{resumed['pipeline'].cursor} frames")
+        _p_equal("P3 resumed frames", _p_frames(root / "p3", flows_n),
+                 frames1)
+        print(f"pipeline P3: frames {P_CHECKPOINT}-{flows_n - 1} resumed "
+              f"from {ckpt.name} bit-equal to P1's; the -t {P_CUT} cut's "
+              f"{P_CUT_FRAMES} frames bit-equal to P1's first")
+        # P4: the replay of P1's flows
+        (root / "p4").mkdir()
+        p4 = _p_run([str(root / "p1" / "%04d.flow.zip"), "-p", "noise",
+                     "-r", "random", "0.01", "--seed", str(SEED), "-o",
+                     str(root / "p4" / "%04d.ppm")])
+        if any(p4["launches"]):
+            raise AssertionError(f"P4: launches {p4['launches']}")
+        _p_equal("P4 frames", _p_frames(root / "p4", flows_n), frames1)
+        print(f"pipeline P4 (replay of P1's .flow.zip): "
+              f"{_p_split(p4, flows_n)}; frames bit-equal to P1's")
+        # P5: the module entry point over a pixmap sequence
+        (root / "pix").mkdir()
+        rgb = panned_frames(P_FRAMES, HEIGHT, WIDTH, device).cpu().numpy()
+        for i, frame in enumerate(rgb):
+            write_netpbm(str(root / "pix" / f"{i:04d}.ppm"), frame)
+        (root / "p5").mkdir()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(Path(__file__).resolve().parent)]
+            + [p for p in [env.get("PYTHONPATH")] if p])
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "transflow_tpu_torch", frames_arg, "-p",
+             str(root / "pix" / "%04d.ppm"), "-t", P5_CUT, "--seed",
+             str(SEED), "-o", str(root / "p5" / "%04d.ppm"), "-F",
+             "--no-exec", "--overwrite"], cwd=root, env=env,
+            capture_output=True, text=True, timeout=P_TIMEOUT)
+        seconds = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise AssertionError(f"P5: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        _p_frames(root / "p5", P5_FRAMES)
+        _p_equal("P5 flows", list(_p_flows(root / "p5" / "%04d.flow.zip")),
+                 list(flows1[:P5_FRAMES]))
+        print(f"pipeline P5: python3 -m transflow_tpu_torch over a "
+              f"{P_FRAMES}-frame pix/%04d.ppm pixmap, {P5_FRAMES} frames in "
+              f"{seconds:.2f} s (process start included), flows bit-equal "
+              "to P1's first")
+        # the bare Engine on the same frames, for the Pipeline's own cost
+        pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
+        bare = run_engine(device, gray, pixmap, CvFlowConfig())
+        d2d_ms = p1["seconds"] * 1e3 / flows_n
+        print(f"pipeline against the bare Engine on the same frames: "
+              f"{bare['ms']:.2f} ms/frame (a chunk of {ENGINE_FRAMES}, "
+              f"phase F's measure) against P1's {d2d_ms:.2f} and P4's "
+              f"{p4['seconds'] * 1e3 / flows_n:.2f} ms/frame disk to disk; "
+              f"on {card}")
+    return {"p1_fps": flows_n / p1["seconds"],
+            "p4_fps": flows_n / p4["seconds"], "engine_ms": bare["ms"]}
 
 
 def phase_engine(device, card: str) -> dict:
@@ -1743,6 +1984,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     reports = phase_build()
     fb_runs = phase_farneback_engine(device, card)
+    phase_pipeline(device, card)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
     mesh_run = phase_mesh_engine(device, card, engine_phase)

@@ -355,3 +355,53 @@ def test_entry_points_default_to_the_card(device, exact_f32):
     assert next(model.net.parameters()).device == device
     assert model.layer_params[0].intro_masks[0].device == device
     assert Engine(Config("in.mp4"), [], [], 32, 48).device == device
+
+
+def test_cli_on_card_matches_cpu(device, monkeypatch, tmp_path):
+    """The CLI disk to disk on a small PGM sequence, on the card and on
+    the CPU (float32 storage): the exported flows within the 60 dB bar;
+    then both devices replay the CPU's flows, and the compositor's frames
+    are bit-equal."""
+    from transflow_tpu_torch import cli
+    from transflow_tpu_torch.flow.sources.archive import ArchiveFlowSource
+    from transflow_tpu_torch.utils.imageio import read_netpbm, write_netpbm
+    monkeypatch.setenv("TRANSFLOW_FARNEBACK_BF16", "0")
+    rng = np.random.default_rng(1)
+    canvas = torch.from_numpy(rng.integers(0, 256, (80, 110),
+                                           dtype=np.uint8)).float()
+    canvas = torch.nn.functional.avg_pool2d(canvas[None, None], 5, 1, 2)
+    canvas = canvas[0, 0].round().to(torch.uint8).numpy()
+    (tmp_path / "frames").mkdir()
+    for i in range(6):
+        write_netpbm(str(tmp_path / "frames" / f"{i:04d}.pgm"),
+                     canvas[2 * i:2 * i + 64, 3 * i:3 * i + 96])
+
+    def run(source, out, where, *extra):
+        (tmp_path / out).mkdir()
+        pipeline = cli.main(
+            [str(source), "-p", "noise", "--seed", "0", "-r", "random",
+             "0.1", "-o", str(tmp_path / out / "%04d.ppm"), "--no-exec",
+             *extra], device=where)
+        assert pipeline.engine.device.type == ("cuda" if where is None
+                                               else where)
+        return [read_netpbm(str(tmp_path / out / f"{i:04d}.ppm"))
+                for i in range(5)]
+
+    def flows(path):
+        source = ArchiveFlowSource(str(path)).open()
+        out = np.stack([np.array(item.array) for item in source])
+        source.close()
+        return out
+
+    sequence = tmp_path / "frames" / "%04d.pgm"
+    run(sequence, "card", None, "-F")
+    run(sequence, "cpu", "cpu", "-F")
+    got, want = (flows(tmp_path / d / "%04d.flow.zip")
+                 for d in ("card", "cpu"))
+    assert got.shape == want.shape == (5, 64, 96, 2)
+    mse = float(((got - want) ** 2).mean())
+    assert mse == 0 or 10 * np.log10(64 / mse) >= 60.0
+    archive = tmp_path / "cpu" / "%04d.flow.zip"
+    for a, b in zip(run(archive, "replay_card", None),
+                    run(archive, "replay_cpu", "cpu")):
+        np.testing.assert_array_equal(a, b)

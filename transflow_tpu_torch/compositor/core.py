@@ -44,8 +44,8 @@ def _require_moveref(cfg: LayerConfig) -> None:
 class LayerParams:
     """Per-layer parameters: the config and the per-source introduction
     masks on ``device``. The config's masks (``mask_alpha``, ``mask_src``,
-    ``mask_dst``, ``reset_mask``) are None, meaning all ones: mask files
-    need the mask DSL, which is not ported yet."""
+    ``mask_dst``, ``reset_mask``) are None, meaning all ones: the layers
+    that read them are not ported yet."""
 
     def __init__(self, cfg: LayerConfig, height: int, width: int,
                  intro_masks: Sequence[np.ndarray],
@@ -53,9 +53,9 @@ class LayerParams:
         for name in _MASKS:
             if getattr(cfg, name) is not None:
                 raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r}: mask files are not "
-                    "ported yet: ROADMAP Queue 1, item 4 (host shims, mask "
-                    "DSL)")
+                    f"{name}={getattr(cfg, name)!r}: layer masks are not "
+                    "ported yet: ROADMAP Queue 1, item 7 (other layer "
+                    "classes and layer masks)")
         self.cfg = cfg
         self.height = height
         self.width = width

@@ -3,16 +3,21 @@
 ``transflow_tpu.config`` imports JAX (through ``transflow_tpu.utils``), so
 the port re-declares it: ``PixmapSourceConfig``, ``LayerConfig`` and
 ``Config`` with the same fields, defaults, validation and dict round-trip
-(transflow_tpu/config.py). tests/test_torch_model.py and
-tests/test_torch_sources.py pin them to the originals. The output-path
-helpers wait for the Pipeline.
+(transflow_tpu/config.py), and ``Config.get_secondary_output_path``.
+tests/test_torch_model.py, tests/test_torch_sources.py and
+tests/test_torch_cli.py pin them to the originals.
 """
+import os
 import random
+import re
 import sys
 import time
 
 from .flow import Direction, LockMode
 from .utils import parse_size, parse_timestamp
+
+_MJPEG_RE = re.compile(r"^mjpeg(:[:a-z0-9A-Z\-]+)?$", re.IGNORECASE)
+_SUFFIX_RE = re.compile(r".*\.(\d{3})$")
 
 
 def parse_bool_arg(arg, default: bool) -> bool:
@@ -291,3 +296,24 @@ class Config(_DictSchema):
             timestamp=time.time(),
             command={"executable": sys.executable, "argv": sys.argv})
         return d
+
+    def get_secondary_output_path(self, suffix: str) -> str:
+        """The .flow.zip/.ckpt.zip/.config.json sibling of the first
+        output that is not an MJPEG stream (else of the flow path), with
+        a ``.NNN`` uniqueness suffix stripped."""
+        base_output_path = None
+        if isinstance(self.output_path, list):
+            for path in self.output_path:
+                if _MJPEG_RE.match(path):
+                    continue
+                base_output_path = path
+                break
+        else:
+            base_output_path = self.output_path
+        path = os.path.splitext(
+            self.flow_path if base_output_path is None else base_output_path)[0]
+        if path.endswith(".flow") or path.endswith(".ckpt"):
+            path = path[:-5]
+        if _SUFFIX_RE.match(path):
+            path = path[:-4]
+        return path + suffix

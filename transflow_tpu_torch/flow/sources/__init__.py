@@ -1,3 +1,3 @@
-"""Flow sources of the port: the host-side iterator (``base.FlowSource``)
-and the estimator configuration (``cv.CvFlowConfig``). The decoding
-sources wait for the codec path."""
+"""Flow sources of the port: the host-side iterator (``base.FlowSource``,
+with ``from_args``), the estimator configuration and image-sequence
+source (``cv``), and the ``.flow.zip`` replay (``archive``)."""

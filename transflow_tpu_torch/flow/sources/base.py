@@ -8,10 +8,14 @@ function built from the source's options (``flow/transforms.py``). Lock
 reading and drops the results it locks.
 
 A subclass implements ``_open_reader`` (setting width, height, framerate
-and base_length), ``_read_item`` and ``_rewind_reader``. ``from_args``,
-which builds the decoding sources, waits for the Pipeline.
+and base_length), ``_read_item`` and ``_rewind_reader``. ``from_args``
+routes a path to its source as the JAX package does: a ``.flow.zip`` to
+``ArchiveFlowSource``, anything else to ``CvFlowSource``, which reads
+image sequences (``utils/imageio.py``); ``--mv`` raises.
 """
+import json
 import logging
+import os
 from typing import Callable, Iterator, Optional
 
 from .. import Direction, LockMode
@@ -270,3 +274,58 @@ class FlowSource:
         ``make_postprocess``, which refuses both (not ported yet)."""
         return make_postprocess(self.flow_filters, self.mask_path,
                                 self.kernel_path, self.direction)
+
+    # ------------------------------------------------------------------
+    # factory
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_args(cls,
+                  flow_path: str,
+                  use_mvs: bool = False,
+                  mask_path: str | None = None,
+                  kernel_path: str | None = None,
+                  cv_config: str | None = None,
+                  flow_filters: str | None = None,
+                  size: tuple[int, int] | None = None,
+                  direction=None,
+                  seek_ckpt: int | None = None,
+                  seek_time: float | None = None,
+                  duration_time: float | None = None,
+                  repeat: int = 1,
+                  lock_expr: str | None = None,
+                  lock_mode=LockMode.STAY) -> "FlowSource":
+        """Route to the concrete source (FlowSource.from_args of the JAX
+        package)."""
+        if "::" in flow_path:
+            _, file = flow_path.split("::")
+        else:
+            file = flow_path
+        kwargs = dict(direction=direction, mask_path=mask_path,
+                      kernel_path=kernel_path, flow_filters=flow_filters,
+                      seek_ckpt=seek_ckpt, seek_time=seek_time,
+                      duration_time=duration_time, repeat=repeat,
+                      lock_expr=lock_expr, lock_mode=lock_mode)
+        if file.endswith(".flow.zip"):
+            from .archive import ArchiveFlowSource
+            return ArchiveFlowSource(file, **kwargs)
+        if use_mvs:
+            raise NotImplementedError(
+                "--mv (motion vectors) is not ported yet: ROADMAP Queue 1, "
+                "item 14.3 (motion vectors)")
+        from .cv import CvFlowConfig, CvFlowSource
+        if isinstance(cv_config, dict):
+            config = CvFlowConfig(**cv_config)
+        elif cv_config is not None and os.path.isfile(cv_config):
+            config = CvFlowConfig.from_file(cv_config)
+        elif cv_config == "window":
+            config = CvFlowConfig(show_window=True)
+        elif isinstance(cv_config, str) and cv_config.lstrip().startswith("{"):
+            config = CvFlowConfig(**json.loads(cv_config))
+        elif cv_config is not None:
+            raise FileNotFoundError(
+                f"cv_config {cv_config!r} is neither a file, 'window', nor "
+                "inline JSON")
+        else:
+            config = CvFlowConfig()
+        return CvFlowSource(file, config, size, **kwargs)

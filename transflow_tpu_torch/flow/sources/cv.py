@@ -1,11 +1,21 @@
-"""Estimator selection and hyper-parameters of a frame source.
+"""Estimator selection and hyper-parameters of a frame source, and the
+source that decodes frames for the device estimator.
 
-Counterpart of transflow_tpu/flow/sources/cv.py's ``CvFlowConfig``: the
+Counterpart of transflow_tpu/flow/sources/cv.py: ``CvFlowConfig`` with the
 same methods, defaults, validation, JSON round-trip and estimator kwargs,
-free of cv2. The live-tuning window is not ported (``show_window=True``
-raises); ``CvFlowSource``, the cv2 decoder, waits for the codec path.
+and ``CvFlowSource``, which yields gray frames (RGB for LiteFlowNet) for
+estimation on the device. Where the JAX source decodes with
+``cv2.VideoCapture``, this one reads image sequences through
+``utils/imageio.py`` with the same frame count, frame rate and pixels;
+a video file or a camera raises, naming ROADMAP Queue 1 item 14.2. The
+live-tuning window is not ported (``show_window=True`` raises).
 """
 import json
+
+import numpy as np
+
+from ...utils.imageio import open_sequence, resize_nearest
+from .base import FlowItem, FlowSource
 
 METHODS = ("farneback", "horn-schunck", "lukas-kanade", "liteflownet")
 
@@ -27,7 +37,7 @@ class CvFlowConfig:
         if show_window:
             raise NotImplementedError(
                 "the live-tuning window is not ported yet: ROADMAP Queue 1, "
-                "item 5 (Pipeline and CLI)")
+                "item 15 (the GUI)")
         unknown = set(kwargs) - set(self.DEFAULTS)
         if unknown:
             raise ValueError(f"Unknown cv_config keys: {sorted(unknown)}")
@@ -90,3 +100,57 @@ class CvFlowConfig:
             return dict(warp_bound=int(self.lfn_warp_bound),
                         scale=float(self.lfn_scale))
         return {}
+
+
+class CvFlowSource(FlowSource):
+    """An image sequence read frame by frame, yielding gray frames (RGB
+    for LiteFlowNet) for the device estimator."""
+
+    yields_frames = True
+
+    def __init__(self, file: str, config: CvFlowConfig | None = None,
+                 size: tuple[int, int] | None = None, **kwargs):
+        super().__init__(**kwargs)
+        self.file = file
+        self.config = config if config is not None else CvFlowConfig()
+        # cv2 cannot resize an image sequence on read, so ``size`` (the
+        # webcam's --size) leaves its frames as they are, as in the JAX
+        # package
+        self.size = size
+        self.capture = None
+        self._primed = False
+
+    def _open_reader(self):
+        self.capture = open_sequence(self.file)
+        self.width = self.capture.width
+        self.height = self.capture.height
+        self.framerate = float(self.capture.framerate)
+        # N frames give N-1 flow steps; a single image has no length
+        self.base_length = (None if self.capture.count is None
+                            else self.capture.count - 1)
+
+    def _decode(self) -> np.ndarray:
+        gray = self.config.method != "liteflownet"
+        frame = self.capture.read(gray=gray)
+        if frame is None:
+            raise StopIteration
+        if frame.shape[1] != self.width or frame.shape[0] != self.height:
+            frame = resize_nearest(frame, self.width, self.height)
+        return frame
+
+    def _rewind_reader(self, frame_index: int):
+        """Reposition so the PREVIOUS frame is frame_index (estimation pairs
+        frames i and i+1); the next read yields a priming frame."""
+        if self.capture is None:
+            return
+        self.capture.pos = frame_index
+        self._primed = False
+
+    def _read_item(self) -> FlowItem:
+        prime = None
+        if not self._primed:
+            # the first frame after open/rewind re-seeds the estimator's
+            # state; it is no output (a flow needs 2 frames)
+            prime = self._decode()
+            self._primed = True
+        return FlowItem(FlowItem.FRAME, self._decode(), prime=prime)

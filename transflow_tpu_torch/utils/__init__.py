@@ -2,7 +2,9 @@
 imports JAX)."""
 from .colors import parse_color
 from .expr import parse_expression, parse_lock_intervals
-from .misc import parse_size, parse_timestamp
+from .masks import load_bool_mask, load_float_mask
+from .misc import find_unique_path, parse_size, parse_timestamp, startfile
 
 __all__ = ["parse_color", "parse_expression", "parse_lock_intervals",
-           "parse_size", "parse_timestamp"]
+           "load_bool_mask", "load_float_mask",
+           "find_unique_path", "parse_size", "parse_timestamp", "startfile"]

@@ -1,10 +1,45 @@
-"""Host-side parsing helpers. Counterpart of transflow_tpu/utils/misc.py
-(``parse_timestamp``, ``parse_size``); the path and file-opening helpers
-wait for the Pipeline."""
+"""Host-side helpers: paths, timestamps, sizes, file opening.
+Counterpart of transflow_tpu/utils/misc.py, the same functions."""
+import logging
+import os
 import re
+import subprocess
+import sys
 import warnings
 
 _TS_RE = re.compile(r"(\d\d):(\d\d):(\d\d)(?:\.(\d\d\d))?")
+_SUFFIX_RE = re.compile(r".*\.(\d{3})$")
+
+
+def find_unique_path(path: str) -> str:
+    """Return ``path`` or a ``.NNN``-suffixed variant that does not exist yet."""
+    root, ext = os.path.splitext(path)
+    if root.endswith(".flow") or root.endswith(".map"):
+        root, pre_ext = os.path.splitext(root)
+        ext = pre_ext + ext
+    counter = 0
+    m = _SUFFIX_RE.match(root)
+    if m:
+        counter = int(m.group(1)) + 1
+        root = root[:-4]
+    while os.path.isfile(path):
+        path = f"{root}.{counter:03d}{ext}"
+        counter += 1
+    return path
+
+
+def startfile(path: str):
+    """Open a file with the platform's default application. Best-effort:
+    a missing opener (a machine without xdg-open) logs, never raises."""
+    try:
+        if sys.platform == "win32":
+            os.startfile(os.path.realpath(path))  # noqa  (windows only)
+        else:
+            opener = "open" if sys.platform == "darwin" else "xdg-open"
+            subprocess.call([opener, os.path.realpath(path)])
+    except OSError as exc:
+        logging.getLogger(__name__).warning(
+            "could not open %s with the system opener: %s", path, exc)
 
 
 def parse_timestamp(timestamp: str | float | int | None) -> float | None:
