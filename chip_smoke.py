@@ -8,8 +8,8 @@ Phases, in order; any failure exits non-zero:
 2. build: compile the CUDA kernels of ``transflow_tpu_torch/csrc`` (into the
    git-ignored ``transflow_tpu_torch/_build``); prints each kernel
    instantiation's registers, shared memory and spills as ptxas reported
-   them, and fails unless ptxas reported the correlation kernel and
-   Farneback's B1, B2a and B2b free of spills;
+   them, and fails unless ptxas reported the correlation kernel,
+   Farneback's B1, B2a and B2b and B5's two kernels free of spills;
 F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    ``CvFlowConfig()`` (Farneback with cv2's defaults, the headline
    command's estimator), one moveref layer with random reset 0.01 over
@@ -38,6 +38,23 @@ P. pipeline: the port's CLI disk to disk in a temporary directory over 24
    flows bit-equal to P1's first. Prints the disk-to-disk frames/s and
    ``StageTimers``' split per frame of P1, P2 and P4, and the bare
    Engine's ms/frame on the same frames;
+T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
+   over two ``CvFlowConfig()`` sources on gray frames panned +3 and -2
+   px per frame (source 1 ``-d forward -f scale=1.5;clip=8``; source 2
+   a DSL ``--mask``, a 5x5 dyadic ``--kernel`` and ``-f
+   polar=r:a+0.1*t``), ``--merge absmax``, and introduction (``-i`` a
+   DSL mask), sum, static and moveref layers with ``--mask-alpha``,
+   ``--move-mask-source``, ``--move-mask-destination`` and ``-r random
+   0.01 -m`` a fractional mask image: a warm-up chunk, a timed chunk of
+   8 frames and ``process_frame`` calls, counting 8 B1, 24 B2a, 24 B2b
+   and 2 B5 launches (B5's two kernels) per frame, finite flows, the
+   per-frame checksums read back once, 0 host syncs per frame, and its
+   profile (device busy time and idle share per frame); then the same
+   options through ``cli.main`` over 12 PGM frames of each pan (the CLI
+   gives both sources ``-d forward``: 4 B5 a frame); then at 128x192 the
+   post-process chain on the card against the CPU within the CPU tests'
+   bounds, B5 bit-equal on the same input, and the four-layer compositor
+   bit-equal given the same flows;
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
@@ -101,7 +118,14 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    frame of phase F's ``CvFlowConfig()`` Engine; bit-equal between the
    trees.
 
-The main path (phases F, P and 3-5) runs right after the build: the kernel
+B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
+   version at 1080x1920 on a random forward flow, a converging one (every
+   pixel onto the centre: one word takes every atomic) and phase T's
+   Farneback forward flow on the pan, bit-equal, with ``device_ms``, the
+   bound and its share, and in phase 10 the profiler's time of a call
+   (the memset and both kernels).
+
+The main path (phases F, P, T and 3-5) runs right after the build: the kernel
 phases' timing loops, plain versions and profiler come after every timed
 run of it, so they cannot reach those timings.
 
@@ -118,8 +142,10 @@ the H100 SXM's published peaks; ``share`` is bound over ``device_ms``.
 
 For B1, B2a and B2b the bound counts each input and output byte once per
 level and the float32 operations of their correlations, lerps and
-algebra; they are hand-written for jnp code (no Pallas source) and no
-single PyTorch call computes any of them.
+algebra; B5's counts the flow read and the mapping written once (16
+bytes a pixel). They are hand-written for jnp code (no Pallas source)
+and no single PyTorch call computes any of them (``index_put_`` with
+duplicate indices writes in no fixed order on CUDA).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -368,7 +394,7 @@ def ptxas_reports(log: str) -> list[dict]:
 # per thread, the register windows of B1 and B2b and B2a's twenty tap loads
 # a sample stay in registers
 NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
-            "aggregate_solve")
+            "aggregate_solve", "forward_scatter", "backward_resolve")
 
 
 def phase_build() -> list[dict]:
@@ -646,10 +672,11 @@ def lfn_config(bound: int):
     return CvFlowConfig(method="liteflownet", lfn_warp_bound=bound)
 
 
-def frame_source(frames, config):
+def frame_source(frames, config, direction: str = "backward", **kwargs):
     """A ``FlowSource`` over (N, H, W[, 3]) uint8 frames on the device with
-    the flow config ``config``: the first item after a rewind carries a
-    priming frame, as the cv2 source's do."""
+    the flow config ``config`` and the source options ``kwargs`` (mask,
+    kernel, filters): the first item after a rewind carries a priming
+    frame, as the cv2 source's do."""
     from transflow_tpu_torch.flow.sources.base import FlowItem, FlowSource
 
     class PannedFrameSource(FlowSource):
@@ -675,7 +702,7 @@ def frame_source(frames, config):
             return FlowItem(FlowItem.FRAME, frames[self.pos - 1],
                             prime=prime)
 
-    source = PannedFrameSource(direction="backward")
+    source = PannedFrameSource(direction=direction, **kwargs)
     source.config = config
     return source.open()
 
@@ -686,19 +713,21 @@ def _launch_counters():
     from transflow_tpu_torch.ops.farneback import (aggregate_solve_cuda,
                                                    poly_expansion_cuda,
                                                    update_equations_cuda)
+    from transflow_tpu_torch.ops.scatter import forward_to_backward_cuda
     from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
     return (bounded_backwarp_cuda, correlation7x7_cuda,
             sharded_correlation7x7, poly_expansion_cuda,
-            update_equations_cuda, aggregate_solve_cuda)
+            update_equations_cuda, aggregate_solve_cuda,
+            forward_to_backward_cuda)
 
 
 # the names of _launches()'s entries
-KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b")
+KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5")
 
 
 def _launches() -> tuple[int, ...]:
-    """(A3, A1, A2, B1, B2a, B2b) launches since the counts were last set
-    to 0."""
+    """(A3, A1, A2, B1, B2a, B2b, B5) launches since the counts were last
+    set to 0."""
     return tuple(fn.launches for fn in _launch_counters())
 
 
@@ -760,12 +789,17 @@ def run_engine(device, frames, pixmap, config, mesh=None,
         call_frames.append(frame)
         call_flows.append(flow)
     torch.cuda.synchronize()
+
+    def step(fno):
+        engine.process_frame([next(items)], pixmaps, fno / 30.0, ((fno,),))
+
     return {"ms": 1e3 * seconds / ENGINE_FRAMES, "out": out, "flows": flows,
             "call_frames": torch.stack(call_frames),
             "call_flows": torch.stack(call_flows),
             "finite": finite, "max_flow": max_flow, "checksum": checksum,
             "chunk_launches": chunk_launches, "launches": _launches(),
             "engine": engine, "items": items, "pixmaps": pixmaps,
+            "step": step,
             "next_fno": ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS}
 
 
@@ -848,7 +882,8 @@ def phase_farneback_engine(device, card: str) -> dict:
         if default and per_frame != FB_DEFAULT_PER_FRAME:
             raise AssertionError(f"CvFlowConfig() gives {per_frame} B1, B2a, "
                                  f"B2b launches, not {FB_DEFAULT_PER_FRAME}")
-        _check_engine_run(f"farneback {name}", run, (0, 0, 0, *per_frame))
+        _check_engine_run(f"farneback {name}", run,
+                          (0, 0, 0, *per_frame, 0))
         m = FB_MARGIN
         inner = torch.cat([run["flows"], run["call_flows"]])[:, m:-m, m:-m]
         medians = inner.reshape(len(inner), -1, 2).median(dim=1).values
@@ -966,7 +1001,7 @@ def phase_pipeline(device, card: str) -> dict:
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
     from transflow_tpu_torch.utils.imageio import write_netpbm
     flows_n = P_FRAMES - 1
-    per_frame = (0, 0, 0, *FB_DEFAULT_PER_FRAME)
+    per_frame = (0, 0, 0, *FB_DEFAULT_PER_FRAME, 0)
     gray = gray_frames(P_FRAMES, HEIGHT, WIDTH, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p_") as tmp:
         root = Path(tmp)
@@ -1094,6 +1129,369 @@ def phase_pipeline(device, card: str) -> dict:
             "p4_fps": flows_n / p4["seconds"], "engine_ms": bare["ms"]}
 
 
+# phase T: flow post-processing, the merges and every layer class at 1080p
+T_PANS = (3, -2)      # px per frame of the two sources' gray frames
+T_FILTERS = ("scale=1.5;clip=8", "polar=r:a+0.1*t")
+T_FLOW_MASK = "circle:45%"
+T_INTRO_MASK = "circle:40%"
+T_MOVE_SRC = "rect:90%:90%"
+T_MOVE_DST = "circle:48%"
+# each layer's --mask-alpha, bottom to top: a 3-channel pixmap's alpha is
+# 0 or 1, so only a 0/1 mask leaves it visible
+T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
+# the Engine's launches per frame: B1, B2a, B2b for two CvFlowConfig()
+# sources, and B5's two for the forward one
+T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2)
+T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
+T_SYNC_CALLS = 2
+T_PROFILE_CALLS = 3
+T_TWIN = (128, 192)
+T_TWIN_FRAMES = 4
+
+
+def t_gray(n: int, pan: int, height: int, width: int, device):
+    """(n, H, W) uint8 gray frames panned ``pan`` px per frame along both
+    axes (a negative pan runs a positive one backwards)."""
+    frames = panned_frames(n, height, width, device, step=abs(pan))[..., 0]
+    return (frames if pan > 0 else frames.flip(0)).contiguous()
+
+
+def t_files(root: Path, height: int, width: int) -> dict:
+    """The phase's mask image (a wrapped gradient PGM: a fractional reset
+    mask) and its 5x5 dyadic ``--kernel`` (``.npy``)."""
+    from transflow_tpu_torch.utils.imageio import write_netpbm
+    ii, jj = np.indices((height, width))
+    gradient = root / "gradient.pgm"
+    write_netpbm(str(gradient), ((ii // 4 + jj // 8) % 256).astype(np.uint8))
+    taps = np.array([1, 4, 6, 4, 1], np.float32)
+    kernel = root / "kernel.npy"
+    np.save(kernel, np.outer(taps, taps) / 256)
+    return {"gradient": str(gradient), "kernel": str(kernel)}
+
+
+def t_layers(files: dict) -> list[dict]:
+    """introduction, sum, static and moveref, each with an alpha mask
+    (``T_ALPHA``) and the moving layers with both movement masks; random
+    reset 0.01 under the fractional reset mask on sum and moveref."""
+    moves = dict(mask_src=T_MOVE_SRC, mask_dst=T_MOVE_DST)
+    reset = dict(reset_mode="random", reset_random_factor=0.01,
+                 reset_mask=files["gradient"])
+    return [dict(classname="introduction", mask_alpha=T_ALPHA[0],
+                 moving_pixels_leave_empty_spot=True, **moves),
+            dict(classname="sum", mask_alpha=T_ALPHA[1], **moves, **reset),
+            dict(classname="static", mask_alpha=T_ALPHA[2]),
+            dict(classname="moveref", mask_alpha=T_ALPHA[3],
+                 moving_pixels_leave_empty_spot=True, **moves, **reset)]
+
+
+def t_layer_params(files: dict, height: int, width: int, device):
+    from transflow_tpu_torch.compositor.core import make_layer_params
+    from transflow_tpu_torch.config import LayerConfig
+    from transflow_tpu_torch.utils import load_bool_mask
+    intro = load_bool_mask(T_INTRO_MASK, (height, width))
+    return make_layer_params(
+        [LayerConfig(i, **k) for i, k in enumerate(t_layers(files))],
+        height, width, {0: [(3, intro)], 1: [(3, None)], 2: [(3, None)],
+                        3: [(3, None)]}, device=device)
+
+
+def t_postprocess_kwargs(files: dict) -> list[dict]:
+    """Source 1: ``-d forward -f scale=1.5;clip=8``; source 2: a DSL
+    ``--mask``, the ``--kernel`` and ``-f polar=r:a+0.1*t``."""
+    return [dict(direction="forward", flow_filters=T_FILTERS[0]),
+            dict(direction="backward", mask_path=T_FLOW_MASK,
+                 kernel_path=files["kernel"], flow_filters=T_FILTERS[1])]
+
+
+def run_t_engine(device, grays, files: dict) -> dict:
+    """The Engine over two CvFlowConfig() sources (the gray frames of each
+    pan, ``t_postprocess_kwargs``), ``--merge absmax`` and the four
+    layers: a warm-up chunk, a timed chunk with its launches, then
+    ``process_frame`` calls."""
+    from transflow_tpu_torch.config import Config
+    from transflow_tpu_torch.engine import Engine
+    from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    sources = [frame_source(frames, CvFlowConfig(), **kwargs)
+               for frames, kwargs in zip(grays,
+                                         t_postprocess_kwargs(files))]
+    params = t_layer_params(files, HEIGHT, WIDTH, device)
+    engine = Engine(Config("synthetic", seed=SEED,
+                           flows_merging_function="absmax"),
+                    sources, params, HEIGHT, WIDTH, export_flows=True,
+                    device=device)
+    rng = np.random.default_rng(SEED)
+    pixmaps = tuple((torch.from_numpy(rng.integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device),)
+        for _ in params)
+    slots = tuple((None,) for _ in params)
+    items = [iter(source) for source in sources]
+
+    def take(n):
+        return [[next(it) for _ in range(n)] for it in items]
+
+    warm = take(ENGINE_WARMUP)
+    for runtime, its in zip(engine.runtimes, warm):
+        runtime.reset(its[0].prime)
+    engine.process_chunk([torch.stack([it.array for it in its])
+                          for its in warm], pixmaps, slots, 0, 0)
+    chunk = [torch.stack([it.array for it in its])
+             for its in take(ENGINE_FRAMES)]
+    torch.cuda.synchronize()
+    _zero_launches()
+    start = time.perf_counter()
+    out, flows = engine.process_chunk(chunk, pixmaps, slots, ENGINE_WARMUP,
+                                      ENGINE_WARMUP)
+    finite = torch.isfinite(flows).all()
+    sums = out.sum(dim=(1, 2, 3), dtype=torch.int64)
+    finite, sums = finite.item(), sums.tolist()
+    seconds = time.perf_counter() - start
+    chunk_launches = _launches()
+
+    def step(fno):
+        return engine.process_frame([next(it) for it in items], pixmaps,
+                                    fno / 30.0, tuple((fno,) for _ in params))
+
+    fno0 = ENGINE_WARMUP + ENGINE_FRAMES
+    call_flows = []
+    for k in range(ENGINE_CALLS):
+        frame, flow = step(fno0 + k)
+        call_flows.append(flow)
+    finite = finite and torch.isfinite(torch.stack(call_flows)).all().item()
+    torch.cuda.synchronize()
+    return {"ms": 1e3 * seconds / ENGINE_FRAMES, "out": out, "flows": flows,
+            "finite": finite, "sums": sums, "chunk_launches": chunk_launches,
+            "launches": _launches(), "engine": engine, "step": step,
+            "next_fno": fno0 + ENGINE_CALLS}
+
+
+def t_cli_argv(root: Path, files: dict) -> list[str]:
+    """The CLI over the two PGM sequences with every option of the phase
+    (the CLI gives both sources the same flow options)."""
+    moves = ["--move-mask-source", T_MOVE_SRC, "--move-mask-destination",
+             T_MOVE_DST]
+    reset = ["-r", "random", "0.01", "-m", files["gradient"]]
+    return [str(root / "a" / "%04d.pgm"), "--flow",
+            str(root / "b" / "%04d.pgm"), "-d", "forward", "--mask",
+            T_FLOW_MASK, "--kernel", files["kernel"], "-f",
+            ";".join(T_FILTERS), "--merge", "absmax",
+            "-l", "0", "introduction", "-e", "--mask-alpha", T_ALPHA[0],
+            *moves,
+            "-l", "1", "sum", "--mask-alpha", T_ALPHA[1], *moves, *reset,
+            "-l", "2", "static", "--mask-alpha", T_ALPHA[2],
+            "-l", "3", "moveref", "-e", "--mask-alpha", T_ALPHA[3], *moves,
+            *reset,
+            "-p", "noise", "0", "-i", T_INTRO_MASK, "-p", "gradient", "1",
+            "2", "-p", "cnoise", "3", "--seed", str(SEED),
+            "-o", str(root / "out" / "%04d.ppm")]
+
+
+def t_twin(device, files_small: dict) -> dict:
+    """At 128x192: the post-process chain of each source on the card and
+    on the CPU over the same raw flows (source 2 within the CPU tests'
+    convolution bound, source 1's filters within 4 ulps of the norm and
+    B5 bit-equal on the same filtered flow), then the four-layer
+    compositor on both devices over the CPU's merged flows, bit-equal."""
+    from transflow_tpu_torch import prng
+    from transflow_tpu_torch.compositor.core import build_compositor
+    from transflow_tpu_torch.flow import Direction
+    from transflow_tpu_torch.flow.filters import FlowFilter
+    from transflow_tpu_torch.flow.merge import merge_absmax
+    from transflow_tpu_torch.flow.transforms import make_postprocess
+    from transflow_tpu_torch.ops.image import clip_to_frame
+    from transflow_tpu_torch.ops.scatter import (forward_to_backward_cuda,
+                                                 forward_to_backward_plain)
+    from transflow_tpu_torch.utils import load_float_mask
+    h, w = T_TWIN
+    rng = np.random.default_rng(SEED)
+    raws = [torch.from_numpy((rng.standard_normal((T_TWIN_FRAMES, h, w, 2))
+                              * 4).astype(np.float32)) for _ in range(2)]
+    kernel = np.load(files_small["kernel"])
+    mask = load_float_mask(T_FLOW_MASK, (h, w))
+    filters = FlowFilter.parse_many(T_FILTERS[0])
+    merged, worst = [], {"conv": 0.0, "filter_ulps": 0, "b5": 0}
+    for k in range(T_TWIN_FRAMES):
+        t = np.float32(k / 30.0)
+        outs = {}
+        for dev in (device, "cpu"):
+            f1 = raws[0][k].to(dev)
+            for flt in filters:
+                f1 = flt(f1, t)
+            pp2 = make_postprocess(T_FILTERS[1], mask, kernel,
+                                   Direction.BACKWARD, device=dev)
+            outs[str(dev)] = (f1.cpu(), pp2(raws[1][k].to(dev), t).cpu())
+        (c1, c2), (p1, p2) = outs[str(device)], outs["cpu"]
+        scale = np.abs(kernel).sum() * raws[1][k].abs().max().item()
+        worst["conv"] = max(worst["conv"],
+                            (c2 - p2).abs().max().item() / scale)
+        radius = np.linalg.norm(p1.numpy(), axis=-1, keepdims=True)
+        ulps = np.abs(c1.numpy() - p1.numpy()) / np.spacing(
+            np.maximum(radius, 1e-3).astype(np.float32))
+        worst["filter_ulps"] = max(worst["filter_ulps"], float(ulps.max()))
+        b5 = forward_to_backward_cuda(p1.to(device).contiguous()).cpu()
+        want = forward_to_backward_plain(p1)
+        worst["b5"] += int((b5 != want).sum())
+        merged.append(merge_absmax([clip_to_frame(want), p2]))
+    if worst["conv"] > 1e-5 or worst["filter_ulps"] > 4 or worst["b5"]:
+        raise AssertionError(f"phase T twin: card against CPU {worst}")
+    results = {}
+    for dev in (device, "cpu"):
+        params = t_layer_params(files_small, h, w, dev)
+        init_fn, step_fn = build_compositor(params, h, w, device=dev)
+        state = init_fn()
+        pix = np.random.default_rng(SEED + 1).integers(0, 256, (h, w, 3),
+                                                       np.uint8)
+        pixmaps = tuple((torch.from_numpy(pix).to(dev),) for _ in params)
+        key = prng.key(SEED)
+        for k, flow in enumerate(merged):
+            key, sub = prng.split(key)
+            state, rgb = step_fn(state, flow.to(dev), pixmaps, sub,
+                                 tuple((k,) for _ in params))
+        results[str(dev)] = ([{n: v.cpu() for n, v in layer.items()}
+                              for layer in state], rgb.cpu())
+    (s_dev, rgb_dev), (s_cpu, rgb_cpu) = results[str(device)], results["cpu"]
+    for idx, (a, b) in enumerate(zip(s_dev, s_cpu)):
+        for name in b:
+            if not torch.equal(a[name], b[name]):
+                raise AssertionError(f"phase T twin: layer {idx} {name!r} "
+                                     "differs between the card and the CPU")
+    if not torch.equal(rgb_dev, rgb_cpu):
+        raise AssertionError("phase T twin: compositor frames differ")
+    return worst
+
+
+def phase_postprocess(device, card: str) -> dict:
+    """Phase T: the Engine at 1080x1920 over two Farneback sources with
+    the forward direction, filters, a mask and a kernel, ``absmax`` and
+    the four layer classes with their masks; then the CLI in process over
+    the same options; then the 128x192 twin (``t_twin``). Returns the
+    runs."""
+    import tempfile
+    from transflow_tpu_torch.utils.imageio import write_netpbm
+    n = (1 + ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS + T_SYNC_CALLS
+         + T_PROFILE_CALLS)
+    grays = [t_gray(n, pan, HEIGHT, WIDTH, device) for pan in T_PANS]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_t_") as tmp:
+        root = Path(tmp)
+        files = t_files(root, HEIGHT, WIDTH)
+        run = run_t_engine(device, grays, files)
+        per_frame = tuple(x / ENGINE_FRAMES for x in run["chunk_launches"])
+        if run["chunk_launches"] != tuple(ENGINE_FRAMES * x
+                                          for x in T_PER_FRAME):
+            raise AssertionError(f"phase T: {KERNEL_NAMES} launches per "
+                                 f"frame {per_frame}, expected "
+                                 f"{T_PER_FRAME}")
+        frames_run = ENGINE_FRAMES + ENGINE_CALLS
+        if run["launches"] != tuple(frames_run * x for x in T_PER_FRAME):
+            raise AssertionError(f"phase T: {run['launches']} launches over "
+                                 f"{frames_run} frames")
+        if not run["finite"] or run["out"].shape != (ENGINE_FRAMES, HEIGHT,
+                                                     WIDTH, 3):
+            raise AssertionError(f"phase T: finite {run['finite']}, frames "
+                                 f"{tuple(run['out'].shape)}")
+        print(f"postprocess engine {HEIGHT}x{WIDTH} two CvFlowConfig() "
+              f"sources (pans {T_PANS}; -d forward -f {T_FILTERS[0]!r} | "
+              f"--mask {T_FLOW_MASK} --kernel 5x5 -f {T_FILTERS[1]!r}) "
+              "--merge absmax -> introduction, sum, static, moveref with "
+              f"layer masks: {run['ms']:.2f} ms/frame "
+              f"{1e3 / run['ms']:.2f} frames/s over a chunk of "
+              f"{ENGINE_FRAMES}; launches per frame {per_frame} "
+              f"{KERNEL_NAMES}; per-frame checksums {run['sums']}; on {card}")
+        run["syncs"] = host_syncs(run, T_SYNC_CALLS)
+        print(f"postprocess engine: {run['syncs']:g} host syncs per frame "
+              f"(torch.cuda.set_sync_debug_mode, {T_SYNC_CALLS} "
+              "process_frame calls)")
+        if run["syncs"] != 0:
+            raise AssertionError(f"phase T: {run['syncs']} host syncs per "
+                                 "frame, expected 0")
+        run["profile"] = engine_profile("postprocess engine", run,
+                                        T_PROFILE_CALLS, card)
+        # the forward flow Farneback gives on the pan: B5's main input
+        run["b5_flow"] = run["engine"].runtimes[0].last_raw.contiguous()
+        # the CLI in process over the same sequences and options
+        for name, frames in zip("ab", grays):
+            (root / name).mkdir()
+            for i, frame in enumerate(frames[:T_CLI_FRAMES].cpu().numpy()):
+                write_netpbm(str(root / name / f"{i:04d}.pgm"), frame)
+        (root / "out").mkdir()
+        cli_run = _p_run(t_cli_argv(root, files))
+        flows_n = T_CLI_FRAMES - 1
+        cli_per_frame = (*T_PER_FRAME[:6], 2 * T_PER_FRAME[6])
+        if cli_run["launches"] != tuple(flows_n * x for x in cli_per_frame):
+            raise AssertionError(f"phase T CLI: {KERNEL_NAMES} launches "
+                                 f"{cli_run['launches']}, expected "
+                                 f"{cli_per_frame} per frame over {flows_n}")
+        out = _p_frames(root / "out", flows_n)
+        print(f"postprocess CLI {HEIGHT}x{WIDTH} (both sources -d forward, "
+              f"--mask, --kernel, -f {';'.join(T_FILTERS)!r}, --merge "
+              f"absmax, four layers): {_p_split(cli_run, flows_n)}; "
+              f"launches per frame {cli_per_frame} {KERNEL_NAMES}; "
+              f"{len(out)} frames, {len(np.unique(out[-1]))} distinct "
+              "values in the last")
+        run["cli_launches"] = cli_run["launches"]
+        run["cli_fps"] = flows_n / cli_run["seconds"]
+        (root / "twin").mkdir()
+        files_small = t_files(root / "twin", *T_TWIN)
+        worst = t_twin(device, files_small)
+        print(f"postprocess twin {T_TWIN[0]}x{T_TWIN[1]} card vs CPU over "
+              f"{T_TWIN_FRAMES} frames: source 2's chain within "
+              f"{worst['conv']:.2e} of sum|k| max|flow| (bound 1e-5), source "
+              f"1's filters within {worst['filter_ulps']:g} ulps of the norm "
+              "(bound 4), B5 bit-equal, the four-layer compositor's states "
+              "and frames bit-equal")
+    return run
+
+
+def b5_inputs(device, pan_flow) -> dict:
+    """B5's 1080p inputs: a random forward flow, a converging one (every
+    pixel onto the centre: one word takes every atomic) and Farneback's
+    forward flow on the pan."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ii = torch.arange(HEIGHT, device=device, dtype=torch.float32)[:, None]
+    jj = torch.arange(WIDTH, device=device, dtype=torch.float32)[None, :]
+    converge = torch.stack([(WIDTH // 2 - jj).expand(HEIGHT, WIDTH),
+                            (HEIGHT // 2 - ii).expand(HEIGHT, WIDTH)], -1)
+    return {"random": torch.randn((HEIGHT, WIDTH, 2), generator=gen,
+                                  device=device) * 8,
+            "converge": converge.contiguous(), "farneback pan": pan_flow}
+
+
+def b5_bound_ms(h: int, w: int) -> tuple[float, str]:
+    """B5's bound: the 8-byte flow read and the 8-byte output written
+    once per pixel; its integer work is a few operations per pixel."""
+    return _bound(16 * h * w, 0)
+
+
+def phase_scatter_kernel(device, pan_flow) -> list[dict]:
+    """Kernel B5 against its plain version at 1080x1920 on each of
+    ``b5_inputs``: bit-equal, ``device_ms``, kernel time (every device
+    event of a call: the memset and both kernels), bound and share."""
+    from transflow_tpu_torch.ops.scatter import (forward_to_backward_cuda,
+                                                 forward_to_backward_plain)
+    rows = []
+    for name, flow in b5_inputs(device, pan_flow).items():
+        got = forward_to_backward_cuda(flow)
+        want = forward_to_backward_plain(flow)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        moved = int((want != 0).any(dim=-1).sum().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"B5 {name}: max |err| {err}")
+        bound, by = b5_bound_ms(HEIGHT, WIDTH)
+        row = {"flow": name, "err": err, "bound_ms": bound, "bound_by": by,
+               "device_ms": device_ms(lambda: forward_to_backward_cuda(flow)),
+               "call_ms": call_ms(lambda: forward_to_backward_cuda(flow)),
+               "plain_ms": device_ms(lambda: forward_to_backward_plain(flow),
+                                     PLAIN_LAUNCHES, warmup=1),
+               "call": lambda f=flow: forward_to_backward_cuda(f)}
+        print(f"B5 {HEIGHT}x{WIDTH} {name}: bit-equal to plain ({moved} "
+              f"targets written); device_ms {row['device_ms']:.5f}, bound "
+              f"{bound:.5f} ({by}), share {bound / row['device_ms']:.1%}, "
+              f"call {row['call_ms']:.4f} (host-inclusive), plain "
+              f"{row['plain_ms']:.4f}")
+        rows.append(row)
+    return rows
+
+
 def phase_engine(device, card: str) -> dict:
     """The Engine at lfn_warp_bound=16 and =0 on the same frames; returns
     the runs, the frames and the pixmap."""
@@ -1116,7 +1514,7 @@ def phase_engine(device, card: str) -> dict:
               f"sharded_correlation7x7 {a2}; with {ENGINE_CALLS} "
               f"process_frame calls: {run['launches']}")
         _check_engine_run(f"lfn_warp_bound={bound}", run,
-                          (9 if bound else 0, 5, 0, 0, 0, 0))
+                          (9 if bound else 0, 5, 0, 0, 0, 0, 0))
     diff = (runs[WARP_BOUND]["flows"] - runs[0]["flows"]).abs().max().item()
     print(f"engine max |flow(lfn_warp_bound={WARP_BOUND}) - "
           f"flow(lfn_warp_bound=0)| {diff:.3e} over the chunk")
@@ -1140,7 +1538,8 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
     print(f"mesh engine launches over the chunk: bounded_backwarp {a3}, "
           f"correlation7x7 {a1}, sharded_correlation7x7 {a2}; with "
           f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
-    _check_engine_run("mesh engine", run, (0, 1, A2_PER_FRAME, 0, 0, 0))
+    _check_engine_run("mesh engine", run,
+                      (0, 1, A2_PER_FRAME, 0, 0, 0, 0))
     diff = max((run["flows"] - ref["flows"]).abs().max().item(),
                (run["call_flows"] - ref["call_flows"]).abs().max().item())
     same = (torch.equal(run["out"], ref["out"])
@@ -1530,9 +1929,10 @@ def phase_equivalence(device) -> None:
           f"bit-equal over {EQUIV_FRAMES} frames")
 
 
-def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows) -> None:
-    """``kernel_ms`` of every row that phases 6, 7, 8 and B left a call in;
-    A3's beside ``F.grid_sample``'s."""
+def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows) -> None:
+    """``kernel_ms`` of every row that phases 6, 7, 8, B and T left a call
+    in; A3's beside ``F.grid_sample``'s; B5's over every device event of a
+    call (the memset and both kernels)."""
     for row in rows + a2_rows:
         if "call" not in row:
             continue
@@ -1564,6 +1964,12 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows) -> None:
               f"(torch.profiler, per call) against device_ms "
               f"{row['device_ms']:.5f} and bound {row['bound_ms']:.5f} "
               f"({row['bound_by']})")
+    for row in b5_rows:
+        row["kernel_ms"] = kernel_ms(row.pop("call"), "")
+        print(f"kernel time B5 {row['flow']}: {_ms_text(row['kernel_ms'])} "
+              f"(torch.profiler, per call, memset and both kernels) "
+              f"against device_ms {row['device_ms']:.5f} and bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']})")
 
 
 def _ms_text(ms: float | None) -> str:
@@ -1575,7 +1981,6 @@ def host_syncs(run: dict, calls: int) -> float:
     next ``calls`` frames (``torch.cuda.set_sync_debug_mode`` warns at
     each)."""
     import warnings
-    engine, items, pixmaps = run["engine"], run["items"], run["pixmaps"]
     fno0 = run["next_fno"]
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -1583,8 +1988,7 @@ def host_syncs(run: dict, calls: int) -> float:
         torch.cuda.set_sync_debug_mode("warn")
         try:
             for k in range(calls):
-                engine.process_frame([next(items)], pixmaps,
-                                     (fno0 + k) / 30.0, ((fno0 + k,),))
+                run["step"](fno0 + k)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     run["next_fno"] = fno0 + calls
@@ -1602,7 +2006,6 @@ def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
     time per frame by event name, the ``PROFILE_TOP`` largest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    engine, items, pixmaps = run["engine"], run["items"], run["pixmaps"]
     fno0 = run["next_fno"]
     run["next_fno"] = fno0 + calls
     torch.cuda.synchronize()
@@ -1610,9 +2013,7 @@ def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         for k in range(calls):
-            fno = fno0 + k
-            engine.process_frame([next(items)], pixmaps, fno / 30.0,
-                                 ((fno,),))
+            run["step"](fno0 + k)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - start) / calls
     device_events = [e for e in prof.events()
@@ -1985,6 +2386,7 @@ def main() -> int:
     reports = phase_build()
     fb_runs = phase_farneback_engine(device, card)
     phase_pipeline(device, card)
+    t_run = phase_postprocess(device, card)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
     mesh_run = phase_mesh_engine(device, card, engine_phase)
@@ -1992,9 +2394,10 @@ def main() -> int:
     warp_rows = phase_warp_kernels(device)
     a2_rows = phase_sharded_kernels(device)
     fb_rows = phase_farneback_kernels(device)
+    b5_rows = phase_scatter_kernel(device, t_run["b5_flow"])
     phase_equivalence(device)
     phase_draw(device)
-    phase_kernel_time(rows, a2_rows, warp_rows, fb_rows)
+    phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows)
     engine_profile("farneback engine CvFlowConfig()",
                    fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS, card)
     if args.against:
@@ -2130,6 +2533,36 @@ def main() -> int:
             "library": "none: hand-written for jnp code (no Pallas source); "
                        "no single PyTorch call computes it",
         })
+    b5_main = next(r for r in b5_rows if r["flow"] == "farneback pan")
+    print(f"forward_to_backward per frame (one call on the pan's forward "
+          f"flow): device_ms {b5_main['device_ms']:.5f}, kernel_ms "
+          f"{_ms_text(b5_main['kernel_ms'])}, bound "
+          f"{b5_main['bound_ms']:.5f}, call {b5_main['call_ms']:.4f} "
+          f"(host-inclusive), plain {b5_main['plain_ms']:.4f}")
+    record["kernels"].append({
+        "name": "forward_to_backward",
+        "route": "cuda",
+        "source": "transflow_tpu_torch/csrc/scatter.cu",
+        "replaces": "transflow_tpu/ops/scatter.py:29",
+        "replaces_function": "scatter.py:29 scatter_last_wins, as "
+                             "flow/transforms.py:33 forward_to_backward "
+                             "runs it",
+        # phase T's Engine and CLI runs (two kernel launches a call)
+        "launches": t_run["launches"][6] + t_run["cli_launches"][6],
+        "max_abs_err": max(r["err"] for r in b5_rows),
+        # per frame: one call on Farneback's forward flow on the pan
+        "ms": b5_main["device_ms"],
+        "device_ms": b5_main["device_ms"],
+        "kernel_ms": b5_main["kernel_ms"],
+        "call_ms": b5_main["call_ms"],
+        "plain_ms": b5_main["plain_ms"],
+        "bound_ms": b5_main["bound_ms"],
+        "bound_by": b5_main["bound_by"],
+        "library_ms": None,
+        "library": "none: index_put_ with duplicate indices picks a "
+                   "writer in no fixed order on CUDA, so it is not the "
+                   "same function",
+    })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -184,3 +184,135 @@ def test_video_input_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="item 14.2"):
         cli.main(["clip.mp4", "-p", "noise", "-o",
                   str(tmp_path / "%04d.ppm"), "--no-exec"], device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# flow post-processing, merges and every layer class, disk to disk
+# ---------------------------------------------------------------------------
+
+POST_FRAMES = 6
+POST_H, POST_W = 48, 64
+
+
+@pytest.fixture(scope="module")
+def post_inputs(tmp_path_factory):
+    """Three six-frame ``.flow.zip`` archives (one forward, two backward:
+    no estimator, so both packages post-process the same raw flows), a
+    fractional PGM mask and a two-tap dyadic kernel (one rounding per
+    output in any order of sums, so the convolutions agree bit for bit)."""
+    from transflow_tpu_torch.flow import Direction
+    from transflow_tpu_torch.output.archive import NumpyArchiveOutput
+    from transflow_tpu_torch.utils.imageio import write_netpbm
+    root = tmp_path_factory.mktemp("cli_post")
+    rng = np.random.default_rng(8)
+    paths = {}
+    for name, direction, scale in (("fwd", Direction.FORWARD, 5.0),
+                                   ("a", Direction.BACKWARD, 4.0),
+                                   ("b", Direction.BACKWARD, 2.0)):
+        paths[name] = str(root / f"{name}.flow.zip")
+        out = NumpyArchiveOutput(paths[name], {
+            "width": POST_W, "height": POST_H, "framerate": 25.0,
+            "direction": direction.value}, replace=True)
+        for _ in range(POST_FRAMES):
+            out.write_array((rng.standard_normal((POST_H, POST_W, 2))
+                             * scale).astype(np.float32))
+        out.close()
+    ii, jj = np.indices((POST_H, POST_W))
+    paths["gradient"] = str(root / "gradient.pgm")
+    write_netpbm(paths["gradient"], ((ii * 9 + jj * 5) % 256)
+                 .astype(np.uint8))
+    paths["kernel"] = str(root / "kernel.npy")
+    np.save(paths["kernel"], np.array([[0, 0, 0], [0, 0.5, 0.25],
+                                       [0, 0, 0]], np.float32))
+    paths["root"] = root
+    return paths
+
+
+def _render(package, argv, out_dir):
+    """``argv`` rendered by ``package`` ("jax", or the port on the CPU)
+    into ``out_dir/%04d.ppm``; returns the frames."""
+    from transflow_tpu_torch.utils.imageio import read_netpbm
+    out_dir.mkdir(exist_ok=True)
+    argv = list(argv) + ["-o", str(out_dir / "%04d.ppm"), "--no-exec",
+                         "--overwrite"]
+    if package == "jax":
+        jcli.main(argv)
+    else:
+        cli.main(argv, device="cpu")
+    names = sorted(p.name for p in out_dir.glob("*.ppm"))
+    return np.stack([read_netpbm(str(out_dir / n)) for n in names])
+
+
+def _layers_argv(p):
+    """introduction, sum, static and moveref layers, each with the four
+    layer masks, and pixmaps with ``-i`` introduction masks."""
+    masks = ["--move-mask-source", "rect:80%:70%",
+             "--move-mask-destination", "circle:45%:inv", "-m",
+             p["gradient"]]
+    # a 3-channel pixmap's alpha is 0 or 1: the introduction's fractional
+    # alpha mask hides it below 1 (the product and its truncation still
+    # run); the other layers take 0/1 alpha masks and show
+    return [p["a"], "--seed", "4",
+            "-l", "0", "introduction", "-e", "--mask-alpha", p["gradient"],
+            *masks,
+            "-l", "1", "sum", "-r", "random", "0.2", "--mask-alpha",
+            "rect:90%:90%", *masks,
+            "-l", "2", "static", "--mask-alpha", "border:5", *masks,
+            "-l", "3", "moveref", "-r", "constant", "1.5", "-e",
+            "--mask-alpha", "circle:35%", *masks,
+            "-p", "noise", "0", "1", "3", "-i", "border-left:50%",
+            "-p", "gradient", "0", "2", "-i", "circle:40%",
+            "-p", "cnoise", "3"]
+
+
+def _post_argv(name, p):
+    if name == "forward":
+        return [p["fwd"], "-d", "forward", "--mask", "circle:45%",
+                "--kernel", p["kernel"], "-f",
+                "scale=1.5;threshold=1;clip=5", "-p", "noise", "-r",
+                "random", "0.1", "--seed", "2"]
+    if name == "layers":
+        return _layers_argv(p)
+    return [p["a"], "--flow", p["b"], "--merge", name.split("-")[1], "-p",
+            "noise", "-r", "linear", "-e", "--seed", "3"]
+
+
+@pytest.mark.parametrize("name", ["forward", "layers"] + [
+    f"merge-{m}" for m in ("first", "sum", "average", "difference",
+                           "product", "maskbin", "masklin", "absmax")])
+def test_postprocess_and_layers_render_like_jax(post_inputs, name):
+    """The CLI on ``.flow.zip`` inputs with ``-d forward``, ``--mask``, a
+    dyadic ``--kernel`` and scale/threshold/clip filters; two sources
+    under each merge; the four layer classes with every layer mask and
+    ``-i``: frames bit-equal to the JAX CLI's."""
+    argv = _post_argv(name, post_inputs)
+    root = post_inputs["root"]
+    got = _render("port", argv, root / f"{name}_port")
+    want = _render("jax", argv, root / f"{name}_jax")
+    assert got.shape == (POST_FRAMES, POST_H, POST_W, 3)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) > 2
+
+
+@pytest.mark.parametrize("writer,resumer", [("jax", "port"),
+                                            ("port", "jax")])
+def test_layer_checkpoints_resume_across_packages(post_inputs, writer,
+                                                  resumer):
+    """A ``.ckpt.zip`` of the four layer classes written by either CLI and
+    resumed by the other renders the writer's remaining frames."""
+    from transflow_tpu_torch.utils.imageio import read_netpbm
+    root = post_inputs["root"]
+    out_dir = root / f"ckpt_{writer}"
+    argv = _layers_argv(post_inputs) + ["--checkpoint-every", "3"]
+    frames = _render(writer, argv, out_dir)
+    for k in range(3, POST_FRAMES):
+        (out_dir / f"{k:04d}.ppm").unlink()
+    ckpt = out_dir / "%04d_00003.ckpt.zip"
+    assert ckpt.exists()
+    if resumer == "jax":
+        jcli.main([str(ckpt), "--no-exec", "--overwrite"])
+    else:
+        cli.main([str(ckpt), "--no-exec", "--overwrite"], device="cpu")
+    resumed = np.stack([read_netpbm(str(out_dir / f"{k:04d}.ppm"))
+                        for k in range(3, POST_FRAMES)])
+    np.testing.assert_array_equal(resumed, frames[3:])

@@ -1,4 +1,4 @@
-"""The port's moveref compositor against the JAX package's, bit for bit.
+"""The port's compositor against the JAX package's, bit for bit.
 
 Both get the same flows (large integer and half-integer motion, clipped
 to the frame) and the same key: the port's ``update`` splits it into
@@ -178,13 +178,14 @@ def test_parse_color_matches_jax():
         assert colors.parse_color(text) == jax_colors.parse_color(text), text
 
 
-def test_unported_layers_and_masks_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        core.make_layer_params([LayerConfig(0, mask_src="mask.png")], H, W,
-                               {0: [(3, None)]}, device="cpu")
-    for classname in ("introduction", "sum", "static"):
-        params = core.make_layer_params(
-            [LayerConfig(0, classname=classname)], H, W, {0: [(3, None)]},
-            device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            core.build_compositor(params, H, W, device="cpu")
+@pytest.mark.parametrize("cfg_kwargs", [
+    {"mask_src": "circle:40%", "moving_pixels_leave_empty_spot": True},
+    {"classname": "introduction"},
+    {"classname": "sum", "reset_mode": "random", "reset_random_factor": 0.1},
+    {"classname": "static"}], ids=["mask_src", "introduction", "sum",
+                                   "static"])
+def test_layer_classes_and_masks_bit_exact(cfg_kwargs):
+    """The options an earlier port refused (a layer mask, the introduction,
+    sum and static classes), bit-equal to the JAX compositor;
+    tests/test_torch_layers.py holds every class, mask and flag."""
+    _run_both(cfg_kwargs, "two", seed=3)

@@ -405,3 +405,66 @@ def test_cli_on_card_matches_cpu(device, monkeypatch, tmp_path):
     for a, b in zip(run(archive, "replay_card", None),
                     run(archive, "replay_cpu", "cpu")):
         np.testing.assert_array_equal(a, b)
+
+
+def _b5_flows(h, w, device):
+    """Forward flows for B5: random, converging on one pixel (every
+    atomic on one word), half-integers (round half to even) and mostly
+    off the frame."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    ii = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    jj = torch.arange(w, device=device, dtype=torch.float32)[None, :]
+    converge = torch.stack([(w // 2 - jj).expand(h, w),
+                            (h // 2 - ii).expand(h, w)], dim=-1)
+    halves = torch.randint(-8, 9, (h, w, 2), generator=gen,
+                           device=device).float() + 0.5
+    return {"random": torch.randn((h, w, 2), generator=gen,
+                                  device=device) * 6,
+            "converge": converge.contiguous(), "halves": halves,
+            "leave": torch.randn((h, w, 2), generator=gen,
+                                 device=device) * 4 * max(h, w)}
+
+
+@pytest.mark.parametrize("kind", ["random", "converge", "halves", "leave"])
+@pytest.mark.parametrize("shape", [(1, 1), (7, 5), (48, 64), (135, 240),
+                                   (270, 481)], ids=str)
+def test_forward_to_backward_matches_plain(device, shape, kind):
+    """Kernel B5 against its plain version on the same flow: bit-equal
+    (exact integers, and the winner is a maximum, so no order of the
+    atomics shows); two launches per call; the dispatcher takes the
+    kernel for a CUDA tensor."""
+    from transflow_tpu_torch.ops import scatter
+    h, w = shape
+    flow = _b5_flows(h, w, device)[kind]
+    before = scatter.forward_to_backward_cuda.launches
+    got = scatter.forward_to_backward(flow)
+    torch.cuda.synchronize()
+    assert scatter.forward_to_backward_cuda.launches == before + 2
+    want = scatter.forward_to_backward_plain(flow)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), scatter.forward_to_backward_plain(
+        flow.cpu()))
+
+
+def test_postprocess_chain_on_card_matches_cpu(device):
+    """The backward chain (filters with polar, a fractional mask, a 5x5
+    kernel, the clip) on the card against the CPU: the transcendental
+    functions and cuDNN's convolution (TF32 off) differ in rounding only,
+    so within the CPU tests' bound for the convolution."""
+    from transflow_tpu_torch.flow import Direction
+    from transflow_tpu_torch.flow.transforms import make_postprocess
+    h, w = 64, 96
+    rng = np.random.default_rng(3)
+    ii, jj = np.indices((h, w))
+    mask = ((ii * 9 + jj * 5) % 256 / 255.0).astype(np.float32)
+    kernel = rng.random((5, 5)).astype(np.float32)
+    flow = torch.from_numpy((rng.standard_normal((h, w, 2)) * 3)
+                            .astype(np.float32))
+    text = "scale=1.5;clip=8;polar=r:a+0.1*t"
+    outs = {}
+    for where in (device, "cpu"):
+        pp = make_postprocess(text, mask, kernel, Direction.BACKWARD,
+                              device=where)
+        outs[str(where)] = pp(flow.to(where), np.float32(0.5)).cpu()
+    scale = np.abs(kernel).sum() * 12
+    assert (outs[str(device)] - outs["cpu"]).abs().max() <= 1e-5 * scale

@@ -548,3 +548,207 @@ def test_renderers_match_jax(scale, colors):
                                 binary)
         assert got.dtype == torch.uint8 and got.shape == (20, 30, 3)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# post-processing, merges and every layer class through the Engine
+# ---------------------------------------------------------------------------
+
+# two dyadic taps: one rounding per output, whatever the order of sums, so
+# F.conv2d and XLA's convolution agree bit for bit on any flow
+TWO_TAP_KERNEL = np.array([[0, 0, 0], [0, 0.5, 0.25], [0, 0, 0]], np.float32)
+
+
+@pytest.fixture(scope="module")
+def layer_files(tmp_path_factory):
+    """A fractional PGM mask (a wrapped gradient) and the kernel .npy."""
+    from transflow_tpu_torch.utils.imageio import write_netpbm
+    root = tmp_path_factory.mktemp("engine_files")
+    ii, jj = np.indices((H, W))
+    write_netpbm(str(root / "gradient.pgm"),
+                 ((ii * 9 + jj * 5) % 256).astype(np.uint8))
+    np.save(root / "kernel.npy", TWO_TAP_KERNEL)
+    return {"gradient": str(root / "gradient.pgm"),
+            "kernel": str(root / "kernel.npy")}
+
+
+def _flow_sources(flows_list, direction="backward", **kwargs):
+    """(port, JAX) stub flow sources over each flows array."""
+    pairs = []
+    for flows in flows_list:
+        pair = (_source(base, flows, "flow", **kwargs),
+                _source(jbase, flows, "flow", **kwargs))
+        pair[0].direction = Direction.from_arg(direction)
+        pair[1].direction = jbase.Direction.from_arg(direction)
+        pairs.append(pair)
+    return pairs
+
+
+def _layered_engines(layers: list[dict], sources_by_layer: dict,
+                     cfg_kwargs: dict, sources):
+    """(port Engine, JAX Engine) with one layer per dict of ``layers``."""
+    lp = core.make_layer_params(
+        [config.LayerConfig(i, **k) for i, k in enumerate(layers)], H, W,
+        sources_by_layer, device="cpu")
+    jlp = jcore.make_layer_params(
+        [jconfig.LayerConfig(i, **k) for i, k in enumerate(layers)], H, W,
+        sources_by_layer)
+    eng = engine.Engine(config.Config("in.mp4", **cfg_kwargs),
+                        [s for s, _ in sources], lp, H, W,
+                        export_flows=True, device="cpu")
+    jeng = jengine.Engine(jconfig.Config("in.mp4", **cfg_kwargs),
+                          [j for _, j in sources], jlp, H, W,
+                          export_flows=True)
+    eng._framerate = jeng._framerate = FPS
+    return eng, jeng
+
+
+def _pixmap_trees(params, seed=4):
+    rng = np.random.default_rng(seed)
+    pix = tuple(tuple(rng.integers(0, 256, (H, W, c), dtype=np.uint8)
+                      for c in p.channel_counts) for p in params)
+    return (pix, tuple(tuple(jnp.asarray(x) for x in layer)
+                       for layer in pix))
+
+
+def _run_engines(eng, jeng, flows_list, path: str):
+    """Both Engines over the flows, by chunk or frame by frame; returns
+    (frames, flows, JAX frames, JAX flows) as numpy."""
+    pix, jpix = _pixmap_trees(eng.layer_params)
+    if path == "chunk":
+        slots = tuple((None,) * len(layer) for layer in pix)
+        frames, out = eng.process_chunk(list(flows_list), pix, slots, 0, 0)
+        jframes, jout = jeng.process_chunk(list(flows_list), jpix, slots,
+                                           0, 0)
+        return (frames.numpy(), out.numpy(), np.asarray(jframes),
+                np.asarray(jout))
+    tpix = tuple(tuple(torch.from_numpy(x) for x in layer) for layer in pix)
+    got, jgot = [], []
+    items = zip(*[rt.source for rt in eng.runtimes])
+    jitems = zip(*[rt.source for rt in jeng.runtimes])
+    for idx, (its, jits) in enumerate(zip(items, jitems)):
+        numbers = tuple((idx,) * len(layer) for layer in pix)
+        got.append(eng.process_frame(list(its), tpix, idx / FPS, numbers))
+        jgot.append(jeng.process_frame(list(jits), jpix, idx / FPS,
+                                       numbers))
+    return (np.stack([f.numpy() for f, _ in got]),
+            np.stack([f.numpy() for _, f in got]),
+            np.stack([np.asarray(f) for f, _ in jgot]),
+            np.stack([np.asarray(f) for _, f in jgot]))
+
+
+@pytest.mark.parametrize("path", ["chunk", "frame"])
+def test_forward_mask_kernel_filters_engine_matches_jax(path, layer_files):
+    """``-d forward``, a DSL ``--mask``, a dyadic ``--kernel`` and the
+    scale/threshold/clip filters on a flow source: frames and flows
+    bit-equal to the JAX Engine's."""
+    flows = _flows(6, seed=2) * 1.7
+    sources = _flow_sources(
+        [flows], "forward", mask_path="circle:45%",
+        kernel_path=layer_files["kernel"],
+        flow_filters="scale=1.5;threshold=1;clip=5+np.sin(t)")
+    eng, jeng = _layered_engines(
+        [dict(reset_mode="random", reset_random_factor=0.1)],
+        {0: [(3, None)]}, dict(direction="forward", seed=1), sources)
+    frames, out, jframes, jout = _run_engines(eng, jeng, [flows], path)
+    np.testing.assert_array_equal(out, jout)
+    np.testing.assert_array_equal(frames, jframes)
+    _assert_states_equal(eng.comp_state, jeng.comp_state)
+    assert np.abs(out).max() > 1            # the forward mapping moves
+
+
+@pytest.mark.parametrize("name", ["first", "sum", "average", "difference",
+                                  "product", "maskbin", "masklin",
+                                  "absmax"])
+def test_merges_engine_matches_jax(name):
+    """Two flow sources under each merge: bit-equal to the JAX Engine."""
+    a, b = _flows(6, seed=3), _flows(6, seed=4) * 0.5
+    sources = _flow_sources([a, b])
+    eng, jeng = _layered_engines(
+        [dict(reset_mode="linear", moving_pixels_leave_empty_spot=True)],
+        {0: [(3, None)]},
+        dict(direction="backward", seed=2, flows_merging_function=name),
+        sources)
+    frames, out, jframes, jout = _run_engines(eng, jeng, [a, b], "chunk")
+    np.testing.assert_array_equal(out, jout)
+    np.testing.assert_array_equal(frames, jframes)
+
+
+def _all_layers(files):
+    """introduction, sum, static and moveref, each with all four layer
+    masks, and ``-i`` introduction masks on two sources."""
+    masks = dict(mask_src="rect:80%:70%", mask_dst="circle:45%:inv",
+                 reset_mask=files["gradient"])
+    # a 3-channel pixmap's alpha is 0 or 1: the fractional alpha mask
+    # hides it, a 0/1 one shows part of it
+    layers = [dict(classname="introduction", mask_alpha=files["gradient"],
+                   moving_pixels_leave_empty_spot=True, **masks),
+              dict(classname="sum", reset_mode="random",
+                   reset_random_factor=0.2, mask_alpha="rect:90%:90%",
+                   **masks),
+              dict(classname="static", mask_alpha="border:5", **masks),
+              dict(reset_mode="constant", reset_constant_step=1.5,
+                   mask_alpha="circle:35%",
+                   moving_pixels_leave_empty_spot=True, **masks)]
+    left = np.zeros((H, W), bool)
+    left[:, :W // 3] = True
+    sources_by_layer = {0: [(3, left), (4, ~left)], 1: [(3, None)],
+                        2: [(4, np.indices((H, W))[0] > H // 2)],
+                        3: [(3, None), (3, left)]}
+    return layers, sources_by_layer
+
+
+@pytest.mark.parametrize("path", ["chunk", "frame"])
+def test_every_layer_class_engine_matches_jax(path, layer_files):
+    flows = _flows(6, seed=5)
+    sources = _flow_sources([flows])
+    layers, by_layer = _all_layers(layer_files)
+    eng, jeng = _layered_engines(layers, by_layer,
+                                 dict(direction="backward", seed=3), sources)
+    frames, _, jframes, _ = _run_engines(eng, jeng, [flows], path)
+    np.testing.assert_array_equal(frames, jframes)
+    _assert_states_equal(eng.comp_state, jeng.comp_state)
+
+
+def test_polar_filter_engine_within_bound():
+    """``polar``: transcendental functions in float32 on each side, so
+    the post-processed flows agree within 8 ulps of their radius
+    (tests/test_torch_postprocess.py holds the filter to 4)."""
+    flows = _flows(4, seed=6)
+    text = "polar=r:a+0.1*t"
+    sources = _flow_sources([flows], flow_filters=text)
+    eng, jeng = _layered_engines([{}], {0: [(3, None)]},
+                                 dict(direction="backward", seed=4), sources)
+    _, out, _, jout = _run_engines(eng, jeng, [flows], "frame")
+    radius = np.linalg.norm(jout, axis=-1, keepdims=True)
+    assert (np.abs(out - jout) <= 8 * np.spacing(radius)).all()
+
+
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+def test_every_layer_class_checkpoint_cross_loads(direction, layer_files):
+    """Checkpoints of the four classes (int32 sum positions, the 0-d bool
+    ``introduced_once``) written by either package resume in the other:
+    the reader renders the writer's following frames bit for bit."""
+    flows = _flows(8, seed=7)
+    layers, by_layer = _all_layers(layer_files)
+    eng, jeng = _layered_engines(layers, by_layer,
+                                 dict(direction="backward", seed=5),
+                                 _flow_sources([flows]))
+    pix, jpix = _pixmap_trees(eng.layer_params)
+    slots = tuple((None,) * len(layer) for layer in pix)
+    head, tail = flows[:4], flows[4:]
+    if direction == "jax-to-port":
+        jeng.process_chunk([head], jpix, slots, 0, 0)
+        eng.load_state_arrays(jeng.state_arrays())
+    else:
+        eng.process_chunk([head], pix, slots, 0, 0)
+        jeng.load_state_arrays(eng.state_arrays())
+    arrays = eng.state_arrays()
+    assert arrays["layer1.pos_i"].dtype == np.int32
+    assert arrays["layer0.introduced_once"].shape == ()
+    assert arrays["layer0.introduced_once"].dtype == np.bool_
+    _assert_states_equal(eng.comp_state, jeng.comp_state)
+    frames, _ = eng.process_chunk([tail], pix, slots, 4, 4)
+    jframes, _ = jeng.process_chunk([tail], jpix, slots, 4, 4)
+    np.testing.assert_array_equal(frames.numpy(), np.asarray(jframes))
+    _assert_states_equal(eng.comp_state, jeng.comp_state)

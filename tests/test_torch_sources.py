@@ -208,10 +208,24 @@ def test_lock_before_first_flow_raises():
 
 
 @pytest.mark.parametrize("option", ["mask_path", "kernel_path"])
-def test_postprocess_mask_and_kernel_raise(option):
-    src = _stub(base, "flow", direction="backward", **{option: "x.npy"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        src.build_postprocess()
+def test_postprocess_mask_and_kernel_match_jax(option, tmp_path):
+    """A source's ``--mask`` (a DSL rule, loaded at the source's size) and
+    ``--kernel`` (an ``.npy`` file) reach the post-process as in the JAX
+    package: bit-equal on integer flows with dyadic taps."""
+    value = "circle:40%"
+    if option == "kernel_path":
+        value = str(tmp_path / "kernel.npy")
+        np.save(value, np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]],
+                                np.float32) / 16)
+    src = _stub(base, "flow", direction="backward", **{option: value})
+    jsrc = _stub(jbase, "flow", direction="backward", **{option: value})
+    flow = np.random.default_rng(0).integers(-6, 7, (H, W, 2)) \
+        .astype(np.float32)
+    got = src.build_postprocess(device="cpu")(torch.from_numpy(flow), 0.0)
+    want = jsrc.build_postprocess()(flow, 0.0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    bare = _stub(base, "flow", direction="backward").build_postprocess()
+    assert not torch.equal(got, bare(torch.from_numpy(flow), 0.0))
 
 
 def test_backward_postprocess_clips_to_frame():
@@ -315,11 +329,15 @@ def test_expression_errors_match_jax(text):
     assert str(got.value) == str(want.value)
 
 
-def test_expression_arrays_not_ported():
+def test_expression_arrays_match_jax():
+    """Array arguments (the polar filter's r and a) evaluate as in the JAX
+    package; tests/test_torch_expr.py holds the float32 arithmetic."""
     fn = expr.parse_expression("r * 2", ("t", "r", "a"))
-    assert fn(1.0, 2.0, 3.0) == 4.0
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fn(1.0, np.ones((2, 2)), np.ones((2, 2)))
+    jfn = jexpr.parse_expression("r * 2", ("t", "r", "a"))
+    assert fn(1.0, 2.0, 3.0) == jfn(1.0, 2.0, 3.0) == 4.0
+    r = np.linspace(-3, 3, 12, dtype=np.float32).reshape(3, 4)
+    got = fn(1.0, torch.from_numpy(r), torch.from_numpy(r))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jfn(1.0, r, r)))
     with pytest.raises(TypeError, match="3 arguments"):
         fn(1.0)
 

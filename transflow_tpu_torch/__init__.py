@@ -10,7 +10,9 @@ behind ``lfn_warp_bound``), through the flagship step
 ``model.FlowTransferModel`` and the device ``engine.Engine`` over flow
 sources whose ``CvFlowConfig`` selects the estimator, under a
 ``parallel.SpaceMesh`` too (the sharded correlation and movement gather),
-with JAX's own random numbers (``prng``); and the disk-to-disk
+with JAX's own random numbers (``prng``); the flow post-processing
+(filters, masks, kernels, ``-d forward`` through kernel B5), the merges
+and every layer class with its masks; and the disk-to-disk
 ``pipeline.Pipeline`` behind the JAX package's command line
 (``python -m transflow_tpu_torch``, ``cli.py``), over image sequences and
 ``.flow.zip`` archives, writing frames, flow archives and checkpoints.

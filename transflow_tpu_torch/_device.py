@@ -51,6 +51,8 @@ _SIGNATURES = {
     # sum, vertical taps (host), horizontal taps (host), stream
     "transflow_aggregate_solve": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                                   _P),
+    # flow, winner (int32 scratch), out, H, W, stream
+    "transflow_forward_to_backward": (_P, _P, _P, _I, _I, _P),
 }
 
 

@@ -1,4 +1,4 @@
-"""Functional compositor core of the port: the moveref layer.
+"""Functional compositor core of the port: every layer class.
 
 Counterpart of transflow_tpu/compositor/core.py. A layer update is a
 function of the layer's state dict of tensors, as in JAX; the reference's
@@ -9,8 +9,14 @@ and matches the JAX package bit for bit given the same flow and key: the
 random reset draws ``prng.uniform`` from the same threefry key as
 ``jax.random.uniform``.
 
-Ported: the moveref class with its four reset modes. The introduction, sum
-and static classes and mask files wait for ROADMAP Queue 1 (items 7 and 4).
+The four classes (moveref, sum, static, introduction), the four reset
+modes and the four layer masks (``mask_alpha``, ``mask_src``,
+``mask_dst``, ``reset_mask``) are ported. A mask the config leaves unset
+is all ones in the JAX package; here it is None and the step skips its
+product or test, which gives the same values. Documented deviations from
+the reference are the JAX package's (core.py:17-24): introduction's
+exclusions have their intended meaning, and sum moves along (dy -> i,
+dx -> j).
 """
 from typing import Sequence
 
@@ -23,45 +29,59 @@ from ..config import LayerConfig
 from ..ops.halo_gather import (bounded_row_gather, clamped_rows,
                                sharded_bounded_gather)
 from ..ops.scatter import scatter_any
-from ..utils import parse_color
+from ..utils import load_bool_mask, load_float_mask, parse_color
 
 # compact carry dtypes of the JAX package (core.py:47-49): in-frame
-# coordinates fit int16, alpha is 0..255, source indexes < 256 pixmaps
+# coordinates fit int16, alpha is 0..255, source indexes < 256 pixmaps.
+# Sum layers keep int32 positions: their displacement accumulates without
+# bound.
 POS_DTYPE = torch.int16
 ALPHA_DTYPE = torch.uint8
 SOURCE_DTYPE = torch.uint8
 
-_MASKS = ("mask_alpha", "mask_src", "mask_dst", "reset_mask")
-
-
-def _require_moveref(cfg: LayerConfig) -> None:
-    if cfg.classname != "moveref":
-        raise NotImplementedError(
-            f"layer class {cfg.classname!r} is not ported yet: ROADMAP "
-            "Queue 1, item 7 (other layer classes)")
+# the reset mode's factor, which the reset mask multiplies
+_RESET_FACTORS = {"random": "reset_random_factor",
+                  "constant": "reset_constant_step",
+                  "linear": "reset_linear_factor"}
 
 
 class LayerParams:
-    """Per-layer parameters: the config and the per-source introduction
-    masks on ``device``. The config's masks (``mask_alpha``, ``mask_src``,
-    ``mask_dst``, ``reset_mask``) are None, meaning all ones: the layers
-    that read them are not ported yet."""
+    """Per-layer parameters: the config, its masks and the per-source
+    introduction masks, on ``device``, loaded once.
+
+    ``mask_alpha`` (float), ``mask_src`` and ``mask_dst`` (bool) are (H, W)
+    tensors, or None where the config sets none (all ones). ``reset_factor``
+    is the reset mode's float32 factor times the float ``reset_mask``, in
+    float32 as JAX's weak-typed product (core.py:278, :299, :310): an (H,
+    W) tensor, or a 0-d one without a mask; None for mode "off"."""
 
     def __init__(self, cfg: LayerConfig, height: int, width: int,
                  intro_masks: Sequence[np.ndarray],
                  channel_counts: Sequence[int], device=None):
-        for name in _MASKS:
-            if getattr(cfg, name) is not None:
-                raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r}: layer masks are not "
-                    "ported yet: ROADMAP Queue 1, item 7 (other layer "
-                    "classes and layer masks)")
         self.cfg = cfg
         self.height = height
         self.width = width
         self.device = resolve_device(device)
-        self.mask_alpha = self.mask_src = self.mask_dst = None
-        self.reset_mask = None
+        shape = (height, width)
+
+        def put(array):
+            return torch.as_tensor(array, device=self.device)
+
+        self.mask_alpha = None if cfg.mask_alpha is None else put(
+            load_float_mask(cfg.mask_alpha, shape, 1.0))
+        self.mask_src = None if cfg.mask_src is None else put(
+            load_bool_mask(cfg.mask_src, shape, True))
+        self.mask_dst = None if cfg.mask_dst is None else put(
+            load_bool_mask(cfg.mask_dst, shape, True))
+        self.reset_factor = None
+        if cfg.reset_mode in _RESET_FACTORS:
+            factor = float(np.float32(getattr(cfg,
+                                              _RESET_FACTORS[cfg.reset_mode])))
+            self.reset_factor = (
+                torch.full((), factor, dtype=torch.float32,
+                           device=self.device) if cfg.reset_mask is None
+                else put(load_float_mask(cfg.reset_mask, shape, 1.0))
+                * factor)
         self.intro_masks = tuple(
             torch.as_tensor(np.asarray(m, dtype=bool), device=self.device)
             for m in intro_masks)
@@ -88,21 +108,40 @@ def _base_coords(height: int, width: int, device):
 
 
 def init_layer_state(params: LayerParams) -> dict:
-    """Identity mapping, opaque (reference.py:38-42)."""
-    _require_moveref(params.cfg)
+    """A layer's first state (core.py:118-151): static starts opaque
+    (static.py:9-12); introduction empty, with its own colours, frame
+    numbers and a 0-d ``introduced_once``; moveref and sum an identity
+    mapping, opaque (reference.py:38-42), sum with int32 positions."""
     h, w = params.height, params.width
+    classname = params.cfg.classname
     if not (h < 32768 and w < 32768):
         raise ValueError("POS_DTYPE int16 requires dims < 32768")
     if len(params.intro_masks) >= 256:
         raise ValueError("SOURCE_DTYPE uint8 caps sources at 255")
-    ii, jj = _base_coords(h, w, params.device)
+    device = params.device
+    rgba = torch.zeros((h, w, 4), dtype=torch.uint8, device=device)
+    if classname == "static":
+        rgba[..., 3] = 1
+        return {"rgba": rgba}
+    if classname == "introduction":
+        return {
+            "rgb": torch.zeros((h, w, 3), dtype=torch.uint8, device=device),
+            "alpha": torch.zeros((h, w), dtype=ALPHA_DTYPE, device=device),
+            "source": torch.zeros((h, w), dtype=SOURCE_DTYPE, device=device),
+            "pos_i": torch.zeros((h, w), dtype=POS_DTYPE, device=device),
+            "pos_j": torch.zeros((h, w), dtype=POS_DTYPE, device=device),
+            "frame": torch.zeros((h, w), dtype=torch.int32, device=device),
+            "introduced_once": torch.zeros((), dtype=torch.bool,
+                                           device=device),
+        }
+    pos_dtype = torch.int32 if classname == "sum" else POS_DTYPE
+    ii, jj = _base_coords(h, w, device)
     return {
-        "pos_i": ii.to(POS_DTYPE),
-        "pos_j": jj.to(POS_DTYPE),
-        "alpha": torch.ones((h, w), dtype=ALPHA_DTYPE, device=params.device),
+        "pos_i": ii.to(pos_dtype),
+        "pos_j": jj.to(pos_dtype),
+        "alpha": torch.ones((h, w), dtype=ALPHA_DTYPE, device=device),
         "source": params.base_source(),
-        "rgba": torch.zeros((h, w, 4), dtype=torch.uint8,
-                            device=params.device),
+        "rgba": rgba,
     }
 
 
@@ -147,9 +186,14 @@ def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
     filled = alpha != 0
     g_alpha = gather(alpha)
     g_channels = {k: gather(v) for k, v in channels.items()}
-    # mask_src is all ones (LayerParams)
-    is_target = moving if cfg.transparent_pixels_can_move \
-        else moving & gather(filled)
+    # the source's mask plane, read through the same gather as the state
+    # (core.py:183-189); None where it is all ones
+    src_plane = params.mask_src
+    if not cfg.transparent_pixels_can_move:
+        src_plane = filled if src_plane is None else src_plane & filled
+    is_target = moving if src_plane is None else moving & gather(src_plane)
+    if params.mask_dst is not None:
+        is_target = is_target & params.mask_dst
     if not cfg.pixels_can_move_to_empty_spot:
         is_target = is_target & filled
     if not cfg.pixels_can_move_to_filled_spot:
@@ -194,10 +238,7 @@ def _reset(params: LayerParams, state: dict, rand=None) -> dict:
     ii, jj = _base_coords(h, w, state["pos_i"].device)
     pos_i, pos_j = state["pos_i"], state["pos_j"]
     if mode == "random":
-        # reset_mask is all ones: the threshold is the factor in f32
-        threshold = torch.tensor(cfg.reset_random_factor, dtype=torch.float32,
-                                 device=rand.device)
-        reset = rand < threshold
+        reset = rand < params.reset_factor
         state = dict(state)
         state["pos_i"] = torch.where(reset, ii.to(pos_i.dtype), pos_i)
         state["pos_j"] = torch.where(reset, jj.to(pos_j.dtype), pos_j)
@@ -217,17 +258,15 @@ def _reset(params: LayerParams, state: dict, rand=None) -> dict:
         safe = torch.where(norm_base > 0, norm_base, torch.ones_like(norm_base))
         step_i = torch.where(norm_base > 0, d_i / safe, d_i)
         step_j = torch.where(norm_base > 0, d_j / safe, d_j)
-        factor = float(np.float32(cfg.reset_constant_step))
-        step_i = step_i * factor
-        step_j = step_j * factor
+        step_i = step_i * params.reset_factor
+        step_j = step_j * params.reset_factor
         norm_scaled = torch.maximum(step_i.abs(), step_j.abs())
         overshoot = norm_scaled > norm_base
         step_i = torch.where(overshoot, d_i, step_i)
         step_j = torch.where(overshoot, d_j, step_j)
     elif mode == "linear":
-        factor = float(np.float32(cfg.reset_linear_factor))
-        step_i = factor * d_i
-        step_j = factor * d_j
+        step_i = params.reset_factor * d_i
+        step_j = params.reset_factor * d_j
     else:
         raise ValueError(f"Unknown reset mode {mode}")
     state = dict(state)
@@ -279,10 +318,121 @@ def update_moveref(params: LayerParams, state: dict, flow, pixmaps,
     return _reference_rgba(params, state, pixmaps)
 
 
+def update_sum(params: LayerParams, state: dict, flow, pixmaps, rand=None,
+               halo: int | None = None, mesh=None) -> dict:
+    """SumLayer.update: additive displacement, then reset + regather.
+
+    Parity: sum.py:9-14 with the component transposition fixed (dy -> i).
+    The int32 positions are not clipped; the regather clips its reads."""
+    state = dict(state)
+    state["pos_i"] = state["pos_i"] + torch.floor(flow[..., 1]).to(
+        torch.int32)
+    state["pos_j"] = state["pos_j"] + torch.floor(flow[..., 0]).to(
+        torch.int32)
+    state = _reset(params, state, rand)
+    return _reference_rgba(params, state, pixmaps)
+
+
+def update_static(params: LayerParams, state: dict, flow, pixmaps,
+                  rand=None, halo: int | None = None, mesh=None) -> dict:
+    """StaticLayer.update (static.py:14-17): masked blit, flow ignored."""
+    rgba = state["rgba"]
+    rgb = rgba[..., :3]
+    a = rgba[..., 3]
+    for s in range(params.num_sources):
+        mask = params.intro_masks[s]
+        pixmap = pixmaps[s]
+        rgb = torch.where(mask[..., None], pixmap[..., :3], rgb)
+        if params.channel_counts[s] == 4:
+            a = torch.where(mask, pixmap[..., 3], a)
+    return {"rgba": torch.cat([rgb, a[..., None]], dim=-1)}
+
+
+def update_introduction(params: LayerParams, state: dict, flow, pixmaps,
+                        frame_numbers, halo: int | None = None,
+                        mesh=None) -> dict:
+    """IntroductionLayer.update (introduction.py:16-67): move pixels
+    carrying their RGB, then introduce new pixels from each source where
+    the eligibility flags allow (their intended meaning, as in the JAX
+    package). ``frame_numbers`` holds one int per source."""
+    cfg = params.cfg
+    channels = {"rgb": state["rgb"], "source": state["source"],
+                "pos_i": state["pos_i"], "pos_j": state["pos_j"],
+                "frame": state["frame"]}
+    channels, alpha, (moving, src_i, src_j) = _movement(
+        params, channels, state["alpha"], flow, halo, mesh)
+    state = dict(state, **channels, alpha=alpha)
+
+    filled = state["alpha"] != 0
+    mask = torch.ones_like(filled)
+    if not cfg.introduce_pixels_on_empty_spots:
+        mask = mask & filled
+    if not cfg.introduce_pixels_on_filled_spots:
+        mask = mask & ~filled
+    if not cfg.introduce_moving_pixels:
+        mask = mask & ~moving
+    if not cfg.introduce_unmoving_pixels:
+        mask = mask & moving
+    consider_flow = not (cfg.introduce_on_all_filled_spots
+                         or cfg.introduce_on_all_empty_spots)
+    if cfg.introduce_on_all_filled_spots:
+        mask = mask | filled
+    if cfg.introduce_on_all_empty_spots:
+        mask = mask | ~filled
+    if cfg.introduce_once:
+        mask = mask & ~state["introduced_once"]
+
+    if consider_flow:
+        gi, gj = src_i, src_j
+    else:
+        gi, gj = _base_coords(params.height, params.width, flow.device)
+    slices = _gather_pixmap_slices(params, pixmaps, gi, gj)
+    for s, gathered in enumerate(slices):
+        tgt = mask & params.intro_masks[s]
+        if params.channel_counts[s] == 4:
+            new_a = gathered[..., 3].to(ALPHA_DTYPE)
+        else:
+            new_a = torch.ones_like(state["alpha"])
+        state["rgb"] = torch.where(tgt[..., None], gathered[..., :3],
+                                   state["rgb"])
+        state["alpha"] = torch.where(tgt, new_a, state["alpha"])
+        state["source"] = torch.where(tgt, torch.full_like(state["source"],
+                                                           s),
+                                      state["source"])
+        state["pos_i"] = torch.where(tgt, gi.to(POS_DTYPE), state["pos_i"])
+        state["pos_j"] = torch.where(tgt, gj.to(POS_DTYPE), state["pos_j"])
+        # a Python int: a fill on the device, no copy from the host
+        state["frame"] = torch.where(
+            tgt, torch.full_like(state["frame"], int(frame_numbers[s])),
+            state["frame"])
+    state["introduced_once"] = torch.ones_like(state["introduced_once"])
+    return state
+
+
 def render_layer(params: LayerParams, state: dict):
-    """Layer.render (layer.py:32-34): alpha *= mask_alpha, which is all
-    ones here, so the state passes through. Returns (state, rgba uint8)."""
-    return state, state["rgba"]
+    """Layer.render (layer.py:32-34): alpha *= mask_alpha, kept in the
+    state (core.py:457-478); without a mask the state passes through.
+    Returns (state, rgba uint8)."""
+    mask = params.mask_alpha
+    if params.cfg.classname == "introduction":
+        alpha = state["alpha"]
+        if mask is not None:
+            alpha = (mask * alpha.float()).clamp(0, 255).to(ALPHA_DTYPE)
+            state = dict(state, alpha=alpha)
+        return state, torch.cat([state["rgb"], alpha[..., None]], dim=-1)
+    if mask is None:
+        return state, state["rgba"]
+    rgba = state["rgba"]
+    alpha = (mask * rgba[..., 3].float()).to(torch.uint8)
+    rgba = torch.cat([rgba[..., :3], alpha[..., None]], dim=-1)
+    return dict(state, rgba=rgba), rgba
+
+
+_UPDATE_FNS = {
+    "moveref": update_moveref,
+    "sum": update_sum,
+    "static": update_static,
+}
 
 
 def build_compositor(layer_params: Sequence[LayerParams], height: int,
@@ -303,8 +453,6 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
     ``mesh`` (a ``SpaceMesh``) its sharded form; see ``_movement``.
 
     Parity: transflow/compositor/compositor.py:17-53."""
-    for params in layer_params:
-        _require_moveref(params.cfg)
     device = resolve_device(device)
     bg_color = torch.tensor(parse_color(background_color), dtype=torch.uint8,
                             device=device)
@@ -321,12 +469,18 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
         keys = prng.split(key, len(params_list))
         new_state = []
         for idx, params in enumerate(params_list):
+            classname = params.cfg.classname
+            if classname == "introduction":
+                new_state.append(update_introduction(
+                    params, state[idx], flow, pixmaps[idx],
+                    frame_numbers[idx], halo, mesh))
+                continue
             rand = None
-            if params.cfg.reset_mode == "random":
+            if params.cfg.reset_mode == "random" and classname != "static":
                 rand = prng.uniform(keys[idx], (params.height, params.width),
                                     flow.device)
-            new_state.append(update_moveref(params, state[idx], flow,
-                                            pixmaps[idx], rand, halo, mesh))
+            new_state.append(_UPDATE_FNS[classname](
+                params, state[idx], flow, pixmaps[idx], rand, halo, mesh))
         return new_state
 
     def render_fn(state, params_list=None):

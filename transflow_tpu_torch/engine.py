@@ -219,7 +219,8 @@ class Engine:
             self.runtimes.append(
                 SourceRuntime(source, estimator_step, device=self.device,
                               mesh=mesh))
-        postprocesses = [src.build_postprocess() for src in flow_sources]
+        postprocesses = [src.build_postprocess(device=self.device)
+                         for src in flow_sources]
         merge = get_merge_function(cfg.flows_merging_function)
         self.layer_params = list(layer_params)
         init_fn, comp_step = build_compositor(

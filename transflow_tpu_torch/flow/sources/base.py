@@ -18,9 +18,11 @@ import logging
 import os
 from typing import Callable, Iterator, Optional
 
+import numpy as np
+
 from .. import Direction, LockMode
 from ..transforms import make_postprocess
-from ...utils import parse_expression, parse_lock_intervals
+from ...utils import load_float_mask, parse_expression, parse_lock_intervals
 
 logger = logging.getLogger(__name__)
 
@@ -269,11 +271,19 @@ class FlowSource:
     # device-side post-process builder
     # ------------------------------------------------------------------
 
-    def build_postprocess(self):
-        """The source's post-process. A mask or kernel file reaches
-        ``make_postprocess``, which refuses both (not ported yet)."""
-        return make_postprocess(self.flow_filters, self.mask_path,
-                                self.kernel_path, self.direction)
+    def build_postprocess(self, device=None):
+        """The source's post-process on ``device`` (the current CUDA
+        device by default). A mask rule is loaded at the source's size
+        (DSL rules need it; an image carries its own), a kernel with
+        ``np.load``; both go to the device once, here."""
+        mask = None
+        if self.mask_path is not None:
+            mask = load_float_mask(self.mask_path, (self.height, self.width))
+        kernel = None
+        if self.kernel_path is not None:
+            kernel = np.load(self.kernel_path)
+        return make_postprocess(self.flow_filters, mask, kernel,
+                                self.direction, device=device)
 
     # ------------------------------------------------------------------
     # factory

@@ -8,10 +8,9 @@ so the random reset draws the JAX model's numbers.
 
 Ported: Farneback (``takes_prev``: the previous raw flow warm-starts it
 with flag 4) and LiteFlowNet (its weights loaded only for that method),
-backward direction, no filters, mask or kernel, the
-``first`` merge and moveref layers, and the ``halo``/``mesh`` movement
-gather. Anything else raises ``NotImplementedError`` naming its ROADMAP
-item.
+both directions, the flow filters, mask and kernel, every layer class,
+and the ``halo``/``mesh`` movement gather. The other estimators raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from typing import Sequence
 
@@ -63,7 +62,8 @@ class FlowTransferModel:
         self.framerate = framerate
         self.device = mesh_device(mesh, device)
         estimator = get_estimator(method)
-        postprocess = make_postprocess(flow_filters, mask, kernel, direction)
+        postprocess = make_postprocess(flow_filters, mask, kernel, direction,
+                                       device=self.device)
         merge = get_merge_function("first")
         if layer_cfgs is None:
             layer_cfgs = [LayerConfig(0)]

@@ -122,6 +122,39 @@ def gaussian_blur(image: torch.Tensor, sigma: float,
     return separable_correlate(tmp, k, axis=1)
 
 
+def clip_to_frame(flow: torch.Tensor) -> torch.Tensor:
+    """Clamp so every target x+fx stays in [0, W-1] and y+fy in [0, H-1].
+
+    Parity: source.py:250-263,361-362 (fx_min/fx_max/fy_min/fy_max tables)."""
+    h, w = flow.shape[:2]
+    ii = torch.arange(h, dtype=torch.float32,
+                      device=flow.device)[:, None].expand(h, w)
+    jj = torch.arange(w, dtype=torch.float32,
+                      device=flow.device)[None, :].expand(h, w)
+    fx = torch.clamp(flow[..., 0], -jj, (w - 1) - jj)
+    fy = torch.clamp(flow[..., 1], -ii, (h - 1) - ii)
+    return torch.stack([fx, fy], dim=-1)
+
+
+def conv2d_same(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """'same' 2-D convolution of (..., H, W) planes with zero fill:
+    scipy.signal.convolve2d(image, kernel, mode="same", boundary="fill"),
+    a true convolution (kernel flipped) with the extra tap on the low side
+    for even sizes. ``kernel`` is a float32 (kh, kw) tensor on the image's
+    device. The JAX function leaves the convolution to XLA; here it is
+    ``F.conv2d`` in full float32 (``exact_f32_convolutions``), whose order
+    of additions is the library's."""
+    lead = image.shape[:-2]
+    h, w = image.shape[-2:]
+    x = image.float().reshape(-1, 1, h, w)
+    kh, kw = kernel.shape
+    pad_top, pad_left = (kh - 1) // 2, (kw - 1) // 2
+    x = F.pad(x, (pad_left, kw - 1 - pad_left, pad_top, kh - 1 - pad_top))
+    with exact_f32_convolutions(image.device):
+        out = F.conv2d(x, kernel.flip(0, 1)[None, None])
+    return out.reshape(*lead, h, w)
+
+
 def upscale_flow(flow: torch.Tensor, width_factor: int,
                  height_factor: int) -> torch.Tensor:
     """Integer-factor kron upscale that also scales vector magnitudes.
