@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
    git-ignored ``transflow_tpu_torch/_build``); prints each kernel
    instantiation's registers, shared memory and spills as ptxas reported
    them, and fails unless ptxas reported the correlation kernel,
-   Farneback's B1, B2a and B2b and B5's two kernels free of spills;
+   Farneback's B1, B2a and B2b, B5's two kernels and B9-B12 free of
+   spills;
 F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    ``CvFlowConfig()`` (Farneback with cv2's defaults, the headline
    command's estimator), one moveref layer with random reset 0.01 over
@@ -55,6 +56,19 @@ T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
    post-process chain on the card against the CPU within the CPU tests'
    bounds, B5 bit-equal on the same input, and the four-layer compositor
    bit-equal given the same flows;
+H. the secondary estimators: ``Engine`` at 1080x1920 over phase F's pan
+   with one moveref layer (random reset 0.01) for each Horn-Schunck and
+   Lucas-Kanade preset of ``assets/configs`` (``horn-schunck``,
+   ``horn-schunck-diverge``, ``horn-schunck-smooth-inertia``,
+   ``lukas-kanade``, ``lk16``): a warm-up chunk, a timed chunk of 8
+   frames and ``process_frame`` calls, counting 1 B9 and ``hs_iterations``
+   B10 launches per frame, or 30 B11 and 33 B12 (10 of each per level, and
+   B12's structure tensor once per level, at three levels), finite flows,
+   0 host syncs per frame, and for ``lukas-kanade.json`` every interior
+   median within 0.5 px of the pan; then a static pair through
+   Horn-Schunck (one iteration taken of 5, read back once after the
+   frame), then ``cli.main`` over 4 PGM frames of the pan with ``-c
+   horn-schunck.json`` and ``-c lukas-kanade.json``;
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
@@ -96,15 +110,17 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    shapes of a 1080p frame in bf16 and float32 storage, on B1's own
    planes, each bit-equal to its plain version;
 9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
-   the CPU slice, Farneback on both devices, the compositor on both
+   the CPU slice, Farneback on both devices, Horn-Schunck (bit-equal) and
+   Lucas-Kanade (within 1e-4) on both devices, the compositor on both
    devices on one flow, and the 1080x1920 threefry draw of the random
    reset on both devices;
 10. kernel time: ``torch.profiler``'s kernel durations of A1 (the slice's
    dtype pairs), A2 (every sharded case), A3 beside ``F.grid_sample`` at
-   L2-L6 (phase 7's bf16 inputs within the bound) and B1, B2a, B2b at the
-   four levels; then the Farneback Engine's device events, busy time and
-   idle share per frame over three ``process_frame`` calls, and its
-   device time per frame by kernel name (the ten largest);
+   L2-L6 (phase 7's bf16 inputs within the bound), B1, B2a, B2b at the
+   four levels and B9-B12 at theirs; then the Farneback Engine's and each
+   phase H Engine's device events, busy time and idle share per frame
+   over a few ``process_frame`` calls, and their device time per frame
+   by kernel name (the ten largest);
 11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
    kernel, B1, B2a and B2b against other trees' ``correlation.cu`` and
    ``farneback.cu`` (for example the parent commit's, from ``git archive``
@@ -124,10 +140,18 @@ B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
    Farneback forward flow on the pan, bit-equal, with ``device_ms``, the
    bound and its share, and in phase 10 the profiler's time of a call
    (the memset and both kernels).
+B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
+   three steps under delta 1, then timed with no delta so every launch
+   steps) at 1080x1920 on the pan's frames, B11 (``lk_warp_products``)
+   and B12 (``lk_structure_tensor`` and ``lk_window_solve``, window 15)
+   at the three levels of Lucas-Kanade's 1080p pyramid on the pan's
+   images, Scharr derivatives and flow, each bit-equal to its plain
+   version on the same inputs, with ``device_ms``, the bound, its share
+   and the plain version's time.
 
-The main path (phases F, P, T and 3-5) runs right after the build: the kernel
-phases' timing loops, plain versions and profiler come after every timed
-run of it, so they cannot reach those timings.
+The main path (phases F, P, T, H and 3-5) runs right after the build:
+the kernel phases' timing loops, plain versions and profiler come after
+every timed run of it, so they cannot reach those timings.
 
 Timings. ``device_ms`` is CUDA events around N back-to-back calls, over
 N: the card's time per call where the host keeps ahead of it, else the
@@ -143,9 +167,11 @@ the H100 SXM's published peaks; ``share`` is bound over ``device_ms``.
 For B1, B2a and B2b the bound counts each input and output byte once per
 level and the float32 operations of their correlations, lerps and
 algebra; B5's counts the flow read and the mapping written once (16
-bytes a pixel). They are hand-written for jnp code (no Pallas source)
-and no single PyTorch call computes any of them (``index_put_`` with
-duplicate indices writes in no fixed order on CUDA).
+bytes a pixel); B9-B12's each input and output plane once a launch
+(``hs_bound_ms``, ``lk_bound_ms``). They are hand-written for jnp code
+(no Pallas source) and no single PyTorch call computes any of them
+(``index_put_`` with duplicate indices writes in no fixed order on
+CUDA).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -210,6 +236,9 @@ EQUIV_FLOW_ATOL = 1e-3
 # Farneback on the card against the CPU: tests/test_torch_farneback.py's
 # bar against JAX (PSNR at an 8 px peak)
 FB_EQUIV_PSNR = 60.0
+# Lucas-Kanade on the card against the CPU: tests/test_torch_lucas_kanade.py's
+# bar against JAX
+LK_EQUIV_ATOL = 1e-4
 SLICE_FRAMES = 8
 ENGINE_WARMUP = 2
 ENGINE_FRAMES = 8
@@ -392,9 +421,11 @@ def ptxas_reports(log: str) -> list[dict]:
 
 # kernels whose ptxas report must show no spill: the correlation's 98 sums
 # per thread, the register windows of B1 and B2b and B2a's twenty tap loads
-# a sample stay in registers
+# a sample stay in registers; so do B5's, B9's, B10's, B11's and B12's few
+# values (28-40 registers)
 NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
-            "aggregate_solve", "forward_scatter", "backward_resolve")
+            "aggregate_solve", "forward_scatter", "backward_resolve",
+            "hs_derivatives", "hs_iterate", "lk_warp_products", "lk_window")
 
 
 def phase_build() -> list[dict]:
@@ -713,21 +744,27 @@ def _launch_counters():
     from transflow_tpu_torch.ops.farneback import (aggregate_solve_cuda,
                                                    poly_expansion_cuda,
                                                    update_equations_cuda)
+    from transflow_tpu_torch.ops.horn_schunck import (hs_derivatives_cuda,
+                                                      hs_iterate_cuda)
+    from transflow_tpu_torch.ops.lucas_kanade import (lk_warp_products_cuda,
+                                                      lk_window_solve_cuda)
     from transflow_tpu_torch.ops.scatter import forward_to_backward_cuda
     from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
     return (bounded_backwarp_cuda, correlation7x7_cuda,
             sharded_correlation7x7, poly_expansion_cuda,
             update_equations_cuda, aggregate_solve_cuda,
-            forward_to_backward_cuda)
+            forward_to_backward_cuda, hs_derivatives_cuda, hs_iterate_cuda,
+            lk_warp_products_cuda, lk_window_solve_cuda)
 
 
 # the names of _launches()'s entries
-KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5")
+KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5", "B9", "B10",
+                "B11", "B12")
 
 
 def _launches() -> tuple[int, ...]:
-    """(A3, A1, A2, B1, B2a, B2b, B5) launches since the counts were last
-    set to 0."""
+    """The launches of each kernel of ``KERNEL_NAMES`` since the counts
+    were last set to 0."""
     return tuple(fn.launches for fn in _launch_counters())
 
 
@@ -883,7 +920,7 @@ def phase_farneback_engine(device, card: str) -> dict:
             raise AssertionError(f"CvFlowConfig() gives {per_frame} B1, B2a, "
                                  f"B2b launches, not {FB_DEFAULT_PER_FRAME}")
         _check_engine_run(f"farneback {name}", run,
-                          (0, 0, 0, *per_frame, 0))
+                          (0, 0, 0, *per_frame, 0, 0, 0, 0, 0))
         m = FB_MARGIN
         inner = torch.cat([run["flows"], run["call_flows"]])[:, m:-m, m:-m]
         medians = inner.reshape(len(inner), -1, 2).median(dim=1).values
@@ -1001,7 +1038,7 @@ def phase_pipeline(device, card: str) -> dict:
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
     from transflow_tpu_torch.utils.imageio import write_netpbm
     flows_n = P_FRAMES - 1
-    per_frame = (0, 0, 0, *FB_DEFAULT_PER_FRAME, 0)
+    per_frame = (0, 0, 0, *FB_DEFAULT_PER_FRAME, 0, 0, 0, 0, 0)
     gray = gray_frames(P_FRAMES, HEIGHT, WIDTH, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p_") as tmp:
         root = Path(tmp)
@@ -1141,7 +1178,7 @@ T_MOVE_DST = "circle:48%"
 T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
 # the Engine's launches per frame: B1, B2a, B2b for two CvFlowConfig()
 # sources, and B5's two for the forward one
-T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2)
+T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0)
 T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
 T_SYNC_CALLS = 2
 T_PROFILE_CALLS = 3
@@ -1415,7 +1452,8 @@ def phase_postprocess(device, card: str) -> dict:
         (root / "out").mkdir()
         cli_run = _p_run(t_cli_argv(root, files))
         flows_n = T_CLI_FRAMES - 1
-        cli_per_frame = (*T_PER_FRAME[:6], 2 * T_PER_FRAME[6])
+        cli_per_frame = (*T_PER_FRAME[:6], 2 * T_PER_FRAME[6],
+                         *T_PER_FRAME[7:])
         if cli_run["launches"] != tuple(flows_n * x for x in cli_per_frame):
             raise AssertionError(f"phase T CLI: {KERNEL_NAMES} launches "
                                  f"{cli_run['launches']}, expected "
@@ -1439,6 +1477,264 @@ def phase_postprocess(device, card: str) -> dict:
               "(bound 4), B5 bit-equal, the four-layer compositor's states "
               "and frames bit-equal")
     return run
+
+
+# phase H: the secondary estimators, Horn-Schunck and Lucas-Kanade, at 1080p
+H_PRESETS = ("horn-schunck.json", "horn-schunck-diverge.json",
+             "horn-schunck-smooth-inertia.json", "lukas-kanade.json",
+             "lk16.json")
+H_CLI_PRESETS = ("horn-schunck.json", "lukas-kanade.json")
+H_LK_ITERS = 10       # lucas_kanade's iterations a level (no config knob)
+H_SYNC_CALLS = 1
+H_PROFILE_CALLS = 2   # process_frame calls under the profiler (phase 10)
+H_CLI_FRAMES = 4      # PGM frames of each CLI run; 3 flows
+H_STATIC_ITERS = 5    # max_iters of the static pair
+# (H, W, name) of Lucas-Kanade's pyramid of a 1080p frame at max_level 2
+H_LK_LEVELS = ((1080, 1920, "L0"), (540, 960, "L1"), (270, 480, "L2"))
+# float32 operations a pixel. B9: both frames' vertical and horizontal
+# 5-tap blurs (the 17x33 blurred tile of a 16x32 block), the three 2x2
+# stencils of both and denom. B10: the eight-tap averages of u and v, c,
+# the new u and v, the squared step. B11: the coordinates, the weights,
+# three lerps, it and the products. B12: the vertical and horizontal sums
+# of two planes (the tensor mode: three products and three planes), then
+# the solve (the tensor mode: det and 1 / det).
+B9_OPS = 2 * 2 * 9 * 17 * 33 / (16 * 32) + 2 * 3 * 7 + 5
+B10_OPS = 2 * 15 + 11
+B11_OPS = 6 + 9 + 3
+B12_OPS = {"solve": 2 * 2 * 14 + 13, "tensor": 3 + 3 * 2 * 14 + 5}
+# the CUDA kernel behind each of phase H's wrappers (profiler names)
+H_KERNEL_NAMES = {"hs_derivatives": "hs_derivatives_kernel",
+                  "hs_iterate": "hs_iterate_kernel",
+                  "lk_warp_products": "lk_warp_products_kernel",
+                  "lk_structure_tensor": "lk_window_kernel",
+                  "lk_window_solve": "lk_window_kernel"}
+# launches per 1080p frame of each of phase H's kernel rows on the main
+# path: horn-schunck.json's 1 B9 and 3 B10; per Lucas-Kanade level 10 B11,
+# 1 tensor and 10 solves of B12
+H_PER_LEVEL = {"hs_derivatives": 1, "hs_iterate": 3,
+               "lk_warp_products": H_LK_ITERS, "lk_structure_tensor": 1,
+               "lk_window_solve": H_LK_ITERS}
+
+
+def h_per_frame(config, height: int, width: int) -> tuple:
+    """``KERNEL_NAMES`` launches per frame of a Horn-Schunck or
+    Lucas-Kanade config at H x W: 1 B9 and ``max_iters`` B10; or per level
+    of the pyramid (the estimator's rule: levels while the short side is
+    at least twice the window) 10 B11 and 11 B12 (the tensor and 10
+    solves)."""
+    kw = config.estimator_kwargs()
+    if config.method == "horn-schunck":
+        return (0,) * 7 + (1, kw["max_iters"], 0, 0)
+    levels, h, w = 1, height, width
+    for _ in range(kw["max_level"]):
+        if min(h, w) < 2 * kw["win_size"]:
+            break
+        h, w = (h + 1) // 2, (w + 1) // 2
+        levels += 1
+    return (0,) * 7 + (0, 0, H_LK_ITERS * levels, (H_LK_ITERS + 1) * levels)
+
+
+def phase_classic_engine(device, card: str) -> dict:
+    """Phase H: the 1080p Engine over each Horn-Schunck and Lucas-Kanade
+    preset on phase F's pan (one moveref layer, random reset 0.01): the
+    launches per frame, finite flows, 0 host syncs per frame, and for
+    ``lukas-kanade.json`` every interior median within 0.5 px of the pan;
+    then a static pair through Horn-Schunck (one iteration, read back once
+    after the frame), then ``cli.main`` over PGM frames with each default
+    preset. Returns the Engine runs by preset."""
+    import tempfile
+    from transflow_tpu_torch.flow.estimators.horn_schunck import (
+        horn_schunck_counted)
+    from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    from transflow_tpu_torch.ops.horn_schunck import hs_iterate_cuda
+    from transflow_tpu_torch.utils.imageio import write_netpbm
+    configs = Path(__file__).resolve().parent / "assets" / "configs"
+    n = (1 + ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS + H_SYNC_CALLS
+         + H_PROFILE_CALLS)
+    frames = gray_frames(n, HEIGHT, WIDTH, device)
+    pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
+    runs = {}
+    for name in H_PRESETS:
+        config = CvFlowConfig.from_file(configs / name)
+        run = run_engine(device, frames, pixmap, config)
+        per_frame = h_per_frame(config, HEIGHT, WIDTH)
+        _check_engine_run(f"phase H {name}", run, per_frame)
+        m = FB_MARGIN
+        inner = torch.cat([run["flows"], run["call_flows"]])[:, m:-m, m:-m]
+        medians = inner.reshape(len(inner), -1, 2).median(dim=1).values
+        worst = (medians - FB_PAN).abs().max().item()
+        print(f"classic engine {HEIGHT}x{WIDTH} {name} ->moveref: "
+              f"{run['ms']:.2f} ms/frame {1e3 / run['ms']:.2f} frames/s over "
+              f"a chunk of {ENGINE_FRAMES} (max |flow| "
+              f"{run['max_flow']:.4g}, checksum {run['checksum']}) on {card}")
+        print(f"classic engine {name} launches per frame: "
+              f"{_per_frame_text(run)}; interior median flow per frame "
+              f"{[tuple(round(v, 3) for v in r) for r in medians.tolist()]} "
+              f"(pan {FB_PAN}, worst |median - pan| {worst:.4f})")
+        if name == "lukas-kanade.json" and not worst <= FB_PAN_TOL:
+            raise AssertionError(f"phase H {name}: an interior median flow "
+                                 f"is {worst} px from the {FB_PAN} px pan")
+        run["syncs"] = host_syncs(run, H_SYNC_CALLS)
+        print(f"classic engine {name}: {run['syncs']:g} host syncs per "
+              f"frame (torch.cuda.set_sync_debug_mode, {H_SYNC_CALLS} "
+              "process_frame call)")
+        if run["syncs"] != 0:
+            raise AssertionError(f"phase H {name}: {run['syncs']} host "
+                                 "syncs per frame, expected 0")
+        runs[name] = run
+    # a static pair: the first step's norm is 0 < delta
+    before = hs_iterate_cuda.launches
+    flow, iters = horn_schunck_counted(frames[0], frames[0],
+                                       max_iters=H_STATIC_ITERS)
+    iters, moved = int(iters), bool(flow.any())
+    print(f"classic static pair {HEIGHT}x{WIDTH} horn-schunck: {iters} "
+          f"iteration taken of {H_STATIC_ITERS} "
+          f"({hs_iterate_cuda.launches - before} B10 launches), flow "
+          f"{'nonzero' if moved else 'zero'}")
+    if iters != 1 or moved or hs_iterate_cuda.launches - before \
+            != H_STATIC_ITERS:
+        raise AssertionError(f"phase H static pair: {iters} iterations, "
+                             f"flow moved {moved}")
+    # the CLI with each default preset over PGM frames of the pan
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_h_") as tmp:
+        root = Path(tmp)
+        (root / "seq").mkdir()
+        for i, frame in enumerate(frames[:H_CLI_FRAMES].cpu().numpy()):
+            write_netpbm(str(root / "seq" / f"{i:04d}.pgm"), frame)
+        flows_n = H_CLI_FRAMES - 1
+        for name in H_CLI_PRESETS:
+            out = root / name.split(".")[0]
+            out.mkdir()
+            cli_run = _p_run([str(root / "seq" / "%04d.pgm"), "-c",
+                              str(configs / name), "-p", "noise", "--seed",
+                              str(SEED), "-r", "random", "0.01", "-o",
+                              str(out / "%04d.ppm")])
+            want = h_per_frame(CvFlowConfig.from_file(configs / name),
+                               HEIGHT, WIDTH)
+            if cli_run["launches"] != tuple(flows_n * x for x in want):
+                raise AssertionError(f"phase H CLI {name}: "
+                                     f"{cli_run['launches']} launches, "
+                                     f"expected {want} per frame over "
+                                     f"{flows_n}")
+            written = _p_frames(out, flows_n)
+            print(f"classic CLI {HEIGHT}x{WIDTH} -c {name}: "
+                  f"{_p_split(cli_run, flows_n)}; launches per frame "
+                  f"{want} {KERNEL_NAMES}; {len(written)} frames, "
+                  f"{len(np.unique(written[-1]))} distinct values in the "
+                  "last")
+    return runs
+
+
+def hs_bound_ms(kernel: str, h: int, w: int) -> tuple[float, str]:
+    """B9's bound: two frames' bytes in, four float32 planes out; B10's a
+    launch: the four planes and the flow in, the flow out."""
+    px = h * w
+    if kernel == "hs_derivatives":
+        return _bound(px * (2 + 16), B9_OPS * px)
+    return _bound(px * (16 + 8 + 8), B10_OPS * px)
+
+
+def lk_bound_ms(kernel: str, h: int, w: int) -> tuple[float, str]:
+    """B11's bound a launch: prev, ix, iy, the flow and the sampled image in
+    (each pixel once), two planes out; B12's: two planes, four tensor
+    planes and the flow in, the flow out (the tensor mode: ix, iy in,
+    four planes out)."""
+    px = h * w
+    if kernel == "lk_warp_products":
+        return _bound(px * (4 * 4 + 8 + 8), B11_OPS * px)
+    if kernel == "lk_structure_tensor":
+        return _bound(px * (8 + 16), B12_OPS["tensor"] * px)
+    return _bound(px * (8 + 16 + 8 + 8), B12_OPS["solve"] * px)
+
+
+def phase_classic_kernels(device) -> list[dict]:
+    """B9 and B10 at 1080x1920 on the pan's frames, and B11, B12 (both
+    modes) at the three levels of Lucas-Kanade's 1080p pyramid on the
+    pan's images, their Scharr derivatives and the pan's flow at the
+    level, each against its plain version on the same inputs on the card:
+    bit-equal; ``device_ms``, the bound and its share, ``call_ms`` and the
+    plain version's time. B10 runs with ``delta=None`` in the timing
+    loops, so every launch steps."""
+    from transflow_tpu_torch.flow.estimators import lucas_kanade as lke
+    from transflow_tpu_torch.ops import horn_schunck as hs
+    from transflow_tpu_torch.ops import image
+    from transflow_tpu_torch.ops import lucas_kanade as lk
+    rows = []
+
+    def record(kernel, level, h, w, err, call, plain, bound, variant=""):
+        row = {"kernel": kernel, "level": level, "err": err,
+               "variant": variant}
+        row["bound_ms"], row["bound_by"] = bound
+        row["device_ms"] = device_ms(call)
+        row["call_ms"] = call_ms(call)
+        row["plain_ms"] = device_ms(plain, PLAIN_LAUNCHES, warmup=1)
+        row["call"] = call  # profiled in phase 10
+        print(f"classic {kernel} {level} ({h},{w}) {variant}: bit-equal to "
+              f"plain; device_ms {row['device_ms']:.5f} bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}) share "
+              f"{row['bound_ms'] / row['device_ms']:.1%}; call "
+              f"{row['call_ms']:.4f} ms (host-inclusive); plain "
+              f"{row['plain_ms']:.4f} ms")
+        rows.append(row)
+
+    gray = gray_frames(2, HEIGHT, WIDTH, device)
+    a, b = gray[1].contiguous(), gray[0].contiguous()
+    planes, control = hs.hs_derivatives_cuda(a, b, 1.0)
+    want, _ = hs.hs_derivatives_plain(a, b, 1.0)
+    _fb_compare("B9", planes, want)
+    record("hs_derivatives", "L0", HEIGHT, WIDTH, 0.0,
+           functools.partial(hs.hs_derivatives_cuda, a, b, 1.0),
+           functools.partial(hs.hs_derivatives_plain, a, b, 1.0),
+           hs_bound_ms("hs_derivatives", HEIGHT, WIDTH))
+    flow = torch.zeros((HEIGHT, WIDTH, 2), device=device)
+    plain_control = control.clone()
+    got, ref = flow, flow
+    for step in range(3):   # horn-schunck.json's iterations, delta 1
+        got = hs.hs_iterate_cuda(planes, got, control, 1.0)
+        ref = hs.hs_iterate_plain(want, ref, plain_control, 1.0)
+        _fb_compare(f"B10 step {step}", got, ref)
+    if not torch.equal(control[:2], plain_control[:2]):
+        raise AssertionError(f"B10's control {control.tolist()} against "
+                             f"the plain version's {plain_control.tolist()}")
+    print(f"classic hs_iterate {HEIGHT}x{WIDTH} on the pan: "
+          f"{int(control[1])} of 3 "
+          f"iterations taken (stop word {int(control[0])}), bit-equal")
+    fresh = torch.zeros_like(control)
+    record("hs_iterate", "L0", HEIGHT, WIDTH, 0.0,
+           functools.partial(hs.hs_iterate_cuda, planes, got, fresh, None),
+           functools.partial(hs.hs_iterate_plain, want, got, fresh.cpu(),
+                             None),
+           hs_bound_ms("hs_iterate", HEIGHT, WIDTH), "delta None")
+    prev, nxt = a.float(), b.float()
+    for h, w, level in H_LK_LEVELS:
+        if level != "L0":
+            prev, nxt = image.downsample2x(prev), image.downsample2x(nxt)
+        ix, iy = lke._scharr(prev, 1), lke._scharr(prev, 0)
+        flow = pan_flow(h, w, device)
+        args = (prev, nxt, ix, iy, flow)
+        got = lk.lk_warp_products_cuda(*args)
+        _fb_compare(f"B11 {level}", got,
+                    lk.lk_warp_products_plain(*args))
+        record("lk_warp_products", level, h, w, 0.0,
+               functools.partial(lk.lk_warp_products_cuda, *args),
+               functools.partial(lk.lk_warp_products_plain, *args),
+               lk_bound_ms("lk_warp_products", h, w), "pan flow")
+        tensor = lk.lk_structure_tensor_cuda(ix, iy, 15)
+        _fb_compare(f"B12 tensor {level}", tensor,
+                    lk.lk_structure_tensor_plain(ix, iy, 15))
+        record("lk_structure_tensor", level, h, w, 0.0,
+               functools.partial(lk.lk_structure_tensor_cuda, ix, iy, 15),
+               functools.partial(lk.lk_structure_tensor_plain, ix, iy, 15),
+               lk_bound_ms("lk_structure_tensor", h, w), "window 15")
+        solve = (got, tensor, flow, 15, lke.EPS)
+        _fb_compare(f"B12 solve {level}", lk.lk_window_solve_cuda(*solve),
+                    lk.lk_window_solve_plain(*solve))
+        record("lk_window_solve", level, h, w, 0.0,
+               functools.partial(lk.lk_window_solve_cuda, *solve),
+               functools.partial(lk.lk_window_solve_plain, *solve),
+               lk_bound_ms("lk_window_solve", h, w), "window 15")
+    return rows
 
 
 def b5_inputs(device, pan_flow) -> dict:
@@ -1514,7 +1810,8 @@ def phase_engine(device, card: str) -> dict:
               f"sharded_correlation7x7 {a2}; with {ENGINE_CALLS} "
               f"process_frame calls: {run['launches']}")
         _check_engine_run(f"lfn_warp_bound={bound}", run,
-                          (9 if bound else 0, 5, 0, 0, 0, 0, 0))
+                          (9 if bound else 0, 5, 0, 0, 0, 0, 0, 0, 0, 0,
+                           0))
     diff = (runs[WARP_BOUND]["flows"] - runs[0]["flows"]).abs().max().item()
     print(f"engine max |flow(lfn_warp_bound={WARP_BOUND}) - "
           f"flow(lfn_warp_bound=0)| {diff:.3e} over the chunk")
@@ -1539,7 +1836,7 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
           f"correlation7x7 {a1}, sharded_correlation7x7 {a2}; with "
           f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
     _check_engine_run("mesh engine", run,
-                      (0, 1, A2_PER_FRAME, 0, 0, 0, 0))
+                      (0, 1, A2_PER_FRAME, 0, 0, 0, 0, 0, 0, 0, 0))
     diff = max((run["flows"] - ref["flows"]).abs().max().item(),
                (run["call_flows"] - ref["call_flows"]).abs().max().item())
     same = (torch.equal(run["out"], ref["out"])
@@ -1714,9 +2011,9 @@ def fb_bound_ms(kernel: str, h: int, w: int, storage, in_dtype=None,
 
 
 def _fb_compare(name: str, got, want) -> float:
-    """Max |got - want|: a Farneback kernel and its plain version keep the
-    JAX function's rounding points and add every sum in one order, so they
-    must be bit-equal."""
+    """Max |got - want|: a Farneback, Horn-Schunck or Lucas-Kanade kernel
+    and its plain version keep the same rounding points and add every sum
+    in one order, so they must be bit-equal."""
     if not torch.equal(got, want):
         err = (got.float() - want.float()).abs().max().item()
         raise AssertionError(f"{name} differs from its plain version: max "
@@ -1893,6 +2190,35 @@ def phase_equivalence(device) -> None:
     if not psnr >= FB_EQUIV_PSNR:
         raise AssertionError(f"CUDA and CPU Farneback flows: {psnr} dB")
 
+    # Horn-Schunck (bit-equal: B9's arithmetic is exact, B10 rounds as its
+    # plain version) and Lucas-Kanade (the CPU tests' 1e-4 against JAX:
+    # its Scharr derivatives and pyramid run in cuDNN on the card)
+    from transflow_tpu_torch.flow.estimators.horn_schunck import (
+        horn_schunck_counted)
+    from transflow_tpu_torch.flow.estimators.lucas_kanade import (
+        lucas_kanade)
+    gray = gray_frames(EQUIV_FRAMES + 1, h, w, "cpu")
+    classic = {}
+    for dev in (device, "cpu"):
+        flow, hs_flows, lk_flows = None, [], []
+        for k in range(EQUIV_FRAMES):
+            a, b = gray[k + 1].to(dev), gray[k].to(dev)
+            flow, iters = horn_schunck_counted(a, b, flow)
+            hs_flows.append((flow.cpu(), int(iters)))
+            lk_flows.append(lucas_kanade(a, b, step=4).cpu())
+        classic[dev] = (hs_flows, lk_flows)
+    (hs_dev, lk_dev), (hs_cpu, lk_cpu) = classic[device], classic["cpu"]
+    if not all(torch.equal(f, g) and i == j
+               for (f, i), (g, j) in zip(hs_dev, hs_cpu)):
+        raise AssertionError("CUDA and CPU Horn-Schunck flows differ")
+    lk_err = max((f - g).abs().max().item() for f, g in zip(lk_dev, lk_cpu))
+    print(f"equivalence {h}x{w} horn-schunck cuda vs cpu: bit-equal over "
+          f"{EQUIV_FRAMES} warm-started pairs (iterations "
+          f"{[i for _, i in hs_dev]}); lukas-kanade.json: max |dflow| "
+          f"{lk_err:.3e}")
+    if not lk_err <= LK_EQUIV_ATOL:
+        raise AssertionError(f"CUDA and CPU Lucas-Kanade flows: {lk_err}")
+
     # the compositor on one flow: large integer and half-integer motion
     # on top of the estimated flow, the random reset drawn on each device
     # from one key chain
@@ -1929,10 +2255,11 @@ def phase_equivalence(device) -> None:
           f"bit-equal over {EQUIV_FRAMES} frames")
 
 
-def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows) -> None:
-    """``kernel_ms`` of every row that phases 6, 7, 8, B and T left a call
-    in; A3's beside ``F.grid_sample``'s; B5's over every device event of a
-    call (the memset and both kernels)."""
+def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
+                      h_rows) -> None:
+    """``kernel_ms`` of every row that phases 6, 7, 8, B, T and H left a
+    call in; A3's beside ``F.grid_sample``'s; B5's over every device event
+    of a call (the memset and both kernels)."""
     for row in rows + a2_rows:
         if "call" not in row:
             continue
@@ -1964,6 +2291,13 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows) -> None:
               f"(torch.profiler, per call) against device_ms "
               f"{row['device_ms']:.5f} and bound {row['bound_ms']:.5f} "
               f"({row['bound_by']})")
+    for row in h_rows:
+        row["kernel_ms"] = kernel_ms(row.pop("call"),
+                                     H_KERNEL_NAMES[row["kernel"]])
+        print(f"kernel time classic {row['kernel']} {row['level']}: "
+              f"{_ms_text(row['kernel_ms'])} (torch.profiler, per call) "
+              f"against device_ms {row['device_ms']:.5f} and bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']})")
     for row in b5_rows:
         row["kernel_ms"] = kernel_ms(row.pop("call"), "")
         print(f"kernel time B5 {row['flow']}: {_ms_text(row['kernel_ms'])} "
@@ -2387,6 +2721,7 @@ def main() -> int:
     fb_runs = phase_farneback_engine(device, card)
     phase_pipeline(device, card)
     t_run = phase_postprocess(device, card)
+    h_runs = phase_classic_engine(device, card)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
     mesh_run = phase_mesh_engine(device, card, engine_phase)
@@ -2395,11 +2730,15 @@ def main() -> int:
     a2_rows = phase_sharded_kernels(device)
     fb_rows = phase_farneback_kernels(device)
     b5_rows = phase_scatter_kernel(device, t_run["b5_flow"])
+    h_rows = phase_classic_kernels(device)
     phase_equivalence(device)
     phase_draw(device)
-    phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows)
+    phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows, h_rows)
     engine_profile("farneback engine CvFlowConfig()",
                    fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS, card)
+    for name, run in h_runs.items():
+        run["profile"] = engine_profile(f"classic engine {name}", run,
+                                        H_PROFILE_CALLS, card)
     if args.against:
         phase_against(device, args.against, card, reports,
                       fb_runs["CvFlowConfig()"])
@@ -2563,6 +2902,59 @@ def main() -> int:
                    "writer in no fixed order on CUDA, so it is not the "
                    "same function",
     })
+    h_sources = {
+        "hs_derivatives": ("csrc/horn_schunck.cu",
+                           "horn_schunck.py:41 horn_schunck, the pre-blur "
+                           "and derivatives (:34-36, :45-56)"),
+        "hs_iterate": ("csrc/horn_schunck.cu",
+                       "horn_schunck.py:62 horn_schunck's while_loop body "
+                       "and early stop (:58-76)"),
+        "lk_warp_products": ("csrc/lucas_kanade.cu",
+                             "lucas_kanade.py:49 _lk_level's loop body, the "
+                             "warp and products (:50-54)"),
+        "lk_window_solve": ("csrc/lucas_kanade.cu",
+                            "lucas_kanade.py:36 _lk_level's window sums "
+                            "and solves (:36-42, :53-60)")}
+    h_launches = {"hs_derivatives": KERNEL_NAMES.index("B9"),
+                  "hs_iterate": KERNEL_NAMES.index("B10"),
+                  "lk_warp_products": KERNEL_NAMES.index("B11"),
+                  "lk_window_solve": KERNEL_NAMES.index("B12")}
+    for name, (source, function) in h_sources.items():
+        kernels = ("lk_structure_tensor", name) \
+            if name == "lk_window_solve" else (name,)
+        group = [r for r in h_rows if r["kernel"] in kernels]
+        weight = [H_PER_LEVEL[r["kernel"]] for r in group]
+        print(f"{name} per frame ({sum(weight)} launches): device_ms "
+              f"{_per_frame(group, 'device_ms', weight):.5f}, kernel_ms "
+              f"{_ms_text(_per_frame(group, 'kernel_ms', weight))}, bound "
+              f"{_per_frame(group, 'bound_ms', weight):.5f}, call "
+              f"{_per_frame(group, 'call_ms', weight):.4f} "
+              f"(host-inclusive), plain "
+              f"{_per_frame(group, 'plain_ms', weight):.4f}")
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"transflow_tpu_torch/{source}",
+            "replaces": "transflow_tpu/flow/estimators/"
+                        + function.split(" ")[0],
+            "replaces_function": function,
+            # phase H's Engine runs of the five presets
+            "launches": sum(run["launches"][h_launches[name]]
+                            for run in h_runs.values()),
+            "max_abs_err": max(r["err"] for r in group),
+            # per frame: horn-schunck.json's launches at 1080p, or
+            # lukas-kanade.json's over its three levels
+            "ms": _per_frame(group, "device_ms", weight),
+            "device_ms": _per_frame(group, "device_ms", weight),
+            "kernel_ms": _per_frame(group, "kernel_ms", weight),
+            "call_ms": _per_frame(group, "call_ms", weight),
+            "plain_ms": _per_frame(group, "plain_ms", weight),
+            "bound_ms": _per_frame(group, "bound_ms", weight),
+            "bound_by": _bound_by(group),
+            "library_ms": None,
+            "library": "none: hand-written for jnp code (no Pallas source); "
+                       "no single PyTorch call computes it",
+        })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

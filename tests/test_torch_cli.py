@@ -316,3 +316,39 @@ def test_layer_checkpoints_resume_across_packages(post_inputs, writer,
     resumed = np.stack([read_netpbm(str(out_dir / f"{k:04d}.ppm"))
                         for k in range(3, POST_FRAMES)])
     np.testing.assert_array_equal(resumed, frames[3:])
+
+
+def test_lk16_preset_renders_like_jax(tmp_path):
+    """``-c assets/configs/lk16.json`` (Lucas-Kanade, 16 px macroblocks)
+    over a netpbm sequence through both CLIs with ``-F``: the exported
+    flows within 1e-4 of JAX's (tests/test_torch_lucas_kanade.py's bar),
+    constant over each 16x16 block, and the frames equal but for flows
+    that round apart at a .5 edge (<= 1 % of pixels)."""
+    from test_torch_engine import _gray_video
+    from transflow_tpu_torch.flow.sources.archive import ArchiveFlowSource
+    from transflow_tpu_torch.utils.imageio import write_netpbm
+    seq = tmp_path / "seq"
+    seq.mkdir()
+    for i, frame in enumerate(_gray_video(5, 48, 64, seed=6)):
+        write_netpbm(str(seq / f"{i:04d}.pgm"), frame)
+    preset = os.path.join(REPO, "assets", "configs", "lk16.json")
+    argv = [str(seq / "%04d.pgm"), "-c", preset, "-p", "noise", "--seed",
+            "1", "-F"]
+    frames, flows = {}, {}
+    for package in ("port", "jax"):
+        out = tmp_path / package
+        out.mkdir()
+        frames[package] = _render(package, argv, out)
+        (archive,) = out.glob("*.flow.zip")
+        source = ArchiveFlowSource(str(archive)).open()
+        flows[package] = np.stack([np.array(it.array) for it in source])
+        source.close()
+    assert flows["port"].shape == (4, 48, 64, 2)
+    np.testing.assert_allclose(flows["port"], flows["jax"], atol=1e-4,
+                               rtol=0)
+    assert np.abs(flows["jax"]).max() > 1.0
+    block = flows["port"][:, :16, :16]
+    assert (block == block[:, :1, :1]).all()
+    assert frames["port"].shape == frames["jax"].shape == (4, 48, 64, 3)
+    differ = (frames["port"] != frames["jax"]).any(axis=-1).mean()
+    assert differ <= 0.01

@@ -11,6 +11,8 @@ import torch
 
 from transflow_tpu_torch import prng
 from transflow_tpu_torch.ops import farneback as fb
+from transflow_tpu_torch.ops import horn_schunck as hs
+from transflow_tpu_torch.ops import lucas_kanade as lk
 from transflow_tpu_torch.ops.correlation import (correlation,
                                                  correlation7x7,
                                                  correlation7x7_cuda,
@@ -468,3 +470,175 @@ def test_postprocess_chain_on_card_matches_cpu(device):
         outs[str(where)] = pp(flow.to(where), np.float32(0.5)).cpu()
     scale = np.abs(kernel).sum() * 12
     assert (outs[str(device)] - outs["cpu"]).abs().max() <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# Horn-Schunck (B9, B10) and Lucas-Kanade (B11, B12)
+# ---------------------------------------------------------------------------
+
+# odd shapes off the tiles, and the 1080p shapes: the frame (B9, B10, L0)
+# and Lucas-Kanade's two pyramid levels
+CLASSIC_SHAPES = [(1, 1), (2, 3), (7, 5), (17, 33), (37, 45), (135, 241),
+                  (270, 480), (540, 960), (1080, 1920)]
+
+
+def _hs_flow(h, w, gen, device):
+    return torch.randn((h, w, 2), generator=gen, device=device) * 2
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.01])
+@pytest.mark.parametrize("shape", CLASSIC_SHAPES, ids=str)
+def test_horn_schunck_kernels_match_plain(device, shape, alpha):
+    """B9's planes bit-equal to the plain version's (exact but for denom's
+    two fused multiply-adds, emulated exactly there) and the control block
+    zeroed; then four B10 launches from a random flow, each flow bit-equal,
+    the iteration count equal, under a delta that stops after the third
+    step (between the plain version's norms), no delta, and delta 0."""
+    h, w = shape
+    gen = torch.Generator(device=device).manual_seed(h * w)
+    a = torch.randint(0, 256, shape, generator=gen, device=device,
+                      dtype=torch.uint8)
+    b = torch.randint(0, 256, shape, generator=gen, device=device,
+                      dtype=torch.uint8)
+    before = hs.hs_derivatives_cuda.launches
+    planes, control = hs.hs_derivatives(a, b, alpha)
+    torch.cuda.synchronize()
+    assert hs.hs_derivatives_cuda.launches == before + 1
+    want, _ = hs.hs_derivatives_plain(a.cpu(), b.cpu(), alpha)
+    assert torch.equal(planes.cpu(), want)
+    assert control.tolist() == [0] * hs.CONTROL_WORDS
+    flow0 = _hs_flow(h, w, gen, device)
+    # the plain version's step norms, for a delta between steps 2 and 3
+    norms, f, ctl = [], flow0.cpu(), torch.zeros(4, dtype=torch.int32)
+    for _ in range(3):
+        new = hs.hs_iterate_plain(want, f, ctl, None)
+        norms.append(float((new[..., 0] - f[..., 0]).double().square()
+                           .sum().sqrt()))
+        f = new
+    deltas = [None, 0.0]
+    if norms[1] > norms[2] * 1.001:
+        deltas.append((norms[1] * norms[2]) ** 0.5)
+    for delta in deltas:
+        control = torch.zeros(4, dtype=torch.int32, device=device)
+        plain_control = torch.zeros(4, dtype=torch.int32)
+        got, ref = flow0.contiguous(), flow0.cpu()
+        for step in range(4):
+            got = hs.hs_iterate(planes, got, control, delta)
+            ref = hs.hs_iterate_plain(want, ref, plain_control, delta)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), ref), (delta, step)
+            assert control.tolist()[:3] == plain_control.tolist()[:2] + [0]
+        if delta is not None and delta > 0:
+            assert control.tolist()[:2] == [1, 3]
+
+
+def test_horn_schunck_static_pair_stops_on_the_card(device):
+    """A static pair at 1080x1920: the first step's norm is 0, so one
+    iteration is taken and the later launches copy through; the count is
+    read once, after the frame."""
+    from transflow_tpu_torch.flow.estimators.horn_schunck import (
+        horn_schunck_counted)
+    gen = torch.Generator(device=device).manual_seed(1)
+    a = torch.randint(0, 256, (1080, 1920), generator=gen, device=device,
+                      dtype=torch.uint8)
+    before = hs.hs_iterate_cuda.launches
+    flow, iters = horn_schunck_counted(a, a, max_iters=5)
+    assert hs.hs_iterate_cuda.launches == before + 5
+    assert int(iters) == 1 and not flow.any()
+
+
+def test_horn_schunck_on_card_matches_cpu(device):
+    """The estimator at 128x192 on the card against the CPU, the presets'
+    settings and a warm start: bit-equal (B9's arithmetic is exact, B10
+    rounds as its plain version does)."""
+    from transflow_tpu_torch.flow.estimators.horn_schunck import (
+        horn_schunck_counted)
+    rng = np.random.default_rng(2)
+    a, b = (torch.from_numpy(rng.integers(0, 256, (128, 192),
+                                          dtype=np.uint8)) for _ in "ab")
+    prev = torch.from_numpy(rng.standard_normal((128, 192, 2))
+                            .astype(np.float32))
+    for kwargs in ({}, dict(alpha=0.01, max_iters=1, decay=1.0),
+                   dict(alpha=10.0, max_iters=1, decay=0.9),
+                   dict(max_iters=20, delta=None)):
+        got, iters = horn_schunck_counted(a.to(device), b.to(device),
+                                          prev.to(device), **kwargs)
+        want, want_iters = horn_schunck_counted(a, b, prev, **kwargs)
+        assert torch.equal(got.cpu(), want), kwargs
+        assert int(iters) == int(want_iters)
+
+
+@pytest.mark.parametrize("win", [15, 7, 63])
+@pytest.mark.parametrize("shape", CLASSIC_SHAPES, ids=str)
+def test_lucas_kanade_kernels_match_plain(device, shape, win):
+    """B11 on a flow with a tenth of its pixels moving far beyond the
+    frame and some inf and NaN entries, B12's tensor mode and its solve
+    (cv2's window of 15 at a compile-time count; 7 and 63, the largest,
+    at a runtime count, 63 above 48 KB of shared memory): each bit-equal
+    to its plain version (NaN where it is NaN)."""
+    h, w = shape
+    gen = torch.Generator(device=device).manual_seed(h + w)
+    prev, nxt = (torch.rand(shape, generator=gen, device=device) * 255
+                 for _ in "ab")
+    ix, iy = (torch.randn(shape, generator=gen, device=device) * 20
+              for _ in "xy")
+    flow = torch.randn((h, w, 2), generator=gen, device=device) * 4
+    flow.view(-1)[::10] *= 1e6
+    flow.view(-1)[3::17] = float("nan")
+    flow.view(-1)[5::19] = float("inf")
+    before = (lk.lk_warp_products_cuda.launches,
+              lk.lk_window_solve_cuda.launches)
+    planes = lk.lk_warp_products(prev, nxt, ix, iy, flow)
+    want = lk.lk_warp_products_plain(prev.cpu(), nxt.cpu(), ix.cpu(),
+                                     iy.cpu(), flow.cpu())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(planes.cpu(), want, rtol=0, atol=0,
+                               equal_nan=True)
+    tensor = lk.lk_structure_tensor(ix, iy, win)
+    want_tensor = lk.lk_structure_tensor_plain(ix.cpu(), iy.cpu(), win)
+    assert torch.equal(tensor.cpu(), want_tensor)
+    # the solve on finite products and a finite flow
+    planes = torch.randn((2, h, w), generator=gen, device=device) * 100
+    flow = torch.randn((h, w, 2), generator=gen, device=device)
+    got = lk.lk_window_solve(planes, tensor, flow, win, 0.01)
+    want = lk.lk_window_solve_plain(planes.cpu(), want_tensor, flow.cpu(),
+                                    win, 0.01)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert (lk.lk_warp_products_cuda.launches,
+            lk.lk_window_solve_cuda.launches) == (before[0] + 1,
+                                                   before[1] + 2)
+
+
+def test_lucas_kanade_window_limit(device):
+    """B12 takes windows of 1 to 63 pixels; a larger one raises before any
+    launch."""
+    ix = torch.zeros((40, 50), device=device)
+    before = lk.lk_window_solve_cuda.launches
+    with pytest.raises(ValueError, match="1 to 63"):
+        lk.lk_structure_tensor(ix, ix, 64)
+    assert lk.lk_window_solve_cuda.launches == before
+
+
+def test_lucas_kanade_on_card_matches_cpu(device):
+    """The estimator at 128x192 on the card against the CPU on a pan:
+    within 1e-4 (the CPU tests' bar against JAX: the Scharr derivatives,
+    the pyramid's blur and the resize run in cuDNN and torch's kernels on
+    the card); 30 B11 and 33 B12 launches at three levels."""
+    from transflow_tpu_torch.flow.estimators.lucas_kanade import (
+        lucas_kanade)
+    rng = np.random.default_rng(3)
+    canvas = torch.from_numpy(rng.integers(0, 256, (140, 210),
+                                           dtype=np.uint8)).float()
+    canvas = torch.nn.functional.avg_pool2d(canvas[None, None], 5, 1, 2)
+    canvas = canvas[0, 0].round().to(torch.uint8)
+    a, b = canvas[6:134, 9:201], canvas[3:131, 5:197]
+    before = (lk.lk_warp_products_cuda.launches,
+              lk.lk_window_solve_cuda.launches)
+    got = lucas_kanade(a.to(device), b.to(device)).cpu()
+    assert (lk.lk_warp_products_cuda.launches - before[0],
+            lk.lk_window_solve_cuda.launches - before[1]) == (30, 33)
+    want = lucas_kanade(a, b)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert want.abs().max() > 1.0
+

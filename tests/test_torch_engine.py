@@ -7,7 +7,9 @@ frame. A LiteFlowNet frame source at ``lfn_warp_bound=8`` runs the bounded
 backwarp through both Engines; its flows meet the network bar. A
 checkpoint of either package resumes in the other.
 """
+import json
 import logging
+import os
 
 import numpy as np
 import pytest
@@ -309,6 +311,60 @@ def test_farneback_chunk_equals_frames():
     _assert_engines_equal(chunked, stepped)
     assert torch.equal(chunked.runtimes[0].prev_flow,
                        stepped.runtimes[0].prev_flow)
+
+
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "configs")
+# the presets of the secondary estimators, with their flow bars against
+# JAX: Horn-Schunck 1e-5 (1e-4 where horn-schunck-diverge's alpha 0.01
+# amplifies a rounding, tests/test_torch_horn_schunck.py), Lucas-Kanade
+# 1e-4 (tests/test_torch_lucas_kanade.py)
+CLASSIC_PRESETS = {"horn-schunck.json": 1e-5,
+                   "horn-schunck-diverge.json": 1e-4,
+                   "horn-schunck-smooth-inertia.json": 1e-5,
+                   "lukas-kanade.json": 1e-4, "lk16.json": 1e-4}
+
+
+@pytest.mark.parametrize("preset", list(CLASSIC_PRESETS))
+def test_classic_engine_matches_jax(preset):
+    """A frame source over each Horn-Schunck and Lucas-Kanade preset
+    through both Engines, one frame at a time (Horn-Schunck's warm start
+    carried between frames): the exported flows within the estimator's
+    bar of JAX's (4 ulp beyond ~100 px); then JAX's exported flows through
+    the port's Engine over a flow source: JAX's frames bit for bit."""
+    h, w = 64, 96
+    video = _gray_video(5, h, w)
+    with open(os.path.join(CONFIGS, preset), encoding="utf8") as file:
+        settings = json.load(file)
+    layer = dict(reset_mode="random", reset_random_factor=0.05)
+    cfg = dict(direction="backward", seed=0)
+    eng, jeng = _engines(
+        layer, cfg,
+        [(_source(base, video, "frame", cv.CvFlowConfig(**settings)),
+          _source(jbase, video, "frame", jcv.CvFlowConfig(**settings)))],
+        h=h, w=w)
+    pix = _pixmap(h, w)
+    jframes, jflows = [], []
+    for idx, (item, jitem) in enumerate(zip(eng.runtimes[0].source,
+                                            jeng.runtimes[0].source)):
+        _, flow = eng.process_frame([item], ((torch.from_numpy(pix),),),
+                                    idx / FPS, ((idx,),))
+        jframe, jflow = jeng.process_frame([jitem], ((jnp.asarray(pix),),),
+                                           idx / FPS, ((idx,),))
+        np.testing.assert_allclose(flow.numpy(), np.asarray(jflow),
+                                   atol=CLASSIC_PRESETS[preset],
+                                   rtol=2.0 ** -21, err_msg=str(idx))
+        jframes.append(np.asarray(jframe))
+        jflows.append(np.array(jflow))
+    assert len(jflows) == 4 and np.abs(jflows[-1]).max() > 1.0
+    jflows = np.stack(jflows)
+    eng, _ = _engines(layer, cfg, [(_source(base, jflows, "flow"),
+                                    _source(jbase, jflows, "flow"))],
+                      h=h, w=w)
+    for idx, item in enumerate(eng.runtimes[0].source):
+        frame, _ = eng.process_frame([item], ((torch.from_numpy(pix),),),
+                                     idx / FPS, ((idx,),))
+        np.testing.assert_array_equal(frame.numpy(), jframes[idx])
 
 
 def _lfn_engine(video, seed=5, reset=0.2):

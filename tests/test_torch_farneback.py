@@ -336,7 +336,7 @@ def test_fma32_rounds_once():
 
 
 def _fma_correlate(x, taps, axis, storage):
-    """``ops/farneback.py::_correlate`` (symmetric padding) with every
+    """``ops/image.py::ordered_correlate`` (symmetric padding) with every
     product added by ``_fma32``, rounded to ``storage`` as B1 rounds it."""
     n = x.shape[axis]
     lo = (len(taps) - 1) // 2
@@ -562,10 +562,17 @@ def test_downscale_resizes_no_unused_prev_flow(case, monkeypatch):
 
 
 def test_get_estimator_returns_the_port():
+    """The three classic methods resolve to the port's functions."""
+    from transflow_tpu_torch.flow.estimators import (horn_schunck,
+                                                     lucas_kanade)
     assert get_estimator("farneback") is fb.farneback
-    for method in ("horn-schunck", "lukas-kanade"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_estimator(method)
+    assert get_estimator("horn-schunck") is horn_schunck.horn_schunck
+    assert get_estimator("lukas-kanade") is lucas_kanade.lucas_kanade
+    assert fb.farneback.__module__.startswith("transflow_tpu_torch.")
+    assert horn_schunck.horn_schunck.__module__.startswith(
+        "transflow_tpu_torch.")
+    assert lucas_kanade.lucas_kanade.__module__.startswith(
+        "transflow_tpu_torch.")
 
 
 # ---------------------------------------------------------------------------

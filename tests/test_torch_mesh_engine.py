@@ -86,6 +86,49 @@ def test_mesh_engine_matches_jax(path):
                                   np.asarray(jax.random.key_data(jeng.key)))
 
 
+def test_horn_schunck_mesh_engine_matches_meshless():
+    """tests/test_parallel.py's Horn-Schunck model (32x128, two iterations,
+    no early stop, random reset 0.05, backward) over a 2-shard mesh with a
+    halo of 8 and a clip filter of 8 px (so the bounded gather is exact):
+    the estimator runs whole on the mesh's first device, and the frames
+    and flows equal the meshless Engine's bit for bit; the flows are
+    within 1e-5 of the JAX mesh Engine's."""
+    from test_torch_engine import _gray_video
+    h, w = 32, 128
+    video = _gray_video(6, h, w, seed=3)
+    settings = dict(method="horn-schunck", hs_iterations=2, hs_delta=None)
+    layer = dict(reset_mode="random", reset_random_factor=0.05)
+    kw = dict(flow_filters="clip=8")
+    eng, jeng = _mesh_engines(
+        layer, [(_source(base, video, "frame", cv.CvFlowConfig(**settings),
+                         **kw),
+                 _source(jbase, video, "frame",
+                         jcv.CvFlowConfig(**settings), **kw))],
+        h=h, w=w, halo=8)
+    lp = core.make_layer_params([config.LayerConfig(0, **layer)], h, w,
+                                {0: [(3, None)]}, device="cpu")
+    flat = engine.Engine(
+        config.Config("in.mp4", direction="backward", seed=5),
+        [_source(base, video, "frame", cv.CvFlowConfig(**settings), **kw)],
+        lp, h, w, export_flows=True, device="cpu")
+    flat._framerate = FPS
+    pix = _pixmap(h, w)
+    for k, (it, jit, fit) in enumerate(zip(eng.runtimes[0].source,
+                                           jeng.runtimes[0].source,
+                                           flat.runtimes[0].source)):
+        frame, flow = eng.process_frame([it], ((torch.from_numpy(pix),),),
+                                        k / FPS, ((k,),))
+        _, jflow = jeng.process_frame([jit], ((jnp.asarray(pix),),),
+                                      k / FPS, ((k,),))
+        fframe, fflow = flat.process_frame([fit],
+                                           ((torch.from_numpy(pix),),),
+                                           k / FPS, ((k,),))
+        assert torch.equal(frame, fframe) and torch.equal(flow, fflow), k
+        np.testing.assert_allclose(flow.numpy(), np.asarray(jflow),
+                                   atol=1e-5, err_msg=str(k))
+    assert k == 4 and flow.abs().max() > 1.0
+
+
 def test_mesh_engine_runs_the_sharded_gather(monkeypatch):
     """H=24 over 2 shards of 12 >= halo rows: the movement goes through
     the sharded gather, five planes per frame."""

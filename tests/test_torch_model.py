@@ -156,8 +156,36 @@ def test_farneback_model_matches_jax(monkeypatch):
 @pytest.mark.parametrize("kwargs", [{"method": "horn-schunck"}],
                          ids=["horn-schunck"])
 def test_unported_options_raise(random_weights, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlowTransferModel(H, W, device="cpu", **kwargs)
+    """An option an earlier port refused, now ported: the model with
+    Horn-Schunck at its defaults against the JAX model over a few steps
+    (warm start, early stop on the device): no network is loaded, the raw
+    flows within 1e-5 of JAX's (tests/test_torch_horn_schunck.py's bar),
+    the frames equal but for flows that round apart at a .5 edge (<= 1 %
+    of pixels)."""
+    frames = _gray_video(FRAMES + 1, H, W, seed=2)
+    layers = [dict(reset_mode="random", reset_random_factor=0.2)]
+    jmodel = JaxModel(H, W, [JaxLayerConfig(0, **layers[0])], **kwargs)
+    model = FlowTransferModel(H, W, [LayerConfig(0, **layers[0])],
+                              device="cpu", **kwargs)
+    assert model.net is None
+    jstate = jmodel.init_state(frames[0])
+    state = model.init_state(torch.from_numpy(frames[0]))
+    jpix, pix = jmodel.default_pixmaps(), model.default_pixmaps()
+    jkeys = jax.random.split(jax.random.key(0), FRAMES)
+    keys = prng.split(prng.key(0), FRAMES)
+    for idx in range(1, FRAMES + 1):
+        jstate, jrgb = jmodel.step(jstate, jnp.asarray(frames[idx]), jpix,
+                                   jnp.float32(idx / 30.0), jkeys[idx - 1],
+                                   jmodel.default_frame_numbers())
+        state, rgb = model.step(state, torch.from_numpy(frames[idx]), pix,
+                                idx / 30.0, keys[idx - 1],
+                                model.default_frame_numbers())
+        want = np.asarray(jstate["prev_flow"])
+        np.testing.assert_allclose(state["prev_flow"].numpy(), want,
+                                   atol=1e-5, rtol=0)
+        assert np.abs(want).max() > 1.0
+        differ = (rgb.numpy() != np.asarray(jrgb)).any(axis=-1).mean()
+        assert differ <= 0.01, idx
 
 
 def _gradient_mask(h=H, w=W):

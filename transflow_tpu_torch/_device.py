@@ -29,6 +29,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # the C entry points and their argument types; pointers and the stream are
 # c_void_p so ctypes never narrows them to 32-bit ints
 _SIGNATURES = {
@@ -53,6 +54,17 @@ _SIGNATURES = {
                                   _P),
     # flow, winner (int32 scratch), out, H, W, stream
     "transflow_forward_to_backward": (_P, _P, _P, _I, _I, _P),
+    # prev, next, planes, control, H, W, alpha^2, stream
+    "transflow_hs_derivatives": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # planes, flow, out, control, partials, partials' count, H, W, delta,
+    # has delta, stream
+    "transflow_hs_iterate": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # prev, next, ix, iy, flow, out, H, W, stream
+    "transflow_lk_warp_products": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # ix, iy, out, H, W, taps, det floor, stream
+    "transflow_lk_structure_tensor": (_P, _P, _P, _I, _I, _I, _F, _P),
+    # planes, tensor, flow, out, H, W, taps, eps^2, stream
+    "transflow_lk_window_solve": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 
@@ -177,3 +189,25 @@ def launch(device: torch.device, name: str, *args) -> None:
 def cuda_stream(tensor: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on ``tensor``'s device."""
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless ``tensors`` are contiguous and on one CUDA device: what
+    a kernel wrapper takes."""
+    device = tensors[0].device
+    if not all(t.is_cuda and t.device == device for t in tensors):
+        raise ValueError(f"{name} needs tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
+def dispatch(name: str, plain, cuda, *tensors: torch.Tensor):
+    """A kernel's dispatcher: ``plain`` (its plain PyTorch version) for CPU
+    tensors, ``cuda`` (its wrapper) for CUDA tensors, else raise. There is
+    no fallback between the two."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return plain
+    if tensors[0].is_cuda:
+        return cuda
+    raise ValueError(f"{name} has no path for device {tensors[0].device}")

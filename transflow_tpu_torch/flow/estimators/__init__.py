@@ -1,19 +1,18 @@
-"""Optical-flow estimators of the port: Farneback and LiteFlowNet so far."""
-
-_NOT_PORTED = {
-    "horn-schunck": "ROADMAP Queue 1, item 10 (secondary estimators)",
-    "lukas-kanade": "ROADMAP Queue 1, item 10 (secondary estimators)",
-}
+"""Optical-flow estimators of the port: Farneback, Horn-Schunck,
+Lucas-Kanade and LiteFlowNet, by the JAX package's method names."""
 
 
 def get_estimator(method: str):
     if method == "farneback":
         from .farneback import farneback
         return farneback
+    if method == "horn-schunck":
+        from .horn_schunck import horn_schunck
+        return horn_schunck
+    if method == "lukas-kanade":
+        from .lucas_kanade import lucas_kanade
+        return lucas_kanade
     if method == "liteflownet":
         from .liteflownet import liteflownet
         return liteflownet
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"flow method {method!r} is not ported yet: {_NOT_PORTED[method]}")
     raise ValueError(f"Unknown flow method {method!r}")

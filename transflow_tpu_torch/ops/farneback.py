@@ -28,9 +28,10 @@ import functools
 import numpy as np
 import torch
 
-from .._device import DTYPE_CODES, cuda_stream, launch
-from .image import (bilinear_sample_packed, gaussian_kernel_1d, pad_axis,
-                    prepack_bilinear_taps, rounded_taps)
+from .._device import (DTYPE_CODES, check_cuda, cuda_stream, dispatch,
+                       launch)
+from .image import (bilinear_sample_packed, gaussian_kernel_1d,
+                    ordered_correlate, prepack_bilinear_taps, rounded_taps)
 from .select_warp import shift_select_warp
 
 # what the kernels take (csrc/farneback.cu: kMaxPolyN, kMaxWinTaps)
@@ -55,41 +56,10 @@ def poly_exp_consts(n: int, sigma: float):
             (g * x * x).astype(np.float32), ginv.astype(np.float32))
 
 
-def _correlate(x: torch.Tensor, taps, dim: int, mode: str) -> torch.Tensor:
-    """1-D correlation of float32 ``x`` along ``dim`` with the float32
-    ``taps`` (a list), padded by ``mode``: products added in tap order,
-    each rounded to float32, as the kernels add them."""
-    n = x.shape[dim]
-    lo = (len(taps) - 1) // 2
-    padded = pad_axis(x, dim, lo, len(taps) - 1 - lo, mode)
-    acc = padded.narrow(dim, 0, n) * taps[0]
-    for k in range(1, len(taps)):
-        acc = acc + padded.narrow(dim, k, n) * taps[k]
-    return acc
-
-
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    device = tensors[0].device
-    if not all(t.is_cuda and t.device == device for t in tensors):
-        raise ValueError(f"{name} needs tensors on one CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors")
-
-
 def _check_flow(name: str, flow: torch.Tensor, h: int, w: int) -> None:
     if tuple(flow.shape) != (h, w, 2) or flow.dtype != torch.float32:
         raise ValueError(f"{name} needs an ({h}, {w}, 2) float32 flow, got "
                          f"{tuple(flow.shape)} {flow.dtype}")
-
-
-def _dispatch(name: str, plain, cuda, *tensors: torch.Tensor):
-    """``plain`` for CPU tensors, ``cuda`` for CUDA tensors, else raise."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return plain
-    if tensors[0].is_cuda:
-        return cuda
-    raise ValueError(f"{name} has no path for device {tensors[0].device}")
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +79,7 @@ def poly_expansion_plain(image: torch.Tensor, n: int, sigma: float,
     f = image.to(storage).float()
 
     def corr(x, taps, dim):
-        return _correlate(x, taps, dim, "symmetric").to(storage).float()
+        return ordered_correlate(x, taps, dim, "symmetric").to(storage).float()
 
     fy0, fy1, fy2 = (corr(f, taps, 0) for taps in (g, xg, xxg))
     # [m00, m10, m01, m20, m02, m11]: w*f, w*x*f, w*y*f, w*x^2*f, ...
@@ -140,7 +110,7 @@ def _poly_launch(images, n: int, sigma: float,
     """One launch of kernel B1 over one or two contiguous (H, W) images of
     one shape and dtype (float32 or bf16) on one CUDA device; counted on
     ``poly_expansion_cuda.launches``."""
-    _check_cuda("poly_expansion_cuda", *images)
+    check_cuda("poly_expansion_cuda", *images)
     image = images[0]
     if image.dim() != 2 or image.dtype not in DTYPE_CODES or any(
             t.shape != image.shape or t.dtype != image.dtype
@@ -184,8 +154,8 @@ poly_expansion_cuda.launches = 0
 def poly_expansion(image: torch.Tensor, n: int, sigma: float,
                    storage: torch.dtype = torch.float32) -> torch.Tensor:
     """Dispatcher of B1 by the image's device."""
-    fn = _dispatch("poly_expansion", poly_expansion_plain,
-                   poly_expansion_cuda, image)
+    fn = dispatch("poly_expansion", poly_expansion_plain,
+                  poly_expansion_cuda, image)
     return fn(image, n, sigma, storage)
 
 
@@ -209,8 +179,8 @@ def poly_expansion_pair(image1: torch.Tensor, image2: torch.Tensor, n: int,
                         sigma: float, storage: torch.dtype = torch.float32
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dispatcher of B1 over both images of a level by their device."""
-    fn = _dispatch("poly_expansion_pair", poly_expansion_pair_plain,
-                   poly_expansion_pair_cuda, image1, image2)
+    fn = dispatch("poly_expansion_pair", poly_expansion_pair_plain,
+                  poly_expansion_pair_cuda, image1, image2)
     return fn(image1, image2, n, sigma, storage)
 
 
@@ -263,7 +233,7 @@ def update_equations_cuda(poly1: torch.Tensor, poly2: torch.Tensor,
     """Launch kernel B2a on contiguous (H, W, 5) float32 or bf16 stacks of
     one dtype and an (H, W, 2) float32 flow on one CUDA device.
     ``update_equations_cuda.launches`` counts launches."""
-    _check_cuda("update_equations_cuda", poly1, poly2, flow)
+    check_cuda("update_equations_cuda", poly1, poly2, flow)
     h, w = flow.shape[:2]
     if (tuple(poly1.shape) != (h, w, 5) or poly2.shape != poly1.shape
             or poly1.dtype not in DTYPE_CODES or poly2.dtype != poly1.dtype):
@@ -289,8 +259,8 @@ def update_equations(poly1: torch.Tensor, poly2: torch.Tensor,
                      flow: torch.Tensor,
                      select_radius: int = 0) -> torch.Tensor:
     """Dispatcher of B2a by the tensors' device."""
-    fn = _dispatch("update_equations", update_equations_plain,
-                   update_equations_cuda, poly1, poly2, flow)
+    fn = dispatch("update_equations", update_equations_plain,
+                  update_equations_cuda, poly1, poly2, flow)
     return fn(poly1, poly2, flow, select_radius)
 
 
@@ -324,10 +294,10 @@ def aggregate_solve_plain(planes: torch.Tensor, flow: torch.Tensor,
     then ``A d = b`` is solved per pixel where ``det > 1e-9`` and the
     window's weight is positive; elsewhere the flow stays."""
     vtaps, htaps, mode = window_taps(winsize, use_gaussian, planes.dtype)
-    tmp = _correlate(planes.float(), vtaps, 1, mode)
+    tmp = ordered_correlate(planes.float(), vtaps, 1, mode)
     if not use_gaussian:
         tmp = tmp.to(planes.dtype).float()
-    g11, g12, g22, h1, h2, weight = _correlate(tmp, htaps, 2, mode)
+    g11, g12, g22, h1, h2, weight = ordered_correlate(tmp, htaps, 2, mode)
     det = g11 * g22 - g12 * g12
     ok = (det > 1e-9) & (weight > 0)
     inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
@@ -351,7 +321,7 @@ def aggregate_solve_cuda(planes: torch.Tensor, flow: torch.Tensor,
     """Launch kernel B2b on contiguous (6, H, W) float32 or bf16 planes and
     an (H, W, 2) float32 flow on one CUDA device.
     ``aggregate_solve_cuda.launches`` counts launches."""
-    _check_cuda("aggregate_solve_cuda", planes, flow)
+    check_cuda("aggregate_solve_cuda", planes, flow)
     if planes.dim() != 3 or planes.shape[0] != 6 or \
             planes.dtype not in DTYPE_CODES:
         raise ValueError("aggregate_solve_cuda needs (6, H, W) float32 or "
@@ -380,6 +350,6 @@ aggregate_solve_cuda.launches = 0
 def aggregate_solve(planes: torch.Tensor, flow: torch.Tensor, winsize: int,
                     use_gaussian: bool) -> torch.Tensor:
     """Dispatcher of B2b by the tensors' device."""
-    fn = _dispatch("aggregate_solve", aggregate_solve_plain,
-                   aggregate_solve_cuda, planes, flow)
+    fn = dispatch("aggregate_solve", aggregate_solve_plain,
+                  aggregate_solve_cuda, planes, flow)
     return fn(planes, flow, winsize, use_gaussian)

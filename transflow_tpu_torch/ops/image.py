@@ -1,7 +1,9 @@
 """Device-side image primitives of the port.
 
 Counterpart of transflow_tpu/ops/image.py: the separable correlations and
-blurs of Farneback's pyramid, the anti-aliased resize that
+blurs of Farneback's pyramid (and their reflect-101 mode, Horn-Schunck's
+pre-blur), the 2-D correlation of Horn-Schunck's stencils, the pyramid
+reduce of Lucas-Kanade, the anti-aliased resize that
 ``jax.image.resize(..., "linear")`` is, bilinear resize with torch's own
 semantics (LiteFlowNet), the integer-factor flow upscale, and the
 clamped-anchor bilinear sampler. Every function keeps the JAX function's
@@ -39,11 +41,22 @@ def pad_axis(x: torch.Tensor, dim: int, lo: int, hi: int,
 
     ``"symmetric"`` is numpy's mode of that name: the edge sample repeats
     (``[2, 1, 0 | 0, 1, 2 | 2, 1]``), any pad width; ``F.pad`` has no such
-    mode, so the pad is an index. ``"constant"`` pads with zeros."""
+    mode, so the pad is an index. ``"reflect"`` is numpy's (and
+    ``jnp.pad``'s) mode of that name, reflect-101: the edge sample does
+    not repeat (``[2, 1 | 0, 1, 2 | 1, 0]``), any pad width.
+    ``"constant"`` pads with zeros."""
     n = x.shape[dim]
     if mode == "symmetric":
         idx = torch.arange(-lo, n + hi, device=x.device).remainder(2 * n)
         idx = torch.where(idx < n, idx, 2 * n - 1 - idx)
+        return x.index_select(dim, idx)
+    if mode == "reflect":
+        if n == 1:
+            idx = torch.zeros(lo + 1 + hi, dtype=torch.long, device=x.device)
+        else:
+            period = 2 * (n - 1)
+            idx = torch.arange(-lo, n + hi, device=x.device).remainder(period)
+            idx = torch.where(idx < n, idx, period - idx)
         return x.index_select(dim, idx)
     if mode == "constant":
         shape = list(x.shape)
@@ -62,6 +75,22 @@ def rounded_taps(kernel_1d, dtype: torch.dtype) -> torch.Tensor:
     else:
         taps = torch.from_numpy(np.array(kernel_1d, np.float32))
     return taps.to(dtype).float()
+
+
+def ordered_correlate(x: torch.Tensor, taps, dim: int,
+                      mode: str) -> torch.Tensor:
+    """1-D correlation of float32 ``x`` along ``dim`` with the float32
+    ``taps`` (a list), padded by ``mode`` (``pad_axis``): products added in
+    tap order, each rounded to float32. The port's kernels add their sums
+    in this order, so a kernel and a plain version written with this
+    agree bit for bit; ``F.conv2d`` leaves the order to the library."""
+    n = x.shape[dim]
+    lo = (len(taps) - 1) // 2
+    padded = pad_axis(x, dim, lo, len(taps) - 1 - lo, mode)
+    acc = padded.narrow(dim, 0, n) * taps[0]
+    for k in range(1, len(taps)):
+        acc = acc + padded.narrow(dim, k, n) * taps[k]
+    return acc
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,6 +130,32 @@ def box_filter(image: torch.Tensor, size: int) -> torch.Tensor:
     if image.dtype == torch.bfloat16:
         tmp = tmp.to(torch.bfloat16)
     return separable_correlate(tmp, ones, axis=1, mode="constant")
+
+
+def correlate2d_reflect(image: torch.Tensor, kernel) -> torch.Tensor:
+    """'same' 2-D cross-correlation of an (H, W) image with numpy's
+    symmetric padding (the edge repeats), in float32:
+    ``scipy.ndimage.convolve(image, kernel, mode="reflect")``. The kernel
+    (as the caller holds it, float32) is flipped here, and an even size
+    puts its extra tap on the high side, as ndimage's origin 0 does. The
+    sum is ``F.conv2d``'s, with TF32 off on the card."""
+    flipped = np.array(kernel, np.float32)[::-1, ::-1]
+    kh, kw = flipped.shape
+    k = _taps_on(tuple(flipped.ravel().tolist()), image.device)
+    padded = pad_axis(image.float(), 0, (kh - 1) // 2, kh // 2, "symmetric")
+    padded = pad_axis(padded, 1, (kw - 1) // 2, kw // 2, "symmetric")
+    with exact_f32_convolutions(image.device):
+        return F.conv2d(padded[None, None], k.reshape(1, 1, kh, kw))[0, 0]
+
+
+def downsample2x(image: torch.Tensor) -> torch.Tensor:
+    """The classic pyramid reduce: the 5-tap binomial blur ``[1, 4, 6, 4,
+    1] / 16`` along each axis with symmetric padding, then every second
+    row and column from the first (``[::2, ::2]``: an odd size rounds
+    up). Float32 (H', W'), contiguous."""
+    k = np.asarray([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
+    blurred = separable_correlate(separable_correlate(image, k, 0), k, 1)
+    return blurred[::2, ::2].contiguous()
 
 
 def gaussian_kernel_1d(sigma: float, radius: int) -> torch.Tensor:
