@@ -122,17 +122,21 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    over a few ``process_frame`` calls, and their device time per frame
    by kernel name (the ten largest);
 11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
-   kernel, B1, B2a and B2b against other trees' ``correlation.cu`` and
-   ``farneback.cu`` (for example the parent commit's, from ``git archive``
-   under the git-ignored ``_local/``), built with the package's flags, all
-   through the raw C entries, ``device_ms`` in turns (others, this, this,
-   others): the correlation at its five level shapes; B1 (both images of
-   a level: ``transflow_poly_expansion_pair`` where the other tree has it,
-   else two ``transflow_poly_expansion`` calls), B2a (select radius 0, on
-   a random flow and on the pan) and B2b (the box) at the four 1080p level
-   shapes in bf16; then B2a on the inputs of each of its 12 launches in a
-   frame of phase F's ``CvFlowConfig()`` Engine; bit-equal between the
-   trees.
+   kernel, B1, B2a, B2b, B9 and B10 against other trees' ``correlation.cu``,
+   ``farneback.cu`` and ``horn_schunck.cu`` (for example the parent
+   commit's, from ``git archive`` under the git-ignored ``_local/``),
+   built with the package's flags, all through the raw C entries,
+   ``device_ms`` in turns (others, this, this, others): the correlation at
+   its five level shapes; B1 (both images of a level:
+   ``transflow_poly_expansion_pair`` where the other tree has it, else two
+   ``transflow_poly_expansion`` calls), B2a (select radius 0, on a random
+   flow and on the pan) and B2b (the box) at the four 1080p level shapes
+   in bf16; then B2a on the inputs of each of its 12 launches in a frame
+   of phase F's ``CvFlowConfig()`` Engine; then B9 on the pan's 1080p
+   frames and B10's three launches under delta 1 from a zero flow
+   (``horn-schunck.json``'s frame), where the other tree has
+   ``horn_schunck.cu``; bit-equal between the trees (B10's flows and its
+   control words ``[stop, iterations]`` too).
 
 B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
    version at 1080x1920 on a random forward flow, a converging one (every
@@ -141,8 +145,11 @@ B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
    bound and its share, and in phase 10 the profiler's time of a call
    (the memset and both kernels).
 B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
-   three steps under delta 1, then timed with no delta so every launch
-   steps) at 1080x1920 on the pan's frames, B11 (``lk_warp_products``)
+   three steps under delta 1, then timed under delta 0 so every launch
+   steps and runs the reduction every preset runs; beside it one
+   copy-through launch, the stop word set) at 1080x1920 on the pan's
+   frames, with B10's count of partial sums read back from the kernel
+   library, B11 (``lk_warp_products``)
    and B12 (``lk_structure_tensor`` and ``lk_window_solve``, window 15)
    at the three levels of Lucas-Kanade's 1080p pyramid on the pan's
    images, Scharr derivatives and flow, each bit-equal to its plain
@@ -421,8 +428,8 @@ def ptxas_reports(log: str) -> list[dict]:
 
 # kernels whose ptxas report must show no spill: the correlation's 98 sums
 # per thread, the register windows of B1 and B2b and B2a's twenty tap loads
-# a sample stay in registers; so do B5's, B9's, B10's, B11's and B12's few
-# values (28-40 registers)
+# a sample stay in registers; so do B5's, B11's and B12's few values (16-40
+# registers), B9's strips and B10's strip of two rows (64 registers each)
 NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
             "aggregate_solve", "forward_scatter", "backward_resolve",
             "hs_derivatives", "hs_iterate", "lk_warp_products", "lk_window")
@@ -1492,19 +1499,21 @@ H_STATIC_ITERS = 5    # max_iters of the static pair
 # (H, W, name) of Lucas-Kanade's pyramid of a 1080p frame at max_level 2
 H_LK_LEVELS = ((1080, 1920, "L0"), (540, 960, "L1"), (270, 480, "L2"))
 # float32 operations a pixel. B9: both frames' vertical and horizontal
-# 5-tap blurs (the 17x33 blurred tile of a 16x32 block), the three 2x2
-# stencils of both and denom. B10: the eight-tap averages of u and v, c,
+# 5-tap blurs (each 5 products and 4 sums a pixel, whatever tile the
+# kernel stages), the three 2x2 stencils of both and denom. B10: the
+# eight-tap averages of u and v, c,
 # the new u and v, the squared step. B11: the coordinates, the weights,
 # three lerps, it and the products. B12: the vertical and horizontal sums
 # of two planes (the tensor mode: three products and three planes), then
 # the solve (the tensor mode: det and 1 / det).
-B9_OPS = 2 * 2 * 9 * 17 * 33 / (16 * 32) + 2 * 3 * 7 + 5
+B9_OPS = 2 * 2 * 9 + 2 * 3 * 7 + 5
 B10_OPS = 2 * 15 + 11
 B11_OPS = 6 + 9 + 3
 B12_OPS = {"solve": 2 * 2 * 14 + 13, "tensor": 3 + 3 * 2 * 14 + 5}
 # the CUDA kernel behind each of phase H's wrappers (profiler names)
 H_KERNEL_NAMES = {"hs_derivatives": "hs_derivatives_kernel",
                   "hs_iterate": "hs_iterate_kernel",
+                  "hs_iterate_copy": "hs_iterate_kernel",
                   "lk_warp_products": "lk_warp_products_kernel",
                   "lk_structure_tensor": "lk_window_kernel",
                   "lk_window_solve": "lk_window_kernel"}
@@ -1628,10 +1637,13 @@ def phase_classic_engine(device, card: str) -> dict:
 
 def hs_bound_ms(kernel: str, h: int, w: int) -> tuple[float, str]:
     """B9's bound: two frames' bytes in, four float32 planes out; B10's a
-    launch: the four planes and the flow in, the flow out."""
+    launch: the four planes and the flow in, the flow out; a copy-through
+    launch of B10 (the stop word set): the flow in and out."""
     px = h * w
     if kernel == "hs_derivatives":
         return _bound(px * (2 + 16), B9_OPS * px)
+    if kernel == "hs_iterate_copy":
+        return _bound(px * (8 + 8), 0)
     return _bound(px * (16 + 8 + 8), B10_OPS * px)
 
 
@@ -1654,8 +1666,10 @@ def phase_classic_kernels(device) -> list[dict]:
     pan's images, their Scharr derivatives and the pan's flow at the
     level, each against its plain version on the same inputs on the card:
     bit-equal; ``device_ms``, the bound and its share, ``call_ms`` and the
-    plain version's time. B10 runs with ``delta=None`` in the timing
-    loops, so every launch steps."""
+    plain version's time. B10 runs with ``delta=0.0`` in the timing loops,
+    so every launch steps and runs the reduction every preset runs; one
+    copy-through launch (the stop word set) is timed beside it: the floor
+    of its blocks' fixed costs."""
     from transflow_tpu_torch.flow.estimators import lucas_kanade as lke
     from transflow_tpu_torch.ops import horn_schunck as hs
     from transflow_tpu_torch.ops import image
@@ -1699,13 +1713,25 @@ def phase_classic_kernels(device) -> list[dict]:
                              f"the plain version's {plain_control.tolist()}")
     print(f"classic hs_iterate {HEIGHT}x{WIDTH} on the pan: "
           f"{int(control[1])} of 3 "
-          f"iterations taken (stop word {int(control[0])}), bit-equal")
+          f"iterations taken (stop word {int(control[0])}), bit-equal; "
+          f"{hs.iterate_partials(HEIGHT, WIDTH)} partial sums a launch "
+          "(transflow_hs_iterate_partials)")
     fresh = torch.zeros_like(control)
     record("hs_iterate", "L0", HEIGHT, WIDTH, 0.0,
-           functools.partial(hs.hs_iterate_cuda, planes, got, fresh, None),
+           functools.partial(hs.hs_iterate_cuda, planes, got, fresh, 0.0),
            functools.partial(hs.hs_iterate_plain, want, got, fresh.cpu(),
-                             None),
-           hs_bound_ms("hs_iterate", HEIGHT, WIDTH), "delta None")
+                             0.0),
+           hs_bound_ms("hs_iterate", HEIGHT, WIDTH), "delta 0")
+    if int(fresh[0]):
+        raise AssertionError("B10 stopped under delta 0")
+    stopped = torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=device)
+    _fb_compare("B10 copy-through", hs.hs_iterate_cuda(planes, got, stopped,
+                                                       1.0), got)
+    record("hs_iterate_copy", "L0", HEIGHT, WIDTH, 0.0,
+           functools.partial(hs.hs_iterate_cuda, planes, got, stopped, 1.0),
+           functools.partial(hs.hs_iterate_plain, want, got, stopped.cpu(),
+                             1.0),
+           hs_bound_ms("hs_iterate_copy", HEIGHT, WIDTH), "stop word set")
     prev, nxt = a.float(), b.float()
     for h, w, level in H_LK_LEVELS:
         if level != "L0":
@@ -2384,16 +2410,19 @@ def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
 
 
 def build_others(csrcs: list[Path], mine: list[dict]) -> list[ctypes.CDLL]:
-    """``correlation.cu`` and ``farneback.cu`` of other trees, built with
-    the package's nvcc flags (one nvcc per source, all at once) into one
-    library per tree under ``_build/``, with the argument types of the C
-    entries each has. Prints ptxas's report of every instantiation that
-    differs from this tree's (``mine``)."""
+    """``correlation.cu``, ``farneback.cu`` and, where the tree has it,
+    ``horn_schunck.cu`` of other trees, built with the package's nvcc flags
+    (one nvcc per source, all at once) into one library per tree under
+    ``_build/``, with the argument types of the C entries each has. Prints
+    ptxas's report of every instantiation that differs from this tree's
+    (``mine``)."""
     from transflow_tpu_torch._device import (BUILD_DIR, NVCC_FLAGS,
                                              _SIGNATURES, nvcc_path)
     paths, jobs = [], {}
     for csrc in csrcs:
         sources = [csrc / "correlation.cu", csrc / "farneback.cu"]
+        if (csrc / "horn_schunck.cu").exists():
+            sources.append(csrc / "horn_schunck.cu")
         digest = hashlib.sha256()
         for source in sources:
             digest.update(source.read_bytes())
@@ -2502,6 +2531,33 @@ def b2b_entry(lib: ctypes.CDLL, planes, flow, out):
                   htaps.ctypes.data_as(ctypes.c_void_p), cuda_stream(flow))
 
 
+def hs_partials(lib: ctypes.CDLL, h: int, w: int) -> int:
+    """The partial sums ``lib``'s B10 needs at (h, w): its own count, or
+    one for each 8x32 tile in a tree whose B10 has no count entry (its
+    first design)."""
+    if hasattr(lib, "transflow_hs_iterate_partials"):
+        return lib.transflow_hs_iterate_partials(h, w)
+    return -(-h // 8) * -(-w // 32)
+
+
+def hs_entries(lib: ctypes.CDLL, frames, planes, control, partials, flows):
+    """B9 on the two frames into ``planes`` and ``control``, and B10's three
+    launches under delta 1 from ``flows[0]`` into ``flows[1:]``, through
+    ``lib``'s raw C entries."""
+    from transflow_tpu_torch._device import cuda_stream
+    from transflow_tpu_torch.ops.horn_schunck import _alpha2
+    h, w = frames[0].shape
+    stream = cuda_stream(planes)
+    b9 = _entry(lib, "transflow_hs_derivatives", frames[0].data_ptr(),
+                frames[1].data_ptr(), planes.data_ptr(), control.data_ptr(),
+                h, w, _alpha2(1.0), stream)
+    steps = [_entry(lib, "transflow_hs_iterate", planes.data_ptr(),
+                    flows[k].data_ptr(), flows[k + 1].data_ptr(),
+                    control.data_ptr(), partials.data_ptr(), partials.numel(),
+                    h, w, 1.0, 1, stream) for k in range(3)]
+    return b9, lambda: [step() for step in steps]
+
+
 def in_turns(calls: dict) -> dict:
     """``device_ms`` of ``calls`` (this tree's first) in ``AGAINST_ROUNDS``
     rounds that run the others, this tree twice, then the others back
@@ -2589,7 +2645,8 @@ def phase_against(device, others: list[tuple[str, Path]], card: str,
     gives them; then B2a on the inputs of each of its launches in one frame
     of the Farneback Engine (``fb_run``), with the share of its warps whose
     samples share their tap rows (``one_row_warps``); Farneback outputs
-    bit-equal."""
+    bit-equal. Last, where a tree has ``horn_schunck.cu``, B9 and B10
+    (``against_horn_schunck``)."""
     from transflow_tpu_torch._device import kernel_library
     from transflow_tpu_torch.ops import farneback as fb
     libs = {"this": kernel_library()._lib}
@@ -2682,6 +2739,48 @@ def phase_against(device, others: list[tuple[str, Path]], card: str,
               f"{flow.abs().max().item():.3f}; outputs bit-equal")
     print(f"against B2a engine per frame: device_ms "
           f"{_totals_text(engine_total)} on {card}")
+    against_horn_schunck(device, libs, card)
+
+
+def against_horn_schunck(device, libs: dict, card: str) -> None:
+    """Phase 11's Horn-Schunck part: B9 on the pan's 1080p frames and
+    B10's three launches under delta 1 from a zero flow, in every library
+    of ``libs`` (name to ctypes library, this tree's as "this") that has
+    them, ``device_ms`` in turns; planes, flows and control words
+    bit-equal between the trees."""
+    hs_libs = {name: lib for name, lib in libs.items()
+               if hasattr(lib, "transflow_hs_iterate")}
+    gray = gray_frames(2, HEIGHT, WIDTH, device)
+    frames = (gray[1].contiguous(), gray[0].contiguous())
+    # the pan never stops the three steps; partials for the tree that
+    # needs the most
+    count = max(hs_partials(lib, HEIGHT, WIDTH) for lib in hs_libs.values())
+    bufs, calls = {}, {}
+    for name, lib in hs_libs.items():
+        bufs[name] = (torch.empty((4, HEIGHT, WIDTH), device=device),
+                      torch.empty(4, dtype=torch.int32, device=device),
+                      torch.empty(count, dtype=torch.float64, device=device),
+                      [torch.zeros((HEIGHT, WIDTH, 2), device=device)]
+                      + [torch.empty((HEIGHT, WIDTH, 2), device=device)
+                         for _ in range(3)])
+        calls[name] = hs_entries(lib, frames, *bufs[name])
+        for call in calls[name]:
+            call()
+    torch.cuda.synchronize()
+    _check_outputs("B9 and B10", {
+        name: [planes, *flows[1:], control[:2].clone()]
+        for name, (planes, control, _, flows) in bufs.items()})
+    steps = bufs["this"][1][:2].tolist()
+    for k, kernel in enumerate(("hs_derivatives", "hs_iterate")):
+        turns = in_turns({name: pair[k] for name, pair in calls.items()})
+        bound = (1 + 2 * k) * hs_bound_ms(kernel, HEIGHT, WIDTH)[0]
+        label = "B9" if k == 0 else "B10 x3 (delta 1)"
+        print(f"against {label} ({HEIGHT},{WIDTH}) per frame: "
+              f"{_turns_text(turns)}; bound {bound:.5f}; outputs bit-equal "
+              f"(control {steps}, {count} partials) on {card}")
+    if any(int(control[0]) for _, control, _, _ in bufs.values()):
+        raise AssertionError("against B10: the stop word was set on the "
+                             "pan, so the timed launches copied through")
 
 
 def _bound_by(rows) -> str:
@@ -2710,9 +2809,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
-                        help="also time the correlation kernel, B1, B2a and "
-                             "B2b against this directory's correlation.cu "
-                             "and farneback.cu (phase 11); repeat it for "
+                        help="also time the correlation kernel, B1, B2a, "
+                             "B2b, B9 and B10 against this directory's "
+                             "correlation.cu, farneback.cu and "
+                             "horn_schunck.cu (phase 11); repeat it for "
                              "several trees")
     args = parser.parse_args()
     card = phase_device()

@@ -486,20 +486,21 @@ def _hs_flow(h, w, gen, device):
     return torch.randn((h, w, 2), generator=gen, device=device) * 2
 
 
-@pytest.mark.parametrize("alpha", [1.0, 0.01])
-@pytest.mark.parametrize("shape", CLASSIC_SHAPES, ids=str)
-def test_horn_schunck_kernels_match_plain(device, shape, alpha):
+def _check_horn_schunck_kernels(device, shape, alpha, frames=None):
     """B9's planes bit-equal to the plain version's (exact but for denom's
     two fused multiply-adds, emulated exactly there) and the control block
     zeroed; then four B10 launches from a random flow, each flow bit-equal,
     the iteration count equal, under a delta that stops after the third
-    step (between the plain version's norms), no delta, and delta 0."""
+    step (between the plain version's norms), no delta, and delta 0.
+    ``frames`` maps the two frames before B9 (default: as they are)."""
     h, w = shape
     gen = torch.Generator(device=device).manual_seed(h * w)
     a = torch.randint(0, 256, shape, generator=gen, device=device,
                       dtype=torch.uint8)
     b = torch.randint(0, 256, shape, generator=gen, device=device,
                       dtype=torch.uint8)
+    if frames is not None:
+        a, b = frames(a), frames(b)
     before = hs.hs_derivatives_cuda.launches
     planes, control = hs.hs_derivatives(a, b, alpha)
     torch.cuda.synchronize()
@@ -530,6 +531,99 @@ def test_horn_schunck_kernels_match_plain(device, shape, alpha):
             assert control.tolist()[:3] == plain_control.tolist()[:2] + [0]
         if delta is not None and delta > 0:
             assert control.tolist()[:2] == [1, 3]
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.01])
+@pytest.mark.parametrize("shape", CLASSIC_SHAPES, ids=str)
+def test_horn_schunck_kernels_match_plain(device, shape, alpha):
+    _check_horn_schunck_kernels(device, shape, alpha)
+
+
+# shapes across the kernels' tiles: B10's 16x32 tile and B9's 32x64 each
+# +-1 in H and W, one strip of 2 rows +-1, an odd W at the 1080p height
+# (4,080 tiles: every block of B10's fixed grid walks several), 1x1, and
+# frames with interior blocks (B9's 4-byte word loads)
+TILE_SHAPES = [(15, 31), (15, 33), (17, 31), (17, 33), (16, 32), (31, 63),
+               (31, 65), (33, 63), (33, 65), (32, 64), (1, 40), (2, 40),
+               (3, 40), (1080, 1919), (1, 1), (100, 200), (135, 256)]
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.01])
+@pytest.mark.parametrize("shape", TILE_SHAPES, ids=str)
+def test_horn_schunck_kernels_match_plain_across_tiles(device, shape, alpha):
+    _check_horn_schunck_kernels(device, shape, alpha)
+
+
+def _unaligned(frame):
+    """``frame`` copied to a contiguous view one byte past an aligned
+    address: B9 reads such frames byte by byte."""
+    h, w = frame.shape
+    buf = torch.empty(h * w + 1, dtype=torch.uint8, device=frame.device)
+    out = buf[1:].view(h, w)
+    out.copy_(frame)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(100, 200), (135, 256)], ids=str)
+def test_horn_schunck_kernels_match_plain_on_unaligned_frames(device, shape):
+    _check_horn_schunck_kernels(device, shape, 1.0, frames=_unaligned)
+
+
+def _hs_iterate_entry(planes, flow, control, delta, partials, count=None):
+    """B10 through its raw C entry with the caller's ``partials`` (``count``
+    of them, default all): the new flow."""
+    from transflow_tpu_torch._device import cuda_stream, kernel_library
+    h, w = flow.shape[:2]
+    out = torch.empty_like(flow)
+    kernel_library().call(
+        "transflow_hs_iterate", planes.data_ptr(), flow.data_ptr(),
+        out.data_ptr(), control.data_ptr(), partials.data_ptr(),
+        partials.numel() if count is None else count, h, w, delta, 1,
+        cuda_stream(flow))
+    return out
+
+
+def test_horn_schunck_iterate_is_deterministic(device):
+    """Two runs of B10 at 1080x1920 from the same inputs (three steps under
+    a delta between two of the norms) give the same flows, control words
+    and partial sums, bit for bit."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    a, b = (torch.randint(0, 256, (1080, 1920), generator=gen, device=device,
+                          dtype=torch.uint8) for _ in "ab")
+    planes, _ = hs.hs_derivatives(a, b, 1.0)
+    flow0 = _hs_flow(1080, 1920, gen, device)
+    runs = []
+    for _ in range(2):
+        control = torch.zeros(4, dtype=torch.int32, device=device)
+        partials = torch.full((hs.iterate_partials(1080, 1920),),
+                              float("nan"), dtype=torch.float64,
+                              device=device)
+        flows, flow = [], flow0
+        for _ in range(3):
+            flow = _hs_iterate_entry(planes, flow, control, 0.5, partials)
+            flows.append(flow)
+        torch.cuda.synchronize()
+        runs.append((torch.stack(flows), control.clone(), partials.clone()))
+    (f1, c1, p1), (f2, c2, p2) = runs
+    assert torch.equal(f1, f2) and torch.equal(c1, c2)
+    assert torch.equal(p1.view(torch.int64), p2.view(torch.int64))
+    assert not p1.isnan().any()
+
+
+def test_horn_schunck_iterate_needs_its_partials(device):
+    """B10 takes exactly ``iterate_partials(H, W)`` partial sums, the
+    kernel's own count: one fewer is refused at the launch."""
+    h, w = 135, 241
+    a = torch.zeros((h, w), dtype=torch.uint8, device=device)
+    planes, control = hs.hs_derivatives(a, a, 1.0)
+    flow = torch.zeros((h, w, 2), device=device)
+    n = hs.iterate_partials(h, w)
+    partials = torch.empty(n, dtype=torch.float64, device=device)
+    _hs_iterate_entry(planes, flow, control, 1.0, partials)
+    with pytest.raises(RuntimeError, match="transflow_hs_iterate"):
+        _hs_iterate_entry(planes, flow, control, 1.0, partials, n - 1)
+    torch.cuda.synchronize()
+    assert control.tolist()[:2] == [1, 1]
 
 
 def test_horn_schunck_static_pair_stops_on_the_card(device):

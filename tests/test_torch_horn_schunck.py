@@ -13,6 +13,7 @@ import functools
 import importlib
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -212,6 +213,101 @@ def test_dispatch_by_device():
     with pytest.raises(ValueError, match="no path for device meta"):
         hs.hs_iterate(planes, flow, control, 1.0)
     assert get_estimator("horn-schunck") is horn_schunck
+
+
+# ---------------------------------------------------------------------------
+# the kernels' tiling, emulated on the host (no card): every output pixel
+# has one owner, every staged value a read needs is written
+# ---------------------------------------------------------------------------
+
+KERNEL_SOURCE = os.path.join(REPO, "transflow_tpu_torch", "csrc",
+                             "horn_schunck.cu")
+TILING_SHAPES = [(1, 1), (7, 5), (37, 45), (135, 241), (17, 33), (15, 31),
+                 (33, 65), (100, 200), (1080, 1919)]
+
+
+def _kernel_constants() -> dict:
+    """The ``constexpr int`` constants of csrc/horn_schunck.cu, evaluated in
+    order (C's integer division)."""
+    with open(KERNEL_SOURCE, encoding="utf8") as file:
+        text = file.read()
+    values = {}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", text):
+        values[name] = eval(expr.replace("/", "//"), {}, dict(values))
+    return values
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("shape", TILING_SHAPES, ids=str)
+def test_iterate_tiling_owns_every_pixel_once(shape):
+    """B10: block b walks tiles b, b + kIterBlocks, ...; in tile n (row
+    n / tiles_x, column n % tiles_x of tiles) thread tid's row r owns pixel
+    (ty * kIterH + tid / 32 * kIterRows + r, tx * 32 + tid % 32). Every
+    pixel of the frame has exactly one owner, and the blocks, one partial
+    sum each, are the count ``transflow_hs_iterate_partials`` gives the
+    wrapper (``iterate_blocks``: one a tile up to kIterBlocks)."""
+    k = _kernel_constants()
+    h, w = shape
+    assert k["kIterH"] == k["kWarps"] * k["kIterRows"]
+    tiles_x = _ceil(w, k["kIterW"])
+    tiles = tiles_x * _ceil(h, k["kIterH"])
+    blocks = min(tiles, k["kIterBlocks"])
+    owners = np.zeros(shape, np.int64)
+    tid = np.arange(k["kThreads"])
+    walked = []
+    for b in range(blocks):
+        for n in range(b, tiles, blocks):
+            walked.append(n)
+            ty, tx = divmod(n, tiles_x)
+            j = tx * k["kIterW"] + tid % k["kWarp"]
+            r0 = ty * k["kIterH"] + tid // k["kWarp"] * k["kIterRows"]
+            for r in range(k["kIterRows"]):
+                keep = (j < w) & (r0 + r < h)
+                np.add.at(owners, (r0[keep] + r, j[keep]), 1)
+    assert (owners == 1).all()
+    assert sorted(walked) == list(range(tiles))
+    assert blocks <= k["kIterBlocks"] and (blocks == tiles
+                                           or blocks == k["kIterBlocks"])
+
+
+@pytest.mark.parametrize("shape", TILING_SHAPES, ids=str)
+def test_derivatives_tiling_owns_every_pixel_once(shape):
+    """B9: each block's vertical tasks write every staged vertical sum its
+    horizontal pass reads (columns min(j0 + q, W - 1) - j0 + 2 + k), the
+    horizontal pass every blurred value the stencils read, and the
+    stencils' threads (four columns in two rows each) own every pixel of
+    the frame exactly once."""
+    k = _kernel_constants()
+    h, w = shape
+    owners = np.zeros(shape, np.int64)
+    tid = np.arange(k["kThreads"])
+    vert = np.zeros((k["kBlurH"], k["kVertW"]), np.int64)
+    for t in tid[tid < k["kGroups"] * k["kStrips"]]:
+        g, t0 = t % k["kGroups"], t // k["kGroups"] * k["kStripRows"]
+        vert[t0:t0 + k["kStripRows"], 4 * g:4 * g + 4] += 1
+    assert (vert == 1).all()
+    for by in range(_ceil(h, k["kDerivH"])):
+        for bx in range(_ceil(w, k["kDerivW"])):
+            i0, j0 = by * k["kDerivH"], bx * k["kDerivW"]
+            q = np.arange(k["kBlurW"])
+            taps = (np.minimum(j0 + q, w - 1) - j0 + k["kVertLo"] - 2)[:, None] \
+                + np.arange(5)
+            assert taps.min() >= 0 and taps.max() < k["kVertW"]
+            # the stencils read blurred columns q0 .. q0 + 4, rows t, t + 1
+            q0 = 4 * (tid % 16)
+            assert q0.max() + 4 < k["kBlurW"] <= k["kVertW"]
+            assert k["kDerivH"] < k["kBlurH"]
+            for t in range(k["kDerivH"]):
+                rows = tid[tid // 16 == t % (k["kThreads"] // 16)]
+                if i0 + t >= h:
+                    continue
+                for c in range(4):
+                    j = j0 + q0[rows] + c
+                    np.add.at(owners, (i0 + t, j[j < w]), 1)
+    assert (owners == 1).all()
 
 
 # ---------------------------------------------------------------------------

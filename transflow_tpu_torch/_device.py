@@ -59,6 +59,8 @@ _SIGNATURES = {
     # planes, flow, out, control, partials, partials' count, H, W, delta,
     # has delta, stream
     "transflow_hs_iterate": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # H, W -> B10's count of partial sums (a value, not an error code)
+    "transflow_hs_iterate_partials": (_I, _I),
     # prev, next, ix, iy, flow, out, H, W, stream
     "transflow_lk_warp_products": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # ix, iy, out, H, W, taps, det floor, stream
@@ -93,6 +95,10 @@ class KernelLibrary:
             fn = getattr(self._lib, name)
             fn.argtypes = argtypes
             fn.restype = _I
+
+    def query(self, name: str, *args) -> int:
+        """The value ``name`` returns: an entry that computes, not launches."""
+        return getattr(self._lib, name)(*args)
 
     def call(self, name: str, *args) -> None:
         """Launch ``name`` and raise if the launch reported an error."""

@@ -31,7 +31,8 @@ import math
 import numpy as np
 import torch
 
-from .._device import check_cuda, cuda_stream, dispatch, launch
+from .._device import check_cuda, cuda_stream, dispatch, kernel_library, \
+    launch
 from .image import correlate2d_reflect, pad_axis, separable_correlate
 
 # cv2.GaussianBlur((5, 5), sigma=0)'s binomial taps, and the stencils and
@@ -48,8 +49,6 @@ AVG_TAPS = tuple((dy, dx, float(AVG_KERNEL[dy + 1, dx + 1]))
                  for dy in (-1, 0, 1) for dx in (-1, 0, 1)
                  if AVG_KERNEL[dy + 1, dx + 1] != 0)
 CONTROL_WORDS = 4
-# B10's tile (csrc/horn_schunck.cu: kIterH, kIterW): one partial sum a block
-ITER_TILE = (8, 32)
 
 
 def _alpha2(alpha: float) -> float:
@@ -200,6 +199,13 @@ def hs_iterate_plain(planes: torch.Tensor, flow: torch.Tensor,
     return torch.stack([new_u, new_v], dim=-1)
 
 
+def iterate_partials(h: int, w: int) -> int:
+    """The float64 partial sums B10 needs at (h, w), one a block: the
+    kernel's own count (``transflow_hs_iterate_partials``), so the scratch
+    follows its tiling."""
+    return kernel_library().query("transflow_hs_iterate_partials", h, w)
+
+
 def hs_iterate_cuda(planes: torch.Tensor, flow: torch.Tensor,
                     control: torch.Tensor,
                     delta: float | None) -> torch.Tensor:
@@ -217,13 +223,13 @@ def hs_iterate_cuda(planes: torch.Tensor, flow: torch.Tensor,
     if tuple(control.shape) != (CONTROL_WORDS,) or \
             control.dtype != torch.int32:
         raise ValueError("hs_iterate_cuda needs B9's int32 control block")
-    blocks = -(-h // ITER_TILE[0]) * -(-w // ITER_TILE[1])
-    partials = torch.empty(blocks, dtype=torch.float64, device=flow.device)
+    partials = torch.empty(iterate_partials(h, w), dtype=torch.float64,
+                           device=flow.device)
     out = torch.empty_like(flow)
     limit = _delta_f32(delta)
     launch(flow.device, "transflow_hs_iterate", planes.data_ptr(),
            flow.data_ptr(), out.data_ptr(), control.data_ptr(),
-           partials.data_ptr(), blocks, h, w,
+           partials.data_ptr(), partials.numel(), h, w,
            0.0 if limit is None else limit, int(limit is not None),
            cuda_stream(flow))
     hs_iterate_cuda.launches += 1
