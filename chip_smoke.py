@@ -48,9 +48,10 @@ T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
    ``--move-mask-source``, ``--move-mask-destination`` and ``-r random
    0.01 -m`` a fractional mask image: a warm-up chunk, a timed chunk of
    8 frames and ``process_frame`` calls, counting 8 B1, 24 B2a, 24 B2b
-   and 2 B5 launches (B5's two kernels) per frame, finite flows, the
-   per-frame checksums read back once, 0 host syncs per frame, and its
-   profile (device busy time and idle share per frame); then the same
+   and 2 B5 launches (B5's two kernels, no memset) per frame, finite
+   flows, the per-frame checksums read back once, 0 host syncs per frame,
+   and its profile (device busy time and idle share per frame); then the
+   same
    options through ``cli.main`` over 12 PGM frames of each pan (the CLI
    gives both sources ``-d forward``: 4 B5 a frame); then at 128x192 the
    post-process chain on the card against the CPU within the CPU tests'
@@ -122,8 +123,9 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    over a few ``process_frame`` calls, and their device time per frame
    by kernel name (the ten largest);
 11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
-   kernel, B1, B2a, B2b, B9 and B10 against other trees' ``correlation.cu``,
-   ``farneback.cu`` and ``horn_schunck.cu`` (for example the parent
+   kernel, B1, B2a, B2b, B9, B10 and B5 against other trees'
+   ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu`` and
+   ``scatter.cu`` (for example the parent
    commit's, from ``git archive`` under the git-ignored ``_local/``),
    built with the package's flags, all through the raw C entries,
    ``device_ms`` in turns (others, this, this, others): the correlation at
@@ -135,15 +137,20 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    of phase F's ``CvFlowConfig()`` Engine; then B9 on the pan's 1080p
    frames and B10's three launches under delta 1 from a zero flow
    (``horn-schunck.json``'s frame), where the other tree has
-   ``horn_schunck.cu``; bit-equal between the trees (B10's flows and its
-   control words ``[stop, iterations]`` too).
+   ``horn_schunck.cu``; then B5 on phase B5's four inputs, where the
+   other tree has ``scatter.cu``, ``device_ms`` in turns and the
+   profiler's time of every device event of a call, each tree with its
+   own zeroed scratch; bit-equal between the trees (B10's flows and its
+   control words ``[stop, iterations]`` too, B5's mappings).
 
 B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
    version at 1080x1920 on a random forward flow, a converging one (every
-   pixel onto the centre: one word takes every atomic) and phase T's
-   Farneback forward flow on the pan, bit-equal, with ``device_ms``, the
-   bound and its share, and in phase 10 the profiler's time of a call
-   (the memset and both kernels).
+   pixel onto the centre: one word takes every write), phase T's
+   Farneback forward flow on the pan and a constant (W/2, 0) whose right
+   half of each row clips onto the row's last pixel (``-f`` scaling a pan
+   past the edge), bit-equal, with ``device_ms``, the bound and its
+   share, and in phase 10 the profiler's time of a call (every device
+   event of it: both kernels).
 B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
    three steps under delta 1, then timed under delta 0 so every launch
    steps and runs the reduction every preset runs; beside it one
@@ -313,13 +320,11 @@ def device_ms(fn, launches: int = DEVICE_LAUNCHES, warmup: int = 3
     return start.elapsed_time(end) / launches
 
 
-def kernel_ms(fn, pattern: str, launches: int = DEVICE_LAUNCHES
-              ) -> float | None:
-    """The summed durations of the kernels whose name holds ``pattern``
-    over ``launches`` calls under ``torch.profiler``, per call; None where
-    the profiler saw no device time. Only device events count: the CPU ops
-    that launch a library kernel (``aten::grid_sampler_2d``) carry its
-    time too."""
+def kernel_split(fn, launches: int = DEVICE_LAUNCHES) -> dict[str, float]:
+    """The summed durations of each device event name over ``launches``
+    calls under ``torch.profiler``, in ms per call. Only device events
+    count: the CPU ops that launch a library kernel
+    (``aten::grid_sampler_2d``) carry its time too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -329,10 +334,22 @@ def kernel_ms(fn, pattern: str, launches: int = DEVICE_LAUNCHES
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if getattr(e, "device_type", None) == DeviceType.CUDA
-                and pattern in e.name)
-    return total / 1e3 / launches if total else None
+    split = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            split[e.name] = (split.get(e.name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3 / launches)
+    return split
+
+
+def kernel_ms(fn, pattern: str, launches: int = DEVICE_LAUNCHES
+              ) -> float | None:
+    """The summed durations of the kernels whose name holds ``pattern``
+    per call (``kernel_split``); None where the profiler saw no device
+    time."""
+    total = sum(ms for name, ms in kernel_split(fn, launches).items()
+                if pattern in name)
+    return total or None
 
 
 def corr_bound_ms(h: int, w: int, c: int, stride: int, t1, t2
@@ -1765,16 +1782,21 @@ def phase_classic_kernels(device) -> list[dict]:
 
 def b5_inputs(device, pan_flow) -> dict:
     """B5's 1080p inputs: a random forward flow, a converging one (every
-    pixel onto the centre: one word takes every atomic) and Farneback's
-    forward flow on the pan."""
+    pixel onto the centre: one word takes every write), Farneback's
+    forward flow on the pan, and a constant (W/2, 0), the pan that ``-f``
+    scales past the frame's edge: the right half of each row clips onto
+    the row's last pixel (960 writers on each of 1,080 words)."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     ii = torch.arange(HEIGHT, device=device, dtype=torch.float32)[:, None]
     jj = torch.arange(WIDTH, device=device, dtype=torch.float32)[None, :]
     converge = torch.stack([(WIDTH // 2 - jj).expand(HEIGHT, WIDTH),
                             (HEIGHT // 2 - ii).expand(HEIGHT, WIDTH)], -1)
+    edge = torch.zeros((HEIGHT, WIDTH, 2), device=device)
+    edge[..., 0] = WIDTH / 2
     return {"random": torch.randn((HEIGHT, WIDTH, 2), generator=gen,
                                   device=device) * 8,
-            "converge": converge.contiguous(), "farneback pan": pan_flow}
+            "converge": converge.contiguous(), "farneback pan": pan_flow,
+            "edge": edge}
 
 
 def b5_bound_ms(h: int, w: int) -> tuple[float, str]:
@@ -1786,7 +1808,7 @@ def b5_bound_ms(h: int, w: int) -> tuple[float, str]:
 def phase_scatter_kernel(device, pan_flow) -> list[dict]:
     """Kernel B5 against its plain version at 1080x1920 on each of
     ``b5_inputs``: bit-equal, ``device_ms``, kernel time (every device
-    event of a call: the memset and both kernels), bound and share."""
+    event of a call: its two kernels), bound and share."""
     from transflow_tpu_torch.ops.scatter import (forward_to_backward_cuda,
                                                  forward_to_backward_plain)
     rows = []
@@ -2285,7 +2307,7 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
                       h_rows) -> None:
     """``kernel_ms`` of every row that phases 6, 7, 8, B, T and H left a
     call in; A3's beside ``F.grid_sample``'s; B5's over every device event
-    of a call (the memset and both kernels)."""
+    of a call (its two kernels)."""
     for row in rows + a2_rows:
         if "call" not in row:
             continue
@@ -2327,7 +2349,7 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
     for row in b5_rows:
         row["kernel_ms"] = kernel_ms(row.pop("call"), "")
         print(f"kernel time B5 {row['flow']}: {_ms_text(row['kernel_ms'])} "
-              f"(torch.profiler, per call, memset and both kernels) "
+              f"(torch.profiler, per call, both kernels) "
               f"against device_ms {row['device_ms']:.5f} and bound "
               f"{row['bound_ms']:.5f} ({row['bound_by']})")
 
@@ -2410,19 +2432,19 @@ def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
 
 
 def build_others(csrcs: list[Path], mine: list[dict]) -> list[ctypes.CDLL]:
-    """``correlation.cu``, ``farneback.cu`` and, where the tree has it,
-    ``horn_schunck.cu`` of other trees, built with the package's nvcc flags
-    (one nvcc per source, all at once) into one library per tree under
-    ``_build/``, with the argument types of the C entries each has. Prints
-    ptxas's report of every instantiation that differs from this tree's
-    (``mine``)."""
+    """``correlation.cu``, ``farneback.cu`` and, where the tree has them,
+    ``horn_schunck.cu`` and ``scatter.cu`` of other trees, built with the
+    package's nvcc flags (one nvcc per source, all at once) into one
+    library per tree under ``_build/``, with the argument types of the C
+    entries each has. Prints ptxas's report of every instantiation that
+    differs from this tree's (``mine``)."""
     from transflow_tpu_torch._device import (BUILD_DIR, NVCC_FLAGS,
                                              _SIGNATURES, nvcc_path)
     paths, jobs = [], {}
     for csrc in csrcs:
         sources = [csrc / "correlation.cu", csrc / "farneback.cu"]
-        if (csrc / "horn_schunck.cu").exists():
-            sources.append(csrc / "horn_schunck.cu")
+        sources += [csrc / name for name in ("horn_schunck.cu", "scatter.cu")
+                    if (csrc / name).exists()]
         digest = hashlib.sha256()
         for source in sources:
             digest.update(source.read_bytes())
@@ -2635,7 +2657,7 @@ def _check_outputs(label: str, outs: dict, exact: bool = True) -> None:
 
 
 def phase_against(device, others: list[tuple[str, Path]], card: str,
-                  mine: list[dict], fb_run: dict) -> None:
+                  mine: list[dict], fb_run: dict, b5_flow) -> None:
     """This tree's correlation kernel, B1, B2a and B2b against the
     ``others``' (name, csrc directory), all through the raw C entries,
     ``device_ms`` in turns: the correlation at the five level shapes in
@@ -2646,7 +2668,8 @@ def phase_against(device, others: list[tuple[str, Path]], card: str,
     of the Farneback Engine (``fb_run``), with the share of its warps whose
     samples share their tap rows (``one_row_warps``); Farneback outputs
     bit-equal. Last, where a tree has ``horn_schunck.cu``, B9 and B10
-    (``against_horn_schunck``)."""
+    (``against_horn_schunck``), and where it has ``scatter.cu``, B5 on
+    ``b5_inputs`` with ``b5_flow`` as the pan's (``against_scatter``)."""
     from transflow_tpu_torch._device import kernel_library
     from transflow_tpu_torch.ops import farneback as fb
     libs = {"this": kernel_library()._lib}
@@ -2740,6 +2763,7 @@ def phase_against(device, others: list[tuple[str, Path]], card: str,
     print(f"against B2a engine per frame: device_ms "
           f"{_totals_text(engine_total)} on {card}")
     against_horn_schunck(device, libs, card)
+    against_scatter(device, libs, card, b5_flow)
 
 
 def against_horn_schunck(device, libs: dict, card: str) -> None:
@@ -2783,6 +2807,54 @@ def against_horn_schunck(device, libs: dict, card: str) -> None:
                              "pan, so the timed launches copied through")
 
 
+def against_scatter(device, libs: dict, card: str, b5_flow) -> None:
+    """Phase 11's B5 part: ``transflow_forward_to_backward`` of every
+    library of ``libs`` (name to ctypes library, this tree's as "this")
+    that has it, on each of ``b5_inputs`` (``b5_flow`` as the pan's),
+    ``device_ms`` in turns and each device event's time by name
+    (``torch.profiler``); outputs bit-equal between the trees and to the
+    plain version. Each tree takes its own ``winner`` of H*W + 2 words,
+    zeroed once, as this tree's wrapper keeps one (a tree that clears its
+    scratch in every call clears it anyway)."""
+    from transflow_tpu_torch._device import cuda_stream
+    from transflow_tpu_torch.ops.scatter import forward_to_backward_plain
+    b5_libs = {name: lib for name, lib in libs.items()
+               if hasattr(lib, "transflow_forward_to_backward")}
+    stream = cuda_stream(b5_flow)
+    winners = {name: torch.zeros(HEIGHT * WIDTH + 2, dtype=torch.int32,
+                                 device=device) for name in b5_libs}
+    bound, by = b5_bound_ms(HEIGHT, WIDTH)
+    for kind, flow in b5_inputs(device, b5_flow).items():
+        outs = {name: [torch.empty_like(flow)] for name in b5_libs}
+        calls = {name: _entry(lib, "transflow_forward_to_backward",
+                              flow.data_ptr(), winners[name].data_ptr(),
+                              outs[name][0].data_ptr(), HEIGHT, WIDTH,
+                              stream) for name, lib in b5_libs.items()}
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
+        _check_outputs(f"B5 {kind}", outs)
+        if not torch.equal(outs["this"][0], forward_to_backward_plain(flow)):
+            raise AssertionError(f"against B5 {kind}: this tree's output "
+                                 "differs from the plain version")
+        turns = in_turns(calls)
+        splits = {name: kernel_split(call) for name, call in calls.items()}
+        print(f"against B5 {kind} ({HEIGHT},{WIDTH}): {_turns_text(turns)}; "
+              "kernel_ms (every device event) "
+              + " ".join(f"{name} {sum(split.values()):.5f} ("
+                         + ", ".join(f"{_short_name(event)} {ms:.5f}"
+                                     for event, ms in sorted(split.items()))
+                         + ")" for name, split in splits.items())
+              + f"; bound {bound:.5f} ({by}); outputs bit-equal on {card}")
+
+
+def _short_name(event: str) -> str:
+    """A device event's name short of its namespaces, template arguments
+    and parameters."""
+    name = event.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip() or event
+
+
 def _bound_by(rows) -> str:
     """What bounds the largest of the rows' bounds."""
     return max(rows, key=lambda r: r["bound_ms"])["bound_by"]
@@ -2810,9 +2882,9 @@ def main() -> int:
     parser.add_argument("--against", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
                         help="also time the correlation kernel, B1, B2a, "
-                             "B2b, B9 and B10 against this directory's "
-                             "correlation.cu, farneback.cu and "
-                             "horn_schunck.cu (phase 11); repeat it for "
+                             "B2b, B9, B10 and B5 against this directory's "
+                             "correlation.cu, farneback.cu, horn_schunck.cu "
+                             "and scatter.cu (phase 11); repeat it for "
                              "several trees")
     args = parser.parse_args()
     card = phase_device()
@@ -2841,7 +2913,7 @@ def main() -> int:
                                         H_PROFILE_CALLS, card)
     if args.against:
         phase_against(device, args.against, card, reports,
-                      fb_runs["CvFlowConfig()"])
+                      fb_runs["CvFlowConfig()"], t_run["b5_flow"])
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound

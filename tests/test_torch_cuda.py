@@ -411,8 +411,9 @@ def test_cli_on_card_matches_cpu(device, monkeypatch, tmp_path):
 
 def _b5_flows(h, w, device):
     """Forward flows for B5: random, converging on one pixel (every
-    atomic on one word), half-integers (round half to even) and mostly
-    off the frame."""
+    atomic on one word), half-integers (round half to even), mostly off
+    the frame, and a constant (W/2, 0) whose right half of each row clips
+    onto the row's last pixel."""
     gen = torch.Generator(device=device).manual_seed(5)
     ii = torch.arange(h, device=device, dtype=torch.float32)[:, None]
     jj = torch.arange(w, device=device, dtype=torch.float32)[None, :]
@@ -420,14 +421,20 @@ def _b5_flows(h, w, device):
                             (h // 2 - ii).expand(h, w)], dim=-1)
     halves = torch.randint(-8, 9, (h, w, 2), generator=gen,
                            device=device).float() + 0.5
+    edge = torch.zeros((h, w, 2), device=device)
+    edge[..., 0] = w / 2
     return {"random": torch.randn((h, w, 2), generator=gen,
                                   device=device) * 6,
             "converge": converge.contiguous(), "halves": halves,
             "leave": torch.randn((h, w, 2), generator=gen,
-                                 device=device) * 4 * max(h, w)}
+                                 device=device) * 4 * max(h, w),
+            "edge": edge}
 
 
-@pytest.mark.parametrize("kind", ["random", "converge", "halves", "leave"])
+B5_KINDS = ["random", "converge", "halves", "leave", "edge"]
+
+
+@pytest.mark.parametrize("kind", B5_KINDS)
 @pytest.mark.parametrize("shape", [(1, 1), (7, 5), (48, 64), (135, 240),
                                    (270, 481)], ids=str)
 def test_forward_to_backward_matches_plain(device, shape, kind):
@@ -446,6 +453,93 @@ def test_forward_to_backward_matches_plain(device, shape, kind):
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), scatter.forward_to_backward_plain(
         flow.cpu()))
+
+
+def test_forward_to_backward_1080p_converge(device):
+    """B5 at 1080x1920 with every pixel converging on the centre (one
+    word wins against 2 M writers): bit-equal to the plain version."""
+    from transflow_tpu_torch.ops import scatter
+    flow = _b5_flows(1080, 1920, device)["converge"]
+    got = scatter.forward_to_backward_cuda(flow)
+    assert torch.equal(got, scatter.forward_to_backward_plain(flow))
+    assert int((got != 0).any(-1).sum()) == 1
+
+
+def test_forward_to_backward_back_to_back(device):
+    """Calls in a row on one stream with no sync between, on flows that
+    differ: each bit-equal to the plain version, so no call sees the
+    winners of the one before (their words carry an older epoch); a call
+    at another size between them takes its own scratch."""
+    from transflow_tpu_torch.ops import scatter
+    flows = [_b5_flows(48, 64, device)[k]
+             for k in ("converge", "random", "edge", "leave")]
+    flows.insert(2, torch.zeros((48, 64, 2), device=device))
+    flows += [_b5_flows(135, 240, device)["random"],
+              _b5_flows(48, 64, device)["halves"],
+              torch.zeros((48, 64, 2), device=device)]
+    outs = [scatter.forward_to_backward_cuda(f) for f in flows]
+    torch.cuda.synchronize()
+    for flow, got in zip(flows, outs):
+        assert torch.equal(got, scatter.forward_to_backward_plain(flow))
+    assert not bool(outs[2].any()) and not bool(outs[-1].any())
+
+
+def test_forward_to_backward_epoch_wrap(device):
+    """600 calls in a row at one size, on flows that take turns, each
+    bit-equal to the plain version: the scratch's epoch runs out twice
+    (every 255 calls the resolve clears the words and the epoch starts
+    again), so the calls just before and after a restart are held too."""
+    from transflow_tpu_torch.ops import scatter
+    flows = list(_b5_flows(48, 64, device).values())
+    wants = [scatter.forward_to_backward_plain(f) for f in flows]
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    key = (device.index, stream.cuda_stream, 48 * 64)
+    scatter._WINNERS.pop(key, None)   # a fresh scratch: epoch 0
+    with torch.cuda.stream(stream):
+        outs = [scatter.forward_to_backward_cuda(flows[k % len(flows)])
+                for k in range(600)]
+    torch.cuda.synchronize()
+    for k, got in enumerate(outs):
+        assert torch.equal(got, wants[k % len(flows)]), k
+    assert scatter._WINNERS[key][-2:].tolist() == [600 - 2 * 255] * 2
+
+
+def test_forward_to_backward_two_streams(device):
+    """Calls on two streams at once each take their own zeroed scratch
+    and are bit-equal to the plain version."""
+    from transflow_tpu_torch.ops import scatter
+    kinds = B5_KINDS * 2
+    flows = [_b5_flows(135, 240, device)[k] for k in kinds]
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(device))
+    for k, flow in enumerate(flows):
+        with torch.cuda.stream(streams[k % 2]):
+            outs.append(scatter.forward_to_backward_cuda(flow))
+    torch.cuda.synchronize()
+    for flow, got in zip(flows, outs):
+        assert torch.equal(got, scatter.forward_to_backward_plain(flow))
+    keys = {(device.index, s.cuda_stream, 135 * 240) for s in streams}
+    assert keys <= set(scatter._WINNERS)
+    assert len({scatter._WINNERS[k].data_ptr() for k in keys}) == 2
+
+
+def test_forward_to_backward_unaligned_flow(device):
+    """A flow that starts 8 bytes past a 16-byte boundary (a view into a
+    larger buffer) goes through the kernel's 16-byte reads as a copy:
+    bit-equal, two launches."""
+    from transflow_tpu_torch.ops import scatter
+    h, w = 48, 64
+    buf = torch.empty(h * w * 2 + 2, device=device)
+    flow = buf[2:].view(h, w, 2)
+    flow.copy_(_b5_flows(h, w, device)["random"])
+    assert flow.data_ptr() % 16 == 8
+    before = scatter.forward_to_backward_cuda.launches
+    got = scatter.forward_to_backward_cuda(flow)
+    assert scatter.forward_to_backward_cuda.launches == before + 2
+    assert torch.equal(got, scatter.forward_to_backward_plain(flow))
 
 
 def test_postprocess_chain_on_card_matches_cpu(device):

@@ -112,11 +112,18 @@ def _forward_flows() -> dict:
     leave = _flow(3, scale=40.0)                           # mostly off-frame
     sparse = _flow(4)
     sparse[rng.random((H, W)) < 0.6] = 0.0
+    # a constant (W/2, 0): the right half of each row clips onto the
+    # row's last pixel, the left half moves freely (a -f scaled pan)
+    edge = np.zeros((H, W, 2), np.float32)
+    edge[..., 0] = W / 2
     return {"random": _flow(1), "converge": converge.astype(np.float32),
             "converge_rows": np.stack([np.zeros_like(jj), 5 - ii], -1)
             .astype(np.float32),
             "half_integers": halves, "leave_frame": leave,
-            "sparse": sparse, "zero": np.zeros((H, W, 2), np.float32)}
+            "sparse": sparse, "zero": np.zeros((H, W, 2), np.float32),
+            "edge_pileup": edge,
+            "converge_column": np.stack([W // 3 - jj, np.zeros_like(ii)],
+                                        -1).astype(np.float32)}
 
 
 @pytest.mark.parametrize("name", list(_forward_flows()))
@@ -130,6 +137,35 @@ def test_forward_to_backward_bit_exact(name):
         centre = got[H // 2, W // 2].numpy()
         np.testing.assert_array_equal(centre, [W - 1 - W // 2,
                                                H - 1 - H // 2])
+
+
+def _np_put_loop(flow: np.ndarray) -> np.ndarray:
+    """The reference's rule (source.py:349-360) written out: clip to the
+    frame, round half to even, then every moving pixel in flat order puts
+    its base coordinates at its target (numpy.put, mode "clip"), one
+    write at a time, so a later write replaces an earlier one."""
+    h, w = flow.shape[:2]
+    ii, jj = np.indices((h, w))
+    fx = np.clip(flow[..., 0], -jj, w - 1 - jj)
+    fy = np.clip(flow[..., 1], -ii, h - 1 - ii)
+    flat = (np.round(fy).astype(np.int64) * w
+            + np.round(fx).astype(np.int64)).ravel()
+    ax, ay = jj.ravel().copy(), ii.ravel().copy()
+    for p in range(h * w):
+        if flat[p] != 0:
+            np.put(ax, p + flat[p], p % w, mode="clip")
+            np.put(ay, p + flat[p], p // w, mode="clip")
+    return np.stack([ax - jj.ravel(), ay - ii.ravel()],
+                    -1).reshape(h, w, 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", list(_forward_flows()))
+def test_forward_to_backward_matches_np_put_loop(name):
+    """The port's forward_to_backward (kernel B5's plain version on the
+    CPU) against a plain loop of numpy.put in flat order."""
+    flow = _forward_flows()[name]
+    got = transforms.forward_to_backward(torch.from_numpy(flow))
+    np.testing.assert_array_equal(got.numpy(), _np_put_loop(flow))
 
 
 def test_forward_to_backward_dispatch():

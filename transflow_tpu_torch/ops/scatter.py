@@ -88,19 +88,40 @@ def forward_to_backward_plain(flow: torch.Tensor) -> torch.Tensor:
     return (scattered - coords).reshape(h, w, 2)
 
 
+# kernel B5's scratch: H*W + 2 int32 words per device, stream and size,
+# zeroed once when made. B5 never clears it between calls (each call tags
+# its words with an epoch that it keeps in the last two words); a call on
+# another stream takes its own, so two streams never share one.
+_WINNERS: dict[tuple[int, int, int], torch.Tensor] = {}
+
+
 def forward_to_backward_cuda(flow: torch.Tensor) -> torch.Tensor:
     """Kernel B5 on a contiguous (H, W, 2) float32 flow on a CUDA device:
-    an async memset of its int32 scratch and two kernel launches (scatter,
-    resolve), each counted on ``forward_to_backward_cuda.launches``."""
+    two kernel launches (scatter, resolve) on the current stream, each
+    counted on ``forward_to_backward_cuda.launches``, over the stream's
+    scratch. A launch that fails drops that scratch: its words may then
+    be ahead of its epoch."""
     _check_flow(flow)
     if not flow.is_cuda or not flow.is_contiguous():
         raise ValueError("forward_to_backward_cuda needs a contiguous flow "
                          f"on a CUDA device, got {flow.device}")
+    if flow.data_ptr() % 16:
+        flow = flow.clone()     # the kernel takes 16-byte aligned tensors
     h, w = flow.shape[:2]
-    winner = torch.empty(h * w, dtype=torch.int32, device=flow.device)
+    stream = cuda_stream(flow)
+    key = (flow.device.index, stream, h * w)
+    winner = _WINNERS.get(key)
+    if winner is None:
+        winner = torch.zeros(h * w + 2, dtype=torch.int32,
+                             device=flow.device)
+        _WINNERS[key] = winner
     out = torch.empty_like(flow)
-    launch(flow.device, "transflow_forward_to_backward", flow.data_ptr(),
-           winner.data_ptr(), out.data_ptr(), h, w, cuda_stream(flow))
+    try:
+        launch(flow.device, "transflow_forward_to_backward", flow.data_ptr(),
+               winner.data_ptr(), out.data_ptr(), h, w, stream)
+    except RuntimeError:
+        del _WINNERS[key]
+        raise
     forward_to_backward_cuda.launches += 2
     return out
 
