@@ -4,7 +4,10 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. device: require CUDA and print the card's name and power limit;
+1. device: require CUDA and print the card's name and power limit; then
+   the libav shim's line, ``libav: loaded <path>`` or ``libav: absent:
+   <the loader's error>`` (``native/libtransflow_av.so`` needs the FFmpeg
+   shared libraries);
 2. build: compile the CUDA kernels of ``transflow_tpu_torch/csrc`` (into the
    git-ignored ``transflow_tpu_torch/_build``); prints each kernel
    instantiation's registers, shared memory and spills as ptxas reported
@@ -70,6 +73,26 @@ H. the secondary estimators: ``Engine`` at 1080x1920 over phase F's pan
    Horn-Schunck (one iteration taken of 5, read back once after the
    frame), then ``cli.main`` over 4 PGM frames of the pan with ``-c
    horn-schunck.json`` and ``-c lukas-kanade.json``;
+V. video, where the libav shim loads: 24 frames at 1080x1920 (phase F's
+   texture panned 3 px a frame) encoded by the port's ``H264Writer`` (bf
+   0, refs 1), every interior motion-vector field's dominant value the
+   pan, the host rasterization timed a frame; then ``cli.main([clip,
+   "--mv", "-p", "noise", "--seed", "0", "-o", out.mp4])`` on the card:
+   ``out.mp4`` reopens through ``MvReader`` at 1080x1920 with 23 frames,
+   and against the same cut to 12 frames 0 host syncs a frame; prints
+   the disk-to-disk frames/s and ``StageTimers``' split;
+S. streams: ``make_mesh(devices=[card] * 2, stream_axis=2)``, two 1080x1920
+   streams (pans of +3 and -3 px, their own random pixmaps) through
+   ``sharded_scan(..., per_stream_pixmaps=True)``, the batch renderer's
+   model (Horn-Schunck ``max_iters=8, delta=None``, random reset 0.05),
+   two chunks of 8: 1 B9 + 8 B10 launches a stream-frame, each stream
+   bit-equal to its own ``model.scan`` alone with its key and pixmap,
+   ms a stream-frame, 0 host syncs a stream-frame; then stream 2 x space
+   2 (``[card] * 4``) with ``halo=8`` and ``clip=8`` against space 1
+   (flows within 1e-5, frames bit-equal); then ``tools/batch_render.py``
+   over two 9-frame PGM sequences, its ``%04d`` frames equal to the
+   first chunk's, and its MP4s reopened where the shim loads; in phase
+   10 its profile (busy time and idle share a stream-frame);
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
@@ -118,10 +141,11 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
 10. kernel time: ``torch.profiler``'s kernel durations of A1 (the slice's
    dtype pairs), A2 (every sharded case), A3 beside ``F.grid_sample`` at
    L2-L6 (phase 7's bf16 inputs within the bound), B1, B2a, B2b at the
-   four levels and B9-B12 at theirs; then the Farneback Engine's and each
-   phase H Engine's device events, busy time and idle share per frame
-   over a few ``process_frame`` calls, and their device time per frame
-   by kernel name (the ten largest);
+   four levels and B9-B12 at theirs; then the Farneback Engine's, each
+   phase H Engine's and phase S's device events, busy time and idle share
+   per frame over a few ``process_frame`` (or one-frame ``sharded_scan``)
+   calls, and their device time per frame by kernel name (the ten
+   largest);
 11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
    kernel, B1, B2a, B2b, B9, B10 and B5 against other trees'
    ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu`` and
@@ -163,7 +187,7 @@ B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
    version on the same inputs, with ``device_ms``, the bound, its share
    and the plain version's time.
 
-The main path (phases F, P, T, H and 3-5) runs right after the build:
+The main path (phases F, P, T, H, V, S and 3-5) runs right after the build:
 the kernel phases' timing loops, plain versions and profiler come after
 every timed run of it, so they cannot reach those timings.
 
@@ -1652,6 +1676,309 @@ def phase_classic_engine(device, card: str) -> dict:
     return runs
 
 
+# phase V: video in (--mv) and out (-o x.mp4) through the libav shim
+V_FRAMES = 24         # frames encoded; 23 flows
+V_FPS = 25.0
+V_CUT = "00:00:00.480"  # -t: 12 frames at 25 frames/s
+V_CUT_FRAMES = 12
+V_MARGIN = 64         # rows and columns left out of the dominant check
+
+
+def phase_libav() -> bool:
+    """The libav shim's line: loaded, or absent with the loader's error."""
+    from transflow_tpu_torch import av_native
+    if av_native.is_available():
+        print(f"libav: loaded {av_native.LIB_PATH}")
+        return True
+    print(f"libav: absent: {av_native.load_error()}")
+    return False
+
+
+def phase_video(device, card: str) -> dict:
+    """Phase V: 24 frames at 1080x1920 (phase F's texture panned 3 px a
+    frame) encoded by the port's ``H264Writer`` (bf 0, refs 1); every
+    interior motion-vector field's dominant value must be the pan, and
+    the rasterization is timed a frame; then ``cli.main([clip, "--mv",
+    "-p", "noise", "--seed", "0", "-o", out.mp4])`` on the card, whose
+    ``out.mp4`` must reopen through ``MvReader`` at 1080x1920 with 23
+    frames, and the same cut to 12 frames (``-t``), whose host syncs
+    against the full run's give the syncs a frame adds (must be 0)."""
+    import tempfile
+    from transflow_tpu_torch import av_native
+    from transflow_tpu_torch.flow.sources.mv import rasterize
+    flows_n = V_FRAMES - 1
+    pan = (-float(FB_PAN), -float(FB_PAN))  # the field is -motion
+    frames = panned_frames(V_FRAMES, HEIGHT, WIDTH, device).cpu().numpy()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_v_") as tmp:
+        root = Path(tmp)
+        clip = str(root / "clip.mp4")
+        start = time.perf_counter()
+        with av_native.H264Writer(clip, WIDTH, HEIGHT, V_FPS) as writer:
+            for frame in frames:
+                writer.feed(frame)
+        encode_ms = 1e3 * (time.perf_counter() - start) / V_FRAMES
+        raster_ms, records, m = [], 0, V_MARGIN
+        with av_native.MvReader(clip) as reader:
+            reader.next()  # the IDR: no vectors
+            while (vectors := reader.next()) is not None:
+                start = time.perf_counter()
+                field = rasterize(vectors, reader.height, reader.width)
+                raster_ms.append(1e3 * (time.perf_counter() - start))
+                records += len(vectors)
+                values, counts = np.unique(field[m:-m, m:-m].reshape(-1, 2),
+                                           axis=0, return_counts=True)
+                dominant = tuple(values[np.argmax(counts)].tolist())
+                if dominant != pan:
+                    raise AssertionError(
+                        f"phase V: field {len(raster_ms)}'s dominant value "
+                        f"{dominant}, expected the pan {pan}")
+        if len(raster_ms) != flows_n:
+            raise AssertionError(f"phase V: {len(raster_ms)} fields, "
+                                 f"expected {flows_n}")
+        print(f"video {HEIGHT}x{WIDTH}: {V_FRAMES} frames encoded by "
+              f"H264Writer (libx264, bf 0, refs 1) at {encode_ms:.2f} "
+              f"ms/frame; {records / flows_n:.0f} motion vectors a frame; "
+              f"every interior field's dominant value {pan}; rasterization "
+              f"{statistics.median(raster_ms):.3f} ms/frame (median, host; "
+              f"min {min(raster_ms):.3f}, max {max(raster_ms):.3f})")
+
+        def argv(out: str, *extra: str) -> list[str]:
+            return [clip, "--mv", "-p", "noise", "--seed", str(SEED), "-o",
+                    str(root / out), *extra]
+
+        run = _p_run(argv("out.mp4"), count_syncs=True)
+        if run["pipeline"].engine.device != device:
+            raise AssertionError(f"phase V: the Engine ran on "
+                                 f"{run['pipeline'].engine.device}")
+        cut = _p_run(argv("cut.mp4", "-t", V_CUT), count_syncs=True)
+        syncs = (run["syncs"] - cut["syncs"]) / (flows_n - V_CUT_FRAMES)
+        for name, n in (("out.mp4", flows_n), ("cut.mp4", V_CUT_FRAMES)):
+            with av_native.MvReader(str(root / name)) as reader:
+                count = 0
+                while reader.next() is not None:
+                    count += 1
+                got = (reader.height, reader.width, reader.frame_count,
+                       count)
+            if got != (HEIGHT, WIDTH, n, n):
+                raise AssertionError(f"phase V: {name} reopens as (H, W, "
+                                     f"frame_count, frames read) {got}, "
+                                     f"expected {n} frames")
+        print(f"video CLI {HEIGHT}x{WIDTH} --mv -o out.mp4 {flows_n} frames: "
+              f"{_p_split(run, flows_n)}; out.mp4 reopens as {HEIGHT}x"
+              f"{WIDTH}, {flows_n} frames; launches {run['launches']} "
+              f"{KERNEL_NAMES}; host syncs {run['syncs']} against "
+              f"{cut['syncs']} for the {V_CUT_FRAMES}-frame cut: {syncs:g} "
+              f"a frame after the warm-up; on {card}")
+        if syncs != 0:
+            raise AssertionError(f"phase V: {syncs} host syncs a frame")
+    return {"fps": flows_n / run["seconds"], "raster_ms": raster_ms}
+
+
+# phase S: two streams through the stream mesh (sharded_scan)
+S_PANS = (3, -3)
+S_CHUNK = 8
+S_CHUNKS = 2          # chunks held to each stream's lone model.scan
+S_SYNC_CALLS = 2      # one-frame calls that count the host's syncs
+S_PROFILE_CALLS = 4   # one-frame calls under the profiler (phase 10)
+S_ITERS = 8
+S_RESET = 0.05
+S_HALO = 8
+S_TOOL_FRAMES = 9     # frames of each sequence the batch renderer reads
+S_PER_FRAME = (0, 0, 0, 0, 0, 0, 0, 1, S_ITERS, 0, 0)  # a stream-frame
+
+
+def s_model(device, halo: int | None = None):
+    """The batch renderer's model (tools/batch_render.py) at 1080x1920:
+    Horn-Schunck with ``max_iters=8, delta=None``, one moveref layer with
+    random reset 0.05, ``clip=halo`` where a halo is given."""
+    from transflow_tpu_torch.config import LayerConfig
+    from transflow_tpu_torch.flow import Direction
+    from transflow_tpu_torch.model import FlowTransferModel
+    return FlowTransferModel(
+        HEIGHT, WIDTH,
+        [LayerConfig(0, reset_mode="random", reset_random_factor=S_RESET,
+                     reset_linear_factor=S_RESET,
+                     reset_constant_step=S_RESET)],
+        {0: [(3, np.ones((HEIGHT, WIDTH), bool))]}, method="horn-schunck",
+        estimator_kwargs=dict(max_iters=S_ITERS, delta=None),
+        direction=Direction.BACKWARD,
+        flow_filters=f"clip={halo}" if halo else None, halo=halo,
+        device=device)
+
+
+def s_chunks(run, model, grays, pixmaps, keys, chunks: int,
+             timed: int | None = None) -> dict:
+    """``run`` (a ``sharded_scan``) over ``chunks`` chunks of S_CHUNK
+    frames from frame 1 with the batch renderer's keys (``fold_in(k,
+    start)``); chunk ``timed`` is timed (host clock to a synchronize) and
+    its launches counted from 0. Returns the state, each stream's frames
+    and the timed chunk's ms and launches."""
+    from transflow_tpu_torch import prng
+    state = [model.init_state(g[0]) for g in grays]
+    outs = [[] for _ in grays]
+    result = {}
+    for c in range(chunks):
+        start = 1 + c * S_CHUNK
+        args = ([g[start:start + S_CHUNK] for g in grays], pixmaps,
+                (start - 1) / model.framerate,
+                [prng.fold_in(k, start) for k in keys])
+        if c == timed:
+            torch.cuda.synchronize()
+            _zero_launches()
+            t0 = time.perf_counter()
+            state, rgbs = run(state, *args)
+            torch.cuda.synchronize()
+            result["ms"] = 1e3 * (time.perf_counter() - t0)
+            result["launches"] = _launches()
+        else:
+            state, rgbs = run(state, *args)
+        for s, rgb in enumerate(rgbs):
+            outs[s].append(rgb)
+    result.update(state=state, frames=[torch.cat(o) for o in outs])
+    return result
+
+
+def phase_streams(device, card: str) -> dict:
+    """Phase S: two 1080x1920 streams (pans of +3 and -3 px, their own
+    random pixmaps) through ``sharded_scan(..., per_stream_pixmaps=True)``
+    over ``make_mesh(devices=[card] * 2, stream_axis=2)``, two chunks of
+    8: 1 B9 + 8 B10 launches a stream-frame, each stream bit-equal to its
+    own ``model.scan`` alone; the host syncs a frame of one-frame calls
+    after them; then stream 2 x space 2 (``[card] * 4``) with ``halo=8``
+    and ``clip=8`` against the same without the space axis (flows within
+    1e-5, frames bit-equal); then the batch renderer
+    (``transflow_tpu_torch.tools.batch_render``) over two 9-frame PGM
+    sequences, its ``%04d`` frames equal to the first chunk, and its MP4s
+    where the libav shim loads. Returns the one-frame stepping run for the
+    profile and the launches."""
+    import tempfile
+    from transflow_tpu_torch import av_native, prng
+    from transflow_tpu_torch.parallel import make_mesh, sharded_scan
+    from transflow_tpu_torch.tools import batch_render
+    from transflow_tpu_torch.utils.imageio import read_netpbm, write_netpbm
+    n = 1 + S_CHUNKS * S_CHUNK + S_SYNC_CALLS + S_PROFILE_CALLS
+    grays = [t_gray(n, pan, HEIGHT, WIDTH, device) for pan in S_PANS]
+    pix_np = [np.random.default_rng(SEED + s).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8) for s in range(2)]
+    pixmaps = [((torch.from_numpy(p).to(device),),) for p in pix_np]
+    keys = prng.split(prng.key(SEED), 2)
+    model = s_model(device)
+    mesh = make_mesh(devices=[device] * 2, stream_axis=2)
+    run = sharded_scan(model, mesh, per_stream_pixmaps=True)
+    main = s_chunks(run, model, grays, pixmaps, keys, S_CHUNKS, timed=1)
+    frames_n = 2 * S_CHUNK  # stream-frames of the timed chunk
+    per_frame = tuple(x / frames_n for x in main["launches"])
+    if per_frame != S_PER_FRAME:
+        raise AssertionError(f"phase S: {KERNEL_NAMES} launches a "
+                             f"stream-frame {per_frame}, expected "
+                             f"{S_PER_FRAME}")
+
+    def lone(state, grays_, pixmaps_, t0, keys_):
+        state, rgb = model.scan(state[0], grays_[0], pixmaps_[0], t0,
+                                keys_[0])
+        return [state], [rgb]
+
+    for s in range(2):  # each stream alone, the same keys and pixmap
+        alone = s_chunks(lone, model, [grays[s]], [pixmaps[s]], [keys[s]],
+                         S_CHUNKS)
+        if not torch.equal(main["frames"][s], alone["frames"][0]):
+            raise AssertionError(f"phase S: stream {s} differs from its "
+                                 "lone model.scan")
+    if torch.equal(main["frames"][0], main["frames"][1]):
+        raise AssertionError("phase S: the two streams rendered alike")
+    ms = main["ms"] / frames_n
+    print(f"streams {mesh} 2 x {HEIGHT}x{WIDTH} horn-schunck max_iters="
+          f"{S_ITERS} ->moveref (random {S_RESET}): {main['ms']:.2f} ms for "
+          f"a chunk of {S_CHUNK} frames of both streams, {ms:.3f} ms a "
+          f"stream-frame, {2 * ms:.3f} ms a frame of both; launches a "
+          f"stream-frame B9 {per_frame[7]:g}, B10 {per_frame[8]:g}; each "
+          f"stream bit-equal to its lone model.scan over {S_CHUNKS} chunks; "
+          f"on {card}")
+    # one-frame calls after the chunks: host syncs, then (phase 10) the
+    # profile
+    cursor = {"state": main["state"], "start": 1 + S_CHUNKS * S_CHUNK}
+
+    def step(_fno):
+        start = cursor["start"]
+        cursor["state"], _ = run(
+            cursor["state"], [g[start:start + 1] for g in grays], pixmaps,
+            (start - 1) / model.framerate,
+            [prng.fold_in(k, start) for k in keys])
+        cursor["start"] = start + 1
+
+    srun = {"next_fno": 0, "step": step}
+    syncs = host_syncs(srun, S_SYNC_CALLS) / 2
+    print(f"streams: {syncs:g} host syncs a stream-frame "
+          f"(torch.cuda.set_sync_debug_mode, {S_SYNC_CALLS} one-frame "
+          "calls)")
+    if syncs != 0:
+        raise AssertionError(f"phase S: {syncs} host syncs a stream-frame")
+    # stream 2 x space 2 with the bounded gather, against no space axis
+    halo_model = s_model(device, S_HALO)
+    flat = s_chunks(sharded_scan(halo_model, mesh, True), halo_model, grays,
+                    pixmaps, keys, S_CHUNKS)
+    mesh4 = make_mesh(devices=[device] * 4, stream_axis=2)
+    run4 = sharded_scan(halo_model, mesh4, per_stream_pixmaps=True)
+    sharded = s_chunks(run4, halo_model, grays, pixmaps, keys, S_CHUNKS,
+                       timed=1)
+    diff = max((a["prev_flow"] - b["prev_flow"]).abs().max().item()
+               for a, b in zip(sharded["state"], flat["state"]))
+    same = all(torch.equal(a, b)
+               for a, b in zip(sharded["frames"], flat["frames"]))
+    print(f"streams {mesh4} halo={S_HALO} clip={S_HALO}: "
+          f"{sharded['ms'] / frames_n:.3f} ms a stream-frame; launches a "
+          f"stream-frame {tuple(x / frames_n for x in sharded['launches'])}"
+          f" {KERNEL_NAMES}; against stream 2 x space 1: max |dflow| "
+          f"{diff:.3e}, frames {'bit-equal' if same else 'DIFFER'}")
+    if not diff <= MESH_FLOW_ATOL or not same:
+        raise AssertionError(f"phase S: stream 2 x space 2 differs from "
+                             f"space 1 (flow {diff}, frames equal {same})")
+    # the batch renderer over two PGM sequences of the streams
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s_") as tmp:
+        root = Path(tmp)
+        pairs = []
+        for s in range(2):
+            (root / f"f{s}").mkdir()
+            for i, frame in enumerate(
+                    grays[s][:S_TOOL_FRAMES].cpu().numpy()):
+                write_netpbm(str(root / f"f{s}" / f"{i:04d}.pgm"), frame)
+            write_netpbm(str(root / f"pix{s}.ppm"), pix_np[s])
+            pairs.append((str(root / f"f{s}" / "%04d.pgm"),
+                          str(root / f"pix{s}.ppm")))
+        start = time.perf_counter()
+        paths = batch_render.batch_render(
+            pairs, str(root / "out"), chunk=S_CHUNK, seed=SEED,
+            output="s{stream:02d}/%04d.ppm", mesh=mesh)
+        tool_s = time.perf_counter() - start
+        flows_n = S_TOOL_FRAMES - 1
+        for s, path in enumerate(paths):
+            got = np.stack([read_netpbm(path % i) for i in range(flows_n)])
+            if not np.array_equal(got, main["frames"][s][:flows_n].cpu()
+                                  .numpy()):
+                raise AssertionError(f"phase S: the batch renderer's stream "
+                                     f"{s} differs from sharded_scan's")
+        text = "%04d.ppm frames"
+        if av_native.is_available():
+            mp4s = batch_render.batch_render(pairs, str(root / "mp4"),
+                                             chunk=S_CHUNK, seed=SEED,
+                                             mesh=mesh)
+            for path in mp4s:
+                with av_native.MvReader(path) as reader:
+                    count = 0
+                    while reader.next() is not None:
+                        count += 1
+                    got = (reader.height, reader.width, count)
+                if got != (HEIGHT, WIDTH, flows_n):
+                    raise AssertionError(f"phase S: {path} reopens as "
+                                         f"{got}")
+            text += f" and MP4s ({', '.join(Path(p).name for p in mp4s)}, " \
+                    f"{flows_n} frames each)"
+        print(f"streams batch renderer: 2 x {S_TOOL_FRAMES} PGM frames at "
+              f"{HEIGHT}x{WIDTH} in {tool_s:.2f} s to {text}, each stream's "
+              "frames equal to sharded_scan's first chunk")
+    return {"step_run": srun, "launches": main["launches"]}
+
+
 def hs_bound_ms(kernel: str, h: int, w: int) -> tuple[float, str]:
     """B9's bound: two frames' bytes in, four float32 planes out; B10's a
     launch: the four planes and the flow in, the flow out; a copy-through
@@ -2380,7 +2707,8 @@ def host_syncs(run: dict, calls: int) -> float:
 PROFILE_TOP = 10  # kernel names in the Engine's device time by name
 
 
-def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
+def engine_profile(name: str, run: dict, calls: int, card: str,
+                   unit: str = "process_frame calls") -> dict:
     """The Engine of ``run`` over its next ``calls`` frames under
     ``torch.profiler``: device events (kernels, copies, sets), busy time
     (their intervals merged) and idle share per frame, against the host
@@ -2418,7 +2746,7 @@ def engine_profile(name: str, run: dict, calls: int, card: str) -> dict:
         print(f"profile {name}: no device events (busy share not measured)")
         return result
     result["idle"] = 1 - result["busy_ms"] / wall_ms
-    print(f"profile {name} ({calls} process_frame calls, torch.profiler): "
+    print(f"profile {name} ({calls} {unit}, torch.profiler): "
           f"{result['events']:.1f} device events, {result['busy_ms']:.3f} ms "
           f"busy, {wall_ms:.3f} ms host clock per frame: busy share "
           f"{1 - result['idle']:.1%}, idle {result['idle']:.1%} on {card}")
@@ -2888,12 +3216,16 @@ def main() -> int:
                              "several trees")
     args = parser.parse_args()
     card = phase_device()
+    libav = phase_libav()
     device = torch.device("cuda", 0)
     reports = phase_build()
     fb_runs = phase_farneback_engine(device, card)
     phase_pipeline(device, card)
     t_run = phase_postprocess(device, card)
     h_runs = phase_classic_engine(device, card)
+    if libav:
+        phase_video(device, card)
+    s_run = phase_streams(device, card)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
     mesh_run = phase_mesh_engine(device, card, engine_phase)
@@ -2911,6 +3243,13 @@ def main() -> int:
     for name, run in h_runs.items():
         run["profile"] = engine_profile(f"classic engine {name}", run,
                                         H_PROFILE_CALLS, card)
+    profile = engine_profile("streams 2 x 1 horn-schunck, a frame of both "
+                             "streams", s_run["step_run"], S_PROFILE_CALLS,
+                             card, "one-frame sharded_scan calls")
+    if "idle" in profile:
+        print(f"streams per stream-frame: {profile['busy_ms'] / 2:.3f} ms "
+              f"busy of {profile['wall_ms'] / 2:.3f} ms host clock, idle "
+              f"{profile['idle']:.1%} on {card}")
     if args.against:
         phase_against(device, args.against, card, reports,
                       fb_runs["CvFlowConfig()"], t_run["b5_flow"])
@@ -3110,9 +3449,11 @@ def main() -> int:
             "replaces": "transflow_tpu/flow/estimators/"
                         + function.split(" ")[0],
             "replaces_function": function,
-            # phase H's Engine runs of the five presets
+            # phase H's Engine runs of the five presets and phase S's
+            # timed chunk
             "launches": sum(run["launches"][h_launches[name]]
-                            for run in h_runs.values()),
+                            for run in h_runs.values())
+            + s_run["launches"][h_launches[name]],
             "max_abs_err": max(r["err"] for r in group),
             # per frame: horn-schunck.json's launches at 1080p, or
             # lukas-kanade.json's over its three levels

@@ -163,19 +163,26 @@ def sequence(tmp_path_factory):
     return str(root / "%04d.pgm")
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["-o", "out.mp4"], "item 14.2"),        # no ffmpeg binary: no encoder
-    (["-o", "mjpeg:9000"], "item 14.2"),
-    ([], "item 14.2"),                       # no -o: the preview window
-    (["-o", "%04d.ppm", "-O"], "item 14.2"),
-    (["-o", "%04d.ppm", "--mv"], "item 14.3"),
+@pytest.mark.parametrize("extra,error", [
+    # neither the libav shim nor an ffmpeg binary: no encoder
+    (["-o", "out.mp4"], (NotImplementedError, "item 14.2")),
+    (["-o", "mjpeg:9000"], (NotImplementedError, "item 14.2")),
+    # no -o: the preview window
+    ([], (NotImplementedError, "item 14.2")),
+    (["-o", "%04d.ppm", "-O"], (NotImplementedError, "item 14.2")),
+    # no shim: no motion vectors, as the JAX source without PyAV or it
+    (["-o", "%04d.ppm", "--mv"], (ImportError, "native libav shim")),
 ], ids=["video", "mjpeg", "window", "preview", "mv"])
 def test_unported_inputs_and_outputs_raise(sequence, tmp_path, monkeypatch,
-                                           extra, item):
+                                           extra, error):
+    """What raises on a machine without the libav shim and without an
+    ffmpeg binary (the shim and ``shutil.which`` monkeypatched away)."""
     import shutil
+    from transflow_tpu_torch import av_native
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(shutil, "which", lambda name: None)
-    with pytest.raises(NotImplementedError, match=item):
+    monkeypatch.setattr(av_native, "_load", lambda: None)
+    with pytest.raises(error[0], match=error[1]):
         cli.main([sequence, "-p", "noise", "--no-exec", *extra],
                  device="cpu")
 

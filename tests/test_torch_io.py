@@ -255,8 +255,9 @@ def test_flow_routing_matches_jax(path, cv_config):
 
 
 def test_flow_routing_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14.3"):
-        base.FlowSource.from_args("clip.mp4", use_mvs=True)
+    with pytest.raises(FileNotFoundError):   # --mv: the shim opens nothing
+        base.FlowSource.from_args(str(tmp_path / "clip.mp4"),
+                                  use_mvs=True).open()
     with pytest.raises(FileNotFoundError):
         base.FlowSource.from_args("clip.mp4", cv_config="nope.json")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

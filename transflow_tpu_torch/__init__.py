@@ -15,8 +15,11 @@ with JAX's own random numbers (``prng``); the flow post-processing
 and every layer class with its masks; and the disk-to-disk
 ``pipeline.Pipeline`` behind the JAX package's command line
 (``python -m transflow_tpu_torch``, ``cli.py``), over image sequences and
-``.flow.zip`` archives, writing frames, flow archives and checkpoints.
-ROADMAP.md lists what comes next.
+``.flow.zip`` archives, writing frames, flow archives and checkpoints;
+``--mv`` and ``-o x.mp4`` through the repo's prebuilt libav shim
+(``av_native``); and the ``stream`` mesh axis (``parallel.make_mesh``,
+``sharded_scan``) behind ``tools/batch_render.py``. ROADMAP.md lists
+what comes next.
 """
 
 __version__ = "0.1.0"

@@ -10,8 +10,9 @@ reading and drops the results it locks.
 A subclass implements ``_open_reader`` (setting width, height, framerate
 and base_length), ``_read_item`` and ``_rewind_reader``. ``from_args``
 routes a path to its source as the JAX package does: a ``.flow.zip`` to
-``ArchiveFlowSource``, anything else to ``CvFlowSource``, which reads
-image sequences (``utils/imageio.py``); ``--mv`` raises.
+``ArchiveFlowSource``, ``--mv`` to ``MotionVectorFlowSource`` (the libav
+shim's motion vectors), anything else to ``CvFlowSource``, which reads
+image sequences (``utils/imageio.py``).
 """
 import json
 import logging
@@ -308,9 +309,9 @@ class FlowSource:
         """Route to the concrete source (FlowSource.from_args of the JAX
         package)."""
         if "::" in flow_path:
-            _, file = flow_path.split("::")
+            avformat, file = flow_path.split("::")
         else:
-            file = flow_path
+            avformat, file = None, flow_path
         kwargs = dict(direction=direction, mask_path=mask_path,
                       kernel_path=kernel_path, flow_filters=flow_filters,
                       seek_ckpt=seek_ckpt, seek_time=seek_time,
@@ -320,9 +321,8 @@ class FlowSource:
             from .archive import ArchiveFlowSource
             return ArchiveFlowSource(file, **kwargs)
         if use_mvs:
-            raise NotImplementedError(
-                "--mv (motion vectors) is not ported yet: ROADMAP Queue 1, "
-                "item 14.3 (motion vectors)")
+            from .mv import MotionVectorFlowSource
+            return MotionVectorFlowSource(file, avformat, **kwargs)
         from .cv import CvFlowConfig, CvFlowSource
         if isinstance(cv_config, dict):
             config = CvFlowConfig(**cv_config)

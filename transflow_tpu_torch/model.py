@@ -55,11 +55,15 @@ class FlowTransferModel:
         ``device`` the constructor raises; pass ``device="cpu"`` for the
         CPU). ``estimator_kwargs`` reach the
         estimator as they are (``corr_kernel``, ``corr_mesh``, ...)."""
+        # every argument but the placement, for ``replica``
+        self._build_args = {k: v for k, v in locals().items()
+                            if k not in ("self", "mesh", "device")}
         self.height = height
         self.width = width
         self.out_height = height * height_factor
         self.out_width = width * width_factor
         self.framerate = framerate
+        self.mesh = mesh
         self.device = mesh_device(mesh, device)
         estimator = get_estimator(method)
         postprocess = make_postprocess(flow_filters, mask, kernel, direction,
@@ -115,6 +119,22 @@ class FlowTransferModel:
         self._step = step
 
     # ------------------------------------------------------------------
+
+    def replica(self, mesh=None, device=None) -> "FlowTransferModel":
+        """This model placed on ``mesh`` (a ``SpaceMesh``) or ``device``:
+        itself where it is placed so already, else a new model built with
+        the same arguments there (its parameters are made again, from the
+        same configs)."""
+        here = self.mesh.devices if self.mesh is not None else None
+        there = mesh.devices if mesh is not None else None
+        if here == there and self.device == mesh_device(mesh, device):
+            return self
+        args = dict(self._build_args)
+        kwargs = args["estimator_kwargs"]
+        if kwargs and kwargs.get("corr_mesh") is not None:
+            # the sharded correlation runs over the replica's own mesh
+            args["estimator_kwargs"] = {**kwargs, "corr_mesh": mesh}
+        return FlowTransferModel(**args, mesh=mesh, device=device)
 
     def init_state(self, first_gray) -> dict:
         return {

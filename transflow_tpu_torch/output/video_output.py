@@ -2,8 +2,8 @@
 
 Counterpart of transflow_tpu/output/video_output.py, the same routing: a
 '%d' template -> image sequence (``frames.py``), another path -> encoded
-video file (``encoded.py``, through an ``ffmpeg`` binary where there is
-one). The preview window (path None) and the MJPEG server
+video file (``encoded.py``: the libav shim's encoder, else an ``ffmpeg``
+binary). The preview window (path None) and the MJPEG server
 ('mjpeg[:port[:host]]') need codecs or a display the port does not have
 yet: they raise, naming ROADMAP Queue 1 item 14.2.
 """

@@ -1,7 +1,10 @@
-"""Device layouts of the port: the one-axis ``space`` mesh."""
-from .mesh import (SpaceMesh, exchange_rows, make_space_mesh, mesh_device,
-                   parse_mesh_spec)
+"""Device layouts of the port: the ``space`` mesh and the ``(stream,
+space)`` mesh."""
+from .mesh import (SpaceMesh, StreamMesh, exchange_rows, make_mesh,
+                   make_space_mesh, mesh_device, parse_mesh_spec,
+                   shard_model_inputs, sharded_scan)
 from .multihost import global_mesh_grid
 
-__all__ = ["SpaceMesh", "exchange_rows", "global_mesh_grid",
-           "make_space_mesh", "mesh_device", "parse_mesh_spec"]
+__all__ = ["SpaceMesh", "StreamMesh", "exchange_rows", "global_mesh_grid",
+           "make_mesh", "make_space_mesh", "mesh_device", "parse_mesh_spec",
+           "shard_model_inputs", "sharded_scan"]

@@ -1,22 +1,30 @@
-"""The space mesh of the port: H split over a list of devices.
+"""The meshes of the port: H split over a list of devices (``space``),
+and independent streams over rows of such lists (``stream``).
 
-Counterpart of transflow_tpu/parallel/mesh.py for its one-axis ``space``
-layout. The JAX package's mesh is a single-controller layout: one process
-drives every device, ``shard_map`` splits exactly two ops by hand (the
-sharded correlation and the sharded movement gather) and GSPMD places the
-rest. The port keeps that form in one process: a ``SpaceMesh`` is a list
-of torch devices, one per shard, and the two hand-sharded ops split their
-operands over it, exchange boundary rows between neighbours (the two
-``ppermute``s of the JAX entries) and join the result. Every other op runs
-whole on ``mesh.devices[0]``.
+Counterpart of transflow_tpu/parallel/mesh.py. The JAX package's mesh is a
+single-controller layout: one process drives every device, ``shard_map``
+splits exactly two ops by hand (the sharded correlation and the sharded
+movement gather) and GSPMD places the rest. The port keeps that form in
+one process: a ``SpaceMesh`` is a list of torch devices, one per shard,
+and the two hand-sharded ops split their operands over it, exchange
+boundary rows between neighbours (the two ``ppermute``s of the JAX
+entries) and join the result. Every other op runs whole on
+``mesh.devices[0]``.
 
 Devices may repeat: ``SpaceMesh(["cuda:0"] * 4)`` runs four real shards,
 with a real halo exchange, on one card, and ``SpaceMesh(["cpu"] * 4)``
 does the same in the tests. A copy between two cards goes through
 ``Tensor.to``, which orders it on both devices' current streams, so a
 shard's kernel never reads a halo before it has arrived.
+
+The ``(stream, space)`` layout (``make_mesh``) is a ``StreamMesh``: S rows,
+each a ``SpaceMesh`` of P devices. Streams share nothing, so where JAX
+vmaps ``model.scan`` over a stream axis under one jit (``sharded_scan``),
+the port runs ``model.scan`` once per stream on its row: a stream's work
+is queued on its row's devices, and rows on distinct cards overlap, as
+the launches do not wait for the host.
 """
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -118,3 +126,146 @@ def exchange_rows(bands: Sequence[torch.Tensor], rows: int,
         bottom = bands[i + 1][:rows].to(dev) if i < n - 1 else zeros(band)
         out.append((top, bottom))
     return out
+
+
+class StreamMesh:
+    """The ``(stream, space)`` layout: ``rows[s]`` is the ``SpaceMesh`` of
+    stream row s. ``shape`` reads as a JAX mesh's."""
+
+    def __init__(self, rows: Sequence[SpaceMesh]):
+        self.rows = tuple(rows)
+        if not self.rows or len({len(r.devices) for r in self.rows}) != 1:
+            raise ValueError("a stream mesh needs rows of one length")
+        self.shape = {"stream": len(self.rows),
+                      "space": len(self.rows[0].devices)}
+        self.devices = tuple(d for row in self.rows for d in row.devices)
+
+    def __repr__(self) -> str:
+        rows = [[str(d) for d in r.devices] for r in self.rows]
+        return f"StreamMesh({rows})"
+
+    def row_of(self, stream: int, n_streams: int) -> SpaceMesh:
+        """The row that holds ``stream`` of ``n_streams``: contiguous
+        blocks of ``n_streams / S`` streams a row, as JAX shards a leading
+        dim over the ``stream`` axis."""
+        per_row, rest = divmod(n_streams, self.shape["stream"])
+        if rest:
+            raise ValueError(
+                f"stream count {n_streams} must be a multiple of the mesh's "
+                f"stream axis {self.shape['stream']}")
+        return self.rows[stream // per_row]
+
+
+def make_mesh(n_devices: int | None = None, stream_axis: int | None = None,
+              devices: Sequence | None = None) -> StreamMesh:
+    """A ``(stream, space)`` mesh over the first ``n_devices`` of
+    ``devices`` (every CUDA device by default; a device may repeat).
+    ``stream_axis`` defaults to 2 where ``n_devices`` is even and > 1,
+    else 1; the remaining factor shards space (mesh.py:52-66)."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if n_devices is None:
+        n_devices = len(devices)
+    devices = devices[:n_devices]
+    if stream_axis is None:
+        stream_axis = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    space_axis = n_devices // stream_axis
+    if not devices or stream_axis * space_axis != len(devices):
+        raise ValueError(f"{len(devices)} devices do not form a "
+                         f"{stream_axis} x {space_axis} mesh")
+    return StreamMesh([
+        SpaceMesh(devices[s * space_axis:(s + 1) * space_axis])
+        for s in range(stream_axis)])
+
+
+def _to(tree, device):
+    """``tree`` (tensors in dicts, tuples and lists; other leaves kept)
+    with every tensor on ``device``; a tensor there already is kept."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+def _home(row: SpaceMesh) -> torch.device:
+    """Where a row's model keeps what it does not shard."""
+    return row.devices[0]
+
+
+def shard_model_inputs(mesh: StreamMesh, state, grays, pixmaps, keys):
+    """The scan's inputs placed on their rows (mesh.py:127): stream n's
+    state (a sequence of N per-stream states), frames (``grays[n]``) and
+    key (``keys[n]``) on its row, and the one pixmap set replicated, one
+    copy per row device (JAX's ``pixmap_spec``: the render gather's reach
+    is unbounded), as N per-stream entries that ``sharded_scan(...,
+    per_stream_pixmaps=True)`` takes. A row's model splits H over the
+    row's devices inside its sharded ops, so each slice goes whole to the
+    row's first device. Returns (state, grays, pixmaps, keys), each a
+    tuple of N."""
+    n = len(state)
+    rows = [mesh.row_of(i, n) for i in range(n)]
+    copies: dict = {}
+    for row in rows:
+        if _home(row) not in copies:
+            copies[_home(row)] = _to(pixmaps, _home(row))
+    return (tuple(_to(state[i], _home(r)) for i, r in enumerate(rows)),
+            tuple(_to(torch.as_tensor(grays[i]), _home(r))
+                  for i, r in enumerate(rows)),
+            tuple(copies[_home(r)] for r in rows),
+            tuple(keys[i] for i in range(n)))
+
+
+def sharded_scan(model, mesh: StreamMesh, per_stream_pixmaps: bool = False
+                 ) -> Callable:
+    """``model.scan`` over independent streams (mesh.py:144-206).
+
+    Returns ``fn(state, grays, pixmaps, t0, keys) -> (state, rgbs)``:
+    ``state``, ``grays`` ((K, H, W) frames) and ``keys`` carry a leading
+    stream dim of N, a multiple of the stream axis (a sequence, or a
+    stacked array); stream n runs ``model.scan`` on its row
+    (``StreamMesh.row_of``), the same as ``vmap(model.scan)``. The
+    returned state and frames are tuples of N, each on its row.
+
+    ``per_stream_pixmaps``: ``pixmaps`` is a sequence of N pixmap sets,
+    and each stream advects its own (extra/batch_render.py); by default
+    one set, copied to each row, serves every stream.
+
+    The model is bound to its devices when built (``model.py``), so a
+    row on other devices runs a replica built with the same arguments
+    there (``FlowTransferModel.replica``); the row on the model's own
+    devices runs the model itself."""
+    space = mesh.shape["space"]
+    replicas: dict = {}
+
+    def row_model(row: SpaceMesh):
+        if row.devices not in replicas:
+            replicas[row.devices] = model.replica(
+                mesh=row if space > 1 else None, device=_home(row))
+        return replicas[row.devices]
+
+    def run(state, grays, pixmaps, t0, keys):
+        n = len(state)
+        shared: dict = {}
+        states, rgbs = [], []
+        for i in range(n):
+            row = mesh.row_of(i, n)
+            home = _home(row)
+            if per_stream_pixmaps:
+                pix = _to(pixmaps[i], home)
+            else:
+                if home not in shared:
+                    shared[home] = _to(pixmaps, home)
+                pix = shared[home]
+            new_state, rgb = row_model(row).scan(
+                _to(state[i], home), torch.as_tensor(grays[i]).to(home),
+                pix, t0, keys[i])
+            states.append(new_state)
+            rgbs.append(rgb)
+        return tuple(states), tuple(rgbs)
+
+    return run

@@ -1,17 +1,17 @@
 """JAX's default random numbers (threefry2x32) in numpy and PyTorch.
 
 Counterpart of the part of ``jax.random`` the JAX package uses: ``key``,
-``split`` and ``uniform`` on its default threefry keys, with
+``split``, ``fold_in`` and ``uniform`` on its default threefry keys, with
 ``jax_threefry_partitionable`` on (JAX's default since 0.5). A key is a
 uint32 numpy array of shape (2,), the ``jax.random.key_data`` of the JAX
 key, so the port draws the JAX package's numbers bit for bit and a
 checkpoint's ``rng_key`` reads the same in both packages.
 
-``split`` runs on the host in numpy (a key chain costs no device launch and
-no sync); ``uniform`` runs on the device in PyTorch. Both go through one
-threefry core: numpy's uint32 wraps by itself, and in PyTorch the words
-are int64 masked to 32 bits, since torch's uint32 lacks arithmetic on some
-builds.
+``split`` and ``fold_in`` run on the host in numpy (a key chain costs no
+device launch and no sync); ``uniform`` runs on the device in PyTorch.
+All go through one threefry core: numpy's uint32 wraps by itself, and in
+PyTorch the words are int64 masked to 32 bits, since torch's uint32 lacks
+arithmetic on some builds.
 """
 import numpy as np
 import torch
@@ -54,6 +54,19 @@ def split(key_data, n: int = 2) -> np.ndarray:
     lo = (idx & np.uint64(_MASK)).astype(np.uint32)
     x0, x1 = _threefry2x32(k[0], k[1], hi, lo, lambda v: v)
     return np.stack([x0, x1], axis=-1)
+
+
+def fold_in(key_data, data: int) -> np.ndarray:
+    """``jax.random.fold_in``: the key hashed with ``data`` (taken as a
+    uint32, the high counter word 0, as JAX's ``threefry_seed`` makes it),
+    computed on the host."""
+    k = np.asarray(key_data, dtype=np.uint32)
+    if k.shape != (2,):
+        raise ValueError(f"a key is uint32 of shape (2,), got {k.shape}")
+    x0, x1 = _threefry2x32(k[0], k[1], np.zeros(1, np.uint32),
+                           np.array([int(data) & _MASK], np.uint32),
+                           lambda v: v)
+    return np.concatenate([x0, x1])
 
 
 def uniform(key_data, shape, device="cpu") -> torch.Tensor:
