@@ -39,7 +39,13 @@ P. pipeline: the port's CLI disk to disk in a temporary directory over 24
    with the same pixmap and seed, frames bit-equal to P1's, no Farneback
    launch. P5: one ``python3 -m transflow_tpu_torch`` process over the
    first 4 frames with a 24-frame ``pix/%04d.ppm`` pixmap sequence,
-   flows bit-equal to P1's first. Prints the disk-to-disk frames/s and
+   flows bit-equal to P1's first. Before P5 the tools over P's outputs
+   (``p_tools``): ``viewflow --stats`` over P1's ``-F`` archive (its
+   means and maxima numpy's), the render mode over it (23 frames),
+   ``ControlSession`` over P1's end checkpoint (a 1080x1920 mapping, a
+   paint shown in ``preview()``) and ``FlowClip.flow(0)`` over the PGM
+   frames on the card (bit-equal to Farneback on the pair, 4 B1 + 12
+   B2a + 12 B2b launches). Prints the disk-to-disk frames/s and
    ``StageTimers``' split per frame of P1, P2 and P4, and the bare
    Engine's ms/frame on the same frames;
 T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
@@ -93,6 +99,21 @@ S. streams: ``make_mesh(devices=[card] * 2, stream_axis=2)``, two 1080x1920
    over two 9-frame PGM sequences, its ``%04d`` frames equal to the
    first chunk's, and its MP4s reopened where the shim loads; in phase
    10 its profile (busy time and idle share a stream-frame);
+M. multi-host: this script again as two worker processes
+   (``--multihost-worker RANK PORT``, read only here) joined by gloo on
+   127.0.0.1, each giving ``[card] * 2`` to ``make_global_mesh``:
+   stream 2 x space 2, a row a process; an all-reduce of a sharded
+   tensor's sum; four 1080x1920 streams (pans of +3, -3, +2 and -2 px)
+   of phase S's model with ``halo=8`` and ``clip=8`` through
+   ``sharded_scan``, two a process, two chunks of 8: 1 B9 + 8 B10 and 0
+   host syncs a stream-frame in each process, each stream's frames
+   bit-equal (digests gathered with ``all_gather_object``) to its lone
+   ``model.scan`` in this process; A2 on each process's row at L3
+   (stride 2) bit-equal to A1. Prints ms a stream-frame for each process
+   and for both, beside the four streams through one process's
+   ``sharded_scan`` (stream 2 x space 2), and each process's busy time
+   and idle share a stream-frame (``torch.profiler``). A worker that
+   exits non-zero or outlives its time fails the run;
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
@@ -187,7 +208,7 @@ B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
    version on the same inputs, with ``device_ms``, the bound, its share
    and the plain version's time.
 
-The main path (phases F, P, T, H, V, S and 3-5) runs right after the build:
+The main path (phases F, P, T, H, V, S, M and 3-5) runs right after the build:
 the kernel phases' timing loops, plain versions and profiler come after
 every timed run of it, so they cannot reach those timings.
 
@@ -222,6 +243,7 @@ import itertools
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -1074,6 +1096,75 @@ def _p_split(run: dict, frames: int) -> str:
             f"included; stage ms: {split})")
 
 
+def p_tools(root: Path, card: str, gray, flows, frames_arg: str) -> None:
+    """The tools (``transflow_tpu_torch/tools``) over phase P's outputs:
+    ``viewflow --stats`` over P1's ``-F`` archive (its means and maxima
+    numpy's over the archive's flows), the render mode over the same
+    archive (as many frames as flows), ``ControlSession`` over P1's end
+    checkpoint (a HEIGHT x WIDTH mapping, a paint that shows in
+    ``preview()``) and ``FlowClip.flow(0)`` over P's frames on the card
+    (bit-equal to Farneback called directly on the pair, its B1, B2a and
+    B2b launches those of the estimator's levels and iterations)."""
+    import contextlib
+    import inspect
+    import io
+    from transflow_tpu_torch.flow.estimators.farneback import farneback
+    from transflow_tpu_torch.tools import control, viewflow, viewflow_player
+    flows_n = len(flows)
+    archive = str(root / "p1" / "%04d.flow.zip")
+    buffer = io.StringIO()
+    with contextlib.redirect_stdout(buffer):
+        viewflow.main([archive, "--stats"])
+    lines = buffer.getvalue().splitlines()
+    mags = np.linalg.norm(flows, axis=-1)
+    want = [f"frame {i:5d}: mean |f| {m.mean():7.3f}  max |f| "
+            f"{m.max():7.3f}  moving {np.mean(m > 0.5):6.1%}"
+            for i, m in enumerate(mags)]
+    if lines[1:] != want:
+        raise AssertionError(f"viewflow --stats: {lines[1:3]} against "
+                             f"numpy's {want[:2]}")
+    out = root / "viewflow"
+    out.mkdir()
+    start = time.perf_counter()
+    viewflow.main([archive, "-o", str(out / "%04d.ppm")])
+    render_s = time.perf_counter() - start
+    rendered = _p_frames(out, flows_n)
+    print(f"tools viewflow: --stats over P1's archive ({lines[0]}) equal "
+          f"to numpy's means and maxima; the render mode (--view-flow, "
+          f"the port's CLI on the card) wrote {len(rendered)} frames in "
+          f"{render_s:.2f} s")
+    session = control.ControlSession(
+        str(root / "p1" / f"%04d_{flows_n:05d}.ckpt.zip"))
+    i, j = HEIGHT // 2, WIDTH // 2
+    session.paint(i, j, "red", radius=2)
+    if (session.height, session.width) != (HEIGHT, WIDTH) or \
+            tuple(session.preview()[i, j]) != (255, 0, 0):
+        raise AssertionError(f"ControlSession: a {session.height}x"
+                             f"{session.width} mapping, preview "
+                             f"{session.preview()[i, j]} at the paint")
+    clip = viewflow_player.FlowClip(frames_arg)
+    torch.cuda.synchronize()
+    _zero_launches()
+    flow = clip.flow(0)
+    launches = _launches()[3:6]
+    direct = farneback(gray[1], gray[0]).cpu()
+    params = inspect.signature(farneback).parameters
+    levels, iters = params["levels"].default, params["iterations"].default
+    per_pair = (levels + 1, (levels + 1) * iters, (levels + 1) * iters)
+    if not torch.equal(torch.from_numpy(flow), direct) or \
+            launches != per_pair:
+        raise AssertionError(f"FlowClip.flow(0): bit-equal "
+                             f"{torch.equal(torch.from_numpy(flow), direct)}"
+                             f", B1/B2a/B2b launches {launches} against "
+                             f"{per_pair}")
+    print(f"tools control: ControlSession over P1's end checkpoint, a "
+          f"{session.width}x{session.height} mapping, a paint shown in "
+          f"preview(); viewflow_player: FlowClip over {len(clip) + 1} P5 "
+          f"frames, flow(0) on the card bit-equal to farneback on the pair, "
+          f"B1/B2a/B2b launches {launches} (levels {levels} + 1, "
+          f"{iters} iterations: {per_pair}); on {card}")
+
+
 def phase_pipeline(device, card: str) -> dict:
     """Phase P: the port's CLI (``cli.main``) disk to disk at 1080x1920
     over 24 P5 frames panned 3 px per frame, with the headline command's
@@ -1172,6 +1263,7 @@ def phase_pipeline(device, card: str) -> dict:
         _p_equal("P4 frames", _p_frames(root / "p4", flows_n), frames1)
         print(f"pipeline P4 (replay of P1's .flow.zip): "
               f"{_p_split(p4, flows_n)}; frames bit-equal to P1's")
+        p_tools(root, card, gray, flows1, frames_arg)
         # P5: the module entry point over a pixmap sequence
         (root / "pix").mkdir()
         rgb = panned_frames(P_FRAMES, HEIGHT, WIDTH, device).cpu().numpy()
@@ -1807,35 +1899,51 @@ def s_model(device, halo: int | None = None):
 
 
 def s_chunks(run, model, grays, pixmaps, keys, chunks: int,
-             timed: int | None = None) -> dict:
+             timed: int | None = None, barrier=None) -> dict:
     """``run`` (a ``sharded_scan``) over ``chunks`` chunks of S_CHUNK
     frames from frame 1 with the batch renderer's keys (``fold_in(k,
-    start)``); chunk ``timed`` is timed (host clock to a synchronize) and
-    its launches counted from 0. Returns the state, each stream's frames
-    and the timed chunk's ms and launches."""
+    start)``); chunk ``timed`` is timed (host clock to a synchronize,
+    after ``barrier()`` where one is given) and its launches counted from
+    0. A stream whose frames are None is another process's. Returns the
+    state, each stream's frames (None for another process's) and the
+    timed chunk's ms, launches and wall-clock start and end."""
     from transflow_tpu_torch import prng
-    state = [model.init_state(g[0]) for g in grays]
+    state = [None if g is None else model.init_state(g[0]) for g in grays]
     outs = [[] for _ in grays]
     result = {}
     for c in range(chunks):
         start = 1 + c * S_CHUNK
-        args = ([g[start:start + S_CHUNK] for g in grays], pixmaps,
-                (start - 1) / model.framerate,
+        args = ([None if g is None else g[start:start + S_CHUNK]
+                 for g in grays], pixmaps, (start - 1) / model.framerate,
                 [prng.fold_in(k, start) for k in keys])
         if c == timed:
             torch.cuda.synchronize()
+            if barrier is not None:
+                barrier()
             _zero_launches()
+            result["wall"] = [time.time()]
             t0 = time.perf_counter()
             state, rgbs = run(state, *args)
             torch.cuda.synchronize()
             result["ms"] = 1e3 * (time.perf_counter() - t0)
+            result["wall"].append(time.time())
             result["launches"] = _launches()
         else:
             state, rgbs = run(state, *args)
         for s, rgb in enumerate(rgbs):
-            outs[s].append(rgb)
-    result.update(state=state, frames=[torch.cat(o) for o in outs])
+            if rgb is not None:
+                outs[s].append(rgb)
+    result.update(state=state,
+                  frames=[torch.cat(o) if o else None for o in outs])
     return result
+
+
+def lone_scan(model):
+    """``model.scan`` of one stream in ``s_chunks``' form."""
+    def run(state, grays, pixmaps, t0, keys):
+        state, rgb = model.scan(state[0], grays[0], pixmaps[0], t0, keys[0])
+        return [state], [rgb]
+    return run
 
 
 def phase_streams(device, card: str) -> dict:
@@ -1873,14 +1981,9 @@ def phase_streams(device, card: str) -> dict:
                              f"stream-frame {per_frame}, expected "
                              f"{S_PER_FRAME}")
 
-    def lone(state, grays_, pixmaps_, t0, keys_):
-        state, rgb = model.scan(state[0], grays_[0], pixmaps_[0], t0,
-                                keys_[0])
-        return [state], [rgb]
-
     for s in range(2):  # each stream alone, the same keys and pixmap
-        alone = s_chunks(lone, model, [grays[s]], [pixmaps[s]], [keys[s]],
-                         S_CHUNKS)
+        alone = s_chunks(lone_scan(model), model, [grays[s]], [pixmaps[s]],
+                         [keys[s]], S_CHUNKS)
         if not torch.equal(main["frames"][s], alone["frames"][0]):
             raise AssertionError(f"phase S: stream {s} differs from its "
                                  "lone model.scan")
@@ -1977,6 +2080,277 @@ def phase_streams(device, card: str) -> dict:
               f"{HEIGHT}x{WIDTH} in {tool_s:.2f} s to {text}, each stream's "
               "frames equal to sharded_scan's first chunk")
     return {"step_run": srun, "launches": main["launches"]}
+
+
+# phase M: the global stream x space mesh across two processes (gloo)
+M_PROCESSES = 2
+M_PANS = (3, -3, 2, -2)  # a stream each: 0-1 on process 0, 2-3 on process 1
+M_SPACE = 2              # the devices a process gives, [card] * 2: one row
+M_TIMEOUT = 300          # seconds: a worker's collectives, and the wait
+M_A2_LEVEL = "L3"        # the LiteFlowNet level (stride 2) A2 runs on a row
+M_RESULT = "multihost-result "  # the start of a worker's result line
+
+
+def m_inputs(device, streams) -> tuple[list, list, list]:
+    """Phase M's inputs, made from the seed in each process: the frames
+    and pixmap of each stream in ``streams`` (None for the others), and
+    every stream's key."""
+    from transflow_tpu_torch import prng
+    n = 1 + S_CHUNKS * S_CHUNK + S_SYNC_CALLS + S_PROFILE_CALLS
+    grays = [t_gray(n, pan, HEIGHT, WIDTH, device) if s in streams else None
+             for s, pan in enumerate(M_PANS)]
+    pixmaps = [((torch.from_numpy(np.random.default_rng(SEED + s).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device),),)
+        if s in streams else None for s in range(len(M_PANS))]
+    return grays, pixmaps, prng.split(prng.key(SEED), len(M_PANS))
+
+
+def frames_digest(frames: torch.Tensor) -> str:
+    return hashlib.sha256(frames.cpu().numpy().tobytes()).hexdigest()
+
+
+def run_workers(commands: list[list[str]], timeout: float) -> list[str]:
+    """Start every command at once and wait for all; returns each one's
+    standard output. Where one exits non-zero, or any is still running
+    after ``timeout`` seconds, all are killed at once and this raises with
+    the end of each one's output."""
+    import tempfile
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for _ in commands]
+    procs = [subprocess.Popen(cmd, stdout=out, stderr=err, text=True)
+             for cmd, (out, err) in zip(commands, logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        codes = [p.poll() for p in procs]
+        while None in codes and not any(codes) and \
+                time.monotonic() < deadline:
+            time.sleep(0.1)
+            codes = [p.poll() for p in procs]
+        late = None in codes and not any(codes)
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    outputs = []
+    for out, err in logs:
+        out.seek(0)
+        err.seek(0)
+        outputs.append((out.read(), err.read()))
+        out.close()
+        err.close()
+    if late or any(p.returncode for p in procs):
+        raise AssertionError(
+            (f"workers still running after {timeout} s: " if late else "")
+            + "; ".join(f"worker {k} exited {p.returncode}:\n"
+                        f"{outputs[k][0][-2000:]}{outputs[k][1][-4000:]}"
+                        for k, p in enumerate(procs)))
+    return [out for out, _ in outputs]
+
+
+def multihost_worker(rank: int, port: int, device=None) -> int:
+    """One process of phase M: joins the gloo group on 127.0.0.1:``port``
+    as ``rank`` of M_PROCESSES, builds the global mesh over ``[device] *
+    M_SPACE`` (the card by default), checks its layout and an
+    all-reduce, runs its two streams through ``sharded_scan``, counts
+    their launches and host syncs, profiles one-frame calls, holds A2 on
+    its row to A1, and prints its figures and a result line."""
+    import torch.distributed as dist
+    from transflow_tpu_torch import prng
+    from transflow_tpu_torch.ops.correlation import (correlation,
+                                                     sharded_correlation7x7)
+    from transflow_tpu_torch.parallel import (RemoteRow, SpaceMesh,
+                                              initialize, make_global_mesh,
+                                              sharded_scan)
+    device = torch.device("cuda", 0) if device is None else \
+        torch.device(device)
+    card = card_line()
+    initialize(f"127.0.0.1:{port}", M_PROCESSES, rank, timeout=M_TIMEOUT)
+    try:
+        mesh = make_global_mesh(space_axis=M_SPACE,
+                                devices=[device] * M_SPACE)
+        if (mesh.shape != {"stream": M_PROCESSES, "space": M_SPACE}
+                or mesh.processes != tuple(range(M_PROCESSES))
+                or mesh.process != rank
+                or not all(isinstance(row, SpaceMesh if owner == rank
+                                      else RemoteRow)
+                           for row, owner in zip(mesh.rows,
+                                                 mesh.processes))):
+            raise AssertionError(f"phase M: process {rank}'s mesh {mesh}")
+        # an all-reduce across the processes of a sharded tensor's sum
+        base = torch.arange(M_PROCESSES * 16 * 8, dtype=torch.float32
+                            ).reshape(M_PROCESSES, 16, 8)
+        total = torch.stack([(2.0 * band).sum() for band in mesh.rows[
+            rank].split(base[rank].to(device))]).sum().reshape(1).cpu()
+        dist.all_reduce(total)
+        if total.item() != 2.0 * base.sum().item():
+            raise AssertionError(f"phase M: process {rank}'s all-reduced "
+                                 f"total {total.item()}")
+        n = len(M_PANS)
+        mine = [s for s in range(n) if mesh.is_local(s, n)]
+        grays, pixmaps, keys = m_inputs(device, set(mine))
+        model = s_model(device, S_HALO)
+        run = sharded_scan(model, mesh, per_stream_pixmaps=True)
+        main = s_chunks(run, model, grays, pixmaps, keys, S_CHUNKS, timed=1,
+                        barrier=dist.barrier)
+        frames_n = len(mine) * S_CHUNK
+        per_frame = tuple(x / frames_n for x in main["launches"])
+        digests = {s: frames_digest(main["frames"][s]) for s in mine}
+        # one-frame calls after the chunks: host syncs, then the profile
+        cursor = {"state": main["state"], "start": 1 + S_CHUNKS * S_CHUNK}
+
+        def step(_fno):
+            start = cursor["start"]
+            cursor["state"], _ = run(
+                cursor["state"],
+                [None if g is None else g[start:start + 1] for g in grays],
+                pixmaps, (start - 1) / model.framerate,
+                [prng.fold_in(k, start) for k in keys])
+            cursor["start"] = start + 1
+
+        srun = {"next_fno": 0, "step": step}
+        syncs = host_syncs(srun, S_SYNC_CALLS) / len(mine)
+        dist.barrier()
+        profile = engine_profile(
+            f"multihost process {rank}, a frame of its {len(mine)} streams",
+            srun, S_PROFILE_CALLS, card, "one-frame sharded_scan calls")
+        # A2 on this process's space row against A1 on the whole tensor
+        h, w, c, stride, level = next(x for x in CORR_SHAPES
+                                      if x[4] == M_A2_LEVEL)
+        t1, t2 = MAIN_PAIR[level]
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        f1 = torch.randn((h, w, c), generator=gen, device=device).to(t1)
+        f2 = torch.randn((h, w, c), generator=gen, device=device).to(t2)
+        before = sharded_correlation7x7.launches
+        a2 = sharded_correlation7x7(f1, f2, mesh.rows[rank], stride)
+        a2_launches = sharded_correlation7x7.launches - before
+        a2_equal = torch.equal(a2, correlation(f1, f2, stride))
+        result = {"rank": rank, "streams": mine, "digests": digests,
+                  "ms": main["ms"], "wall": main["wall"],
+                  "launches": main["launches"], "per_frame": per_frame,
+                  "syncs": syncs, "busy_ms": profile["busy_ms"],
+                  "wall_ms": profile["wall_ms"],
+                  "a2": [level, h, w, c, stride, a2_launches, a2_equal]}
+        gathered: list = [None] * M_PROCESSES
+        dist.all_gather_object(gathered, result)
+        result["gathered"] = gathered
+        print(f"multihost process {rank}: {mesh}, streams {mine}, "
+              f"{main['ms'] / frames_n:.3f} ms a stream-frame, launches a "
+              f"stream-frame {per_frame} {KERNEL_NAMES}, {syncs:g} host "
+              f"syncs a stream-frame; A2 at {level} over its row "
+              f"{'bit-equal' if a2_equal else 'DIFFERS'} to A1 "
+              f"({a2_launches} launch); on {card}", flush=True)
+        print(M_RESULT + json.dumps(result), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_multihost(device, card: str) -> dict:
+    """Phase M: four 1080x1920 streams (pans of +3, -3, +2 and -2 px,
+    their own pixmaps) of phase S's model with ``halo=8`` and ``clip=8``
+    through ``sharded_scan`` on the global mesh of two processes
+    (``multihost_worker``, gloo on 127.0.0.1), stream 2 x space 2, two
+    streams a process, two chunks of 8: each process 1 B9 + 8 B10 and 0
+    host syncs a stream-frame, each stream's frames bit-equal to its lone
+    ``model.scan`` in this process (digests gathered with
+    ``all_gather_object``), A2 on each row bit-equal to A1. Prints ms a
+    stream-frame for each process and for both, beside the same four
+    streams through phase S's single-process ``sharded_scan`` (stream 2 x
+    space 2, this process), and the busy time and idle share a
+    stream-frame. Returns the launches of both processes' timed chunks."""
+    from transflow_tpu_torch.parallel import (SpaceMesh, make_mesh,
+                                              sharded_scan)
+    n = len(M_PANS)
+    grays, pixmaps, keys = m_inputs(device, set(range(n)))
+    model = s_model(device, S_HALO)
+    # one process: the four streams on the same layout, then each alone
+    mesh = make_mesh(devices=[device] * (2 * M_SPACE), stream_axis=2)
+    single = s_chunks(sharded_scan(model, mesh, True), model, grays,
+                      pixmaps, keys, S_CHUNKS, timed=1)
+    single_ms = single["ms"] / (n * S_CHUNK)
+    row_model = model.replica(mesh=SpaceMesh([device] * M_SPACE),
+                              device=device)
+    want = {}
+    for s in range(n):
+        alone = s_chunks(lone_scan(row_model), row_model, [grays[s]],
+                         [pixmaps[s]], [keys[s]], S_CHUNKS)
+        if not torch.equal(alone["frames"][0], single["frames"][s]):
+            raise AssertionError(f"phase M: stream {s}'s lone model.scan "
+                                 "differs from the single-process "
+                                 "sharded_scan")
+        want[str(s)] = frames_digest(alone["frames"][0])
+    del grays, pixmaps, single, alone
+    torch.cuda.synchronize()
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    script = str(Path(__file__).resolve())
+    start = time.perf_counter()
+    outputs = run_workers(
+        [[sys.executable, script, "--multihost-worker", str(rank), str(port)]
+         for rank in range(M_PROCESSES)], M_TIMEOUT + 60)
+    seconds = time.perf_counter() - start
+    results = []
+    for rank, out in enumerate(outputs):
+        for line in out.splitlines():
+            if line.startswith(M_RESULT):
+                results.append(json.loads(line[len(M_RESULT):]))
+            else:
+                print(f"  [process {rank}] {line}")
+    if [r["rank"] for r in results] != list(range(M_PROCESSES)):
+        raise AssertionError(f"phase M: results of {len(results)} workers")
+    for r in results:
+        if [g["digests"] for g in r["gathered"]] != \
+                [g["digests"] for g in results[0]["gathered"]]:
+            raise AssertionError("phase M: the processes gathered "
+                                 "different digests")
+        if tuple(r["per_frame"]) != S_PER_FRAME or r["syncs"] != 0:
+            raise AssertionError(
+                f"phase M: process {r['rank']} launches a stream-frame "
+                f"{r['per_frame']}, expected {S_PER_FRAME}; host syncs a "
+                f"stream-frame {r['syncs']}")
+        if not r["a2"][-1] or r["a2"][-2] != 1:
+            raise AssertionError(f"phase M: process {r['rank']}'s A2 "
+                                 f"{r['a2']} (bit-equal to A1, one launch)")
+    got = {s: d for g in results[0]["gathered"]
+           for s, d in g["digests"].items()}
+    if got != want:
+        raise AssertionError(
+            "phase M: streams " + ", ".join(
+                s for s in want if got.get(s) != want[s])
+            + " differ from their lone model.scan")
+    frames_n = [len(r["streams"]) * S_CHUNK for r in results]
+    both_ms = 1e3 * (max(r["wall"][1] for r in results)
+                     - min(r["wall"][0] for r in results)) / sum(frames_n)
+    each = ", ".join(f"process {r['rank']} {r['ms'] / k:.3f}"
+                     for r, k in zip(results, frames_n))
+    print(f"multihost {M_PROCESSES} processes (gloo, 127.0.0.1) x [card] * "
+          f"{M_SPACE}, stream {M_PROCESSES} x space {M_SPACE}, {n} x "
+          f"{HEIGHT}x{WIDTH} horn-schunck max_iters={S_ITERS} halo={S_HALO} "
+          f"clip={S_HALO}: ms a stream-frame {each}, both together "
+          f"{both_ms:.3f} (a chunk of {S_CHUNK} frames, wall clock across "
+          f"the processes), one process (sharded_scan, stream 2 x space "
+          f"{M_SPACE}) {single_ms:.3f}; launches a stream-frame B9 "
+          f"{S_PER_FRAME[7]:g}, B10 {S_PER_FRAME[8]:g} and 0 host syncs in "
+          f"each process; each stream bit-equal to its lone model.scan "
+          f"over {S_CHUNKS} chunks; A2 at {M_A2_LEVEL} over each row "
+          f"bit-equal to A1; {seconds:.1f} s with the processes' start; "
+          f"on {card}")
+    # the card time-slices the two processes: its busy time is the sum
+    busy = sum(r["busy_ms"] for r in results)
+    wall = max(r["wall_ms"] for r in results)
+    per = sum(len(r["streams"]) for r in results)
+    print(f"multihost per stream-frame (torch.profiler in each process, "
+          f"{S_PROFILE_CALLS} one-frame calls at once): " + ", ".join(
+              f"process {r['rank']} {r['busy_ms'] / len(r['streams']):.3f} "
+              f"ms busy of {r['wall_ms'] / len(r['streams']):.3f} ms host "
+              f"clock" for r in results)
+          + f"; the card {busy / per:.3f} ms busy of {wall / per:.3f}, idle "
+          f"{1 - busy / wall:.1%} on {card}")
+    return {"launches": tuple(sum(x) for x in zip(
+        *(r["launches"] for r in results))), "both_ms": both_ms,
+        "single_ms": single_ms}
 
 
 def hs_bound_ms(kernel: str, h: int, w: int) -> tuple[float, str]:
@@ -2688,20 +3062,34 @@ def _ms_text(ms: float | None) -> str:
 def host_syncs(run: dict, calls: int) -> float:
     """Host waits for the card per frame in the Engine of ``run`` over its
     next ``calls`` frames (``torch.cuda.set_sync_debug_mode`` warns at
-    each)."""
+    each). Prints the Python stack of each distinct place that waits."""
+    import traceback
     import warnings
     fno0 = run["next_fno"]
+    sites: list[str] = []
+
+    def show(message, *_args, **_kwargs):
+        if "synchroniz" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            sites.append("".join(traceback.format_list(stack[-6:])))
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
+        sites.clear()  # a process's first switch to "warn" reports a wait
         try:
             for k in range(calls):
                 run["step"](fno0 + k)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     run["next_fno"] = fno0 + calls
-    return sum("synchroniz" in str(w.message) for w in caught) / calls
+    for site in dict.fromkeys(sites):
+        print(f"host sync ({sites.count(site)} of {len(sites)}) at:\n"
+              f"{site.rstrip()}")
+    return len(sites) / calls
 
 
 PROFILE_TOP = 10  # kernel names in the Engine's device time by name
@@ -3214,7 +3602,11 @@ def main() -> int:
                              "correlation.cu, farneback.cu, horn_schunck.cu "
                              "and scatter.cu (phase 11); repeat it for "
                              "several trees")
+    parser.add_argument("--multihost-worker", type=int, nargs=2,
+                        metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.multihost_worker:  # one of phase M's processes
+        return multihost_worker(*args.multihost_worker)
     card = phase_device()
     libav = phase_libav()
     device = torch.device("cuda", 0)
@@ -3226,6 +3618,7 @@ def main() -> int:
     if libav:
         phase_video(device, card)
     s_run = phase_streams(device, card)
+    m_run = phase_multihost(device, card)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
     mesh_run = phase_mesh_engine(device, card, engine_phase)
@@ -3449,11 +3842,12 @@ def main() -> int:
             "replaces": "transflow_tpu/flow/estimators/"
                         + function.split(" ")[0],
             "replaces_function": function,
-            # phase H's Engine runs of the five presets and phase S's
-            # timed chunk
+            # phase H's Engine runs of the five presets, phase S's timed
+            # chunk and phase M's (both processes)
             "launches": sum(run["launches"][h_launches[name]]
                             for run in h_runs.values())
-            + s_run["launches"][h_launches[name]],
+            + s_run["launches"][h_launches[name]]
+            + m_run["launches"][h_launches[name]],
             "max_abs_err": max(r["err"] for r in group),
             # per frame: horn-schunck.json's launches at 1080p, or
             # lukas-kanade.json's over its three levels

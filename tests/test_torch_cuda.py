@@ -830,3 +830,120 @@ def test_lucas_kanade_on_card_matches_cpu(device):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     assert want.abs().max() > 1.0
 
+
+
+# ---------------------------------------------------------------------------
+# multi-host on one card, and the tools
+# ---------------------------------------------------------------------------
+
+MH_H, MH_W, MH_CHUNK, MH_STREAMS = 64, 96, 3, 4
+
+MH_WORKER = r"""
+import os, sys
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, __REPO__)
+import torch
+import torch.distributed as dist
+sys.path.insert(0, os.path.join(__REPO__, "tests"))
+from test_torch_cuda import _mh_model, _mh_inputs
+from transflow_tpu_torch.parallel import (initialize, make_global_mesh,
+                                          shard_model_inputs, sharded_scan)
+initialize(f"127.0.0.1:{port}", 2, rank, timeout=120)
+try:
+    device = torch.device("cuda", 0)
+    mesh = make_global_mesh(space_axis=2, devices=[device] * 2)
+    assert mesh.shape == {"stream": 2, "space": 2} and \
+        mesh.processes == (0, 1), mesh
+    model = _mh_model(device)
+    state, grays, pixmaps, keys = _mh_inputs(model, device)
+    _, rgbs = sharded_scan(model, mesh, per_stream_pixmaps=True)(
+        *shard_model_inputs(mesh, state, grays, pixmaps, keys)[:3], 0.0,
+        keys)
+    for s, rgb in enumerate(rgbs):
+        if rgb is not None:
+            torch.save(rgb.cpu(), os.path.join(out, f"stream{s}.pt"))
+    dist.barrier()
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _mh_model(device):
+    from transflow_tpu_torch.config import LayerConfig
+    from transflow_tpu_torch.model import FlowTransferModel
+    return FlowTransferModel(
+        MH_H, MH_W, [LayerConfig(0, reset_mode="random",
+                                 reset_random_factor=0.05)],
+        method="horn-schunck", estimator_kwargs=dict(max_iters=2, delta=None),
+        flow_filters="clip=6", halo=8, device=device)
+
+
+def _mh_inputs(model, device):
+    """Four panned streams from one seed, the same in every process."""
+    gen = torch.Generator().manual_seed(0)
+    canvas = torch.randint(0, 256, (MH_H + 16, MH_W + 16), generator=gen,
+                           dtype=torch.uint8)
+    grays = [torch.stack([canvas[s * i:s * i + MH_H, s * i:s * i + MH_W]
+                          for i in range(MH_CHUNK + 1)]).to(device)
+             for s in range(1, MH_STREAMS + 1)]
+    state = [model.init_state(g[0]) for g in grays]
+    return (state, [g[1:] for g in grays], model.default_pixmaps(),
+            list(prng.split(prng.key(3), MH_STREAMS)))
+
+
+def test_two_process_sharded_scan_on_the_card(device, tmp_path):
+    """Two gloo processes, ``[cuda:0] * 2`` each (stream 2 x space 2 across
+    them): every stream bit-equal to the single-process ``sharded_scan``
+    over ``[cuda:0] * 4``."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from transflow_tpu_torch.parallel import (make_mesh, shard_model_inputs,
+                                              sharded_scan)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(MH_WORKER.replace("__REPO__", repr(repo)))
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(rank), str(port), str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    try:
+        outputs = [proc.communicate(timeout=180)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+    for rank, (proc, out) in enumerate(zip(procs, outputs)):
+        assert proc.returncode == 0, f"process {rank}:\n{out[-3000:]}"
+    model = _mh_model(device)
+    mesh = make_mesh(devices=[device] * 4, stream_axis=2)
+    state, grays, pixmaps, keys = _mh_inputs(model, device)
+    _, rgbs = sharded_scan(model, mesh, per_stream_pixmaps=True)(
+        *shard_model_inputs(mesh, state, grays, pixmaps, keys)[:3], 0.0,
+        keys)
+    for s in range(MH_STREAMS):
+        assert torch.equal(torch.load(tmp_path / f"stream{s}.pt"),
+                           rgbs[s].cpu()), s
+
+
+def test_flowclip_on_the_card_is_the_estimator(device, tmp_path):
+    """``FlowClip.flow`` over a PGM sequence on the card: bit-equal to the
+    port's Farneback on the pair, with B1-B2b launched."""
+    from transflow_tpu_torch.flow.estimators.farneback import farneback
+    from transflow_tpu_torch.tools.viewflow_player import FlowClip
+    from transflow_tpu_torch.utils.imageio import write_netpbm
+    gen = np.random.default_rng(0)
+    canvas = gen.integers(0, 256, (100, 140), dtype=np.uint8)
+    frames = [canvas[2 * i:2 * i + 90, 2 * i:2 * i + 120] for i in range(3)]
+    for i, frame in enumerate(frames):
+        write_netpbm(str(tmp_path / f"{i:04d}.pgm"), frame)
+    clip = FlowClip(str(tmp_path / "%04d.pgm"))
+    before = fb.poly_expansion_cuda.launches
+    flow = clip.flow(1)
+    assert fb.poly_expansion_cuda.launches > before
+    want = farneback(torch.from_numpy(frames[2]).to(device),
+                     torch.from_numpy(frames[1]).to(device))
+    assert torch.equal(torch.from_numpy(flow), want.cpu())

@@ -261,7 +261,9 @@ def test_model_options_match_jax(option):
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import neither jax,
     flax nor cv2, nor the JAX package: with ``transflow_tpu`` blocked in
-    ``sys.modules`` any import of it fails."""
+    ``sys.modules`` any import of it fails. The walk reaches the
+    multi-host layer and the tools (``extra/``'s counterparts, which
+    import no cv2)."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -275,8 +277,13 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'cv2', 'transflow_tpu')\n"
         "       and sys.modules[m] is not None]\n"
-        "print('MODULES', len(names), 'IMPORTED', bad)\n"
-        "sys.exit(1 if bad or len(names) < 25 else 0)\n")
+        "want = {'transflow_tpu_torch.parallel.multihost',\n"
+        "        'transflow_tpu_torch.tools.viewflow',\n"
+        "        'transflow_tpu_torch.tools.viewflow_player',\n"
+        "        'transflow_tpu_torch.tools.control'}\n"
+        "print('MODULES', len(names), 'IMPORTED', bad,\n"
+        "      'MISSING', want - set(names))\n"
+        "sys.exit(1 if bad or want - set(names) or len(names) < 25 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=REPO, timeout=120)

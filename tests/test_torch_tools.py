@@ -1,0 +1,320 @@
+"""The port's headless tools (``transflow_tpu_torch/tools``: viewflow,
+the player's helpers and ``FlowClip``, the control session) against their
+``extra/`` originals on the same inputs."""
+import contextlib
+import io
+import json
+import os
+import sys
+import zipfile
+
+import numpy as np
+import pytest
+import torch
+
+from transflow_tpu.flow import Direction as JaxDirection
+from transflow_tpu.output.archive import NumpyArchiveOutput as JaxArchive
+from transflow_tpu_torch import cli
+from transflow_tpu_torch.output.archive import NumpyArchiveOutput
+from transflow_tpu_torch.tools import control, viewflow, viewflow_player
+from transflow_tpu_torch.utils.imageio import (imread, read_netpbm,
+                                               write_netpbm)
+
+EXTRA = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "extra")
+sys.path.insert(0, EXTRA)
+import control as jcontrol  # noqa: E402
+import viewflow as jviewflow  # noqa: E402
+import viewflow_player as jplayer  # noqa: E402
+
+H, W, FLOWS = 24, 40, 3
+# tests/test_torch_farneback.py's bar for the whole estimator in float32
+FB_PSNR = 60.0
+NOT_PORTED = "item 14.2"
+
+
+def _flows(seed=2, n=FLOWS, h=H, w=W):
+    rng = np.random.default_rng(seed)
+    flows = [(2.0 * rng.standard_normal((h, w, 2))).astype(np.float32)
+             for _ in range(n)]
+    flows[0][: h // 2] = 0.0      # a still half: magnitudes of 0
+    return flows
+
+
+# ---------------------------------------------------------------------------
+# the player's helpers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1, 5])
+def test_helpers_match_extra(seed):
+    rng = np.random.default_rng(seed)
+    flow = (4.0 * rng.standard_normal((48, 72, 2))).astype(np.float32)
+    flow[:20, :30] = (6.0, -3.0)
+    frame = rng.integers(0, 256, (48, 72, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(viewflow_player.magnitude_image(flow),
+                                  jplayer.magnitude_image(flow))
+    for step in (8, 24):
+        assert viewflow_player.arrow_segments(flow, step) == \
+            jplayer.arrow_segments(flow, step)
+    np.testing.assert_array_equal(viewflow_player.reconstruct(frame, flow),
+                                  jplayer.reconstruct(frame, flow))
+    for cursor in (None, (3, 7), (500, 2)):
+        assert viewflow_player.hud_lines(4, 9, 25.0, flow, "source",
+                                         cursor) == \
+            jplayer.hud_lines(4, 9, 25.0, flow, "source", cursor)
+
+
+# ---------------------------------------------------------------------------
+# viewflow
+# ---------------------------------------------------------------------------
+
+def _archive(path, flows, package):
+    meta = {"direction": JaxDirection.BACKWARD.value, "width": W,
+            "height": H, "framerate": 10.0}
+    out = (JaxArchive if package == "jax" else NumpyArchiveOutput)(
+        str(path), meta, replace=True)
+    for flow in flows:
+        out.write_array(flow)
+    out.close()
+    return str(path)
+
+
+def _stdout(fn) -> str:
+    buffer = io.StringIO()
+    with contextlib.redirect_stdout(buffer):
+        fn()
+    return buffer.getvalue()
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_stats_match_extra(tmp_path, monkeypatch, package):
+    """``--stats`` over a ``.flow.zip`` written by each package: the same
+    text as extra/viewflow.py's."""
+    path = _archive(tmp_path / "clip.flow.zip", _flows(), package)
+    got = _stdout(lambda: viewflow.main([path, "--stats"]))
+    monkeypatch.setattr(sys, "argv", ["viewflow.py", path, "--stats"])
+    want = _stdout(jviewflow.main)
+    assert got == want
+    assert len(got.splitlines()) == FLOWS + 1
+
+
+def test_stats_of_an_estimator_source(tmp_path, monkeypatch):
+    """An image sequence yields frames: both tools stop at the note."""
+    (tmp_path / "seq").mkdir()
+    for i in range(3):
+        write_netpbm(str(tmp_path / "seq" / f"{i:04d}.pgm"),
+                     np.full((H, W), 10 * i, np.uint8))
+    path = str(tmp_path / "seq" / "%04d.pgm")
+    got = _stdout(lambda: viewflow.main([path, "--stats"]))
+    monkeypatch.setattr(sys, "argv", ["viewflow.py", path, "--stats"])
+    assert got == _stdout(jviewflow.main)
+    assert "estimator source" in got
+
+
+@pytest.mark.parametrize("extra", [[], ["--magnitude"],
+                                   ["--binary", "--scale", "0.3"]],
+                         ids=["direction", "magnitude", "binary"])
+def test_render_matches_extra(tmp_path, monkeypatch, extra):
+    """The render mode over an archive: the port's CLI with ``--view-flow``
+    (or ``--view-flow-magnitude``) on the CPU writes the frames
+    extra/viewflow.py writes through the JAX CLI."""
+    path = _archive(tmp_path / "clip.flow.zip", _flows(), "port")
+    frames = {}
+    for package in ("jax", "port"):
+        out = tmp_path / package
+        out.mkdir()
+        argv = [path, "-o", str(out / "%04d.ppm"), *extra]
+        if package == "jax":
+            monkeypatch.setattr(sys, "argv", ["viewflow.py", *argv])
+            jviewflow.main()
+        else:
+            viewflow.main(argv, device="cpu")
+        frames[package] = np.stack([read_netpbm(str(out / f"{i:04d}.ppm"))
+                                    for i in range(FLOWS)])
+        assert not (out / f"{FLOWS:04d}.ppm").exists()
+    np.testing.assert_array_equal(frames["port"], frames["jax"])
+    assert frames["port"].shape == (FLOWS, H, W, 3)
+
+
+def test_play_raises():
+    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+        viewflow.main(["clip.flow.zip", "--play"])
+    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+        viewflow_player.run_player("clip.flow.zip")
+
+
+# ---------------------------------------------------------------------------
+# FlowClip
+# ---------------------------------------------------------------------------
+
+def test_flowclip_archive_matches_extra(tmp_path):
+    flows = _flows()
+    path = _archive(tmp_path / "clip.flow.zip", flows, "jax")
+    clip = viewflow_player.FlowClip(path)
+    want = jplayer.FlowClip(path)
+    assert len(clip) == len(want) == FLOWS
+    assert clip.framerate == want.framerate
+    assert (clip.height, clip.width) == (want.height, want.width) == (H, W)
+    for i in range(FLOWS):
+        np.testing.assert_array_equal(clip.flow(i), flows[i])
+        np.testing.assert_array_equal(clip.flow(i), want.flow(i))
+        np.testing.assert_array_equal(clip.frame(i), want.frame(i))
+
+
+def _flow_psnr(flow, ref):
+    """tests/test_flow_ops.py::_flow_psnr: PSNR at an 8 px peak."""
+    mse = float(np.mean((np.asarray(flow) - np.asarray(ref)) ** 2))
+    return 10 * np.log10(8.0 ** 2 / mse) if mse else np.inf
+
+
+@pytest.fixture(scope="module")
+def pgm_clip(tmp_path_factory):
+    """Four 48x64 PGM frames of a smooth texture panned 2 px a frame."""
+    from scipy import ndimage
+    root = tmp_path_factory.mktemp("clip")
+    rng = np.random.default_rng(3)
+    canvas = ndimage.gaussian_filter(rng.uniform(0, 255, (60, 80)), 1.5)
+    for i in range(4):
+        write_netpbm(str(root / f"{i:04d}.pgm"),
+                     canvas[2 * i:2 * i + 48, 2 * i:2 * i + 64]
+                     .astype(np.uint8))
+    return str(root / "%04d.pgm")
+
+
+def test_flowclip_sequence_matches_extra(pgm_clip):
+    """A PGM sequence (cv2 opens it as a video): the same frames, and each
+    pair's Farneback within tests/test_torch_farneback.py's 60 dB bar of
+    the JAX tool's."""
+    clip = viewflow_player.FlowClip(pgm_clip, device="cpu")
+    want = jplayer.FlowClip(pgm_clip)
+    assert len(clip) == len(want) == 3
+    assert clip.framerate == want.framerate
+    for i in range(3):
+        np.testing.assert_array_equal(clip.frame(i), want.frame(i))
+        got = clip.flow(i)
+        assert got.shape == (48, 64, 2) and got.dtype == np.float32
+        assert _flow_psnr(got, want.flow(i)) >= FB_PSNR
+    # the interior follows the pan
+    assert np.abs(np.median(clip.flow(1)[8:-8, 8:-8], axis=(0, 1))
+                  - 2.0).max() < 0.5
+
+
+def test_flowclip_flow_is_the_estimator(pgm_clip):
+    """``flow(i)`` is the port's Farneback on the pair (frame i + 1 back to
+    frame i), called directly."""
+    from transflow_tpu_torch.flow.estimators.farneback import farneback
+    clip = viewflow_player.FlowClip(pgm_clip, device="cpu")
+    gray = [torch.from_numpy(read_netpbm(pgm_clip % i)) for i in range(2)]
+    assert torch.equal(torch.from_numpy(clip.flow(0)),
+                       farneback(gray[1], gray[0]))
+
+
+def test_flowclip_refusals(tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+        viewflow_player.FlowClip(str(tmp_path / "clip.mp4"))
+    write_netpbm(str(tmp_path / "one.pgm"), np.zeros((8, 8), np.uint8))
+    with pytest.raises(ValueError, match="2 frames"):
+        viewflow_player.FlowClip(str(tmp_path / "one.pgm"))
+    (tmp_path / "seq").mkdir()
+    for i in range(2):
+        write_netpbm(str(tmp_path / "seq" / f"{i:04d}.pgm"),
+                     np.zeros((8, 8), np.uint8))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    clip = viewflow_player.FlowClip(str(tmp_path / "seq" / "%04d.pgm"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        clip.flow(0)
+
+
+# ---------------------------------------------------------------------------
+# the control session
+# ---------------------------------------------------------------------------
+
+def _synthetic_checkpoint(path):
+    """tests/test_utils.py::TestControlSession's: a mapping shifted by +1
+    column."""
+    h, w = 6, 8
+    pos_i = np.arange(h)[:, None] * np.ones((1, w), int)
+    pos_j = np.clip(np.arange(w)[None, :] * np.ones((h, 1), int) + 1,
+                    0, w - 1)
+    buffer = io.BytesIO()
+    np.savez(buffer, **{"layer0.pos_i": pos_i, "layer0.pos_j": pos_j})
+    with zipfile.ZipFile(path, "w") as z:
+        z.writestr("meta.json", json.dumps({"cursor": 1}))
+        z.writestr("state.npz", buffer.getvalue())
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def cli_checkpoint(tmp_path_factory):
+    """The end checkpoint of the port's CLI (``-C``) on the CPU over six
+    panned PGM frames."""
+    root = tmp_path_factory.mktemp("ckpt")
+    (root / "seq").mkdir()
+    (root / "out").mkdir()
+    canvas = np.random.default_rng(0).integers(0, 256, (60, 80), np.uint8)
+    for i in range(6):
+        write_netpbm(str(root / "seq" / f"{i:04d}.pgm"),
+                     canvas[2 * i:2 * i + 32, 2 * i:2 * i + 48])
+    cli.main([str(root / "seq" / "%04d.pgm"), "-p", "noise", "--seed", "0",
+              "-r", "random", "0.05", "-o", str(root / "out" / "%04d.ppm"),
+              "-C", "--overwrite", "--no-exec"], device="cpu")
+    return str(root / "out" / "%04d_00005.ckpt.zip")
+
+
+def _session_parity(path, tmp_path, cells):
+    session = control.ControlSession(path)
+    want = jcontrol.ControlSession(path)
+    assert session.meta == want.meta
+    assert session.arrays.keys() == want.arrays.keys()
+    for key in want.arrays:
+        np.testing.assert_array_equal(session.arrays[key], want.arrays[key])
+    assert (session.height, session.width) == (want.height, want.width)
+    for k, (i, j) in enumerate(cells):
+        assert session.source_of(i, j) == want.source_of(i, j)
+        np.testing.assert_array_equal(session.outputs_of(i, j),
+                                      want.outputs_of(i, j))
+        color = ["red", "#00ff80", (1, 2, 3)][k % 3]
+        for s in (session, want):
+            s.paint(i, j, color, radius=k % 2)
+        np.testing.assert_array_equal(session.alteration, want.alteration)
+        np.testing.assert_array_equal(session.preview(), want.preview())
+    for s in (session, want):
+        s.erase(*cells[0], radius=1)
+    np.testing.assert_array_equal(session.alteration, want.alteration)
+    np.testing.assert_array_equal(session.preview(), want.preview())
+    got = session.export(str(tmp_path / "port.png"))
+    np.testing.assert_array_equal(imread(got), imread(
+        want.export(str(tmp_path / "jax.png"))))
+    np.testing.assert_array_equal(imread(got), session.alteration)
+    for s in (session, want):
+        s.reset()
+    np.testing.assert_array_equal(session.preview(), want.preview())
+    return session
+
+
+def test_control_session_synthetic(tmp_path):
+    session = _session_parity(_synthetic_checkpoint(tmp_path / "x.ckpt.zip"),
+                              tmp_path, [(2, 3), (0, 7), (5, 0)])
+    assert session.source_of(2, 3) == (2, 4)
+    session.paint(2, 3, "red")
+    assert tuple(session.alteration[2, 4]) == (255, 0, 0, 255)
+    assert tuple(session.preview()[2, 3]) == (255, 0, 0)
+
+
+def test_control_session_on_a_cli_checkpoint(cli_checkpoint, tmp_path):
+    session = _session_parity(cli_checkpoint, tmp_path,
+                              [(5, 9), (16, 24), (31, 47), (0, 0)])
+    assert (session.height, session.width) == (32, 48)
+    with pytest.raises(ValueError, match="layer 3"):
+        control.ControlSession(cli_checkpoint, layer=3)
+
+
+def test_control_main(cli_checkpoint, tmp_path, monkeypatch, capsys):
+    """``--silent`` exports the empty alteration; the window raises."""
+    out = str(tmp_path / "alt.png")
+    control.main([cli_checkpoint, "--silent", "-o", out])
+    assert "mapping 48x32; exported" in capsys.readouterr().out
+    assert imread(out).shape == (32, 48, 4) and not imread(out).any()
+    monkeypatch.setenv("DISPLAY", ":0")
+    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+        control.main([cli_checkpoint, "-o", out])

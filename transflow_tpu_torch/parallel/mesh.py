@@ -23,8 +23,15 @@ vmaps ``model.scan`` over a stream axis under one jit (``sharded_scan``),
 the port runs ``model.scan`` once per stream on its row: a stream's work
 is queued on its row's devices, and rows on distinct cards overlap, as
 the launches do not wait for the host.
+
+Across processes (``multihost.make_global_mesh``) a ``StreamMesh`` also
+knows the process that owns each row: this process's rows are
+``SpaceMesh``es, another's are ``RemoteRow``s, names that are never made
+into local torch devices. ``shard_model_inputs`` and ``sharded_scan``
+then place and run only the local rows' streams and return ``None`` for
+the others, as a JAX global array's ``addressable_shards``.
 """
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -128,23 +135,44 @@ def exchange_rows(bands: Sequence[torch.Tensor], rows: int,
     return out
 
 
+class RemoteRow(NamedTuple):
+    """A row of a global mesh that another process owns: its devices as
+    that process named them (``"cuda:0"``), kept as names."""
+    devices: tuple[str, ...]
+
+
 class StreamMesh:
     """The ``(stream, space)`` layout: ``rows[s]`` is the ``SpaceMesh`` of
-    stream row s. ``shape`` reads as a JAX mesh's."""
+    stream row s, or a ``RemoteRow`` where another process owns it.
+    ``processes[s]`` is the process that owns row s and ``process`` this
+    one (by default every row is this process's). ``shape`` reads as a
+    JAX mesh's."""
 
-    def __init__(self, rows: Sequence[SpaceMesh]):
+    def __init__(self, rows: Sequence, processes: Sequence[int] | None = None,
+                 process: int = 0):
         self.rows = tuple(rows)
         if not self.rows or len({len(r.devices) for r in self.rows}) != 1:
             raise ValueError("a stream mesh needs rows of one length")
+        self.process = process
+        self.processes = (tuple(processes) if processes is not None
+                          else (process,) * len(self.rows))
+        if len(self.processes) != len(self.rows) or any(
+                isinstance(row, SpaceMesh) != (owner == process)
+                for row, owner in zip(self.rows, self.processes)):
+            raise ValueError("each of this process's rows is a SpaceMesh "
+                             "and each other process's a RemoteRow")
         self.shape = {"stream": len(self.rows),
                       "space": len(self.rows[0].devices)}
         self.devices = tuple(d for row in self.rows for d in row.devices)
 
     def __repr__(self) -> str:
         rows = [[str(d) for d in r.devices] for r in self.rows]
-        return f"StreamMesh({rows})"
+        if set(self.processes) == {self.process}:
+            return f"StreamMesh({rows})"
+        return (f"StreamMesh({rows}, processes={list(self.processes)}, "
+                f"process={self.process})")
 
-    def row_of(self, stream: int, n_streams: int) -> SpaceMesh:
+    def row_index(self, stream: int, n_streams: int) -> int:
         """The row that holds ``stream`` of ``n_streams``: contiguous
         blocks of ``n_streams / S`` streams a row, as JAX shards a leading
         dim over the ``stream`` axis."""
@@ -153,7 +181,17 @@ class StreamMesh:
             raise ValueError(
                 f"stream count {n_streams} must be a multiple of the mesh's "
                 f"stream axis {self.shape['stream']}")
-        return self.rows[stream // per_row]
+        return stream // per_row
+
+    def row_of(self, stream: int, n_streams: int):
+        """The row (``SpaceMesh`` or ``RemoteRow``) that holds ``stream``
+        of ``n_streams``."""
+        return self.rows[self.row_index(stream, n_streams)]
+
+    def is_local(self, stream: int, n_streams: int) -> bool:
+        """Whether this process runs ``stream`` of ``n_streams``."""
+        return self.processes[self.row_index(stream, n_streams)] \
+            == self.process
 
 
 def make_mesh(n_devices: int | None = None, stream_axis: int | None = None,
@@ -206,18 +244,18 @@ def shard_model_inputs(mesh: StreamMesh, state, grays, pixmaps, keys):
     per_stream_pixmaps=True)`` takes. A row's model splits H over the
     row's devices inside its sharded ops, so each slice goes whole to the
     row's first device. Returns (state, grays, pixmaps, keys), each a
-    tuple of N."""
+    tuple of N, with ``None`` for a stream another process owns (its
+    inputs are not read)."""
     n = len(state)
-    rows = [mesh.row_of(i, n) for i in range(n)]
-    copies: dict = {}
-    for row in rows:
-        if _home(row) not in copies:
-            copies[_home(row)] = _to(pixmaps, _home(row))
-    return (tuple(_to(state[i], _home(r)) for i, r in enumerate(rows)),
-            tuple(_to(torch.as_tensor(grays[i]), _home(r))
-                  for i, r in enumerate(rows)),
-            tuple(copies[_home(r)] for r in rows),
-            tuple(keys[i] for i in range(n)))
+    homes = [_home(mesh.row_of(i, n)) if mesh.is_local(i, n) else None
+             for i in range(n)]
+    copies = {h: _to(pixmaps, h) for h in homes if h is not None}
+    return (tuple(None if h is None else _to(st, h)
+                  for st, h in zip(state, homes)),
+            tuple(None if h is None else _to(torch.as_tensor(g), h)
+                  for g, h in zip(grays, homes)),
+            tuple(copies.get(h) for h in homes),
+            tuple(None if h is None else k for k, h in zip(keys, homes)))
 
 
 def sharded_scan(model, mesh: StreamMesh, per_stream_pixmaps: bool = False
@@ -229,7 +267,10 @@ def sharded_scan(model, mesh: StreamMesh, per_stream_pixmaps: bool = False
     stream dim of N, a multiple of the stream axis (a sequence, or a
     stacked array); stream n runs ``model.scan`` on its row
     (``StreamMesh.row_of``), the same as ``vmap(model.scan)``. The
-    returned state and frames are tuples of N, each on its row.
+    returned state and frames are tuples of N, each on its row. On a
+    global mesh only this process's streams run: another process's
+    stream gives ``None`` in both, and its inputs are not read (they may
+    be ``None``).
 
     ``per_stream_pixmaps``: ``pixmaps`` is a sequence of N pixmap sets,
     and each stream advects its own (extra/batch_render.py); by default
@@ -238,7 +279,8 @@ def sharded_scan(model, mesh: StreamMesh, per_stream_pixmaps: bool = False
     The model is bound to its devices when built (``model.py``), so a
     row on other devices runs a replica built with the same arguments
     there (``FlowTransferModel.replica``); the row on the model's own
-    devices runs the model itself."""
+    devices runs the model itself. Replicas are built for local rows
+    only."""
     space = mesh.shape["space"]
     replicas: dict = {}
 
@@ -253,6 +295,10 @@ def sharded_scan(model, mesh: StreamMesh, per_stream_pixmaps: bool = False
         shared: dict = {}
         states, rgbs = [], []
         for i in range(n):
+            if not mesh.is_local(i, n):
+                states.append(None)
+                rgbs.append(None)
+                continue
             row = mesh.row_of(i, n)
             home = _home(row)
             if per_stream_pixmaps:
