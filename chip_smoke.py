@@ -114,6 +114,30 @@ M. multi-host: this script again as two worker processes
    ``sharded_scan`` (stream 2 x space 2), and each process's busy time
    and idle share a stream-frame (``torch.profiler``). A worker that
    exits non-zero or outlives its time fails the run;
+G. live tuning, video input, the MJPEG preview and the GUI. G1, on every
+   machine: phase F's ``CvFlowConfig()`` Engine at 1080x1920 on the 3 px
+   pan, 4 frames through ``process_frame``, then
+   ``CvFlowConfigWindow(config).apply_value("fb_iterations", "5")`` with
+   no window opened, then 4 frames more: one estimator rebuild (on the
+   first frame after the change), B1/B2a/B2b launches a frame 4/12/12
+   then 4/20/20, 0 host syncs a frame after the rebuild frame, the
+   rebuild frame's raw flow bit-equal to ``farneback`` with the new
+   ``estimator_kwargs()`` on the same pair and warm start; ms/frame
+   before, on and after the rebuild frame. G2, where cv2 and aiohttp
+   load: 24 frames of phase F's pan written by ``cv2.VideoWriter`` (MJPG
+   in an .avi); ``CvFlowSource``'s gray frames bit-equal to
+   ``cv2.VideoCapture``'s own; ``cli.main([clip, "-p", "noise",
+   "--seed", "0", "-o", out/%04d.ppm])`` on the card (23 frames, 4/12/12
+   launches and, against a 12-frame cut, 0 host syncs a frame); ``-o
+   mjpeg:PORT`` with one multipart frame fetched over HTTP that decodes
+   to 1080x1920; the headline ``clip.avi -p still.png -o out.mp4``
+   (the encoder chain's first writer that opens; 23 frames reopened by
+   cv2). G3, where websockets loads too: ``GuiServer`` on free ports
+   rendering on the card, one ``GENERATE`` of G2's command over a
+   9-frame cut: ``STATUS``, then ``DONE`` with the output's path, 9
+   frames. Where a library is missing the route prints ``G2: absent:
+   <the import error>`` (or ``G3: ...``) and the run goes on; a route
+   whose libraries load and then fails fails the run;
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
@@ -208,7 +232,7 @@ B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
    version on the same inputs, with ``device_ms``, the bound, its share
    and the plain version's time.
 
-The main path (phases F, P, T, H, V, S, M and 3-5) runs right after the build:
+The main path (phases F, P, T, H, V, S, M, G and 3-5) runs right after the build:
 the kernel phases' timing loops, plain versions and profiler come after
 every timed run of it, so they cannot reach those timings.
 
@@ -2353,6 +2377,348 @@ def phase_multihost(device, card: str) -> dict:
         "single_ms": single_ms}
 
 
+# phase G: live tuning, the cv2 video input and the MJPEG preview, the GUI
+G_BEFORE = 4          # process_frame calls before the change
+G_AFTER = 4           # calls from the change on (the first rebuilds)
+G_ITERATIONS = "5"    # fb_iterations as the window's widget sends it
+G_PER_FRAME = ((4, 12, 12), (4, 20, 20))  # B1, B2a, B2b before and after
+G_FRAMES = 24         # frames of the cv2-written clip; 23 flows
+G_FPS = 25.0
+G_CUT = "00:00:00.480"  # -t: 12 frames at the clip's 25 frames/s
+G_CUT_FRAMES = 12
+G_GUI_CUT = "00:00:00.360"  # the GUI job's 9 frames
+G_GUI_FRAMES = 9
+G_TIMEOUT = 120       # seconds for any socket or websocket wait
+
+
+def _free_port() -> int:
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def g_live_tuning(device, card: str) -> dict:
+    """G1: phase F's ``CvFlowConfig()`` Engine at 1080x1920 on the 3 px
+    pan, ``G_BEFORE`` frames through ``process_frame``, then
+    ``CvFlowConfigWindow(config).apply_value("fb_iterations", "5")`` (no
+    window opened) and ``G_AFTER`` frames more: one estimator rebuild, on
+    the first frame after the change; B1/B2a/B2b launches a frame
+    ``G_PER_FRAME``; 0 host syncs a frame after the rebuild frame; the
+    raw flow of the rebuild frame bit-equal to ``farneback`` with the new
+    ``estimator_kwargs()`` on the same pair and warm start."""
+    import warnings
+    from transflow_tpu_torch.flow.estimators.farneback import farneback
+    from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    from transflow_tpu_torch.gui.tuning import CvFlowConfigWindow
+    config = CvFlowConfig()
+    frames = gray_frames(1 + G_BEFORE + G_AFTER, HEIGHT, WIDTH, device)
+    pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
+    engine, source = make_engine(device, frames, config)
+    runtime = engine.runtimes[0]
+    items = iter(source)
+    pixmaps = ((pixmap,),)
+    launches, ms, rebuilt, syncs = [], [], [], 0
+    want = None
+    for k in range(G_BEFORE + G_AFTER):
+        if k == G_BEFORE:
+            if not CvFlowConfigWindow(config).apply_value("fb_iterations",
+                                                          G_ITERATIONS):
+                raise AssertionError("G1: apply_value refused "
+                                     f"fb_iterations={G_ITERATIONS!r}")
+            prev_gray = runtime.prev_gray.clone()
+            prev_flow = runtime.prev_flow.clone()
+        item = next(items)
+        step = runtime.estimator_step
+        torch.cuda.synchronize()
+        _zero_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            count = k > G_BEFORE
+            if count:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                start = time.perf_counter()
+                engine.process_frame([item], pixmaps, k / G_FPS, ((k,),))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - start))
+        if count:
+            syncs += sum("synchroniz" in str(w.message) for w in caught)
+        launches.append(_launches()[3:6])
+        rebuilt.append(runtime.estimator_step is not step)
+        if k == G_BEFORE:
+            want = farneback(item.array, prev_gray, prev_flow,
+                             **config.estimator_kwargs())
+            got = runtime.last_raw
+    per_frame = [G_PER_FRAME[k >= G_BEFORE] for k in range(len(launches))]
+    if sum(rebuilt) != 1 or not rebuilt[G_BEFORE]:
+        raise AssertionError(f"G1: estimator rebuilt at frames {rebuilt}; "
+                             f"expected once, at frame {G_BEFORE}")
+    if launches != per_frame:
+        raise AssertionError(f"G1: B1, B2a, B2b launches a frame "
+                             f"{launches}, expected {per_frame}")
+    if syncs:
+        raise AssertionError(f"G1: {syncs} host syncs after the rebuild "
+                             "frame")
+    if config.estimator_kwargs()["iterations"] != int(G_ITERATIONS) \
+            or not torch.equal(got, want):
+        raise AssertionError("G1: the rebuild frame's flow differs from "
+                             "farneback with the new estimator_kwargs() "
+                             f"(max |d| {(got - want).abs().max().item()})")
+    before = statistics.mean(ms[1:G_BEFORE])  # the first frame primes
+    after = statistics.mean(ms[G_BEFORE + 1:])
+    print(f"G1 live tuning {HEIGHT}x{WIDTH} CvFlowConfig() -> "
+          f"fb_iterations={G_ITERATIONS} through CvFlowConfigWindow."
+          f"apply_value: 1 rebuild (frame {G_BEFORE}); B1/B2a/B2b a frame "
+          f"{'/'.join(map(str, G_PER_FRAME[0]))} -> "
+          f"{'/'.join(map(str, G_PER_FRAME[1]))}; 0 host syncs a frame "
+          f"after the rebuild frame; the rebuild frame's flow bit-equal to "
+          f"farneback(**estimator_kwargs()); ms/frame (host clock to a "
+          f"synchronize, one frame at a time) before {before:.2f}, the "
+          f"rebuild frame {ms[G_BEFORE]:.2f}, after {after:.2f}; on {card}")
+    return {"before_ms": before, "rebuild_ms": ms[G_BEFORE],
+            "after_ms": after}
+
+
+def _g_fetch_part(port: int, deadline: float) -> bytes:
+    """The first JPEG of the MJPEG stream on 127.0.0.1:``port``
+    (``/transflow``), connecting again until the server is up."""
+    import http.client
+    while True:
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+            conn.request("GET", "/transflow")
+            response = conn.getresponse()
+            break
+        except OSError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.005)
+    try:
+        header = b""
+        while not header.endswith(b"\r\n\r\n"):
+            header += response.read(1)
+        length = int(re.search(rb"Content-Length: (\d+)", header).group(1))
+        return response.read(length)
+    finally:
+        conn.close()
+
+
+def g_video(device, card: str, root: Path) -> str:
+    """G2, where cv2 loads: ``G_FRAMES`` frames of phase F's pan at
+    1080x1920 written by ``cv2.VideoWriter`` (MJPG in an .avi); the gray
+    frames of ``CvFlowSource`` bit-equal to ``cv2.VideoCapture``'s own
+    read; ``cli.main([clip, "-p", "noise", "--seed", "0", "-o",
+    out/%04d.ppm])`` on the card (23 frames, 0 host syncs a frame against
+    a 12-frame cut); then ``-o mjpeg:PORT`` with one multipart frame
+    fetched over HTTP, which must decode to 1080x1920. Returns the clip's
+    path."""
+    import threading
+    import cv2
+    from transflow_tpu_torch.flow.sources.cv import CvFlowSource
+    from transflow_tpu_torch.utils.imageio import read_netpbm
+    clip = str(root / "clip.avi")
+    rgb = panned_frames(G_FRAMES, HEIGHT, WIDTH, device,
+                        step=FB_PAN).cpu().numpy()
+    writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), G_FPS,
+                             (WIDTH, HEIGHT))
+    for frame in rgb:
+        writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+    writer.release()
+    capture = cv2.VideoCapture(clip)
+    want = []
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            break
+        want.append(cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY))
+    capture.release()
+    with CvFlowSource(clip) as source:
+        got = []
+        for item in source:
+            if item.prime is not None:
+                got.append(np.asarray(item.prime))
+            got.append(np.asarray(item.array))
+    if len(got) != G_FRAMES or len(want) != G_FRAMES or not all(
+            np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"G2: CvFlowSource's {len(got)} gray frames "
+                             f"differ from cv2.VideoCapture's {len(want)}")
+    flows_n = G_FRAMES - 1
+
+    def argv(out: str, *extra: str) -> list[str]:
+        (root / out).mkdir(exist_ok=True)
+        return [clip, "-p", "noise", "--seed", str(SEED), "-o",
+                str(root / out / "%04d.ppm"), *extra]
+
+    run = _p_run(argv("out"), count_syncs=True)
+    cut = _p_run(argv("cut", "-t", G_CUT), count_syncs=True)
+    if run["pipeline"].engine.device != device:
+        raise AssertionError(f"G2: the Engine ran on "
+                             f"{run['pipeline'].engine.device}")
+    syncs = (run["syncs"] - cut["syncs"]) / (flows_n - G_CUT_FRAMES)
+    written = sorted((root / "out").glob("*.ppm"))
+    if len(written) != flows_n or read_netpbm(str(written[-1])).shape != (
+            HEIGHT, WIDTH, 3):
+        raise AssertionError(f"G2: {len(written)} frames written, expected "
+                             f"{flows_n} at {HEIGHT}x{WIDTH}")
+    per_frame = tuple(n / flows_n for n in run["launches"][3:6])
+    if per_frame != FB_DEFAULT_PER_FRAME:
+        raise AssertionError(f"G2: B1, B2a, B2b launches a frame "
+                             f"{per_frame}, expected {FB_DEFAULT_PER_FRAME}")
+    print(f"G2 video CLI {HEIGHT}x{WIDTH} clip.avi (MJPG, cv2) -p noise -o "
+          f"out/%04d.ppm {flows_n} frames: {_p_split(run, flows_n)}; "
+          f"launches B1/B2a/B2b a frame {per_frame}; host syncs "
+          f"{run['syncs']} against {cut['syncs']} for the {G_CUT_FRAMES}-"
+          f"frame cut: {syncs:g} a frame; on {card}")
+    if syncs != 0:
+        raise AssertionError(f"G2: {syncs} host syncs a frame")
+    port = _free_port()
+    fetched: dict = {}
+
+    def fetch():
+        try:
+            fetched["jpeg"] = _g_fetch_part(port, time.time() + G_TIMEOUT)
+        except Exception as err:  # noqa: BLE001 — reported below
+            fetched["error"] = err
+
+    client = threading.Thread(target=fetch, daemon=True)
+    client.start()
+    stream = _p_run([clip, "-p", "noise", "--seed", str(SEED), "-o",
+                     f"mjpeg:{port}:127.0.0.1"])
+    client.join(G_TIMEOUT)
+    if "jpeg" not in fetched:
+        raise AssertionError(f"G2: no MJPEG frame fetched: "
+                             f"{fetched.get('error', 'timed out')}")
+    image = cv2.imdecode(np.frombuffer(fetched["jpeg"], np.uint8),
+                         cv2.IMREAD_COLOR)
+    if image is None or image.shape != (HEIGHT, WIDTH, 3):
+        raise AssertionError(f"G2: the MJPEG frame decodes to "
+                             f"{None if image is None else image.shape}")
+    print(f"G2 video CLI -o mjpeg:{port}: a multipart frame of "
+          f"{len(fetched['jpeg'])} bytes fetched over HTTP decodes to "
+          f"{HEIGHT}x{WIDTH}; {_p_split(stream, flows_n)}; on {card}")
+    g_headline(root, clip, rgb[0], card)
+    return clip
+
+
+def g_headline(root: Path, clip: str, still: np.ndarray, card: str) -> None:
+    """The headline command, ``clip.avi -p still.png -o out.mp4``, on the
+    card: the encoder chain's first writer that opens writes ``out.mp4``,
+    which must reopen through ``cv2.VideoCapture`` at 1080x1920 with 23
+    frames."""
+    import cv2
+    from transflow_tpu_torch.utils.imageio import imwrite
+    imwrite(str(root / "still.png"), still)
+    out = str(root / "out.mp4")
+    run = _p_run([clip, "-p", str(root / "still.png"), "-o", out])
+    output = run["pipeline"].output_threads[0].output
+    capture = cv2.VideoCapture(out)
+    count = 0
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            break
+        count += 1
+        shape = frame.shape
+    capture.release()
+    flows_n = G_FRAMES - 1
+    if count != flows_n or shape != (HEIGHT, WIDTH, 3):
+        raise AssertionError(f"G2: out.mp4 reopens with {count} frames "
+                             f"of {shape}, expected {flows_n} at "
+                             f"{HEIGHT}x{WIDTH}")
+    print(f"G2 headline CLI clip.avi -p still.png -o out.mp4: written by "
+          f"{output.opened_by}, reopens through cv2.VideoCapture as "
+          f"{count} frames at {HEIGHT}x{WIDTH}; {_p_split(run, flows_n)}; "
+          f"on {card}")
+
+
+def g_gui(device, card: str, root: Path, clip: str) -> None:
+    """G3, where aiohttp and websockets load too: ``GuiServer`` on free
+    ports rendering on the card, one ``GENERATE`` of G2's command over a
+    ``G_GUI_FRAMES``-frame cut: ``STATUS`` messages, then ``DONE`` with
+    the output's path and its frames written."""
+    import websockets.sync.client
+    from transflow_tpu_torch.gui.server import GuiServer
+    server = GuiServer("127.0.0.1", _free_port(), _free_port(),
+                       device=device)
+    server.start(block=False, open_browser=False)
+    out = root / "gui"
+    out.mkdir()
+    config = {"flow_path": clip, "output_path": str(out / "%04d.ppm"),
+              "pixmap_sources": [{"path": "noise", "layers": [0]}],
+              "seed": SEED, "duration_time": G_GUI_CUT}
+    statuses, done = 0, None
+    start = time.perf_counter()
+    try:
+        with websockets.sync.client.connect(
+                f"ws://127.0.0.1:{server.ws_port}",
+                open_timeout=G_TIMEOUT) as ws:
+            ws.send("GENERATE " + json.dumps(config))
+            deadline = time.time() + G_TIMEOUT
+            while done is None and time.time() < deadline:
+                message = ws.recv(timeout=G_TIMEOUT)
+                if message.startswith("STATUS"):
+                    status = json.loads(message[len("STATUS"):])
+                    if status.get("error"):
+                        raise AssertionError(f"G3: {message}")
+                    statuses += 1
+                elif message.startswith("DONE"):
+                    done = message
+                elif message.startswith("ERROR"):
+                    raise AssertionError(f"G3: {message}")
+    finally:
+        server.stop()
+    seconds = time.perf_counter() - start
+    written = sorted(out.glob("*.ppm"))
+    if done is None or str(out / "%04d.ppm") not in done or not statuses \
+            or len(written) != G_GUI_FRAMES:
+        raise AssertionError(f"G3: {statuses} STATUS, {done!r}, "
+                             f"{len(written)} frames written; expected "
+                             f"STATUS, then DONE with the output's path, "
+                             f"{G_GUI_FRAMES} frames")
+    if server.pipeline.engine.device != device:
+        raise AssertionError(f"G3: the job ran on "
+                             f"{server.pipeline.engine.device}")
+    print(f"G3 GUI GENERATE over the websocket: {statuses} STATUS, then "
+          f"{done!r}; {len(written)} frames at {HEIGHT}x{WIDTH} in "
+          f"{seconds:.2f} s from GENERATE to DONE; on {card}")
+
+
+def _g_absent(route: str, modules: tuple) -> bool:
+    """Print ``route``'s absent line where one of ``modules`` does not
+    import; True where all import."""
+    import importlib
+    versions = []
+    for module in modules:
+        try:
+            loaded = importlib.import_module(module)
+            versions.append(f"{module} {getattr(loaded, '__version__', '?')}")
+        except ImportError as err:
+            print(f"{route}: absent: {err}")
+            return False
+    print(f"{route}: loaded {', '.join(versions)}")
+    return True
+
+
+def phase_live(device, card: str) -> dict:
+    """Phase G: live tuning on the card (G1); where cv2 loads, the video
+    input and the MJPEG preview (G2); where aiohttp and websockets load
+    too, the web GUI (G3). A route whose library is missing prints its
+    absent line; one whose libraries load and then fails fails the run."""
+    import tempfile
+    result = {"g1": g_live_tuning(device, card)}
+    if not _g_absent("G2", ("cv2", "aiohttp")):
+        print("G3: absent: G2's libraries")
+        return result
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_g_") as tmp:
+        clip = g_video(device, card, Path(tmp))
+        if _g_absent("G3", ("websockets",)):
+            g_gui(device, card, Path(tmp), clip)
+    return result
+
+
 def hs_bound_ms(kernel: str, h: int, w: int) -> tuple[float, str]:
     """B9's bound: two frames' bytes in, four float32 planes out; B10's a
     launch: the four planes and the flow in, the flow out; a copy-through
@@ -3619,6 +3985,7 @@ def main() -> int:
         phase_video(device, card)
     s_run = phase_streams(device, card)
     m_run = phase_multihost(device, card)
+    phase_live(device, card)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
     mesh_run = phase_mesh_engine(device, card, engine_phase)

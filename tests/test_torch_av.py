@@ -8,6 +8,7 @@ The shim-dependent tests skip only where the prebuilt
 as tests/test_mv_native.py does; the mocked-record cases run anywhere."""
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -243,12 +244,20 @@ def test_encoded_output_picks_the_libav_writer(shim, tmp_path, monkeypatch):
 
 
 def test_encoded_output_without_any_encoder_raises(tmp_path, monkeypatch):
+    """No libav shim, no native IO library, no ffmpeg binary and no cv2:
+    the last rung's import names cv2, and the message says why each rung
+    before it did not open."""
     import shutil
+    from transflow_tpu_torch import native
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setattr(av_native, "_load", lambda: None)
+    monkeypatch.setattr(native, "_load", lambda: None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
     out = EncodedVideoOutput(str(tmp_path / "out.mp4"), 32, 16, 25.0)
-    with pytest.raises(NotImplementedError, match="item 14.2"):
+    with pytest.raises(ImportError, match="cv2") as info:
         out.open()
+    assert "libav:" in str(info.value) and "ffmpeg: no binary" in str(
+        info.value)
 
 
 def _cli_frames(run, argv, out_dir):

@@ -1,6 +1,7 @@
 """The port's command line against the JAX package's: the same option
-strings, the same ``Config`` for the same argv, the same refusals; and
-what the port's CLI raises for what it does not run yet."""
+strings, the same ``Config`` for the same argv, the same refusals; what
+the port's CLI raises where a library is missing, and for the bench,
+which it does not run yet."""
 import json
 import os
 import subprocess
@@ -135,11 +136,32 @@ def test_module_entry_point_help_and_version():
         assert text in proc.stdout
 
 
-@pytest.mark.parametrize("action,item", [("gui", "item 15"),
-                                         ("bench", "item 9")])
-def test_unported_actions_raise(action, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main([action], device="cpu")
+@pytest.mark.parametrize("action,error", [
+    # the GUI's control channel needs websockets, blocked here
+    ("gui", (ImportError, "websockets")),
+    ("bench", (NotImplementedError, "item 9"))])
+def test_unported_actions_raise(action, error, monkeypatch):
+    monkeypatch.setitem(sys.modules, "websockets", None)
+    with pytest.raises(error[0], match=error[1]):
+        cli.main([action, "--gui-port", "0", "--gui-mjpeg-port", "0"],
+                 device="cpu")
+
+
+def test_gui_action_starts_the_server(monkeypatch):
+    """``gui`` calls ``start_gui`` with the GUI flags and the device, as
+    the JAX CLI calls its own; with no card and no device it raises."""
+    import torch
+    from transflow_tpu_torch.gui import server
+    calls = []
+    monkeypatch.setattr(server, "start_gui",
+                        lambda *args, **kwargs: calls.append((args, kwargs)))
+    cli.main(["gui", "--gui-host", "127.0.0.1", "--gui-port", "8123",
+              "--gui-mjpeg-port", "8124"], device="cpu")
+    assert calls == [(("127.0.0.1", 8123, 8124), {"device": "cpu"})]
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["gui"])
 
 
 def test_the_cli_needs_a_card_by_default(tmp_path, monkeypatch):
@@ -163,34 +185,68 @@ def sequence(tmp_path_factory):
     return str(root / "%04d.pgm")
 
 
+def _free_port():
+    import socket
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
 @pytest.mark.parametrize("extra,error", [
-    # neither the libav shim nor an ffmpeg binary: no encoder
-    (["-o", "out.mp4"], (NotImplementedError, "item 14.2")),
-    (["-o", "mjpeg:9000"], (NotImplementedError, "item 14.2")),
-    # no -o: the preview window
-    ([], (NotImplementedError, "item 14.2")),
-    (["-o", "%04d.ppm", "-O"], (NotImplementedError, "item 14.2")),
+    # no libav shim, no native IO library, no ffmpeg binary, no cv2: the
+    # encoder chain ends at cv2.VideoWriter, whose import names cv2
+    (["-o", "out.mp4"], (ImportError, "cv2")),
+    # the MJPEG server runs (no client), as the JAX package's
+    (["-o", "mjpeg:{port}:127.0.0.1"], None),
+    # no -o, or -O: the preview window, which needs a display
+    ([], (RuntimeError, "needs a display")),
+    (["-o", "%04d.ppm", "-O"], (RuntimeError, "needs a display")),
     # no shim: no motion vectors, as the JAX source without PyAV or it
     (["-o", "%04d.ppm", "--mv"], (ImportError, "native libav shim")),
 ], ids=["video", "mjpeg", "window", "preview", "mv"])
 def test_unported_inputs_and_outputs_raise(sequence, tmp_path, monkeypatch,
                                            extra, error):
-    """What raises on a machine without the libav shim and without an
-    ffmpeg binary (the shim and ``shutil.which`` monkeypatched away)."""
+    """What each route does on a machine without a display, the libav
+    shim, the native IO library, an ffmpeg binary and (for the encoder)
+    cv2 (each monkeypatched away); the window's refusal is the JAX
+    CLI's own."""
     import shutil
-    from transflow_tpu_torch import av_native
+    from transflow_tpu_torch import av_native, native
     monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("DISPLAY", raising=False)
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setattr(av_native, "_load", lambda: None)
+    monkeypatch.setattr(native, "_load", lambda: None)
+    if error is not None and error[1] == "cv2":
+        monkeypatch.setitem(sys.modules, "cv2", None)
+    extra = [arg.format(port=_free_port()) for arg in extra]
+    argv = [sequence, "-p", "noise", "--no-exec", "--overwrite", *extra]
+    if error is None:
+        pipeline = cli.main(argv, device="cpu")
+        assert pipeline.cursor == 2
+        return
     with pytest.raises(error[0], match=error[1]):
-        cli.main([sequence, "-p", "noise", "--no-exec", *extra],
-                 device="cpu")
+        cli.main(argv, device="cpu")
+    if error[0] is RuntimeError:
+        monkeypatch.undo()
+        monkeypatch.chdir(tmp_path)
+        monkeypatch.delenv("DISPLAY", raising=False)
+        with pytest.raises(RuntimeError, match=error[1]):
+            jcli.main(argv)
 
 
-def test_video_input_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14.2"):
-        cli.main(["clip.mp4", "-p", "noise", "-o",
-                  str(tmp_path / "%04d.ppm"), "--no-exec"], device="cpu")
+def test_video_input_raises(tmp_path, monkeypatch):
+    """A video that does not open raises ``FileNotFoundError``, as the JAX
+    CLI does; with cv2 missing the open names it."""
+    argv = [str(tmp_path / "clip.mp4"), "-p", "noise", "-o",
+            str(tmp_path / "%04d.ppm"), "--no-exec"]
+    for run in (lambda: jcli.main(argv),
+                lambda: cli.main(argv, device="cpu")):
+        with pytest.raises(FileNotFoundError, match="Could not open"):
+            run()
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
+        cli.main(argv, device="cpu")
 
 
 # ---------------------------------------------------------------------------

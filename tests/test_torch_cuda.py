@@ -947,3 +947,114 @@ def test_flowclip_on_the_card_is_the_estimator(device, tmp_path):
     want = farneback(torch.from_numpy(frames[2]).to(device),
                      torch.from_numpy(frames[1]).to(device))
     assert torch.equal(torch.from_numpy(flow), want.cpu())
+
+
+def _engine_over(source, device):
+    """An Engine on ``device`` over ``source`` with one moveref layer."""
+    from transflow_tpu_torch.compositor.core import make_layer_params
+    from transflow_tpu_torch.config import Config, LayerConfig
+    from transflow_tpu_torch.engine import Engine
+    h, w = source.height, source.width
+    layers = make_layer_params([LayerConfig(0)], h, w, {0: [(3, None)]},
+                               device=device)
+    return Engine(Config("clip", seed=0), [source], layers, h, w,
+                  device=device)
+
+
+def test_live_tuning_rebuilds_on_the_card(device):
+    """chip_smoke's G1 at 90x120: ``apply_value("fb_iterations", "5")``
+    between two frames rebuilds the estimator step once; the next frame
+    launches 20 B2a and 20 B2b (12 before) and its raw flow is bit-equal
+    to ``farneback`` with the new settings on the same pair."""
+    from transflow_tpu_torch.flow import Direction
+    from transflow_tpu_torch.flow.estimators.farneback import farneback
+    from transflow_tpu_torch.flow.sources.base import FlowItem, FlowSource
+    from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    from transflow_tpu_torch.gui.tuning import CvFlowConfigWindow
+    gen = np.random.default_rng(0)
+    canvas = gen.integers(0, 256, (110, 140), dtype=np.uint8)
+    frames = [torch.from_numpy(np.ascontiguousarray(
+        canvas[2 * i:2 * i + 90, 2 * i:2 * i + 120])).to(device)
+        for i in range(5)]
+
+    class Frames(FlowSource):
+        yields_frames = True
+
+        def _open_reader(self):
+            self.height, self.width = 90, 120
+            self.base_length = len(frames) - 1
+            self.pos = 0
+
+        def _rewind_reader(self, index):
+            self.pos = index
+
+        def _read_item(self):
+            prime = frames[0] if self.pos == 0 else None
+            self.pos += 1 + (self.pos == 0)
+            return FlowItem(FlowItem.FRAME, frames[self.pos - 1],
+                            prime=prime)
+
+    config = CvFlowConfig()
+    source = Frames(direction=Direction.BACKWARD)
+    source.config = config
+    engine = _engine_over(source.open(), device)
+    runtime, items = engine.runtimes[0], iter(source)
+    pixmaps = ((torch.zeros((90, 120, 3), dtype=torch.uint8,
+                            device=device),),)
+    launches = []
+    for k in range(4):
+        if k == 2:
+            assert CvFlowConfigWindow(config).apply_value("fb_iterations",
+                                                          "5")
+            prev = runtime.prev_gray.clone(), runtime.prev_flow.clone()
+            step = runtime.estimator_step
+        before = fb.update_equations_cuda.launches
+        item = next(items)
+        engine.process_frame([item], pixmaps, k / 30.0, ((k,),))
+        launches.append(fb.update_equations_cuda.launches - before)
+        if k == 2:
+            assert runtime.estimator_step is not step
+            want = farneback(item.array, *prev, **config.estimator_kwargs())
+            assert torch.equal(runtime.last_raw, want)
+    levels = launches[0] // 3
+    assert launches == [3 * levels, 3 * levels, 5 * levels, 5 * levels]
+
+
+def test_cv2_clip_through_the_engine_on_the_card(device, tmp_path,
+                                                 monkeypatch):
+    """A cv2-written MJPG clip through ``CvFlowSource`` and the Engine on
+    the card (float32 storage): B1 launched, and each raw flow within 60
+    dB of the same Engine's on the CPU. Skips where cv2 is absent."""
+    cv2 = pytest.importorskip("cv2")
+    monkeypatch.setenv("TRANSFLOW_FARNEBACK_BF16", "0")
+    from transflow_tpu_torch.flow import Direction
+    from transflow_tpu_torch.flow.sources.cv import CvFlowSource
+    gen = np.random.default_rng(1)
+    canvas = cv2.GaussianBlur(gen.integers(0, 256, (90, 150, 3),
+                                           dtype=np.uint8), (5, 5), 1.5)
+    path = str(tmp_path / "clip.avi")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10.0,
+                             (120, 90))
+    for i in range(5):
+        writer.write(np.ascontiguousarray(canvas[:, 2 * i:2 * i + 120]))
+    writer.release()
+    flows = {}
+    for where in ("cpu", device):
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            source = CvFlowSource(path, direction=Direction.BACKWARD).open()
+            engine = _engine_over(source, where)
+            pixmaps = ((torch.zeros((90, 120, 3), dtype=torch.uint8,
+                                    device=where),),)
+            before = fb.poly_expansion_cuda.launches
+            out = []
+            for k, item in enumerate(source):
+                engine.process_frame([item], pixmaps, k / 10.0, ((k,),))
+                out.append(engine.runtimes[0].last_raw.cpu())
+            source.close()
+        flows[str(where)] = torch.stack(out)
+        if where != "cpu":
+            assert fb.poly_expansion_cuda.launches > before
+    cpu, card = flows["cpu"], flows[str(device)]
+    assert card.shape == (4, 90, 120, 2)
+    mse = ((card - cpu) ** 2).mean(dim=(1, 2, 3))
+    assert (10 * torch.log10(64.0 / mse.clamp_min(1e-30)) >= 60.0).all()

@@ -4,6 +4,7 @@ writing (``utils/imageio.py`` against ``cv2.imread``,
 stills, the mask DSL, the source routers and the ``.flow.zip`` archives.
 All of it is host logic, so the port must match exactly."""
 import os
+import sys
 
 import cv2
 import numpy as np
@@ -129,16 +130,22 @@ def test_sequence_matches_video_capture(tmp_path, first, ext, channels):
     cap.release()
 
 
-def test_sequence_refusals(tmp_path):
-    """A sequence must start at an index among 0-4, as cv2's; a video
-    container or a camera names the ROADMAP item of the codecs."""
+def test_sequence_refusals(tmp_path, monkeypatch):
+    """A sequence must start at an index among 0-4, as cv2's; a video that
+    does not open raises as cv2's refusal; with cv2 missing, a video
+    container, a camera or a stream names it (and opens nothing)."""
     frame = np.zeros((4, 4), np.uint8)
     pattern = _write_sequence(str(tmp_path), 5, [frame, frame], ".pgm")
     assert not cv2.VideoCapture(pattern).isOpened()
     with pytest.raises(FileNotFoundError):
         imageio.open_sequence(pattern)
-    for path in ["clip.mp4", "0", "rtsp://camera/stream"]:
-        with pytest.raises(NotImplementedError, match="item 14.2"):
+    missing = str(tmp_path / "clip.mp4")
+    assert not cv2.VideoCapture(missing).isOpened()
+    with pytest.raises(FileNotFoundError, match="Could not open"):
+        imageio.open_sequence(missing)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for path in [missing, "0", "rtsp://camera/stream"]:
+        with pytest.raises(ImportError, match="cv2"):
             imageio.open_sequence(path)
 
 
@@ -260,10 +267,13 @@ def test_flow_routing_refusals(tmp_path):
                                   use_mvs=True).open()
     with pytest.raises(FileNotFoundError):
         base.FlowSource.from_args("clip.mp4", cv_config="nope.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        base.FlowSource.from_args("clip.mp4", cv_config="window")
-    with pytest.raises(NotImplementedError, match="item 14.2"):
-        base.FlowSource.from_args("clip.mp4").open()
+    # the tuning window opens with the source, as in the JAX package
+    for module in (base, jbase):
+        source = module.FlowSource.from_args("clip.mp4", cv_config="window")
+        assert source.config.show_window and source.config.window is None
+    for module in (base, jbase):
+        with pytest.raises(FileNotFoundError, match="Could not open"):
+            module.FlowSource.from_args(str(tmp_path / "clip.mp4")).open()
 
 
 # ---------------------------------------------------------------------------

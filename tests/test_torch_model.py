@@ -259,15 +259,19 @@ def test_model_options_match_jax(option):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import neither jax,
-    flax nor cv2, nor the JAX package: with ``transflow_tpu`` blocked in
-    ``sys.modules`` any import of it fails. The walk reaches the
-    multi-host layer and the tools (``extra/``'s counterparts, which
-    import no cv2)."""
+    """Every module of the port, and chip_smoke.py, import neither jax nor
+    flax nor the JAX package, and import with none of the libraries its
+    routes load where they run (cv2, PIL, aiohttp, websockets, tkinter):
+    with each of them and ``transflow_tpu`` blocked in ``sys.modules`` any
+    import of one fails. The walk reaches the multi-host layer, the GUI,
+    the window, MJPEG and native IO outputs, and the tools."""
+    blocked = ("jax", "flax", "transflow_tpu", "cv2", "PIL", "aiohttp",
+               "websockets", "tkinter")
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
-        "sys.modules['transflow_tpu'] = None\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
         "import transflow_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    transflow_tpu_torch.__path__, 'transflow_tpu_torch.')]\n"
@@ -275,12 +279,19 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'cv2', 'transflow_tpu')\n"
+        f"       if m.split('.')[0] in {blocked!r}\n"
         "       and sys.modules[m] is not None]\n"
         "want = {'transflow_tpu_torch.parallel.multihost',\n"
         "        'transflow_tpu_torch.tools.viewflow',\n"
         "        'transflow_tpu_torch.tools.viewflow_player',\n"
-        "        'transflow_tpu_torch.tools.control'}\n"
+        "        'transflow_tpu_torch.tools.control',\n"
+        "        'transflow_tpu_torch.gui.server',\n"
+        "        'transflow_tpu_torch.gui.tuning',\n"
+        "        'transflow_tpu_torch.output.window',\n"
+        "        'transflow_tpu_torch.output.mjpeg',\n"
+        "        'transflow_tpu_torch.native',\n"
+        "        'transflow_tpu_torch.tools.realtime',\n"
+        "        'transflow_tpu_torch.tools.list_webcams'}\n"
         "print('MODULES', len(names), 'IMPORTED', bad,\n"
         "      'MISSING', want - set(names))\n"
         "sys.exit(1 if bad or want - set(names) or len(names) < 25 else 0)\n")

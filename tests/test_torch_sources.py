@@ -5,6 +5,7 @@ port must match exactly."""
 import enum
 import inspect
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -81,13 +82,23 @@ def test_cv_config_json_round_trip(tmp_path, direction):
         assert json.load(file) == writer(**settings).to_dict()
 
 
-def test_cv_config_update_and_window():
+def test_cv_config_update_and_window(monkeypatch):
+    """``update`` bumps the version; ``show_window=True`` keeps the same
+    settings as the JAX config's, opens nothing until ``start``, and
+    there names tkinter where it is missing."""
     cfg = cv.CvFlowConfig(method="liteflownet")
     assert cfg.version == 0
     cfg.update("lfn_warp_bound", 8)
     assert cfg.version == 1 and cfg.estimator_kwargs()["warp_bound"] == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cv.CvFlowConfig(show_window=True)
+    shown, jshown = (cv.CvFlowConfig(show_window=True, fb_levels=4),
+                     jcv.CvFlowConfig(show_window=True, fb_levels=4))
+    assert shown.show_window and shown.window is None
+    assert shown.to_dict() == jshown.to_dict()
+    cv.CvFlowConfig().start()  # no window asked: nothing opens
+    monkeypatch.setitem(sys.modules, "tkinter", None)
+    with pytest.raises(ImportError, match="tkinter"):
+        shown.start()
+    assert shown.window.thread is None
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The port's headless tools (``transflow_tpu_torch/tools``: viewflow,
-the player's helpers and ``FlowClip``, the control session) against their
-``extra/`` originals on the same inputs."""
+"""The port's tools (``transflow_tpu_torch/tools``: viewflow, the player's
+helpers, ``FlowClip`` and its window, the control session and its
+window) against their ``extra/`` originals on the same inputs; the
+windows under a cv2 whose HighGUI calls are recorded (``HighGuiStub``)."""
 import contextlib
 import io
 import json
@@ -30,7 +31,38 @@ import viewflow_player as jplayer  # noqa: E402
 H, W, FLOWS = 24, 40, 3
 # tests/test_torch_farneback.py's bar for the whole estimator in float32
 FB_PSNR = 60.0
-NOT_PORTED = "item 14.2"
+
+
+class HighGuiStub:
+    """cv2 with its window calls recorded instead of shown: ``imshow``
+    keeps a copy of each image, ``waitKey`` returns the queued keys, then
+    q; every other name is cv2's own."""
+
+    def __init__(self, keys=()):
+        import cv2
+        self._cv2 = cv2
+        self.keys = list(keys)
+        self.shown = []
+        self.windows = []
+        self.mouse = None
+
+    def __getattr__(self, name):
+        return getattr(self._cv2, name)
+
+    def namedWindow(self, name, flags=0):
+        self.windows.append(name)
+
+    def setMouseCallback(self, name, callback):
+        self.mouse = callback
+
+    def imshow(self, name, image):
+        self.shown.append((name, np.array(image)))
+
+    def waitKey(self, delay=0):
+        return self.keys.pop(0) if self.keys else ord("q")
+
+    def destroyWindow(self, name):
+        self.windows.remove(name)
 
 
 def _flows(seed=2, n=FLOWS, h=H, w=W):
@@ -136,11 +168,39 @@ def test_render_matches_extra(tmp_path, monkeypatch, extra):
     assert frames["port"].shape == (FLOWS, H, W, 3)
 
 
-def test_play_raises():
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+def test_play_raises(monkeypatch):
+    """Without cv2 the player's window names it, before reading the
+    clip."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
         viewflow.main(["clip.flow.zip", "--play"])
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+    with pytest.raises(ImportError, match="cv2"):
         viewflow_player.run_player("clip.flow.zip")
+
+
+# every view, overlay and zoom of the player, then q
+PLAYER_KEYS = [ord(k) for k in "d1f2m3+=-a d"]
+
+
+def test_player_window_matches_extra(tmp_path, monkeypatch):
+    """``run_player`` (through ``viewflow --play``) shows the images the
+    JAX tool's player shows for the same keys over the same archive, and
+    closes its window."""
+    path = _archive(tmp_path / "clip.flow.zip", _flows(), "jax")
+    shown = {}
+    for package in ("jax", "port"):
+        stub = HighGuiStub(PLAYER_KEYS)
+        monkeypatch.setitem(sys.modules, "cv2", stub)
+        if package == "jax":
+            jplayer.run_player(path)
+        else:
+            viewflow.main([path, "--play"], device="cpu")
+        assert stub.windows == [] and stub.mouse is not None
+        shown[package] = stub.shown
+    assert len(shown["port"]) == len(PLAYER_KEYS) + 1
+    for (name, image), (jname, jimage) in zip(shown["port"], shown["jax"]):
+        assert name == jname == "viewflow"
+        np.testing.assert_array_equal(image, jimage)
 
 
 # ---------------------------------------------------------------------------
@@ -209,9 +269,30 @@ def test_flowclip_flow_is_the_estimator(pgm_clip):
                        farneback(gray[1], gray[0]))
 
 
+def test_flowclip_video_matches_extra(tmp_path):
+    """A video file (MJPG in an .avi, cv2-written): the frames and frame
+    rate of the JAX tool's clip."""
+    import cv2
+    path = str(tmp_path / "clip.avi")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 12.0,
+                             (W, H))
+    rng = np.random.default_rng(4)
+    base_frame = rng.integers(0, 256, (H, W, 3), np.uint8)
+    for t in range(4):
+        writer.write(np.roll(base_frame, 2 * t, axis=1))
+    writer.release()
+    clip = viewflow_player.FlowClip(path, device="cpu")
+    want = jplayer.FlowClip(path)
+    assert len(clip) == len(want) == 3
+    assert clip.framerate == want.framerate == 12.0
+    for i in range(4):
+        np.testing.assert_array_equal(clip.frame(i), want.frame(i))
+
+
 def test_flowclip_refusals(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
-        viewflow_player.FlowClip(str(tmp_path / "clip.mp4"))
+    for make in (jplayer.FlowClip, viewflow_player.FlowClip):
+        with pytest.raises(FileNotFoundError):
+            make(str(tmp_path / "clip.mp4"))
     write_netpbm(str(tmp_path / "one.pgm"), np.zeros((8, 8), np.uint8))
     with pytest.raises(ValueError, match="2 frames"):
         viewflow_player.FlowClip(str(tmp_path / "one.pgm"))
@@ -223,6 +304,9 @@ def test_flowclip_refusals(tmp_path, monkeypatch):
     clip = viewflow_player.FlowClip(str(tmp_path / "seq" / "%04d.pgm"))
     with pytest.raises(RuntimeError, match="CUDA"):
         clip.flow(0)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
+        viewflow_player.FlowClip(str(tmp_path / "clip.mp4"))
 
 
 # ---------------------------------------------------------------------------
@@ -310,11 +394,51 @@ def test_control_session_on_a_cli_checkpoint(cli_checkpoint, tmp_path):
 
 
 def test_control_main(cli_checkpoint, tmp_path, monkeypatch, capsys):
-    """``--silent`` exports the empty alteration; the window raises."""
+    """``--silent`` exports the empty alteration; with a display the
+    window opens, and without cv2 it names it."""
     out = str(tmp_path / "alt.png")
     control.main([cli_checkpoint, "--silent", "-o", out])
     assert "mapping 48x32; exported" in capsys.readouterr().out
     assert imread(out).shape == (32, 48, 4) and not imread(out).any()
     monkeypatch.setenv("DISPLAY", ":0")
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
         control.main([cli_checkpoint, "-o", out])
+
+
+def test_control_window_matches_extra(cli_checkpoint, tmp_path,
+                                      monkeypatch):
+    """``run_window``: the same painting through the mouse, the same
+    color, reset and export keys and the same previews as the JAX tool's
+    window, and the exported alteration equal."""
+    import cv2
+    keys = [255, ord("c"), 255, ord("s"), ord("r"), ord("s")]
+    strokes = [(cv2.EVENT_LBUTTONDOWN, 5, 9, 0),
+               (cv2.EVENT_MOUSEMOVE, 16, 24, cv2.EVENT_FLAG_LBUTTON),
+               (cv2.EVENT_RBUTTONDOWN, 16, 24, 0)]
+    results = {}
+    for package, module in (("jax", jcontrol), ("port", control)):
+        stub = HighGuiStub()
+        session = module.ControlSession(cli_checkpoint)
+        out = str(tmp_path / f"{package}.png")
+
+        def wait(delay=0, stub=stub):
+            if len(stub.shown) == 1:   # on the first frame: paint, erase
+                for event, x, y, flags in strokes:
+                    stub.mouse(event, x, y, flags, None)
+            return (keys[len(stub.shown) - 1] if len(stub.shown) <= len(keys)
+                    else ord("q"))
+
+        stub.waitKey = wait
+        monkeypatch.setitem(sys.modules, "cv2", stub)
+        with contextlib.redirect_stdout(io.StringIO()):
+            module.run_window(session, out)
+        assert stub.windows == []
+        results[package] = ([image for _, image in stub.shown],
+                            imread(out))
+    got, want = results["port"], results["jax"]
+    assert len(got[0]) == len(want[0]) == len(keys) + 1
+    assert not np.array_equal(got[0][0], got[0][1])   # the paint shows
+    for image, jimage in zip(got[0], want[0]):
+        np.testing.assert_array_equal(image, jimage)
+    np.testing.assert_array_equal(got[1], want[1])

@@ -8,8 +8,9 @@ pixmap and binds it to layers, and the pixmap flags that follow
 the last pixmap; ``-l INDEX [CLASS]`` appends a layer and the layer flags
 that follow attach to the last layer; ``-r MODE [FACTOR]`` and ``--lock
 MODE EXPR`` follow the same convention. The action routes as there:
-'*.json' -> config file, '*.ckpt.zip' -> resume, else flow source (an
-image sequence or a .flow.zip). 'gui' and 'bench' raise: they are not
+'*.json' -> config file, '*.ckpt.zip' -> resume, 'gui' -> the web GUI
+(``gui/server.py``), else flow source (a video file, a camera index, an
+image sequence or a .flow.zip). 'bench' raises: the H100 bench is not
 ported yet.
 """
 import argparse
@@ -453,14 +454,15 @@ def config_from_args(args) -> "Config":
 
 def main(argv=None, device=None):
     """Run the command line ``argv`` (``sys.argv[1:]`` when None) and
-    return its Pipeline. ``device``: where the render runs, the current
+    return its Pipeline (the ``GuiServer`` for ``gui``, once it stops). ``device``: where the render runs, the current
     CUDA device by default (no card raises); ``"cpu"`` runs it on the
     CPU."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.action == "gui":
-        raise NotImplementedError(f"the GUI {_NOT_PORTED} 15 (the GUI "
-                                  "server)")
+        from .gui.server import start_gui
+        return start_gui(args.gui_host, args.gui_port, args.gui_mjpeg_port,
+                         device=device)
     if args.action == "bench":
         raise NotImplementedError(f"the bench {_NOT_PORTED} 9 (the H100 "
                                   "bench)")

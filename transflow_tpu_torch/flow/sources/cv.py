@@ -4,11 +4,11 @@ source that decodes frames for the device estimator.
 Counterpart of transflow_tpu/flow/sources/cv.py: ``CvFlowConfig`` with the
 same methods, defaults, validation, JSON round-trip and estimator kwargs,
 and ``CvFlowSource``, which yields gray frames (RGB for LiteFlowNet) for
-estimation on the device. Where the JAX source decodes with
-``cv2.VideoCapture``, this one reads image sequences through
-``utils/imageio.py`` with the same frame count, frame rate and pixels;
-a video file or a camera raises, naming ROADMAP Queue 1 item 14.2. The
-live-tuning window is not ported (``show_window=True`` raises).
+estimation on the device. It reads through ``utils/imageio.py``: an
+image sequence in numpy (the frame count, frame rate and pixels of
+``cv2.VideoCapture``), a video file or a camera through
+``cv2.VideoCapture`` itself, as the JAX source does. ``show_window=True``
+opens the live-tuning window (``gui/tuning.py``) when the source opens.
 """
 import json
 
@@ -34,10 +34,6 @@ class CvFlowConfig:
     )
 
     def __init__(self, show_window: bool = False, **kwargs):
-        if show_window:
-            raise NotImplementedError(
-                "the live-tuning window is not ported yet: ROADMAP Queue 1, "
-                "item 15 (the GUI)")
         unknown = set(kwargs) - set(self.DEFAULTS)
         if unknown:
             raise ValueError(f"Unknown cv_config keys: {sorted(unknown)}")
@@ -58,7 +54,16 @@ class CvFlowConfig:
             raise ValueError(
                 f"fb_select_warp must be >= 0, got {self.fb_select_warp}")
         self.show_window = show_window
+        self.window = None
         self.version = 0  # bumped by update(); the engine rebuilds its step
+
+    def start(self):
+        """Open the live-tuning window where ``show_window`` asks for it."""
+        if not self.show_window:
+            return
+        from ...gui.tuning import CvFlowConfigWindow
+        self.window = CvFlowConfigWindow(self)
+        self.window.start()
 
     def update(self, name, value):
         setattr(self, name, value)
@@ -103,8 +108,9 @@ class CvFlowConfig:
 
 
 class CvFlowSource(FlowSource):
-    """An image sequence read frame by frame, yielding gray frames (RGB
-    for LiteFlowNet) for the device estimator."""
+    """An image sequence, a video file or a camera read frame by frame,
+    yielding gray frames (RGB for LiteFlowNet) for the device
+    estimator."""
 
     yields_frames = True
 
@@ -113,21 +119,21 @@ class CvFlowSource(FlowSource):
         super().__init__(**kwargs)
         self.file = file
         self.config = config if config is not None else CvFlowConfig()
-        # cv2 cannot resize an image sequence on read, so ``size`` (the
-        # webcam's --size) leaves its frames as they are, as in the JAX
-        # package
+        # the capture's requested size (a camera's --size); cv2 cannot
+        # resize an image sequence or a file on read, so those keep theirs
         self.size = size
         self.capture = None
         self._primed = False
 
     def _open_reader(self):
-        self.capture = open_sequence(self.file)
+        self.capture = open_sequence(self.file, self.size)
         self.width = self.capture.width
         self.height = self.capture.height
         self.framerate = float(self.capture.framerate)
         # N frames give N-1 flow steps; a single image has no length
         self.base_length = (None if self.capture.count is None
                             else self.capture.count - 1)
+        self.config.start()
 
     def _decode(self) -> np.ndarray:
         gray = self.config.method != "liteflownet"
@@ -138,12 +144,18 @@ class CvFlowSource(FlowSource):
             frame = resize_nearest(frame, self.width, self.height)
         return frame
 
+    # beyond this many frames, seek the container to the frame instead of
+    # decoding the prefix again (a video's rewind is O(n) otherwise)
+    FAST_SEEK_THRESHOLD = 300
+
     def _rewind_reader(self, frame_index: int):
         """Reposition so the PREVIOUS frame is frame_index (estimation pairs
         frames i and i+1); the next read yields a priming frame."""
         if self.capture is None:
             return
-        self.capture.pos = frame_index
+        if not (frame_index > self.FAST_SEEK_THRESHOLD
+                and self.capture.seek_frame(frame_index)):
+            self.capture.pos = frame_index
         self._primed = False
 
     def _read_item(self) -> FlowItem:
@@ -154,3 +166,7 @@ class CvFlowSource(FlowSource):
             prime = self._decode()
             self._primed = True
         return FlowItem(FlowItem.FRAME, self._decode(), prime=prime)
+
+    def _close_reader(self):
+        if self.capture is not None:
+            self.capture.close()

@@ -5,8 +5,8 @@ blurs of Farneback's pyramid (and their reflect-101 mode, Horn-Schunck's
 pre-blur), the 2-D correlation of Horn-Schunck's stencils, the pyramid
 reduce of Lucas-Kanade, the anti-aliased resize that
 ``jax.image.resize(..., "linear")`` is, bilinear resize with torch's own
-semantics (LiteFlowNet), the integer-factor flow upscale, and the
-clamped-anchor bilinear sampler. Every function keeps the JAX function's
+semantics (LiteFlowNet), the integer-factor flow upscale, the
+clamped-anchor bilinear sampler, and the luma of the realtime tool. Every function keeps the JAX function's
 name and its (H, W[, C]) layout.
 """
 import contextlib
@@ -175,6 +175,14 @@ def gaussian_blur(image: torch.Tensor, sigma: float,
     k = gaussian_kernel_1d(sigma, radius)
     tmp = separable_correlate(image, k, axis=0)
     return separable_correlate(tmp, k, axis=1)
+
+
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (...) uint8 BT.601 luma: ``0.299 R + 0.587 G
+    + 0.114 B`` in float32, rounded half to even."""
+    rgb = rgb.to(torch.float32)
+    gray = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    return torch.round(gray).to(torch.uint8)
 
 
 def clip_to_frame(flow: torch.Tensor) -> torch.Tensor:

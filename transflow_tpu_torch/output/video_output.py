@@ -1,15 +1,11 @@
 """Output router + base class.
 
-Counterpart of transflow_tpu/output/video_output.py, the same routing: a
-'%d' template -> image sequence (``frames.py``), another path -> encoded
-video file (``encoded.py``: the libav shim's encoder, else an ``ffmpeg``
-binary). The preview window (path None) and the MJPEG server
-('mjpeg[:port[:host]]') need codecs or a display the port does not have
-yet: they raise, naming ROADMAP Queue 1 item 14.2.
+Counterpart of transflow_tpu/output/video_output.py, the same routing:
+path None -> the preview window (``window.py``), 'mjpeg[:port[:host]]' ->
+the MJPEG server (``mjpeg.py``), a '%d' template -> image sequence
+(``frames.py``), another path -> encoded video file (``encoded.py``).
 """
 import re
-
-from ..utils.imageio import CODECS_NOT_PORTED
 
 _MJPEG_RE = re.compile(r"^mjpeg(:\d+(:[a-z0-9.\-]+)?)?$", re.IGNORECASE)
 
@@ -49,11 +45,17 @@ class VideoOutput:
                   replace: bool = False,
                   initial_counter: int = 0) -> "VideoOutput":
         if path is None:
-            raise NotImplementedError(
-                f"the preview window (no -o, or -O) is {CODECS_NOT_PORTED}")
+            from .window import WindowOutput
+            return WindowOutput(width, height, framerate)
         if _MJPEG_RE.match(path):
-            raise NotImplementedError(
-                f"the MJPEG output {path!r} is {CODECS_NOT_PORTED}")
+            from .mjpeg import MjpegOutput
+            port, host = 8080, None
+            parts = path.split(":")
+            if len(parts) >= 2:
+                port = int(parts[1])
+            if len(parts) >= 3:
+                host = parts[2]
+            return MjpegOutput(width, height, framerate, port=port, host=host)
         if re.search(r"%\d*d", path):
             from .frames import FramesOutput
             return FramesOutput(path, width, height, framerate,

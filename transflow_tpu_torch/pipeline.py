@@ -21,8 +21,11 @@ config export, cancel and status queue. Where they differ:
   timestamps and frame numbers are those of the same frames one by one.
 * ``--mesh N`` on the CPU shards over N views of the CPU
   (``SpaceMesh(["cpu"] * N)``); on the card over the first N cards.
-* The preview window and the MJPEG output are not ported
-  (``output/video_output.py`` raises).
+* A preview window (no ``-o``, or ``-O``) opens on the main thread, as
+  cv2's HighGUI needs, and the main thread feeds it each frame once the
+  frame's copy to the host is done: a host sync a frame, which only a
+  window adds. A window keeps the render per frame, as in the JAX
+  package.
 """
 import dataclasses
 import itertools
@@ -292,6 +295,7 @@ class Pipeline:
         self.pixmap_sources: list[PixmapSource] = []
         self.pixmap_threads: list[Optional[_SourceThread]] = []
         self.output_threads: list[_OutputThread] = []
+        self.window_outputs: list = []  # fed on the main thread (cv2 GUI)
         self.readback: _ReadbackThread | None = None
         self.flow_output: NumpyArchiveOutput | None = None
         self.engine: Engine | None = None
@@ -374,6 +378,13 @@ class Pipeline:
             item = (event, host_frames.numpy(),
                     None if host_flows is None else host_flows.numpy())
         self.readback.feed(item)
+        if self.window_outputs:
+            if item[0] is not None:
+                with self.timers.stage("readback"):
+                    item[0].synchronize()
+            for frame in item[1]:
+                for window in self.window_outputs:
+                    window.feed(frame)
 
     # ------------------------------------------------------------------
     # setup
@@ -634,6 +645,13 @@ class Pipeline:
                     output.output_path).with_suffix(".config.json")
                 with config_path.open("w") as file:
                     json.dump(self.config.todict(), file)
+            from .output.window import WindowOutput
+            if isinstance(output, WindowOutput):
+                # cv2's HighGUI runs on the main thread: opened here, fed
+                # by _read_back
+                output.open()
+                self.window_outputs.append(output)
+                continue
             thread = _OutputThread(output, self.timers)
             thread.start()
             self.output_threads.append(thread)
@@ -723,7 +741,9 @@ class Pipeline:
     @property
     def _batch_size(self) -> int:
         """Frames per ``Engine.process_chunk`` call. Chunks need no lock
-        expression, no stream (webcam) source and no tuning window; any mix
+        expression, no stream (webcam) source, no tuning window and no
+        preview window (a chunk of K frames would add K frames of
+        latency); any mix
         of frame and flow sources and of still and video pixmaps chunks.
         ``--batch-frames 1`` forces the per-frame loop, ``--batch-frames
         K`` picks the chunk size; chunked output is bit-equal to per-frame
@@ -741,6 +761,8 @@ class Pipeline:
             if getattr(getattr(source, "config", None), "show_window",
                        False):
                 return 1
+        if self.window_outputs:
+            return 1
         return batch
 
     def _stack_pixmap_chunks(self, count: int):
@@ -946,6 +968,11 @@ class Pipeline:
                 thread.finish()
             except Exception:  # noqa: BLE001 — run() raised already
                 logger.exception("%s thread failed at close", thread.name)
+        for window in self.window_outputs:
+            try:
+                window.close()
+            except Exception:  # noqa: BLE001
+                logger.exception("Window close failed")
 
         # join each decode thread BEFORE closing its source: a thread still
         # reading when its source closes would report a spurious failure

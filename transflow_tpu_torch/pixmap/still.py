@@ -179,7 +179,9 @@ class VideoStillPixmapSource(ImagePixmapSource):
 
     def _init_array(self):
         from ..utils.imageio import open_sequence
-        frame = open_sequence(self.path).read()
+        sequence = open_sequence(self.path)
+        frame = sequence.read()
+        sequence.close()
         if frame is None:
             raise ValueError(
                 f"Could not read first frame of {self.path!r}")

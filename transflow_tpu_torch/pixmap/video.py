@@ -1,11 +1,13 @@
-"""Video pixmap source: an image sequence read frame by frame, with seek,
-repeat and alteration.
+"""Video pixmap source: an image sequence or a video file read frame by
+frame, with seek, repeat and alteration.
 
-Counterpart of transflow_tpu/pixmap/video.py. Where the JAX source decodes
-with ``cv2.VideoCapture``, this one reads through ``utils/imageio.py``
-with the same frame count, frame rate and pixels; a video file raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 14.2.
+Counterpart of transflow_tpu/pixmap/video.py. It reads through
+``utils/imageio.py``: an image sequence in numpy (the frame count, frame
+rate and pixels of ``cv2.VideoCapture``), a video file through
+``cv2.VideoCapture`` itself, as the JAX source does.
 """
+import warnings
+
 import numpy as np
 
 from ..utils.imageio import open_sequence
@@ -30,6 +32,7 @@ class VideoPixmapSource(PixmapSource):
         return False
 
     def rewind(self):
+        """Back to the first frame, then ``seek`` frames on."""
         assert self.capture is not None
         self.capture.pos = 0 if self.seek is None else self.seek
 
@@ -38,7 +41,7 @@ class VideoPixmapSource(PixmapSource):
         self.capture = open_sequence(self.path)
         self.width = self.capture.width
         self.height = self.capture.height
-        self.framerate = round(self.capture.framerate)
+        self.framerate = round(self.capture.fps)
         frame_count = self.capture.count or 0
         if self.repeat > 0 and frame_count > 0:
             self.length = frame_count * self.repeat
@@ -51,6 +54,9 @@ class VideoPixmapSource(PixmapSource):
 
     def __next__(self) -> np.ndarray:
         assert self.capture is not None
+        if not self.capture.is_opened():
+            warnings.warn("Pixmap capture is not opened")
+            raise StopIteration
         while True:
             frame = self.capture.read()
             if frame is not None:
@@ -63,4 +69,5 @@ class VideoPixmapSource(PixmapSource):
         return self.alter(frame)  # a fresh array per read
 
     def close(self):
-        self.capture = None
+        if self.capture is not None:
+            self.capture.close()

@@ -40,13 +40,14 @@ def decode_all(path: str) -> tuple[np.ndarray, float]:
 
 
 def load_pixmap(path: str, h: int, w: int) -> np.ndarray:
-    """An image as (h, w, 3) RGB uint8. The JAX tool resizes a pixmap of
-    another size with cv2; the port has no such resize and raises."""
+    """An image as (h, w, 3) RGB uint8; one of another size is resized by
+    ``cv2.resize`` (bilinear), as the JAX tool resizes it."""
     from ..utils.imageio import imread, to_rgb
+    from ..utils.misc import require
     image = to_rgb(imread(path))
     if image.shape[:2] != (h, w):
-        raise ValueError(f"pixmap {path!r} is {image.shape[1]}x"
-                         f"{image.shape[0]}, the frames {w}x{h}")
+        cv2 = require("cv2", f"resizing the pixmap {path!r} to {w}x{h}")
+        image = cv2.resize(np.ascontiguousarray(image), (w, h))
     return image
 
 

@@ -5,7 +5,8 @@ Counterpart of extra/control.py over the port: ``ControlSession`` reads a
 both engines write), tells which source pixel each output pixel samples,
 paints colors onto the source so the advected output is controlled, and
 exports the painting as an alteration PNG (``--alteration``). The window
-is cv2's and raises; ``--silent`` exports the (empty) alteration.
+is cv2's and needs a display; ``--silent`` (or no ``DISPLAY``) exports
+the (empty) alteration.
 
 Usage:
   python -m transflow_tpu_torch.tools.control out/%04d_00023.ckpt.zip \\
@@ -20,7 +21,7 @@ import zipfile
 import numpy as np
 
 from ..utils.colors import parse_color
-from ..utils.imageio import CODECS_NOT_PORTED
+from ..utils.misc import require
 
 
 class ControlSession:
@@ -97,9 +98,39 @@ class ControlSession:
 
 
 def run_window(session: ControlSession, export_path: str):
-    """extra/control.py's cv2 window: raises."""
-    raise NotImplementedError(
-        f"the alteration editor's window is cv2's, {CODECS_NOT_PORTED}")
+    """The editor's window until q or ESC: left button paints, right
+    erases; c cycles the color, r resets, s exports to ``export_path``."""
+    cv2 = require("cv2", "the alteration editor's window")
+    state = {"color": (255, 0, 0), "down": None}
+    window = "transflow-tpu control"
+
+    def on_mouse(event, x, y, flags, param):
+        if event == cv2.EVENT_LBUTTONDOWN or (
+                flags & cv2.EVENT_FLAG_LBUTTON):
+            session.paint(y, x, state["color"], radius=2)
+        elif event == cv2.EVENT_RBUTTONDOWN or (
+                flags & cv2.EVENT_FLAG_RBUTTON):
+            session.erase(y, x, radius=2)
+
+    cv2.namedWindow(window, cv2.WINDOW_AUTOSIZE)
+    cv2.setMouseCallback(window, on_mouse)
+    palette = [(255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 0),
+               (255, 0, 255), (0, 255, 255), (255, 255, 255), (0, 0, 0)]
+    color_idx = 0
+    while True:
+        frame = session.preview()
+        cv2.imshow(window, cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+        key = cv2.waitKey(30) & 0xFF
+        if key in (27, ord("q")):
+            break
+        if key == ord("c"):
+            color_idx = (color_idx + 1) % len(palette)
+            state["color"] = palette[color_idx]
+        if key == ord("r"):
+            session.reset()
+        if key == ord("s"):
+            print("exported", session.export(export_path))
+    cv2.destroyWindow(window)
 
 
 def main(argv=None):

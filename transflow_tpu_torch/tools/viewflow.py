@@ -4,8 +4,8 @@ statistics.
 Counterpart of extra/viewflow.py over the port. The render mode runs the
 port's CLI with ``--view-flow`` (or ``--view-flow-magnitude``), so the
 flow renderers run on the card; ``--stats`` prints a line of magnitudes a
-frame through the port's ``FlowSource``. ``--play`` is a cv2 window and
-raises.
+frame through the port's ``FlowSource``; ``--play`` opens the
+frame-by-frame player (``viewflow_player.py``, a cv2 window).
 
 Usage:
   python -m transflow_tpu_torch.tools.viewflow video.flow.zip -o out/%04d.ppm
@@ -58,14 +58,15 @@ def main(argv=None, device=None):
                         "rendering")
     parser.add_argument("--play", action="store_true",
                         help="interactive frame-by-frame inspector (a cv2 "
-                        "window: not ported)")
+                        "window)")
     parser.add_argument("--arrow-step", type=int, default=24,
                         help="arrow overlay grid pitch (--play)")
     args = parser.parse_args(argv)
 
     if args.play:
         from .viewflow_player import run_player
-        return run_player(args.source, arrow_step=args.arrow_step)
+        return run_player(args.source, arrow_step=args.arrow_step,
+                          device=device)
     if args.stats:
         print_stats(args.source)
         return None

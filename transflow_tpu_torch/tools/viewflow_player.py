@@ -1,21 +1,33 @@
-"""Flow clip inspection: the frame-by-frame player's pure helpers and its
+"""Interactive flow inspector (a cv2 window), its pure helpers and its
 clip of (frame, flow) pairs.
 
-Counterpart of extra/viewflow_player.py over the port. ``magnitude_image``,
-``arrow_segments``, ``reconstruct`` and ``hud_lines`` are its numpy
-helpers, copied. ``FlowClip`` reads a ``.flow.zip`` through the port's
-``FlowSource`` or an image sequence through ``utils/imageio.py``, and
-estimates a pair's flow with the port's Farneback on its device (the card
-by default). The player itself, ``run_player``, is a cv2 window and
-raises, as does a video file (both need ROADMAP item 14.2).
+Counterpart of extra/viewflow_player.py over the port: step through a
+video or a ``.flow.zip`` frame by frame, look at the source frame, the
+destination frame or the source reconstructed through the flow, overlay
+the flow as an arrow grid or a magnitude heat map, zoom, and read the flow
+vector under the mouse cursor. ``magnitude_image``, ``arrow_segments``,
+``reconstruct`` and ``hud_lines`` are its numpy helpers, copied.
+``FlowClip`` reads a ``.flow.zip`` through the port's ``FlowSource``, or a
+video or an image sequence through ``utils/imageio.py``, and estimates a
+pair's flow with the port's Farneback on its device (the card by
+default). ``run_player`` needs cv2 and a display.
 
-Usage (the clip from Python; the window is not ported):
+Keys:
+  a / d      previous / next frame        space     play / pause
+  1 / 2 / 3  source / destination / reconstructed view
+  f          toggle arrow overlay         m         toggle magnitude overlay
+  + / -      zoom in / out                q or ESC  quit
+
+Usage:
+  python -m transflow_tpu_torch.tools.viewflow_player video.mp4
   from transflow_tpu_torch.tools.viewflow_player import FlowClip
   FlowClip("frames/%04d.pgm").flow(0)
 """
+import sys
+
 import numpy as np
 
-from ..utils.imageio import CODECS_NOT_PORTED
+from ..utils.misc import require
 
 # magnitude heat colors (dark blue -> red), matching the reference's
 # compute_magnitude lerp (player.py:91-97)
@@ -87,8 +99,8 @@ def hud_lines(index: int, total, framerate: float, flow: np.ndarray,
 
 
 class FlowClip:
-    """Random-access (frame, flow) pairs from a ``.flow.zip`` or an image
-    sequence. ``device``: where ``flow`` estimates a sequence's pairs, the
+    """Random-access (frame, flow) pairs from a ``.flow.zip``, a video or
+    an image sequence. ``device``: where ``flow`` estimates a sequence's pairs, the
     current CUDA device by default."""
 
     def __init__(self, path: str, device=None):
@@ -112,6 +124,7 @@ class FlowClip:
             self.framerate = sequence.framerate
             while (frame := sequence.read()) is not None:
                 self._frames.append(frame)
+            sequence.close()
             if len(self._frames) < 2:
                 raise ValueError("need at least 2 frames")
             self.height, self.width = self._frames[0].shape[:2]
@@ -143,7 +156,71 @@ class FlowClip:
         return self._flows[index]
 
 
-def run_player(path: str, arrow_step: int = 24):
-    """extra/viewflow_player.py's cv2 window: raises."""
-    raise NotImplementedError(
-        f"the flow player is a cv2 window, {CODECS_NOT_PORTED}")
+def run_player(path: str, arrow_step: int = 24, device=None):
+    """The player's window over ``path`` until q or ESC; ``device`` as
+    ``FlowClip``'s."""
+    cv2 = require("cv2", "the flow player")
+    clip = FlowClip(path, device=device)
+    index, view, playing = 0, "reconstructed", False
+    show_arrows, show_magnitude, zoom = True, False, 1.0
+    cursor = [None]
+    window = "viewflow"
+    cv2.namedWindow(window, cv2.WINDOW_AUTOSIZE)
+
+    def on_mouse(event, x, y, *_):
+        cursor[0] = (int(x / zoom), int(y / zoom))
+
+    cv2.setMouseCallback(window, on_mouse)
+    while True:
+        index = max(0, min(index, len(clip) - 1))
+        flow = clip.flow(index)
+        if view == "source":
+            image = clip.frame(index).copy()
+        elif view == "destination":
+            image = clip.frame(index + 1).copy()
+        else:
+            image = reconstruct(clip.frame(index), flow)
+        if show_magnitude:
+            image = magnitude_image(flow)
+        if show_arrows:
+            for start, end in arrow_segments(flow, arrow_step):
+                cv2.arrowedLine(image, start, end, (255, 255, 0), 1,
+                                tipLength=0.3)
+        for k, line in enumerate(hud_lines(index, len(clip), clip.framerate,
+                                           flow, view, cursor[0])):
+            cv2.putText(image, line, (8, 18 + 16 * k),
+                        cv2.FONT_HERSHEY_SIMPLEX, 0.45, (0, 255, 0), 1)
+        if zoom != 1.0:
+            image = cv2.resize(image, None, fx=zoom, fy=zoom,
+                               interpolation=cv2.INTER_NEAREST)
+        cv2.imshow(window, cv2.cvtColor(image, cv2.COLOR_RGB2BGR))
+        key = cv2.waitKey(40 if playing else 0) & 0xFF
+        if key in (27, ord("q")):
+            break
+        elif key == ord("d") or (playing and key == 255):
+            index += 1
+            if index >= len(clip):
+                index, playing = len(clip) - 1, False
+        elif key == ord("a"):
+            index -= 1
+        elif key == ord(" "):
+            playing = not playing
+        elif key == ord("1"):
+            view = "source"
+        elif key == ord("2"):
+            view = "destination"
+        elif key == ord("3"):
+            view = "reconstructed"
+        elif key == ord("f"):
+            show_arrows = not show_arrows
+        elif key == ord("m"):
+            show_magnitude = not show_magnitude
+        elif key in (ord("+"), ord("=")):
+            zoom = min(8.0, zoom * 2)
+        elif key == ord("-"):
+            zoom = max(0.25, zoom / 2)
+    cv2.destroyWindow(window)
+
+
+if __name__ == "__main__":
+    run_player(sys.argv[1])

@@ -1,6 +1,6 @@
-"""Image reading and writing of the port: what the JAX package asks of cv2
-and PIL on the render path (``flow/sources/cv.py``, ``pixmap/``,
-``output/frames.py``, ``pipeline.py``), with no codec.
+"""Image and video reading and writing of the port: what the JAX package
+asks of cv2 and PIL on the render path (``flow/sources/cv.py``,
+``pixmap/``, ``output/frames.py``, ``pipeline.py``).
 
 - Binary PGM (P5) and PPM (P6) at maxval 255 are read and written in
   numpy; other netpbm forms raise.
@@ -15,16 +15,18 @@ and PIL on the render path (``flow/sources/cv.py``, ``pixmap/``,
   ``resize_nearest`` is ``cv2.resize(..., INTER_NEAREST)`` as an index
   map.
 
-Video containers, cameras and streams need codecs: they raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 14.2.
+Video containers, camera indexes (all digits) and streams open through
+``cv2.VideoCapture`` (``VideoSequence``), as the JAX package opens them;
+cv2 is imported there, and where it is missing the open raises an
+``ImportError`` that names it.
 """
 import os
 import re
 
 import numpy as np
 
-CODECS_NOT_PORTED = ("not ported yet: ROADMAP Queue 1, item 14.2 (codecs, "
-                     "window, MJPEG)")
+from .misc import require
+
 NETPBM_EXTS = {".pgm", ".ppm", ".pnm"}
 # still-image extensions read by PIL (also the pixmap router's)
 PIL_EXTS = {".jpg", ".jpeg", ".png", ".webp", ".bmp", ".ico", ".tiff"}
@@ -181,11 +183,12 @@ class ImageSequence:
     ``width`` and ``height`` of the first frame, and a settable position
     ``pos`` (the next frame read)."""
 
-    framerate = SEQUENCE_FPS
+    fps = framerate = SEQUENCE_FPS
 
     def __init__(self, path: str):
         self.path = path
         self.pos = 0
+        self._closed = False
         self.first = 0
         self.count: int | None = None
         if _PATTERN_RE.search(path):
@@ -217,12 +220,90 @@ class ImageSequence:
         self.pos += 1
         return to_gray(image) if gray else to_rgb(image)
 
+    def seek_frame(self, index: int) -> bool:
+        """Set ``pos`` to ``index`` (always lands)."""
+        self.pos = index
+        return True
 
-def open_sequence(path: str) -> ImageSequence:
-    """An ``ImageSequence`` over ``path`` (a printf pattern, or a file with
-    an image extension); a video container, a camera index or a stream
-    raises ``NotImplementedError``."""
-    if not (_PATTERN_RE.search(path) or _ext(path) in IMAGE_EXTS):
-        raise NotImplementedError(
-            f"{path!r} needs a video decoder, which is {CODECS_NOT_PORTED}")
-    return ImageSequence(path)
+    def is_opened(self) -> bool:
+        return not self._closed
+
+    def close(self) -> None:
+        self._closed = True
+
+
+class VideoSequence:
+    """A video file, a camera (``path`` all digits: its index) or a stream
+    read through ``cv2.VideoCapture``, with ``ImageSequence``'s interface:
+    ``count`` is ``CAP_PROP_FRAME_COUNT`` (-1 or 0 for a camera),
+    ``framerate`` ``CAP_PROP_FPS`` or 30 (``fps`` the reported value),
+    ``width`` and ``height`` the capture's after a ``size`` request, and
+    ``pos`` the frames read since the last rewind. Setting ``pos``
+    rewinds as the JAX sources do: ``CAP_PROP_POS_MSEC`` to 0, then that
+    many frames read and dropped."""
+
+    def __init__(self, path: str, size: tuple[int, int] | None = None):
+        cv2 = require("cv2", f"reading the video {path!r}")
+        self.path = path
+        self._cv2 = cv2
+        self.capture = cv2.VideoCapture(
+            int(path) if re.fullmatch(r"\d+", path) else path)
+        if not self.capture.isOpened():
+            raise FileNotFoundError(f"Could not open the video {path!r}")
+        if size is not None:
+            self.capture.set(cv2.CAP_PROP_FRAME_WIDTH, size[0])
+            self.capture.set(cv2.CAP_PROP_FRAME_HEIGHT, size[1])
+        self.width = int(self.capture.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.height = int(self.capture.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        self.fps = float(self.capture.get(cv2.CAP_PROP_FPS))
+        self.framerate = self.fps or 30.0
+        self.count = int(self.capture.get(cv2.CAP_PROP_FRAME_COUNT))
+        self._pos = 0
+
+    @property
+    def pos(self) -> int:
+        return self._pos
+
+    @pos.setter
+    def pos(self, index: int) -> None:
+        self.capture.set(self._cv2.CAP_PROP_POS_MSEC, 0)
+        for _ in range(index):
+            self.capture.read()
+        self._pos = index
+
+    def seek_frame(self, index: int) -> bool:
+        """Seek the container to frame ``index`` (``CAP_PROP_POS_FRAMES``);
+        False where the capture reports another position after it."""
+        cv2 = self._cv2
+        self.capture.set(cv2.CAP_PROP_POS_FRAMES, index)
+        if int(self.capture.get(cv2.CAP_PROP_POS_FRAMES)) != index:
+            return False
+        self._pos = index
+        return True
+
+    def read(self, gray: bool = False) -> np.ndarray | None:
+        """The next frame as (H, W) gray or (H, W, 3) RGB, converted from
+        the decoded BGR by ``cv2.cvtColor``, or None at the end."""
+        success, frame = self.capture.read()
+        if not success or frame is None:
+            return None
+        self._pos += 1
+        cv2 = self._cv2
+        return cv2.cvtColor(
+            frame, cv2.COLOR_BGR2GRAY if gray else cv2.COLOR_BGR2RGB)
+
+    def is_opened(self) -> bool:
+        return self.capture.isOpened()
+
+    def close(self) -> None:
+        self.capture.release()
+
+
+def open_sequence(path: str, size: tuple[int, int] | None = None
+                  ) -> "ImageSequence | VideoSequence":
+    """An ``ImageSequence`` over ``path`` where it is a printf pattern or a
+    file with an image extension; else a ``VideoSequence`` (a video file,
+    a camera index or a stream), which asks ``size`` of the capture."""
+    if _PATTERN_RE.search(path) or _ext(path) in IMAGE_EXTS:
+        return ImageSequence(path)
+    return VideoSequence(path, size)

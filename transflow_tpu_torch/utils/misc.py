@@ -1,5 +1,7 @@
 """Host-side helpers: paths, timestamps, sizes, file opening.
-Counterpart of transflow_tpu/utils/misc.py, the same functions."""
+Counterpart of transflow_tpu/utils/misc.py, the same functions, and
+``require``, the port's import of a library a route needs."""
+import importlib
 import logging
 import os
 import re
@@ -9,6 +11,17 @@ import warnings
 
 _TS_RE = re.compile(r"(\d\d):(\d\d):(\d\d)(?:\.(\d\d\d))?")
 _SUFFIX_RE = re.compile(r".*\.(\d{3})$")
+
+
+def require(module: str, what: str):
+    """The module ``module``, or an ``ImportError`` that names its library
+    and says ``what`` needs it: the port imports cv2, aiohttp, websockets
+    and tkinter only where a route runs."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as err:
+        raise ImportError(f"{what} needs {module.split('.')[0]}, which does "
+                          f"not load here: {err}") from err
 
 
 def find_unique_path(path: str) -> str:
