@@ -138,6 +138,18 @@ G. live tuning, video input, the MJPEG preview and the GUI. G1, on every
    frames. Where a library is missing the route prints ``G2: absent:
    <the import error>`` (or ``G3: ...``) and the run goes on; a route
    whose libraries load and then fails fails the run;
+K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
+   this process, cut to 4 chunks of 16 frames a sample, 3 samples and a
+   24-frame clip: the flagship's frames/s (Farneback at cv2's defaults,
+   random reset 0.01, 1080x1920), its stage split, LiteFlowNet at
+   1088x1920, the ``fastest`` preset and the CLI disk to disk over a cv2
+   MJPG clip (still pixmap, video pixmap, ``.flow.zip`` replay), the
+   record printed as its own JSON line; it must hold every field, B1/B2a/
+   B2b launches of 4/12/12 and A1/A3 of 5/0 a frame, 0 host syncs a
+   frame and this card's name and power limit; then 3 cases of the chunk
+   fuzzer (``tools/fuzz_chunks.py``, seed 5) on the card at 96x128, each
+   chunked render bit-equal to the per-frame one and each resumed tail
+   to the run;
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches;
@@ -232,7 +244,8 @@ B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
    version on the same inputs, with ``device_ms``, the bound, its share
    and the plain version's time.
 
-The main path (phases F, P, T, H, V, S, M, G and 3-5) runs right after the build:
+The main path (phases F, P, T, H, V, S, M, G, K and 3-5) runs right after
+the build:
 the kernel phases' timing loops, plain versions and profiler come after
 every timed run of it, so they cannot reach those timings.
 
@@ -967,29 +980,13 @@ def gray_frames(n: int, height: int, width: int, device) -> torch.Tensor:
                          step=FB_PAN)[..., 0].contiguous()
 
 
-def fb_per_frame(config, height: int, width: int) -> tuple[int, int, int]:
-    """(B1, B2a, B2b) launches per frame of a Farneback config at H x W:
-    1 per level (both images), and ``iterations`` each per level (the
-    estimator's level rule: sizes rounded, levels kept while above the
-    poly_n window)."""
-    kw = config.estimator_kwargs()
-    h = int(round(height / kw["downscale"]))
-    w = int(round(width / kw["downscale"]))
-    levels = 0
-    for k in range(kw["levels"] + 1):
-        scale = kw["pyr_scale"] ** k
-        if min(int(round(h * scale)), int(round(w * scale))) \
-                <= 2 * kw["poly_n"] + 1:
-            break
-        levels += 1
-    return (levels, kw["iterations"] * levels, kw["iterations"] * levels)
-
-
 def phase_farneback_engine(device, card: str) -> dict:
     """The 1080p Engine over CvFlowConfig() (the main path: the headline
     command's estimator), then over the fast, fastest and select-warp
     settings and over CvFlowConfig() again, on the same frames; returns the
     runs by name."""
+    from transflow_tpu_torch.flow.estimators.farneback import \
+        launches_per_frame
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
     configs = Path(__file__).resolve().parent / "assets" / "configs"
     settings = {"CvFlowConfig()": CvFlowConfig(),
@@ -1008,7 +1005,8 @@ def phase_farneback_engine(device, card: str) -> dict:
     runs = {}
     for name, config in settings.items():
         run = run_engine(device, frames, pixmap, config)
-        per_frame = fb_per_frame(config, HEIGHT, WIDTH)
+        per_frame = launches_per_frame(HEIGHT, WIDTH,
+                                       **config.estimator_kwargs())
         default = name.startswith("CvFlowConfig()")
         if default and per_frame != FB_DEFAULT_PER_FRAME:
             raise AssertionError(f"CvFlowConfig() gives {per_frame} B1, B2a, "
@@ -2719,6 +2717,92 @@ def phase_live(device, card: str) -> dict:
     return result
 
 
+K_CHUNKS_PER_SAMPLE = 4  # the bench's chained chunks a sample (32 in full)
+K_REPEATS = 3            # its steady-state samples (15 in full)
+K_E2E_FRAMES = 24        # its --e2e clip's frames (96 in full)
+K_FUZZ_CASES = 3
+K_FUZZ_SEED = 5          # the CPU tests' cases: a video source with a
+#                          checkpoint cadence, the archive with one, a lock
+K_FUZZ_SIZE = (96, 128)
+K_LFN_PER_FRAME = (5, 0)  # A1, A3 launches a LiteFlowNet frame at bound 0
+K_FIELDS = ("metric", "value", "unit", "vs_baseline", "ms_per_frame",
+            "best_fps", "noise_iqr_pct", "samples", "window_fps",
+            "stage_ms", "hbm_io_gbps",
+            "carry_state_mb", "cpu_reference_fps",
+            "liteflownet_1088p_ms_per_frame", "liteflownet_1088p_fps",
+            "fastest_preset", "e2e_fps_still_pixmap",
+            "e2e_fps_video_pixmap", "e2e_fps_archive_replay",
+            "launches_per_frame", "host_syncs_per_frame", "card")
+
+
+def phase_bench(device, card: str) -> dict:
+    """Phase K: the port's bench (``transflow_tpu_torch/bench.py``) in
+    this process with ``--e2e``, cut to K_CHUNKS_PER_SAMPLE chunks a
+    sample, K_REPEATS samples and K_E2E_FRAMES frames: its record (printed
+    on its own line) has every field, B1/B2a/B2b 4/12/12 and A1/A3 5/0
+    launches a frame, 0 host syncs a frame and this card; then
+    K_FUZZ_CASES cases of the chunk fuzzer on the card at K_FUZZ_SIZE,
+    each bit-equal chunked, per frame and resumed."""
+    from transflow_tpu_torch import bench
+    from transflow_tpu_torch.tools import fuzz_chunks
+    cuts = {"CHUNKS_PER_SAMPLE": K_CHUNKS_PER_SAMPLE, "REPEATS": K_REPEATS,
+            "E2E_FRAMES": K_E2E_FRAMES}
+    saved = {name: getattr(bench, name) for name in cuts}
+    for name, value in cuts.items():
+        setattr(bench, name, value)
+    start = time.perf_counter()
+    try:
+        record = bench.main(["--e2e"], device=device)
+    finally:
+        for name, value in saved.items():
+            setattr(bench, name, value)
+    seconds = time.perf_counter() - start
+    missing = [name for name in K_FIELDS if name not in record]
+    if missing:
+        raise AssertionError(f"K: the bench's record lacks {missing}")
+    if record["metric"] != "1080p_e2e_fps_flow_warp_composite" or not (
+            record["value"] > 0 and record["vs_baseline"] > 0):
+        raise AssertionError(f"K: bad headline {record['metric']} "
+                             f"{record['value']} {record['vs_baseline']}")
+    fb = record["launches_per_frame"]["flagship"]
+    lfn = record["launches_per_frame"]["liteflownet"]
+    if (fb["B1"], fb["B2a"], fb["B2b"]) != FB_DEFAULT_PER_FRAME or \
+            (lfn["A1"], lfn["A3"]) != K_LFN_PER_FRAME:
+        raise AssertionError(f"K: launches a frame {fb}, {lfn}; expected "
+                             f"{FB_DEFAULT_PER_FRAME} and A1/A3 "
+                             f"{K_LFN_PER_FRAME}")
+    if record["host_syncs_per_frame"] != 0:
+        raise AssertionError(f"K: {record['host_syncs_per_frame']} host "
+                             "syncs a frame")
+    if f"{record['card']['name']}, {record['card']['power_limit']}" != card:
+        raise AssertionError(f"K: the record's card {record['card']} is "
+                             f"not {card}")
+    print(f"K bench {bench.HEIGHT}x{bench.WIDTH} (chunks of {bench.CHUNK}, "
+          f"{K_CHUNKS_PER_SAMPLE} a sample, {K_REPEATS} samples after "
+          f"{record['warmup_samples']} warm-up): {record['value']:.2f} "
+          f"frames/s, {record['ms_per_frame']:.3f} ms/frame (median; "
+          f"{record['window_fps']:.2f} frames/s over the {record['samples']} "
+          f"samples' window), "
+          f"vs_baseline {record['vs_baseline']:.2f}; liteflownet "
+          f"{record['liteflownet_1088p_ms_per_frame']:.2f} ms/frame; "
+          f"fastest {record['fastest_preset']['ms_per_frame']:.3f} "
+          f"ms/frame; e2e over {K_E2E_FRAMES} frames still / video / "
+          f"replay {record['e2e_fps_still_pixmap']:.2f} / "
+          f"{record['e2e_fps_video_pixmap']:.2f} / "
+          f"{record['e2e_fps_archive_replay']:.2f} frames/s; the phase "
+          f"{seconds:.1f} s on {card}")
+    size = (fuzz_chunks.H, fuzz_chunks.W)
+    fuzz_chunks.H, fuzz_chunks.W = K_FUZZ_SIZE
+    try:
+        failures = fuzz_chunks.run(K_FUZZ_CASES, K_FUZZ_SEED, device=device)
+    finally:
+        fuzz_chunks.H, fuzz_chunks.W = size
+    if failures:
+        raise AssertionError(f"K: {failures} of {K_FUZZ_CASES} fuzzer cases "
+                             "differ")
+    return record
+
+
 def hs_bound_ms(kernel: str, h: int, w: int) -> tuple[float, str]:
     """B9's bound: two frames' bytes in, four float32 planes out; B10's a
     launch: the four planes and the flow in, the flow out; a copy-through
@@ -3427,30 +3511,16 @@ def _ms_text(ms: float | None) -> str:
 
 def host_syncs(run: dict, calls: int) -> float:
     """Host waits for the card per frame in the Engine of ``run`` over its
-    next ``calls`` frames (``torch.cuda.set_sync_debug_mode`` warns at
-    each). Prints the Python stack of each distinct place that waits."""
-    import traceback
-    import warnings
+    next ``calls`` frames (``profiling.host_sync_sites``). Prints the
+    Python stack of each distinct place that waits."""
+    from transflow_tpu_torch.profiling import host_sync_sites
     fno0 = run["next_fno"]
-    sites: list[str] = []
 
-    def show(message, *_args, **_kwargs):
-        if "synchroniz" in str(message):
-            stack = [f for f in traceback.extract_stack()[:-1]
-                     if not f.filename.endswith("warnings.py")]
-            sites.append("".join(traceback.format_list(stack[-6:])))
+    def steps():
+        for k in range(calls):
+            run["step"](fno0 + k)
 
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        sites.clear()  # a process's first switch to "warn" reports a wait
-        try:
-            for k in range(calls):
-                run["step"](fno0 + k)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    sites = host_sync_sites(steps)
     run["next_fno"] = fno0 + calls
     for site in dict.fromkeys(sites):
         print(f"host sync ({sites.count(site)} of {len(sites)}) at:\n"
@@ -3986,6 +4056,7 @@ def main() -> int:
     s_run = phase_streams(device, card)
     m_run = phase_multihost(device, card)
     phase_live(device, card)
+    phase_bench(device, card)
     slice_launches = phase_slice(device, card)
     engine_phase = phase_engine(device, card)
     mesh_run = phase_mesh_engine(device, card, engine_phase)

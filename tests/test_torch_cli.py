@@ -138,13 +138,24 @@ def test_module_entry_point_help_and_version():
 
 @pytest.mark.parametrize("action,error", [
     # the GUI's control channel needs websockets, blocked here
-    ("gui", (ImportError, "websockets")),
-    ("bench", (NotImplementedError, "item 9"))])
+    ("gui", (ImportError, "websockets"))])
 def test_unported_actions_raise(action, error, monkeypatch):
     monkeypatch.setitem(sys.modules, "websockets", None)
     with pytest.raises(error[0], match=error[1]):
         cli.main([action, "--gui-port", "0", "--gui-mjpeg-port", "0"],
                  device="cpu")
+
+
+def test_bench_action_runs_the_bench(monkeypatch):
+    """``bench`` calls the port's ``bench.main`` with no arguments and the
+    device, as the JAX CLI runs bench.py's ``main``, and returns its
+    record."""
+    from transflow_tpu_torch import bench
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda argv, device=None:
+                        calls.append((argv, device)) or {"value": 1.0})
+    assert cli.main(["bench"], device="cpu") == {"value": 1.0}
+    assert calls == [([], "cpu")]
 
 
 def test_gui_action_starts_the_server(monkeypatch):

@@ -620,10 +620,11 @@ def test_select_warp_quality():
                                       dict(fb_levels=5, fb_pyr_scale=0.7)],
                          ids=["defaults", "fast", "fastest", "deep"])
 def test_chip_smoke_launch_rule(settings, monkeypatch):
-    """chip_smoke's launches per frame of each kernel (``fb_per_frame``, the
-    count it asserts on the card) equal the calls the estimator makes, here
-    to the kernels' plain versions (B1: one call per level for both
-    images), and are 4, 12, 12 at 1080p defaults."""
+    """The estimator's launches per frame of each kernel
+    (``launches_per_frame``, the count chip_smoke and the bench assert on
+    the card) equal the calls the estimator makes, here to the kernels'
+    plain versions (B1: one call per level for both images), and are 4,
+    12, 12 at 1080p defaults."""
     import chip_smoke
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
     calls = {name: 0 for name in ("poly_expansion_pair", "update_equations",
@@ -638,10 +639,11 @@ def test_chip_smoke_launch_rule(settings, monkeypatch):
         monkeypatch.setattr(ops_fb, f"{name}_plain", counted)
     config = CvFlowConfig(**settings)
     a, b = shifted_pair(90, 160, dx=1, dy=1)
-    fb.farneback(torch.from_numpy(a), torch.from_numpy(b),
-                 **config.estimator_kwargs())
-    assert tuple(calls.values()) == chip_smoke.fb_per_frame(config, 90, 160)
-    assert chip_smoke.fb_per_frame(CvFlowConfig(), 1080, 1920) == \
+    kwargs = config.estimator_kwargs()
+    fb.farneback(torch.from_numpy(a), torch.from_numpy(b), **kwargs)
+    assert tuple(calls.values()) == fb.launches_per_frame(90, 160, **kwargs)
+    assert fb.launches_per_frame(1080, 1920,
+                                 **CvFlowConfig().estimator_kwargs()) == \
         chip_smoke.FB_DEFAULT_PER_FRAME == (4, 12, 12)
 
 

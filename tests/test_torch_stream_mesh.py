@@ -243,8 +243,9 @@ def test_batch_render_two_streams(tool_inputs, tmp_path, space, halo):
 
 
 def test_batch_render_mp4_and_cli(tool_inputs, tmp_path, monkeypatch):
-    """The tool's command line with its default MP4 outputs (the libav
-    writer): each file reopens with the streams' size and frame count."""
+    """The tool's command line with MP4 outputs named by ``--output`` (H.264
+    by the name's container, through the libav writer): each file reopens
+    with the streams' size and frame count."""
     from transflow_tpu_torch import av_native
     import transflow_tpu_torch.parallel.mesh as mesh_module
     if not av_native.is_available():
@@ -255,7 +256,8 @@ def test_batch_render_mp4_and_cli(tool_inputs, tmp_path, monkeypatch):
     monkeypatch.setattr(mesh_module, "make_mesh",
                         lambda: real(devices=["cpu"] * 2))
     tool.main([str(tmp_path / "out"), *[":".join(p) for p in pairs],
-               "--chunk", "3", "--reset", "random:0.05"])
+               "--chunk", "3", "--reset", "random:0.05",
+               "--output", "stream{stream:02d}.mp4"])
     for s in range(2):
         with av_native.MvReader(str(tmp_path / "out" / f"stream{s:02d}.mp4")
                                 ) as reader:
@@ -264,6 +266,15 @@ def test_batch_render_mp4_and_cli(tool_inputs, tmp_path, monkeypatch):
             while reader.next() is not None:
                 count += 1
         assert count == TOOL_FRAMES - 1
+
+
+@pytest.mark.parametrize("output,vcodec", [
+    ("stream{stream:02d}.avi", "mjpeg"), ("STREAM{stream:02d}.AVI", "mjpeg"),
+    ("stream{stream:02d}.mp4", "h264"), ("stream{stream:02d}.mkv", "h264")])
+def test_batch_render_codec_follows_output_name(output, vcodec):
+    """An ``.avi`` output is written in MJPG, as the JAX tool writes it;
+    any other container in H.264."""
+    assert tool.output_vcodec(output) == vcodec
 
 
 def test_batch_render_stream_count_must_fit_mesh(tool_inputs, tmp_path):

@@ -442,3 +442,185 @@ def test_control_window_matches_extra(cli_checkpoint, tmp_path,
     for image, jimage in zip(got[0], want[0]):
         np.testing.assert_array_equal(image, jimage)
     np.testing.assert_array_equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# the batch renderer's default files
+# ---------------------------------------------------------------------------
+
+# the CLI tests' bar on frames against the JAX CLI
+# (tests/test_torch_pipeline.py): at most 1 % of pixels differ
+FRAME_SHARE = 0.01
+BATCH_H, BATCH_W, BATCH_FRAMES = 32, 48, 9
+
+
+def _read_video(path):
+    """(fourcc, the frames as cv2 decodes them) of a video file."""
+    import cv2
+    capture = cv2.VideoCapture(path)
+    fourcc = int(capture.get(cv2.CAP_PROP_FOURCC))
+    frames = []
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            break
+        frames.append(frame)
+    capture.release()
+    return fourcc.to_bytes(4, "little").decode(), np.stack(frames)
+
+
+def test_batch_render_default_files_match_extra(tmp_path, monkeypatch):
+    """Two MJPG clips through the port's batch renderer with its default
+    output and through extra/batch_render.py (JAX on the virtual 8-device
+    CPU mesh): the same file names, ``.avi`` files in MJPG with the same
+    frame count, and frames within the CLI tests' bar. The port's encoder
+    chain is taken to its cv2 rung, ``cv2.VideoWriter`` as the JAX tool
+    calls it (the card's machine has no native IO library; here that rung
+    would open first, with its own JPEG quality)."""
+    import cv2
+    from transflow_tpu_torch import native
+    from transflow_tpu_torch.parallel.mesh import make_mesh
+    monkeypatch.setattr(native, "is_available", lambda: False)
+    from transflow_tpu_torch.tools import batch_render
+    import batch_render as jbatch
+    rng = np.random.default_rng(4)
+    pairs = []
+    for s, pan in enumerate((2, -1)):
+        canvas = rng.integers(0, 256, (BATCH_H + 20, BATCH_W + 20),
+                              dtype=np.uint8)
+        clip = str(tmp_path / f"clip{s}.avi")
+        writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 10.0,
+                                 (BATCH_W, BATCH_H))
+        for i in range(BATCH_FRAMES):
+            o = i * pan if pan > 0 else (BATCH_FRAMES - i) * -pan
+            writer.write(cv2.cvtColor(
+                np.ascontiguousarray(canvas[o:o + BATCH_H, o:o + BATCH_W]),
+                cv2.COLOR_GRAY2BGR))
+        writer.release()
+        pix = str(tmp_path / f"pix{s}.png")
+        cv2.imwrite(pix, rng.integers(0, 256, (BATCH_H, BATCH_W, 3),
+                                      dtype=np.uint8))
+        pairs.append((clip, pix))
+    got = batch_render.batch_render(pairs, str(tmp_path / "port"), chunk=4,
+                                    seed=3,
+                                    mesh=make_mesh(devices=["cpu"] * 2))
+    want = jbatch.batch_render(pairs, str(tmp_path / "jax"), chunk=4, seed=3)
+    assert [os.path.basename(p) for p in got] == \
+        [os.path.basename(p) for p in want] == ["stream00.avi",
+                                                "stream01.avi"]
+    for path, jpath in zip(got, want):
+        fourcc, frames = _read_video(path)
+        jfourcc, jframes = _read_video(jpath)
+        assert fourcc == jfourcc == "MJPG"
+        assert frames.shape == jframes.shape == (BATCH_FRAMES - 1, BATCH_H,
+                                                 BATCH_W, 3)
+        for frame, jframe in zip(frames, jframes):
+            assert (frame != jframe).any(axis=-1).mean() <= FRAME_SHARE
+
+
+# ---------------------------------------------------------------------------
+# the published-weights check, rehearsed on a synthetic checkpoint
+# ---------------------------------------------------------------------------
+
+def _sniklaus_checkpoint(path, edit=None):
+    """The port's random LiteFlowNet weights saved with ``torch.save`` in
+    the published checkpoint's layout (``net*`` names, OIHW), with
+    ``edit`` applied to that dict first."""
+    from transflow_tpu_torch.flow.estimators import liteflownet as lfn
+    keys = lfn.torch_state_keys()
+    state = {keys[k]: v for k, v in lfn.random_params(0).items()}
+    if edit is not None:
+        edit(state)
+    torch.save(state, str(path))
+    return str(path)
+
+
+def _verify_main(argv):
+    from transflow_tpu_torch.tools import verify_weights
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = verify_weights.main(argv)
+    return code, json.loads(out.getvalue())
+
+
+def test_verify_weights_passes_a_synthetic_checkpoint(tmp_path):
+    """The rehearsal: exit 0 with the network's 212 tensors (the JAX
+    tool's leaf count), the JAX loader reading the same file to the same
+    weights, and the digest of the port's network on the bundled frames."""
+    import jax
+    from transflow_tpu.flow.estimators import liteflownet as jlfn
+    from transflow_tpu_torch.flow.estimators import liteflownet as lfn
+    from transflow_tpu_torch.tools import verify_weights
+    path = _sniklaus_checkpoint(tmp_path / "network-default.pytorch")
+    code, result = _verify_main([path, "--device", "cpu"])
+    assert code == 0 and result["ok"]
+    assert result["tree_problems"] == []
+    jstate = jlfn.load_torch_weights(path)
+    assert result["tree_leaves"] == len(jax.tree_util.tree_leaves(jstate)) \
+        == 212
+    port = lfn.load_torch_weights(path)
+    for key, value in lfn.params_from_jax(jstate).items():
+        assert torch.equal(port[key], value), key
+    assert result["sha256"] == verify_weights.sha256_of(path)
+    assert result["sha256_match"] == "unpinned"
+    net = lfn.LiteFlowNet()
+    net.load_state_dict(lfn.random_params(0))
+    f0, f1 = verify_weights.bundled_frames()
+    flow = lfn.liteflownet(f0, f1, net=net.eval()).numpy()
+    assert result["flow_golden"] == verify_weights.flow_digest(flow)
+    assert result["flow_golden"]["shape"] == [256, 448, 2]
+
+
+@pytest.mark.parametrize("broken", ["renamed", "shape", "dtype"])
+def test_verify_weights_fails_a_broken_tree(tmp_path, broken):
+    """A renamed tensor, a wrong shape or a wrong dtype each fail the
+    check, named, before any forward pass."""
+    name = "netFeatures.netOne.0.weight"
+
+    def edit(state):
+        if broken == "renamed":
+            state["netFeatures.netOne.9.weight"] = state.pop(name)
+        elif broken == "shape":
+            state[name] = state[name][:, :, :3]
+        else:
+            state[name] = state[name].double()
+
+    path = _sniklaus_checkpoint(tmp_path / "broken.pytorch", edit)
+    code, result = _verify_main([path, "--device", "cpu"])
+    assert code == 1 and not result["ok"]
+    assert "flow_golden" not in result
+    want = {"renamed": [f"missing: {name}",
+                        "unexpected: netFeatures.netOne.9.weight"],
+            "shape": [f"shape {name}: (32, 3, 3, 7) != (32, 3, 7, 7)"],
+            "dtype": [f"dtype {name}: torch.float64 != torch.float32"]}
+    assert result["tree_problems"] == want[broken]
+
+
+@pytest.mark.parametrize("pin", ["match", "mismatch"])
+def test_verify_weights_holds_the_pinned_digest(tmp_path, monkeypatch, pin):
+    """With a digest pinned, a file that hashes to it passes and one that
+    does not fails, its tensors and forward pass sound all the same."""
+    from transflow_tpu_torch.tools import verify_weights
+    path = _sniklaus_checkpoint(tmp_path / "network-default.pytorch")
+    digest = verify_weights.sha256_of(path) if pin == "match" else "0" * 64
+    monkeypatch.setattr(verify_weights, "pinned_sha", lambda: digest)
+    code, result = _verify_main([path, "--device", "cpu"])
+    assert result["tree_problems"] == [] and "flow_golden" in result
+    assert result["sha256_pinned"] == digest
+    assert result["sha256_match"] is (pin == "match")
+    assert (code, result["ok"]) == ((0, True) if pin == "match"
+                                    else (1, False))
+
+
+def test_verify_weights_helpers_match_the_jax_tool():
+    """The bundled frames, the digest and the pinned digest are the JAX
+    tool's."""
+    from transflow_tpu_torch.tools import verify_weights
+    sys.path.insert(0, os.path.join(os.path.dirname(EXTRA), "tools"))
+    import verify_weights as jverify
+    for got, want in zip(verify_weights.bundled_frames(),
+                         jverify.bundled_frames()):
+        np.testing.assert_array_equal(got, want)
+    flow = np.random.default_rng(3).standard_normal((8, 10, 2)) * 4
+    assert verify_weights.flow_digest(flow) == jverify.flow_digest(flow)
+    assert verify_weights.pinned_sha() == jverify.pinned_sha()

@@ -10,17 +10,14 @@ that follow attach to the last layer; ``-r MODE [FACTOR]`` and ``--lock
 MODE EXPR`` follow the same convention. The action routes as there:
 '*.json' -> config file, '*.ckpt.zip' -> resume, 'gui' -> the web GUI
 (``gui/server.py``), else flow source (a video file, a camera index, an
-image sequence or a .flow.zip). 'bench' raises: the H100 bench is not
-ported yet.
+image sequence or a .flow.zip), 'bench' -> the port's bench
+(``bench.py``).
 """
 import argparse
 import json
 import pathlib
 
 from . import __version__
-
-_NOT_PORTED = "is not ported yet: ROADMAP Queue 1, item"
-
 
 class _AppendPixmap(argparse.Action):
 
@@ -454,9 +451,10 @@ def config_from_args(args) -> "Config":
 
 def main(argv=None, device=None):
     """Run the command line ``argv`` (``sys.argv[1:]`` when None) and
-    return its Pipeline (the ``GuiServer`` for ``gui``, once it stops). ``device``: where the render runs, the current
-    CUDA device by default (no card raises); ``"cpu"`` runs it on the
-    CPU."""
+    return its Pipeline (the ``GuiServer`` for ``gui``, once it stops; the
+    bench's record for ``bench``). ``device``: where the render runs, the
+    current CUDA device by default (no card raises); ``"cpu"`` runs it on
+    the CPU."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.action == "gui":
@@ -464,8 +462,8 @@ def main(argv=None, device=None):
         return start_gui(args.gui_host, args.gui_port, args.gui_mjpeg_port,
                          device=device)
     if args.action == "bench":
-        raise NotImplementedError(f"the bench {_NOT_PORTED} 9 (the H100 "
-                                  "bench)")
+        from . import bench
+        return bench.main([], device=device)
     cfg = config_from_args(args)
     from .pipeline import Pipeline
     pipeline = Pipeline(

@@ -25,8 +25,8 @@ from ...ops.farneback import (aggregate_solve, poly_expansion,
                                poly_expansion_pair, update_equations)
 from ...ops.image import bilinear_resize, gaussian_blur
 
-__all__ = ["farneback", "poly_expansion", "OPTFLOW_USE_INITIAL_FLOW",
-           "OPTFLOW_FARNEBACK_GAUSSIAN"]
+__all__ = ["farneback", "launches_per_frame", "poly_expansion",
+           "OPTFLOW_USE_INITIAL_FLOW", "OPTFLOW_FARNEBACK_GAUSSIAN"]
 
 OPTFLOW_USE_INITIAL_FLOW = 4  # cv2 flag value
 OPTFLOW_FARNEBACK_GAUSSIAN = 256  # cv2 flag value
@@ -53,6 +53,32 @@ def _update_flow(poly1: torch.Tensor, poly2: torch.Tensor, flow: torch.Tensor,
     package's tap pack is a workaround for the TPU's gather)."""
     planes = update_equations(poly1, poly2, flow, select_radius)
     return aggregate_solve(planes, flow, winsize, use_gaussian)
+
+
+def _level_shapes(h: int, w: int, pyr_scale: float, levels: int,
+                  poly_n: int) -> list[tuple[int, int, float]]:
+    """The pyramid's (height, width, scale), finest first: sizes rounded,
+    levels kept while above the poly_n expansion window."""
+    shapes = []
+    for k in range(levels + 1):
+        scale = pyr_scale ** k
+        lh, lw = int(round(h * scale)), int(round(w * scale))
+        if min(lh, lw) <= 2 * poly_n + 1:
+            break
+        shapes.append((lh, lw, scale))
+    return shapes
+
+
+def launches_per_frame(height: int, width: int, *, pyr_scale: float = 0.5,
+                       levels: int = 3, iterations: int = 3, poly_n: int = 5,
+                       downscale: int = 1, **_) -> tuple[int, int, int]:
+    """(B1, B2a, B2b) launches of ``farneback`` on a height x width frame
+    with these arguments (the other estimator arguments change none): one
+    B1 a level (both images), ``iterations`` B2a and B2b a level."""
+    h = int(round(height / int(downscale)))
+    w = int(round(width / int(downscale)))
+    n = len(_level_shapes(h, w, pyr_scale, levels, poly_n))
+    return n, iterations * n, iterations * n
 
 
 def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
@@ -95,13 +121,7 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
                 torch.as_tensor(prev_flow).float(), h, w) * (1.0 / downscale)
 
     # level sizes, coarsest last; drop levels that get degenerate
-    level_shapes = []
-    for k in range(levels + 1):
-        scale = pyr_scale ** k
-        lh, lw = int(round(h * scale)), int(round(w * scale))
-        if min(lh, lw) <= 2 * poly_n + 1:
-            break
-        level_shapes.append((lh, lw, scale))
+    level_shapes = _level_shapes(h, w, pyr_scale, levels, poly_n)
 
     lh, lw, scale = level_shapes[-1]
     if flags & OPTFLOW_USE_INITIAL_FLOW and prev_flow is not None:

@@ -521,19 +521,25 @@ def _torch_key_map() -> dict:
     return names
 
 
+def torch_state_keys() -> dict:
+    """Port state-dict key -> its key in the sniklaus checkpoint (with
+    'module' renamed 'net')."""
+    names = _torch_key_map()
+    keys = {}
+    for key in LiteFlowNet().state_dict():
+        prefix, leaf = key.rsplit(".", 1)
+        keys[key] = names[key] if key.endswith("_kernel") \
+            else f"{names[prefix]}.{leaf}"
+    return keys
+
+
 def params_from_torch_state(state: dict) -> dict:
     """The sniklaus state dict (``network-default.pytorch`` layout; conv
     weights are already OIHW) as the port's state dict."""
     state = {key.replace("module", "net"): value
              for key, value in state.items()}
-    names = _torch_key_map()
-    out = {}
-    for key in LiteFlowNet().state_dict():
-        prefix, leaf = key.rsplit(".", 1)
-        src = names[key] if key.endswith("_kernel") \
-            else f"{names[prefix]}.{leaf}"
-        out[key] = torch.as_tensor(state[src], dtype=torch.float32)
-    return out
+    return {key: torch.as_tensor(state[src], dtype=torch.float32)
+            for key, src in torch_state_keys().items()}
 
 
 def load_torch_weights(path: str) -> dict:

@@ -97,10 +97,15 @@ class _SourceThread(threading.Thread):
             self.error = err
             logger.exception("Source thread failed")
         finally:
-            try:
-                self.queue.put(self.SENTINEL, timeout=5)
-            except queue.Full:
-                pass
+            # the end-of-stream sentinel, until the reader stops: a reader
+            # that stopped with the queue full reads no more (waiting 5 s
+            # on it, as the JAX thread does, held every close 5 s)
+            while not self._stop_event.is_set():
+                try:
+                    self.queue.put(self.SENTINEL, timeout=_POLL)
+                    break
+                except queue.Full:
+                    pass
 
     def get(self, poll: float = 1.0):
         """Block until an item arrives; fail only if the decode thread

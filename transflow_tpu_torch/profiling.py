@@ -12,6 +12,7 @@ Counterpart of transflow_tpu/profiling.py:
 * ``device_trace``: ``torch.profiler`` around a run, the card's kernels
   included where there is one, written as a Chrome trace
   (``trace.json``) into the directory given.
+* ``host_sync_sites``: where the host waited for the card during a call.
 
 The Pipeline wires them behind ``--profile`` and ``--trace-dir``.
 """
@@ -95,3 +96,35 @@ def device_trace(trace_dir: str | None):
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def host_sync_sites(fn, device=None) -> list[str]:
+    """Run ``fn()`` and return the last lines of the Python stack at each
+    wait of the host for the card meanwhile (``torch.cuda.
+    set_sync_debug_mode`` warns at each); on a CPU ``device``, none."""
+    import traceback
+    import warnings
+
+    import torch
+    if device is not None and torch.device(device).type != "cuda":
+        fn()
+        return []
+    sites: list[str] = []
+
+    def show(message, *_args, **_kwargs):
+        if "synchroniz" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            sites.append("".join(traceback.format_list(stack[-6:])))
+
+    torch.cuda.synchronize(device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        sites.clear()  # a process's first switch to "warn" reports a wait
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites

@@ -10,15 +10,18 @@ Usage:
   python -m transflow_tpu_torch.tools.batch_render out_dir \\
       a/%04d.pgm:pix_a.ppm b/%04d.pgm:pix_b.ppm \\
       [--chunk 8] [--method horn-schunck] [--reset random:0.05] \\
-      [--halo 8] [--seed 0] [--output stream{stream:02d}.mp4]
+      [--halo 8] [--seed 0] [--output stream{stream:02d}.avi]
 
-Inputs are image sequences (``utils/imageio.py``: netpbm, or PIL's
-formats) with a pixmap image of the same size, where the JAX tool decodes
-videos through cv2: the port reads no video pixels. Outputs go through
-``VideoOutput.from_args``: an MP4 per stream by default (the libav
-shim's H.264 writer), or a ``%04d`` frame template. All inputs share one
-frame size; the run is as long as the shortest; the stream count must be
-a multiple of the mesh's stream axis.
+Inputs are videos (decoded through cv2, ``utils/imageio.py::
+VideoSequence``) or image sequences (netpbm, or PIL's formats), each
+with a pixmap image, resized to the frames by ``cv2.resize`` where its
+size differs. Outputs go through ``VideoOutput.from_args``: by default
+``stream%02d.avi`` per stream in MJPG, as the JAX tool writes them (the
+encoder chain's cv2 rung opens MJPG for ``vcodec="mjpeg"``); ``--output``
+names another file (``.avi`` in MJPG, any other container in H.264) or a
+``%04d`` frame template. All inputs share one frame size; the run is as
+long as the shortest; the stream count must be a multiple of the mesh's
+stream axis.
 """
 import argparse
 import os
@@ -26,7 +29,13 @@ import os
 import numpy as np
 import torch
 
-DEFAULT_OUTPUT = "stream{stream:02d}.mp4"
+DEFAULT_OUTPUT = "stream{stream:02d}.avi"
+
+
+def output_vcodec(output: str) -> str:
+    """The codec of an output file: MJPG for ``.avi`` (as the JAX tool
+    writes it), H.264 for any other container."""
+    return "mjpeg" if output.lower().endswith(".avi") else "h264"
 
 
 def decode_all(path: str) -> tuple[np.ndarray, float]:
@@ -55,10 +64,12 @@ def batch_render(pairs, out_dir: str, chunk: int = 8,
                  method: str = "horn-schunck", reset=("random", 0.05),
                  halo: int | None = None, seed: int = 0,
                  estimator_kwargs: dict | None = None,
-                 output: str = DEFAULT_OUTPUT, mesh=None) -> list[str]:
+                 output: str = DEFAULT_OUTPUT, mesh=None,
+                 vcodec: str | None = None) -> list[str]:
     """Render [(frames_path, pixmap_path), ...] into ``out_dir``, stream s
-    to ``output.format(stream=s)``; returns the output paths. ``mesh``: a
-    ``StreamMesh``, ``make_mesh()`` over every CUDA device by default."""
+    to ``output.format(stream=s)`` in ``vcodec`` (``output_vcodec(output)``
+    by default); returns the output paths. ``mesh``: a ``StreamMesh``,
+    ``make_mesh()`` over every CUDA device by default."""
     from .. import prng
     from ..config import LayerConfig
     from ..engine import mesh_safe_kwargs
@@ -103,9 +114,10 @@ def batch_render(pairs, out_dir: str, chunk: int = 8,
         mesh=row_mesh, device=row.devices[0])
 
     os.makedirs(out_dir, exist_ok=True)
+    vcodec = vcodec or output_vcodec(output)
     outputs = [VideoOutput.from_args(
         os.path.join(out_dir, output.format(stream=idx)), w, h, fps,
-        replace=True).open() for idx in range(len(pairs))]
+        vcodec=vcodec, replace=True).open() for idx in range(len(pairs))]
     run = sharded_scan(model, mesh, per_stream_pixmaps=True)
     try:
         # mesh-wide groups of streams; one sharded_scan call per chunk
@@ -150,8 +162,9 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--output", default=DEFAULT_OUTPUT,
                         help="each stream's output under out_dir, "
-                             "{stream} its index: an MP4, or a %%04d "
-                             "frame template (default %(default)s)")
+                             "{stream} its index: a video file (.avi in "
+                             "MJPG, another container in H.264), or a "
+                             "%%04d frame template (default %(default)s)")
     args = parser.parse_args(argv)
     pairs = [tuple(p.split(":", 1)) for p in args.pairs]
     mode, _, factor = args.reset.partition(":")
