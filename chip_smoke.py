@@ -201,8 +201,8 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    four levels and B9-B12 at theirs; then the Farneback Engine's, each
    phase H Engine's and phase S's device events, busy time and idle share
    per frame over a few ``process_frame`` (or one-frame ``sharded_scan``)
-   calls, and their device time per frame by kernel name (the ten
-   largest);
+   calls, and their device time per frame by kernel name (the
+   ``PROFILE_TOP`` largest) and that of the compositor's K0, K1 and K2;
 11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
    kernel, B1, B2a, B2b, B9, B10 and B5 against other trees'
    ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu`` and
@@ -243,6 +243,23 @@ B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
    images, Scharr derivatives and flow, each bit-equal to its plain
    version on the same inputs, with ``device_ms``, the bound, its share
    and the plain version's time.
+C. after phase 9: the compositor's kernels (``ops/compositor.py``,
+   ``csrc/compositor.cu``) against their plain versions at 1080x1920,
+   bit-equal: K1 (``layer_update``) on phase F's Engine state, its
+   pixmap and its last pan flow (the moveref layer with random reset
+   0.01), on a random flow, and with leave-empty (K0 then K1); K0
+   (``leave_empty_sources``) alone; K2 (``composite``) over phase F's
+   layer and over phase T's four masked layers; each with ``device_ms``,
+   the bound (``comp_k1_bound_ms`` etc.: the bytes these inputs need),
+   its share, ``call_ms``, the plain version's time and its ATen ops, and
+   in phase 10 its kernel time.
+
+Every Engine, CLI and bench run of the main path counts the compositor's
+launches beside the estimators' (``KERNEL_NAMES`` ends K0, K1, K2): one
+moveref layer updates through one K1 and renders through one K2 a frame
+(``C_MOVEREF``), phase T's four layers take 1 K0, 2 K1 and 1 K2; under a
+mesh that splits the movement (phases 5 and M) the moveref layer updates
+through its plain ops and renders through K2 (``C_MESH``).
 
 The main path (phases F, P, T, H, V, S, M, G, K and 3-5) runs right after
 the build:
@@ -264,10 +281,12 @@ For B1, B2a and B2b the bound counts each input and output byte once per
 level and the float32 operations of their correlations, lerps and
 algebra; B5's counts the flow read and the mapping written once (16
 bytes a pixel); B9-B12's each input and output plane once a launch
-(``hs_bound_ms``, ``lk_bound_ms``). They are hand-written for jnp code
-(no Pallas source) and no single PyTorch call computes any of them
-(``index_put_`` with duplicate indices writes in no fixed order on
-CUDA).
+(``hs_bound_ms``, ``lk_bound_ms``); K0-K2's the bytes that their
+outputs need on these inputs, pixel by pixel (``comp_k*_bound_ms``;
+K1's draw's integer operations counted at the f32 rate). They are
+hand-written for jnp code (no Pallas source) and no single PyTorch call
+computes any of them (``index_put_`` with duplicate indices writes in
+no fixed order on CUDA).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -289,6 +308,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# one moveref layer's K0, K1, K2 launches a frame (random reset, no
+# leave-empty): the rule the bench holds the flagship to
+from transflow_tpu_torch.ops.compositor import \
+    MOVEREF_PER_FRAME as C_MOVEREF
 
 SEED = 0
 HEIGHT, WIDTH = 1080, 1920
@@ -846,6 +870,9 @@ def frame_source(frames, config, direction: str = "backward", **kwargs):
 
 
 def _launch_counters():
+    from transflow_tpu_torch.ops.compositor import (composite_cuda,
+                                                    layer_update_cuda,
+                                                    leave_empty_sources_cuda)
     from transflow_tpu_torch.ops.correlation import (correlation7x7_cuda,
                                                      sharded_correlation7x7)
     from transflow_tpu_torch.ops.farneback import (aggregate_solve_cuda,
@@ -861,12 +888,17 @@ def _launch_counters():
             sharded_correlation7x7, poly_expansion_cuda,
             update_equations_cuda, aggregate_solve_cuda,
             forward_to_backward_cuda, hs_derivatives_cuda, hs_iterate_cuda,
-            lk_warp_products_cuda, lk_window_solve_cuda)
+            lk_warp_products_cuda, lk_window_solve_cuda,
+            leave_empty_sources_cuda, layer_update_cuda, composite_cuda)
 
 
 # the names of _launches()'s entries
 KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5", "B9", "B10",
-                "B11", "B12")
+                "B11", "B12", "K0", "K1", "K2")
+# the compositor's K0, K1, K2 launches a frame under a mesh that splits
+# the movement: the moveref layer updates through its plain ops and the
+# stack renders through K2
+C_MESH = (0, 0, C_MOVEREF[2])
 
 
 def _launches() -> tuple[int, ...]:
@@ -1012,7 +1044,7 @@ def phase_farneback_engine(device, card: str) -> dict:
             raise AssertionError(f"CvFlowConfig() gives {per_frame} B1, B2a, "
                                  f"B2b launches, not {FB_DEFAULT_PER_FRAME}")
         _check_engine_run(f"farneback {name}", run,
-                          (0, 0, 0, *per_frame, 0, 0, 0, 0, 0))
+                          (0, 0, 0, *per_frame, 0, 0, 0, 0, 0, *C_MOVEREF))
         m = FB_MARGIN
         inner = torch.cat([run["flows"], run["call_flows"]])[:, m:-m, m:-m]
         medians = inner.reshape(len(inner), -1, 2).median(dim=1).values
@@ -1199,7 +1231,7 @@ def phase_pipeline(device, card: str) -> dict:
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
     from transflow_tpu_torch.utils.imageio import write_netpbm
     flows_n = P_FRAMES - 1
-    per_frame = (0, 0, 0, *FB_DEFAULT_PER_FRAME, 0, 0, 0, 0, 0)
+    per_frame = (0, 0, 0, *FB_DEFAULT_PER_FRAME, 0, 0, 0, 0, 0, *C_MOVEREF)
     gray = gray_frames(P_FRAMES, HEIGHT, WIDTH, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p_") as tmp:
         root = Path(tmp)
@@ -1280,8 +1312,11 @@ def phase_pipeline(device, card: str) -> dict:
         p4 = _p_run([str(root / "p1" / "%04d.flow.zip"), "-p", "noise",
                      "-r", "random", "0.01", "--seed", str(SEED), "-o",
                      str(root / "p4" / "%04d.ppm")])
-        if any(p4["launches"]):
-            raise AssertionError(f"P4: launches {p4['launches']}")
+        if p4["launches"] != (0,) * 11 + tuple(flows_n * x
+                                               for x in C_MOVEREF):
+            raise AssertionError(f"P4: launches {p4['launches']} "
+                                 f"{KERNEL_NAMES}: only the compositor's "
+                                 f"{C_MOVEREF} a frame may run")
         _p_equal("P4 frames", _p_frames(root / "p4", flows_n), frames1)
         print(f"pipeline P4 (replay of P1's .flow.zip): "
               f"{_p_split(p4, flows_n)}; frames bit-equal to P1's")
@@ -1340,7 +1375,9 @@ T_MOVE_DST = "circle:48%"
 T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
 # the Engine's launches per frame: B1, B2a, B2b for two CvFlowConfig()
 # sources, and B5's two for the forward one
-T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0)
+# and K0, K1, K2: the moveref layer leaves empty spots (K0), the sum and
+# the moveref layer update through K1, the stack renders in one K2
+T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1)
 T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
 T_SYNC_CALLS = 2
 T_PROFILE_CALLS = 3
@@ -1688,14 +1725,15 @@ def h_per_frame(config, height: int, width: int) -> tuple:
     solves)."""
     kw = config.estimator_kwargs()
     if config.method == "horn-schunck":
-        return (0,) * 7 + (1, kw["max_iters"], 0, 0)
+        return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF)
     levels, h, w = 1, height, width
     for _ in range(kw["max_level"]):
         if min(h, w) < 2 * kw["win_size"]:
             break
         h, w = (h + 1) // 2, (w + 1) // 2
         levels += 1
-    return (0,) * 7 + (0, 0, H_LK_ITERS * levels, (H_LK_ITERS + 1) * levels)
+    return (0,) * 7 + (0, 0, H_LK_ITERS * levels, (H_LK_ITERS + 1) * levels,
+                       *C_MOVEREF)
 
 
 def phase_classic_engine(device, card: str) -> dict:
@@ -1898,7 +1936,8 @@ S_ITERS = 8
 S_RESET = 0.05
 S_HALO = 8
 S_TOOL_FRAMES = 9     # frames of each sequence the batch renderer reads
-S_PER_FRAME = (0, 0, 0, 0, 0, 0, 0, 1, S_ITERS, 0, 0)  # a stream-frame
+S_PER_FRAME = (0, 0, 0, 0, 0, 0, 0, 1, S_ITERS, 0, 0,
+               *C_MOVEREF)  # a stream-frame
 
 
 def s_model(device, halo: int | None = None):
@@ -2111,6 +2150,9 @@ M_SPACE = 2              # the devices a process gives, [card] * 2: one row
 M_TIMEOUT = 300          # seconds: a worker's collectives, and the wait
 M_A2_LEVEL = "L3"        # the LiteFlowNet level (stride 2) A2 runs on a row
 M_RESULT = "multihost-result "  # the start of a worker's result line
+# a stream-frame: phase S's, but the row's space axis splits the movement
+# (halo 8), so the moveref layer updates through its plain ops
+M_PER_FRAME = (*S_PER_FRAME[:11], *C_MESH)
 
 
 def m_inputs(device, streams) -> tuple[list, list, list]:
@@ -2327,10 +2369,10 @@ def phase_multihost(device, card: str) -> dict:
                 [g["digests"] for g in results[0]["gathered"]]:
             raise AssertionError("phase M: the processes gathered "
                                  "different digests")
-        if tuple(r["per_frame"]) != S_PER_FRAME or r["syncs"] != 0:
+        if tuple(r["per_frame"]) != M_PER_FRAME or r["syncs"] != 0:
             raise AssertionError(
                 f"phase M: process {r['rank']} launches a stream-frame "
-                f"{r['per_frame']}, expected {S_PER_FRAME}; host syncs a "
+                f"{r['per_frame']}, expected {M_PER_FRAME}; host syncs a "
                 f"stream-frame {r['syncs']}")
         if not r["a2"][-1] or r["a2"][-2] != 1:
             raise AssertionError(f"phase M: process {r['rank']}'s A2 "
@@ -2767,10 +2809,11 @@ def phase_bench(device, card: str) -> dict:
     fb = record["launches_per_frame"]["flagship"]
     lfn = record["launches_per_frame"]["liteflownet"]
     if (fb["B1"], fb["B2a"], fb["B2b"]) != FB_DEFAULT_PER_FRAME or \
+            (fb["K0"], fb["K1"], fb["K2"]) != C_MOVEREF or \
             (lfn["A1"], lfn["A3"]) != K_LFN_PER_FRAME:
         raise AssertionError(f"K: launches a frame {fb}, {lfn}; expected "
-                             f"{FB_DEFAULT_PER_FRAME} and A1/A3 "
-                             f"{K_LFN_PER_FRAME}")
+                             f"{FB_DEFAULT_PER_FRAME}, K0/K1/K2 {C_MOVEREF} "
+                             f"and A1/A3 {K_LFN_PER_FRAME}")
     if record["host_syncs_per_frame"] != 0:
         raise AssertionError(f"K: {record['host_syncs_per_frame']} host "
                              "syncs a frame")
@@ -3010,7 +3053,7 @@ def phase_engine(device, card: str) -> dict:
               f"process_frame calls: {run['launches']}")
         _check_engine_run(f"lfn_warp_bound={bound}", run,
                           (9 if bound else 0, 5, 0, 0, 0, 0, 0, 0, 0, 0,
-                           0))
+                           0, *C_MOVEREF))
     diff = (runs[WARP_BOUND]["flows"] - runs[0]["flows"]).abs().max().item()
     print(f"engine max |flow(lfn_warp_bound={WARP_BOUND}) - "
           f"flow(lfn_warp_bound=0)| {diff:.3e} over the chunk")
@@ -3035,7 +3078,7 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
           f"correlation7x7 {a1}, sharded_correlation7x7 {a2}; with "
           f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
     _check_engine_run("mesh engine", run,
-                      (0, 1, A2_PER_FRAME, 0, 0, 0, 0, 0, 0, 0, 0))
+                      (0, 1, A2_PER_FRAME, 0, 0, 0, 0, 0, 0, 0, 0, *C_MESH))
     diff = max((run["flows"] - ref["flows"]).abs().max().item(),
                (run["call_flows"] - ref["call_flows"]).abs().max().item())
     same = (torch.equal(run["out"], ref["out"])
@@ -3305,11 +3348,10 @@ def phase_farneback_kernels(device) -> list[dict]:
     return rows
 
 
-def phase_draw(device) -> dict:
-    """The random reset's 1080x1920 threefry draw on the card against the
-    CPU's, with its time and its launches (ATen ops that run a kernel)."""
+def aten_ops(fn) -> int:
+    """The ATen ops of one call of ``fn`` that are no views: on the card,
+    about the kernels a plain PyTorch function launches."""
     from torch.utils._python_dispatch import TorchDispatchMode
-    from transflow_tpu_torch import prng
 
     class CountOps(TorchDispatchMode):
         def __init__(self):
@@ -3320,11 +3362,19 @@ def phase_draw(device) -> dict:
             self.ops += not func.is_view
             return func(*args, **(kwargs or {}))
 
+    with CountOps() as counter:
+        fn()
+    return counter.ops
+
+
+def phase_draw(device) -> dict:
+    """The random reset's 1080x1920 threefry draw on the card against the
+    CPU's, with its time and its launches (ATen ops that run a kernel)."""
+    from transflow_tpu_torch import prng
     key = prng.split(prng.key(SEED))[1]
     got = prng.uniform(key, (HEIGHT, WIDTH), device)
     same = torch.equal(got.cpu(), prng.uniform(key, (HEIGHT, WIDTH)))
-    with CountOps() as counter:
-        prng.uniform(key, (HEIGHT, WIDTH), device)
+    ops = aten_ops(lambda: prng.uniform(key, (HEIGHT, WIDTH), device))
     ms = device_ms(lambda: prng.uniform(key, (HEIGHT, WIDTH), device), 20)
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -3334,12 +3384,228 @@ def phase_draw(device) -> dict:
     host_ms = 1e3 * (time.perf_counter() - start) / 20
     print(f"draw {HEIGHT}x{WIDTH} threefry uniform cuda vs cpu: "
           f"{'bit-equal' if same else 'DIFFER'}; {ms:.4f} ms (device_ms) "
-          f"{host_ms:.4f} ms (host, synced) and {counter.ops} launches per "
+          f"{host_ms:.4f} ms (host, synced) and {ops} launches per "
           "frame (one random layer)")
     if not same:
         raise AssertionError("the threefry draw differs between the card "
                              "and the CPU")
-    return {"ms": ms, "host_ms": host_ms, "launches": counter.ops}
+    return {"ms": ms, "host_ms": host_ms, "launches": ops}
+
+
+# the compositor kernels' names in csrc/compositor.cu (phase C)
+C_KERNEL_NAMES = {"K0": "leave_empty_kernel", "K1": "layer_update_kernel",
+                  "K2": "composite_kernel"}
+# integer operations of K1's threefry draw a pixel (20 rounds of an add, a
+# rotate and a xor, 5 key injections of three, the float): the table has
+# no integer rate, so they are counted at the f32 peak; bytes bind anyway
+C_DRAW_OPS = 100
+
+
+def comp_k1_bound_ms(params, state: dict, flow, new: dict, key
+                     ) -> tuple[float, str]:
+    """K1's bound on these inputs: the bytes the layer's new state needs,
+    pixel by pixel, with every output written once. A pixel the random
+    reset takes (``reset``) gets its own coordinates and alpha 1, and its
+    source from the ``reset_source`` plane where that holds one (then it
+    needs nothing of the old state or the flow). Otherwise: the flow; a
+    target's positions and source read at its source pixel, another
+    pixel's its own; its own alpha where it is no target and no
+    leave-empty mark zeroes it, or where the target test reads it; at the
+    source pixel of a moving pixel the alpha where the test or the new
+    alpha reads it and ``mask_src``; ``mask_dst`` where it moves; the
+    leave-empty mark where it is no target. The regather reads the
+    selected source's pixmap (its alpha byte only where no later
+    3-channel source overwrites it) and the old rgb where no source shows
+    the pixel, the old alpha only where the layer has no 3-channel
+    source. The draw's operations in random mode."""
+    from transflow_tpu_torch import prng
+    from transflow_tpu_torch.compositor.core import movement_targets
+    from transflow_tpu_torch.ops.compositor import leave_empty_sources_plain
+    cfg = params.cfg
+    h, w = params.height, params.width
+    n = h * w
+
+    def count(mask) -> int:
+        return int(mask.sum())
+
+    psz, out_psz = (state["pos_i"].element_size(),
+                    new["pos_i"].element_size())
+    # the writes: the new positions, alpha, source and rgba
+    nbytes = n * (2 * out_psz + 2 + 4)
+    none = torch.zeros((h, w), dtype=torch.bool, device=flow.device)
+    reset = covered = none
+    if cfg.reset_mode == "random":
+        reset = prng.uniform(key, (h, w), flow.device) < params.reset_factor
+        if cfg.reset_source:
+            covered = reset & (params.last_source_plane != 255)
+            nbytes += count(reset)
+    if params.reset_factor is not None and params.reset_factor.dim() == 2:
+        nbytes += 4 * n
+    live = ~covered
+    if cfg.classname == "sum":
+        nbytes += 8 * count(~reset) + 2 * psz * count(~reset)
+        nbytes += count(~reset) + count(live)  # own alpha, own source
+    else:
+        _, target, moving, *_ = movement_targets(params, state["alpha"],
+                                                 flow)
+        target, moving = target & live, moving & live
+        marked = none
+        if cfg.moving_pixels_leave_empty_spot:
+            marked = leave_empty_sources_plain(params, state, flow)
+            nbytes += count(~target & ~reset)
+        filled_test = not (cfg.pixels_can_move_to_empty_spot
+                           and cfg.pixels_can_move_to_filled_spot)
+        nbytes += 8 * count(live)
+        nbytes += 2 * psz * count(~reset & live)  # own or gathered pos
+        nbytes += count(live)  # own or gathered source
+        nbytes += count((~target & ~reset & ~marked & live)
+                        | (moving if filled_test else none))
+        gathered_alpha = target & ~reset
+        if not cfg.transparent_pixels_can_move:
+            gathered_alpha = gathered_alpha | moving
+        nbytes += count(gathered_alpha)
+        nbytes += count(moving) * ((params.mask_src is not None)
+                                   + (params.mask_dst is not None))
+    shown = new["alpha"] != 0
+    shown_any = none
+    last3 = max((s for s, c in enumerate(params.channel_counts) if c == 3),
+                default=-1)
+    for s, channels in enumerate(params.channel_counts):
+        sel = shown & (new["source"] == s)
+        shown_any = shown_any | sel
+        nbytes += (3 + (channels == 4 and s > last3)) * count(sel)
+    nbytes += 3 * count(~shown_any)
+    if last3 < 0:
+        nbytes += count(~shown_any)
+    ops = C_DRAW_OPS * n if cfg.reset_mode == "random" else 0
+    return _bound(nbytes, ops)
+
+
+def comp_k0_bound_ms(params, state: dict, flow, marks) -> tuple[float, str]:
+    """K0's bound: the flow read a pixel; where a pixel moves, the alpha
+    at its source where the target test reads it, ``mask_src`` there and
+    ``mask_dst`` at the pixel where set, its own alpha where the test
+    reads it; one byte written a marked source."""
+    from transflow_tpu_torch.compositor.core import movement_targets
+    cfg = params.cfg
+    n = params.height * params.width
+    _, _, moving, *_ = movement_targets(params, state["alpha"], flow)
+    per_moving = ((not cfg.transparent_pixels_can_move)
+                  + (params.mask_src is not None)
+                  + (params.mask_dst is not None)
+                  + (not (cfg.pixels_can_move_to_empty_spot
+                          and cfg.pixels_can_move_to_filled_spot)))
+    nbytes = 8 * n + int(moving.sum()) * per_moving + int(marks.sum())
+    return _bound(nbytes, 0)
+
+
+def comp_k2_bound_ms(params_list, h: int, w: int) -> tuple[float, str]:
+    """K2's bound: each layer's rgb and alpha read (4 bytes a pixel), its
+    alpha mask read and its new rgba (or introduction's alpha) written
+    where set, the image written."""
+    per_pixel = 3
+    for params in params_list:
+        per_pixel += 4
+        if params.mask_alpha is not None:
+            per_pixel += 4 + (1 if params.cfg.classname == "introduction"
+                              else 4)
+    return _bound(per_pixel * h * w, 0)
+
+
+def phase_compositor_kernels(device, fb_run: dict, t_run: dict
+                             ) -> list[dict]:
+    """Phase C: K0, K1 and K2 against their plain versions at 1080x1920
+    on the main path's inputs, bit-equal, with ``device_ms``, the bound,
+    its share, ``call_ms`` and the plain version's time: K1 on phase F's
+    Engine state and pan flow (its moveref layer, random reset 0.01) and
+    on a random flow; K0, then K0 + K1, on the same layer with
+    leave-empty; K2 over phase F's layer and over phase T's four masked
+    layers."""
+    from transflow_tpu_torch import prng
+    from transflow_tpu_torch.compositor.core import make_layer_params
+    from transflow_tpu_torch.config import LayerConfig
+    from transflow_tpu_torch.ops import compositor as ck
+    from transflow_tpu_torch.ops.image import clip_to_frame
+    engine = fb_run["engine"]
+    params, state = engine.layer_params[0], engine.comp_state[0]
+    pixmaps = fb_run["pixmaps"][0]
+    pan = fb_run["call_flows"][-1].contiguous()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    random_flow = clip_to_frame(torch.randn((HEIGHT, WIDTH, 2),
+                                            generator=gen, device=device) * 8)
+    key = prng.split(prng.key(SEED), 3)[1]
+    leave = make_layer_params(
+        [LayerConfig(0, reset_mode="random", reset_random_factor=0.01,
+                     moving_pixels_leave_empty_spot=True)],
+        HEIGHT, WIDTH, {0: [(3, None)]}, device=device)[0]
+    rows = []
+
+    def add(kernel, name, err, bound, fn, plain, launches, extra=""):
+        bound_ms, by = bound
+        row = {"kernel": kernel, "input": name, "err": err,
+               "bound_ms": bound_ms, "bound_by": by, "launches": launches,
+               "plain_ops": aten_ops(plain),
+               "device_ms": device_ms(fn), "call_ms": call_ms(fn),
+               "plain_ms": device_ms(plain, PLAIN_LAUNCHES, warmup=1),
+               "call": fn}
+        print(f"{kernel} {HEIGHT}x{WIDTH} {name}: bit-equal to plain{extra};"
+              f" {launches} launches a call against the plain version's "
+              f"{row['plain_ops']} ATen ops; device_ms "
+              f"{row['device_ms']:.5f}, bound {bound_ms:.5f} ({by}), share "
+              f"{bound_ms / row['device_ms']:.1%}, call {row['call_ms']:.4f}"
+              f" (host-inclusive), plain {row['plain_ms']:.4f}")
+        rows.append(row)
+
+    for kernel, name, p, flow in (("K1", "F pan", params, pan),
+                                  ("K1", "random flow", params, random_flow),
+                                  ("K1", "F pan leave-empty (K0 + K1)",
+                                   leave, pan)):
+        got = ck.layer_update_cuda(p, state, flow, pixmaps, key)
+        want = ck.layer_update_plain(p, state, flow, pixmaps, key)
+        torch.cuda.synchronize()
+        diff = [k for k in want if not torch.equal(got[k], want[k])]
+        if diff:
+            raise AssertionError(f"{kernel} {name}: {diff} differ from plain")
+        add(kernel, name, 0.0, comp_k1_bound_ms(p, state, flow, want,
+                                                 key),
+            lambda p=p, f=flow: ck.layer_update_cuda(p, state, f, pixmaps,
+                                                     key),
+            lambda p=p, f=flow: ck.layer_update_plain(p, state, f, pixmaps,
+                                                      key),
+            1 + p.cfg.moving_pixels_leave_empty_spot,
+            f" ({int((want['alpha'] == 0).sum())} empty pixels)")
+    marks = torch.zeros((HEIGHT, WIDTH), dtype=torch.uint8, device=device)
+    got = ck.leave_empty_sources_cuda(leave, state, pan, out=marks).bool()
+    want = ck.leave_empty_sources_plain(leave, state, pan)
+    if not torch.equal(got, want):
+        raise AssertionError("K0 F pan: the marks differ from plain")
+    add("K0", "F pan", 0.0, comp_k0_bound_ms(leave, state, pan, want),
+        lambda: ck.leave_empty_sources_cuda(leave, state, pan, out=marks),
+        lambda: ck.leave_empty_sources_plain(leave, state, pan), 1,
+        f" ({int(want.sum())} sources marked)")
+    bg = torch.tensor([255, 255, 255], dtype=torch.uint8, device=device)
+    t_engine = t_run["engine"]
+    for name, layers, states in (
+            ("F layer", [params], [state]),
+            ("T's four masked layers", t_engine.layer_params,
+             t_engine.comp_state)):
+        got_states, got = ck.composite_cuda(layers, states, bg, HEIGHT,
+                                            WIDTH)
+        want_states, want = ck.composite_plain(layers, states, bg, HEIGHT,
+                                               WIDTH)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want) and all(
+            torch.equal(a[k], b[k]) for a, b in zip(got_states, want_states)
+            for k in b)
+        if not same:
+            raise AssertionError(f"K2 {name}: differs from plain")
+        add("K2", name, 0.0, comp_k2_bound_ms(layers, HEIGHT, WIDTH),
+            lambda ls=layers, ss=states: ck.composite_cuda(ls, ss, bg,
+                                                           HEIGHT, WIDTH),
+            lambda ls=layers, ss=states: ck.composite_plain(ls, ss, bg,
+                                                            HEIGHT, WIDTH),
+            1)
+    return rows
 
 
 def phase_equivalence(device) -> None:
@@ -3455,10 +3721,11 @@ def phase_equivalence(device) -> None:
 
 
 def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
-                      h_rows) -> None:
-    """``kernel_ms`` of every row that phases 6, 7, 8, B, T and H left a
-    call in; A3's beside ``F.grid_sample``'s; B5's over every device event
-    of a call (its two kernels)."""
+                      h_rows, c_rows) -> None:
+    """``kernel_ms`` of every row that phases 6, 7, 8, B, T, H and C left
+    a call in; A3's beside ``F.grid_sample``'s; B5's over every device
+    event of a call (its two kernels); K0-K2's of the row's kernel alone
+    (the leave-empty K1 row: K1's, without K0's)."""
     for row in rows + a2_rows:
         if "call" not in row:
             continue
@@ -3503,6 +3770,15 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
               f"(torch.profiler, per call, both kernels) "
               f"against device_ms {row['device_ms']:.5f} and bound "
               f"{row['bound_ms']:.5f} ({row['bound_by']})")
+    for row in c_rows:
+        row["kernel_ms"] = kernel_ms(row.pop("call"),
+                                     C_KERNEL_NAMES[row["kernel"]])
+        share = ("not measured" if row["kernel_ms"] is None
+                 else f"{row['bound_ms'] / row['kernel_ms']:.1%}")
+        print(f"kernel time {row['kernel']} {row['input']}: "
+              f"{_ms_text(row['kernel_ms'])} (torch.profiler, per call) "
+              f"against device_ms {row['device_ms']:.5f} and bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}): share {share}")
 
 
 def _ms_text(ms: float | None) -> str:
@@ -3528,7 +3804,7 @@ def host_syncs(run: dict, calls: int) -> float:
     return len(sites) / calls
 
 
-PROFILE_TOP = 10  # kernel names in the Engine's device time by name
+PROFILE_TOP = 16  # kernel names in the Engine's device time by name
 
 
 def engine_profile(name: str, run: dict, calls: int, card: str,
@@ -3580,6 +3856,13 @@ def engine_profile(name: str, run: dict, calls: int, card: str,
           "frame):")
     for k, (ms, n) in top:
         print(f"  {ms:.5f} ms, {n / calls:g} events: {k[:120]}")
+    comp = {c: [sum(v[i] for k, v in by_name.items() if pattern in k)
+                for i in (0, 1)]
+            for c, pattern in C_KERNEL_NAMES.items()}
+    result["compositor"] = {c: v[0] for c, v in comp.items()}
+    print(f"profile {name}: the compositor's kernels per frame: "
+          + ", ".join(f"{c} {ms:.5f} ms in {n / calls:g} events"
+                      for c, (ms, n) in comp.items()))
     return result
 
 
@@ -4068,7 +4351,10 @@ def main() -> int:
     h_rows = phase_classic_kernels(device)
     phase_equivalence(device)
     phase_draw(device)
-    phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows, h_rows)
+    c_rows = phase_compositor_kernels(device, fb_runs["CvFlowConfig()"],
+                                      t_run)
+    phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows, h_rows,
+                      c_rows)
     engine_profile("farneback engine CvFlowConfig()",
                    fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS, card)
     for name, run in h_runs.items():
@@ -4296,6 +4582,54 @@ def main() -> int:
             "plain_ms": _per_frame(group, "plain_ms", weight),
             "bound_ms": _per_frame(group, "bound_ms", weight),
             "bound_by": _bound_by(group),
+            "library_ms": None,
+            "library": "none: hand-written for jnp code (no Pallas source); "
+                       "no single PyTorch call computes it",
+        })
+    # the compositor's kernels: F's Engine runs, T's Engine and CLI runs,
+    # H's and S's (K0 runs in T alone; the meshes of phases 5 and M
+    # update through the plain ops)
+    c_sources = {
+        "K0": ("leave_empty_sources", "transflow_tpu/ops/scatter.py:13",
+               "scatter.py:13 scatter_any, as compositor/core.py:224-230 "
+               "_movement runs it for moving_pixels_leave_empty_spot"),
+        "K1": ("layer_update", "transflow_tpu/compositor/core.py:351",
+               "compositor/core.py:351 update_moveref and :363 update_sum: "
+               "_movement (:154), _reset with jax.random.uniform (:268), "
+               "_reference_rgba (:321)"),
+        "K2": ("composite", "transflow_tpu/compositor/core.py:457",
+               "compositor/core.py:457 render_layer over "
+               "build_compositor's render_fn (:533)")}
+    c_main = {"K0": "F pan", "K1": "F pan", "K2": "F layer"}
+    main_runs = [*fb_runs.values(), *h_runs.values()]
+    for kernel, (name, replaces, function) in c_sources.items():
+        k = KERNEL_NAMES.index(kernel)
+        row = next(r for r in c_rows
+                   if r["kernel"] == kernel and r["input"] == c_main[kernel])
+        launches = (sum(run["launches"][k] for run in main_runs)
+                    + t_run["launches"][k] + t_run["cli_launches"][k]
+                    + s_run["launches"][k])
+        print(f"{name} ({kernel}) per frame ({c_main[kernel]}): "
+              f"device_ms {row['device_ms']:.5f}, kernel_ms "
+              f"{_ms_text(row['kernel_ms'])}, bound {row['bound_ms']:.5f}, "
+              f"call {row['call_ms']:.4f} (host-inclusive), plain "
+              f"{row['plain_ms']:.4f}; {launches} launches on the main path")
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "transflow_tpu_torch/csrc/compositor.cu",
+            "replaces": replaces,
+            "replaces_function": function,
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in c_rows
+                               if r["kernel"] == kernel),
+            "ms": row["device_ms"],
+            "device_ms": row["device_ms"],
+            "kernel_ms": row["kernel_ms"],
+            "call_ms": row["call_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
             "library_ms": None,
             "library": "none: hand-written for jnp code (no Pallas source); "
                        "no single PyTorch call computes it",

@@ -61,3 +61,20 @@ def test_build_without_a_kept_log_reads_empty(fake_build):
     first.with_suffix(".log").unlink()
     _device._build()
     assert logs[1] == ""
+
+
+def test_every_c_entry_has_its_argument_types():
+    """Each ``extern "C"`` entry of ``csrc/*.cu`` is in ``_SIGNATURES``
+    with one argument type a parameter (the error string excepted, which
+    ``KernelLibrary`` types itself): without them ctypes would pass a
+    pointer as a 32-bit int."""
+    import re
+    entries = {}
+    for src in _device.CSRC_DIR.glob("*.cu"):
+        for name, params in re.findall(
+                r'extern "C"[^(]*?\b(transflow_\w+)\(([^)]*)\)',
+                src.read_text()):
+            entries[name] = len([p for p in params.split(",") if p.strip()])
+    entries.pop("transflow_cuda_error_string")
+    assert entries == {name: len(types) for name, types
+                       in _device._SIGNATURES.items()}

@@ -1058,3 +1058,335 @@ def test_cv2_clip_through_the_engine_on_the_card(device, tmp_path,
     assert card.shape == (4, 90, 120, 2)
     mse = ((card - cpu) ** 2).mean(dim=(1, 2, 3))
     assert (10 * torch.log10(64.0 / mse.clamp_min(1e-30)) >= 60.0).all()
+
+
+# ---------------------------------------------------------------------------
+# The compositor's kernels K0, K1, K2 (ops/compositor.py) against their
+# plain versions on the card, bit for bit, over the CPU tests' grid
+# (tests/test_torch_compositor_kernels.py holds the plain versions to JAX)
+# ---------------------------------------------------------------------------
+
+COMP_CHANNELS = (3, 4, 3, 3, 4, 4, 3, 4, 3)
+
+
+@pytest.fixture
+def comp_gradient(tmp_path):
+    """A PGM writer of (H, W) masks whose values wrap: floats k/255."""
+    from transflow_tpu_torch.utils.imageio import write_netpbm
+
+    def make(h, w):
+        path = tmp_path / f"gradient_{h}x{w}.pgm"
+        ii, jj = np.indices((h, w))
+        write_netpbm(str(path), ((ii * 13 + jj * 7) % 256).astype(np.uint8))
+        return str(path)
+    return make
+
+
+def _comp_layers(cfgs, sources, h, w, device):
+    """Port params on ``device`` and seeded random pixmaps a layer."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.config import LayerConfig
+    params = core.make_layer_params(
+        [LayerConfig(i, **c) for i, c in enumerate(cfgs)], h, w,
+        dict(enumerate(sources)), device=device)
+    gen = torch.Generator(device=device).manual_seed(len(cfgs))
+    pix = [tuple(torch.randint(0, 256, (h, w, c), generator=gen,
+                               device=device, dtype=torch.uint8)
+                 for c in p.channel_counts) for p in params]
+    return params, pix
+
+
+def _comp_sources(n, h, w, seed=0):
+    if n == 1:
+        return [(3, None)]
+    rng = np.random.default_rng(seed)
+    return [(COMP_CHANNELS[s], rng.random((h, w)) < 0.4) for s in range(n)]
+
+
+def _comp_flow(h, w, gen, device, reach=6, clip=True):
+    from transflow_tpu_torch.ops.image import clip_to_frame
+    flow = (torch.randint(-reach, reach + 1, (h, w, 2), generator=gen,
+                          device=device)
+            + 0.5 * torch.randint(0, 2, (h, w, 2), generator=gen,
+                                  device=device)).float()
+    still = torch.rand((h, w, 1), generator=gen, device=device) < 0.3
+    flow = torch.where(still, torch.zeros_like(flow), flow)
+    return clip_to_frame(flow) if clip else flow
+
+
+def _assert_comp_equal(got: dict, want: dict, label=""):
+    assert set(got) == set(want), label
+    for key, value in want.items():
+        assert got[key].dtype == value.dtype, (label, key)
+        assert torch.equal(got[key], value), (label, key)
+
+
+def _check_update_kernels(device, cfg, sources, h, w, halo=None,
+                          groups=(8,), frames=4, clip=True, seed=0):
+    """K0/K1 (``layer_update_cuda``) against ``layer_update_plain`` on the
+    card, for every group size, frame after frame with the state carried;
+    checks the launches a frame."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.ops import compositor as ck
+    params, pix = _comp_layers([cfg], [sources], h, w, device)
+    p = params[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    want = core.init_layer_state(p)
+    states = dict.fromkeys(groups, want)
+    leave = p.cfg.moving_pixels_leave_empty_spot and p.cfg.classname != "sum"
+    for k in range(frames):
+        flow = _comp_flow(h, w, gen, device, clip=clip)
+        key = prng.fold_in(prng.key(seed), k)
+        want = ck.layer_update_plain(p, want, flow, pix[0], key, halo)
+        for group in groups:
+            before = (ck.leave_empty_sources_cuda.launches,
+                      ck.layer_update_cuda.launches)
+            states[group] = ck.layer_update_cuda(p, states[group], flow,
+                                                 pix[0], key, halo, group)
+            torch.cuda.synchronize()
+            launches = -(-max(p.num_sources, 1) // group)
+            assert (ck.leave_empty_sources_cuda.launches,
+                    ck.layer_update_cuda.launches) == (
+                before[0] + int(leave), before[1] + launches)
+            _assert_comp_equal(states[group], want, f"frame {k} group {group}")
+    return states[groups[0]]
+
+
+COMP_UPDATE_CASES = {
+    "moveref-off": ({}, 1, None),
+    "moveref-random": ({"reset_mode": "random",
+                        "reset_random_factor": 0.3}, 1, None),
+    "moveref-random-mask": ({"reset_mode": "random", "reset_mask": "g",
+                             "reset_random_factor": 0.5}, 1, None),
+    "moveref-constant": ({"reset_mode": "constant",
+                          "reset_constant_step": 2.5}, 1, None),
+    "moveref-constant-mask": ({"reset_mode": "constant",
+                               "reset_mask": "g"}, 1, None),
+    "moveref-linear": ({"reset_mode": "linear",
+                        "reset_linear_factor": 0.3}, 1, None),
+    "moveref-linear-mask": ({"reset_mode": "linear", "reset_mask": "g"},
+                            1, None),
+    "sum-off": ({"classname": "sum"}, 1, None),
+    "sum-random": ({"classname": "sum", "reset_mode": "random",
+                    "reset_random_factor": 0.2}, 1, None),
+    "sum-random-mask": ({"classname": "sum", "reset_mode": "random",
+                         "reset_mask": "g"}, 1, None),
+    "sum-constant": ({"classname": "sum", "reset_mode": "constant",
+                      "reset_constant_step": 2.5}, 1, None),
+    "sum-linear-mask": ({"classname": "sum", "reset_mode": "linear",
+                         "reset_mask": "g"}, 1, None),
+    "mask-src": ({"mask_src": "circle:40%", "reset_mode": "random",
+                  "reset_random_factor": 0.1}, 1, None),
+    "mask-dst": ({"mask_dst": "border:4",
+                  "moving_pixels_leave_empty_spot": True}, 1, None),
+    "masks-all": ({"mask_alpha": "g", "mask_src": "rect:70%:60%",
+                   "mask_dst": "circle:45%:inv", "reset_mask": "g",
+                   "reset_mode": "random", "reset_random_factor": 0.2,
+                   "moving_pixels_leave_empty_spot": True}, 1, None),
+    "transparent": ({"transparent_pixels_can_move": True,
+                     "moving_pixels_leave_empty_spot": True}, 1, None),
+    "not-to-empty": ({"pixels_can_move_to_empty_spot": False,
+                      "moving_pixels_leave_empty_spot": True}, 1, None),
+    "not-to-filled": ({"pixels_can_move_to_filled_spot": False}, 1, None),
+    "leave-empty": ({"moving_pixels_leave_empty_spot": True}, 1, None),
+    "leave-empty-halo2": ({"moving_pixels_leave_empty_spot": True,
+                           "reset_mode": "constant"}, 1, 2),
+    "transparent-halo2": ({"transparent_pixels_can_move": True,
+                           "moving_pixels_leave_empty_spot": True}, 1, 2),
+    "sources-3": ({"reset_mode": "random", "reset_random_factor": 0.3,
+                   "reset_source": True,
+                   "moving_pixels_leave_empty_spot": True}, 3, None),
+    "sources-9": ({"reset_mode": "random", "reset_random_factor": 0.3,
+                   "reset_source": True}, 9, None),
+    "sum-sources-9": ({"classname": "sum", "reset_mode": "random",
+                       "reset_random_factor": 0.3, "reset_source": True},
+                      9, None),
+}
+
+
+@pytest.mark.parametrize("case", list(COMP_UPDATE_CASES))
+def test_compositor_update_kernels_match_plain(device, comp_gradient, case):
+    """K0 and K1 over every reset mode, mask, movement flag, the halo and
+    1, 3 and 9 sources in groups of 1, 2, 4 and 8, at a small unaligned
+    size, bit-equal to the plain version frame after frame."""
+    h, w = 37, 53
+    cfg, n, halo = COMP_UPDATE_CASES[case]
+    cfg = {k: comp_gradient(h, w) if v == "g" else v for k, v in cfg.items()}
+    groups = (1, 2, 4, 8) if n > 1 else (8,)
+    _check_update_kernels(device, cfg, _comp_sources(n, h, w, n), h, w,
+                          halo, groups, seed=len(case))
+
+
+def test_compositor_update_kernels_unclipped_flow(device):
+    """A flow that points past the frame: the movement clamps its source,
+    the sum's positions run off the frame and only the regather clips."""
+    for cfg in ({"moving_pixels_leave_empty_spot": True},
+                {"classname": "sum"}):
+        _check_update_kernels(device, cfg, [(4, None)], 29, 31, frames=6,
+                              clip=False, seed=11)
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (1079, 1917)], ids=str)
+def test_compositor_kernels_at_1080p(device, shape):
+    """The main path's layer (moveref, random reset 0.01) at 1080x1920
+    and at an unaligned 1079x1917, K1 then K2, bit-equal to plain."""
+    from transflow_tpu_torch.ops import compositor as ck
+    h, w = shape
+    state = _check_update_kernels(
+        device, {"reset_mode": "random", "reset_random_factor": 0.01},
+        [(3, None)], h, w, frames=3, seed=5)
+    params, _ = _comp_layers([{"mask_alpha": "circle:45%"}], [[(3, None)]],
+                             h, w, device)
+    bg = torch.tensor([255, 255, 255], dtype=torch.uint8, device=device)
+    got = ck.composite_cuda(params, [state], bg, h, w)
+    want = ck.composite_plain(params, [state], bg, h, w)
+    assert torch.equal(got[1], want[1])
+    _assert_comp_equal(got[0][0], want[0][0])
+
+
+def test_compositor_kernels_over_30_frames(device, comp_gradient):
+    """``build_compositor`` on the card (K0, K1, K2: a moveref layer with
+    random reset 0.01, leave-empty and an alpha mask, and a sum layer)
+    against the plain versions on the card over 30 frames of 1080x1920,
+    the state carried through: bit-equal every frame, 1 K0, 2 K1 and 1 K2
+    launches a frame."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.ops import compositor as ck
+    h, w = 1080, 1920
+    cfgs = [{"reset_mode": "random", "reset_random_factor": 0.01,
+             "moving_pixels_leave_empty_spot": True,
+             "mask_alpha": comp_gradient(h, w)},
+            {"classname": "sum", "reset_mode": "linear"}]
+    params, pix = _comp_layers(cfgs, [[(3, None)], [(4, None)]], h, w,
+                               device)
+    init, step = core.build_compositor(params, h, w, "#204060",
+                                       device=device)
+    bg = torch.tensor([0x20, 0x40, 0x60], dtype=torch.uint8, device=device)
+    state = want = init()
+    gen = torch.Generator(device=device).manual_seed(30)
+    counters = (ck.leave_empty_sources_cuda, ck.layer_update_cuda,
+                ck.composite_cuda)
+    for k in range(30):
+        flow = _comp_flow(h, w, gen, device, reach=4)
+        key = prng.fold_in(prng.key(3), k)
+        before = [fn.launches for fn in counters]
+        state, rgb = step(state, flow, pix, key, ((0,), (0,)))
+        torch.cuda.synchronize()
+        assert [fn.launches - b for fn, b in zip(counters, before)] == \
+            [1, 2, 1]
+        keys = prng.split(key, 2)
+        want = [ck.layer_update_plain(p, s, flow, x, kk)
+                for p, s, x, kk in zip(params, want, pix, keys)]
+        want, want_rgb = ck.composite_plain(params, want, bg, h, w)
+        assert torch.equal(rgb, want_rgb), k
+        for got, exp in zip(state, want):
+            _assert_comp_equal(got, exp, f"frame {k}")
+
+
+def test_compositor_draw_is_prng_uniform(device):
+    """K1's draw at 1080x1920 is ``prng.uniform`` of the layer's key bit
+    for bit: with the reset factor at the plain draw u every pixel keeps
+    (rand < u is false), at the next float above u every pixel resets
+    (rand <= u), so rand == u everywhere."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.ops import compositor as ck
+    h, w = 1080, 1920
+    params, pix = _comp_layers([{"reset_mode": "random"}], [[(3, None)]],
+                               h, w, device)
+    p = params[0]
+    state = dict(core.init_layer_state(p),
+                 alpha=torch.zeros((h, w), dtype=torch.uint8, device=device))
+    flow = torch.zeros((h, w, 2), device=device)
+    key = prng.split(prng.key(7), 3)[1]
+    u = prng.uniform(key, (h, w), device)
+    for factor, reset in ((u, 0), (torch.nextafter(u, torch.ones_like(u)),
+                                   1)):
+        p.reset_factor = factor
+        out = ck.layer_update_cuda(p, state, flow, pix[0], key)
+        assert torch.equal(out["alpha"], torch.full_like(out["alpha"],
+                                                         reset))
+
+
+def test_compositor_leave_empty_kernel_matches_plain(device):
+    """K0 alone, into a zeroed buffer, against its plain version, with and
+    without a halo."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.ops import compositor as ck
+    h, w = 135, 241
+    params, _ = _comp_layers([{"mask_src": "circle:45%",
+                               "moving_pixels_leave_empty_spot": True}],
+                             [[(3, None)]], h, w, device)
+    gen = torch.Generator(device=device).manual_seed(8)
+    state = dict(core.init_layer_state(params[0]), alpha=(torch.rand(
+        (h, w), generator=gen, device=device) < 0.7).to(torch.uint8))
+    flow = _comp_flow(h, w, gen, device, reach=9)
+    for halo in (None, 3):
+        got = ck.leave_empty_sources_cuda(params[0], state, flow, halo)
+        want = ck.leave_empty_sources_plain(params[0], state, flow, halo)
+        assert torch.equal(got.bool(), want) and want.any()
+
+
+def _comp_stack(n, gradient):
+    cycle = [
+        {"reset_mode": "random", "reset_random_factor": 0.2,
+         "mask_alpha": gradient, "moving_pixels_leave_empty_spot": True},
+        {"classname": "sum", "reset_mode": "linear"},
+        {"classname": "introduction", "mask_alpha": gradient,
+         "moving_pixels_leave_empty_spot": True},
+        {"classname": "static", "mask_alpha": "circle:40%"},
+        {"classname": "moveref", "mask_alpha": "border:3",
+         "transparent_pixels_can_move": True},
+    ]
+    return [cycle[k % len(cycle)] for k in range(n)]
+
+
+@pytest.mark.parametrize("n", [1, 3, 9])
+def test_composite_kernel_matches_plain(device, comp_gradient, n):
+    """K2 over 1, 3 and 9 layers of every class in groups of 1, 3 and 8,
+    after three steps of ``build_compositor`` on the card; then with alpha
+    masks outside [0, 1] (-0.5 to 1.6: the cast of a product below 0 or
+    above 255 to uint8, and introduction's clip), bit-equal to the plain
+    version on the card."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.ops import compositor as ck
+    h, w = 61, 83
+    params, pix = _comp_layers(_comp_stack(n, comp_gradient(h, w)),
+                               [_comp_sources(2, h, w)] * n, h, w, device)
+    init, step = core.build_compositor(params, h, w, "#204060",
+                                       device=device)
+    state = init()
+    gen = torch.Generator(device=device).manual_seed(n)
+    numbers = tuple((0, 0) for _ in range(n))
+    for k in range(3):
+        state, _ = step(state, _comp_flow(h, w, gen, device), pix,
+                        prng.fold_in(prng.key(n), k), numbers)
+    bg = torch.tensor([0x20, 0x40, 0x60], dtype=torch.uint8, device=device)
+    for masks in ("config", "outside [0, 1]"):
+        if masks != "config":
+            for p in params:
+                if p.mask_alpha is not None:
+                    p.mask_alpha = torch.rand((h, w), generator=gen,
+                                              device=device) * 2.1 - 0.5
+        want_states, want = ck.composite_plain(params, state, bg, h, w)
+        for group in (1, 3, 8):
+            before = ck.composite_cuda.launches
+            got_states, got = ck.composite_cuda(params, state, bg, h, w,
+                                                group)
+            torch.cuda.synchronize()
+            assert ck.composite_cuda.launches == before + -(-n // group)
+            assert torch.equal(got, want), (masks, group)
+            for a, b in zip(got_states, want_states):
+                _assert_comp_equal(a, b, f"{masks} group {group}")
+
+
+def test_compositor_kernels_need_one_card(device):
+    """A wrapper given tensors on two devices, or a CPU pixmap, raises."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.ops import compositor as ck
+    params, pix = _comp_layers([{}], [[(3, None)]], 8, 8, device)
+    state = core.init_layer_state(params[0])
+    flow = torch.zeros((8, 8, 2), device=device)
+    with pytest.raises(ValueError):
+        ck.layer_update_cuda(params[0], state, flow, (pix[0][0].cpu(),))
+    with pytest.raises(ValueError):
+        ck.layer_update(params[0], state, flow.cpu(), pix[0])

@@ -120,6 +120,12 @@ def _fb_counters():
     return poly_expansion_cuda, update_equations_cuda, aggregate_solve_cuda
 
 
+def _comp_counters():
+    from .ops.compositor import (composite_cuda, layer_update_cuda,
+                                 leave_empty_sources_cuda)
+    return leave_empty_sources_cuda, layer_update_cuda, composite_cuda
+
+
 def _lfn_counters():
     from .ops.correlation import correlation7x7_cuda
     from .ops.warp import bounded_backwarp_cuda
@@ -205,11 +211,13 @@ def _sampled(chain) -> dict:
 
 def bench_device(device) -> dict:
     """The flagship on ``device``: frames/s and its spread, the stage
-    split, the state's size, its launches of B1, B2a and B2b a frame (on
-    the card they must be the estimator's ``launches_per_frame``: no plain
+    split, the state's size, its launches of B1, B2a and B2b and of the
+    compositor's K0, K1 and K2 a frame (on the card they must be the
+    estimator's ``launches_per_frame`` and ``MOVEREF_PER_FRAME``: no plain
     version ran) and the host's waits for the card a frame."""
     from . import prng
     from .flow.estimators.farneback import farneback, launches_per_frame
+    from .ops.compositor import MOVEREF_PER_FRAME
     from .profiling import host_sync_sites
     model = flagship_model(device)
     chain = FlagshipChain(model)
@@ -219,14 +227,14 @@ def bench_device(device) -> dict:
     out = _sampled(chain)
 
     frames_per_sample = CHUNK * CHUNKS_PER_SAMPLE
-    counters = _fb_counters()
+    counters = _fb_counters() + _comp_counters()
     _zero(counters)
     syncs = len(host_sync_sites(chain.run, device))
     launches = [fn.launches / frames_per_sample for fn in counters]
     int(chain.run(1).sum(dtype=torch.int64))
-    want = launches_per_frame(HEIGHT, WIDTH)
+    want = launches_per_frame(HEIGHT, WIDTH) + MOVEREF_PER_FRAME
     if device.type == "cuda" and tuple(launches) != want:
-        raise RuntimeError(f"flagship: B1/B2a/B2b launches a frame "
+        raise RuntimeError(f"flagship: B1/B2a/B2b/K0/K1/K2 launches a frame "
                            f"{launches}, expected {want}: a plain version "
                            "ran on the card")
 
@@ -284,7 +292,8 @@ def bench_device(device) -> dict:
         "hbm_io_gbps": (io_bytes_per_frame * out["fps"] / 1e9
                         if device.type == "cuda" else None),
         "carry_state_mb": state_bytes / 1e6,
-        "launches_per_frame": dict(zip(("B1", "B2a", "B2b"), launches)),
+        "launches_per_frame": dict(zip(("B1", "B2a", "B2b", "K0", "K1",
+                                        "K2"), launches)),
         "host_syncs_per_frame": syncs / frames_per_sample,
     })
     return out

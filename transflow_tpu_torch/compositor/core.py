@@ -9,6 +9,11 @@ and matches the JAX package bit for bit given the same flow and key: the
 random reset draws ``prng.uniform`` from the same threefry key as
 ``jax.random.uniform``.
 
+``build_compositor`` runs moveref and sum layers, and the render of the
+stack, through ``ops/compositor.py`` (kernels K0-K2 of
+``csrc/compositor.cu`` on the card, which hash the draw in registers;
+this module's functions on the CPU).
+
 The four classes (moveref, sum, static, introduction), the four reset
 modes and the four layer masks (``mask_alpha``, ``mask_src``,
 ``mask_dst``, ``reset_mask``) are ported. A mask the config leaves unset
@@ -18,6 +23,7 @@ the reference are the JAX package's (core.py:17-24): introduction's
 exclusions have their intended meaning, and sum moves along (dy -> i,
 dx -> j).
 """
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -26,6 +32,7 @@ import torch
 from .. import prng
 from .._device import resolve_device
 from ..config import LayerConfig
+from ..ops import compositor as kernels
 from ..ops.halo_gather import (bounded_row_gather, clamped_rows,
                                sharded_bounded_gather)
 from ..ops.scatter import scatter_any
@@ -88,6 +95,18 @@ class LayerParams:
         self.channel_counts = tuple(channel_counts)
         self.num_sources = len(self.intro_masks)
 
+    @functools.cached_property
+    def last_source_plane(self) -> torch.Tensor:
+        """(H, W) uint8: the last source whose introduction mask holds the
+        pixel, 255 where none does: the source the random reset with
+        ``reset_source`` gives a reset pixel (``_reset``'s loop), in one
+        plane for kernel K1. Made at first use."""
+        plane = torch.full((self.height, self.width), 255,
+                           dtype=SOURCE_DTYPE, device=self.device)
+        for s, mask in enumerate(self.intro_masks):
+            plane = torch.where(mask, torch.full_like(plane, s), plane)
+        return plane
+
     def base_source(self) -> torch.Tensor:
         """Initial per-pixel source index: later sources overwrite earlier.
 
@@ -137,25 +156,34 @@ def init_layer_state(params: LayerParams) -> dict:
     pos_dtype = torch.int32 if classname == "sum" else POS_DTYPE
     ii, jj = _base_coords(h, w, device)
     return {
-        "pos_i": ii.to(pos_dtype),
-        "pos_j": jj.to(pos_dtype),
+        "pos_i": ii.to(pos_dtype).contiguous(),
+        "pos_j": jj.to(pos_dtype).contiguous(),
         "alpha": torch.ones((h, w), dtype=ALPHA_DTYPE, device=device),
         "source": params.base_source(),
         "rgba": rgba,
     }
 
 
-def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
-              flow: torch.Tensor, halo: int | None = None, mesh=None):
-    """Apply the flow permutation to ``channels`` + ``alpha``.
+def _mesh_splits(mesh, height: int, halo: int | None) -> bool:
+    """Whether the movement gather runs sharded: under a ``mesh`` whose
+    ``space`` axis splits H into shards of at least ``halo`` rows (JAX's
+    rule, core.py:191-204)."""
+    n = mesh.shape.get("space", 1) if mesh is not None else 1
+    return (halo is not None and n > 1 and height % n == 0
+            and 1 <= halo <= height // n)
 
-    Parity: transflow/compositor/layers/movement.py:20-64 as a masked
-    gather. Returns (channels, alpha, (moving, src_i, src_j)).
+
+def movement_targets(params: LayerParams, alpha: torch.Tensor,
+                     flow: torch.Tensor, halo: int | None = None, mesh=None):
+    """The movement's gather and its targets. Returns (gather, is_target,
+    moving, src_i, src_j, eff_i): ``gather(x)`` reads ``x`` at each
+    pixel's source, ``eff_i`` is the row it reads (``src_i`` without a
+    halo).
 
     ``halo``: source reads go through the bounded-displacement gather
     (ops/halo_gather.py), exact for |flow_y| <= halo; under a ``mesh``
     whose ``space`` axis splits H into shards of at least ``halo`` rows,
-    through its sharded form (JAX's rule, core.py:191-204)."""
+    through its sharded form (``_mesh_splits``)."""
     cfg = params.cfg
     h, w = params.height, params.width
     di = torch.round(flow[..., 1]).to(torch.int32)
@@ -164,7 +192,6 @@ def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
     ii, jj = _base_coords(h, w, flow.device)
     src_i = (ii + di).clamp(0, h - 1)
     src_j = (jj + dj).clamp(0, w - 1)
-    n = mesh.shape.get("space", 1) if mesh is not None else 1
     if halo is None:
         eff_i = src_i
         flat_src = (src_i.long() * w + src_j.long()).reshape(-1)
@@ -176,7 +203,7 @@ def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
         # the row the bounded gather reads; the leave-empty scatter
         # vacates that same row (core.py:224-230)
         eff_i = clamped_rows(src_i, halo)
-        if n > 1 and h % n == 0 and 1 <= halo <= h // n:
+        if _mesh_splits(mesh, h, halo):
             def gather(x):
                 return sharded_bounded_gather(x, src_i, src_j, halo, mesh)
         else:
@@ -184,8 +211,6 @@ def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
                 return bounded_row_gather(x, src_i, src_j, halo)
 
     filled = alpha != 0
-    g_alpha = gather(alpha)
-    g_channels = {k: gather(v) for k, v in channels.items()}
     # the source's mask plane, read through the same gather as the state
     # (core.py:183-189); None where it is all ones
     src_plane = params.mask_src
@@ -198,15 +223,45 @@ def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
         is_target = is_target & filled
     if not cfg.pixels_can_move_to_filled_spot:
         is_target = is_target & ~filled
+    return gather, is_target, moving, src_i, src_j, eff_i
+
+
+def leave_empty_sources(params: LayerParams, alpha: torch.Tensor,
+                        flow: torch.Tensor,
+                        halo: int | None = None) -> torch.Tensor:
+    """(H, W) bool: the pixels that some target of the movement reads,
+    which ``moving_pixels_leave_empty_spot`` empties (core.py:224-230)."""
+    _, is_target, _, _, src_j, eff_i = movement_targets(params, alpha,
+                                                        flow, halo)
+    return _occupied(params, is_target, src_j, eff_i)
+
+
+def _occupied(params: LayerParams, is_target: torch.Tensor,
+              src_j: torch.Tensor, eff_i: torch.Tensor) -> torch.Tensor:
+    w = params.width
+    flat_eff = (eff_i.long() * w + src_j.long()).reshape(-1)
+    return scatter_any((params.height, w), flat_eff, is_target)
+
+
+def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
+              flow: torch.Tensor, halo: int | None = None, mesh=None):
+    """Apply the flow permutation to ``channels`` + ``alpha``.
+
+    Parity: transflow/compositor/layers/movement.py:20-64 as a masked
+    gather. Returns (channels, alpha, (moving, src_i, src_j)); ``halo``
+    and ``mesh`` as in ``movement_targets``."""
+    cfg = params.cfg
+    gather, is_target, moving, src_i, src_j, eff_i = movement_targets(
+        params, alpha, flow, halo, mesh)
+    g_alpha = gather(alpha)
 
     def sel(mask, a, b):
         return torch.where(mask[..., None] if a.dim() == 3 else mask, a, b)
 
-    out = {k: sel(is_target, g_channels[k], v) for k, v in channels.items()}
+    out = {k: sel(is_target, gather(v), v) for k, v in channels.items()}
     new_alpha = torch.where(is_target, g_alpha, alpha)
     if cfg.moving_pixels_leave_empty_spot:
-        flat_eff = (eff_i.long() * w + src_j.long()).reshape(-1)
-        is_source = scatter_any((h, w), flat_eff, is_target)
+        is_source = _occupied(params, is_target, src_j, eff_i)
         new_alpha = torch.where(is_source, torch.zeros_like(new_alpha),
                                 new_alpha)
     arrived = is_target & (g_alpha != 0) if cfg.transparent_pixels_can_move \
@@ -215,11 +270,13 @@ def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
     return out, new_alpha, (moving, src_i, src_j)
 
 
-def _gather_pixmap_slices(params: LayerParams, pixmaps, gi, gj):
-    """Each source's (H, W, channel_counts[s]) pixmap read at (gi, gj)."""
+def _gather_pixmap_slices(params: LayerParams, pixmaps, gi, gj,
+                          sources: range):
+    """Each source's (H, W, channel_counts[s]) pixmap read at (gi, gj), for
+    s in ``sources``."""
     h, w = params.height, params.width
     flat = (gi.long() * w + gj.long()).reshape(-1)
-    for s in range(params.num_sources):
+    for s in sources:
         pixmap = pixmaps[s]
         yield pixmap.reshape(h * w, -1)[flat].reshape(h, w, -1)
 
@@ -279,20 +336,25 @@ def _reset(params: LayerParams, state: dict, rand=None) -> dict:
     return state
 
 
-def _reference_rgba(params: LayerParams, state: dict, pixmaps) -> dict:
-    """Regather rgba from the coordinate mapping.
+def _reference_rgba(params: LayerParams, state: dict, pixmaps,
+                    sources: range | None = None) -> dict:
+    """Regather rgba from the coordinate mapping, over ``sources`` (all by
+    default; a later range continues from the state's rgba, as a later
+    launch of kernel K1 does).
 
     Parity: transflow/compositor/layers/reference.py:93-105, including the
     reference's per-source sequential alpha handling for 3-channel
     pixmaps."""
     h, w = params.height, params.width
+    if sources is None:
+        sources = range(params.num_sources)
     rgba = state["rgba"]
     rgb = rgba[..., :3]
     a = rgba[..., 3]
     mi = state["pos_i"].clamp(0, h - 1)
     mj = state["pos_j"].clamp(0, w - 1)
-    slices = _gather_pixmap_slices(params, pixmaps, mi, mj)
-    for s, gathered in enumerate(slices):
+    slices = _gather_pixmap_slices(params, pixmaps, mi, mj, sources)
+    for s, gathered in zip(sources, slices):
         sel = (state["source"] == s) & (state["alpha"] != 0)
         rgb = torch.where(sel[..., None], gathered[..., :3], rgb)
         if params.channel_counts[s] == 4:
@@ -309,13 +371,20 @@ def update_moveref(params: LayerParams, state: dict, flow, pixmaps,
     """MoveReferenceLayer.update (move_reference.py:12-14). ``rand`` is the
     random reset's uniform draw (only read in that mode); ``halo`` and
     ``mesh`` select the movement gather (``_movement``)."""
+    state = moveref_movement(params, state, flow, halo, mesh)
+    state = _reset(params, state, rand)
+    return _reference_rgba(params, state, pixmaps)
+
+
+def moveref_movement(params: LayerParams, state: dict, flow,
+                     halo: int | None = None, mesh=None) -> dict:
+    """A moveref layer's state moved by ``flow`` (``_movement`` of its
+    positions, source and alpha)."""
     channels = {"pos_i": state["pos_i"], "pos_j": state["pos_j"],
                 "source": state["source"]}
     channels, alpha, _ = _movement(params, channels, state["alpha"], flow,
                                    halo, mesh)
-    state = dict(state, **channels, alpha=alpha)
-    state = _reset(params, state, rand)
-    return _reference_rgba(params, state, pixmaps)
+    return dict(state, **channels, alpha=alpha)
 
 
 def update_sum(params: LayerParams, state: dict, flow, pixmaps, rand=None,
@@ -324,13 +393,19 @@ def update_sum(params: LayerParams, state: dict, flow, pixmaps, rand=None,
 
     Parity: sum.py:9-14 with the component transposition fixed (dy -> i).
     The int32 positions are not clipped; the regather clips its reads."""
+    state = sum_movement(state, flow)
+    state = _reset(params, state, rand)
+    return _reference_rgba(params, state, pixmaps)
+
+
+def sum_movement(state: dict, flow) -> dict:
+    """A sum layer's positions plus the floored flow, in int32."""
     state = dict(state)
     state["pos_i"] = state["pos_i"] + torch.floor(flow[..., 1]).to(
         torch.int32)
     state["pos_j"] = state["pos_j"] + torch.floor(flow[..., 0]).to(
         torch.int32)
-    state = _reset(params, state, rand)
-    return _reference_rgba(params, state, pixmaps)
+    return state
 
 
 def update_static(params: LayerParams, state: dict, flow, pixmaps,
@@ -386,7 +461,8 @@ def update_introduction(params: LayerParams, state: dict, flow, pixmaps,
         gi, gj = src_i, src_j
     else:
         gi, gj = _base_coords(params.height, params.width, flow.device)
-    slices = _gather_pixmap_slices(params, pixmaps, gi, gj)
+    slices = _gather_pixmap_slices(params, pixmaps, gi, gj,
+                                   range(params.num_sources))
     for s, gathered in enumerate(slices):
         tgt = mask & params.intro_masks[s]
         if params.channel_counts[s] == 4:
@@ -428,13 +504,6 @@ def render_layer(params: LayerParams, state: dict):
     return dict(state, rgba=rgba), rgba
 
 
-_UPDATE_FNS = {
-    "moveref": update_moveref,
-    "sum": update_sum,
-    "static": update_static,
-}
-
-
 def build_compositor(layer_params: Sequence[LayerParams], height: int,
                      width: int, background_color: str = "#ffffff",
                      halo: int | None = None, mesh=None, device=None):
@@ -449,14 +518,24 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
     a ``prng`` key; it splits into one key per layer, and a random-reset
     layer draws its uniforms from its own (core.py:518, :278).
 
+    Moveref and sum layers update through ``ops/compositor.py``'s
+    ``layer_update`` (kernels K0 and K1 on the card, which draw the random
+    reset in registers), and the stack renders through its ``composite``
+    (K2); on the CPU both run their plain versions. Introduction and
+    static layers update through their plain ops, and so does a moveref
+    layer whose movement gather runs sharded (``halo`` under a ``mesh``
+    that splits H, ``_mesh_splits``): the route is fixed here, from the
+    configuration.
+
     ``halo``: the bounded movement gather for H-sharded runs, under
-    ``mesh`` (a ``SpaceMesh``) its sharded form; see ``_movement``.
+    ``mesh`` (a ``SpaceMesh``) its sharded form; see ``movement_targets``.
 
     Parity: transflow/compositor/compositor.py:17-53."""
     device = resolve_device(device)
     bg_color = torch.tensor(parse_color(background_color), dtype=torch.uint8,
                             device=device)
     default_params = list(layer_params)
+    sharded_movement = _mesh_splits(mesh, height, halo)
 
     def init_fn():
         return [init_layer_state(p) for p in default_params]
@@ -470,29 +549,30 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
         new_state = []
         for idx, params in enumerate(params_list):
             classname = params.cfg.classname
+            random = params.cfg.reset_mode == "random"
             if classname == "introduction":
                 new_state.append(update_introduction(
                     params, state[idx], flow, pixmaps[idx],
                     frame_numbers[idx], halo, mesh))
-                continue
-            rand = None
-            if params.cfg.reset_mode == "random" and classname != "static":
+            elif classname == "static":
+                new_state.append(update_static(params, state[idx], flow,
+                                               pixmaps[idx]))
+            elif classname == "moveref" and sharded_movement:
                 rand = prng.uniform(keys[idx], (params.height, params.width),
-                                    flow.device)
-            new_state.append(_UPDATE_FNS[classname](
-                params, state[idx], flow, pixmaps[idx], rand, halo, mesh))
+                                    flow.device) if random else None
+                new_state.append(update_moveref(
+                    params, state[idx], flow, pixmaps[idx], rand, halo,
+                    mesh))
+            else:
+                new_state.append(kernels.layer_update(
+                    params, state[idx], flow, pixmaps[idx],
+                    keys[idx] if random else None, halo))
         return new_state
 
     def render_fn(state, params_list=None):
         params_list = default_params if params_list is None else params_list
-        image = bg_color.expand(height, width, 3)
-        new_state = []
-        for idx, params in enumerate(params_list):
-            st, rgba = render_layer(params, state[idx])
-            new_state.append(st)
-            image = torch.where((rgba[..., 3] != 0)[..., None],
-                                rgba[..., :3], image)
-        return new_state, image
+        return kernels.composite(params_list, state, bg_color, height,
+                                 width)
 
     def step_fn(state, flow, pixmaps, key, frame_numbers, render=True,
                 params_list=None):
