@@ -12,22 +12,23 @@ Phases, in order; any failure exits non-zero:
    git-ignored ``transflow_tpu_torch/_build``); prints each kernel
    instantiation's registers, shared memory and spills as ptxas reported
    them, and fails unless ptxas reported the correlation kernel,
-   Farneback's B1, B2a and B2b, B5's two kernels and B9-B12 free of
-   spills;
+   Farneback's B1, B2a and B2b, B5's two kernels, B9-B12 and the
+   pyramids' kernel (B8, B14) free of spills;
 F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    ``CvFlowConfig()`` (Farneback with cv2's defaults, the headline
    command's estimator), one moveref layer with random reset 0.01 over
    frames panned 3 px per frame: a warm-up chunk, a timed chunk of 8
    frames and ``process_frame`` calls, counting 4 B1 (one per level, both
-   images), 12 B2a and 12 B2b launches per frame, the interior median flow of every frame within
-   0.5 px of the pan; then the same Engine with ``assets/configs/
+   images), 12 B2a, 12 B2b and 3 B8 (one per level below L0, both
+   images) launches per frame, the interior median flow of every frame
+   within 0.5 px of the pan; then the same Engine with ``assets/configs/
    fast.json``, ``fastest.json`` and ``fb_select_warp=16``, and with
    ``CvFlowConfig()`` once more (the first run of a process reads slower);
 P. pipeline: the port's CLI disk to disk in a temporary directory over 24
    P5 frames at 1080x1920 panned as in phase F. P1: ``cli.main`` with
    the headline command's defaults, ``-p noise -r random 0.01 --seed 0
    -o out/%04d.ppm -F -C``: 23 frames that decode to 1080x1920x3, 4 B1
-   + 12 B2a + 12 B2b launches per frame, every exported flow's interior
+   + 12 B2a + 12 B2b + 3 B8 launches per frame, every exported flow's interior
    median within 0.5 px of the pan, the Engine's state on the card; the
    same cut to 12 frames (``-t 00:00:00.480``), whose frames must be
    P1's first and whose host syncs against P1's give the syncs a frame
@@ -45,7 +46,7 @@ P. pipeline: the port's CLI disk to disk in a temporary directory over 24
    ``ControlSession`` over P1's end checkpoint (a 1080x1920 mapping, a
    paint shown in ``preview()``) and ``FlowClip.flow(0)`` over the PGM
    frames on the card (bit-equal to Farneback on the pair, 4 B1 + 12
-   B2a + 12 B2b launches). Prints the disk-to-disk frames/s and
+   B2a + 12 B2b + 3 B8 launches). Prints the disk-to-disk frames/s and
    ``StageTimers``' split per frame of P1, P2 and P4, and the bare
    Engine's ms/frame on the same frames;
 T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
@@ -56,8 +57,8 @@ T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
    DSL mask), sum, static and moveref layers with ``--mask-alpha``,
    ``--move-mask-source``, ``--move-mask-destination`` and ``-r random
    0.01 -m`` a fractional mask image: a warm-up chunk, a timed chunk of
-   8 frames and ``process_frame`` calls, counting 8 B1, 24 B2a, 24 B2b
-   and 2 B5 launches (B5's two kernels, no memset) per frame, finite
+   8 frames and ``process_frame`` calls, counting 8 B1, 24 B2a, 24 B2b,
+   6 B8 and 2 B5 launches (B5's two kernels, no memset) per frame, finite
    flows, the per-frame checksums read back once, 0 host syncs per frame,
    and its profile (device busy time and idle share per frame); then the
    same
@@ -72,8 +73,9 @@ H. the secondary estimators: ``Engine`` at 1080x1920 over phase F's pan
    ``horn-schunck-diverge``, ``horn-schunck-smooth-inertia``,
    ``lukas-kanade``, ``lk16``): a warm-up chunk, a timed chunk of 8
    frames and ``process_frame`` calls, counting 1 B9 and ``hs_iterations``
-   B10 launches per frame, or 30 B11 and 33 B12 (10 of each per level, and
-   B12's structure tensor once per level, at three levels), finite flows,
+   B10 launches per frame, or 30 B11, 33 B12 (10 of each per level, and
+   B12's structure tensor once per level, at three levels) and 2 B14 (one
+   per level below L0, both images), finite flows,
    0 host syncs per frame, and for ``lukas-kanade.json`` every interior
    median within 0.5 px of the pan; then a static pair through
    Horn-Schunck (one iteration taken of 5, read back once after the
@@ -119,16 +121,16 @@ G. live tuning, video input, the MJPEG preview and the GUI. G1, on every
    pan, 4 frames through ``process_frame``, then
    ``CvFlowConfigWindow(config).apply_value("fb_iterations", "5")`` with
    no window opened, then 4 frames more: one estimator rebuild (on the
-   first frame after the change), B1/B2a/B2b launches a frame 4/12/12
-   then 4/20/20, 0 host syncs a frame after the rebuild frame, the
+   first frame after the change), B1/B2a/B2b/B8 launches a frame
+   4/12/12/3 then 4/20/20/3, 0 host syncs a frame after the rebuild frame, the
    rebuild frame's raw flow bit-equal to ``farneback`` with the new
    ``estimator_kwargs()`` on the same pair and warm start; ms/frame
    before, on and after the rebuild frame. G2, where cv2 and aiohttp
    load: 24 frames of phase F's pan written by ``cv2.VideoWriter`` (MJPG
    in an .avi); ``CvFlowSource``'s gray frames bit-equal to
    ``cv2.VideoCapture``'s own; ``cli.main([clip, "-p", "noise",
-   "--seed", "0", "-o", out/%04d.ppm])`` on the card (23 frames, 4/12/12
-   launches and, against a 12-frame cut, 0 host syncs a frame); ``-o
+   "--seed", "0", "-o", out/%04d.ppm])`` on the card (23 frames,
+   4/12/12/3 launches and, against a 12-frame cut, 0 host syncs a frame); ``-o
    mjpeg:PORT`` with one multipart frame fetched over HTTP that decodes
    to 1080x1920; the headline ``clip.avi -p still.png -o out.mp4``
    (the encoder chain's first writer that opens; 23 frames reopened by
@@ -145,7 +147,7 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
    1088x1920, the ``fastest`` preset and the CLI disk to disk over a cv2
    MJPG clip (still pixmap, video pixmap, ``.flow.zip`` replay), the
    record printed as its own JSON line; it must hold every field, B1/B2a/
-   B2b launches of 4/12/12 and A1/A3 of 5/0 a frame, 0 host syncs a
+   B2b/B8 launches of 4/12/12/3 and A1/A3 of 5/0 a frame, 0 host syncs a
    frame and this card's name and power limit; then 3 cases of the chunk
    fuzzer (``tools/fuzz_chunks.py``, seed 5) on the card at 96x128, each
    chunked render bit-equal to the per-frame one and each resumed tail
@@ -189,7 +191,14 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    and 16, on a random flow and on the Engine's pan scaled to the level)
    and B2b (``aggregate_solve``, box and Gaussian) at the four level
    shapes of a 1080p frame in bf16 and float32 storage, on B1's own
-   planes, each bit-equal to its plain version;
+   planes, each bit-equal to its plain version; then B8
+   (``pyramid_level``, both images of a level in one launch) on a 1080p
+   frame in bf16 and float32 at the three levels of cv2's defaults
+   (also ``fb_downscale`` 2, 4 and 8's pre-resize), at ``fb_pyr_scale``
+   0.8's first level and at ``fb_levels`` 8's deepest (radius 95),
+   bit-equal to its plain version, beside the path it replaced (two
+   cuDNN passes and ``F.interpolate(antialias=True)`` an image,
+   ``b8_replaced``) timed on the same images;
 9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
    the CPU slice, Farneback on both devices, Horn-Schunck (bit-equal) and
    Lucas-Kanade (within 1e-4) on both devices, the compositor on both
@@ -197,12 +206,15 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    reset on both devices;
 10. kernel time: ``torch.profiler``'s kernel durations of A1 (the slice's
    dtype pairs), A2 (every sharded case), A3 beside ``F.grid_sample`` at
-   L2-L6 (phase 7's bf16 inputs within the bound), B1, B2a, B2b at the
-   four levels and B9-B12 at theirs; then the Farneback Engine's, each
-   phase H Engine's and phase S's device events, busy time and idle share
-   per frame over a few ``process_frame`` (or one-frame ``sharded_scan``)
-   calls, and their device time per frame by kernel name (the
-   ``PROFILE_TOP`` largest) and that of the compositor's K0, K1 and K2;
+   L2-L6 (phase 7's bf16 inputs within the bound), B1, B2a, B2b, B8 at
+   the four levels and B9-B12, B14 at theirs, B8 and B14 beside every
+   device event of the path each replaced; then the Farneback Engine's
+   (which must show no cuDNN kernel and none of ``F_REPLACED_OPS``),
+   each phase H Engine's and phase S's device events, busy time and idle
+   share per frame over a few ``process_frame`` (or one-frame
+   ``sharded_scan``) calls, and their device time per frame by kernel
+   name (the ``PROFILE_TOP`` largest) and that of the compositor's K0,
+   K1 and K2;
 11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
    kernel, B1, B2a, B2b, B9, B10 and B5 against other trees'
    ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu`` and
@@ -240,9 +252,11 @@ B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
    library, B11 (``lk_warp_products``)
    and B12 (``lk_structure_tensor`` and ``lk_window_solve``, window 15)
    at the three levels of Lucas-Kanade's 1080p pyramid on the pan's
-   images, Scharr derivatives and flow, each bit-equal to its plain
-   version on the same inputs, with ``device_ms``, the bound, its share
-   and the plain version's time.
+   images, Scharr derivatives and flow, and B14 (``downsample2x``, both
+   images a launch) making that pyramid's two levels below L0, each
+   bit-equal to its plain version on the same inputs, with
+   ``device_ms``, the bound, its share and the plain version's time (and
+   B14's beside the path it replaced, ``b14_replaced``).
 C. after phase 9: the compositor's kernels (``ops/compositor.py``,
    ``csrc/compositor.cu``) against their plain versions at 1080x1920,
    bit-equal: K1 (``layer_update``) on phase F's Engine state, its
@@ -255,8 +269,9 @@ C. after phase 9: the compositor's kernels (``ops/compositor.py``,
    in phase 10 its kernel time.
 
 Every Engine, CLI and bench run of the main path counts the compositor's
-launches beside the estimators' (``KERNEL_NAMES`` ends K0, K1, K2): one
-moveref layer updates through one K1 and renders through one K2 a frame
+launches beside the estimators' (``KERNEL_NAMES``: K0, K1, K2, then the
+pyramids' B8 and B14): one moveref layer updates through one K1 and
+renders through one K2 a frame
 (``C_MOVEREF``), phase T's four layers take 1 K0, 2 K1 and 1 K2; under a
 mesh that splits the movement (phases 5 and M) the moveref layer updates
 through its plain ops and renders through K2 (``C_MESH``).
@@ -279,14 +294,17 @@ the H100 SXM's published peaks; ``share`` is bound over ``device_ms``.
 
 For B1, B2a and B2b the bound counts each input and output byte once per
 level and the float32 operations of their correlations, lerps and
-algebra; B5's counts the flow read and the mapping written once (16
-bytes a pixel); B9-B12's each input and output plane once a launch
+algebra; B8's and B14's each image read once and each level written
+once, and the operations of the blurs and the resize's bands in the
+order that needs fewest (``pyramid_bound_ms``); B5's counts the flow
+read and the mapping written once (16 bytes a pixel); B9-B12's each
+input and output plane once a launch
 (``hs_bound_ms``, ``lk_bound_ms``); K0-K2's the bytes that their
 outputs need on these inputs, pixel by pixel (``comp_k*_bound_ms``;
 K1's draw's integer operations counted at the f32 rate). They are
 hand-written for jnp code (no Pallas source) and no single PyTorch call
 computes any of them (``index_put_`` with duplicate indices writes in
-no fixed order on CUDA).
+no fixed order on CUDA; no single call blurs and resizes).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -378,9 +396,12 @@ AGAINST_ROUNDS = 3   # rounds of (others, this, this, others) in phase 11
 FB_PAN = 3
 FB_PAN_TOL = 0.5
 FB_MARGIN = 64        # rows and columns left out of the median check
-# B1, B2a, B2b launches per frame of CvFlowConfig(): 4 levels (both
-# images in one launch), 3 iterations x 4 levels, 3 x 4
-FB_DEFAULT_PER_FRAME = (4, 12, 12)
+# B1, B2a, B2b, B8 launches per frame of CvFlowConfig(): 4 levels (both
+# images in one launch), 3 iterations x 4 levels, 3 x 4, and one pyramid
+# level (both images) below L0 at each of 3 levels
+FB_DEFAULT_PER_FRAME = (4, 12, 12, 3)
+# the Farneback kernels in launches_per_frame's order
+FB_NAMES = ("B1", "B2a", "B2b", "B8")
 FB_PROFILE_CALLS = 3  # process_frame calls under the profiler (phase 10)
 FB_SYNC_CALLS = 1     # process_frame calls that count the host's syncs
 # (H, W, name) of the pyramid of a 1080p frame at pyr_scale 0.5, levels 3
@@ -400,6 +421,15 @@ B2B_OPS = 6 * 4 * FB_WINSIZE + 14
 # launches per level and frame of each Farneback kernel (CvFlowConfig())
 FB_PER_LEVEL = {"poly_expansion": 1, "update_equations": 3,
                 "aggregate_solve": 3}
+# B8's levels of a 1080p frame at cv2's defaults (H, W, name, sigma: the
+# blur of scale 0.5 ** k), one launch a frame each; then its rows off the
+# main path: fb_pyr_scale 0.8's first level (radius 0, sizes no whole
+# ratio gives) and fb_levels 8's deepest (scale 1 / 64, radius 95: tiles
+# of one output column, whose segment the threads walk in turns)
+B8_LEVELS = ((540, 960, "L1", 0.5), (270, 480, "L2", 1.5),
+             (135, 240, "L3", 3.5))
+B8_OFF_PATH = ((864, 1536, "pyr_scale 0.8 L1", 0.125),
+               (17, 30, "levels 8 L6", 31.5))
 
 
 def card_line() -> str:
@@ -556,7 +586,8 @@ def ptxas_reports(log: str) -> list[dict]:
 # registers), B9's strips and B10's strip of two rows (64 registers each)
 NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
             "aggregate_solve", "forward_scatter", "backward_resolve",
-            "hs_derivatives", "hs_iterate", "lk_warp_products", "lk_window")
+            "hs_derivatives", "hs_iterate", "lk_warp_products", "lk_window",
+            "pyramid_kernel")
 
 
 def phase_build() -> list[dict]:
@@ -882,6 +913,8 @@ def _launch_counters():
                                                       hs_iterate_cuda)
     from transflow_tpu_torch.ops.lucas_kanade import (lk_warp_products_cuda,
                                                       lk_window_solve_cuda)
+    from transflow_tpu_torch.ops.pyramid import (downsample2x_cuda,
+                                                 pyramid_level_cuda)
     from transflow_tpu_torch.ops.scatter import forward_to_backward_cuda
     from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
     return (bounded_backwarp_cuda, correlation7x7_cuda,
@@ -889,12 +922,28 @@ def _launch_counters():
             update_equations_cuda, aggregate_solve_cuda,
             forward_to_backward_cuda, hs_derivatives_cuda, hs_iterate_cuda,
             lk_warp_products_cuda, lk_window_solve_cuda,
-            leave_empty_sources_cuda, layer_update_cuda, composite_cuda)
+            leave_empty_sources_cuda, layer_update_cuda, composite_cuda,
+            pyramid_level_cuda, downsample2x_cuda)
 
 
 # the names of _launches()'s entries
 KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5", "B9", "B10",
-                "B11", "B12", "K0", "K1", "K2")
+                "B11", "B12", "K0", "K1", "K2", "B8", "B14")
+
+
+def fb_launches(launches) -> tuple:
+    """The Farneback kernels' entries of a ``KERNEL_NAMES`` tuple, in
+    ``launches_per_frame``'s order (``FB_NAMES``)."""
+    return tuple(launches[KERNEL_NAMES.index(n)] for n in FB_NAMES)
+
+
+def fb_row(per_frame: tuple, comp: tuple = C_MOVEREF) -> tuple:
+    """``KERNEL_NAMES`` launches a frame of a Farneback Engine: the
+    estimator's ``per_frame`` (``FB_NAMES``) and the compositor's ``comp``
+    (K0, K1, K2), no other kernel."""
+    named = dict(zip(FB_NAMES, per_frame)) | dict(zip(("K0", "K1", "K2"),
+                                                       comp))
+    return tuple(named.get(n, 0) for n in KERNEL_NAMES)
 # the compositor's K0, K1, K2 launches a frame under a mesh that splits
 # the movement: the moveref layer updates through its plain ops and the
 # stack renders through K2
@@ -1041,10 +1090,10 @@ def phase_farneback_engine(device, card: str) -> dict:
                                        **config.estimator_kwargs())
         default = name.startswith("CvFlowConfig()")
         if default and per_frame != FB_DEFAULT_PER_FRAME:
-            raise AssertionError(f"CvFlowConfig() gives {per_frame} B1, B2a, "
-                                 f"B2b launches, not {FB_DEFAULT_PER_FRAME}")
-        _check_engine_run(f"farneback {name}", run,
-                          (0, 0, 0, *per_frame, 0, 0, 0, 0, 0, *C_MOVEREF))
+            raise AssertionError(f"CvFlowConfig() gives {per_frame} "
+                                 f"{FB_NAMES} launches, not "
+                                 f"{FB_DEFAULT_PER_FRAME}")
+        _check_engine_run(f"farneback {name}", run, fb_row(per_frame))
         m = FB_MARGIN
         inner = torch.cat([run["flows"], run["call_flows"]])[:, m:-m, m:-m]
         medians = inner.reshape(len(inner), -1, 2).median(dim=1).values
@@ -1157,8 +1206,8 @@ def p_tools(root: Path, card: str, gray, flows, frames_arg: str) -> None:
     archive (as many frames as flows), ``ControlSession`` over P1's end
     checkpoint (a HEIGHT x WIDTH mapping, a paint that shows in
     ``preview()``) and ``FlowClip.flow(0)`` over P's frames on the card
-    (bit-equal to Farneback called directly on the pair, its B1, B2a and
-    B2b launches those of the estimator's levels and iterations)."""
+    (bit-equal to Farneback called directly on the pair, its B1, B2a, B2b
+    and B8 launches those of the estimator's levels and iterations)."""
     import contextlib
     import inspect
     import io
@@ -1200,22 +1249,24 @@ def p_tools(root: Path, card: str, gray, flows, frames_arg: str) -> None:
     torch.cuda.synchronize()
     _zero_launches()
     flow = clip.flow(0)
-    launches = _launches()[3:6]
+    launches = fb_launches(_launches())
     direct = farneback(gray[1], gray[0]).cpu()
     params = inspect.signature(farneback).parameters
     levels, iters = params["levels"].default, params["iterations"].default
-    per_pair = (levels + 1, (levels + 1) * iters, (levels + 1) * iters)
+    per_pair = (levels + 1, (levels + 1) * iters, (levels + 1) * iters,
+                levels)
     if not torch.equal(torch.from_numpy(flow), direct) or \
             launches != per_pair:
         raise AssertionError(f"FlowClip.flow(0): bit-equal "
                              f"{torch.equal(torch.from_numpy(flow), direct)}"
-                             f", B1/B2a/B2b launches {launches} against "
+                             f", B1/B2a/B2b/B8 launches {launches} "
+                             "against "
                              f"{per_pair}")
     print(f"tools control: ControlSession over P1's end checkpoint, a "
           f"{session.width}x{session.height} mapping, a paint shown in "
           f"preview(); viewflow_player: FlowClip over {len(clip) + 1} P5 "
           f"frames, flow(0) on the card bit-equal to farneback on the pair, "
-          f"B1/B2a/B2b launches {launches} (levels {levels} + 1, "
+          f"B1/B2a/B2b/B8 launches {launches} (levels {levels} + 1, "
           f"{iters} iterations: {per_pair}); on {card}")
 
 
@@ -1231,7 +1282,7 @@ def phase_pipeline(device, card: str) -> dict:
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
     from transflow_tpu_torch.utils.imageio import write_netpbm
     flows_n = P_FRAMES - 1
-    per_frame = (0, 0, 0, *FB_DEFAULT_PER_FRAME, 0, 0, 0, 0, 0, *C_MOVEREF)
+    per_frame = fb_row(FB_DEFAULT_PER_FRAME)
     gray = gray_frames(P_FRAMES, HEIGHT, WIDTH, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p_") as tmp:
         root = Path(tmp)
@@ -1312,8 +1363,8 @@ def phase_pipeline(device, card: str) -> dict:
         p4 = _p_run([str(root / "p1" / "%04d.flow.zip"), "-p", "noise",
                      "-r", "random", "0.01", "--seed", str(SEED), "-o",
                      str(root / "p4" / "%04d.ppm")])
-        if p4["launches"] != (0,) * 11 + tuple(flows_n * x
-                                               for x in C_MOVEREF):
+        if p4["launches"] != tuple(flows_n * x for x in fb_row(
+                (0, 0, 0, 0))):
             raise AssertionError(f"P4: launches {p4['launches']} "
                                  f"{KERNEL_NAMES}: only the compositor's "
                                  f"{C_MOVEREF} a frame may run")
@@ -1377,7 +1428,7 @@ T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
 # sources, and B5's two for the forward one
 # and K0, K1, K2: the moveref layer leaves empty spots (K0), the sum and
 # the moveref layer update through K1, the stack renders in one K2
-T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1)
+T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 6, 0)
 T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
 T_SYNC_CALLS = 2
 T_PROFILE_CALLS = 3
@@ -1708,13 +1759,14 @@ H_KERNEL_NAMES = {"hs_derivatives": "hs_derivatives_kernel",
                   "hs_iterate_copy": "hs_iterate_kernel",
                   "lk_warp_products": "lk_warp_products_kernel",
                   "lk_structure_tensor": "lk_window_kernel",
-                  "lk_window_solve": "lk_window_kernel"}
+                  "lk_window_solve": "lk_window_kernel",
+                  "downsample2x": "pyramid_kernel"}
 # launches per 1080p frame of each of phase H's kernel rows on the main
 # path: horn-schunck.json's 1 B9 and 3 B10; per Lucas-Kanade level 10 B11,
 # 1 tensor and 10 solves of B12
 H_PER_LEVEL = {"hs_derivatives": 1, "hs_iterate": 3,
                "lk_warp_products": H_LK_ITERS, "lk_structure_tensor": 1,
-               "lk_window_solve": H_LK_ITERS}
+               "lk_window_solve": H_LK_ITERS, "downsample2x": 1}
 
 
 def h_per_frame(config, height: int, width: int) -> tuple:
@@ -1725,7 +1777,7 @@ def h_per_frame(config, height: int, width: int) -> tuple:
     solves)."""
     kw = config.estimator_kwargs()
     if config.method == "horn-schunck":
-        return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF)
+        return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF, 0, 0)
     levels, h, w = 1, height, width
     for _ in range(kw["max_level"]):
         if min(h, w) < 2 * kw["win_size"]:
@@ -1733,7 +1785,7 @@ def h_per_frame(config, height: int, width: int) -> tuple:
         h, w = (h + 1) // 2, (w + 1) // 2
         levels += 1
     return (0,) * 7 + (0, 0, H_LK_ITERS * levels, (H_LK_ITERS + 1) * levels,
-                       *C_MOVEREF)
+                       *C_MOVEREF, 0, levels - 1)
 
 
 def phase_classic_engine(device, card: str) -> dict:
@@ -1937,7 +1989,7 @@ S_RESET = 0.05
 S_HALO = 8
 S_TOOL_FRAMES = 9     # frames of each sequence the batch renderer reads
 S_PER_FRAME = (0, 0, 0, 0, 0, 0, 0, 1, S_ITERS, 0, 0,
-               *C_MOVEREF)  # a stream-frame
+               *C_MOVEREF, 0, 0)  # a stream-frame
 
 
 def s_model(device, halo: int | None = None):
@@ -2152,7 +2204,7 @@ M_A2_LEVEL = "L3"        # the LiteFlowNet level (stride 2) A2 runs on a row
 M_RESULT = "multihost-result "  # the start of a worker's result line
 # a stream-frame: phase S's, but the row's space axis splits the movement
 # (halo 8), so the moveref layer updates through its plain ops
-M_PER_FRAME = (*S_PER_FRAME[:11], *C_MESH)
+M_PER_FRAME = (*S_PER_FRAME[:11], *C_MESH, *S_PER_FRAME[14:])
 
 
 def m_inputs(device, streams) -> tuple[list, list, list]:
@@ -2421,7 +2473,8 @@ def phase_multihost(device, card: str) -> dict:
 G_BEFORE = 4          # process_frame calls before the change
 G_AFTER = 4           # calls from the change on (the first rebuilds)
 G_ITERATIONS = "5"    # fb_iterations as the window's widget sends it
-G_PER_FRAME = ((4, 12, 12), (4, 20, 20))  # B1, B2a, B2b before and after
+# B1, B2a, B2b, B8 before and after
+G_PER_FRAME = ((4, 12, 12, 3), (4, 20, 20, 3))
 G_FRAMES = 24         # frames of the cv2-written clip; 23 flows
 G_FPS = 25.0
 G_CUT = "00:00:00.480"  # -t: 12 frames at the clip's 25 frames/s
@@ -2486,7 +2539,7 @@ def g_live_tuning(device, card: str) -> dict:
         ms.append(1e3 * (time.perf_counter() - start))
         if count:
             syncs += sum("synchroniz" in str(w.message) for w in caught)
-        launches.append(_launches()[3:6])
+        launches.append(fb_launches(_launches()))
         rebuilt.append(runtime.estimator_step is not step)
         if k == G_BEFORE:
             want = farneback(item.array, prev_gray, prev_flow,
@@ -2497,7 +2550,7 @@ def g_live_tuning(device, card: str) -> dict:
         raise AssertionError(f"G1: estimator rebuilt at frames {rebuilt}; "
                              f"expected once, at frame {G_BEFORE}")
     if launches != per_frame:
-        raise AssertionError(f"G1: B1, B2a, B2b launches a frame "
+        raise AssertionError(f"G1: {FB_NAMES} launches a frame "
                              f"{launches}, expected {per_frame}")
     if syncs:
         raise AssertionError(f"G1: {syncs} host syncs after the rebuild "
@@ -2511,7 +2564,8 @@ def g_live_tuning(device, card: str) -> dict:
     after = statistics.mean(ms[G_BEFORE + 1:])
     print(f"G1 live tuning {HEIGHT}x{WIDTH} CvFlowConfig() -> "
           f"fb_iterations={G_ITERATIONS} through CvFlowConfigWindow."
-          f"apply_value: 1 rebuild (frame {G_BEFORE}); B1/B2a/B2b a frame "
+          f"apply_value: 1 rebuild (frame {G_BEFORE}); B1/B2a/B2b/B8 a "
+          "frame "
           f"{'/'.join(map(str, G_PER_FRAME[0]))} -> "
           f"{'/'.join(map(str, G_PER_FRAME[1]))}; 0 host syncs a frame "
           f"after the rebuild frame; the rebuild frame's flow bit-equal to "
@@ -2603,13 +2657,13 @@ def g_video(device, card: str, root: Path) -> str:
             HEIGHT, WIDTH, 3):
         raise AssertionError(f"G2: {len(written)} frames written, expected "
                              f"{flows_n} at {HEIGHT}x{WIDTH}")
-    per_frame = tuple(n / flows_n for n in run["launches"][3:6])
+    per_frame = tuple(n / flows_n for n in fb_launches(run["launches"]))
     if per_frame != FB_DEFAULT_PER_FRAME:
-        raise AssertionError(f"G2: B1, B2a, B2b launches a frame "
+        raise AssertionError(f"G2: {FB_NAMES} launches a frame "
                              f"{per_frame}, expected {FB_DEFAULT_PER_FRAME}")
     print(f"G2 video CLI {HEIGHT}x{WIDTH} clip.avi (MJPG, cv2) -p noise -o "
           f"out/%04d.ppm {flows_n} frames: {_p_split(run, flows_n)}; "
-          f"launches B1/B2a/B2b a frame {per_frame}; host syncs "
+          f"launches B1/B2a/B2b/B8 a frame {per_frame}; host syncs "
           f"{run['syncs']} against {cut['syncs']} for the {G_CUT_FRAMES}-"
           f"frame cut: {syncs:g} a frame; on {card}")
     if syncs != 0:
@@ -2781,8 +2835,8 @@ def phase_bench(device, card: str) -> dict:
     """Phase K: the port's bench (``transflow_tpu_torch/bench.py``) in
     this process with ``--e2e``, cut to K_CHUNKS_PER_SAMPLE chunks a
     sample, K_REPEATS samples and K_E2E_FRAMES frames: its record (printed
-    on its own line) has every field, B1/B2a/B2b 4/12/12 and A1/A3 5/0
-    launches a frame, 0 host syncs a frame and this card; then
+    on its own line) has every field, B1/B2a/B2b/B8 4/12/12/3 and A1/A3
+    5/0 launches a frame, 0 host syncs a frame and this card; then
     K_FUZZ_CASES cases of the chunk fuzzer on the card at K_FUZZ_SIZE,
     each bit-equal chunked, per frame and resumed."""
     from transflow_tpu_torch import bench
@@ -2808,7 +2862,7 @@ def phase_bench(device, card: str) -> dict:
                              f"{record['value']} {record['vs_baseline']}")
     fb = record["launches_per_frame"]["flagship"]
     lfn = record["launches_per_frame"]["liteflownet"]
-    if (fb["B1"], fb["B2a"], fb["B2b"]) != FB_DEFAULT_PER_FRAME or \
+    if tuple(fb[n] for n in FB_NAMES) != FB_DEFAULT_PER_FRAME or \
             (fb["K0"], fb["K1"], fb["K2"]) != C_MOVEREF or \
             (lfn["A1"], lfn["A3"]) != K_LFN_PER_FRAME:
         raise AssertionError(f"K: launches a frame {fb}, {lfn}; expected "
@@ -2880,11 +2934,13 @@ def phase_classic_kernels(device) -> list[dict]:
     plain version's time. B10 runs with ``delta=0.0`` in the timing loops,
     so every launch steps and runs the reduction every preset runs; one
     copy-through launch (the stop word set) is timed beside it: the floor
-    of its blocks' fixed costs."""
+    of its blocks' fixed costs. B14 makes each level below L0 from the
+    level above for both images, beside the path it replaced
+    (``b14_replaced``) on the same images."""
     from transflow_tpu_torch.flow.estimators import lucas_kanade as lke
     from transflow_tpu_torch.ops import horn_schunck as hs
-    from transflow_tpu_torch.ops import image
     from transflow_tpu_torch.ops import lucas_kanade as lk
+    from transflow_tpu_torch.ops import pyramid
     rows = []
 
     def record(kernel, level, h, w, err, call, plain, bound, variant=""):
@@ -2902,6 +2958,7 @@ def phase_classic_kernels(device) -> list[dict]:
               f"{row['call_ms']:.4f} ms (host-inclusive); plain "
               f"{row['plain_ms']:.4f} ms")
         rows.append(row)
+        return row
 
     gray = gray_frames(2, HEIGHT, WIDTH, device)
     a, b = gray[1].contiguous(), gray[0].contiguous()
@@ -2946,7 +3003,24 @@ def phase_classic_kernels(device) -> list[dict]:
     prev, nxt = a.float(), b.float()
     for h, w, level in H_LK_LEVELS:
         if level != "L0":
-            prev, nxt = image.downsample2x(prev), image.downsample2x(nxt)
+            args = ((prev, nxt),)
+            ph, pw = prev.shape
+            got = pyramid.downsample2x_cuda(*args)
+            for k, (g, r) in enumerate(zip(got,
+                                           pyramid.downsample2x_plain(*args))):
+                _fb_compare(f"B14 {level} image {k}", g, r)
+            row = record("downsample2x", level, h, w, 0.0,
+                         functools.partial(pyramid.downsample2x_cuda, *args),
+                         functools.partial(pyramid.downsample2x_plain, *args),
+                         pyramid_bound_ms("downsample2x", ph, pw, h, w, F32),
+                         f"from ({ph},{pw}), both images")
+            replaced = functools.partial(b14_replaced, *args)
+            row["replaced_ms"] = device_ms(replaced, PLAIN_LAUNCHES * 10)
+            row["replaced_call"] = replaced  # profiled in phase 10
+            print(f"classic downsample2x {level}: the path it replaced (two "
+                  f"cuDNN passes and a strided copy an image) "
+                  f"{row['replaced_ms']:.5f} ms")
+            prev, nxt = got
         ix, iy = lke._scharr(prev, 1), lke._scharr(prev, 0)
         flow = pan_flow(h, w, device)
         args = (prev, nxt, ix, iy, flow)
@@ -3053,7 +3127,7 @@ def phase_engine(device, card: str) -> dict:
               f"process_frame calls: {run['launches']}")
         _check_engine_run(f"lfn_warp_bound={bound}", run,
                           (9 if bound else 0, 5, 0, 0, 0, 0, 0, 0, 0, 0,
-                           0, *C_MOVEREF))
+                           0, *C_MOVEREF, 0, 0))
     diff = (runs[WARP_BOUND]["flows"] - runs[0]["flows"]).abs().max().item()
     print(f"engine max |flow(lfn_warp_bound={WARP_BOUND}) - "
           f"flow(lfn_warp_bound=0)| {diff:.3e} over the chunk")
@@ -3078,7 +3152,8 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
           f"correlation7x7 {a1}, sharded_correlation7x7 {a2}; with "
           f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
     _check_engine_run("mesh engine", run,
-                      (0, 1, A2_PER_FRAME, 0, 0, 0, 0, 0, 0, 0, 0, *C_MESH))
+                      (0, 1, A2_PER_FRAME, 0, 0, 0, 0, 0, 0, 0, 0, *C_MESH,
+                       0, 0))
     diff = max((run["flows"] - ref["flows"]).abs().max().item(),
                (run["call_flows"] - ref["call_flows"]).abs().max().item())
     same = (torch.equal(run["out"], ref["out"])
@@ -3252,6 +3327,48 @@ def fb_bound_ms(kernel: str, h: int, w: int, storage, in_dtype=None,
     return _bound(px * (6 * st + 16), B2B_OPS * px)
 
 
+def pyramid_bound_ms(kernel: str, h: int, w: int, oh: int, ow: int,
+                     dtype, images: int = 2, sigma: float = 0.0
+                     ) -> tuple[float, str]:
+    """B8's and B14's bound on ``images`` (h, w) images of ``dtype`` made
+    into (oh, ow) float32 levels: each input byte read once, each output
+    byte written once. Operations, a product and a sum a tap, in the
+    order that needs fewest (the kernel's): B8 blurs every pixel along
+    the rows' axis (2R + 1 taps; on a downscale every pixel lies in some
+    output's band), resizes the rows (ky a band), blurs the oh rows along
+    x, resizes the columns (kx); B14 needs the vertical pass at the even
+    rows and the horizontal one at the outputs (5 taps each)."""
+    from transflow_tpu_torch.ops import pyramid
+    nbytes = images * (h * w * dtype.itemsize + oh * ow * 4)
+    if kernel == "downsample2x":
+        ops = images * 2 * 5 * ((h + 1) // 2 * w + oh * ow)
+    else:
+        taps = 2 * pyramid.blur_radius(sigma) + 1
+        kx = pyramid.resize_weights(w, ow)[1].shape[1]
+        ky = pyramid.resize_weights(h, oh)[1].shape[1]
+        ops = images * 2 * (taps * h * w + ky * oh * w + taps * oh * w
+                            + kx * oh * ow)
+    return _bound(nbytes, ops)
+
+
+def b8_replaced(images, sigma: float, lh: int, lw: int) -> list:
+    """The path B8 replaced, timed as its yardstick: per image the blur's
+    two cuDNN passes (TF32 off, their pad indices and casts) and
+    ``F.interpolate(antialias=True)`` (ops/image.py)."""
+    from transflow_tpu_torch.ops import image
+    return [image.bilinear_resize(image.gaussian_blur(x, sigma), lh, lw)
+            for x in images]
+
+
+def b14_replaced(images) -> list:
+    """The path B14 replaced, timed as its yardstick: per image two padded
+    cuDNN passes (TF32 off) of the binomial and the strided copy."""
+    from transflow_tpu_torch.ops import image, pyramid
+    return [image.separable_correlate(image.separable_correlate(
+        x, pyramid.REDUCE_TAPS, 0), pyramid.REDUCE_TAPS, 1)[::2, ::2]
+        .contiguous() for x in images]
+
+
 def _fb_compare(name: str, got, want) -> float:
     """Max |got - want|: a Farneback, Horn-Schunck or Lucas-Kanade kernel
     and its plain version keep the same rounding points and add every sum
@@ -3270,15 +3387,20 @@ def phase_farneback_kernels(device) -> list[dict]:
     storage-dtype frame at L0 and a float32 resized image below, as on the
     main path; B2a reads B1's planes of the two images and a flow with a
     fifth of its pixels moving beyond 4 px, then the Engine's pan at the
-    level (``pan_flow``), B2b B2a's planes of the first."""
+    level (``pan_flow``), B2b B2a's planes of the first. Then B8 on both
+    images of a 1080p frame at ``B8_LEVELS`` and ``B8_OFF_PATH``, the
+    frame in bf16 (the card's frame) and float32 (a ``fb_downscale``
+    image), bit-equal to its plain version, beside the path it replaced
+    (``b8_replaced``) on the same images."""
     from transflow_tpu_torch.ops import farneback as fb
+    from transflow_tpu_torch.ops import pyramid
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     rows = []
 
     def record(kernel, level, h, w, storage, variant, err, call, plain,
                bound, main, flow="random"):
         row = {"kernel": kernel, "level": level, "storage": storage,
-               "variant": variant, "err": err, "flow": flow}
+               "variant": variant, "err": err, "flow": flow, "main": main}
         row["bound_ms"], row["bound_by"] = bound
         row["device_ms"] = device_ms(call)
         row["call_ms"] = call_ms(call)
@@ -3292,6 +3414,7 @@ def phase_farneback_kernels(device) -> list[dict]:
               f"{row['call_ms']:.4f} ms (host-inclusive); plain "
               f"{row['plain_ms']:.4f} ms")
         rows.append(row)
+        return row
 
     for h, w, level in FB_LEVELS:
         flow = warp_flow(h, w, 4, True, gen, device)
@@ -3345,6 +3468,41 @@ def phase_farneback_kernels(device) -> list[dict]:
                        functools.partial(fb.aggregate_solve_plain, *args),
                        fb_bound_ms("aggregate_solve", h, w, storage),
                        main and not gaussian)
+    frame = [torch.randint(0, 256, (HEIGHT, WIDTH), generator=gen,
+                           device=device).float() for _ in range(2)]
+    for dtype in (BF16, F32):
+        # the card's frame is uint8 in bf16; a downscaled image is float32
+        images = [x.to(dtype) if dtype == BF16 else
+                  x + torch.rand(x.shape, generator=gen, device=device)
+                  for x in frame]
+        for h, w, level, sigma in B8_LEVELS + B8_OFF_PATH:
+            main = dtype == BF16 and (h, w, level, sigma) in B8_LEVELS
+            args = (images, sigma, h, w)
+            got = pyramid.pyramid_level_cuda(*args)
+            want = pyramid.pyramid_level_plain(*args)
+            err = max(_fb_compare(f"B8 {level} {dtype} image {k}", g, r)
+                      for k, (g, r) in enumerate(zip(got, want)))
+            if not all(torch.isfinite(g).all() for g in got):
+                raise AssertionError(f"B8 {level}: non-finite level")
+            row = record("pyramid_level", level, h, w, dtype,
+                         f"in {str(dtype)[6:]}, both images, sigma {sigma}",
+                         err,
+                         functools.partial(pyramid.pyramid_level_cuda,
+                                           *args),
+                         functools.partial(pyramid.pyramid_level_plain,
+                                           *args),
+                         pyramid_bound_ms("pyramid_level", HEIGHT, WIDTH, h,
+                                          w, dtype, sigma=sigma), main)
+            replaced = functools.partial(b8_replaced, *args)
+            row["replaced_ms"] = device_ms(replaced, PLAIN_LAUNCHES * 10)
+            if main:  # profiled in phase 10
+                row["replaced_call"] = replaced
+            plan = pyramid.level_plan(HEIGHT, WIDTH, h, w,
+                                      pyramid.blur_radius(sigma))
+            print(f"fb pyramid_level {level}: the path it replaced (two "
+                  f"cuDNN passes and F.interpolate an image) "
+                  f"{row['replaced_ms']:.5f} ms; tile {plan[0]}x{plan[1]}, "
+                  f"{plan[4]} bytes of shared memory")
     return rows
 
 
@@ -3657,7 +3815,7 @@ def phase_equivalence(device) -> None:
 
     # Horn-Schunck (bit-equal: B9's arithmetic is exact, B10 rounds as its
     # plain version) and Lucas-Kanade (the CPU tests' 1e-4 against JAX:
-    # its Scharr derivatives and pyramid run in cuDNN on the card)
+    # its Scharr derivatives run in cuDNN on the card)
     from transflow_tpu_torch.flow.estimators.horn_schunck import (
         horn_schunck_counted)
     from transflow_tpu_torch.flow.estimators.lucas_kanade import (
@@ -3723,7 +3881,8 @@ def phase_equivalence(device) -> None:
 def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
                       h_rows, c_rows) -> None:
     """``kernel_ms`` of every row that phases 6, 7, 8, B, T, H and C left
-    a call in; A3's beside ``F.grid_sample``'s; B5's over every device
+    a call in; A3's beside ``F.grid_sample``'s; B8's and B14's beside the
+    path each replaced (every device event of it); B5's over every device
     event of a call (its two kernels); K0-K2's of the row's kernel alone
     (the leave-empty K1 row: K1's, without K0's)."""
     for row in rows + a2_rows:
@@ -3750,20 +3909,22 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
     for row in fb_rows:
         if "call" not in row:
             continue
-        row["kernel_ms"] = kernel_ms(row.pop("call"),
-                                     f"{row['kernel']}_kernel")
+        name = ("pyramid" if row["kernel"] == "pyramid_level"
+                else row["kernel"])
+        row["kernel_ms"] = kernel_ms(row.pop("call"), f"{name}_kernel")
         print(f"kernel time fb {row['kernel']} {row['level']} bf16 "
               f"{row['variant']}: {_ms_text(row['kernel_ms'])} "
               f"(torch.profiler, per call) against device_ms "
               f"{row['device_ms']:.5f} and bound {row['bound_ms']:.5f} "
-              f"({row['bound_by']})")
+              f"({row['bound_by']}){_replaced_text(row)}")
     for row in h_rows:
         row["kernel_ms"] = kernel_ms(row.pop("call"),
                                      H_KERNEL_NAMES[row["kernel"]])
         print(f"kernel time classic {row['kernel']} {row['level']}: "
               f"{_ms_text(row['kernel_ms'])} (torch.profiler, per call) "
               f"against device_ms {row['device_ms']:.5f} and bound "
-              f"{row['bound_ms']:.5f} ({row['bound_by']})")
+              f"{row['bound_ms']:.5f} ({row['bound_by']})"
+              f"{_replaced_text(row)}")
     for row in b5_rows:
         row["kernel_ms"] = kernel_ms(row.pop("call"), "")
         print(f"kernel time B5 {row['flow']}: {_ms_text(row['kernel_ms'])} "
@@ -3783,6 +3944,16 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
 
 def _ms_text(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
+def _replaced_text(row: dict) -> str:
+    """The kernel time of the path a row's kernel replaced (every device
+    event of a call), where the row has one."""
+    if "replaced_call" not in row:
+        return ""
+    row["replaced_kernel_ms"] = kernel_ms(row.pop("replaced_call"), "")
+    return (f"; the path it replaced {_ms_text(row['replaced_kernel_ms'])} "
+            f"(device_ms {row['replaced_ms']:.5f})")
 
 
 def host_syncs(run: dict, calls: int) -> float:
@@ -3805,6 +3976,10 @@ def host_syncs(run: dict, calls: int) -> float:
 
 
 PROFILE_TOP = 16  # kernel names in the Engine's device time by name
+# ATen ops of the pyramid's path before B8 (cuDNN's convolutions, the pad
+# indices' gathers): phase F's profile must show none
+F_REPLACED_OPS = ("aten::convolution", "aten::cudnn_convolution",
+                  "aten::index_select")
 
 
 def engine_profile(name: str, run: dict, calls: int, card: str,
@@ -3813,7 +3988,8 @@ def engine_profile(name: str, run: dict, calls: int, card: str,
     ``torch.profiler``: device events (kernels, copies, sets), busy time
     (their intervals merged) and idle share per frame, against the host
     clock around the window (which ends in a synchronize); and the device
-    time per frame by event name, the ``PROFILE_TOP`` largest."""
+    time per frame by event name, the ``PROFILE_TOP`` largest; the result
+    also holds the device events' names and the ATen ops' names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fno0 = run["next_fno"]
@@ -3841,7 +4017,9 @@ def engine_profile(name: str, run: dict, calls: int, card: str,
             busy += hi - max(lo, end)
             end = hi
     result = {"events": len(spans) / calls, "busy_ms": busy / 1e3 / calls,
-              "wall_ms": wall_ms}
+              "wall_ms": wall_ms, "device_names": set(by_name),
+              "aten_ops": {e.name for e in prof.events()
+                           if e.name.startswith("aten::")}}
     if not spans:
         print(f"profile {name}: no device events (busy share not measured)")
         return result
@@ -4355,8 +4533,20 @@ def main() -> int:
                                       t_run)
     phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows, h_rows,
                       c_rows)
-    engine_profile("farneback engine CvFlowConfig()",
-                   fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS, card)
+    f_profile = engine_profile("farneback engine CvFlowConfig()",
+                               fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS,
+                               card)
+    found = sorted(op for op in F_REPLACED_OPS if op in f_profile["aten_ops"])
+    found += sorted(n for n in f_profile["device_names"]
+                    if "cudnn" in n.lower())
+    if found:
+        raise AssertionError(f"phase F's profile shows the replaced "
+                             f"pyramid path: {found}")
+    print(f"profile farneback engine CvFlowConfig(): none of "
+          f"{', '.join(F_REPLACED_OPS)} and no cuDNN kernel; "
+          f"{f_profile['events']:.1f} device events and "
+          f"{f_profile['busy_ms']:.3f} ms busy a frame, "
+          f"{fb_runs['CvFlowConfig()']['syncs']:g} host syncs a frame")
     for name, run in h_runs.items():
         run["profile"] = engine_profile(f"classic engine {name}", run,
                                         H_PROFILE_CALLS, card)
@@ -4499,6 +4689,62 @@ def main() -> int:
             "library_ms": None,
             "library": "none: hand-written for jnp code (no Pallas source); "
                        "no single PyTorch call computes it",
+        })
+    # B8 per frame: the three levels of a bf16 frame, both images a launch;
+    # B14 per frame: lukas-kanade.json's two reduces
+    b8_index, b14_index = KERNEL_NAMES.index("B8"), KERNEL_NAMES.index("B14")
+    pyramid_groups = {
+        "pyramid_level": (
+            [r for r in fb_rows if r["kernel"] == "pyramid_level"
+             and r["main"]],
+            # phase F's Engine runs, phase T's Engine and CLI runs
+            sum(run["launches"][b8_index] for run in fb_runs.values())
+            + t_run["launches"][b8_index] + t_run["cli_launches"][b8_index],
+            "transflow_tpu/flow/estimators/farneback.py:243",
+            "farneback.py:243-248 farneback's pyramid level, "
+            "jax.image.resize(gaussian_blur(img, sigma), (lh, lw), "
+            "'linear'), and :211-213 the fb_downscale pre-resize",
+            [r for r in fb_rows if r["kernel"] == "pyramid_level"]),
+        "downsample2x": (
+            [r for r in h_rows if r["kernel"] == "downsample2x"],
+            # phase H's Engine runs of the Lucas-Kanade presets
+            sum(run["launches"][b14_index] for run in h_runs.values()),
+            "transflow_tpu/ops/image.py:234",
+            "ops/image.py:234 downsample2x, as lucas_kanade.py's pyramid "
+            "runs it",
+            [r for r in h_rows if r["kernel"] == "downsample2x"])}
+    for name, (group, launches, replaces, function, every) in \
+            pyramid_groups.items():
+        print(f"{name} per frame ({len(group)} launches): device_ms "
+              f"{_per_frame(group, 'device_ms'):.5f}, kernel_ms "
+              f"{_ms_text(_per_frame(group, 'kernel_ms'))}, bound "
+              f"{_per_frame(group, 'bound_ms'):.5f}, call "
+              f"{_per_frame(group, 'call_ms'):.4f} (host-inclusive), plain "
+              f"{_per_frame(group, 'plain_ms'):.4f}; the path it replaced: "
+              f"device_ms {_per_frame(group, 'replaced_ms'):.5f}, kernel_ms "
+              f"{_ms_text(_per_frame(group, 'replaced_kernel_ms'))}; "
+              f"{launches} launches on the main path")
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "transflow_tpu_torch/csrc/pyramid.cu",
+            "replaces": replaces,
+            "replaces_function": function,
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in every),
+            "ms": _per_frame(group, "device_ms"),
+            "device_ms": _per_frame(group, "device_ms"),
+            "kernel_ms": _per_frame(group, "kernel_ms"),
+            "call_ms": _per_frame(group, "call_ms"),
+            "plain_ms": _per_frame(group, "plain_ms"),
+            "bound_ms": _per_frame(group, "bound_ms"),
+            "bound_by": _bound_by(group),
+            "library_ms": None,
+            "library": "none: no single PyTorch call blurs and resizes; "
+                       "the path it replaced (two cuDNN passes and a "
+                       "resize or strided copy an image) is replaced_ms",
+            "replaced_ms": _per_frame(group, "replaced_ms"),
+            "replaced_kernel_ms": _per_frame(group, "replaced_kernel_ms"),
         })
     b5_main = next(r for r in b5_rows if r["flow"] == "farneback pan")
     print(f"forward_to_backward per frame (one call on the pan's forward "

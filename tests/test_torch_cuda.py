@@ -13,6 +13,7 @@ from transflow_tpu_torch import prng
 from transflow_tpu_torch.ops import farneback as fb
 from transflow_tpu_torch.ops import horn_schunck as hs
 from transflow_tpu_torch.ops import lucas_kanade as lk
+from transflow_tpu_torch.ops import pyramid
 from transflow_tpu_torch.ops.correlation import (correlation,
                                                  correlation7x7,
                                                  correlation7x7_cuda,
@@ -326,10 +327,10 @@ def test_update_equations_unaligned_stacks(device, storage):
 
 
 def test_farneback_on_card_matches_cpu(device, monkeypatch):
-    """The estimator on the card (the kernels; cuDNN for the pyramid's blur
-    with TF32 off) against the CPU (the plain versions), float32 storage:
-    >= 60 dB at an 8 px peak, the CPU tests' bar against JAX. B1 takes
-    both images of a level in one launch."""
+    """The estimator on the card (the kernels) against the CPU (the plain
+    versions), float32 storage: >= 60 dB at an 8 px peak, the CPU tests'
+    bar against JAX. B1 takes both images of a level in one launch, B8
+    both images of each level below L0."""
     from transflow_tpu_torch.flow.estimators.farneback import farneback
     monkeypatch.setenv("TRANSFLOW_FARNEBACK_BF16", "0")
     rng = np.random.default_rng(0)
@@ -338,12 +339,111 @@ def test_farneback_on_card_matches_cpu(device, monkeypatch):
     canvas = torch.nn.functional.avg_pool2d(canvas[None, None], 5, 1, 2)
     canvas = canvas[0, 0].round().to(torch.uint8)
     a, b = canvas[4:100, 6:134], canvas[2:98, 3:131]
-    before = fb.poly_expansion_cuda.launches
+    before = (fb.poly_expansion_cuda.launches,
+              pyramid.pyramid_level_cuda.launches)
     got = farneback(a.to(device), b.to(device), select_warp=0).cpu()
-    assert fb.poly_expansion_cuda.launches == before + 4  # one per level
+    # one B1 a level, one B8 a level below L0
+    assert (fb.poly_expansion_cuda.launches - before[0],
+            pyramid.pyramid_level_cuda.launches - before[1]) == (4, 3)
     want = farneback(a, b)
     mse = float(((got - want) ** 2).mean())
     assert mse == 0 or 10 * np.log10(64 / mse) >= 60.0
+
+
+# B8's cases: (frame, level, sigma). The three levels of a 1080p frame at
+# cv2's defaults (also fb_downscale 2, 4 and 8's pre-resize); the levels
+# below fb_downscale 2 and 8's float32 images; fb_pyr_scale 0.8's first
+# two levels (no whole ratio, radius 0 and 1); fb_levels 8's deepest three
+# (radius 23, 47, 95: narrower tiles, the rows read through L2); an
+# unaligned width and height; a level of one row
+B8_CASES = [((1080, 1920), (540, 960), 0.5), ((1080, 1920), (270, 480), 1.5),
+            ((1080, 1920), (135, 240), 3.5), ((540, 960), (270, 480), 0.5),
+            ((540, 960), (68, 120), 3.5), ((135, 240), (68, 120), 0.5),
+            ((135, 240), (34, 60), 1.5),
+            ((1080, 1920), (864, 1536), 0.125),
+            ((1080, 1920), (691, 1229), 0.28125),
+            ((1080, 1920), (68, 120), 7.5), ((1080, 1920), (34, 60), 15.5),
+            ((1080, 1920), (17, 30), 31.5), ((97, 131), (49, 66), 0.5),
+            ((37, 45), (1, 3), 3.5)]
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", B8_CASES,
+                         ids=[f"{a}->{b}" for a, b, _ in B8_CASES])
+def test_pyramid_level_matches_plain(device, case, dtype):
+    """Kernel B8 on both images of a level in one launch, and on one image,
+    against its plain version on the card: bit-equal (both add every sum
+    in one order, each product and sum rounded to float32)."""
+    (h, w), (lh, lw), sigma = case
+    gen = torch.Generator(device=device).manual_seed(h + lh)
+    images = [torch.randint(0, 256, (h, w), generator=gen,
+                            device=device).to(dtype) for _ in range(2)]
+    if dtype == F32:
+        images = [x + torch.rand((h, w), generator=gen, device=device)
+                  for x in images]
+    before = pyramid.pyramid_level_cuda.launches
+    got = pyramid.pyramid_level(images, sigma, lh, lw)
+    alone = pyramid.pyramid_level(images[1:], sigma, lh, lw)
+    torch.cuda.synchronize()
+    assert pyramid.pyramid_level_cuda.launches == before + 2
+    want = pyramid.pyramid_level_plain(images, sigma, lh, lw)
+    for out, ref in zip((*got, *alone), (*want, want[1])):
+        assert out.dtype == F32 and out.shape == (lh, lw)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (540, 960), (67, 121),
+                                   (97, 131), (7, 5), (1, 1)], ids=str)
+def test_downsample2x_matches_plain(device, shape):
+    """Kernel B14 on both images in one launch against its plain version
+    on the card: bit-equal, an odd size rounding up."""
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    images = [torch.rand(shape, generator=gen, device=device) * 255
+              for _ in range(2)]
+    before = pyramid.downsample2x_cuda.launches
+    got = pyramid.downsample2x(images)
+    torch.cuda.synchronize()
+    assert pyramid.downsample2x_cuda.launches == before + 1
+    for out, ref in zip(got, pyramid.downsample2x_plain(images)):
+        assert out.shape == ((shape[0] + 1) // 2, (shape[1] + 1) // 2)
+        assert torch.equal(out, ref)
+
+
+def test_pyramids_never_take_the_plain_path(device, monkeypatch):
+    """On the card Farneback (with fb_downscale 2) and Lucas-Kanade build
+    their pyramids through B8 and B14 alone: the plain versions raise if
+    called, and the launch counters move by the estimators' rules."""
+    from transflow_tpu_torch.flow.estimators import farneback as fb_est
+    from transflow_tpu_torch.flow.estimators.lucas_kanade import (
+        lucas_kanade)
+
+    def refuse(*args):
+        raise AssertionError("a plain pyramid version ran on the card")
+
+    monkeypatch.setattr(pyramid, "pyramid_level_plain", refuse)
+    monkeypatch.setattr(pyramid, "downsample2x_plain", refuse)
+    gen = torch.Generator(device=device).manual_seed(9)
+    a, b = (torch.randint(0, 256, (192, 256), generator=gen, device=device,
+                          dtype=torch.uint8) for _ in "ab")
+    before = (pyramid.pyramid_level_cuda.launches,
+              pyramid.downsample2x_cuda.launches)
+    fb_est.farneback(a, b, downscale=2)
+    lucas_kanade(a, b)
+    torch.cuda.synchronize()
+    assert (pyramid.pyramid_level_cuda.launches - before[0],
+            pyramid.downsample2x_cuda.launches - before[1]) == (
+        fb_est.launches_per_frame(192, 256, downscale=2)[3], 2)
+
+
+def test_pyramid_level_limit(device):
+    """A level whose single output column needs more shared memory than
+    the H100 gives (radius 60000) raises before any launch, naming the
+    bytes."""
+    x = torch.zeros((16, 60000), device=device)
+    before = pyramid.pyramid_level_cuda.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        pyramid.pyramid_level((x,), 20000.0, 16, 12)
+    assert pyramid.pyramid_level_cuda.launches == before
 
 
 def test_entry_points_default_to_the_card(device, exact_f32):
@@ -810,9 +910,9 @@ def test_lucas_kanade_window_limit(device):
 
 def test_lucas_kanade_on_card_matches_cpu(device):
     """The estimator at 128x192 on the card against the CPU on a pan:
-    within 1e-4 (the CPU tests' bar against JAX: the Scharr derivatives,
-    the pyramid's blur and the resize run in cuDNN and torch's kernels on
-    the card); 30 B11 and 33 B12 launches at three levels."""
+    within 1e-4 (the CPU tests' bar against JAX: the Scharr derivatives
+    and the flow's resize run in cuDNN and torch's kernels on the card);
+    30 B11, 33 B12 and 2 B14 launches at three levels."""
     from transflow_tpu_torch.flow.estimators.lucas_kanade import (
         lucas_kanade)
     rng = np.random.default_rng(3)
@@ -822,10 +922,12 @@ def test_lucas_kanade_on_card_matches_cpu(device):
     canvas = canvas[0, 0].round().to(torch.uint8)
     a, b = canvas[6:134, 9:201], canvas[3:131, 5:197]
     before = (lk.lk_warp_products_cuda.launches,
-              lk.lk_window_solve_cuda.launches)
+              lk.lk_window_solve_cuda.launches,
+              pyramid.downsample2x_cuda.launches)
     got = lucas_kanade(a.to(device), b.to(device)).cpu()
     assert (lk.lk_warp_products_cuda.launches - before[0],
-            lk.lk_window_solve_cuda.launches - before[1]) == (30, 33)
+            lk.lk_window_solve_cuda.launches - before[1],
+            pyramid.downsample2x_cuda.launches - before[2]) == (30, 33, 2)
     want = lucas_kanade(a, b)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     assert want.abs().max() > 1.0

@@ -623,20 +623,23 @@ def test_chip_smoke_launch_rule(settings, monkeypatch):
     """The estimator's launches per frame of each kernel
     (``launches_per_frame``, the count chip_smoke and the bench assert on
     the card) equal the calls the estimator makes, here to the kernels'
-    plain versions (B1: one call per level for both images), and are 4,
-    12, 12 at 1080p defaults."""
+    plain versions (B1: one call per level for both images; B8: one per
+    level below L0 and one for the ``fb_downscale`` pre-resize, both images
+    a call), and are 4, 12, 12, 3 at 1080p defaults."""
     import chip_smoke
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    from transflow_tpu_torch.ops import pyramid
     calls = {name: 0 for name in ("poly_expansion_pair", "update_equations",
-                                  "aggregate_solve")}
+                                  "aggregate_solve", "pyramid_level")}
     for name in calls:
-        plain = getattr(ops_fb, f"{name}_plain")
+        module = pyramid if name == "pyramid_level" else ops_fb
+        plain = getattr(module, f"{name}_plain")
 
         def counted(*args, _name=name, _plain=plain):
             calls[_name] += 1
             return _plain(*args)
 
-        monkeypatch.setattr(ops_fb, f"{name}_plain", counted)
+        monkeypatch.setattr(module, f"{name}_plain", counted)
     config = CvFlowConfig(**settings)
     a, b = shifted_pair(90, 160, dx=1, dy=1)
     kwargs = config.estimator_kwargs()
@@ -644,7 +647,7 @@ def test_chip_smoke_launch_rule(settings, monkeypatch):
     assert tuple(calls.values()) == fb.launches_per_frame(90, 160, **kwargs)
     assert fb.launches_per_frame(1080, 1920,
                                  **CvFlowConfig().estimator_kwargs()) == \
-        chip_smoke.FB_DEFAULT_PER_FRAME == (4, 12, 12)
+        chip_smoke.FB_DEFAULT_PER_FRAME == (4, 12, 12, 3)
 
 
 def test_chip_smoke_captures_engine_b2a_inputs(monkeypatch):

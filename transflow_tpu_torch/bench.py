@@ -117,7 +117,9 @@ def _steady_state(region, repeats=None, stats=False, budget_s=None):
 def _fb_counters():
     from .ops.farneback import (aggregate_solve_cuda, poly_expansion_cuda,
                                 update_equations_cuda)
-    return poly_expansion_cuda, update_equations_cuda, aggregate_solve_cuda
+    from .ops.pyramid import pyramid_level_cuda
+    return (poly_expansion_cuda, update_equations_cuda, aggregate_solve_cuda,
+            pyramid_level_cuda)
 
 
 def _comp_counters():
@@ -211,7 +213,7 @@ def _sampled(chain) -> dict:
 
 def bench_device(device) -> dict:
     """The flagship on ``device``: frames/s and its spread, the stage
-    split, the state's size, its launches of B1, B2a and B2b and of the
+    split, the state's size, its launches of B1, B2a, B2b and B8 and of the
     compositor's K0, K1 and K2 a frame (on the card they must be the
     estimator's ``launches_per_frame`` and ``MOVEREF_PER_FRAME``: no plain
     version ran) and the host's waits for the card a frame."""
@@ -234,7 +236,8 @@ def bench_device(device) -> dict:
     int(chain.run(1).sum(dtype=torch.int64))
     want = launches_per_frame(HEIGHT, WIDTH) + MOVEREF_PER_FRAME
     if device.type == "cuda" and tuple(launches) != want:
-        raise RuntimeError(f"flagship: B1/B2a/B2b/K0/K1/K2 launches a frame "
+        raise RuntimeError(f"flagship: B1/B2a/B2b/B8/K0/K1/K2 launches a "
+                           "frame "
                            f"{launches}, expected {want}: a plain version "
                            "ran on the card")
 
@@ -292,8 +295,8 @@ def bench_device(device) -> dict:
         "hbm_io_gbps": (io_bytes_per_frame * out["fps"] / 1e9
                         if device.type == "cuda" else None),
         "carry_state_mb": state_bytes / 1e6,
-        "launches_per_frame": dict(zip(("B1", "B2a", "B2b", "K0", "K1",
-                                        "K2"), launches)),
+        "launches_per_frame": dict(zip(("B1", "B2a", "B2b", "B8", "K0",
+                                        "K1", "K2"), launches)),
         "host_syncs_per_frame": syncs / frames_per_sample,
     })
     return out

@@ -10,12 +10,14 @@ parameters):
    x + d and the normal equations (kernel B2a, ``update_equations``), then
    the window aggregation and the 2x2 solve (kernel B2b,
    ``aggregate_solve``);
-3. a coarse-to-fine pyramid with any ``pyr_scale``.
+3. a coarse-to-fine pyramid with any ``pyr_scale``: each level below L0
+   (and the ``downscale`` pre-resize) is the full-resolution images
+   blurred and resized (kernel B8, ``ops/pyramid.py::pyramid_level``: one
+   launch a level for both images).
 
-The pyramid's blurs and resizes, and the flow's resizes between levels,
-stay PyTorch (``F.conv2d`` with TF32 off, ``F.interpolate``), as the JAX
-package leaves them to XLA outside any kernel. On a CPU tensor every step
-runs the plain versions; on a CUDA tensor the three kernels run.
+The flow's resizes between levels stay PyTorch (``F.interpolate``), as the
+JAX package leaves them to XLA outside any kernel. On a CPU tensor every
+step runs the plain versions; on a CUDA tensor the four kernels run.
 """
 import os
 
@@ -23,7 +25,8 @@ import torch
 
 from ...ops.farneback import (aggregate_solve, poly_expansion,
                                poly_expansion_pair, update_equations)
-from ...ops.image import bilinear_resize, gaussian_blur
+from ...ops.image import bilinear_resize
+from ...ops.pyramid import pyramid_level
 
 __all__ = ["farneback", "launches_per_frame", "poly_expansion",
            "OPTFLOW_USE_INITIAL_FLOW", "OPTFLOW_FARNEBACK_GAUSSIAN"]
@@ -71,14 +74,17 @@ def _level_shapes(h: int, w: int, pyr_scale: float, levels: int,
 
 def launches_per_frame(height: int, width: int, *, pyr_scale: float = 0.5,
                        levels: int = 3, iterations: int = 3, poly_n: int = 5,
-                       downscale: int = 1, **_) -> tuple[int, int, int]:
-    """(B1, B2a, B2b) launches of ``farneback`` on a height x width frame
-    with these arguments (the other estimator arguments change none): one
-    B1 a level (both images), ``iterations`` B2a and B2b a level."""
+                       downscale: int = 1, **_
+                       ) -> tuple[int, int, int, int]:
+    """(B1, B2a, B2b, B8) launches of ``farneback`` on a height x width
+    frame with these arguments (the other estimator arguments change
+    none): one B1 a level (both images), ``iterations`` B2a and B2b a
+    level, one B8 a level below L0 (both images) and one more for the
+    ``downscale`` > 1 pre-resize."""
     h = int(round(height / int(downscale)))
     w = int(round(width / int(downscale)))
     n = len(_level_shapes(h, w, pyr_scale, levels, poly_n))
-    return n, iterations * n, iterations * n
+    return n, iterations * n, iterations * n, n - 1 + (int(downscale) > 1)
 
 
 def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
@@ -113,9 +119,7 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
                 f"downscale={downscale} reduces {full_h}x{full_w} below the "
                 f"poly_n={poly_n} expansion window; lower fb_downscale")
         # same anti-alias rule as the pyramid levels below
-        sigma = (downscale - 1) * 0.5
-        prev = bilinear_resize(gaussian_blur(prev, sigma), h, w)
-        nxt = bilinear_resize(gaussian_blur(nxt, sigma), h, w)
+        prev, nxt = pyramid_level((prev, nxt), (downscale - 1) * 0.5, h, w)
         if flags & OPTFLOW_USE_INITIAL_FLOW and prev_flow is not None:
             prev_flow = bilinear_resize(
                 torch.as_tensor(prev_flow).float(), h, w) * (1.0 / downscale)
@@ -137,9 +141,8 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
             prev_scale = level_shapes[k + 1][2]
             flow = bilinear_resize(flow, lh, lw) * (scale / prev_scale)
         if scale != 1.0:
-            sigma = (1.0 / scale - 1.0) * 0.5
-            img1 = bilinear_resize(gaussian_blur(prev, sigma), lh, lw)
-            img2 = bilinear_resize(gaussian_blur(nxt, sigma), lh, lw)
+            img1, img2 = pyramid_level((prev, nxt), (1.0 / scale - 1.0) * 0.5,
+                                       lh, lw)
         else:
             img1, img2 = prev, nxt
         poly1, poly2 = poly_expansion_pair(img1, img2, poly_n, poly_sigma,

@@ -5,8 +5,9 @@ flow/methods/lukas_kanade.py tracks every ``step``-th pixel with
 cv2.calcOpticalFlowPyrLK; the JAX package solves the windowed 2x2 system
 densely at every pixel, then subsamples and repeats to macroblocks):
 
-1. a pyramid of ``downsample2x`` levels, which stops once a level's short
-   side is below twice the window;
+1. a pyramid of ``downsample2x`` levels (kernel B14,
+   ``ops/pyramid.py``: one launch a level for both images), which stops
+   once a level's short side is below twice the window;
 2. per level, coarsest first: the flow resized up (``bilinear_resize``,
    times 2), Scharr derivatives of the first image, the structure tensor
    (kernel B12 in its tensor mode), then ``iters`` updates, each the warp
@@ -15,17 +16,18 @@ densely at every pixel, then subsamples and repeats to macroblocks):
 3. with ``step`` > 1, every ``step``-th flow vector repeated over its
    ``step`` x ``step`` block.
 
-The pyramid's blur, the derivatives and the resize stay PyTorch
-(``F.conv2d`` with TF32 off, ``F.interpolate``), as the JAX package leaves
-them to XLA outside any kernel. On a CPU tensor every step runs the plain
-versions; on a CUDA tensor the two kernels run.
+The derivatives and the flow's resize stay PyTorch (``F.conv2d`` with
+TF32 off, ``F.interpolate``), as the JAX package leaves them to XLA
+outside any kernel. On a CPU tensor every step runs the plain versions; on
+a CUDA tensor the three kernels run.
 """
 import numpy as np
 import torch
 
-from ...ops.image import bilinear_resize, downsample2x, separable_correlate
+from ...ops.image import bilinear_resize, separable_correlate
 from ...ops.lucas_kanade import (lk_structure_tensor, lk_warp_products,
                                  lk_window_solve)
+from ...ops.pyramid import downsample2x
 
 __all__ = ["lucas_kanade"]
 
@@ -64,8 +66,9 @@ def lucas_kanade(prev_gray, next_gray, *, win_size: int = 15,
     for _ in range(max_level):
         if min(pyr_prev[-1].shape) < 2 * win_size:
             break
-        pyr_prev.append(downsample2x(pyr_prev[-1]))
-        pyr_next.append(downsample2x(pyr_next[-1]))
+        prev, nxt = downsample2x((pyr_prev[-1], pyr_next[-1]))
+        pyr_prev.append(prev)
+        pyr_next.append(nxt)
     flow = torch.zeros((*pyr_prev[-1].shape, 2), dtype=torch.float32,
                        device=prev_gray.device)
     for level in range(len(pyr_prev) - 1, -1, -1):

@@ -1,9 +1,10 @@
 """Device-side image primitives of the port.
 
 Counterpart of transflow_tpu/ops/image.py: the separable correlations and
-blurs of Farneback's pyramid (and their reflect-101 mode, Horn-Schunck's
-pre-blur), the 2-D correlation of Horn-Schunck's stencils, the pyramid
-reduce of Lucas-Kanade, the anti-aliased resize that
+blurs (and their reflect-101 mode, Horn-Schunck's pre-blur), the 2-D
+correlation of Horn-Schunck's stencils, the pyramid reduce of
+Lucas-Kanade (kernel B14 on the card, ``ops/pyramid.py``; Farneback's
+pyramid levels are kernel B8 there), the anti-aliased resize that
 ``jax.image.resize(..., "linear")`` is, bilinear resize with torch's own
 semantics (LiteFlowNet), the integer-factor flow upscale, the
 clamped-anchor bilinear sampler, and the luma of the realtime tool. Every function keeps the JAX function's
@@ -152,10 +153,11 @@ def downsample2x(image: torch.Tensor) -> torch.Tensor:
     """The classic pyramid reduce: the 5-tap binomial blur ``[1, 4, 6, 4,
     1] / 16`` along each axis with symmetric padding, then every second
     row and column from the first (``[::2, ::2]``: an odd size rounds
-    up). Float32 (H', W'), contiguous."""
-    k = np.asarray([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
-    blurred = separable_correlate(separable_correlate(image, k, 0), k, 1)
-    return blurred[::2, ::2].contiguous()
+    up), in float32. Float32 (H', W'), contiguous: kernel B14 on the card
+    (``ops/pyramid.py::downsample2x``), its plain version on the CPU."""
+    # imported here: ops/pyramid.py imports this module
+    from .pyramid import downsample2x as reduce
+    return reduce((image.float().contiguous(),))[0]
 
 
 def gaussian_kernel_1d(sigma: float, radius: int) -> torch.Tensor:
