@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--against [NAME=]CSRC_DIR ...]
+                          [--steps [NAME=]CSRC_DIR ...]
 
 Phases, in order; any failure exits non-zero:
 
@@ -13,13 +14,13 @@ Phases, in order; any failure exits non-zero:
    instantiation's registers, shared memory and spills as ptxas reported
    them, and fails unless ptxas reported the correlation kernel,
    Farneback's B1, B2a and B2b, B5's two kernels, B9-B12 and the
-   pyramids' kernel (B8, B14) free of spills;
+   pyramids' kernels (B8, B14) free of spills;
 F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    ``CvFlowConfig()`` (Farneback with cv2's defaults, the headline
    command's estimator), one moveref layer with random reset 0.01 over
    frames panned 3 px per frame: a warm-up chunk, a timed chunk of 8
    frames and ``process_frame`` calls, counting 4 B1 (one per level, both
-   images), 12 B2a, 12 B2b and 3 B8 (one per level below L0, both
+   images), 12 B2a, 12 B2b and 1 B8 (every level below L0 of both
    images) launches per frame, the interior median flow of every frame
    within 0.5 px of the pan; then the same Engine with ``assets/configs/
    fast.json``, ``fastest.json`` and ``fb_select_warp=16``, and with
@@ -28,7 +29,7 @@ P. pipeline: the port's CLI disk to disk in a temporary directory over 24
    P5 frames at 1080x1920 panned as in phase F. P1: ``cli.main`` with
    the headline command's defaults, ``-p noise -r random 0.01 --seed 0
    -o out/%04d.ppm -F -C``: 23 frames that decode to 1080x1920x3, 4 B1
-   + 12 B2a + 12 B2b + 3 B8 launches per frame, every exported flow's interior
+   + 12 B2a + 12 B2b + 1 B8 launches per frame, every exported flow's interior
    median within 0.5 px of the pan, the Engine's state on the card; the
    same cut to 12 frames (``-t 00:00:00.480``), whose frames must be
    P1's first and whose host syncs against P1's give the syncs a frame
@@ -46,7 +47,7 @@ P. pipeline: the port's CLI disk to disk in a temporary directory over 24
    ``ControlSession`` over P1's end checkpoint (a 1080x1920 mapping, a
    paint shown in ``preview()``) and ``FlowClip.flow(0)`` over the PGM
    frames on the card (bit-equal to Farneback on the pair, 4 B1 + 12
-   B2a + 12 B2b + 3 B8 launches). Prints the disk-to-disk frames/s and
+   B2a + 12 B2b + 1 B8 launches). Prints the disk-to-disk frames/s and
    ``StageTimers``' split per frame of P1, P2 and P4, and the bare
    Engine's ms/frame on the same frames;
 T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
@@ -58,7 +59,7 @@ T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
    ``--move-mask-source``, ``--move-mask-destination`` and ``-r random
    0.01 -m`` a fractional mask image: a warm-up chunk, a timed chunk of
    8 frames and ``process_frame`` calls, counting 8 B1, 24 B2a, 24 B2b,
-   6 B8 and 2 B5 launches (B5's two kernels, no memset) per frame, finite
+   2 B8 and 2 B5 launches (B5's two kernels, no memset) per frame, finite
    flows, the per-frame checksums read back once, 0 host syncs per frame,
    and its profile (device busy time and idle share per frame); then the
    same
@@ -122,7 +123,7 @@ G. live tuning, video input, the MJPEG preview and the GUI. G1, on every
    ``CvFlowConfigWindow(config).apply_value("fb_iterations", "5")`` with
    no window opened, then 4 frames more: one estimator rebuild (on the
    first frame after the change), B1/B2a/B2b/B8 launches a frame
-   4/12/12/3 then 4/20/20/3, 0 host syncs a frame after the rebuild frame, the
+   4/12/12/1 then 4/20/20/1, 0 host syncs a frame after the rebuild frame, the
    rebuild frame's raw flow bit-equal to ``farneback`` with the new
    ``estimator_kwargs()`` on the same pair and warm start; ms/frame
    before, on and after the rebuild frame. G2, where cv2 and aiohttp
@@ -130,7 +131,7 @@ G. live tuning, video input, the MJPEG preview and the GUI. G1, on every
    in an .avi); ``CvFlowSource``'s gray frames bit-equal to
    ``cv2.VideoCapture``'s own; ``cli.main([clip, "-p", "noise",
    "--seed", "0", "-o", out/%04d.ppm])`` on the card (23 frames,
-   4/12/12/3 launches and, against a 12-frame cut, 0 host syncs a frame); ``-o
+   4/12/12/1 launches and, against a 12-frame cut, 0 host syncs a frame); ``-o
    mjpeg:PORT`` with one multipart frame fetched over HTTP that decodes
    to 1080x1920; the headline ``clip.avi -p still.png -o out.mp4``
    (the encoder chain's first writer that opens; 23 frames reopened by
@@ -147,7 +148,7 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
    1088x1920, the ``fastest`` preset and the CLI disk to disk over a cv2
    MJPG clip (still pixmap, video pixmap, ``.flow.zip`` replay), the
    record printed as its own JSON line; it must hold every field, B1/B2a/
-   B2b/B8 launches of 4/12/12/3 and A1/A3 of 5/0 a frame, 0 host syncs a
+   B2b/B8 launches of 4/12/12/1 and A1/A3 of 5/0 a frame, 0 host syncs a
    frame and this card's name and power limit; then 3 cases of the chunk
    fuzzer (``tools/fuzz_chunks.py``, seed 5) on the card at 96x128, each
    chunked render bit-equal to the per-frame one and each resumed tail
@@ -192,12 +193,13 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    and B2b (``aggregate_solve``, box and Gaussian) at the four level
    shapes of a 1080p frame in bf16 and float32 storage, on B1's own
    planes, each bit-equal to its plain version; then B8
-   (``pyramid_level``, both images of a level in one launch) on a 1080p
-   frame in bf16 and float32 at the three levels of cv2's defaults
-   (also ``fb_downscale`` 2, 4 and 8's pre-resize), at ``fb_pyr_scale``
-   0.8's first level and at ``fb_levels`` 8's deepest (radius 95),
+   (``pyramid_levels``, both images and every level in one launch) on a
+   1080p frame in bf16 and float32: the pyramid of cv2's defaults (its
+   bound over all three levels), then each level alone (the three are
+   also ``fb_downscale`` 2, 4 and 8's pre-resize), ``fb_pyr_scale`` 0.8's
+   first level and ``fb_levels`` 8's deepest (radius 95, the deep route),
    bit-equal to its plain version, beside the path it replaced (two
-   cuDNN passes and ``F.interpolate(antialias=True)`` an image,
+   cuDNN passes and ``F.interpolate(antialias=True)`` an image and level,
    ``b8_replaced``) timed on the same images;
 9. equivalence: at 128x192 in float32 (TF32 off) the CUDA slice against
    the CPU slice, Farneback on both devices, Horn-Schunck (bit-equal) and
@@ -216,9 +218,9 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    name (the ``PROFILE_TOP`` largest) and that of the compositor's K0,
    K1 and K2;
 11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
-   kernel, B1, B2a, B2b, B9, B10 and B5 against other trees'
-   ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu`` and
-   ``scatter.cu`` (for example the parent
+   kernel, B1, B2a, B2b, B9, B10, B5 and B8 against other trees'
+   ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu``,
+   ``scatter.cu`` and ``pyramid.cu`` (for example the parent
    commit's, from ``git archive`` under the git-ignored ``_local/``),
    built with the package's flags, all through the raw C entries,
    ``device_ms`` in turns (others, this, this, others): the correlation at
@@ -233,8 +235,15 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    ``horn_schunck.cu``; then B5 on phase B5's four inputs, where the
    other tree has ``scatter.cu``, ``device_ms`` in turns and the
    profiler's time of every device event of a call, each tree with its
-   own zeroed scratch; bit-equal between the trees (B10's flows and its
-   control words ``[stop, iterations]`` too, B5's mappings).
+   own zeroed scratch; then B8 (``against_pyramid``) on a 1080p bf16 pair
+   as the pyramid of cv2's defaults, each of its levels and fb_levels 8's
+   deepest: ``transflow_pyramid_levels``, or in an older tree a
+   ``transflow_pyramid_level`` call a level; bit-equal between the trees
+   (B10's flows and its control words ``[stop, iterations]`` too, B5's
+   mappings, B8's levels). ``--steps [NAME=]CSRC_DIR`` (repeatable, with
+   or without ``--against``) adds to B8's turns a directory's
+   ``pyramid.cu``, a copy of a tree's cut to some of its steps, whose
+   outputs are not held to the others'.
 
 B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
    version at 1080x1920 on a random forward flow, a converging one (every
@@ -398,8 +407,8 @@ FB_PAN_TOL = 0.5
 FB_MARGIN = 64        # rows and columns left out of the median check
 # B1, B2a, B2b, B8 launches per frame of CvFlowConfig(): 4 levels (both
 # images in one launch), 3 iterations x 4 levels, 3 x 4, and one pyramid
-# level (both images) below L0 at each of 3 levels
-FB_DEFAULT_PER_FRAME = (4, 12, 12, 3)
+# launch for the 3 levels below L0 of both images
+FB_DEFAULT_PER_FRAME = (4, 12, 12, 1)
 # the Farneback kernels in launches_per_frame's order
 FB_NAMES = ("B1", "B2a", "B2b", "B8")
 FB_PROFILE_CALLS = 3  # process_frame calls under the profiler (phase 10)
@@ -430,6 +439,12 @@ B8_LEVELS = ((540, 960, "L1", 0.5), (270, 480, "L2", 1.5),
              (135, 240, "L3", 3.5))
 B8_OFF_PATH = ((864, 1536, "pyr_scale 0.8 L1", 0.125),
                (17, 30, "levels 8 L6", 31.5))
+# B8's rows (name, levels): the main path's pyramid in one launch, then
+# each level alone (F's levels are also fb_downscale 2, 4 and 8's
+# pre-resize; levels 8 L6 takes the deep route, two launches)
+B8_CASES = (("pyramid", B8_LEVELS),
+            *((name, ((h, w, name, sigma),))
+              for h, w, name, sigma in B8_LEVELS + B8_OFF_PATH))
 
 
 def card_line() -> str:
@@ -587,7 +602,7 @@ def ptxas_reports(log: str) -> list[dict]:
 NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
             "aggregate_solve", "forward_scatter", "backward_resolve",
             "hs_derivatives", "hs_iterate", "lk_warp_products", "lk_window",
-            "pyramid_kernel")
+            "pyramid_levels_kernel", "pyramid_kernel")
 
 
 def phase_build() -> list[dict]:
@@ -914,7 +929,7 @@ def _launch_counters():
     from transflow_tpu_torch.ops.lucas_kanade import (lk_warp_products_cuda,
                                                       lk_window_solve_cuda)
     from transflow_tpu_torch.ops.pyramid import (downsample2x_cuda,
-                                                 pyramid_level_cuda)
+                                                 pyramid_levels_cuda)
     from transflow_tpu_torch.ops.scatter import forward_to_backward_cuda
     from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
     return (bounded_backwarp_cuda, correlation7x7_cuda,
@@ -923,7 +938,7 @@ def _launch_counters():
             forward_to_backward_cuda, hs_derivatives_cuda, hs_iterate_cuda,
             lk_warp_products_cuda, lk_window_solve_cuda,
             leave_empty_sources_cuda, layer_update_cuda, composite_cuda,
-            pyramid_level_cuda, downsample2x_cuda)
+            pyramid_levels_cuda, downsample2x_cuda)
 
 
 # the names of _launches()'s entries
@@ -1209,9 +1224,9 @@ def p_tools(root: Path, card: str, gray, flows, frames_arg: str) -> None:
     (bit-equal to Farneback called directly on the pair, its B1, B2a, B2b
     and B8 launches those of the estimator's levels and iterations)."""
     import contextlib
-    import inspect
     import io
-    from transflow_tpu_torch.flow.estimators.farneback import farneback
+    from transflow_tpu_torch.flow.estimators.farneback import (
+        farneback, launches_per_frame)
     from transflow_tpu_torch.tools import control, viewflow, viewflow_player
     flows_n = len(flows)
     archive = str(root / "p1" / "%04d.flow.zip")
@@ -1251,10 +1266,8 @@ def p_tools(root: Path, card: str, gray, flows, frames_arg: str) -> None:
     flow = clip.flow(0)
     launches = fb_launches(_launches())
     direct = farneback(gray[1], gray[0]).cpu()
-    params = inspect.signature(farneback).parameters
-    levels, iters = params["levels"].default, params["iterations"].default
-    per_pair = (levels + 1, (levels + 1) * iters, (levels + 1) * iters,
-                levels)
+    # farneback's defaults
+    per_pair = launches_per_frame(*gray.shape[1:])
     if not torch.equal(torch.from_numpy(flow), direct) or \
             launches != per_pair:
         raise AssertionError(f"FlowClip.flow(0): bit-equal "
@@ -1266,8 +1279,8 @@ def p_tools(root: Path, card: str, gray, flows, frames_arg: str) -> None:
           f"{session.width}x{session.height} mapping, a paint shown in "
           f"preview(); viewflow_player: FlowClip over {len(clip) + 1} P5 "
           f"frames, flow(0) on the card bit-equal to farneback on the pair, "
-          f"B1/B2a/B2b/B8 launches {launches} (levels {levels} + 1, "
-          f"{iters} iterations: {per_pair}); on {card}")
+          f"B1/B2a/B2b/B8 launches {launches} (farneback's defaults: "
+          f"{per_pair}); on {card}")
 
 
 def phase_pipeline(device, card: str) -> dict:
@@ -1428,7 +1441,7 @@ T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
 # sources, and B5's two for the forward one
 # and K0, K1, K2: the moveref layer leaves empty spots (K0), the sum and
 # the moveref layer update through K1, the stack renders in one K2
-T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 6, 0)
+T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 2, 0)
 T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
 T_SYNC_CALLS = 2
 T_PROFILE_CALLS = 3
@@ -2474,7 +2487,7 @@ G_BEFORE = 4          # process_frame calls before the change
 G_AFTER = 4           # calls from the change on (the first rebuilds)
 G_ITERATIONS = "5"    # fb_iterations as the window's widget sends it
 # B1, B2a, B2b, B8 before and after
-G_PER_FRAME = ((4, 12, 12, 3), (4, 20, 20, 3))
+G_PER_FRAME = ((4, 12, 12, 1), (4, 20, 20, 1))
 G_FRAMES = 24         # frames of the cv2-written clip; 23 flows
 G_FPS = 25.0
 G_CUT = "00:00:00.480"  # -t: 12 frames at the clip's 25 frames/s
@@ -2835,7 +2848,7 @@ def phase_bench(device, card: str) -> dict:
     """Phase K: the port's bench (``transflow_tpu_torch/bench.py``) in
     this process with ``--e2e``, cut to K_CHUNKS_PER_SAMPLE chunks a
     sample, K_REPEATS samples and K_E2E_FRAMES frames: its record (printed
-    on its own line) has every field, B1/B2a/B2b/B8 4/12/12/3 and A1/A3
+    on its own line) has every field, B1/B2a/B2b/B8 4/12/12/1 and A1/A3
     5/0 launches a frame, 0 host syncs a frame and this card; then
     K_FUZZ_CASES cases of the chunk fuzzer on the card at K_FUZZ_SIZE,
     each bit-equal chunked, per frame and resumed."""
@@ -3012,7 +3025,8 @@ def phase_classic_kernels(device) -> list[dict]:
             row = record("downsample2x", level, h, w, 0.0,
                          functools.partial(pyramid.downsample2x_cuda, *args),
                          functools.partial(pyramid.downsample2x_plain, *args),
-                         pyramid_bound_ms("downsample2x", ph, pw, h, w, F32),
+                         pyramid_bound_ms("downsample2x", ph, pw,
+                                          ((h, w, 0.0),), F32),
                          f"from ({ph},{pw}), both images")
             replaced = functools.partial(b14_replaced, *args)
             row["replaced_ms"] = device_ms(replaced, PLAIN_LAUNCHES * 10)
@@ -3327,37 +3341,40 @@ def fb_bound_ms(kernel: str, h: int, w: int, storage, in_dtype=None,
     return _bound(px * (6 * st + 16), B2B_OPS * px)
 
 
-def pyramid_bound_ms(kernel: str, h: int, w: int, oh: int, ow: int,
-                     dtype, images: int = 2, sigma: float = 0.0
-                     ) -> tuple[float, str]:
+def pyramid_bound_ms(kernel: str, h: int, w: int, levels, dtype,
+                     images: int = 2) -> tuple[float, str]:
     """B8's and B14's bound on ``images`` (h, w) images of ``dtype`` made
-    into (oh, ow) float32 levels: each input byte read once, each output
-    byte written once. Operations, a product and a sum a tap, in the
-    order that needs fewest (the kernel's): B8 blurs every pixel along
-    the rows' axis (2R + 1 taps; on a downscale every pixel lies in some
-    output's band), resizes the rows (ky a band), blurs the oh rows along
-    x, resizes the columns (kx); B14 needs the vertical pass at the even
+    into float32 levels (``levels``: (oh, ow, sigma) each; B14's one level
+    has no sigma): each input byte read once, each output byte written
+    once. Operations, a product and a sum a tap, in the order that needs
+    fewest (the kernel's): B8 blurs every pixel along the rows' axis (2R +
+    1 taps; on a downscale every pixel lies in some output's band),
+    resizes the rows (ky a band), blurs the oh rows along x, resizes the
+    columns (kx), at each level; B14 needs the vertical pass at the even
     rows and the horizontal one at the outputs (5 taps each)."""
     from transflow_tpu_torch.ops import pyramid
-    nbytes = images * (h * w * dtype.itemsize + oh * ow * 4)
-    if kernel == "downsample2x":
-        ops = images * 2 * 5 * ((h + 1) // 2 * w + oh * ow)
-    else:
+    nbytes = images * (h * w * dtype.itemsize
+                       + sum(oh * ow * 4 for oh, ow, _ in levels))
+    ops = 0
+    for oh, ow, sigma in levels:
+        if kernel == "downsample2x":
+            ops += images * 2 * 5 * ((h + 1) // 2 * w + oh * ow)
+            continue
         taps = 2 * pyramid.blur_radius(sigma) + 1
         kx = pyramid.resize_weights(w, ow)[1].shape[1]
         ky = pyramid.resize_weights(h, oh)[1].shape[1]
-        ops = images * 2 * (taps * h * w + ky * oh * w + taps * oh * w
-                            + kx * oh * ow)
+        ops += images * 2 * (taps * h * w + ky * oh * w + taps * oh * w
+                             + kx * oh * ow)
     return _bound(nbytes, ops)
 
 
-def b8_replaced(images, sigma: float, lh: int, lw: int) -> list:
-    """The path B8 replaced, timed as its yardstick: per image the blur's
-    two cuDNN passes (TF32 off, their pad indices and casts) and
-    ``F.interpolate(antialias=True)`` (ops/image.py)."""
+def b8_replaced(images, levels) -> list:
+    """The path B8 replaced, timed as its yardstick: per level and image
+    the blur's two cuDNN passes (TF32 off, their pad indices and casts)
+    and ``F.interpolate(antialias=True)`` (ops/image.py)."""
     from transflow_tpu_torch.ops import image
     return [image.bilinear_resize(image.gaussian_blur(x, sigma), lh, lw)
-            for x in images]
+            for sigma, lh, lw in levels for x in images]
 
 
 def b14_replaced(images) -> list:
@@ -3388,10 +3405,11 @@ def phase_farneback_kernels(device) -> list[dict]:
     main path; B2a reads B1's planes of the two images and a flow with a
     fifth of its pixels moving beyond 4 px, then the Engine's pan at the
     level (``pan_flow``), B2b B2a's planes of the first. Then B8 on both
-    images of a 1080p frame at ``B8_LEVELS`` and ``B8_OFF_PATH``, the
-    frame in bf16 (the card's frame) and float32 (a ``fb_downscale``
-    image), bit-equal to its plain version, beside the path it replaced
-    (``b8_replaced``) on the same images."""
+    images of a 1080p frame at ``B8_CASES`` (the pyramid of cv2's
+    defaults in one launch, then each level of ``B8_LEVELS`` and
+    ``B8_OFF_PATH`` alone), the frame in bf16 (the card's frame) and
+    float32 (a ``fb_downscale`` image), bit-equal to its plain version,
+    beside the path it replaced (``b8_replaced``) on the same images."""
     from transflow_tpu_torch.ops import farneback as fb
     from transflow_tpu_torch.ops import pyramid
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -3475,34 +3493,45 @@ def phase_farneback_kernels(device) -> list[dict]:
         images = [x.to(dtype) if dtype == BF16 else
                   x + torch.rand(x.shape, generator=gen, device=device)
                   for x in frame]
-        for h, w, level, sigma in B8_LEVELS + B8_OFF_PATH:
-            main = dtype == BF16 and (h, w, level, sigma) in B8_LEVELS
-            args = (images, sigma, h, w)
-            got = pyramid.pyramid_level_cuda(*args)
-            want = pyramid.pyramid_level_plain(*args)
-            err = max(_fb_compare(f"B8 {level} {dtype} image {k}", g, r)
-                      for k, (g, r) in enumerate(zip(got, want)))
-            if not all(torch.isfinite(g).all() for g in got):
+        for level, cases in B8_CASES:
+            main = dtype == BF16 and level == "pyramid"
+            levels = [(sigma, h, w) for h, w, _, sigma in cases]
+            args = (images, levels)
+            got = pyramid.pyramid_levels_cuda(*args)
+            want = pyramid.pyramid_levels_plain(*args)
+            err = max(_fb_compare(f"B8 {level} {dtype} {lh}x{lw} image {k}",
+                                  g, r)
+                      for (_, lh, lw), outs, refs in zip(levels, got, want)
+                      for k, (g, r) in enumerate(zip(outs, refs)))
+            if not all(torch.isfinite(g).all() for outs in got for g in outs):
                 raise AssertionError(f"B8 {level}: non-finite level")
-            row = record("pyramid_level", level, h, w, dtype,
-                         f"in {str(dtype)[6:]}, both images, sigma {sigma}",
+            row = record("pyramid_levels", level, HEIGHT, WIDTH, dtype,
+                         f"in {str(dtype)[6:]}, both images, "
+                         f"{len(levels)} level(s), sigma "
+                         f"{', '.join(str(s) for s, _, _ in levels)}",
                          err,
-                         functools.partial(pyramid.pyramid_level_cuda,
+                         functools.partial(pyramid.pyramid_levels_cuda,
                                            *args),
-                         functools.partial(pyramid.pyramid_level_plain,
+                         functools.partial(pyramid.pyramid_levels_plain,
                                            *args),
-                         pyramid_bound_ms("pyramid_level", HEIGHT, WIDTH, h,
-                                          w, dtype, sigma=sigma), main)
+                         pyramid_bound_ms("pyramid_levels", HEIGHT, WIDTH,
+                                          [(h, w, sigma)
+                                           for sigma, h, w in levels],
+                                          dtype), main)
             replaced = functools.partial(b8_replaced, *args)
             row["replaced_ms"] = device_ms(replaced, PLAIN_LAUNCHES * 10)
             if main:  # profiled in phase 10
                 row["replaced_call"] = replaced
-            plan = pyramid.level_plan(HEIGHT, WIDTH, h, w,
-                                      pyramid.blur_radius(sigma))
-            print(f"fb pyramid_level {level}: the path it replaced (two "
-                  f"cuDNN passes and F.interpolate an image) "
-                  f"{row['replaced_ms']:.5f} ms; tile {plan[0]}x{plan[1]}, "
-                  f"{plan[4]} bytes of shared memory")
+            plans = [pyramid.level_plan(HEIGHT, WIDTH, h, w,
+                                        pyramid.blur_radius(sigma),
+                                        dtype.itemsize)
+                     for sigma, h, w in levels]
+            print(f"fb pyramid_levels {level}: the path it replaced (two "
+                  f"cuDNN passes and F.interpolate an image and level) "
+                  f"{row['replaced_ms']:.5f} ms; launches "
+                  f"{pyramid.launches(HEIGHT, WIDTH, levels)}; (kind, tile "
+                  f"rows, tile columns, segment, slab, staged rows, shared "
+                  f"bytes) a level {plans}")
     return rows
 
 
@@ -3909,9 +3938,8 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
     for row in fb_rows:
         if "call" not in row:
             continue
-        name = ("pyramid" if row["kernel"] == "pyramid_level"
-                else row["kernel"])
-        row["kernel_ms"] = kernel_ms(row.pop("call"), f"{name}_kernel")
+        row["kernel_ms"] = kernel_ms(row.pop("call"),
+                                     f"{row['kernel']}_kernel")
         print(f"kernel time fb {row['kernel']} {row['level']} bf16 "
               f"{row['variant']}: {_ms_text(row['kernel_ms'])} "
               f"(torch.profiler, per call) against device_ms "
@@ -4018,6 +4046,8 @@ def engine_profile(name: str, run: dict, calls: int, card: str,
             end = hi
     result = {"events": len(spans) / calls, "busy_ms": busy / 1e3 / calls,
               "wall_ms": wall_ms, "device_names": set(by_name),
+              "by_name": {k: (ms, n / calls)
+                          for k, (ms, n) in by_name.items()},
               "aten_ops": {e.name for e in prof.events()
                            if e.name.startswith("aten::")}}
     if not spans:
@@ -4045,19 +4075,18 @@ def engine_profile(name: str, run: dict, calls: int, card: str,
 
 
 def build_others(csrcs: list[Path], mine: list[dict]) -> list[ctypes.CDLL]:
-    """``correlation.cu``, ``farneback.cu`` and, where the tree has them,
-    ``horn_schunck.cu`` and ``scatter.cu`` of other trees, built with the
-    package's nvcc flags (one nvcc per source, all at once) into one
+    """The ``OTHER_SOURCES`` each of other trees' ``csrcs`` has, built with
+    the package's nvcc flags (one nvcc per source, all at once) into one
     library per tree under ``_build/``, with the argument types of the C
-    entries each has. Prints ptxas's report of every instantiation that
-    differs from this tree's (``mine``)."""
+    entries each has (``_SIGNATURES``, or ``OTHER_SIGNATURES`` for entries
+    this tree no longer has). Prints ptxas's report of every instantiation
+    that differs from this tree's (``mine``)."""
     from transflow_tpu_torch._device import (BUILD_DIR, NVCC_FLAGS,
                                              _SIGNATURES, nvcc_path)
     paths, jobs = [], {}
     for csrc in csrcs:
-        sources = [csrc / "correlation.cu", csrc / "farneback.cu"]
-        sources += [csrc / name for name in ("horn_schunck.cu", "scatter.cu")
-                    if (csrc / name).exists()]
+        sources = [csrc / name for name in OTHER_SOURCES
+                   if (csrc / name).exists()]
         digest = hashlib.sha256()
         for source in sources:
             digest.update(source.read_bytes())
@@ -4093,12 +4122,26 @@ def build_others(csrcs: list[Path], mine: list[dict]) -> list[ctypes.CDLL]:
     libs = []
     for path in paths:
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in (_SIGNATURES | OTHER_SIGNATURES).items():
             if hasattr(lib, name):
                 getattr(lib, name).argtypes = argtypes
                 getattr(lib, name).restype = ctypes.c_int
         libs.append(lib)
     return libs
+
+
+# the sources phase 11 builds from another tree, where it has them
+OTHER_SOURCES = ("correlation.cu", "farneback.cu", "horn_schunck.cu",
+                 "scatter.cu", "pyramid.cu")
+# C entries of other trees that this one no longer has: B8's first
+# design, one level a call (src0, src1, images, dtype, dst0, dst1, H, W,
+# OH, OW, vertical taps, horizontal taps, radius, ystart, yweights, ky,
+# xstart, xweights, kx, tile_h, tile_w, seg, cols, shared bytes, stream)
+OTHER_SIGNATURES = {"transflow_pyramid_level": (
+    ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 2,
+    *[ctypes.c_void_p] * 2, *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 2,
+    ctypes.c_int, *[ctypes.c_void_p] * 2, ctypes.c_int,
+    *[ctypes.c_void_p] * 2, *[ctypes.c_int] * 6, ctypes.c_void_p)}
 
 
 def _entry(lib: ctypes.CDLL, name: str, *args):
@@ -4269,10 +4312,11 @@ def _check_outputs(label: str, outs: dict, exact: bool = True) -> None:
                                      "differ from this tree's")
 
 
-def phase_against(device, others: list[tuple[str, Path]], card: str,
-                  mine: list[dict], fb_run: dict, b5_flow) -> None:
-    """This tree's correlation kernel, B1, B2a and B2b against the
-    ``others``' (name, csrc directory), all through the raw C entries,
+def phase_against(device, libs: dict, card: str, fb_run: dict,
+                  b5_flow) -> None:
+    """This tree's correlation kernel, B1, B2a and B2b (``libs["this"]``)
+    against the other trees' (``libs``, by name; ``build_others``), all
+    through the raw C entries,
     ``device_ms`` in turns: the correlation at the five level shapes in
     the slice's dtype pairs (outputs within 1e-5); B1 on both images of a
     level, B2a at select radius 0 on a random flow and on the pan, and
@@ -4283,11 +4327,7 @@ def phase_against(device, others: list[tuple[str, Path]], card: str,
     bit-equal. Last, where a tree has ``horn_schunck.cu``, B9 and B10
     (``against_horn_schunck``), and where it has ``scatter.cu``, B5 on
     ``b5_inputs`` with ``b5_flow`` as the pan's (``against_scatter``)."""
-    from transflow_tpu_torch._device import kernel_library
     from transflow_tpu_torch.ops import farneback as fb
-    libs = {"this": kernel_library()._lib}
-    libs.update(zip((name for name, _ in others),
-                    build_others([csrc for _, csrc in others], mine)))
     gen = torch.Generator(device=device).manual_seed(SEED)
     total = dict.fromkeys([*libs, "bound"], 0.0)
     for h, w, c, stride, level in CORR_SHAPES:
@@ -4461,6 +4501,114 @@ def against_scatter(device, libs: dict, card: str, b5_flow) -> None:
               + f"; bound {bound:.5f} ({by}); outputs bit-equal on {card}")
 
 
+def level_entry_plan(h: int, w: int, lh: int, lw: int, radius: int,
+                     images: int) -> tuple[int, int, int, int, int]:
+    """The tile of B8's first design, the one-level entry
+    ``transflow_pyramid_level``, which checks it (that tree's
+    ``ops/pyramid.py::level_plan``): (tile rows, tile
+    columns, the most segment columns and the most blurred columns a tile
+    reads, shared bytes)."""
+    from transflow_tpu_torch.ops import pyramid
+    wy = pyramid.resize_weights(h, lh)[1]
+    xs, wx = pyramid.resize_weights(w, lw)
+    tile_w = next((tw for tw in range(min(lw, 128), 1, -1)
+                   if pyramid._span(xs, wx.shape[1], tw) + 2 * radius <= 256),
+                  1)
+    tile_h = 8
+    while tile_h > 1 and (-(-lw // tile_w) * -(-lh // tile_h) * images
+                          < 2 * pyramid.SMS):
+        tile_h //= 2
+    cols = pyramid._span(xs, wx.shape[1], tile_w)
+    seg = cols + 2 * radius
+    nbytes = 4 * (tile_h * (seg + cols) + 2 * (2 * radius + 1)
+                  + tile_h * (wy.shape[1] + 1) + tile_w * (wx.shape[1] + 1))
+    return tile_h, tile_w, seg, cols, nbytes
+
+
+def b8_entry(lib: ctypes.CDLL, images, levels):
+    """(call, outputs) of B8 through ``lib``'s raw C entries on ``images``
+    at ``levels`` ((sigma, lh, lw), ...): ``transflow_pyramid_levels``'s
+    launches where ``lib`` has it, else a ``transflow_pyramid_level`` call
+    a level (B8's first design); the outputs a tuple a level, as
+    ``pyramid_levels`` returns them."""
+    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
+    from transflow_tpu_torch.ops import pyramid
+    image = images[0]
+    code, stream, n = DTYPE_CODES[image.dtype], cuda_stream(image), len(images)
+    if hasattr(lib, "transflow_pyramid_levels"):
+        outs, scratch, launches = pyramid.level_tables(images, levels)
+        calls = [_entry(lib, "transflow_pyramid_levels", table.ctypes.data,
+                        count, n, code, nbytes, stream)
+                 for table, count, nbytes in launches]
+    else:
+        h, w = image.shape
+        outs, calls, scratch, launches = [], [], None, None
+        pad = [0] * (2 - n)
+        for sigma, lh, lw in levels:
+            radius = pyramid.blur_radius(sigma)
+            vtaps, htaps = pyramid._taps_on(sigma, image.dtype, image.device)
+            ystart, yweights = pyramid._bands_on(h, lh, image.device)
+            xstart, xweights = pyramid._bands_on(w, lw, image.device)
+            level = tuple(torch.empty((lh, lw), device=image.device)
+                          for _ in images)
+            outs.append(level)
+            calls.append(_entry(
+                lib, "transflow_pyramid_level",
+                *[t.data_ptr() for t in images], *pad, n, code,
+                *[t.data_ptr() for t in level], *pad, h, w, lh, lw,
+                vtaps.data_ptr(), htaps.data_ptr(), radius,
+                ystart.data_ptr(), yweights.data_ptr(), yweights.shape[1],
+                xstart.data_ptr(), xweights.data_ptr(), xweights.shape[1],
+                *level_entry_plan(h, w, lh, lw, radius, n), stream))
+
+    def call():
+        for c in calls:
+            c()
+    # the launches' tables and the deep levels' scratch, which the raw
+    # calls point into, live as long as the call
+    call.keep = (scratch, launches)
+    return call, outs
+
+
+# phase 11's B8 cases (name, levels): the main path's pyramid, then its
+# levels alone and fb_levels 8's deepest
+B8_AGAINST = (("pyramid", B8_LEVELS),
+              *((name, ((h, w, name, sigma),))
+                for h, w, name, sigma in B8_LEVELS + B8_OFF_PATH[1:]))
+
+
+def against_pyramid(device, libs: dict, steps: dict, card: str) -> None:
+    """B8 of this tree (``libs["this"]``) against the other trees'
+    (``libs``) and the ``steps`` copies (a tree's pyramid.cu cut to some
+    of its steps, whose outputs are not held to this tree's), through the
+    raw C entries (``b8_entry``), ``device_ms`` in turns, on both bf16
+    images of a 1080p frame at ``B8_AGAINST``: the other trees' outputs
+    bit-equal to this tree's."""
+    from transflow_tpu_torch.ops import pyramid
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    images = [torch.randint(0, 256, (HEIGHT, WIDTH), generator=gen,
+                            device=device).to(BF16) for _ in range(2)]
+    libs = {name: lib for name, lib in libs.items()
+            if hasattr(lib, "transflow_pyramid_levels")
+            or hasattr(lib, "transflow_pyramid_level")}
+    for case, cases in B8_AGAINST:
+        levels = [(sigma, h, w) for h, w, _, sigma in cases]
+        entries = {name: b8_entry(lib, images, levels)
+                   for name, lib in (libs | steps).items()}
+        turns = in_turns({name: call for name, (call, _) in entries.items()})
+        _check_outputs(f"B8 {case}", {
+            name: [t for level in entries[name][1] for t in level]
+            for name in libs})
+        bound = pyramid_bound_ms("pyramid_levels", HEIGHT, WIDTH,
+                                 [(h, w, sigma) for sigma, h, w in levels],
+                                 BF16)
+        print(f"against B8 {case} ({len(levels)} level(s), both images) "
+              f"bf16: {_turns_text(turns)}; bound {bound[0]:.5f} "
+              f"({bound[1]}); {', '.join(libs)} bit-equal"
+              + (f"; {', '.join(steps)} not held to them" if steps else "")
+              + f" on {card}")
+
+
 def _short_name(event: str) -> str:
     """A device event's name short of its namespaces, template arguments
     and parameters."""
@@ -4495,10 +4643,16 @@ def main() -> int:
     parser.add_argument("--against", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
                         help="also time the correlation kernel, B1, B2a, "
-                             "B2b, B9, B10 and B5 against this directory's "
-                             "correlation.cu, farneback.cu, horn_schunck.cu "
-                             "and scatter.cu (phase 11); repeat it for "
-                             "several trees")
+                             "B2b, B9, B10, B5 and B8 against this "
+                             "directory's correlation.cu, farneback.cu, "
+                             "horn_schunck.cu, scatter.cu and pyramid.cu "
+                             "(phase 11); repeat it for several trees")
+    parser.add_argument("--steps", type=against_arg, action="append",
+                        default=[], metavar="[NAME=]CSRC_DIR",
+                        help="also time B8 of this directory's pyramid.cu, "
+                             "a copy of a tree's cut to some of its steps, "
+                             "in phase 11's turns, its outputs not held to "
+                             "this tree's; repeat it for several copies")
     parser.add_argument("--multihost-worker", type=int, nargs=2,
                         metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -4547,6 +4701,20 @@ def main() -> int:
           f"{f_profile['events']:.1f} device events and "
           f"{f_profile['busy_ms']:.3f} ms busy a frame, "
           f"{fb_runs['CvFlowConfig()']['syncs']:g} host syncs a frame")
+    # B8 in the profile (which may miss a few of the window's events):
+    # the pyramid's launches and their kernel time
+    b8 = [v for k, v in f_profile["by_name"].items()
+          if "pyramid_levels_kernel" in k]
+    if f_profile["by_name"]:
+        b8_events = sum(n for _, n in b8)
+        if not 0 < b8_events <= FB_DEFAULT_PER_FRAME[3]:
+            raise AssertionError(f"phase F's profile shows {b8_events} B8 "
+                                 f"launches a frame, not "
+                                 f"{FB_DEFAULT_PER_FRAME[3]}")
+        print(f"profile farneback engine CvFlowConfig(): B8 "
+              f"{sum(ms for ms, _ in b8) / b8_events:.5f} ms of kernel "
+              f"time a launch, {b8_events:g} launches a frame seen of "
+              f"{FB_DEFAULT_PER_FRAME[3]} (torch.profiler) on {card}")
     for name, run in h_runs.items():
         run["profile"] = engine_profile(f"classic engine {name}", run,
                                         H_PROFILE_CALLS, card)
@@ -4557,9 +4725,17 @@ def main() -> int:
         print(f"streams per stream-frame: {profile['busy_ms'] / 2:.3f} ms "
               f"busy of {profile['wall_ms'] / 2:.3f} ms host clock, idle "
               f"{profile['idle']:.1%} on {card}")
-    if args.against:
-        phase_against(device, args.against, card, reports,
-                      fb_runs["CvFlowConfig()"], t_run["b5_flow"])
+    if args.against or args.steps:
+        from transflow_tpu_torch._device import kernel_library
+        libs = {"this": kernel_library()._lib}
+        libs.update(zip((name for name, _ in args.against),
+                        build_others([d for _, d in args.against], reports)))
+        steps = dict(zip((name for name, _ in args.steps),
+                         build_others([d for _, d in args.steps], reports)))
+        if args.against:
+            phase_against(device, libs, card, fb_runs["CvFlowConfig()"],
+                          t_run["b5_flow"])
+        against_pyramid(device, libs, steps, card)
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound
@@ -4690,12 +4866,12 @@ def main() -> int:
             "library": "none: hand-written for jnp code (no Pallas source); "
                        "no single PyTorch call computes it",
         })
-    # B8 per frame: the three levels of a bf16 frame, both images a launch;
-    # B14 per frame: lukas-kanade.json's two reduces
+    # B8 per frame: the pyramid of a bf16 frame (three levels, both images)
+    # in one launch; B14 per frame: lukas-kanade.json's two reduces
     b8_index, b14_index = KERNEL_NAMES.index("B8"), KERNEL_NAMES.index("B14")
     pyramid_groups = {
-        "pyramid_level": (
-            [r for r in fb_rows if r["kernel"] == "pyramid_level"
+        "pyramid_levels": (
+            [r for r in fb_rows if r["kernel"] == "pyramid_levels"
              and r["main"]],
             # phase F's Engine runs, phase T's Engine and CLI runs
             sum(run["launches"][b8_index] for run in fb_runs.values())
@@ -4704,7 +4880,7 @@ def main() -> int:
             "farneback.py:243-248 farneback's pyramid level, "
             "jax.image.resize(gaussian_blur(img, sigma), (lh, lw), "
             "'linear'), and :211-213 the fb_downscale pre-resize",
-            [r for r in fb_rows if r["kernel"] == "pyramid_level"]),
+            [r for r in fb_rows if r["kernel"] == "pyramid_levels"]),
         "downsample2x": (
             [r for r in h_rows if r["kernel"] == "downsample2x"],
             # phase H's Engine runs of the Lucas-Kanade presets

@@ -340,11 +340,11 @@ def test_farneback_on_card_matches_cpu(device, monkeypatch):
     canvas = canvas[0, 0].round().to(torch.uint8)
     a, b = canvas[4:100, 6:134], canvas[2:98, 3:131]
     before = (fb.poly_expansion_cuda.launches,
-              pyramid.pyramid_level_cuda.launches)
+              pyramid.pyramid_levels_cuda.launches)
     got = farneback(a.to(device), b.to(device), select_warp=0).cpu()
-    # one B1 a level, one B8 a level below L0
+    # one B1 a level, one B8 for every level below L0
     assert (fb.poly_expansion_cuda.launches - before[0],
-            pyramid.pyramid_level_cuda.launches - before[1]) == (4, 3)
+            pyramid.pyramid_levels_cuda.launches - before[1]) == (4, 1)
     want = farneback(a, b)
     mse = float(((got - want) ** 2).mean())
     assert mse == 0 or 10 * np.log10(64 / mse) >= 60.0
@@ -371,9 +371,10 @@ B8_CASES = [((1080, 1920), (540, 960), 0.5), ((1080, 1920), (270, 480), 1.5),
 @pytest.mark.parametrize("case", B8_CASES,
                          ids=[f"{a}->{b}" for a, b, _ in B8_CASES])
 def test_pyramid_level_matches_plain(device, case, dtype):
-    """Kernel B8 on both images of a level in one launch, and on one image,
-    against its plain version on the card: bit-equal (both add every sum
-    in one order, each product and sum rounded to float32)."""
+    """Kernel B8 on both images of one level, and on one image, against
+    its plain version on the card: bit-equal (both add every sum in one
+    order, each product and sum rounded to float32); one launch a call,
+    two for a deep level."""
     (h, w), (lh, lw), sigma = case
     gen = torch.Generator(device=device).manual_seed(h + lh)
     images = [torch.randint(0, 256, (h, w), generator=gen,
@@ -381,15 +382,75 @@ def test_pyramid_level_matches_plain(device, case, dtype):
     if dtype == F32:
         images = [x + torch.rand((h, w), generator=gen, device=device)
                   for x in images]
-    before = pyramid.pyramid_level_cuda.launches
-    got = pyramid.pyramid_level(images, sigma, lh, lw)
-    alone = pyramid.pyramid_level(images[1:], sigma, lh, lw)
+    before = pyramid.pyramid_levels_cuda.launches
+    got = pyramid.pyramid_levels(images, [(sigma, lh, lw)])[0]
+    alone = pyramid.pyramid_levels(images[1:], [(sigma, lh, lw)])[0]
     torch.cuda.synchronize()
-    assert pyramid.pyramid_level_cuda.launches == before + 2
+    assert pyramid.pyramid_levels_cuda.launches == before + 2 * (
+        pyramid.launches(h, w, [(sigma, lh, lw)]))
     want = pyramid.pyramid_level_plain(images, sigma, lh, lw)
     for out, ref in zip((*got, *alone), (*want, want[1])):
         assert out.dtype == F32 and out.shape == (lh, lw)
         assert torch.equal(out, ref)
+
+
+# B8's pyramids: (name, frame, pyr_scale, levels), each built as Farneback
+# builds it (every level below L0 in one launch, a deep level's rows in
+# one more): cv2's defaults at 1080p, fb_pyr_scale 0.8, fb_levels 8 (the
+# deep route at its last level), the pyramids below fb_downscale 2's and
+# 8's pre-resize (float32 images), odd frame sizes
+PYRAMIDS = [("defaults", (1080, 1920), 0.5, 3),
+            ("pyr_scale 0.8", (1080, 1920), 0.8, 3),
+            ("levels 8", (1080, 1920), 0.5, 8),
+            ("downscale 2", (540, 960), 0.5, 3),
+            ("downscale 8", (135, 240), 0.5, 3),
+            ("odd", (97, 131), 0.5, 3), ("odd 0.7", (181, 211), 0.7, 4)]
+
+
+@pytest.mark.parametrize("images", [2, 1], ids=["both", "one"])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name,shape,pyr_scale,levels", PYRAMIDS,
+                         ids=[p[0] for p in PYRAMIDS])
+def test_pyramid_levels_matches_plain(device, name, shape, pyr_scale, levels,
+                                      dtype, images):
+    """Kernel B8's one-launch pyramid (every level below L0 of one or two
+    images) against its plain version on the card: bit-equal at every
+    level, in ``pyramid.launches`` launches (two at fb_levels 8, whose last
+    level is deep)."""
+    from transflow_tpu_torch.flow.estimators import farneback as fb_est
+    h, w = shape
+    gen = torch.Generator(device=device).manual_seed(h + w + levels)
+    frames = [torch.randint(0, 256, (h, w), generator=gen,
+                            device=device).to(dtype) for _ in range(images)]
+    if dtype == F32:
+        frames = [x + torch.rand((h, w), generator=gen, device=device)
+                  for x in frames]
+    below = fb_est._pyramid_levels(fb_est._level_shapes(h, w, pyr_scale,
+                                                        levels, 5))
+    before = pyramid.pyramid_levels_cuda.launches
+    got = pyramid.pyramid_levels(frames, below)
+    torch.cuda.synchronize()
+    count = pyramid.pyramid_levels_cuda.launches - before
+    assert count == pyramid.launches(h, w, below) == 1 + (name == "levels 8")
+    want = pyramid.pyramid_levels_plain(frames, below)
+    assert len(got) == len(want) == len(below)
+    for (_, lh, lw), outs, refs in zip(below, got, want):
+        assert len(outs) == images
+        for out, ref in zip(outs, refs):
+            assert out.dtype == F32 and out.shape == (lh, lw)
+            assert torch.equal(out, ref)
+
+
+def test_pyramid_levels_cuda_refuses_cpu_tensors(device):
+    """B8's wrapper takes CUDA tensors only: a CPU image raises before
+    any launch, and so does a pair on two devices."""
+    x = torch.zeros((64, 96))
+    before = pyramid.pyramid_levels_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        pyramid.pyramid_levels_cuda((x, x), [(0.5, 32, 48)])
+    with pytest.raises(ValueError, match="CUDA"):
+        pyramid.pyramid_levels_cuda((x.to(device), x), [(0.5, 32, 48)])
+    assert pyramid.pyramid_levels_cuda.launches == before
 
 
 @pytest.mark.parametrize("shape", [(1080, 1920), (540, 960), (67, 121),
@@ -421,16 +482,17 @@ def test_pyramids_never_take_the_plain_path(device, monkeypatch):
         raise AssertionError("a plain pyramid version ran on the card")
 
     monkeypatch.setattr(pyramid, "pyramid_level_plain", refuse)
+    monkeypatch.setattr(pyramid, "pyramid_levels_plain", refuse)
     monkeypatch.setattr(pyramid, "downsample2x_plain", refuse)
     gen = torch.Generator(device=device).manual_seed(9)
     a, b = (torch.randint(0, 256, (192, 256), generator=gen, device=device,
                           dtype=torch.uint8) for _ in "ab")
-    before = (pyramid.pyramid_level_cuda.launches,
+    before = (pyramid.pyramid_levels_cuda.launches,
               pyramid.downsample2x_cuda.launches)
     fb_est.farneback(a, b, downscale=2)
     lucas_kanade(a, b)
     torch.cuda.synchronize()
-    assert (pyramid.pyramid_level_cuda.launches - before[0],
+    assert (pyramid.pyramid_levels_cuda.launches - before[0],
             pyramid.downsample2x_cuda.launches - before[1]) == (
         fb_est.launches_per_frame(192, 256, downscale=2)[3], 2)
 
@@ -440,10 +502,10 @@ def test_pyramid_level_limit(device):
     the H100 gives (radius 60000) raises before any launch, naming the
     bytes."""
     x = torch.zeros((16, 60000), device=device)
-    before = pyramid.pyramid_level_cuda.launches
+    before = pyramid.pyramid_levels_cuda.launches
     with pytest.raises(ValueError, match="bytes of shared memory"):
-        pyramid.pyramid_level((x,), 20000.0, 16, 12)
-    assert pyramid.pyramid_level_cuda.launches == before
+        pyramid.pyramid_levels((x,), [(20000.0, 16, 12)])
+    assert pyramid.pyramid_levels_cuda.launches == before
 
 
 def test_entry_points_default_to_the_card(device, exact_f32):

@@ -623,16 +623,17 @@ def test_chip_smoke_launch_rule(settings, monkeypatch):
     """The estimator's launches per frame of each kernel
     (``launches_per_frame``, the count chip_smoke and the bench assert on
     the card) equal the calls the estimator makes, here to the kernels'
-    plain versions (B1: one call per level for both images; B8: one per
-    level below L0 and one for the ``fb_downscale`` pre-resize, both images
-    a call), and are 4, 12, 12, 3 at 1080p defaults."""
+    plain versions (B1: one call per level for both images; B8: one for
+    every level below L0 and one for the ``fb_downscale`` pre-resize, both
+    images a call; no level of a 90x160 frame is deep), and are 4, 12, 12,
+    1 at 1080p defaults."""
     import chip_smoke
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
     from transflow_tpu_torch.ops import pyramid
     calls = {name: 0 for name in ("poly_expansion_pair", "update_equations",
-                                  "aggregate_solve", "pyramid_level")}
+                                  "aggregate_solve", "pyramid_levels")}
     for name in calls:
-        module = pyramid if name == "pyramid_level" else ops_fb
+        module = pyramid if name == "pyramid_levels" else ops_fb
         plain = getattr(module, f"{name}_plain")
 
         def counted(*args, _name=name, _plain=plain):
@@ -647,7 +648,7 @@ def test_chip_smoke_launch_rule(settings, monkeypatch):
     assert tuple(calls.values()) == fb.launches_per_frame(90, 160, **kwargs)
     assert fb.launches_per_frame(1080, 1920,
                                  **CvFlowConfig().estimator_kwargs()) == \
-        chip_smoke.FB_DEFAULT_PER_FRAME == (4, 12, 12, 3)
+        chip_smoke.FB_DEFAULT_PER_FRAME == (4, 12, 12, 1)
 
 
 def test_chip_smoke_captures_engine_b2a_inputs(monkeypatch):

@@ -141,17 +141,18 @@ def test_downsample2x_plain_matches_jax(shape):
 
 
 @pytest.mark.parametrize("settings,per_frame", [
-    ({}, (4, 12, 12, 3)),
-    ({"downscale": 2}, (4, 12, 12, 4)),
+    ({}, (4, 12, 12, 1)),
+    ({"downscale": 2}, (4, 12, 12, 2)),
     ({"downscale": 8, "levels": 1}, (2, 6, 6, 2)),
-    ({"pyr_scale": 0.8}, (4, 12, 12, 3)),
-    ({"levels": 8}, (7, 21, 21, 6)),
+    ({"pyr_scale": 0.8}, (4, 12, 12, 1)),
+    ({"levels": 8}, (7, 21, 21, 2)),
     ({"levels": 8, "pyr_scale": 0.1}, (2, 6, 6, 1))],
     ids=["defaults", "downscale 2", "downscale 8", "pyr_scale 0.8",
          "levels 8", "pyr_scale 0.1"])
 def test_launch_rule_at_1080p(settings, per_frame):
-    """``launches_per_frame`` at 1080x1920: (B1, B2a, B2b, B8), B8 one a
-    level below L0 and one for the ``downscale`` pre-resize."""
+    """``launches_per_frame`` at 1080x1920: (B1, B2a, B2b, B8), B8 one for
+    every level below L0, one more where a level is deep (fb_levels 8's
+    deepest, radius 95) and one for the ``downscale`` pre-resize."""
     assert fb.launches_per_frame(1080, 1920, **settings) == per_frame
 
 
@@ -160,18 +161,101 @@ def test_launch_rule_at_1080p(settings, per_frame):
                          ids=["downscale 3 pyr_scale 0.8", "levels 8"])
 def test_launch_rule_counts_calls(settings, monkeypatch):
     """Farneback calls B8 (its plain version here) as often as
-    ``launches_per_frame`` says, both images a call."""
+    ``launches_per_frame`` says (no level of a 90x160 frame is deep), both
+    images a call: the pre-resize, then every level below L0 in one
+    call."""
     calls = []
-    plain = pyramid.pyramid_level_plain
+    plain = pyramid.pyramid_levels_plain
 
-    def counted(images, *args):
-        calls.append(len(images))
-        return plain(images, *args)
+    def counted(images, levels):
+        calls.append((len(images), len(levels)))
+        return plain(images, levels)
 
-    monkeypatch.setattr(pyramid, "pyramid_level_plain", counted)
+    monkeypatch.setattr(pyramid, "pyramid_levels_plain", counted)
     a, b = shifted_pair(90, 160, dx=1, dy=1)
     fb.farneback(torch.from_numpy(a), torch.from_numpy(b), **settings)
-    assert calls == [2] * fb.launches_per_frame(90, 160, **settings)[3]
+    h, w = (round(n / settings.get("downscale", 1)) for n in (90, 160))
+    below = len(fb._level_shapes(h, w, settings["pyr_scale"],
+                                 settings.get("levels", 3), 5)) - 1
+    want = [(2, 1)] * ("downscale" in settings) + [(2, below)]
+    assert calls == want
+    assert len(calls) == fb.launches_per_frame(90, 160, **settings)[3]
+
+
+@pytest.mark.parametrize("h,w,pyr_scale,levels", [
+    (96, 144, 0.5, 3), (67, 121, 0.8, 4), (135, 240, 0.5, 2)], ids=str)
+def test_pyramid_levels_plain_equals_each_level(h, w, pyr_scale, levels):
+    """``pyramid_levels_plain`` (B8's plain version, every level in one
+    call) is ``pyramid_level_plain`` at each level, bit for bit, in bf16
+    and float32."""
+    rng = np.random.default_rng(8)
+    below = fb._pyramid_levels(fb._level_shapes(h, w, pyr_scale, levels, 5))
+    for dtype in (BF16, F32):
+        images = [torch.from_numpy(np.round(rng.uniform(0, 255, (h, w)))
+                                   .astype(np.float32)).to(dtype)
+                  for _ in range(2)]
+        got = pyramid.pyramid_levels_plain(images, below)
+        assert len(got) == len(below)
+        for (sigma, lh, lw), outs in zip(below, got):
+            want = pyramid.pyramid_level_plain(images, sigma, lh, lw)
+            assert all(torch.equal(a, b) for a, b in zip(outs, want))
+
+
+# (name, pyr_scale, levels, the deep levels' indices below L0) at 1080p
+PLANS = [("defaults", 0.5, 3, []), ("pyr_scale 0.8", 0.8, 3, []),
+         ("levels 8", 0.5, 8, [3, 4, 5]), ("pyr_scale 0.1", 0.1, 8, [])]
+
+
+@pytest.mark.parametrize("name,pyr_scale,levels,deep", PLANS,
+                         ids=[p[0] for p in PLANS])
+def test_pyramid_plan_at_1080p(name, pyr_scale, levels, deep):
+    """B8's plan of a 1080p pyramid: every level one ``WHOLE`` entry (a
+    segment of at most 256 columns, a thread each; at most 16 rows; a
+    slab a multiple of 8 and a ring of staged rows that holds it and the
+    blur's margin; within ``SMEM_TARGET``, or one row within
+    ``SMEM_WHOLE``) except the deep ones,
+    which are a ``ROWS`` entry (256 frame columns a block) and a
+    ``COLUMNS`` entry within the H100's shared memory; one launch, one
+    more where a level is deep; the table ``level_tables`` would pass,
+    ``FIELDS`` int64 a level, the rows first, then the largest blur."""
+    below = fb._pyramid_levels(fb._level_shapes(1080, 1920, pyr_scale,
+                                                levels, 5))
+    for itemsize in (2, 4):
+        for k, (sigma, lh, lw) in enumerate(below):
+            radius = pyramid.blur_radius(sigma)
+            plan = pyramid.level_plan(1080, 1920, lh, lw, radius, itemsize)
+            assert pyramid.is_deep(1080, 1920, lh, lw, radius) == (k in deep)
+            for kind, th, tw, seg, slab, rows, nbytes in plan:
+                assert 1 <= th <= 16 and tw >= 1
+                assert nbytes == pyramid.layout_bytes(
+                    kind, itemsize, radius, *(
+                        pyramid.resize_weights(n, m)[1].shape[1]
+                        for n, m in ((1080, lh), (1920, lw))), th, tw, seg,
+                    rows) <= pyramid.SMEM_MAX
+                if kind != pyramid.COLUMNS:
+                    assert slab % 8 == 0 and seg <= pyramid.THREADS
+                    assert rows % 8 == 0 and rows >= slab + 2 * radius
+            kinds = [entry[0] for entry in plan]
+            if k in deep:
+                assert kinds == [pyramid.ROWS, pyramid.COLUMNS]
+                assert plan[0][2] == plan[0][3] == pyramid.THREADS
+            else:
+                assert kinds == [pyramid.WHOLE]
+                assert plan[0][6] <= pyramid.SMEM_TARGET or (
+                    plan[0][1] == 1 and plan[0][6] <= pyramid.SMEM_WHOLE)
+    assert pyramid.launches(1080, 1920, below) == 1 + bool(deep)
+    x = torch.zeros((1080, 1920), dtype=BF16)
+    outs, scratch, launches = pyramid.level_tables((x, x), below)
+    assert (0 if scratch is None else scratch.numel()) == sum(
+        2 * pyramid._aligned(below[k][1] * 1920) for k in deep)
+    assert [[t.shape for t in level] for level in outs] == [
+        [(lh, lw)] * 2 for _, lh, lw in below]
+    assert [n for _, n, _ in launches] == [len(deep)] * bool(deep) + [
+        len(below)]
+    table = launches[-1][0]
+    assert table.shape == (len(below), pyramid.FIELDS)
+    radii = [pyramid.blur_radius(s) for s, _, _ in below]
+    assert list(table[:, 15]) == sorted(radii, reverse=True)
 
 
 def test_lucas_kanade_reduces_both_images_a_launch(monkeypatch):
@@ -198,26 +282,45 @@ def test_lucas_kanade_reduces_both_images_a_launch(monkeypatch):
 
 
 def test_level_plan_narrows_deep_levels():
-    """B8's tile: 8 output rows and a segment of at most 256 columns (a
-    thread each) within 48 KB of shared memory at cv2's default levels of
-    a 1080p frame; fb_levels 8's deepest level (radius 95) one output
-    column whose segment (318 columns) its threads walk in turns, within
-    the H100's shared memory; a level whose tile exceeds it raises with
-    the bytes it needs."""
-    for lh, lw, sigma in ((540, 960, 0.5), (270, 480, 1.5),
-                          (135, 240, 3.5)):
-        tile_h, tile_w, seg, cols, nbytes = pyramid.level_plan(
-            1080, 1920, lh, lw, pyramid.blur_radius(sigma))
-        assert tile_h == 8 and seg <= pyramid.THREADS
-        assert nbytes <= 48 * 1024
+    """B8's tiles: at cv2's default levels of a 1080p bf16 frame, the
+    height of at most ``TILE_HEIGHTS``' tallest that makes the fewest
+    vertical sums an output row within ``SMEM_TARGET`` (11 rows at L1 and
+    L2, 9 at L3) and a segment of at most 256 columns, a thread each, the
+    sums in one slab where its rows fit (L1, L2), else ``WHOLE_SLAB`` at a
+    time through a ring of two slabs' rows and the blur's margin (L3);
+    fb_levels 8's deepest
+    level (radius 95, whose one-column segment is 318 columns) takes the
+    deep route: its rows 256 frame columns a block, as many rows a slab as
+    the H100's shared memory holds, its columns a tile within
+    ``SMEM_TARGET``; a level whose tile exceeds the H100's shared memory
+    raises with the bytes it needs."""
+    for (lh, lw, sigma), height in zip(((540, 960, 0.5), (270, 480, 1.5),
+                                        (135, 240, 3.5)), (11, 11, 9)):
+        radius = pyramid.blur_radius(sigma)
+        (entry,) = pyramid.level_plan(1080, 1920, lh, lw, radius, 2)
+        kind, tile_h, tile_w, seg, slab, rows, nbytes = entry
+        assert kind == pyramid.WHOLE and tile_h == height
+        assert seg <= pyramid.THREADS and nbytes <= pyramid.SMEM_TARGET
+        ys, wy = pyramid.resize_weights(1080, lh)
+        full = -(-pyramid._span(ys, wy.shape[1], tile_h) // 8) * 8
+        assert slab == (full if sigma < 3 else pyramid.WHOLE_SLAB)
+        assert rows == pyramid._stage_rows(full, slab, radius)
     radius = pyramid.blur_radius(31.5)
     assert radius == 95
-    tile_h, tile_w, seg, cols, nbytes = pyramid.level_plan(1080, 1920, 17,
-                                                           30, radius)
-    assert tile_w == 1 and seg == cols + 2 * radius > pyramid.THREADS
-    assert 4 * tile_h * (seg + cols) < nbytes <= pyramid.SMEM_MAX
+    rows, columns = pyramid.level_plan(1080, 1920, 17, 30, radius, 2)
+    kx = pyramid.resize_weights(1920, 30)[1].shape[1]
+    assert kx + 2 * radius == 318 > pyramid.THREADS
+    assert rows[:4] == (pyramid.ROWS, 2, 256, 256)
+    ys, wy = pyramid.resize_weights(1080, 17)
+    full = -(-pyramid._span(ys, wy.shape[1], 2) // 8) * 8
+    assert rows[6] <= pyramid.SMEM_MAX
+    assert rows[4] == full or pyramid.layout_bytes(
+        pyramid.ROWS, 2, radius, wy.shape[1], 0, 2, 256, 256,
+        pyramid._stage_rows(full, rows[4] + 8, radius)) > pyramid.SMEM_MAX
+    assert columns[0] == pyramid.COLUMNS and columns[3] >= kx + 2 * radius
+    assert columns[6] <= pyramid.SMEM_TARGET
     with pytest.raises(ValueError, match="bytes of shared memory"):
-        pyramid.level_plan(16, 60000, 16, 12, 60000)
+        pyramid.level_plan(16, 60000, 16, 12, 60000, 4)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -225,8 +328,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     in them); the dispatchers send CPU tensors to the plain versions."""
     x = torch.zeros((16, 24))
     with pytest.raises(ValueError, match="CUDA"):
-        pyramid.pyramid_level_cuda((x, x), 0.5, 8, 12)
+        pyramid.pyramid_levels_cuda((x, x), [(0.5, 8, 12)])
     with pytest.raises(ValueError, match="CUDA"):
         pyramid.downsample2x_cuda((x,))
-    assert pyramid.pyramid_level((x, x), 0.5, 8, 12)[1].shape == (8, 12)
+    assert pyramid.pyramid_levels((x, x), [(0.5, 8, 12)])[0][1].shape == (
+        8, 12)
     assert pyramid.downsample2x((x,))[0].shape == (8, 12)

@@ -74,12 +74,9 @@ _SIGNATURES = {
     "transflow_layer_update": (_P, _P),
     # the address of a CompositeArgs, stream
     "transflow_composite": (_P, _P),
-    # src0, src1, images, dtype, dst0, dst1, H, W, OH, OW, vertical taps,
-    # horizontal taps, radius, ystart, yweights, ky, xstart, xweights, kx,
-    # tile_h, tile_w, seg, cols, shared bytes, stream
-    "transflow_pyramid_level": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
-                                _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _P),
+    # the levels' table (host, 22 int64 a level), levels, images, dtype,
+    # shared bytes, stream
+    "transflow_pyramid_levels": (_P, _I, _I, _I, _I, _P),
     # src0, src1, images, dst0, dst1, H, W, taps, stream
     "transflow_pyramid_reduce": (_P, _P, _I, _P, _P, _I, _I, _P, _P),
 }

@@ -117,9 +117,9 @@ def _steady_state(region, repeats=None, stats=False, budget_s=None):
 def _fb_counters():
     from .ops.farneback import (aggregate_solve_cuda, poly_expansion_cuda,
                                 update_equations_cuda)
-    from .ops.pyramid import pyramid_level_cuda
+    from .ops.pyramid import pyramid_levels_cuda
     return (poly_expansion_cuda, update_equations_cuda, aggregate_solve_cuda,
-            pyramid_level_cuda)
+            pyramid_levels_cuda)
 
 
 def _comp_counters():

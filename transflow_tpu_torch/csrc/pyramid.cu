@@ -1,21 +1,21 @@
-// The image pyramids' level construction for Hopper (sm_90a): one kernel
-// with two modes, B8 and B14.
+// The image pyramids' level construction for Hopper (sm_90a): B8, every
+// level of a Farneback pyramid in one launch, and B14, Lucas-Kanade's
+// reduce.
 //
 // It replaces jnp code that XLA fuses (there is no Pallas source):
-//  * B8, the resize mode: Farneback's pyramid level,
+//  * B8: Farneback's pyramid levels,
 //    transflow_tpu/flow/estimators/farneback.py:243-248 (and :211-213, the
 //    fb_downscale pre-resize), jax.image.resize(gaussian_blur(img, sigma),
-//    (lh, lw), "linear"): a separable Gaussian of radius R with numpy's
-//    symmetric padding (a bf16 image meets taps rounded to bf16 along its
-//    rows' axis, then float32 taps) and JAX's anti-aliased linear resize,
-//    each output from its band of K weights (ops/pyramid.py::
-//    resize_weights). The four passes are linear and each acts along one
-//    axis, so they run in the order that does the least work: the
-//    vertical blur, the row resize, the horizontal blur (at the level's
-//    height, not the frame's), the column resize;
-//  * B14, the decimate mode: Lucas-Kanade's reduce,
-//    transflow_tpu/ops/image.py:234 downsample2x: the binomial [1, 4, 6,
-//    4, 1] / 16 along each axis with symmetric padding, then [::2, ::2].
+//    (lh, lw), "linear") for each level below L0: a separable Gaussian of
+//    radius R with numpy's symmetric padding (a bf16 image meets taps
+//    rounded to bf16 along its rows' axis, then float32 taps) and JAX's
+//    anti-aliased linear resize, each output from its band of K weights
+//    (ops/pyramid.py::resize_weights). The four passes are linear and each
+//    acts along one axis, so they run in the order that does the least
+//    work: the vertical blur, the row resize, the horizontal blur (at the
+//    level's height, not the frame's), the column resize;
+//  * B14: transflow_tpu/ops/image.py:234 downsample2x: the binomial [1, 4,
+//    6, 4, 1] / 16 along each axis with symmetric padding, then [::2, ::2].
 //
 // Numbers. Every sum is taken in tap (or band) order from its first term,
 // each product __fmul_rn and each sum __fadd_rn (no contraction), the
@@ -23,44 +23,50 @@
 // version agree bit for bit.
 //
 // Bounds on the H100 at 1080x1920, cv2's defaults (pyr_scale 0.5, 3
-// levels): each level reads both bf16 frames (8.3 MB) and writes its two
-// float32 levels: 24.9 MB in and 5.4 MB out a frame, ~9 us at 3.35 TB/s.
-// The vertical blur at full resolution costs 2 (2R + 1) float32
-// operations a pixel and image (R = 2, 5, 11 at levels 1-3), the rest
-// less: levels 1-2 are bound by bytes, level 3 by operations (chip_smoke
-// prints each bound). B14 reads a float32 level and writes a quarter of
-// it, bound by bytes.
+// levels): the pyramid reads both bf16 frames once (8.3 MB) and writes its
+// six float32 levels (5.4 MB), 4.1 us at 3.35 TB/s; the vertical blur at
+// full resolution costs 2 (2R + 1) float32 operations a pixel and image
+// (R = 2, 5, 11), the rest less: 455 M operations, 6.8 us at 67 TFLOP/s,
+// so the pyramid is bound by operations (chip_smoke prints each bound).
+// B14 reads a float32 level and writes a quarter of it, bound by bytes.
 //
-// What the design does about it. Nothing but the level is written to
-// device memory. B8: a block of 256 threads makes a tile of tile_h (<= 8)
-// output rows by tile_w output columns of one image (blockIdx.z: both
-// images of a level in one launch):
-//  1. each thread takes a column of the tile's input segment (the
-//     columns its outputs' bands read, with the blur's margin) and walks
-//     down the rows the tile's row bands read, 8 rows at a time: a window
-//     of 8 frame values in registers slides through the taps, so a strip
-//     of 8 vertical sums costs 2R + 8 loads (coalesced along x, issued 8
-//     at a time, independent of the sums; a bf16 frame's products are
-//     exact, so its sums are fused multiply-adds), and each sum is folded
-//     at once into the row resize of the output rows whose bands hold its
-//     row, accumulated in shared memory;
-//  2. the horizontal blur of those tile_h rows, shared memory to shared
-//     memory;
+// What the design does about it. One launch makes every level of both
+// images: the grid enumerates (level, image, tile), the levels with the
+// largest blur (the longest tiles) first, so the card fills once; every
+// level reads the same frames, which stay in L2. A block of 256 threads
+// makes a tile of up to 16 output rows by tile_w output columns:
+//  1. it copies the input rows its tile reads (the row bands with the
+//     blur's margin, each row index reflected) by the segment of columns
+//     the tile's column bands read (with the blur's margin) into a ring of
+//     staged rows in shared memory, a warp a row: cp.async 16-byte copies
+//     where the frame's rows are 16-byte aligned, a reflected copy of each
+//     value at the left and right edges (TMA would fill them with zeros).
+//     A tile whose rows do not fit one slab sums them a slab at a time,
+//     the next slab's rows copied while one is summed. A segment column a
+//     thread, each thread makes its column's vertical sums 8 at a time
+//     from a register window (the main path's 5, 11 and 23 taps unrolled;
+//     a bf16 frame's exact products as fused multiply-adds), keeps them in
+//     a ring, and makes each output row's row resize from the ring once
+//     its band is summed (the main path's 4, 8 and 16 terms unrolled);
+//  2. the horizontal blur of those rows, 4 outputs a thread from a
+//     register window of 16-byte shared-memory loads;
 //  3. the column resize, stored coalesced along x.
 // The host (ops/pyramid.py::level_plan) picks the widest tile whose
-// segment fits 256 columns, and fewer rows where the grid would give the
-// 132 SMs fewer than two blocks each; a deep level (radius 95 at
-// fb_levels 8 on a 1080p frame) takes one output column and its threads
-// walk several columns. Shared memory holds tile_h rows of the segment
-// and of the blurred columns (and the taps and band weights) only, so no
-// tap window of the frame has to fit it; the host raises where even that
-// exceeds the H100's 227 KB.
+// segment fits 256 columns and the height that makes the fewest vertical
+// sums an output row within 64 KB of shared memory (three blocks an SM,
+// as the registers allow: more blocks of shorter tiles were slower). A
+// deep level, whose one-column segment does not fit 256 columns (radius
+// 95 at fb_levels 8 on a 1080p frame) or whose one-row tile of float32
+// rows exceeds 96 KB (radius 23 there), takes a second route: a launch
+// before the pyramid's makes its rows (step 1 over all the frame's
+// columns, 256 a block, each sum folded at once into the output rows
+// whose long bands hold it, written to an (lh, W) float32 scratch), and
+// its tiles in the pyramid's launch make steps 2 and 3 from that scratch,
+// so each vertical sum is made once.
 // B14: a block of 8 x 32 outputs stages its input tile (19 x 67 values,
 // loads coalesced and independent) in shared memory, makes the vertical
 // pass at the even rows there, then the horizontal pass at the even
 // columns.
-// Each block copies its taps and its tiles' band weights to shared memory
-// first. A simple kernel: no TMA staging, no warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,9 +79,18 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kStrip = 8;      // B8: vertical sums a thread makes at once
-constexpr int kMaxTileH = 8;   // B8: output rows a tile, accumulators
-constexpr int kMaxTileW = 128;
+constexpr int kRun = 8;      // B8: vertical sums a thread makes at once
+constexpr int kBlurRun = 4;  // B8: horizontal sums a thread makes at once
+constexpr int kMaxTileH = 16;
+// B8: the blocks an SM its registers must allow (at most 85 a thread)
+constexpr int kLevelBlocks = 3;
+constexpr int kMaxLevels = 24;  // B8: levels (or routes' passes) a launch
+constexpr int kFields = 23;     // B8: int64 fields of a level in the table
+// B8's kinds of level: the whole level from the frames; a deep level's
+// rows (steps 1) into its scratch; its columns (steps 2-3) from there
+constexpr int kWhole = 0;
+constexpr int kRows = 1;
+constexpr int kColumns = 2;
 constexpr int kReduceRows = 8;   // B14: a block's output rows
 constexpr int kReduceCols = 32;  // B14: a block's output columns
 constexpr int kReduceRadius = 2;
@@ -89,10 +104,13 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-// a bf16 value's bits are a float32's upper half: the conversion is exact
-__device__ __forceinline__ float load(const bf16* p) {
+
+// shared-memory values; a bf16 value's bits are a float32's upper half,
+// so its conversion is exact
+__device__ __forceinline__ float lds(const float* p) { return *p; }
+__device__ __forceinline__ float lds(const bf16* p) {
   return __uint_as_float(
-      static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+      static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
       << 16);
 }
 
@@ -105,32 +123,20 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return i < n ? i : period - 1 - i;
 }
 
-struct LevelArgs {
-  const void* src[2];
-  float* dst[2];
-  int H, W, OH, OW;
-  const float* vtaps;  // the vertical (first) pass's 2R + 1 taps
-  const float* htaps;  // the horizontal (second) pass's
-  int radius;
-  const int* ystart;       // B8: each output row's first input row
-  const float* yweights;   // (OH, ky)
-  int ky;
-  const int* xstart;       // each output column's first input column
-  const float* xweights;   // (OW, kx)
-  int kx;
-  int tile_h, tile_w;
-  int seg;   // the most segment columns a tile reads (blur margin in)
-  int cols;  // the most blurred columns a tile reads
-};
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
 
-// the floats of B8's shared memory: the tile's rows of the segment and
-// of the blurred columns, both passes' taps, the tile's row and column
-// bands (starts as ints)
-__host__ __device__ inline int level_smem_floats(int tile_h, int tile_w,
-                                                 int seg, int cols,
-                                                 int radius, int ky, int kx) {
-  return tile_h * (seg + cols) + 2 * (2 * radius + 1) + tile_h * (ky + 1) +
-         tile_w * (kx + 1);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // acc + v * t. A bf16 frame's value times a tap rounded to bf16 has at
@@ -143,248 +149,646 @@ __device__ __forceinline__ float tap_mac(float acc, float v, float t) {
   return add(acc, mul(v, t));
 }
 
-// B8 step 1 for one segment column: the vertical sums of the tile's input
-// rows ry0 .. ry0 + nrows - 1, 8 at a time, each folded at once into the
-// row resize of the tile's th output rows (their bands start at
-// ystart[i], weights yw[i * ky + k]), accumulated in col[i * seg]
-template <typename T>
-__device__ __forceinline__ void column_walk(
-    const T* __restrict__ column, int H, int W, int radius,
-    const float* __restrict__ vt, int ry0, int nrows, int th, int ky,
-    const int* __restrict__ ystart, const float* __restrict__ yw,
-    float* __restrict__ col, int seg) {
+// ---------------------------------------------------------------------------
+// B8
+// ---------------------------------------------------------------------------
+
+// One level (or one pass of a deep level's route) of a B8 launch. kWhole:
+// frames (H, W) -> level (OH, OW); kRows: frames (H, W) -> rows (OH, W),
+// the vertical blur and the row resize; kColumns: rows (OH, W) float32 ->
+// level (OH, OW), the horizontal blur and the column resize.
+struct Level {
+  const void* src[2];
+  float* dst[2];
+  const float* vtaps;     // the vertical (first) pass's 2R + 1 taps
+  const float* htaps;     // the horizontal (second) pass's
+  const int* ystart;      // each output row's first input row
+  const float* yweights;  // (OH, ky)
+  const int* xstart;      // each output column's first input column
+  const float* xweights;  // (OW, kx)
+  int kind, H, W, OH, OW, radius, ky, kx;
+  int tile_h, tile_w;
+  int seg;         // the most segment columns a tile reads (margin in)
+  int slab;        // the vertical sums a column makes from a slab of rows
+  int stage_rows;  // the ring of staged rows (a multiple of 8)
+  int tiles_x, tiles, first_block;
+  int vec;  // the frames' rows are 16-byte aligned: cp.async copies
+};
+
+struct LevelsArgs {
+  Level level[kMaxLevels];
+  int n_levels;
+};
+
+__host__ __device__ inline int align16(int bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// B8's shared memory, offsets in bytes: the stage of input rows (or,
+// once the vertical pass is done, the blurred rows), the ring of the
+// segment's last vertical sums, the segment's rows (row-resized), both
+// passes' taps, the tile's row bands and its column bands' starts (their
+// weights are read through the L1 cache)
+struct Layout {
+  int stage_pitch;    // elements of a staged row
+  int ring_rows;      // vertical sums a segment column keeps
+  int ring_pitch;     // floats of a ring row
+  int rowsum_pitch;   // floats of a segment row
+  int blurred_pitch;  // floats of a blurred row
+  int ring, rowsum, vt, ht, ys, yw, xs, bytes;
+};
+
+__host__ __device__ inline Layout level_layout(int kind, int itemsize,
+                                               int radius, int ky, int kx,
+                                               int tile_h, int tile_w,
+                                               int seg, int stage_rows) {
+  Layout l;
+  const int v = 16 / itemsize;  // values of a 16-byte copy
   const int taps = 2 * radius + 1;
-  int lo = 0, hi = -1;  // the output rows whose bands hold the current row
-  for (int s0 = 0; s0 < nrows; s0 += kStrip) {
-    const int r0 = ry0 + s0 - radius;  // the strip's first window row
-    float win[kStrip], acc[kStrip];
-#pragma unroll
-    for (int m = 0; m < kStrip; ++m) {
-      win[m] = load(column + (long long)reflect(r0 + m, H) * W);
-      acc[m] = mul(win[m], vt[0]);
-    }
-    // the other taps 8 at a time: their 8 loads issued together; sum m
-    // takes tap t0 + u from row r0 + m + t0 + u, win[m + u] or next[m + u - 8]
-    for (int t0 = 1; t0 < taps; t0 += kStrip) {
-      float next[kStrip];
-#pragma unroll
-      for (int u = 0; u < kStrip; ++u)
-        next[u] = t0 + u < taps
-                      ? load(column +
-                             (long long)reflect(r0 + t0 + u + kStrip - 1, H) *
-                                 W)
-                      : 0.f;
-#pragma unroll
-      for (int u = 0; u < kStrip; ++u) {
-        if (t0 + u < taps) {
-          const float tk = vt[t0 + u];
-#pragma unroll
-          for (int m = 0; m < kStrip; ++m)
-            acc[m] = tap_mac<T>(
-                acc[m],
-                m + u + 1 < kStrip ? win[min(m + u + 1, kStrip - 1)]
-                                   : next[max(m + u + 1 - kStrip, 0)],
-                tk);
+  const int cols = kind == kRows ? 0 : seg - 2 * radius;
+  l.stage_pitch = (seg + v - 1) / v * v + v;
+  // a band of ky rows completes at the end of a run of 8 that it may have
+  // begun 7 rows before; a deep level's long bands (kRows) accumulate in
+  // the segment's rows instead
+  l.ring_rows = kind == kWhole ? (ky + 7 + kRun - 1) / kRun * kRun : 0;
+  l.ring_pitch = (seg + 3) / 4 * 4;
+  // the horizontal window reads up to 7 columns past the segment
+  l.rowsum_pitch = (seg + 7 + 3) / 4 * 4;
+  l.blurred_pitch = (cols + 3) / 4 * 4;
+  const int stage =
+      kind == kColumns ? 0 : stage_rows * l.stage_pitch * itemsize;
+  const int blurred = kind == kRows ? 0 : tile_h * l.blurred_pitch * 4;
+  int off = align16(stage > blurred ? stage : blurred);
+  l.ring = off;
+  off += align16(l.ring_rows * l.ring_pitch * 4);
+  l.rowsum = off;
+  off += align16(tile_h * l.rowsum_pitch * 4);
+  l.vt = off;
+  off += kind == kColumns ? 0 : align16(taps * 4);
+  l.ht = off;
+  off += kind == kRows ? 0 : align16(taps * 4);
+  l.ys = off;
+  off += kind == kColumns ? 0 : align16(tile_h * 4);
+  l.yw = off;
+  off += kind == kColumns ? 0 : align16(tile_h * ky * 4);
+  l.xs = off;
+  off += kind == kRows ? 0 : align16(tile_w * 4);
+  l.bytes = off;
+  return l;
+}
+
+// Copy input rows first .. first + count - 1 of the tile (row j is frame
+// row reflect(r0 + j)) by the segment's columns reflect(sx0 + c), c <
+// nseg, into the stage, a ring of nrows rows (row j at j % nrows): the
+// stage's column p holds frame column reflect(a0 + p), a0 being sx0
+// rounded down to a whole 16-byte copy. Issues the copies; the caller
+// commits, waits for them and syncs.
+template <typename T>
+__device__ __forceinline__ void copy_rows(const Level& L,
+                                          const T* __restrict__ src,
+                                          T* __restrict__ stage, int ps,
+                                          int nrows, int r0, int first,
+                                          int count, int sx0, int nseg) {
+  constexpr int v = 16 / static_cast<int>(sizeof(T));
+  const int a0 = sx0 >= 0 ? sx0 / v * v : -((v - 1 - sx0) / v) * v;
+  const int off = sx0 - a0;
+  const int H = L.H, W = L.W;
+  // a warp a row, its lanes along the row
+  const int lane = threadIdx.x % 32;
+  for (int q = threadIdx.x / 32; q < count; q += kThreads / 32) {
+    const T* grow = src + (long long)reflect(r0 + first + q, H) * W;
+    T* srow = stage + (first + q) % nrows * ps;
+    if (L.vec) {
+      const int chunks = (off + nseg + v - 1) / v;
+      for (int k = lane; k < chunks; k += 32) {
+        const int x = a0 + k * v;
+        if (x >= 0 && x + v <= W) {
+          cp_async16(srow + k * v, grow + x);
+        } else {
+          for (int e = 0; e < v; ++e)
+            srow[k * v + e] = grow[reflect(x + e, W)];
         }
       }
-#pragma unroll
-      for (int m = 0; m < kStrip; ++m) win[m] = next[m];
-    }
-    // rows in ascending order: each output row's band terms arrive in
-    // band order
-#pragma unroll
-    for (int m = 0; m < kStrip; ++m) {
-      if (s0 + m < nrows) {
-        const int r = ry0 + s0 + m;
-        while (hi + 1 < th && ystart[hi + 1] <= r) ++hi;
-        while (ystart[lo] + ky <= r) ++lo;
-        for (int i = lo; i <= hi; ++i) {
-          const int k = r - ystart[i];
-          const float w = yw[i * ky + k];
-          float* y = col + i * seg;
-          *y = k == 0 ? mul(acc[m], w) : add(*y, mul(acc[m], w));
-        }
-      }
+    } else {
+      for (int c = lane; c < nseg; c += 32)
+        srow[off + c] = grow[reflect(sx0 + c, W)];
     }
   }
 }
 
-template <typename T, bool kDecimate>
+// The stage's rows j .. j + 7 of one column, j a multiple of 8 (the ring
+// holds whole groups of 8 rows): ``col`` is the column's first element,
+// ``base`` the ring row of row j, rows ``ps`` elements apart
+template <typename T>
+__device__ __forceinline__ void load_group(const T* __restrict__ col,
+                                           int ps, int base,
+                                           float (&x)[kRun]) {
+#pragma unroll
+  for (int m = 0; m < kRun; ++m) x[m] = lds(col + (base + m) * ps);
+}
+
+// The vertical sums of the stage's rows g + m .. g + m + taps - 1 of one
+// column for m < 8, g a multiple of 8, each from its first tap: a
+// register window, the taps 8 at a time with their 8 rows' loads issued
+// together; sum m takes tap t0 + u from row g + m + t0 + u, win[m + u +
+// 1] or nxt[m + u + 1 - 8]. ``base`` is the ring row of row g, nring the
+// ring's rows.
+template <typename T>
+__device__ __forceinline__ void run_sums(const T* __restrict__ col, int ps,
+                                         int base, int nring,
+                                         const float* __restrict__ vt,
+                                         int taps, float (&acc)[kRun]) {
+  float win[kRun];
+  load_group(col, ps, base, win);
+#pragma unroll
+  for (int m = 0; m < kRun; ++m) acc[m] = mul(win[m], vt[0]);
+  for (int t0 = 1; t0 < taps; t0 += kRun) {
+    float nxt[kRun];
+    base += kRun;
+    if (base == nring) base = 0;
+    load_group(col, ps, base, nxt);
+#pragma unroll
+    for (int u = 0; u < kRun; ++u) {
+      if (t0 + u < taps) {
+        const float tk = vt[t0 + u];
+#pragma unroll
+        for (int m = 0; m < kRun; ++m)
+          acc[m] = tap_mac<T>(acc[m],
+                              m + u + 1 < kRun
+                                  ? win[min(m + u + 1, kRun - 1)]
+                                  : nxt[max(m + u + 1 - kRun, 0)],
+                              tk);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kRun; ++m) win[m] = nxt[m];
+  }
+}
+
+// run_sums with kTaps taps known at compile time: all 8 + kTaps - 1 rows
+// loaded at once, every product unrolled
+template <typename T, int kTaps>
+__device__ __forceinline__ void run_sums_fixed(const T* __restrict__ col,
+                                               int ps, int base, int nring,
+                                               const float* __restrict__ vt,
+                                               float (&acc)[kRun]) {
+  constexpr int kGroups = (kRun + kTaps - 1 + kRun - 1) / kRun;
+  float x[kGroups * kRun];
+#pragma unroll
+  for (int a = 0; a < kGroups; ++a) {
+    float g[kRun];
+    load_group(col, ps, base, g);
+#pragma unroll
+    for (int m = 0; m < kRun; ++m) x[a * kRun + m] = g[m];
+    base += kRun;
+    if (base == nring) base = 0;
+  }
+#pragma unroll
+  for (int m = 0; m < kRun; ++m) acc[m] = mul(x[m], vt[0]);
+#pragma unroll
+  for (int t = 1; t < kTaps; ++t) {
+    const float tk = vt[t];
+#pragma unroll
+    for (int m = 0; m < kRun; ++m) acc[m] = tap_mac<T>(acc[m], x[m + t], tk);
+  }
+}
+
+// An output row's row resize: its band's ky sums from ring row q on
+// (``ringcol``, rows ``pitch`` floats apart, wrapping at nring) times
+// the band's weights ``w`` (shared memory), added from the first
+__device__ __forceinline__ float band_sum(const float* __restrict__ ringcol,
+                                          int pitch, int q, int nring,
+                                          const float* __restrict__ w,
+                                          int ky) {
+  float y = mul(ringcol[q * pitch], w[0]);
+  for (int k = 1; k < ky; ++k) {
+    if (++q == nring) q = 0;
+    y = add(y, mul(ringcol[q * pitch], w[k]));
+  }
+  return y;
+}
+
+// band_sum with kKy terms known at compile time: every load issued first
+template <int kKy>
+__device__ __forceinline__ float band_sum_fixed(
+    const float* __restrict__ ringcol, int pitch, int q, int nring,
+    const float* __restrict__ w) {
+  float v[kKy], wk[kKy];
+#pragma unroll
+  for (int k = 0; k < kKy; ++k) {
+    v[k] = ringcol[q * pitch];
+    wk[k] = w[k];
+    if (++q == nring) q = 0;
+  }
+  float y = mul(v[0], wk[0]);
+#pragma unroll
+  for (int k = 1; k < kKy; ++k) y = add(y, mul(v[k], wk[k]));
+  return y;
+}
+
+// B8 step 1 for a tile, the stage's first slab issued and committed:
+// the vertical sums of segment column ``tid`` (of nseg, frame columns
+// reflect(sx0 + c)) at the tile's nrows input rows from ry0 on, a slab
+// of L.slab at a time, 8 at a time (run_sums), kept in a ring; each
+// output row's row resize from the ring once its band is summed, into
+// rowsum[i * pitch + c]. Without a ring (a deep level's rows), each sum
+// is folded at once into the output rows whose bands hold it,
+// accumulated in rowsum. The stage is a ring of input rows: the next
+// slab's new rows are copied while a slab is summed.
+template <typename T>
+__device__ __forceinline__ void vertical_pass(
+    const Level& L, const T* __restrict__ src, T* __restrict__ stage,
+    const Layout& lay, const float* __restrict__ vt,
+    const int* __restrict__ ys, const float* __restrict__ yw,
+    float* __restrict__ ring, float* __restrict__ rowsum, int th, int ry0,
+    int nrows, int sx0, int nseg) {
+  const int tid = threadIdx.x;
+  const int R = L.radius, taps = 2 * R + 1, ky = L.ky, S = L.slab;
+  const int ps = lay.stage_pitch, nstage = L.stage_rows;
+  const int nring = lay.ring_rows;
+  constexpr int v = 16 / static_cast<int>(sizeof(T));
+  const int off = sx0 - (sx0 >= 0 ? sx0 / v * v : -((v - 1 - sx0) / v) * v);
+  const T* col = stage + off + tid;
+  float* ringcol = ring + tid;
+  // the first output row not yet resized (with a ring), or not yet begun
+  // (without); the first whose band may still hold a row (without)
+  int next = 0, lo = 0;
+  int staged = min(S, nrows) + 2 * R;  // the rows the caller issued
+  for (int s0 = 0; s0 < nrows; s0 += S) {
+    const int sums = min(S, nrows - s0);
+    // the next slab's new rows: their ring rows held slabs already summed
+    const int need = min(s0 + 2 * S, nrows) + 2 * R;
+    if (need > staged) {
+      copy_rows<T>(L, src, stage, ps, nstage, ry0 - R, staged,
+                   need - staged, sx0, nseg);
+      staged = need;
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    for (int r = 0; tid < nseg && r < sums; r += kRun) {
+      const int g = s0 + r;
+      const int base = g % nstage;
+      float acc[kRun];
+      // the main path's blurs with their taps unrolled
+      switch (taps) {
+        case 5:
+          run_sums_fixed<T, 5>(col, ps, base, nstage, vt, acc);
+          break;
+        case 11:
+          run_sums_fixed<T, 11>(col, ps, base, nstage, vt, acc);
+          break;
+        case 23:
+          run_sums_fixed<T, 23>(col, ps, base, nstage, vt, acc);
+          break;
+        default:
+          run_sums<T>(col, ps, base, nstage, vt, taps, acc);
+      }
+      if (!nring) {
+        // rows in ascending order: each output row's band terms arrive
+        // in band order
+#pragma unroll
+        for (int m = 0; m < kRun; ++m) {
+          if (r + m < sums) {
+            const int row = ry0 + g + m;
+            while (next < th && ys[next] <= row) ++next;
+            for (int i = lo; i < next; ++i) {
+              const int k = row - ys[i];
+              if (k >= ky) {
+                lo = i + 1;
+                continue;
+              }
+              const float y = mul(acc[m], yw[i * ky + k]);
+              float* out = rowsum + i * lay.rowsum_pitch + tid;
+              *out = k == 0 ? y : add(*out, y);
+            }
+          }
+        }
+        continue;
+      }
+      // the run's sums into the ring (a run never wraps: the ring holds
+      // whole runs), then the row resize of every output row whose band
+      // they complete, its terms in band order
+      float* slot = ringcol + g % nring * lay.ring_pitch;
+#pragma unroll
+      for (int m = 0; m < kRun; ++m) slot[m * lay.ring_pitch] = acc[m];
+      const int done = min(g + kRun, nrows);
+      for (; next < th && ys[next] - ry0 + ky <= done; ++next) {
+        const float* w = yw + next * ky;
+        const int q = (ys[next] - ry0) % nring;
+        float y;
+        // the main path's bands with their terms unrolled
+        switch (ky) {
+          case 4:
+            y = band_sum_fixed<4>(ringcol, lay.ring_pitch, q, nring, w);
+            break;
+          case 8:
+            y = band_sum_fixed<8>(ringcol, lay.ring_pitch, q, nring, w);
+            break;
+          case 16:
+            y = band_sum_fixed<16>(ringcol, lay.ring_pitch, q, nring, w);
+            break;
+          default:
+            y = band_sum(ringcol, lay.ring_pitch, q, nring, w, ky);
+        }
+        rowsum[next * lay.rowsum_pitch + tid] = y;
+      }
+    }
+    // every thread is done with this slab's rows before the next slab's
+    // copies reuse them
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kLevelBlocks)
+    pyramid_levels_kernel(const __grid_constant__ LevelsArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int l = 0;
+  while (l + 1 < a.n_levels &&
+         a.level[l + 1].first_block <= static_cast<int>(blockIdx.x))
+    ++l;
+  const Level& L = a.level[l];
+  const int local = blockIdx.x - L.first_block;
+  const int image = local / L.tiles;
+  const int tile = local % L.tiles;
+  const int i0 = tile / L.tiles_x * L.tile_h;
+  const int j0 = tile % L.tiles_x * L.tile_w;
+  const int th = min(L.tile_h, L.OH - i0);
+  const int tw = min(L.tile_w, (L.kind == kRows ? L.W : L.OW) - j0);
+  const int tid = threadIdx.x;
+  const int R = L.radius, taps = 2 * R + 1;
+  const Layout lay = level_layout(L.kind, sizeof(T), R, L.ky, L.kx,
+                                  L.tile_h, L.tile_w, L.seg, L.stage_rows);
+  float* ring = reinterpret_cast<float*>(smem + lay.ring);
+  float* rowsum = reinterpret_cast<float*>(smem + lay.rowsum);
+  float* vt = reinterpret_cast<float*>(smem + lay.vt);
+  float* ht = reinterpret_cast<float*>(smem + lay.ht);
+  int* ys = reinterpret_cast<int*>(smem + lay.ys);
+  float* yw = reinterpret_cast<float*>(smem + lay.yw);  // (th, ky)
+  int* xs = reinterpret_cast<int*>(smem + lay.xs);
+  // the tile's extent from its bands' ends: input rows ry0 .. ry0 + nrows
+  // - 1; segment columns reflect(sx0 + c), c < nseg; blurred columns cx0
+  // .. cx0 + ncols - 1 (the segment without the blur's margin)
+  int sx0 = j0, nseg = tw, cx0 = 0, ncols = 0, ry0 = 0, nrows = 0;
+  if (L.kind != kRows) {
+    cx0 = __ldg(L.xstart + j0);
+    ncols = __ldg(L.xstart + j0 + tw - 1) + L.kx - cx0;
+    sx0 = cx0 - R;
+    nseg = ncols + 2 * R;
+  }
+  const T* __restrict__ frame = static_cast<const T*>(L.src[image]);
+  if (L.kind != kColumns) {
+    ry0 = __ldg(L.ystart + i0);
+    nrows = __ldg(L.ystart + i0 + th - 1) + L.ky - ry0;
+    // the first slab's copies fly while the taps are copied
+    copy_rows<T>(L, frame, reinterpret_cast<T*>(smem), lay.stage_pitch,
+                 L.stage_rows, ry0 - R, 0, min(L.slab, nrows) + 2 * R, sx0,
+                 nseg);
+    cp_async_commit();
+    for (int p = tid; p < taps; p += kThreads) vt[p] = L.vtaps[p];
+    if (tid < th) ys[tid] = L.ystart[i0 + tid];
+    for (int p = tid; p < th * L.ky; p += kThreads)
+      yw[p] = L.yweights[(long long)i0 * L.ky + p];
+  }
+  if (L.kind != kRows) {
+    for (int p = tid; p < taps; p += kThreads) ht[p] = L.htaps[p];
+    for (int p = tid; p < tw; p += kThreads) xs[p] = L.xstart[j0 + p];
+  }
+  if (L.kind == kColumns) {
+    const float* __restrict__ rows = static_cast<const float*>(L.src[image]);
+    for (int p = tid; p < th * nseg; p += kThreads) {
+      const int i = p / nseg, c = p % nseg;
+      rowsum[i * lay.rowsum_pitch + c] =
+          load(rows + (long long)(i0 + i) * L.W + reflect(sx0 + c, L.W));
+    }
+  }
+  if (L.kind != kColumns)
+    vertical_pass<T>(L, frame, reinterpret_cast<T*>(smem), lay, vt, ys, yw,
+                     ring, rowsum, th, ry0, nrows, sx0, nseg);
+  __syncthreads();
+  float* __restrict__ dst = L.dst[image];
+  if (L.kind == kRows) {
+    for (int p = tid; p < th * tw; p += kThreads) {
+      const int i = p / tw, c = p % tw;
+      dst[(long long)(i0 + i) * L.W + j0 + c] =
+          rowsum[i * lay.rowsum_pitch + c];
+    }
+    return;
+  }
+  // 2. the horizontal blur of the tile's rows, 4 outputs a thread: sum m
+  // takes tap t0 + u from column c0 + m + t0 + u, win[m + u + 1] or
+  // next[m + u + 1 - 4]; the stage's memory holds the blurred rows
+  float* blurred = reinterpret_cast<float*>(smem);
+  const int runs = (ncols + kBlurRun - 1) / kBlurRun;
+  for (int p = tid; p < th * runs; p += kThreads) {
+    const int i = p / runs, c0 = p % runs * kBlurRun;
+    const float* row = rowsum + i * lay.rowsum_pitch + c0;
+    const float4 w4 = *reinterpret_cast<const float4*>(row);
+    float win[kBlurRun] = {w4.x, w4.y, w4.z, w4.w}, acc[kBlurRun];
+#pragma unroll
+    for (int m = 0; m < kBlurRun; ++m) acc[m] = mul(win[m], ht[0]);
+    for (int t0 = 1; t0 < taps; t0 += kBlurRun) {
+      const float4 n4 =
+          *reinterpret_cast<const float4*>(row + t0 + kBlurRun - 1);
+      const float next[kBlurRun] = {n4.x, n4.y, n4.z, n4.w};
+#pragma unroll
+      for (int u = 0; u < kBlurRun; ++u) {
+        if (t0 + u < taps) {
+          const float tk = ht[t0 + u];
+#pragma unroll
+          for (int m = 0; m < kBlurRun; ++m)
+            acc[m] = add(acc[m],
+                         mul(m + u + 1 < kBlurRun
+                                 ? win[min(m + u + 1, kBlurRun - 1)]
+                                 : next[max(m + u + 1 - kBlurRun, 0)],
+                             tk));
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kBlurRun; ++m) win[m] = next[m];
+    }
+    *reinterpret_cast<float4*>(blurred + i * lay.blurred_pitch + c0) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+  __syncthreads();
+  // 3. the column resize: output (i, j) from its band of kx columns
+  for (int p = tid; p < th * tw; p += kThreads) {
+    const int i = p / tw, jj = p % tw;
+    const float* row = blurred + i * lay.blurred_pitch + (xs[jj] - cx0);
+    const float* w = L.xweights + (long long)(j0 + jj) * L.kx;
+    float acc = mul(row[0], load(w));
+    for (int k = 1; k < L.kx; ++k) acc = add(acc, mul(row[k], load(w + k)));
+    dst[(long long)(i0 + i) * L.OW + j0 + jj] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B14
+// ---------------------------------------------------------------------------
+
+struct ReduceArgs {
+  const float* src[2];
+  float* dst[2];
+  int H, W, OH, OW;
+  const float* taps;
+};
+
 __global__ void __launch_bounds__(kThreads)
-    pyramid_kernel(const LevelArgs a) {
-  const T* __restrict__ src =
-      static_cast<const T*>(blockIdx.z ? a.src[1] : a.src[0]);
+    pyramid_kernel(const ReduceArgs a) {
+  // stage the input tile, the vertical pass at the even rows, the
+  // horizontal pass at the even columns
+  const float* __restrict__ src = blockIdx.z ? a.src[1] : a.src[0];
   float* __restrict__ dst = blockIdx.z ? a.dst[1] : a.dst[0];
   const int tid = threadIdx.x;
-  const int ntaps = 2 * a.radius + 1;
-
-  if constexpr (kDecimate) {
-    // B14: stage the input tile, the vertical pass at the even rows, the
-    // horizontal pass at the even columns
-    __shared__ float xs[kReduceInRows][kReduceInCols];
-    __shared__ float ts[kReduceRows][kReduceInCols];
-    __shared__ float taps[2 * kReduceRadius + 1];
-    const int i0 = blockIdx.y * kReduceRows;
-    const int j0 = blockIdx.x * kReduceCols;
-    if (tid < ntaps) taps[tid] = a.vtaps[tid];
-    for (int p = tid; p < kReduceInRows * kReduceInCols; p += kThreads) {
-      const int rr = p / kReduceInCols, cc = p % kReduceInCols;
-      xs[rr][cc] = load(src + (long long)reflect(2 * i0 - a.radius + rr, a.H) *
-                                  a.W +
-                        reflect(2 * j0 - a.radius + cc, a.W));
-    }
-    __syncthreads();
-    for (int p = tid; p < kReduceRows * kReduceInCols; p += kThreads) {
-      const int i = p / kReduceInCols, c = p % kReduceInCols;
-      float acc = mul(xs[2 * i][c], taps[0]);
+  __shared__ float xs[kReduceInRows][kReduceInCols];
+  __shared__ float ts[kReduceRows][kReduceInCols];
+  __shared__ float taps[2 * kReduceRadius + 1];
+  const int i0 = blockIdx.y * kReduceRows;
+  const int j0 = blockIdx.x * kReduceCols;
+  if (tid < 2 * kReduceRadius + 1) taps[tid] = a.taps[tid];
+  for (int p = tid; p < kReduceInRows * kReduceInCols; p += kThreads) {
+    const int rr = p / kReduceInCols, cc = p % kReduceInCols;
+    xs[rr][cc] = load(src + (long long)reflect(2 * i0 - kReduceRadius + rr,
+                                               a.H) * a.W +
+                      reflect(2 * j0 - kReduceRadius + cc, a.W));
+  }
+  __syncthreads();
+  for (int p = tid; p < kReduceRows * kReduceInCols; p += kThreads) {
+    const int i = p / kReduceInCols, c = p % kReduceInCols;
+    float acc = mul(xs[2 * i][c], taps[0]);
 #pragma unroll
-      for (int t = 1; t < 2 * kReduceRadius + 1; ++t)
-        acc = add(acc, mul(xs[2 * i + t][c], taps[t]));
-      ts[i][c] = acc;
-    }
-    __syncthreads();
-    const int i = tid / kReduceCols, j = tid % kReduceCols;
-    if (i0 + i < a.OH && j0 + j < a.OW) {
-      float acc = mul(ts[i][2 * j], taps[0]);
+    for (int t = 1; t < 2 * kReduceRadius + 1; ++t)
+      acc = add(acc, mul(xs[2 * i + t][c], taps[t]));
+    ts[i][c] = acc;
+  }
+  __syncthreads();
+  const int i = tid / kReduceCols, j = tid % kReduceCols;
+  if (i0 + i < a.OH && j0 + j < a.OW) {
+    float acc = mul(ts[i][2 * j], taps[0]);
 #pragma unroll
-      for (int t = 1; t < 2 * kReduceRadius + 1; ++t)
-        acc = add(acc, mul(ts[i][2 * j + t], taps[t]));
-      dst[(long long)(i0 + i) * a.OW + j0 + j] = acc;
-    }
-  } else {
-    extern __shared__ float smem[];
-    const int i0 = blockIdx.y * a.tile_h;
-    const int j0 = blockIdx.x * a.tile_w;
-    const int th = min(a.tile_h, a.OH - i0);
-    const int tw = min(a.tile_w, a.OW - j0);
-    float* rowsum = smem;                      // (tile_h, seg)
-    float* blurred = rowsum + a.tile_h * a.seg;  // (tile_h, cols)
-    float* vt = blurred + a.tile_h * a.cols;     // 2R + 1
-    float* ht = vt + ntaps;                      // 2R + 1
-    float* yw = ht + ntaps;                      // (tile_h, ky)
-    float* xw = yw + a.tile_h * a.ky;            // (tile_w, kx)
-    int* ystart = reinterpret_cast<int*>(xw + a.tile_w * a.kx);  // tile_h
-    int* xstart = ystart + a.tile_h;                              // tile_w
-    for (int p = tid; p < ntaps; p += kThreads) {
-      vt[p] = a.vtaps[p];
-      ht[p] = a.htaps[p];
-    }
-    for (int p = tid; p < th * a.ky; p += kThreads)
-      yw[p] = a.yweights[(long long)i0 * a.ky + p];
-    for (int p = tid; p < tw * a.kx; p += kThreads)
-      xw[p] = a.xweights[(long long)j0 * a.kx + p];
-    if (tid < th) ystart[tid] = a.ystart[i0 + tid];
-    for (int p = tid; p < tw; p += kThreads) xstart[p] = a.xstart[j0 + p];
-    __syncthreads();
-    // the tile's bands: input rows ry0 .. ry0 + nrows - 1, blurred columns
-    // cx0 .. cx0 + ncols - 1, segment columns cx0 - R .. cx0 + ncols + R - 1
-    const int ry0 = ystart[0];
-    const int nrows = ystart[th - 1] + a.ky - ry0;
-    const int cx0 = xstart[0];
-    const int ncols = xstart[tw - 1] + a.kx - cx0;
-    const int nseg = ncols + 2 * a.radius;
-    // 1. the vertical blur and the row resize, a thread a segment column
-    for (int c = tid; c < nseg; c += kThreads)
-      column_walk(src + reflect(cx0 - a.radius + c, a.W), a.H, a.W, a.radius,
-                  vt, ry0, nrows, th, a.ky, ystart, yw, rowsum + c, a.seg);
-    __syncthreads();
-    // 2. the horizontal blur of the tile's rows
-    for (int i = 0; i < th; ++i) {
-      const float* row = rowsum + i * a.seg;
-      for (int c = tid; c < ncols; c += kThreads) {
-        float acc = mul(row[c], ht[0]);
-        for (int t = 1; t < ntaps; ++t)
-          acc = add(acc, mul(row[c + t], ht[t]));
-        blurred[i * a.cols + c] = acc;
-      }
-    }
-    __syncthreads();
-    // 3. the column resize: output (i, j) from its band of kx columns
-    for (int p = tid; p < th * tw; p += kThreads) {
-      const int i = p / tw, jj = p % tw;
-      const float* row = blurred + i * a.cols + (xstart[jj] - cx0);
-      const float* w = xw + jj * a.kx;
-      float acc = mul(row[0], w[0]);
-      for (int k = 1; k < a.kx; ++k) acc = add(acc, mul(row[k], w[k]));
-      dst[(long long)(i0 + i) * a.OW + j0 + jj] = acc;
-    }
+    for (int t = 1; t < 2 * kReduceRadius + 1; ++t)
+      acc = add(acc, mul(ts[i][2 * j + t], taps[t]));
+    dst[(long long)(i0 + i) * a.OW + j0 + j] = acc;
   }
 }
 
-// launch with ``smem`` bytes of dynamic shared memory, raising the
-// kernel's limit once per device where it is above the default 48 KB (the
-// call costs host time)
-template <typename T, bool kDecimate>
-int launch(const LevelArgs& a, dim3 grid, int smem, cudaStream_t stream) {
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+// raise a kernel's dynamic shared memory limit to the H100's, once per
+// device (the call costs host time)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool* raised) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && raised[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemMax);
+  if (err == cudaSuccess && device < kMaxDevices) raised[device] = true;
+  return err;
+}
+
+template <typename T>
+int launch_levels(const LevelsArgs& a, int blocks, int smem,
+                  cudaStream_t stream) {
   if (smem > kSmemDefault) {
     static bool raised[kMaxDevices] = {};
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
+    const cudaError_t err = allow_smem(pyramid_levels_kernel<T>, raised);
     if (err != cudaSuccess) return (int)err;
-    if (device >= kMaxDevices || !raised[device]) {
-      err = cudaFuncSetAttribute(pyramid_kernel<T, kDecimate>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmemMax);
-      if (err != cudaSuccess) return (int)err;
-      if (device < kMaxDevices) raised[device] = true;
-    }
   }
-  pyramid_kernel<T, kDecimate><<<grid, kThreads, smem, stream>>>(a);
+  pyramid_levels_kernel<T><<<blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// B8. src0, src1: (H, W) float32 (dtype 0) or bf16 (dtype 1) images, the
-// second unused when n_images is 1; dst0, dst1: (OH, OW) float32; vtaps,
-// htaps: 2 * radius + 1 float32 taps each; ystart (OH int32), yweights
-// (OH, ky float32), xstart (OW), xweights (OW, kx): the resize's bands,
-// each inside its axis; tile_h (<= 8) x tile_w (<= 128) outputs a block,
-// ``seg`` the most segment columns and ``cols`` the most blurred columns
-// a tile reads, ``smem`` the bytes they take (ops/pyramid.py::
-// level_plan). Returns a cudaError_t.
-extern "C" int transflow_pyramid_level(
-    const void* src0, const void* src1, int n_images, int dtype, void* dst0,
-    void* dst1, int H, int W, int OH, int OW, const void* vtaps,
-    const void* htaps, int radius, const void* ystart, const void* yweights,
-    int ky, const void* xstart, const void* xweights, int kx, int tile_h,
-    int tile_w, int seg, int cols, int smem, void* stream) {
-  if (n_images < 1 || n_images > 2 || H < 1 || W < 1 || OH < 1 || OW < 1 ||
-      radius < 0 || ky < 1 || ky > H || kx < 1 || kx > W || tile_h < 1 ||
-      tile_h > kMaxTileH || tile_w < 1 || tile_w > kMaxTileW || cols < kx ||
-      seg != cols + 2 * radius ||
-      smem != (int)sizeof(float) * level_smem_floats(tile_h, tile_w, seg,
-                                                      cols, radius, ky, kx))
+// B8: one launch over ``n_levels`` levels of one or two images (dtype 0
+// float32 or 1 bf16 frames; a kColumns level's source is always float32
+// rows). ``table`` (host memory) holds kFields int64 a level: src0, src1,
+// dst0, dst1, vtaps, htaps, ystart, yweights, xstart, xweights (device
+// pointers; src1 and dst1 unused for one image), kind, H, W, OH, OW,
+// radius, ky, kx, tile_h, tile_w (<= 16 rows), seg (the most segment
+// columns a tile reads, <= 256 unless kColumns), slab (a multiple of 8:
+// the sums a column makes from one slab of staged rows), stage_rows (a
+// multiple of 8: the ring of staged rows, at least 2 slabs and the
+// blur's margin where a tile has more than one slab);
+// the levels with the longest tiles first (ops/pyramid.py::level_plan).
+// ``smem`` is the most bytes of shared memory a level's tile takes
+// (level_layout). Returns a cudaError_t.
+extern "C" int transflow_pyramid_levels(const void* table, int n_levels,
+                                        int n_images, int dtype, int smem,
+                                        void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || n_images < 1 ||
+      n_images > 2 || (dtype != 0 && dtype != 1) || smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
-  LevelArgs a = {};
-  a.src[0] = src0;
-  a.src[1] = src1;
-  a.dst[0] = static_cast<float*>(dst0);
-  a.dst[1] = static_cast<float*>(dst1);
-  a.H = H;
-  a.W = W;
-  a.OH = OH;
-  a.OW = OW;
-  a.vtaps = static_cast<const float*>(vtaps);
-  a.htaps = static_cast<const float*>(htaps);
-  a.radius = radius;
-  a.ystart = static_cast<const int*>(ystart);
-  a.yweights = static_cast<const float*>(yweights);
-  a.ky = ky;
-  a.xstart = static_cast<const int*>(xstart);
-  a.xweights = static_cast<const float*>(xweights);
-  a.kx = kx;
-  a.tile_h = tile_h;
-  a.tile_w = tile_w;
-  a.seg = seg;
-  a.cols = cols;
-  const dim3 grid((OW + tile_w - 1) / tile_w, (OH + tile_h - 1) / tile_h,
-                  n_images);
+  const int itemsize = dtype == 0 ? 4 : 2;
+  const long long* t = static_cast<const long long*>(table);
+  LevelsArgs a = {};
+  a.n_levels = n_levels;
+  long long blocks = 0;
+  int need = 0;
+  for (int e = 0; e < n_levels; ++e) {
+    const long long* f = t + (long long)e * kFields;
+    Level& L = a.level[e];
+    for (int k = 0; k < 2; ++k) {
+      L.src[k] = reinterpret_cast<const void*>(f[k]);
+      L.dst[k] = reinterpret_cast<float*>(f[2 + k]);
+    }
+    L.vtaps = reinterpret_cast<const float*>(f[4]);
+    L.htaps = reinterpret_cast<const float*>(f[5]);
+    L.ystart = reinterpret_cast<const int*>(f[6]);
+    L.yweights = reinterpret_cast<const float*>(f[7]);
+    L.xstart = reinterpret_cast<const int*>(f[8]);
+    L.xweights = reinterpret_cast<const float*>(f[9]);
+    L.kind = (int)f[10];
+    L.H = (int)f[11];
+    L.W = (int)f[12];
+    L.OH = (int)f[13];
+    L.OW = (int)f[14];
+    L.radius = (int)f[15];
+    L.ky = (int)f[16];
+    L.kx = (int)f[17];
+    L.tile_h = (int)f[18];
+    L.tile_w = (int)f[19];
+    L.seg = (int)f[20];
+    L.slab = (int)f[21];
+    L.stage_rows = (int)f[22];
+    if (L.kind < kWhole || L.kind > kColumns || L.H < 1 || L.W < 1 ||
+        L.OH < 1 || L.OW < 1 || L.radius < 0 || L.tile_h < 1 ||
+        L.tile_h > kMaxTileH || L.tile_w < 1)
+      return (int)cudaErrorInvalidValue;
+    const int out_w = L.kind == kRows ? L.W : L.OW;
+    if (L.kind != kColumns) {
+      // a thread a segment column
+      if (L.ky < 1 || L.ky > L.H || L.seg > kThreads ||
+          (L.kind == kRows && L.seg != L.tile_w))
+        return (int)cudaErrorInvalidValue;
+    }
+    if (L.kind != kRows &&
+        (L.kx < 1 || L.kx > L.W || L.seg < L.kx + 2 * L.radius))
+      return (int)cudaErrorInvalidValue;
+    if (L.kind != kColumns &&
+        (L.slab < kRun || L.slab % kRun || L.stage_rows % kRun ||
+         L.stage_rows < L.slab + 2 * L.radius))
+      return (int)cudaErrorInvalidValue;
+    const int bytes = level_layout(L.kind, itemsize, L.radius, L.ky, L.kx,
+                                   L.tile_h, L.tile_w, L.seg, L.stage_rows)
+                          .bytes;
+    need = need > bytes ? need : bytes;
+    L.tiles_x = (out_w + L.tile_w - 1) / L.tile_w;
+    L.tiles = L.tiles_x * ((L.OH + L.tile_h - 1) / L.tile_h);
+    L.first_block = (int)blocks;
+    blocks += (long long)L.tiles * n_images;
+    const uintptr_t mask = 15;
+    L.vec = L.kind != kColumns && (L.W * itemsize) % 16 == 0 &&
+            (reinterpret_cast<uintptr_t>(L.src[0]) & mask) == 0 &&
+            (n_images < 2 ||
+             (reinterpret_cast<uintptr_t>(L.src[1]) & mask) == 0);
+  }
+  if (need != smem || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, false>(a, grid, smem, s);
-  if (dtype == 1) return launch<bf16, false>(a, grid, smem, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_levels<float>(a, (int)blocks, smem, s);
+  return launch_levels<bf16>(a, (int)blocks, smem, s);
 }
 
 // B14. src0, src1: (H, W) float32 images, the second unused when n_images
@@ -396,18 +800,19 @@ extern "C" int transflow_pyramid_reduce(const void* src0, const void* src1,
                                         void* stream) {
   if (n_images < 1 || n_images > 2 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
-  LevelArgs a = {};
-  a.src[0] = src0;
-  a.src[1] = src1;
+  ReduceArgs a = {};
+  a.src[0] = static_cast<const float*>(src0);
+  a.src[1] = static_cast<const float*>(src1);
   a.dst[0] = static_cast<float*>(dst0);
   a.dst[1] = static_cast<float*>(dst1);
   a.H = H;
   a.W = W;
   a.OH = (H + 1) / 2;
   a.OW = (W + 1) / 2;
-  a.vtaps = a.htaps = static_cast<const float*>(taps);
-  a.radius = kReduceRadius;
+  a.taps = static_cast<const float*>(taps);
   const dim3 grid((a.OW + kReduceCols - 1) / kReduceCols,
                   (a.OH + kReduceRows - 1) / kReduceRows, n_images);
-  return launch<float, true>(a, grid, 0, static_cast<cudaStream_t>(stream));
+  pyramid_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a);
+  return (int)cudaGetLastError();
 }

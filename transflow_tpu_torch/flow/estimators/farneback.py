@@ -12,8 +12,9 @@ parameters):
    ``aggregate_solve``);
 3. a coarse-to-fine pyramid with any ``pyr_scale``: each level below L0
    (and the ``downscale`` pre-resize) is the full-resolution images
-   blurred and resized (kernel B8, ``ops/pyramid.py::pyramid_level``: one
-   launch a level for both images).
+   blurred and resized (kernel B8, ``ops/pyramid.py::pyramid_levels``:
+   every level of both images in one launch, made before the
+   coarse-to-fine loop; the pre-resize is a launch of its own).
 
 The flow's resizes between levels stay PyTorch (``F.interpolate``), as the
 JAX package leaves them to XLA outside any kernel. On a CPU tensor every
@@ -26,7 +27,7 @@ import torch
 from ...ops.farneback import (aggregate_solve, poly_expansion,
                                poly_expansion_pair, update_equations)
 from ...ops.image import bilinear_resize
-from ...ops.pyramid import pyramid_level
+from ...ops import pyramid
 
 __all__ = ["farneback", "launches_per_frame", "poly_expansion",
            "OPTFLOW_USE_INITIAL_FLOW", "OPTFLOW_FARNEBACK_GAUSSIAN"]
@@ -79,12 +80,32 @@ def launches_per_frame(height: int, width: int, *, pyr_scale: float = 0.5,
     """(B1, B2a, B2b, B8) launches of ``farneback`` on a height x width
     frame with these arguments (the other estimator arguments change
     none): one B1 a level (both images), ``iterations`` B2a and B2b a
-    level, one B8 a level below L0 (both images) and one more for the
-    ``downscale`` > 1 pre-resize."""
+    level, and B8's ``ops/pyramid.py::launches`` for the levels below L0
+    (one for all of them, both images, and one more where a level takes
+    the deep route) and for the ``downscale`` > 1 pre-resize."""
     h = int(round(height / int(downscale)))
     w = int(round(width / int(downscale)))
-    n = len(_level_shapes(h, w, pyr_scale, levels, poly_n))
-    return n, iterations * n, iterations * n, n - 1 + (int(downscale) > 1)
+    shapes = _level_shapes(h, w, pyr_scale, levels, poly_n)
+    b8 = pyramid.launches(h, w, _pyramid_levels(shapes))
+    if int(downscale) > 1:
+        b8 += pyramid.launches(height, width,
+                               _pre_resize(int(downscale), h, w))
+    n = len(shapes)
+    return n, iterations * n, iterations * n, b8
+
+
+def _pyramid_levels(level_shapes) -> list[tuple[float, int, int]]:
+    """The (sigma, lh, lw) of each level below L0: the blur of scale s is
+    (1 / s - 1) / 2."""
+    return [((1.0 / scale - 1.0) * 0.5, lh, lw)
+            for lh, lw, scale in level_shapes if scale != 1.0]
+
+
+def _pre_resize(downscale: int, h: int, w: int
+                ) -> list[tuple[float, int, int]]:
+    """The ``downscale`` pre-resize to (h, w) as a pyramid level, by the
+    same anti-alias rule."""
+    return [((downscale - 1) * 0.5, h, w)]
 
 
 def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
@@ -118,14 +139,19 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
             raise ValueError(
                 f"downscale={downscale} reduces {full_h}x{full_w} below the "
                 f"poly_n={poly_n} expansion window; lower fb_downscale")
-        # same anti-alias rule as the pyramid levels below
-        prev, nxt = pyramid_level((prev, nxt), (downscale - 1) * 0.5, h, w)
+        prev, nxt = pyramid.pyramid_levels((prev, nxt),
+                                           _pre_resize(downscale, h, w))[0]
         if flags & OPTFLOW_USE_INITIAL_FLOW and prev_flow is not None:
             prev_flow = bilinear_resize(
                 torch.as_tensor(prev_flow).float(), h, w) * (1.0 / downscale)
 
     # level sizes, coarsest last; drop levels that get degenerate
     level_shapes = _level_shapes(h, w, pyr_scale, levels, poly_n)
+    # every level below L0 of both images, before the coarse-to-fine loop
+    below = _pyramid_levels(level_shapes)
+    made = iter(pyramid.pyramid_levels((prev, nxt), below) if below else ())
+    images = [(prev, nxt) if scale == 1.0 else next(made)
+              for _, _, scale in level_shapes]
 
     lh, lw, scale = level_shapes[-1]
     if flags & OPTFLOW_USE_INITIAL_FLOW and prev_flow is not None:
@@ -140,11 +166,7 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
         if tuple(flow.shape[:2]) != (lh, lw):
             prev_scale = level_shapes[k + 1][2]
             flow = bilinear_resize(flow, lh, lw) * (scale / prev_scale)
-        if scale != 1.0:
-            img1, img2 = pyramid_level((prev, nxt), (1.0 / scale - 1.0) * 0.5,
-                                       lh, lw)
-        else:
-            img1, img2 = prev, nxt
+        img1, img2 = images[k]
         poly1, poly2 = poly_expansion_pair(img1, img2, poly_n, poly_sigma,
                                            sdt)
         for _ in range(iterations):

@@ -1,26 +1,28 @@
 """The image pyramids' level construction: kernels B8 (Farneback's
-blur-and-resize level) and B14 (Lucas-Kanade's reduce), the two modes of
-one CUDA kernel (``csrc/pyramid.cu``).
+blur-and-resize pyramid) and B14 (Lucas-Kanade's reduce), in one CUDA
+source (``csrc/pyramid.cu``).
 
 Counterpart of jnp code that XLA fuses (there is no Pallas source):
 
-- B8 ``pyramid_level``: transflow_tpu/flow/estimators/farneback.py:243-248
-  (each level) and :211-213 (the ``fb_downscale`` pre-resize),
+- B8 ``pyramid_levels``: transflow_tpu/flow/estimators/farneback.py:
+  243-248 (each level) and :211-213 (the ``fb_downscale`` pre-resize),
   ``jax.image.resize(gaussian_blur(img, sigma), (lh, lw), "linear")``: a
   separable Gaussian blur of the full-resolution image with numpy's
   symmetric padding (radius ``int(3 * sigma + 0.5)``, axis 0 first; a
   bf16 image meets taps rounded to bf16, the float32 first pass meets
-  float32 taps), then JAX's anti-aliased linear resize to (lh, lw);
+  float32 taps), then JAX's anti-aliased linear resize to (lh, lw); every
+  level of one or two images in one launch (a list of tuples, one a
+  level);
 - B14 ``downsample2x``: transflow_tpu/ops/image.py:234, the 5-tap binomial
   ``[1, 4, 6, 4, 1] / 16`` along each axis with symmetric padding, then
-  ``[::2, ::2]`` (an odd size rounds up).
+  ``[::2, ::2]`` (an odd size rounds up); both images of a level in one
+  launch (a tuple).
 
 As in ``ops/farneback.py``, each has a plain PyTorch version (``*_plain``),
 a wrapper that launches the hand-written kernel and counts its launches
 (``*_cuda``), and a dispatcher by device with no fallback between the two.
-Each takes one or two (H, W) images of one shape and dtype (both images of
-a level in one launch, ``blockIdx.z``) and returns a tuple of float32
-images.
+Each takes one or two (H, W) images of one shape and dtype and returns
+float32 images.
 
 The four passes of B8 are linear and each acts along one axis, so any
 order that keeps each axis's blur before its resize computes the same
@@ -46,13 +48,24 @@ from .image import gaussian_kernel_1d, ordered_correlate, rounded_taps
 REDUCE_TAPS = tuple((np.asarray([1.0, 4.0, 6.0, 4.0, 1.0], np.float32)
                      / np.float32(16.0)).tolist())
 # csrc/pyramid.cu: B8's threads a block (a tile's segment columns), its
-# tiles' most output rows and columns; the H100's SMs and the shared
-# memory a block may hold there
+# tiles' most output columns, the tile heights a plan weighs, the sums a
+# whole level's column makes from a slab of staged rows, its levels a
+# launch and its kinds of level (a whole level; a deep level's rows, then
+# its columns); the H100's SMs, the shared memory a block may hold there,
+# the most a plan gives a tile where it can choose (three blocks an SM,
+# as B8's registers allow) and the most a whole level's tile may take
+# (two blocks an SM)
 THREADS = 256
-MAX_TILE_H = 8
 MAX_TILE_W = 128
+TILE_HEIGHTS = tuple(range(12, 0, -1))
+WHOLE_SLAB = 16
+MAX_LEVELS = 24
+FIELDS = 23
+WHOLE, ROWS, COLUMNS = 0, 1, 2
 SMS = 132
 SMEM_MAX = 232448
+SMEM_TARGET = 64 * 1024
+SMEM_WHOLE = 96 * 1024
 
 
 def blur_radius(sigma: float) -> int:
@@ -192,6 +205,13 @@ def pyramid_level_plain(images, sigma: float, lh: int, lw: int
     return tuple(outs)
 
 
+def pyramid_levels_plain(images, levels) -> list[tuple[torch.Tensor, ...]]:
+    """``pyramid_level_plain`` of the images at each (sigma, lh, lw) of
+    ``levels``: a list of tuples, one a level."""
+    return [pyramid_level_plain(images, sigma, lh, lw)
+            for sigma, lh, lw in levels]
+
+
 def _span(starts: np.ndarray, taps: int, tile: int) -> int:
     """The most inputs a tile of ``tile`` consecutive outputs reads."""
     s = starts.astype(np.int64)
@@ -218,85 +238,277 @@ def _bands_on(in_size: int, out_size: int, device: torch.device
             torch.from_numpy(weights).to(device))
 
 
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def layout_bytes(kind: int, itemsize: int, radius: int, ky: int, kx: int,
+                 tile_h: int, tile_w: int, seg: int, stage_rows: int) -> int:
+    """The shared bytes of a B8 tile (csrc/pyramid.cu::level_layout): the
+    ring of ``stage_rows`` staged input rows of the segment (or the
+    blurred rows, whichever is larger), the ring of the segment's last ky
+    + 7 vertical sums (whole runs of 8; a whole level's), the segment's
+    rows, the taps, the tile's row bands and its column bands' starts."""
+    v = 16 // itemsize
+    taps = 2 * radius + 1
+    cols = 0 if kind == ROWS else seg - 2 * radius
+    stage = 0 if kind == COLUMNS else (
+        stage_rows * ((seg + v - 1) // v * v + v) * itemsize)
+    blurred = 0 if kind == ROWS else tile_h * -(-cols // 4) * 4 * 4
+    nbytes = _align16(max(stage, blurred)) + _align16(
+        tile_h * -(-(seg + 7) // 4) * 4 * 4)
+    if kind == WHOLE:
+        nbytes += _align16(-(-(ky + 7) // 8) * 8 * -(-seg // 4) * 4 * 4)
+    if kind != COLUMNS:
+        nbytes += (_align16(taps * 4) + _align16(tile_h * 4)
+                   + _align16(tile_h * ky * 4))
+    if kind != ROWS:
+        nbytes += _align16(taps * 4) + _align16(tile_w * 4)
+    return nbytes
+
+
+def _raise_smem(h: int, w: int, lh: int, lw: int, radius: int,
+                nbytes: int):
+    raise ValueError(
+        f"pyramid_levels_cuda: a {h}x{w} -> {lh}x{lw} level of blur "
+        f"radius {radius} needs {nbytes} bytes of shared memory a block; "
+        f"the kernel takes at most {SMEM_MAX}")
+
+
+def _stage_rows(full: int, slab: int, radius: int) -> int:
+    """The ring of staged rows for a tile of ``full`` vertical sums made a
+    ``slab`` at a time: its rows and the blur's margin where one slab
+    makes them all, else two slabs and the margin (the next slab's rows
+    are copied while one is summed), whole groups of 8."""
+    rows = slab + 2 * radius if slab >= full else 2 * slab + 2 * radius
+    return -(-rows // 8) * 8
+
+
 @functools.lru_cache(maxsize=None)
-def level_plan(h: int, w: int, lh: int, lw: int, radius: int,
-               images: int = 2) -> tuple[int, int, int, int, int]:
-    """(tile rows, tile columns, the most segment columns and the most
-    blurred columns a tile reads, shared bytes) of B8's launch over
-    ``images`` images: the widest tile whose segment (its outputs' column
-    bands and the blur's margin) fits the block's 256 threads, else one
-    column; 8 rows, fewer where the grid would give the H100's SMs fewer
-    than two blocks each. Shared memory holds the tile's rows of the
-    segment and of the blurred columns, the taps and the tile's bands;
-    raises where that exceeds the H100's."""
+def _whole_tile(h: int, w: int, lh: int, lw: int, radius: int,
+                itemsize: int) -> tuple[int, ...] | None:
+    """A ``WHOLE`` entry: the widest tile (at most ``MAX_TILE_W`` columns)
+    whose segment fits the block's threads; its sums in one slab, or
+    ``WHOLE_SLAB`` at a time where one slab's rows do not fit
+    (``_stage_rows``); of the heights in ``TILE_HEIGHTS`` that fit
+    ``SMEM_TARGET``, the one that makes the fewest vertical sums an
+    output row (a thread makes them 8 at a time), the tallest of equals;
+    else one row within ``SMEM_WHOLE``; None where no tile does."""
     ys, wy = resize_weights(h, lh)
     xs, wx = resize_weights(w, lw)
-    tile_w = 1
-    for tw in range(min(lw, MAX_TILE_W), 1, -1):
-        if _span(xs, wx.shape[1], tw) + 2 * radius <= THREADS:
-            tile_w = tw
+    ky, kx = wy.shape[1], wx.shape[1]
+    if kx + 2 * radius > THREADS:
+        return None
+    tile_w = next(tw for tw in range(min(lw, MAX_TILE_W), 0, -1)
+                  if _span(xs, kx, tw) + 2 * radius <= THREADS)
+    seg = _span(xs, kx, tile_w) + 2 * radius
+    tiles = []
+    for th in sorted(TILE_HEIGHTS, reverse=True):
+        full = -(-_span(ys, ky, th) // 8) * 8
+        for slab in (full, min(full, WHOLE_SLAB)):
+            rows = _stage_rows(full, slab, radius)
+            nbytes = layout_bytes(WHOLE, itemsize, radius, ky, kx, th,
+                                  tile_w, seg, rows)
+            if nbytes <= SMEM_TARGET:
+                break
+        if nbytes <= SMEM_TARGET or th == 1 and not tiles \
+                and nbytes <= SMEM_WHOLE:
+            tiles.append((full / th, -th, slab, rows, nbytes))
+    if not tiles:
+        return None
+    _, th, slab, rows, nbytes = min(tiles)
+    return WHOLE, -th, tile_w, seg, slab, rows, nbytes
+
+
+def is_deep(h: int, w: int, lh: int, lw: int, radius: int) -> bool:
+    """Whether a level of an (h, w) frame takes the deep route: no
+    ``WHOLE`` tile of float32 values fits (its one-column segment exceeds
+    the block's threads, or one output row's input rows exceed a stage
+    within ``SMEM_WHOLE``). Whatever the frame's dtype, so that the
+    launches of a pyramid depend on its shapes alone."""
+    return _whole_tile(h, w, lh, lw, radius, 4) is None
+
+
+@functools.lru_cache(maxsize=None)
+def level_plan(h: int, w: int, lh: int, lw: int, radius: int,
+               itemsize: int) -> tuple[tuple[int, ...], ...]:
+    """B8's entries for one level of an (h, w) frame of ``itemsize``-byte
+    values: ((kind, tile rows, tile columns, the most segment columns a
+    tile reads, slab, staged rows, shared bytes), ...).
+
+    A level that is not deep (``is_deep``) is one ``WHOLE`` entry
+    (``_whole_tile``). A deep level is a ``ROWS`` entry (256 frame columns
+    a block, the tallest tile that still gives every SM a block, the
+    largest slab whose ring of staged rows fits ``SMEM_MAX``: its bands
+    are long; its own launch, before the pyramid's)
+    and a ``COLUMNS`` entry (the widest tile within ``SMEM_TARGET``).
+    Raises where a tile exceeds the H100's shared memory."""
+    if not is_deep(h, w, lh, lw, radius):
+        return (_whole_tile(h, w, lh, lw, radius, itemsize),)
+    ys, wy = resize_weights(h, lh)
+    xs, wx = resize_weights(w, lw)
+    ky, kx = wy.shape[1], wx.shape[1]
+    tile_w = min(THREADS, w)
+    th = next((t for t in (8, 4, 2) if t <= lh
+               and -(-w // tile_w) * -(-lh // t) * 2 >= SMS), 1)
+    full = -(-_span(ys, ky, th) // 8) * 8
+
+    def rows_bytes(slab):
+        return layout_bytes(ROWS, itemsize, radius, ky, 0, th, tile_w,
+                            tile_w, _stage_rows(full, slab, radius))
+    slab = next((s for s in range(full, 0, -8)
+                 if rows_bytes(s) <= SMEM_MAX), 8)
+    if rows_bytes(slab) > SMEM_MAX:
+        _raise_smem(h, w, lh, lw, radius, rows_bytes(slab))
+    rows = (ROWS, th, tile_w, tile_w, slab, _stage_rows(full, slab, radius),
+            rows_bytes(slab))
+    th = min(8, lh)
+    for tw in range(min(lw, MAX_TILE_W), 0, -1):
+        seg = _span(xs, kx, tw) + 2 * radius
+        nbytes = layout_bytes(COLUMNS, itemsize, radius, 0, kx, th, tw, seg,
+                              0)
+        if nbytes <= SMEM_TARGET:
             break
-    tile_h = MAX_TILE_H
-    while tile_h > 1 and (-(-lw // tile_w) * -(-lh // tile_h) * images
-                          < 2 * SMS):
-        tile_h //= 2
-    cols = _span(xs, wx.shape[1], tile_w)
-    seg = cols + 2 * radius
-    # csrc/pyramid.cu::level_smem_floats
-    nbytes = 4 * (tile_h * (seg + cols) + 2 * (2 * radius + 1)
-                  + tile_h * (wy.shape[1] + 1) + tile_w * (wx.shape[1] + 1))
     if nbytes > SMEM_MAX:
-        raise ValueError(
-            f"pyramid_level_cuda: a {h}x{w} -> {lh}x{lw} level of blur "
-            f"radius {radius} needs {nbytes} bytes of shared memory a "
-            f"block; the kernel takes at most {SMEM_MAX}")
-    return tile_h, tile_w, seg, cols, nbytes
+        _raise_smem(h, w, lh, lw, radius, nbytes)
+    return rows, (COLUMNS, th, tw, seg, 0, 0, nbytes)
 
 
-def pyramid_level_cuda(images, sigma: float, lh: int, lw: int
-                       ) -> tuple[torch.Tensor, ...]:
+def launches(h: int, w: int, levels) -> int:
+    """B8's launches for ``levels`` ((sigma, lh, lw), ...) of an (h, w)
+    frame: none for no level; one for up to ``MAX_LEVELS`` levels, and one
+    before it where a level is deep (``is_deep``)."""
+    deep = sum(is_deep(h, w, lh, lw, blur_radius(float(sigma)))
+               for sigma, lh, lw in levels)
+    return -(-len(levels) // MAX_LEVELS) + -(-deep // MAX_LEVELS)
+
+
+def _aligned(floats: int) -> int:
+    """``floats`` rounded up to 64 (256 bytes, the allocator's alignment)."""
+    return -(-floats // 64) * 64
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(h: int, w: int, dtype: torch.dtype, device: torch.device,
+                 levels: tuple, images: int):
+    """B8's launches on ``images`` (h, w) images of ``dtype`` on ``device``
+    at ``levels``, made once: (launches, shapes, out floats, scratch
+    floats). Each launch is (int64 table of ``FIELDS`` a level whose first
+    four fields, the sources' and destinations' pointers, are left 0;
+    those fields as slots of the call's pointers (0: none, 1 and 2: the
+    images, 3: the outputs' buffer, 4: the scratch's) and as byte offsets
+    from them; levels; shared bytes): the deep levels' rows first, then
+    every level with the largest blur (the longest tiles) first.
+    ``shapes`` holds each level's (lh, lw) and its images' offsets in the
+    outputs' buffer."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    pad = [(0, 0)] * (2 - images)
+    src = [(1 + k, 0) for k in range(images)] + pad
+    shapes, rows, whole = [], [], []
+    n_out = n_tmp = 0
+    for sigma, lh, lw in levels:
+        if lh < 1 or lw < 1:
+            raise ValueError(f"pyramid_levels_cuda: bad level size "
+                             f"{lh}x{lw}")
+        radius = blur_radius(float(sigma))
+        plan = level_plan(h, w, lh, lw, radius, itemsize)
+        vtaps, htaps = _taps_on(float(sigma), dtype, device)
+        ystart, yweights = _bands_on(h, lh, device)
+        xstart, xweights = _bands_on(w, lw, device)
+        common = [vtaps.data_ptr(), htaps.data_ptr(), ystart.data_ptr(),
+                  yweights.data_ptr(), xstart.data_ptr(),
+                  xweights.data_ptr()]
+        bands = [radius, yweights.shape[1], xweights.shape[1]]
+        offsets = [n_out + k * _aligned(lh * lw) for k in range(images)]
+        n_out += images * _aligned(lh * lw)
+        shapes.append((lh, lw, offsets))
+        dst = [(3, 4 * o) for o in offsets] + pad
+        if len(plan) == 2:  # a deep level: its rows, then its columns
+            tmp = [(4, 4 * (n_tmp + k * _aligned(lh * w)))
+                   for k in range(images)] + pad
+            n_tmp += images * _aligned(lh * w)
+            kind, *tile, nbytes = plan[0]
+            rows.append((src + tmp, [*common, kind, h, w, lh, w, *bands,
+                                     *tile], nbytes, radius))
+            kind, *tile, nbytes = plan[1]
+            whole.append((tmp + dst, [*common, kind, lh, w, lh, lw, *bands,
+                                      *tile], nbytes, radius))
+        else:
+            kind, *tile, nbytes = plan[0]
+            whole.append((src + dst, [*common, kind, h, w, lh, lw, *bands,
+                                      *tile], nbytes, radius))
+    whole.sort(key=lambda entry: -entry[3])
+    launches = []
+    for entries in (rows, whole):
+        for k in range(0, len(entries), MAX_LEVELS):
+            group = entries[k:k + MAX_LEVELS]
+            table = np.asarray([[0] * 4 + e[1] for e in group], np.int64)
+            slots = np.asarray([[slot for slot, _ in e[0]] for e in group])
+            bytes_ = np.asarray([[off for _, off in e[0]] for e in group],
+                                np.int64)
+            launches.append((table, slots, bytes_, len(group),
+                             max(e[2] for e in group)))
+    return launches, shapes, n_out, n_tmp
+
+
+def level_tables(images, levels):
+    """(levels, scratch, launches) of B8 on ``images`` at ``levels``
+    ((sigma, lh, lw), ...): the new float32 outputs, a tuple a level (views
+    of one buffer); the deep levels' (lh, W) float32 rows, which must
+    outlive the launches (None without a deep level); and each launch's (int64 table of ``FIELDS`` a
+    level, levels, shared bytes) for ``transflow_pyramid_levels``
+    (``_launch_plan``)."""
+    image = images[0]
+    launches, shapes, n_out, n_tmp = _launch_plan(
+        *image.shape, image.dtype, image.device,
+        tuple(tuple(level) for level in levels), len(images))
+    out = torch.empty(n_out, dtype=torch.float32, device=image.device)
+    scratch = torch.empty(n_tmp, dtype=torch.float32,
+                          device=image.device) if n_tmp else None
+    pointers = np.asarray([0, *(t.data_ptr() for t in images),
+                           *[0] * (2 - len(images)), out.data_ptr(),
+                           0 if scratch is None else scratch.data_ptr()],
+                          np.int64)
+    tables = []
+    for table, slots, offsets, n, nbytes in launches:
+        table = table.copy()
+        table[:, :4] = pointers[slots] + offsets
+        tables.append((table, n, nbytes))
+    outs = [tuple(out.as_strided((lh, lw), (lw, 1), o) for o in offsets)
+            for lh, lw, offsets in shapes]
+    return outs, scratch, tables
+
+
+def pyramid_levels_cuda(images, levels) -> list[tuple[torch.Tensor, ...]]:
     """Kernel B8 on one or two contiguous (H, W) float32 or bf16 images of
-    one shape and dtype on one CUDA device, in one launch;
-    ``pyramid_level_cuda.launches`` counts launches."""
-    _check_images("pyramid_level_cuda", images)
-    check_cuda("pyramid_level_cuda", *images)
+    one shape and dtype on one CUDA device: every level of ``levels``
+    ((sigma, lh, lw), ...) in one launch (``launches``: one more before it
+    for the deep levels' rows); ``pyramid_levels_cuda.launches`` counts
+    launches."""
+    _check_images("pyramid_levels_cuda", images)
+    check_cuda("pyramid_levels_cuda", *images)
     image = images[0]
     if image.dtype not in DTYPE_CODES:
-        raise ValueError(f"pyramid_level_cuda needs float32 or bf16 images, "
-                         f"got {image.dtype}")
-    if lh < 1 or lw < 1:
-        raise ValueError(f"pyramid_level_cuda: bad level size {lh}x{lw}")
-    h, w = image.shape
-    radius = blur_radius(float(sigma))
-    tile_h, tile_w, seg, cols, nbytes = level_plan(h, w, lh, lw, radius,
-                                                   len(images))
-    device = image.device
-    vtaps, htaps = _taps_on(float(sigma), image.dtype, device)
-    ystart, yweights = _bands_on(h, lh, device)
-    xstart, xweights = _bands_on(w, lw, device)
-    outs = [torch.empty((lh, lw), dtype=torch.float32, device=device)
-            for _ in images]
-    src = [t.data_ptr() for t in images] + [0] * (2 - len(images))
-    dst = [t.data_ptr() for t in outs] + [0] * (2 - len(images))
-    launch(device, "transflow_pyramid_level", src[0], src[1], len(images),
-           DTYPE_CODES[image.dtype], dst[0], dst[1], h, w, lh, lw,
-           vtaps.data_ptr(), htaps.data_ptr(), radius, ystart.data_ptr(),
-           yweights.data_ptr(), yweights.shape[1], xstart.data_ptr(),
-           xweights.data_ptr(), xweights.shape[1], tile_h, tile_w, seg,
-           cols, nbytes, cuda_stream(image))
-    pyramid_level_cuda.launches += 1
-    return tuple(outs)
+        raise ValueError(f"pyramid_levels_cuda needs float32 or bf16 "
+                         f"images, got {image.dtype}")
+    outs, _scratch, launches = level_tables(images, levels)
+    for table, n, nbytes in launches:
+        launch(image.device, "transflow_pyramid_levels", table.ctypes.data,
+               n, len(images), DTYPE_CODES[image.dtype], nbytes,
+               cuda_stream(image))
+        pyramid_levels_cuda.launches += 1
+    return outs
 
 
-pyramid_level_cuda.launches = 0
+pyramid_levels_cuda.launches = 0
 
 
-def pyramid_level(images, sigma: float, lh: int, lw: int
-                  ) -> tuple[torch.Tensor, ...]:
-    """Dispatcher of B8 by the images' device."""
-    fn = dispatch("pyramid_level", pyramid_level_plain, pyramid_level_cuda,
+def pyramid_levels(images, levels) -> list[tuple[torch.Tensor, ...]]:
+    """Dispatcher of B8 by the images' device: each level of ``levels``
+    ((sigma, lh, lw), ...) of one or two images, a tuple a level."""
+    fn = dispatch("pyramid_levels", pyramid_levels_plain, pyramid_levels_cuda,
                   *images)
-    return fn(images, sigma, lh, lw)
+    return fn(images, levels)
 
 
 # ---------------------------------------------------------------------------
