@@ -75,8 +75,9 @@ H. the secondary estimators: ``Engine`` at 1080x1920 over phase F's pan
    ``lukas-kanade``, ``lk16``): a warm-up chunk, a timed chunk of 8
    frames and ``process_frame`` calls, counting 1 B9 and ``hs_iterations``
    B10 launches per frame, or 30 B11, 33 B12 (10 of each per level, and
-   B12's structure tensor once per level, at three levels) and 2 B14 (one
-   per level below L0, both images), finite flows,
+   B12's structure tensor once per level, at three levels) and 1 B14 (the
+   whole pyramid of both frames, their float32 casts included), finite
+   flows,
    0 host syncs per frame, and for ``lukas-kanade.json`` every interior
    median within 0.5 px of the pan; then a static pair through
    Horn-Schunck (one iteration taken of 5, read back once after the
@@ -238,12 +239,17 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    own zeroed scratch; then B8 (``against_pyramid``) on a 1080p bf16 pair
    as the pyramid of cv2's defaults, each of its levels and fb_levels 8's
    deepest: ``transflow_pyramid_levels``, or in an older tree a
-   ``transflow_pyramid_level`` call a level; bit-equal between the trees
-   (B10's flows and its control words ``[stop, iterations]`` too, B5's
-   mappings, B8's levels). ``--steps [NAME=]CSRC_DIR`` (repeatable, with
-   or without ``--against``) adds to B8's turns a directory's
-   ``pyramid.cu``, a copy of a tree's cut to some of its steps, whose
-   outputs are not held to the others'.
+   ``transflow_pyramid_level`` call a level; then B14
+   (``against_lk_pyramid``) on the pan's 1080p uint8 pair as
+   ``lukas-kanade.json``'s pyramid (``transflow_lk_pyramid`` once, or in
+   an older tree ATen's two casts and a ``transflow_pyramid_reduce`` call
+   a level) and each reduce alone; bit-equal between the trees (B10's
+   flows and its control words ``[stop, iterations]`` too, B5's
+   mappings, B8's and B14's levels). ``--steps [NAME=]CSRC_DIR``
+   (repeatable, with or without ``--against``) adds to B8's and B14's
+   turns (each where it has the entry) a directory's ``pyramid.cu``, a
+   copy of a tree's cut to some of its steps, whose outputs are not held
+   to the others'.
 
 B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
    version at 1080x1920 on a random forward flow, a converging one (every
@@ -261,11 +267,13 @@ B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
    library, B11 (``lk_warp_products``)
    and B12 (``lk_structure_tensor`` and ``lk_window_solve``, window 15)
    at the three levels of Lucas-Kanade's 1080p pyramid on the pan's
-   images, Scharr derivatives and flow, and B14 (``downsample2x``, both
-   images a launch) making that pyramid's two levels below L0, each
-   bit-equal to its plain version on the same inputs, with
-   ``device_ms``, the bound, its share and the plain version's time (and
-   B14's beside the path it replaced, ``b14_replaced``).
+   images, Scharr derivatives and flow, and B14 (``lk_pyramid``) making
+   that pyramid from the pan's uint8 pair in one launch (the main row,
+   beside the path it replaced, ``b14_replaced``: the frames' casts and a
+   reduce a level), then each level below L0 alone from one image of the
+   level above (``downsample2x``), each bit-equal to its plain version on
+   the same inputs, with ``device_ms``, the bound, its share and the
+   plain version's time.
 C. after phase 9: the compositor's kernels (``ops/compositor.py``,
    ``csrc/compositor.cu``) against their plain versions at 1080x1920,
    bit-equal: K1 (``layer_update``) on phase F's Engine state, its
@@ -304,10 +312,11 @@ the H100 SXM's published peaks; ``share`` is bound over ``device_ms``.
 For B1, B2a and B2b the bound counts each input and output byte once per
 level and the float32 operations of their correlations, lerps and
 algebra; B8's and B14's each image read once and each level written
-once, and the operations of the blurs and the resize's bands in the
-order that needs fewest (``pyramid_bound_ms``); B5's counts the flow
-read and the mapping written once (16 bytes a pixel); B9-B12's each
-input and output plane once a launch
+once (B14's pyramid: both uint8 frames read, their float32 copies and
+two levels written), and the operations of the blurs and the resize's
+bands in the order that needs fewest (``pyramid_bound_ms``); B5's counts
+the flow read and the mapping written once (16 bytes a pixel); B9-B12's
+each input and output plane once a launch
 (``hs_bound_ms``, ``lk_bound_ms``); K0-K2's the bytes that their
 outputs need on these inputs, pixel by pixel (``comp_k*_bound_ms``;
 K1's draw's integer operations counted at the f32 rate). They are
@@ -348,7 +357,7 @@ HEIGHT, WIDTH = 1080, 1920
 CORR_SHAPES = ((34, 60, 192, 1, "L6"), (68, 120, 128, 1, "L5"),
                (136, 240, 96, 1, "L4"), (272, 480, 64, 2, "L3"),
                (544, 960, 64, 2, "L2"))
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F32, U8 = torch.bfloat16, torch.float32, torch.uint8
 # the dtype pair the slice gives each level: L6 correlates two bf16
 # features, L2-L5 a bf16 feature with an f32 backwarped one
 MAIN_PAIR = {"L6": (BF16, BF16), "L5": (BF16, F32), "L4": (BF16, F32),
@@ -602,7 +611,7 @@ def ptxas_reports(log: str) -> list[dict]:
 NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
             "aggregate_solve", "forward_scatter", "backward_resolve",
             "hs_derivatives", "hs_iterate", "lk_warp_products", "lk_window",
-            "pyramid_levels_kernel", "pyramid_kernel")
+            "pyramid_levels_kernel", "lk_pyramid_kernel")
 
 
 def phase_build() -> list[dict]:
@@ -928,7 +937,7 @@ def _launch_counters():
                                                       hs_iterate_cuda)
     from transflow_tpu_torch.ops.lucas_kanade import (lk_warp_products_cuda,
                                                       lk_window_solve_cuda)
-    from transflow_tpu_torch.ops.pyramid import (downsample2x_cuda,
+    from transflow_tpu_torch.ops.pyramid import (lk_pyramid_cuda,
                                                  pyramid_levels_cuda)
     from transflow_tpu_torch.ops.scatter import forward_to_backward_cuda
     from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
@@ -938,7 +947,7 @@ def _launch_counters():
             forward_to_backward_cuda, hs_derivatives_cuda, hs_iterate_cuda,
             lk_warp_products_cuda, lk_window_solve_cuda,
             leave_empty_sources_cuda, layer_update_cuda, composite_cuda,
-            pyramid_levels_cuda, downsample2x_cuda)
+            pyramid_levels_cuda, lk_pyramid_cuda)
 
 
 # the names of _launches()'s entries
@@ -1752,7 +1761,9 @@ H_SYNC_CALLS = 1
 H_PROFILE_CALLS = 2   # process_frame calls under the profiler (phase 10)
 H_CLI_FRAMES = 4      # PGM frames of each CLI run; 3 flows
 H_STATIC_ITERS = 5    # max_iters of the static pair
-# (H, W, name) of Lucas-Kanade's pyramid of a 1080p frame at max_level 2
+# (H, W, name) of Lucas-Kanade's pyramid of a 1080p frame at the
+# window and max_level of lukas-kanade.json (CvFlowConfig's defaults)
+H_LK_WIN, H_LK_MAX_LEVEL = 15, 2
 H_LK_LEVELS = ((1080, 1920, "L0"), (540, 960, "L1"), (270, 480, "L2"))
 # float32 operations a pixel. B9: both frames' vertical and horizontal
 # 5-tap blurs (each 5 products and 4 sums a pixel, whatever tile the
@@ -1773,32 +1784,31 @@ H_KERNEL_NAMES = {"hs_derivatives": "hs_derivatives_kernel",
                   "lk_warp_products": "lk_warp_products_kernel",
                   "lk_structure_tensor": "lk_window_kernel",
                   "lk_window_solve": "lk_window_kernel",
-                  "downsample2x": "pyramid_kernel"}
+                  "lk_pyramid": "lk_pyramid_kernel",
+                  "downsample2x": "lk_pyramid_kernel"}
 # launches per 1080p frame of each of phase H's kernel rows on the main
 # path: horn-schunck.json's 1 B9 and 3 B10; per Lucas-Kanade level 10 B11,
 # 1 tensor and 10 solves of B12
 H_PER_LEVEL = {"hs_derivatives": 1, "hs_iterate": 3,
                "lk_warp_products": H_LK_ITERS, "lk_structure_tensor": 1,
-               "lk_window_solve": H_LK_ITERS, "downsample2x": 1}
+               "lk_window_solve": H_LK_ITERS}
 
 
 def h_per_frame(config, height: int, width: int) -> tuple:
     """``KERNEL_NAMES`` launches per frame of a Horn-Schunck or
     Lucas-Kanade config at H x W: 1 B9 and ``max_iters`` B10; or per level
-    of the pyramid (the estimator's rule: levels while the short side is
-    at least twice the window) 10 B11 and 11 B12 (the tensor and 10
-    solves)."""
+    of the pyramid (the estimator's rule, ``lk_shapes``: levels while the
+    short side is at least twice the window) 10 B11 and 11 B12 (the
+    tensor and 10 solves), and the whole pyramid's B14 launches, one up
+    to two levels below L0 (``lk_launches``)."""
+    from transflow_tpu_torch.ops import pyramid
     kw = config.estimator_kwargs()
     if config.method == "horn-schunck":
         return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF, 0, 0)
-    levels, h, w = 1, height, width
-    for _ in range(kw["max_level"]):
-        if min(h, w) < 2 * kw["win_size"]:
-            break
-        h, w = (h + 1) // 2, (w + 1) // 2
-        levels += 1
+    levels = len(pyramid.lk_shapes(height, width, kw["win_size"],
+                                   kw["max_level"]))
     return (0,) * 7 + (0, 0, H_LK_ITERS * levels, (H_LK_ITERS + 1) * levels,
-                       *C_MOVEREF, 0, levels - 1)
+                       *C_MOVEREF, 0, pyramid.lk_launches(levels))
 
 
 def phase_classic_engine(device, card: str) -> dict:
@@ -2947,9 +2957,10 @@ def phase_classic_kernels(device) -> list[dict]:
     plain version's time. B10 runs with ``delta=0.0`` in the timing loops,
     so every launch steps and runs the reduction every preset runs; one
     copy-through launch (the stop word set) is timed beside it: the floor
-    of its blocks' fixed costs. B14 makes each level below L0 from the
-    level above for both images, beside the path it replaced
-    (``b14_replaced``) on the same images."""
+    of its blocks' fixed costs. B14 makes the pyramid of the pan's uint8
+    pair in one launch, beside the path it replaced (``b14_replaced``) on
+    the same frames, then each level below L0 from one image of the level
+    above."""
     from transflow_tpu_torch.flow.estimators import lucas_kanade as lke
     from transflow_tpu_torch.ops import horn_schunck as hs
     from transflow_tpu_torch.ops import lucas_kanade as lk
@@ -3013,28 +3024,41 @@ def phase_classic_kernels(device) -> list[dict]:
            functools.partial(hs.hs_iterate_plain, want, got, stopped.cpu(),
                              1.0),
            hs_bound_ms("hs_iterate_copy", HEIGHT, WIDTH), "stop word set")
-    prev, nxt = a.float(), b.float()
-    for h, w, level in H_LK_LEVELS:
-        if level != "L0":
-            args = ((prev, nxt),)
-            ph, pw = prev.shape
-            got = pyramid.downsample2x_cuda(*args)
-            for k, (g, r) in enumerate(zip(got,
-                                           pyramid.downsample2x_plain(*args))):
-                _fb_compare(f"B14 {level} image {k}", g, r)
-            row = record("downsample2x", level, h, w, 0.0,
-                         functools.partial(pyramid.downsample2x_cuda, *args),
-                         functools.partial(pyramid.downsample2x_plain, *args),
-                         pyramid_bound_ms("downsample2x", ph, pw,
-                                          ((h, w, 0.0),), F32),
-                         f"from ({ph},{pw}), both images")
-            replaced = functools.partial(b14_replaced, *args)
-            row["replaced_ms"] = device_ms(replaced, PLAIN_LAUNCHES * 10)
-            row["replaced_call"] = replaced  # profiled in phase 10
-            print(f"classic downsample2x {level}: the path it replaced (two "
-                  f"cuDNN passes and a strided copy an image) "
-                  f"{row['replaced_ms']:.5f} ms")
-            prev, nxt = got
+    # B14: lukas-kanade.json's pyramid of the pan's uint8 pair in one
+    # launch (the main row), beside the path it replaced; then each level
+    # alone through the one-reduce path (``ops/image.py::downsample2x``)
+    args = (a, b, H_LK_WIN, H_LK_MAX_LEVEL)
+    levels = pyramid.lk_pyramid_cuda(*args)
+    want = pyramid.lk_pyramid_plain(*args)
+    for (lh, lw, level), got, ref in zip(H_LK_LEVELS, levels, want):
+        for k in range(2):
+            if got[k].shape != (lh, lw):
+                raise AssertionError(f"B14 {level} image {k}: shape "
+                                     f"{tuple(got[k].shape)}")
+            _fb_compare(f"B14 {level} image {k}", got[k], ref[k])
+    row = record("lk_pyramid", "L0-L2", HEIGHT, WIDTH, 0.0,
+                 functools.partial(pyramid.lk_pyramid_cuda, *args),
+                 functools.partial(pyramid.lk_pyramid_plain, *args),
+                 pyramid_bound_ms("lk_pyramid", HEIGHT, WIDTH,
+                                  [(lh, lw, 0.0)
+                                   for lh, lw, _ in H_LK_LEVELS[1:]], U8),
+                 "both uint8 frames, one launch")
+    replaced = functools.partial(b14_replaced, a, b, len(H_LK_LEVELS))
+    row["replaced_ms"] = device_ms(replaced, PLAIN_LAUNCHES * 10)
+    row["replaced_call"] = replaced  # profiled in phase 10
+    print(f"classic lk_pyramid: the path it replaced (the frames' casts "
+          f"and a reduce a level) {row['replaced_ms']:.5f} ms")
+    for (h, w, level), (x, _) in zip(H_LK_LEVELS[1:], levels):
+        ph, pw = x.shape
+        got = pyramid.downsample2x_cuda((x,))[0]
+        _fb_compare(f"B14 {level} alone", got,
+                    pyramid.downsample2x_plain((x,))[0])
+        record("downsample2x", level, h, w, 0.0,
+               functools.partial(pyramid.downsample2x_cuda, (x,)),
+               functools.partial(pyramid.downsample2x_plain, (x,)),
+               pyramid_bound_ms("downsample2x", ph, pw, ((h, w, 0.0),), F32,
+                                images=1), f"from ({ph},{pw}), one image")
+    for (h, w, level), (prev, nxt) in zip(H_LK_LEVELS, levels):
         ix, iy = lke._scharr(prev, 1), lke._scharr(prev, 0)
         flow = pan_flow(h, w, device)
         args = (prev, nxt, ix, iy, flow)
@@ -3344,21 +3368,26 @@ def fb_bound_ms(kernel: str, h: int, w: int, storage, in_dtype=None,
 def pyramid_bound_ms(kernel: str, h: int, w: int, levels, dtype,
                      images: int = 2) -> tuple[float, str]:
     """B8's and B14's bound on ``images`` (h, w) images of ``dtype`` made
-    into float32 levels (``levels``: (oh, ow, sigma) each; B14's one level
-    has no sigma): each input byte read once, each output byte written
-    once. Operations, a product and a sum a tap, in the order that needs
-    fewest (the kernel's): B8 blurs every pixel along the rows' axis (2R +
-    1 taps; on a downscale every pixel lies in some output's band),
-    resizes the rows (ky a band), blurs the oh rows along x, resizes the
-    columns (kx), at each level; B14 needs the vertical pass at the even
-    rows and the horizontal one at the outputs (5 taps each)."""
+    into float32 levels (``levels``: (oh, ow, sigma) each; B14's have no
+    sigma): each input byte read once, each output byte written once (B14's
+    ``lk_pyramid`` writes the uint8 frames' float32 copies too).
+    Operations, a product and a sum a tap, in the order that needs fewest
+    (the kernel's): B8 blurs every pixel along the rows' axis (2R + 1 taps;
+    on a downscale every pixel lies in some output's band), resizes the
+    rows (ky a band), blurs the oh rows along x, resizes the columns (kx),
+    at each level; B14 needs at each level the vertical pass at the level
+    above's even rows and the horizontal one at the outputs (5 taps
+    each)."""
     from transflow_tpu_torch.ops import pyramid
     nbytes = images * (h * w * dtype.itemsize
                        + sum(oh * ow * 4 for oh, ow, _ in levels))
-    ops = 0
+    if kernel == "lk_pyramid":
+        nbytes += images * h * w * 4
+    ops, ph, pw = 0, h, w
     for oh, ow, sigma in levels:
-        if kernel == "downsample2x":
-            ops += images * 2 * 5 * ((h + 1) // 2 * w + oh * ow)
+        if kernel in ("downsample2x", "lk_pyramid"):
+            ops += images * 2 * 5 * ((ph + 1) // 2 * pw + oh * ow)
+            ph, pw = oh, ow
             continue
         taps = 2 * pyramid.blur_radius(sigma) + 1
         kx = pyramid.resize_weights(w, ow)[1].shape[1]
@@ -3377,13 +3406,17 @@ def b8_replaced(images, levels) -> list:
             for sigma, lh, lw in levels for x in images]
 
 
-def b14_replaced(images) -> list:
-    """The path B14 replaced, timed as its yardstick: per image two padded
-    cuDNN passes (TF32 off) of the binomial and the strided copy."""
-    from transflow_tpu_torch.ops import image, pyramid
-    return [image.separable_correlate(image.separable_correlate(
-        x, pyramid.REDUCE_TAPS, 0), pyramid.REDUCE_TAPS, 1)[::2, ::2]
-        .contiguous() for x in images]
+def b14_replaced(prev, nxt, levels: int) -> list:
+    """The path B14's one launch replaced, timed as its yardstick: ATen's
+    float32 cast of each uint8 frame, then one reduce a level below L0 for
+    both images (``downsample2x_cuda``: this tree's kernel on the call
+    sequence the estimator made before; ``--against`` times a parent
+    tree's own reduce so)."""
+    from transflow_tpu_torch.ops import pyramid
+    pyr = [(prev.float().contiguous(), nxt.float().contiguous())]
+    for _ in range(levels - 1):
+        pyr.append(pyramid.downsample2x_cuda(pyr[-1]))
+    return pyr
 
 
 def _fb_compare(name: str, got, want) -> float:
@@ -4136,12 +4169,17 @@ OTHER_SOURCES = ("correlation.cu", "farneback.cu", "horn_schunck.cu",
 # C entries of other trees that this one no longer has: B8's first
 # design, one level a call (src0, src1, images, dtype, dst0, dst1, H, W,
 # OH, OW, vertical taps, horizontal taps, radius, ystart, yweights, ky,
-# xstart, xweights, kx, tile_h, tile_w, seg, cols, shared bytes, stream)
+# xstart, xweights, kx, tile_h, tile_w, seg, cols, shared bytes, stream);
+# B14's first design, one reduce a call (src0, src1, images, dst0, dst1,
+# H, W, taps, stream)
 OTHER_SIGNATURES = {"transflow_pyramid_level": (
     ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 2,
     *[ctypes.c_void_p] * 2, *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 2,
     ctypes.c_int, *[ctypes.c_void_p] * 2, ctypes.c_int,
-    *[ctypes.c_void_p] * 2, *[ctypes.c_int] * 6, ctypes.c_void_p)}
+    *[ctypes.c_void_p] * 2, *[ctypes.c_int] * 6, ctypes.c_void_p),
+    "transflow_pyramid_reduce": (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 2,
+    *[ctypes.c_int] * 2, *[ctypes.c_void_p] * 2)}
 
 
 def _entry(lib: ctypes.CDLL, name: str, *args):
@@ -4588,9 +4626,13 @@ def against_pyramid(device, libs: dict, steps: dict, card: str) -> None:
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     images = [torch.randint(0, 256, (HEIGHT, WIDTH), generator=gen,
                             device=device).to(BF16) for _ in range(2)]
-    libs = {name: lib for name, lib in libs.items()
-            if hasattr(lib, "transflow_pyramid_levels")
-            or hasattr(lib, "transflow_pyramid_level")}
+    def has_b8(lib):
+        return hasattr(lib, "transflow_pyramid_levels") or hasattr(
+            lib, "transflow_pyramid_level")
+    libs = {name: lib for name, lib in libs.items() if has_b8(lib)}
+    steps = {name: lib for name, lib in steps.items() if has_b8(lib)}
+    if len(libs) + len(steps) < 2:
+        return
     for case, cases in B8_AGAINST:
         levels = [(sigma, h, w) for h, w, _, sigma in cases]
         entries = {name: b8_entry(lib, images, levels)
@@ -4607,6 +4649,114 @@ def against_pyramid(device, libs: dict, steps: dict, card: str) -> None:
               f"({bound[1]}); {', '.join(libs)} bit-equal"
               + (f"; {', '.join(steps)} not held to them" if steps else "")
               + f" on {card}")
+
+
+# phase 11's B14 cases: lukas-kanade.json's pyramid of the uint8 pair,
+# then each reduce alone (both images a call)
+B14_AGAINST = ("pyramid", "L1", "L2")
+
+
+def b14_entry(lib: ctypes.CDLL, case: str, frames, pyr):
+    """(call, outputs) of B14 through ``lib``'s raw C entries on the pan's
+    uint8 ``frames``: case "pyramid" makes every level of ``pyr`` (this
+    tree's, a (prev, next) tuple a level) in one ``transflow_lk_pyramid``
+    launch, or in an older tree ATen's casts of the frames and one
+    ``transflow_pyramid_reduce`` call a level; "L1" or "L2" one reduce of
+    both images of the level above (from ``pyr``), one call."""
+    from transflow_tpu_torch._device import cuda_stream
+    from transflow_tpu_torch.ops import pyramid
+    stream = cuda_stream(frames[0])
+    new = hasattr(lib, "transflow_lk_pyramid")
+    taps = torch.tensor(pyramid.REDUCE_TAPS, device=frames[0].device)
+
+    def ptrs(images):
+        return [t.data_ptr() for t in images]
+
+    def reduce(src, dst):
+        h, w = src[0].shape
+        if new:
+            table = pyramid._lk_table([(), dst])
+            call = _entry(lib, "transflow_lk_pyramid", *ptrs(src), 2,
+                          pyramid.LK_CODES[F32], table.ctypes.data, h, w, 1,
+                          stream)
+            call.keep = table
+            return call
+        return _entry(lib, "transflow_pyramid_reduce", *ptrs(src), 2,
+                      *ptrs(dst), h, w, taps.data_ptr(), stream)
+
+    if case != "pyramid":
+        k = B14_AGAINST.index(case)
+        outs = [tuple(torch.empty_like(t) for t in pyr[k])]
+        call = reduce(pyr[k - 1], outs[0])
+        call.keep = (getattr(call, "keep", None), taps)
+        return call, outs
+    outs = [tuple(torch.empty_like(t) for t in level) for level in pyr]
+    if new:
+        table = pyramid._lk_table(outs)
+        call = _entry(lib, "transflow_lk_pyramid", *ptrs(frames), 2,
+                      pyramid.LK_CODES[U8], table.ctypes.data,
+                      *frames[0].shape, len(outs) - 1, stream)
+        call.keep = table
+        return call, outs
+    reduces = [reduce(outs[k], outs[k + 1]) for k in range(len(outs) - 1)]
+
+    def call():
+        for out, frame in zip(outs[0], frames):
+            out.copy_(frame)
+        for r in reduces:
+            r()
+    call.keep = taps
+    return call, outs
+
+
+def against_lk_pyramid(device, libs: dict, steps: dict, card: str) -> None:
+    """B14 of this tree (``libs["this"]``) against the other trees'
+    (``libs``) and the ``steps`` copies (a tree's pyramid.cu cut to some
+    of its steps, whose outputs are not held to the others'), through the
+    raw C entries (``b14_entry``), ``device_ms`` in turns, at
+    ``B14_AGAINST`` on the pan's 1080p uint8 pair, then each entry's
+    profiler time of a call: the other trees' outputs bit-equal to this
+    tree's."""
+    from transflow_tpu_torch.ops import pyramid
+
+    def has_b14(lib):
+        return hasattr(lib, "transflow_lk_pyramid") or hasattr(
+            lib, "transflow_pyramid_reduce")
+    libs = {name: lib for name, lib in libs.items() if has_b14(lib)}
+    steps = {name: lib for name, lib in steps.items() if has_b14(lib)}
+    if len(libs) + len(steps) < 2:
+        return
+    gray = gray_frames(2, HEIGHT, WIDTH, device)
+    frames = (gray[1].contiguous(), gray[0].contiguous())
+    pyr = pyramid.lk_pyramid_plain(*frames, H_LK_WIN, H_LK_MAX_LEVEL)
+    for case in B14_AGAINST:
+        entries = {name: b14_entry(lib, case, frames, pyr)
+                   for name, lib in (libs | steps).items()}
+        turns = in_turns({name: call for name, (call, _) in entries.items()})
+        _check_outputs(f"B14 {case}", {
+            name: [t for level in entries[name][1] for t in level]
+            for name in libs})
+        k = B14_AGAINST.index(case)
+        bound = (pyramid_bound_ms(
+            "lk_pyramid", HEIGHT, WIDTH,
+            [(lh, lw, 0.0) for lh, lw, _ in H_LK_LEVELS[1:]], U8)
+            if case == "pyramid" else pyramid_bound_ms(
+                "downsample2x", *H_LK_LEVELS[k - 1][:2],
+                (H_LK_LEVELS[k][:2] + (0.0,),), F32))
+        print(f"against B14 {case} (both images): {_turns_text(turns)}; "
+              f"bound {bound[0]:.5f} ({bound[1]}); {', '.join(libs)} "
+              "bit-equal"
+              + (f"; {', '.join(steps)} not held to them" if steps else "")
+              + f" on {card}")
+        # device_ms of a call that takes under ~8 us reads the host's rate
+        # of ctypes calls: the profiler's time of each device event
+        for name, (call, _) in entries.items():
+            split = kernel_split(call)
+            print(f"kernel time B14 {case} {name}: "
+                  f"{sum(split.values()):.5f} ms a call ("
+                  + ", ".join(f"{_short_name(k)} {ms:.5f}"
+                              for k, ms in split.items())
+                  + f"; torch.profiler) on {card}")
 
 
 def _short_name(event: str) -> str:
@@ -4643,16 +4793,17 @@ def main() -> int:
     parser.add_argument("--against", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
                         help="also time the correlation kernel, B1, B2a, "
-                             "B2b, B9, B10, B5 and B8 against this "
+                             "B2b, B9, B10, B5, B8 and B14 against this "
                              "directory's correlation.cu, farneback.cu, "
                              "horn_schunck.cu, scatter.cu and pyramid.cu "
                              "(phase 11); repeat it for several trees")
     parser.add_argument("--steps", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
-                        help="also time B8 of this directory's pyramid.cu, "
-                             "a copy of a tree's cut to some of its steps, "
-                             "in phase 11's turns, its outputs not held to "
-                             "this tree's; repeat it for several copies")
+                        help="also time B8 and B14 of this directory's "
+                             "pyramid.cu, a copy of a tree's cut to some of "
+                             "its steps, in phase 11's turns, its outputs "
+                             "not held to this tree's; repeat it for "
+                             "several copies")
     parser.add_argument("--multihost-worker", type=int, nargs=2,
                         metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -4736,6 +4887,7 @@ def main() -> int:
             phase_against(device, libs, card, fb_runs["CvFlowConfig()"],
                           t_run["b5_flow"])
         against_pyramid(device, libs, steps, card)
+        against_lk_pyramid(device, libs, steps, card)
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound
@@ -4867,7 +5019,8 @@ def main() -> int:
                        "no single PyTorch call computes it",
         })
     # B8 per frame: the pyramid of a bf16 frame (three levels, both images)
-    # in one launch; B14 per frame: lukas-kanade.json's two reduces
+    # in one launch; B14 per frame: lukas-kanade.json's pyramid (the
+    # frames' casts and two reduces) in one launch
     b8_index, b14_index = KERNEL_NAMES.index("B8"), KERNEL_NAMES.index("B14")
     pyramid_groups = {
         "pyramid_levels": (
@@ -4881,14 +5034,16 @@ def main() -> int:
             "jax.image.resize(gaussian_blur(img, sigma), (lh, lw), "
             "'linear'), and :211-213 the fb_downscale pre-resize",
             [r for r in fb_rows if r["kernel"] == "pyramid_levels"]),
-        "downsample2x": (
-            [r for r in h_rows if r["kernel"] == "downsample2x"],
+        "lk_pyramid": (
+            [r for r in h_rows if r["kernel"] == "lk_pyramid"],
             # phase H's Engine runs of the Lucas-Kanade presets
             sum(run["launches"][b14_index] for run in h_runs.values()),
             "transflow_tpu/ops/image.py:234",
-            "ops/image.py:234 downsample2x, as lucas_kanade.py's pyramid "
-            "runs it",
-            [r for r in h_rows if r["kernel"] == "downsample2x"])}
+            "ops/image.py:234 downsample2x at each level of "
+            "flow/estimators/lucas_kanade.py:71-78's pyramid, and its "
+            "astype(float32) of both frames",
+            [r for r in h_rows
+             if r["kernel"] in ("lk_pyramid", "downsample2x")])}
     for name, (group, launches, replaces, function, every) in \
             pyramid_groups.items():
         print(f"{name} per frame ({len(group)} launches): device_ms "
@@ -4917,8 +5072,9 @@ def main() -> int:
             "bound_by": _bound_by(group),
             "library_ms": None,
             "library": "none: no single PyTorch call blurs and resizes; "
-                       "the path it replaced (two cuDNN passes and a "
-                       "resize or strided copy an image) is replaced_ms",
+                       "the path it replaced is replaced_ms (B8: two cuDNN "
+                       "passes and a resize an image and level; B14: the "
+                       "frames' casts and a reduce a level)",
             "replaced_ms": _per_frame(group, "replaced_ms"),
             "replaced_kernel_ms": _per_frame(group, "replaced_kernel_ms"),
         })

@@ -470,10 +470,98 @@ def test_downsample2x_matches_plain(device, shape):
         assert torch.equal(out, ref)
 
 
+# B14's pyramids: (frame, window, ...) for max_level 0 to 4; the 1080p
+# frame at lukas-kanade.json's window (its max_level 2) and at a window
+# that lets every level through (max_level 3 and 4 take a second launch)
+LK_FRAMES = [((1080, 1920), 15), ((1080, 1920), 2), ((37, 53), 2),
+             ((67, 121), 2), ((97, 131), 4), ((130, 257), 2), ((7, 5), 1),
+             ((1, 1), 1), ((64, 96), 15)]
+
+
+@pytest.mark.parametrize("max_level", range(5))
+@pytest.mark.parametrize("shape,win", LK_FRAMES, ids=str)
+def test_lk_pyramid_matches_plain(device, shape, win, max_level):
+    """Kernel B14's pyramid of two uint8 frames (their float32 casts and
+    every level below, both frames a launch) against its plain version on
+    the card: the same levels, each bit-equal, in ``lk_launches``
+    launches (one up to two levels below L0)."""
+    gen = torch.Generator(device=device).manual_seed(sum(shape) + win)
+    a, b = (torch.randint(0, 256, shape, generator=gen, device=device,
+                          dtype=torch.uint8) for _ in "ab")
+    before = pyramid.lk_pyramid_cuda.launches
+    got = pyramid.lk_pyramid(a, b, win, max_level)
+    torch.cuda.synchronize()
+    shapes = pyramid.lk_shapes(*shape, win, max_level)
+    assert pyramid.lk_pyramid_cuda.launches - before == pyramid.lk_launches(
+        len(shapes))
+    want = pyramid.lk_pyramid_plain(a, b, win, max_level)
+    assert len(got) == len(want) == len(shapes)
+    for level, ref, lshape in zip(got, want, shapes):
+        for out, r in zip(level, ref):
+            assert out.dtype == F32 and tuple(out.shape) == lshape
+            assert out.is_contiguous() and torch.equal(out, r)
+
+
+@pytest.mark.parametrize("shape,offset", [((1080, 1920), 1), ((64, 96), 3),
+                                          ((37, 53), 0)], ids=str)
+def test_lk_pyramid_unaligned_frames(device, shape, offset):
+    """B14 on frames that start ``offset`` bytes into a buffer (rows not
+    16-byte aligned: element-wise staging; float4 stores stay on the
+    outputs): bit-equal to its plain version, one launch."""
+    h, w = shape
+    gen = torch.Generator(device=device).manual_seed(h)
+    frames = []
+    for _ in "ab":
+        buf = torch.randint(0, 256, (h * w + 16,), generator=gen,
+                            device=device, dtype=torch.uint8)
+        frames.append(buf[offset:offset + h * w].view(h, w))
+    before = pyramid.lk_pyramid_cuda.launches
+    got = pyramid.lk_pyramid(*frames, 2, 2)
+    torch.cuda.synchronize()
+    assert pyramid.lk_pyramid_cuda.launches == before + 1
+    for level, ref in zip(got, pyramid.lk_pyramid_plain(*frames, 2, 2)):
+        assert all(torch.equal(x, y) for x, y in zip(level, ref))
+
+
+def test_lk_pyramid_cuda_refuses_misuse(device):
+    """B14's pyramid takes two contiguous (H, W) uint8 frames of one shape
+    on one CUDA device: CPU frames, float32 frames, mismatched shapes, two
+    devices and a non-contiguous frame raise before any launch."""
+    a = torch.zeros((64, 96), dtype=torch.uint8)
+    x = a.to(device)
+    before = pyramid.lk_pyramid_cuda.launches
+    for prev, nxt, match in ((a, a, "CUDA"), (x.float(), x.float(), "uint8"),
+                             (x, x[:, :90], "uint8"), (x, a, "uint8"),
+                             (x.t(), x.t(), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            pyramid.lk_pyramid_cuda(prev, nxt, 4, 2)
+    assert pyramid.lk_pyramid_cuda.launches == before
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (540, 960), (67, 121),
+                                   (7, 5), (1, 1)], ids=str)
+def test_downsample2x_one_image_matches_plain(device, shape):
+    """``ops/image.py::downsample2x`` (B14's one reduce of one float32
+    image) against its plain version on the card: bit-equal, one launch;
+    a uint8 image is cast first, as on the CPU."""
+    from transflow_tpu_torch.ops import image
+    gen = torch.Generator(device=device).manual_seed(sum(shape) + 1)
+    x = torch.rand(shape, generator=gen, device=device) * 255
+    before = pyramid.downsample2x_cuda.launches
+    got = image.downsample2x(x)
+    torch.cuda.synchronize()
+    assert pyramid.downsample2x_cuda.launches == before + 1
+    assert torch.equal(got, pyramid.downsample2x_plain((x,))[0])
+    u8 = x.to(torch.uint8)
+    assert torch.equal(image.downsample2x(u8),
+                       pyramid.downsample2x_plain((u8.float(),))[0])
+
+
 def test_pyramids_never_take_the_plain_path(device, monkeypatch):
     """On the card Farneback (with fb_downscale 2) and Lucas-Kanade build
     their pyramids through B8 and B14 alone: the plain versions raise if
-    called, and the launch counters move by the estimators' rules."""
+    called, and the launch counters move by the estimators' rules
+    (Lucas-Kanade's whole pyramid in one B14 launch)."""
     from transflow_tpu_torch.flow.estimators import farneback as fb_est
     from transflow_tpu_torch.flow.estimators.lucas_kanade import (
         lucas_kanade)
@@ -484,17 +572,18 @@ def test_pyramids_never_take_the_plain_path(device, monkeypatch):
     monkeypatch.setattr(pyramid, "pyramid_level_plain", refuse)
     monkeypatch.setattr(pyramid, "pyramid_levels_plain", refuse)
     monkeypatch.setattr(pyramid, "downsample2x_plain", refuse)
+    monkeypatch.setattr(pyramid, "lk_pyramid_plain", refuse)
     gen = torch.Generator(device=device).manual_seed(9)
     a, b = (torch.randint(0, 256, (192, 256), generator=gen, device=device,
                           dtype=torch.uint8) for _ in "ab")
     before = (pyramid.pyramid_levels_cuda.launches,
-              pyramid.downsample2x_cuda.launches)
+              pyramid.lk_pyramid_cuda.launches)
     fb_est.farneback(a, b, downscale=2)
     lucas_kanade(a, b)
     torch.cuda.synchronize()
     assert (pyramid.pyramid_levels_cuda.launches - before[0],
-            pyramid.downsample2x_cuda.launches - before[1]) == (
-        fb_est.launches_per_frame(192, 256, downscale=2)[3], 2)
+            pyramid.lk_pyramid_cuda.launches - before[1]) == (
+        fb_est.launches_per_frame(192, 256, downscale=2)[3], 1)
 
 
 def test_pyramid_level_limit(device):
@@ -974,7 +1063,8 @@ def test_lucas_kanade_on_card_matches_cpu(device):
     """The estimator at 128x192 on the card against the CPU on a pan:
     within 1e-4 (the CPU tests' bar against JAX: the Scharr derivatives
     and the flow's resize run in cuDNN and torch's kernels on the card);
-    30 B11, 33 B12 and 2 B14 launches at three levels."""
+    30 B11, 33 B12 and 1 B14 launch (the whole pyramid) at three
+    levels."""
     from transflow_tpu_torch.flow.estimators.lucas_kanade import (
         lucas_kanade)
     rng = np.random.default_rng(3)
@@ -985,11 +1075,11 @@ def test_lucas_kanade_on_card_matches_cpu(device):
     a, b = canvas[6:134, 9:201], canvas[3:131, 5:197]
     before = (lk.lk_warp_products_cuda.launches,
               lk.lk_window_solve_cuda.launches,
-              pyramid.downsample2x_cuda.launches)
+              pyramid.lk_pyramid_cuda.launches)
     got = lucas_kanade(a.to(device), b.to(device)).cpu()
     assert (lk.lk_warp_products_cuda.launches - before[0],
             lk.lk_window_solve_cuda.launches - before[1],
-            pyramid.downsample2x_cuda.launches - before[2]) == (30, 33, 2)
+            pyramid.lk_pyramid_cuda.launches - before[2]) == (30, 33, 1)
     want = lucas_kanade(a, b)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     assert want.abs().max() > 1.0

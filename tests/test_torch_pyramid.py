@@ -259,26 +259,117 @@ def test_pyramid_plan_at_1080p(name, pyr_scale, levels, deep):
 
 
 def test_lucas_kanade_reduces_both_images_a_launch(monkeypatch):
-    """Lucas-Kanade calls B14 once a level below L0 with both images;
-    chip_smoke's rule counts 2 a frame of ``lukas-kanade.json`` at
-    1080p."""
+    """Lucas-Kanade makes its whole pyramid, both frames' casts included,
+    in one ``lk_pyramid`` call a frame pair (its plain version here), on
+    the uint8 frames; chip_smoke's rule counts 1 B14 launch a frame of
+    ``lukas-kanade.json`` at 1080p."""
     import chip_smoke
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
     calls = []
-    plain = pyramid.downsample2x_plain
+    plain = pyramid.lk_pyramid_plain
 
-    def counted(images):
-        calls.append(len(images))
-        return plain(images)
+    def counted(prev, nxt, win_size, max_level):
+        calls.append((prev.dtype, nxt.dtype, win_size, max_level))
+        return plain(prev, nxt, win_size, max_level)
 
-    monkeypatch.setattr(pyramid, "downsample2x_plain", counted)
+    monkeypatch.setattr(pyramid, "lk_pyramid_plain", counted)
     a, b = shifted_pair(96, 128, dx=1, dy=1)
     lke.lucas_kanade(torch.from_numpy(a), torch.from_numpy(b), max_level=2)
-    assert calls == [2, 2]
+    assert calls == [(torch.uint8, torch.uint8, 15, 2)]
     config = CvFlowConfig.from_file(os.path.join(CONFIGS,
                                                  "lukas-kanade.json"))
     row = chip_smoke.h_per_frame(config, 1080, 1920)
-    assert row[chip_smoke.KERNEL_NAMES.index("B14")] == 2
+    assert row[chip_smoke.KERNEL_NAMES.index("B14")] == 1
+
+
+def _jax_lk_pyramid(a, b, win_size, max_level):
+    """JAX's pyramid (transflow_tpu/flow/estimators/lucas_kanade.py:71-78):
+    ``astype(float32)``, then jitted ``downsample2x`` of each image while
+    the last level's short side is at least twice the window."""
+    down = jax.jit(jimage.downsample2x)
+    pyr = [(jnp.asarray(a).astype(jnp.float32),
+            jnp.asarray(b).astype(jnp.float32))]
+    for _ in range(max_level):
+        if min(pyr[-1][0].shape) < 2 * win_size:
+            break
+        pyr.append(tuple(down(x) for x in pyr[-1]))
+    return [tuple(np.asarray(x) for x in level) for level in pyr]
+
+
+@pytest.mark.parametrize("win_size", [4, 15])
+@pytest.mark.parametrize("max_level", range(5))
+@pytest.mark.parametrize("shape", [(37, 53), (64, 96), (96, 128)], ids=str)
+def test_lk_pyramid_plain_matches_jax(shape, max_level, win_size):
+    """B14's plain version (the frames' float32 casts, then
+    ``downsample2x_plain`` of both at each level) against the JAX package's
+    cast and ``downsample2x`` chain on seeded uint8 frames, odd and even
+    sizes, with windows that stop the pyramid early: the same levels,
+    float32 and contiguous, shaped as ``lk_shapes`` says. L0-L2 are
+    bit-equal: every product and sum there is exact in float32 (integers,
+    then multiples of 1/256, then of 1/65536, within 24 bits), so any
+    order of addition gives the same bits. Below L2 a value needs more
+    bits and XLA's convolution adds in its own order: within 4e-7 of the
+    largest value, ``test_downsample2x_plain_matches_jax``'s bound
+    (measured: 1 ulp)."""
+    rng = np.random.default_rng(sum(shape) + max_level)
+    a, b = (rng.integers(0, 256, shape, dtype=np.uint8) for _ in "ab")
+    got = pyramid.lk_pyramid(torch.from_numpy(a), torch.from_numpy(b),
+                             win_size, max_level)
+    want = _jax_lk_pyramid(a, b, win_size, max_level)
+    shapes = pyramid.lk_shapes(*shape, win_size, max_level)
+    assert len(got) == len(want) == len(shapes)
+    for k, (level, expected, lshape) in enumerate(zip(got, want, shapes)):
+        assert len(level) == 2
+        for out, ref in zip(level, expected):
+            assert out.dtype == F32 and out.is_contiguous()
+            assert tuple(out.shape) == ref.shape == lshape
+            if k <= 2:
+                np.testing.assert_array_equal(out.numpy(), ref)
+            else:
+                np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                                           atol=4e-7 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("shape,win_size,max_level,levels,launches", [
+    ((1080, 1920), 15, 2, 3, 1), ((1080, 1920), 15, 0, 1, 1),
+    ((1080, 1920), 15, 4, 5, 2), ((1080, 1920), 300, 4, 2, 1),
+    ((37, 53), 4, 4, 4, 2), ((7, 5), 1, 8, 4, 2), ((64, 64), 15, 3, 3, 1)],
+    ids=str)
+def test_lk_launch_rule(shape, win_size, max_level, levels, launches):
+    """``lk_shapes``' levels (the estimator's stop rule) and B14's launches
+    for them: one up to two levels below L0, one more for each two
+    beyond; ``lk_pyramid_plain`` makes as many levels."""
+    shapes = pyramid.lk_shapes(*shape, win_size, max_level)
+    assert len(shapes) == levels and shapes[0] == shape
+    for (h, w), (lh, lw) in zip(shapes, shapes[1:]):
+        assert (lh, lw) == ((h + 1) // 2, (w + 1) // 2)
+        assert min(h, w) >= 2 * win_size
+    assert pyramid.lk_launches(levels) == launches
+    if shape[0] < 100:
+        x = torch.zeros(shape, dtype=torch.uint8)
+        assert len(pyramid.lk_pyramid_plain(x, x, win_size,
+                                            max_level)) == levels
+
+
+def test_reduce_taps_are_the_kernels_literals():
+    """B14's kernel multiplies by the literals 0.0625, 0.25 and 0.375: the
+    JAX function's float32 taps, exactly."""
+    assert pyramid.REDUCE_TAPS == (0.0625, 0.25, 0.375, 0.25, 0.0625)
+    assert np.array_equal(np.float32(pyramid.REDUCE_TAPS), np.asarray(
+        jnp.asarray([1.0, 4.0, 6.0, 4.0, 1.0], dtype=jnp.float32) / 16.0))
+
+
+def test_lk_pyramid_refuses_misuse():
+    """B14's pyramid takes two (H, W) uint8 frames of one shape: float
+    frames, mismatched shapes and a 3-D frame raise, on the CPU as through
+    the wrapper."""
+    x = torch.zeros((16, 24), dtype=torch.uint8)
+    for prev, nxt in ((x.float(), x.float()), (x, x[:, :20]),
+                      (x[None], x[None]), (x, x.to(torch.int16))):
+        for fn in (pyramid.lk_pyramid, pyramid.lk_pyramid_plain,
+                   pyramid.lk_pyramid_cuda):
+            with pytest.raises(ValueError, match="uint8 frames"):
+                fn(prev, nxt, 4, 2)
 
 
 def test_level_plan_narrows_deep_levels():
@@ -325,12 +416,20 @@ def test_level_plan_narrows_deep_levels():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernels' wrappers take CUDA tensors only (no plain path hides
-    in them); the dispatchers send CPU tensors to the plain versions."""
+    in them, no launch is counted); the dispatchers send CPU tensors to
+    the plain versions."""
     x = torch.zeros((16, 24))
     with pytest.raises(ValueError, match="CUDA"):
         pyramid.pyramid_levels_cuda((x, x), [(0.5, 8, 12)])
     with pytest.raises(ValueError, match="CUDA"):
         pyramid.downsample2x_cuda((x,))
+    frame = torch.zeros((16, 24), dtype=torch.uint8)
+    before = pyramid.lk_pyramid_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        pyramid.lk_pyramid_cuda(frame, frame, 4, 2)
+    assert pyramid.lk_pyramid_cuda.launches == before
     assert pyramid.pyramid_levels((x, x), [(0.5, 8, 12)])[0][1].shape == (
         8, 12)
     assert pyramid.downsample2x((x,))[0].shape == (8, 12)
+    assert [level[1].shape for level in pyramid.lk_pyramid(
+        frame, frame, 5, 2)] == [(16, 24), (8, 12)]

@@ -77,8 +77,9 @@ _SIGNATURES = {
     # the levels' table (host, 22 int64 a level), levels, images, dtype,
     # shared bytes, stream
     "transflow_pyramid_levels": (_P, _I, _I, _I, _I, _P),
-    # src0, src1, images, dst0, dst1, H, W, taps, stream
-    "transflow_pyramid_reduce": (_P, _P, _I, _P, _P, _I, _I, _P, _P),
+    # src0, src1, images, dtype (0 float32, 2 uint8), the levels' table
+    # (host, 6 int64), H, W, reduces, stream
+    "transflow_lk_pyramid": (_P, _P, _I, _I, _P, _I, _I, _I, _P),
 }
 
 

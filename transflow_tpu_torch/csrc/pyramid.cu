@@ -1,6 +1,6 @@
 // The image pyramids' level construction for Hopper (sm_90a): B8, every
-// level of a Farneback pyramid in one launch, and B14, Lucas-Kanade's
-// reduce.
+// level of a Farneback pyramid in one launch, and B14, every level of a
+// Lucas-Kanade pyramid in one launch.
 //
 // It replaces jnp code that XLA fuses (there is no Pallas source):
 //  * B8: Farneback's pyramid levels,
@@ -14,8 +14,11 @@
 //    acts along one axis, so they run in the order that does the least
 //    work: the vertical blur, the row resize, the horizontal blur (at the
 //    level's height, not the frame's), the column resize;
-//  * B14: transflow_tpu/ops/image.py:234 downsample2x: the binomial [1, 4,
-//    6, 4, 1] / 16 along each axis with symmetric padding, then [::2, ::2].
+//  * B14: Lucas-Kanade's pyramid, transflow_tpu/flow/estimators/
+//    lucas_kanade.py:71-78: both uint8 frames cast to float32, then
+//    transflow_tpu/ops/image.py:234 downsample2x repeated (the binomial
+//    [1, 4, 6, 4, 1] / 16 along each axis with symmetric padding, then
+//    [::2, ::2]); also downsample2x alone on a float32 image.
 //
 // Numbers. Every sum is taken in tap (or band) order from its first term,
 // each product __fmul_rn and each sum __fadd_rn (no contraction), the
@@ -28,9 +31,11 @@
 // full resolution costs 2 (2R + 1) float32 operations a pixel and image
 // (R = 2, 5, 11), the rest less: 455 M operations, 6.8 us at 67 TFLOP/s,
 // so the pyramid is bound by operations (chip_smoke prints each bound).
-// B14 reads a float32 level and writes a quarter of it, bound by bytes.
+// B14 at 1080x1920 under lukas-kanade.json reads both uint8 frames (4.1
+// MB) and writes their float32 levels L0-L2 (21.8 MB): 7.7 us at 3.35
+// TB/s, bound by bytes.
 //
-// What the design does about it. One launch makes every level of both
+// What the design does about it. B8: one launch makes every level of both
 // images: the grid enumerates (level, image, tile), the levels with the
 // largest blur (the longest tiles) first, so the card fills once; every
 // level reads the same frames, which stay in L2. A block of 256 threads
@@ -63,10 +68,27 @@
 // whose long bands hold it, written to an (lh, W) float32 scratch), and
 // its tiles in the pyramid's launch make steps 2 and 3 from that scratch,
 // so each vertical sum is made once.
-// B14: a block of 8 x 32 outputs stages its input tile (19 x 67 values,
-// loads coalesced and independent) in shared memory, makes the vertical
-// pass at the even rows there, then the horizontal pass at the even
-// columns.
+// B14: one launch makes every level of both frames: the source's float32
+// copy and up to two reduces (a third and fourth reduce take a second
+// launch from level 2, and so on). A block of 256 threads makes a tile of
+// 64 x 128 source values and the 32 x 64 and 16 x 32 values below them:
+//  1. it copies the source rows and columns its tile reads (level 2's
+//     sources' sources, 73 x 137 at most; as uint8, a quarter of the
+//     float32 bytes) into shared memory, cp.async 16-byte copies where the
+//     rows are 16-byte aligned; indices are reflected against each level's
+//     own size, so every one lies inside the rows and columns copied;
+//  2. it stores its 64 x 128 float32 copy as float4, coalesced;
+//  3. level 1 in shared memory (its values under level 2's tile and their
+//     halo, each recomputed by every block that needs it, with the same
+//     sums in the same order): the vertical pass at its rows, 4 rows of 4
+//     columns a thread from a window of 11 words (each byte read as a
+//     float without a conversion instruction), into even and odd column
+//     planes; then the horizontal pass, 4 values a thread from 4 vector
+//     loads of the planes;
+//  4. level 2 from level 1, the same two passes (a row of 4 columns, then
+//     a value, a thread).
+// PERF.md times copies of this kernel cut after each step. A float32 image
+// (ops/image.py's downsample2x) takes the same kernel without the copy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,11 +113,29 @@ constexpr int kFields = 23;     // B8: int64 fields of a level in the table
 constexpr int kWhole = 0;
 constexpr int kRows = 1;
 constexpr int kColumns = 2;
-constexpr int kReduceRows = 8;   // B14: a block's output rows
-constexpr int kReduceCols = 32;  // B14: a block's output columns
-constexpr int kReduceRadius = 2;
-constexpr int kReduceInRows = 2 * (kReduceRows - 1) + 1 + 2 * kReduceRadius;
-constexpr int kReduceInCols = 2 * (kReduceCols - 1) + 1 + 2 * kReduceRadius;
+constexpr int kLkMaxDown = 2;  // B14: reduces a launch
+// B14: a block's rows and columns of its launch's first level (the
+// source), halved at each level below (510 blocks at 1080p, one wave of
+// four blocks an SM: 32-row tiles, more blocks of shorter tiles and
+// persistent blocks that copy their next tile's rows while making one
+// were all slower)
+constexpr int kLkRows = 64;
+constexpr int kLkCols = 128;
+// B14: a thread's rows of vertical sums at level 1 (4 columns at once) and
+// at level 2
+constexpr int kLkRun = 4;
+constexpr int kLkRun2 = 1;
+// B14: the most rows and columns a block needs of level 1 (the sources of
+// level 2's 16 x 32) and of the source (those of level 1's)
+constexpr int kLkMidRows = 2 * ((kLkRows >> 2) - 1) + 5;
+constexpr int kLkMidCols = 2 * ((kLkCols >> 2) - 1) + 5;
+constexpr int kLkSrcRows = 2 * (kLkMidRows - 1) + 5;
+constexpr int kLkSrcCols = 2 * (kLkMidCols - 1) + 5;
+constexpr int kLkMidPitch = (kLkMidCols + 6 + 3) / 4 * 4;
+// B14: the floats of a plane of vertical sums (even or odd columns), 16
+// more than a multiple of 32
+constexpr int kLkHalf1 = ((kLkSrcCols + 15 + 3) / 2 + 15) / 32 * 32 + 16;
+constexpr int kLkHalf2 = ((kLkMidCols + 7) / 2 + 15) / 32 * 32 + 16;
 constexpr int kSmemDefault = 48 * 1024;
 constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
 constexpr int kMaxDevices = 64;
@@ -627,50 +667,366 @@ __global__ void __launch_bounds__(kThreads, kLevelBlocks)
 // B14
 // ---------------------------------------------------------------------------
 
-struct ReduceArgs {
-  const float* src[2];
-  float* dst[2];
-  int H, W, OH, OW;
-  const float* taps;
+constexpr int lk_round(int n, int m) { return (n + m - 1) / m * m; }
+
+// B14's shared memory, offsets in bytes: the stage of the source's rows
+// (16-byte copies from a column rounded down to a whole copy); level 1's
+// vertical sums at the stage's columns, each row two planes (even and odd
+// columns, kLkHalf1 floats apart, 16 more than a multiple of 32, so the
+// two planes' halves of a warp's accesses fall on different banks);
+// level 1's values where level 2 reads them (from lk_pyramid_kernel's
+// column s1lo on, stored and read as float4); level 2's vertical sums, in
+// planes as level 1's
+template <typename T>
+struct LkLayout {
+  static constexpr int v = 16 / static_cast<int>(sizeof(T));
+  static constexpr int pitch = lk_round(kLkSrcCols + 2 * (v - 1), v);
+  static constexpr int v1 = lk_round(kLkSrcRows * pitch * sizeof(T), 16);
+  static constexpr int s1 = v1 + kLkMidRows * 2 * kLkHalf1 * 4;
+  static constexpr int v2 = s1 + kLkMidRows * kLkMidPitch * 4;
+  static constexpr int bytes = v2 + (kLkRows >> 2) * 2 * kLkHalf2 * 4;
 };
 
+// A launch's levels: the source (level 0, uint8 frames or a float32
+// level) and the n_down levels below it, each (H[l], W[l]); dst[l][k] is
+// image k's level l (dst[0]: a uint8 source's float32 copy)
+struct LkArgs {
+  const void* src[2];
+  float* dst[kLkMaxDown + 1][2];
+  int H[kLkMaxDown + 1], W[kLkMaxDown + 1];
+  int n_down;
+  int vec;   // the source's rows are 16-byte aligned: cp.async copies
+  int wide;  // the float32 copy's rows are 16-byte aligned: float4 stores
+};
+
+// the binomial [1, 4, 6, 4, 1] / 16 (exact in float32) added from the
+// first tap, each product and sum rounded
+__device__ __forceinline__ float reduce5(float a, float b, float c, float d,
+                                         float e) {
+  float acc = mul(a, 0.0625f);
+  acc = add(acc, mul(b, 0.25f));
+  acc = add(acc, mul(c, 0.375f));
+  acc = add(acc, mul(d, 0.25f));
+  return add(acc, mul(e, 0.0625f));
+}
+
+// A thread's items (q, j) of a grid nc wide, j first: item p = q nc + j
+// for p = threadIdx.x, + kThreads, ... (two divisions a pass, none an
+// item)
+struct Walk {
+  int q, j, dq, dj, nc;
+  __device__ __forceinline__ explicit Walk(int n) : nc(n) {
+    q = threadIdx.x / nc;
+    j = threadIdx.x - q * nc;
+    dq = kThreads / nc;
+    dj = kThreads - dq * nc;
+  }
+  __device__ __forceinline__ void next() {
+    q += dq;
+    j += dj;
+    if (j >= nc) {
+      j -= nc;
+      ++q;
+    }
+  }
+};
+
+// Four consecutive values in shared memory: a word of four uint8, each
+// read as a float by at(e) (2^23 + b, less 2^23: exact, with no
+// conversion instruction), or a float4
+template <typename S>
+struct Quad;
+template <>
+struct Quad<unsigned char> {
+  unsigned w;
+  __device__ __forceinline__ void load(const unsigned char* p) {
+    w = *reinterpret_cast<const unsigned*>(p);
+  }
+  __device__ __forceinline__ float at(int e) const {
+    return __fsub_rn(__int_as_float(__byte_perm(w, 0x4b000000u, 0x7540 + e)),
+                     8388608.0f);
+  }
+};
+template <>
+struct Quad<float> {
+  float4 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ float at(int e) const {
+    return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+  }
+};
+
+// The vertical sums of a level's rows rlo .. rlo + nr - 1 (each from the
+// level above's rows 2r - 2 .. 2r + 2, reflected against its height H) at
+// the level above's columns in ``in``, four at once. ``in`` holds the
+// level above's rows from row in_lo on (in_rows of them, ``pitch``
+// elements apart), its columns 4 g .. 4 g + 3 for g < ng 16-byte
+// aligned. Sum (r, c) for local column c goes to ``out`` row r - rlo,
+// plane c & 1, entry c >> 1 (kHalf floats a plane): each thread kRun rows
+// of four columns from one window of 2 kRun + 3 quads (rows read in place
+// where the window lies inside the level), columns 0 and 2 stored as a
+// float2 to the even plane, 1 and 3 to the odd one.
+template <int kHalf, int kRun, typename S>
+__device__ __forceinline__ void lk_vertical_quads(
+    const S* __restrict__ in, int pitch, int in_lo, int in_rows, int H,
+    int rlo, int nr, int ng, float* __restrict__ out) {
+  constexpr int kWin = 2 * kRun + 3;
+  const int runs = (nr + kRun - 1) / kRun;
+  for (Walk w(ng); w.q < runs; w.next()) {
+    const int r0 = w.q * kRun;
+    const int first = 2 * (rlo + r0) - 2;  // the window's first row
+    const S* col = in + 4 * w.j;
+    Quad<S> x[kWin];
+    if (r0 + kRun <= nr && first >= 0 && first + kWin <= H) {
+#pragma unroll
+      for (int k = 0; k < kWin; ++k)
+        x[k].load(col + (first - in_lo + k) * pitch);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kWin; ++k) {
+        // a run cut short at the level's last row reads any staged row
+        const int row =
+            min(max(reflect(first + k, H) - in_lo, 0), in_rows - 1);
+        x[k].load(col + row * pitch);
+      }
+    }
+    float* o = out + r0 * 2 * kHalf + 2 * w.j;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float y[kRun][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[kWin];
+#pragma unroll
+        for (int k = 0; k < kWin; ++k) v[k] = x[k].at(e + 2 * h);
+#pragma unroll
+        for (int m = 0; m < kRun; ++m)
+          y[m][h] = reduce5(v[2 * m], v[2 * m + 1], v[2 * m + 2],
+                            v[2 * m + 3], v[2 * m + 4]);
+      }
+#pragma unroll
+      for (int m = 0; m < kRun; ++m)
+        if (r0 + m < nr)
+          *reinterpret_cast<float2*>(o + m * 2 * kHalf + e * kHalf) =
+              make_float2(y[m][0], y[m][1]);
+    }
+  }
+}
+
+// floor(a / 4)
+__device__ __forceinline__ int floor4(int a) { return a >> 2; }
+
+// Level 1's values at rows 0 .. nr - 1 of ``sums`` (lk_vertical_quads',
+// planes from the level above's column 2 b) and columns clo .. clo + nc -
+// 1, four a thread: the group c0 .. c0 + 3, c0 = b + 1 + 4 g, reads the
+// even plane's entries 4 g .. 4 g + 5 and the odd one's 4 g .. 4 g + 4 (a
+// float4 and a float2, a float4 and a float) where its sources lie inside
+// the width W, else each value's five reflected columns. The group's
+// values go to emit(i, g - g0, y) (g0 the first group), those inside clo
+// .. clo + nc - 1 flagged by ``valid``.
+template <typename Emit>
+__device__ __forceinline__ void lk_horizontal_quads(
+    const float* __restrict__ sums, int b, int W, int nr, int clo, int nc,
+    Emit emit) {
+  const int g0 = floor4(clo - b - 1);
+  const int ng = floor4(clo + nc - 1 - b - 1) - g0 + 1;
+  for (Walk w(ng); w.q < nr; w.next()) {
+    const int g = g0 + w.j, c0 = b + 1 + 4 * g;
+    const float* even = sums + w.q * 2 * kLkHalf1;
+    const float* odd = even + kLkHalf1;
+    float y[4];
+    if (g >= 0 && 2 * c0 + 8 < W) {
+      const float4 e0 = *reinterpret_cast<const float4*>(even + 4 * g);
+      const float2 e1 = *reinterpret_cast<const float2*>(even + 4 * g + 4);
+      const float4 o0 = *reinterpret_cast<const float4*>(odd + 4 * g);
+      const float o1 = odd[4 * g + 4];
+      y[0] = reduce5(e0.x, o0.x, e0.y, o0.y, e0.z);
+      y[1] = reduce5(e0.y, o0.y, e0.z, o0.z, e0.w);
+      y[2] = reduce5(e0.z, o0.z, e0.w, o0.w, e1.x);
+      y[3] = reduce5(e0.w, o0.w, e1.x, o1, e1.y);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = c0 + u;
+        y[u] = 0.0f;
+        if (c >= clo && c < clo + nc) {
+          float x[5];
+#pragma unroll
+          for (int t = 0; t < 5; ++t) {
+            const int s = reflect(2 * c - 2 + t, W);
+            x[t] = even[(s & 1) * kLkHalf1 + (s >> 1) - b];
+          }
+          y[u] = reduce5(x[0], x[1], x[2], x[3], x[4]);
+        }
+      }
+    }
+    emit(w.q, w.j, c0, y);
+  }
+}
+
+// A level's values at rows 0 .. nr - 1 of ``sums`` (lk_vertical_quads',
+// whose local column 0 is the level above's column sclo) and columns clo
+// .. clo + nc - 1, each from the level above's columns 2c - 2 .. 2c + 2
+// reflected against its width W, a value a thread; value (i, j) goes to
+// emit(i, j, value)
+template <int kHalf, typename Emit>
+__device__ __forceinline__ void lk_horizontal(const float* __restrict__ sums,
+                                              int sclo, int W, int nr,
+                                              int clo, int nc, Emit emit) {
+  for (Walk w(nc); w.q < nr; w.next()) {
+    const int i = w.q, c = clo + w.j;
+    const float* row = sums + i * 2 * kHalf;
+    float x[5];
+    if (c >= 1 && 2 * c + 2 < W) {
+#pragma unroll
+      for (int t = 0; t < 5; ++t) {
+        const int s = 2 * c - 2 + t - sclo;
+        x[t] = row[(s & 1) * kHalf + (s >> 1)];
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < 5; ++t) {
+        const int s = reflect(2 * c - 2 + t, W) - sclo;
+        x[t] = row[(s & 1) * kHalf + (s >> 1)];
+      }
+    }
+    emit(i, w.j, reduce5(x[0], x[1], x[2], x[3], x[4]));
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    pyramid_kernel(const ReduceArgs a) {
-  // stage the input tile, the vertical pass at the even rows, the
-  // horizontal pass at the even columns
-  const float* __restrict__ src = blockIdx.z ? a.src[1] : a.src[0];
-  float* __restrict__ dst = blockIdx.z ? a.dst[1] : a.dst[0];
-  const int tid = threadIdx.x;
-  __shared__ float xs[kReduceInRows][kReduceInCols];
-  __shared__ float ts[kReduceRows][kReduceInCols];
-  __shared__ float taps[2 * kReduceRadius + 1];
-  const int i0 = blockIdx.y * kReduceRows;
-  const int j0 = blockIdx.x * kReduceCols;
-  if (tid < 2 * kReduceRadius + 1) taps[tid] = a.taps[tid];
-  for (int p = tid; p < kReduceInRows * kReduceInCols; p += kThreads) {
-    const int rr = p / kReduceInCols, cc = p % kReduceInCols;
-    xs[rr][cc] = load(src + (long long)reflect(2 * i0 - kReduceRadius + rr,
-                                               a.H) * a.W +
-                      reflect(2 * j0 - kReduceRadius + cc, a.W));
+    lk_pyramid_kernel(const __grid_constant__ LkArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using Lay = LkLayout<T>;
+  constexpr int v = Lay::v;
+  T* stage = reinterpret_cast<T*>(smem);
+  float* v1 = reinterpret_cast<float*>(smem + Lay::v1);
+  float* s1 = reinterpret_cast<float*>(smem + Lay::s1);
+  float* v2 = reinterpret_cast<float*>(smem + Lay::v2);
+  const int n = a.n_down, image = blockIdx.z, tid = threadIdx.x;
+  // the rows rlo .. rhi and columns clo .. chi of each level the tile
+  // needs: at level n its own, above it the sources of the level below
+  // (every reflected index of them lies inside)
+  int rlo[kLkMaxDown + 1], rhi[kLkMaxDown + 1];
+  int clo[kLkMaxDown + 1], chi[kLkMaxDown + 1];
+#pragma unroll
+  for (int l = kLkMaxDown; l >= 0; --l) {
+    if (l == n) {
+      rlo[l] = blockIdx.y * (kLkRows >> l);
+      clo[l] = blockIdx.x * (kLkCols >> l);
+      rhi[l] = min(rlo[l] + (kLkRows >> l), a.H[l]) - 1;
+      chi[l] = min(clo[l] + (kLkCols >> l), a.W[l]) - 1;
+    } else if (l < n) {
+      const int b = min(l + 1, kLkMaxDown);
+      rlo[l] = max(2 * rlo[b] - 2, 0);
+      clo[l] = max(2 * clo[b] - 2, 0);
+      rhi[l] = min(2 * rhi[b] + 2, a.H[l] - 1);
+      chi[l] = min(2 * chi[b] + 2, a.W[l] - 1);
+    }
+  }
+  // 1. the source's rows rlo[0] .. rhi[0], columns a0 .. chi[0]
+  const T* __restrict__ src = static_cast<const T*>(a.src[image]);
+  const int a0 = clo[0] / v * v, rows0 = rhi[0] - rlo[0] + 1;
+  if (a.vec) {
+    const int chunks = (chi[0] - a0) / v + 1;
+    for (int p = tid; p < rows0 * chunks; p += kThreads) {
+      const int r = p / chunks, k = p - r * chunks;
+      cp_async16(stage + r * Lay::pitch + k * v,
+                 src + (long long)(rlo[0] + r) * a.W[0] + a0 + k * v);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    const int cols = chi[0] - clo[0] + 1;
+    for (int p = tid; p < rows0 * cols; p += kThreads) {
+      const int r = p / cols, c = p - r * cols;
+      stage[r * Lay::pitch + clo[0] - a0 + c] =
+          src[(long long)(rlo[0] + r) * a.W[0] + clo[0] + c];
+    }
   }
   __syncthreads();
-  for (int p = tid; p < kReduceRows * kReduceInCols; p += kThreads) {
-    const int i = p / kReduceInCols, c = p % kReduceInCols;
-    float acc = mul(xs[2 * i][c], taps[0]);
-#pragma unroll
-    for (int t = 1; t < 2 * kReduceRadius + 1; ++t)
-      acc = add(acc, mul(xs[2 * i + t][c], taps[t]));
-    ts[i][c] = acc;
+  // 2. a uint8 source's float32 copy of the tile, coalesced
+  if constexpr (std::is_same_v<T, unsigned char>) {
+    float* __restrict__ dst = a.dst[0][image];
+    const int i0 = blockIdx.y * kLkRows, j0 = blockIdx.x * kLkCols;
+    const int rows = min(kLkRows, a.H[0] - i0);
+    const int cols = min(kLkCols, a.W[0] - j0);
+    const unsigned char* s = stage + (i0 - rlo[0]) * Lay::pitch + j0 - a0;
+    if (a.wide) {
+      // a thread's four columns j, its rows i, i + kStep, ...
+      constexpr int kQuads = kLkCols / 4, kStep = kThreads / kQuads;
+      const int i = tid / kQuads, j = tid % kQuads * 4;
+      if (j < cols) {
+        const unsigned char* from = s + i * Lay::pitch + j;
+        float* to = dst + (long long)(i0 + i) * a.W[0] + j0 + j;
+        for (int r = i; r < rows; r += kStep) {
+          Quad<unsigned char> u;
+          u.load(from);
+          *reinterpret_cast<float4*>(to) =
+              make_float4(u.at(0), u.at(1), u.at(2), u.at(3));
+          from += kStep * Lay::pitch;
+          to += (long long)kStep * a.W[0];
+        }
+      }
+    } else {
+      for (int p = tid; p < rows * kLkCols; p += kThreads) {
+        const int i = p / kLkCols, j = p % kLkCols;
+        if (j < cols)
+          dst[(long long)(i0 + i) * a.W[0] + j0 + j] =
+              static_cast<float>(s[i * Lay::pitch + j]);
+      }
+    }
   }
+  if (n == 0) return;
+  // 3. level 1: the vertical sums at the source's columns, then each
+  // value, kept where level 2 reads it and stored where the tile owns it
+  const int rlo1 = rlo[1], clo1 = clo[1];
+  const int rows1 = rhi[1] - rlo1 + 1, cols1 = chi[1] - clo1 + 1;
+  lk_vertical_quads<kLkHalf1, kLkRun>(stage, Lay::pitch, rlo[0], rows0,
+                                      a.H[0], rlo1, rows1,
+                                      (chi[0] - a0) / 4 + 1, v1);
   __syncthreads();
-  const int i = tid / kReduceCols, j = tid % kReduceCols;
-  if (i0 + i < a.OH && j0 + j < a.OW) {
-    float acc = mul(ts[i][2 * j], taps[0]);
+  // level 1's kept values from column s1lo on, the first group's first
+  const int b1 = a0 >> 1, s1lo = b1 + 1 + 4 * floor4(clo1 - b1 - 1);
+  {
+    float* __restrict__ dst = a.dst[1][image];
+    const int i0 = blockIdx.y * (kLkRows >> 1) - rlo1;
+    const int j0 = blockIdx.x * (kLkCols >> 1);
+    const int W1 = a.W[1], chi1 = chi[1];
+    const bool keep = n > 1;
+    lk_horizontal_quads(v1, b1, a.W[0], rows1, clo1, cols1,
+                        [=](int i, int g, int c0, const float (&y)[4]) {
+      if (keep)
+        *reinterpret_cast<float4*>(s1 + i * kLkMidPitch + 4 * g) =
+            make_float4(y[0], y[1], y[2], y[3]);
+      if (i >= i0 && i < i0 + (kLkRows >> 1)) {
+        float* row = dst + (long long)(rlo1 + i) * W1;
 #pragma unroll
-    for (int t = 1; t < 2 * kReduceRadius + 1; ++t)
-      acc = add(acc, mul(ts[i][2 * j + t], taps[t]));
-    dst[(long long)(i0 + i) * a.OW + j0 + j] = acc;
+        for (int u = 0; u < 4; ++u) {
+          const int c = c0 + u;
+          if (c >= max(clo1, j0) && c <= min(chi1, j0 + (kLkCols >> 1) - 1))
+            row[c] = y[u];
+        }
+      }
+    });
   }
+  if (n == 1) return;
+  // 4. level 2 from level 1's values, every one the tile's own
+  __syncthreads();
+  const int rlo2 = rlo[2], clo2 = clo[2], rows2 = rhi[2] - rlo2 + 1;
+  lk_vertical_quads<kLkHalf2, kLkRun2>(s1, kLkMidPitch, rlo1, rows1,
+                                       a.H[1], rlo2, rows2,
+                                       (chi[1] - s1lo) / 4 + 1, v2);
+  __syncthreads();
+  float* __restrict__ dst = a.dst[2][image];
+  const int W2 = a.W[2];
+  lk_horizontal<kLkHalf2>(v2, s1lo, a.W[1], rows2, clo2, chi[2] - clo2 + 1,
+                          [=](int i, int j, float y) {
+    dst[(long long)(rlo2 + i) * W2 + clo2 + j] = y;
+  });
 }
 
 // raise a kernel's dynamic shared memory limit to the H100's, once per
@@ -697,6 +1053,18 @@ int launch_levels(const LevelsArgs& a, int blocks, int smem,
     if (err != cudaSuccess) return (int)err;
   }
   pyramid_levels_kernel<T><<<blocks, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_lk(const LkArgs& a, dim3 grid, cudaStream_t stream) {
+  constexpr int bytes = LkLayout<T>::bytes;
+  if constexpr (bytes > kSmemDefault) {
+    static bool raised[kMaxDevices] = {};
+    const cudaError_t err = allow_smem(lk_pyramid_kernel<T>, raised);
+    if (err != cudaSuccess) return (int)err;
+  }
+  lk_pyramid_kernel<T><<<grid, kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -791,28 +1159,48 @@ extern "C" int transflow_pyramid_levels(const void* table, int n_levels,
   return launch_levels<bf16>(a, (int)blocks, smem, s);
 }
 
-// B14. src0, src1: (H, W) float32 images, the second unused when n_images
-// is 1; dst0, dst1: ((H + 1) / 2, (W + 1) / 2) float32; taps: the five
-// float32 taps. Returns a cudaError_t.
-extern "C" int transflow_pyramid_reduce(const void* src0, const void* src1,
-                                        int n_images, void* dst0, void* dst1,
-                                        int H, int W, const void* taps,
-                                        void* stream) {
-  if (n_images < 1 || n_images > 2 || H < 1 || W < 1)
+// B14: ``n_down`` (0 to kLkMaxDown) reduces of one or two (H, W) images
+// (dtype 0 float32 or 2 uint8) in one launch. ``dst_table`` (host memory)
+// holds 2 (kLkMaxDown + 1) int64: image k's level l at [2 l + k], level l
+// ((H_{l-1} + 1) / 2, (W_{l-1} + 1) / 2) float32, level 0 a uint8
+// source's float32 copy (unused for a float32 source, which needs at
+// least one reduce). Returns a cudaError_t.
+extern "C" int transflow_lk_pyramid(const void* src0, const void* src1,
+                                    int n_images, int dtype,
+                                    const void* dst_table, int H, int W,
+                                    int n_down, void* stream) {
+  if (n_images < 1 || n_images > 2 || H < 1 || W < 1 || n_down < 0 ||
+      n_down > kLkMaxDown || (dtype != 0 && dtype != 2) ||
+      (dtype == 0 && n_down < 1) || !src0 || (n_images == 2 && !src1))
     return (int)cudaErrorInvalidValue;
-  ReduceArgs a = {};
-  a.src[0] = static_cast<const float*>(src0);
-  a.src[1] = static_cast<const float*>(src1);
-  a.dst[0] = static_cast<float*>(dst0);
-  a.dst[1] = static_cast<float*>(dst1);
-  a.H = H;
-  a.W = W;
-  a.OH = (H + 1) / 2;
-  a.OW = (W + 1) / 2;
-  a.taps = static_cast<const float*>(taps);
-  const dim3 grid((a.OW + kReduceCols - 1) / kReduceCols,
-                  (a.OH + kReduceRows - 1) / kReduceRows, n_images);
-  pyramid_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a);
-  return (int)cudaGetLastError();
+  const long long* t = static_cast<const long long*>(dst_table);
+  LkArgs a = {};
+  a.src[0] = src0;
+  a.src[1] = src1;
+  a.n_down = n_down;
+  for (int l = 0; l <= kLkMaxDown; ++l) {
+    a.H[l] = l ? (a.H[l - 1] + 1) / 2 : H;
+    a.W[l] = l ? (a.W[l - 1] + 1) / 2 : W;
+    for (int k = 0; k < 2; ++k)
+      a.dst[l][k] = reinterpret_cast<float*>(t[2 * l + k]);
+  }
+  for (int l = dtype == 0 ? 1 : 0; l <= n_down; ++l)
+    for (int k = 0; k < n_images; ++k)
+      if (!a.dst[l][k]) return (int)cudaErrorInvalidValue;
+  const uintptr_t mask = 15;
+  const auto aligned = [&](const void* p0, const void* p1) {
+    return (reinterpret_cast<uintptr_t>(p0) & mask) == 0 &&
+           (n_images < 2 || (reinterpret_cast<uintptr_t>(p1) & mask) == 0);
+  };
+  const int itemsize = dtype == 0 ? 4 : 1;
+  a.vec = (W * itemsize) % 16 == 0 && aligned(src0, src1);
+  a.wide = dtype == 2 && W % 4 == 0 && aligned(a.dst[0][0], a.dst[0][1]);
+  const dim3 grid((a.W[n_down] + (kLkCols >> n_down) - 1) /
+                      (kLkCols >> n_down),
+                  (a.H[n_down] + (kLkRows >> n_down) - 1) /
+                      (kLkRows >> n_down),
+                  n_images);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_lk<float>(a, grid, s);
+  return launch_lk<unsigned char>(a, grid, s);
 }

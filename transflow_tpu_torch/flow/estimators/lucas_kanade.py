@@ -5,9 +5,10 @@ flow/methods/lukas_kanade.py tracks every ``step``-th pixel with
 cv2.calcOpticalFlowPyrLK; the JAX package solves the windowed 2x2 system
 densely at every pixel, then subsamples and repeats to macroblocks):
 
-1. a pyramid of ``downsample2x`` levels (kernel B14,
-   ``ops/pyramid.py``: one launch a level for both images), which stops
-   once a level's short side is below twice the window;
+1. the pyramid (kernel B14, ``ops/pyramid.py::lk_pyramid``): both uint8
+   frames cast to float32, then ``downsample2x`` levels until a level's
+   short side is below twice the window, every level of both frames in
+   one launch (one more for each two levels beyond the second);
 2. per level, coarsest first: the flow resized up (``bilinear_resize``,
    times 2), Scharr derivatives of the first image, the structure tensor
    (kernel B12 in its tensor mode), then ``iters`` updates, each the warp
@@ -27,7 +28,7 @@ import torch
 from ...ops.image import bilinear_resize, separable_correlate
 from ...ops.lucas_kanade import (lk_structure_tensor, lk_warp_products,
                                  lk_window_solve)
-from ...ops.pyramid import downsample2x
+from ...ops.pyramid import lk_pyramid
 
 __all__ = ["lucas_kanade"]
 
@@ -61,22 +62,16 @@ def lucas_kanade(prev_gray, next_gray, *, win_size: int = 15,
     prev_gray = torch.as_tensor(prev_gray)
     next_gray = torch.as_tensor(next_gray, device=prev_gray.device)
     h, w = prev_gray.shape
-    pyr_prev = [prev_gray.float().contiguous()]
-    pyr_next = [next_gray.float().contiguous()]
-    for _ in range(max_level):
-        if min(pyr_prev[-1].shape) < 2 * win_size:
-            break
-        prev, nxt = downsample2x((pyr_prev[-1], pyr_next[-1]))
-        pyr_prev.append(prev)
-        pyr_next.append(nxt)
-    flow = torch.zeros((*pyr_prev[-1].shape, 2), dtype=torch.float32,
+    pyramid = lk_pyramid(prev_gray.contiguous(), next_gray.contiguous(),
+                         win_size, max_level)
+    flow = torch.zeros((*pyramid[-1][0].shape, 2), dtype=torch.float32,
                        device=prev_gray.device)
-    for level in range(len(pyr_prev) - 1, -1, -1):
-        lh, lw = pyr_prev[level].shape
+    for level in range(len(pyramid) - 1, -1, -1):
+        prev, nxt = pyramid[level]
+        lh, lw = prev.shape
         if tuple(flow.shape[:2]) != (lh, lw):
             flow = 2.0 * bilinear_resize(flow, lh, lw)
-        flow = _lk_level(pyr_prev[level], pyr_next[level], flow, win_size,
-                         iters)
+        flow = _lk_level(prev, nxt, flow, win_size, iters)
     if step > 1:
         sampled = flow[::step, ::step]
         sh, sw = sampled.shape[:2]

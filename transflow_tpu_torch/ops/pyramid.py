@@ -1,5 +1,5 @@
 """The image pyramids' level construction: kernels B8 (Farneback's
-blur-and-resize pyramid) and B14 (Lucas-Kanade's reduce), in one CUDA
+blur-and-resize pyramid) and B14 (Lucas-Kanade's pyramid), in one CUDA
 source (``csrc/pyramid.cu``).
 
 Counterpart of jnp code that XLA fuses (there is no Pallas source):
@@ -13,16 +13,19 @@ Counterpart of jnp code that XLA fuses (there is no Pallas source):
   float32 taps), then JAX's anti-aliased linear resize to (lh, lw); every
   level of one or two images in one launch (a list of tuples, one a
   level);
-- B14 ``downsample2x``: transflow_tpu/ops/image.py:234, the 5-tap binomial
-  ``[1, 4, 6, 4, 1] / 16`` along each axis with symmetric padding, then
-  ``[::2, ::2]`` (an odd size rounds up); both images of a level in one
-  launch (a tuple).
+- B14 ``lk_pyramid``: transflow_tpu/flow/estimators/lucas_kanade.py:71-78,
+  both uint8 frames cast to float32, then transflow_tpu/ops/image.py:234
+  ``downsample2x`` (the 5-tap binomial ``[1, 4, 6, 4, 1] / 16`` along
+  each axis with symmetric padding, then ``[::2, ::2]``: an odd size
+  rounds up) while a level's short side is at least twice the window:
+  every level of both frames, the casts included, in one launch (a list
+  of (prev, next) tuples, one a level); ``downsample2x``, one reduce of
+  one or two float32 images, is the same kernel.
 
 As in ``ops/farneback.py``, each has a plain PyTorch version (``*_plain``),
 a wrapper that launches the hand-written kernel and counts its launches
 (``*_cuda``), and a dispatcher by device with no fallback between the two.
-Each takes one or two (H, W) images of one shape and dtype and returns
-float32 images.
+Each returns float32 images.
 
 The four passes of B8 are linear and each acts along one axis, so any
 order that keeps each axis's blur before its resize computes the same
@@ -44,9 +47,13 @@ import torch
 from .._device import DTYPE_CODES, check_cuda, cuda_stream, dispatch, launch
 from .image import gaussian_kernel_1d, ordered_correlate, rounded_taps
 
-# B14's taps, the JAX function's float32 constants
+# B14's taps, the JAX function's float32 constants (the kernel's literals:
+# 0.0625, 0.25, 0.375, exact), its reduces a launch (csrc/pyramid.cu:
+# kLkMaxDown) and its sources' dtype codes
 REDUCE_TAPS = tuple((np.asarray([1.0, 4.0, 6.0, 4.0, 1.0], np.float32)
                      / np.float32(16.0)).tolist())
+LK_MAX_DOWN = 2
+LK_CODES = {torch.float32: 0, torch.uint8: 2}
 # csrc/pyramid.cu: B8's threads a block (a tile's segment columns), its
 # tiles' most output columns, the tile heights a plan weighs, the sums a
 # whole level's column makes from a slab of staged rows, its levels a
@@ -176,13 +183,6 @@ def _check_images(name: str, images) -> None:
         raise ValueError(f"{name} needs one or two (H, W) images of one "
                          "shape and dtype, got "
                          f"{[(tuple(t.shape), t.dtype) for t in images]}")
-
-
-@functools.lru_cache(maxsize=None)
-def _reduce_taps_on(device: torch.device) -> torch.Tensor:
-    """B14's taps on ``device``, copied there once: a copy from host
-    memory on every call would make the host wait for the card."""
-    return torch.tensor(REDUCE_TAPS, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -512,8 +512,40 @@ def pyramid_levels(images, levels) -> list[tuple[torch.Tensor, ...]]:
 
 
 # ---------------------------------------------------------------------------
-# B14: Lucas-Kanade's reduce
+# B14: Lucas-Kanade's pyramid
 # ---------------------------------------------------------------------------
+
+def lk_shapes(h: int, w: int, win_size: int, max_level: int
+              ) -> list[tuple[int, int]]:
+    """The (h, w) of each level of Lucas-Kanade's pyramid of an (h, w)
+    frame, L0 first: a level below the last while that one's short side
+    is at least twice the window, at most ``max_level`` of them, each
+    rounded up (transflow_tpu/flow/estimators/lucas_kanade.py:74-78)."""
+    shapes = [(h, w)]
+    for _ in range(max_level):
+        if min(shapes[-1]) < 2 * win_size:
+            break
+        lh, lw = shapes[-1]
+        shapes.append(((lh + 1) // 2, (lw + 1) // 2))
+    return shapes
+
+
+def lk_launches(levels: int) -> int:
+    """B14's launches for a pyramid of ``levels`` levels (L0 included):
+    one for the frames' float32 copies and up to ``LK_MAX_DOWN`` reduces,
+    one more for each further ``LK_MAX_DOWN``."""
+    return 1 + max(0, -(-(levels - 1 - LK_MAX_DOWN) // LK_MAX_DOWN))
+
+
+def _check_frames(name: str, prev: torch.Tensor, nxt: torch.Tensor) -> None:
+    if prev.dim() != 2 or prev.shape != nxt.shape or prev.dtype != \
+            torch.uint8 or nxt.dtype != torch.uint8 or \
+            prev.device != nxt.device:
+        raise ValueError(f"{name} needs two (H, W) uint8 frames of one "
+                         f"shape on one device, got {tuple(prev.shape)} "
+                         f"{prev.dtype} on {prev.device} and "
+                         f"{tuple(nxt.shape)} {nxt.dtype} on {nxt.device}")
+
 
 def downsample2x_plain(images) -> tuple[torch.Tensor, ...]:
     """Each (H, W) image blurred by ``REDUCE_TAPS`` along each axis
@@ -527,9 +559,97 @@ def downsample2x_plain(images) -> tuple[torch.Tensor, ...]:
     return tuple(outs)
 
 
+def lk_pyramid_plain(prev: torch.Tensor, nxt: torch.Tensor, win_size: int,
+                     max_level: int) -> list[tuple[torch.Tensor, ...]]:
+    """Lucas-Kanade's pyramid of two (H, W) uint8 frames: their float32
+    casts (L0), then ``downsample2x_plain`` of both at each level of
+    ``lk_shapes``; a (prev, next) tuple a level, L0 first."""
+    _check_frames("lk_pyramid_plain", prev, nxt)
+    levels = [(prev.float().contiguous(), nxt.float().contiguous())]
+    for _ in lk_shapes(*prev.shape, win_size, max_level)[1:]:
+        levels.append(downsample2x_plain(levels[-1]))
+    return levels
+
+
+def _lk_table(levels) -> np.ndarray:
+    """``transflow_lk_pyramid``'s table: image k's level l at [2 l + k]
+    (``levels`` a tuple of images a level, the launch's source first), 0
+    where a launch writes no level."""
+    table = np.zeros(2 * (LK_MAX_DOWN + 1), np.int64)
+    for l, images in enumerate(levels):
+        for k, t in enumerate(images):
+            table[2 * l + k] = t.data_ptr()
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _lk_plan(shapes: tuple) -> tuple[int, tuple]:
+    """The floats of one buffer that holds every level of both frames
+    (``shapes``, L0 first) and each level's (prev, next) offsets in it,
+    each 256-byte aligned (``_aligned``)."""
+    offsets, n = [], 0
+    for lh, lw in shapes:
+        offsets.append((n, n + _aligned(lh * lw)))
+        n += 2 * _aligned(lh * lw)
+    return n, tuple(offsets)
+
+
+def _lk_launch(device: torch.device, src, code: int, levels, stream: int
+               ) -> None:
+    """One ``transflow_lk_pyramid`` launch on ``src`` (one or two images of
+    dtype ``code``, 0 float32 or 2 uint8): ``levels`` the outputs, a tuple
+    a level (the source's float32 copy first, None for a float32 source),
+    up to ``LK_MAX_DOWN`` reduces below it."""
+    h, w = src[0].shape
+    table = _lk_table([() if images is None else images
+                       for images in levels])
+    launch(device, "transflow_lk_pyramid", src[0].data_ptr(),
+           src[-1].data_ptr() if len(src) == 2 else 0, len(src), code,
+           table.ctypes.data, h, w, len(levels) - 1, stream)
+
+
+def lk_pyramid_cuda(prev: torch.Tensor, nxt: torch.Tensor, win_size: int,
+                    max_level: int) -> list[tuple[torch.Tensor, ...]]:
+    """Kernel B14 on two contiguous (H, W) uint8 frames on one CUDA
+    device: every level of ``lk_pyramid_plain``, L0's float32 casts
+    included, in ``lk_launches`` launches (one up to ``LK_MAX_DOWN``
+    levels below L0), views of one new buffer; counted on
+    ``lk_pyramid_cuda.launches``."""
+    _check_frames("lk_pyramid_cuda", prev, nxt)
+    check_cuda("lk_pyramid_cuda", prev, nxt)
+    shapes = tuple(lk_shapes(*prev.shape, win_size, max_level))
+    n, offsets = _lk_plan(shapes)
+    out = torch.empty(n, dtype=torch.float32, device=prev.device)
+    levels = [tuple(out.as_strided((lh, lw), (lw, 1), o) for o in level)
+              for (lh, lw), level in zip(shapes, offsets)]
+    stream = cuda_stream(prev)
+    src, code, first = (prev, nxt), LK_CODES[torch.uint8], 0
+    while True:
+        last = min(first + LK_MAX_DOWN, len(levels) - 1)
+        _lk_launch(prev.device, src, code,
+                   [None if code == LK_CODES[torch.float32] else levels[0],
+                    *levels[first + 1:last + 1]], stream)
+        lk_pyramid_cuda.launches += 1
+        if last == len(levels) - 1:
+            return levels
+        src, code, first = levels[last], LK_CODES[torch.float32], last
+
+
+lk_pyramid_cuda.launches = 0
+
+
+def lk_pyramid(prev: torch.Tensor, nxt: torch.Tensor, win_size: int,
+               max_level: int) -> list[tuple[torch.Tensor, ...]]:
+    """Dispatcher of B14 by the frames' device: Lucas-Kanade's pyramid of
+    two (H, W) uint8 frames, a (prev, next) float32 tuple a level, L0
+    first."""
+    fn = dispatch("lk_pyramid", lk_pyramid_plain, lk_pyramid_cuda, prev, nxt)
+    return fn(prev, nxt, win_size, max_level)
+
+
 def downsample2x_cuda(images) -> tuple[torch.Tensor, ...]:
     """Kernel B14 on one or two contiguous (H, W) float32 images of one
-    shape on one CUDA device, in one launch; counted on
+    shape on one CUDA device: one reduce, in one launch; counted on
     ``downsample2x_cuda.launches``."""
     _check_images("downsample2x_cuda", images)
     check_cuda("downsample2x_cuda", *images)
@@ -538,24 +658,20 @@ def downsample2x_cuda(images) -> tuple[torch.Tensor, ...]:
         raise ValueError(f"downsample2x_cuda needs float32 images, got "
                          f"{image.dtype}")
     h, w = image.shape
-    oh, ow = (h + 1) // 2, (w + 1) // 2
-    taps = _reduce_taps_on(image.device)
-    outs = [torch.empty((oh, ow), dtype=torch.float32, device=image.device)
-            for _ in images]
-    src = [t.data_ptr() for t in images] + [0] * (2 - len(images))
-    dst = [t.data_ptr() for t in outs] + [0] * (2 - len(images))
-    launch(image.device, "transflow_pyramid_reduce", src[0], src[1],
-           len(images), dst[0], dst[1], h, w, taps.data_ptr(),
-           cuda_stream(image))
+    outs = tuple(torch.empty(((h + 1) // 2, (w + 1) // 2),
+                             dtype=torch.float32, device=image.device)
+                 for _ in images)
+    _lk_launch(image.device, tuple(images), LK_CODES[torch.float32],
+               [None, outs], cuda_stream(image))
     downsample2x_cuda.launches += 1
-    return tuple(outs)
+    return outs
 
 
 downsample2x_cuda.launches = 0
 
 
 def downsample2x(images) -> tuple[torch.Tensor, ...]:
-    """Dispatcher of B14 by the images' device."""
+    """Dispatcher of B14's one reduce by the images' device."""
     fn = dispatch("downsample2x", downsample2x_plain, downsample2x_cuda,
                   *images)
     return fn(images)
