@@ -149,24 +149,26 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
    1088x1920, the ``fastest`` preset and the CLI disk to disk over a cv2
    MJPG clip (still pixmap, video pixmap, ``.flow.zip`` replay), the
    record printed as its own JSON line; it must hold every field, B1/B2a/
-   B2b/B8 launches of 4/12/12/1 and A1/A3 of 5/0 a frame, 0 host syncs a
+   B2b/B8 launches of 4/12/12/1 and A1/A3/B7 of 5/0/14 a frame, 0 host syncs a
    frame and this card's name and power limit; then 3 cases of the chunk
    fuzzer (``tools/fuzz_chunks.py``, seed 5) on the card at 96x128, each
    chunked render bit-equal to the per-frame one and each resumed tail
    to the run;
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
-   the correlation kernel's launches;
+   the correlation kernel's launches (5 a frame) and the exact backwarp's
+   (B7, 14 a frame);
 4. engine: ``Engine`` at 1080x1920 over a frame source with
    ``CvFlowConfig(method="liteflownet", lfn_warp_bound=16)``, one moveref
    layer with random reset 0.01: a warm-up chunk, a timed chunk of 8
-   frames, then ``process_frame`` calls, counting 9 A3 and 5 correlation
-   launches per frame; then the same Engine with ``lfn_warp_bound=0``
-   (the exact gather) on the same frames;
+   frames, then ``process_frame`` calls, counting 9 A3, 5 B7 (the
+   regularization's 3-channel warps) and 5 correlation launches per
+   frame; then the same Engine with ``lfn_warp_bound=0`` (every warp
+   exact: 14 B7) on the same frames;
 5. mesh engine: the bound-16 Engine under ``make_space_mesh(4)`` over
    four shards of the card with ``halo=8``: the bound is stripped, and
    each frame launches 4 A2 kernels (levels 2-5, one per level), 1 A1
-   (level 6) and no A3; its flows and frames against the bound-0 run of
+   (level 6), no A3 and 14 B7; its flows and frames against the bound-0 run of
    phase 4; then the mesh and meshless Engines in turns (eight ABBA rounds
    of 3-frame ``process_frame`` windows) for the mesh's cost per frame;
 6. kernel vs plain: the correlation kernel against its plain PyTorch
@@ -179,6 +181,14 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
    within the bound also ``F.grid_sample`` on the same image (rounded to
    bf16, as A3 reads it) and flow, the library call that computes the
    same function there, held to A3 and timed only here as a yardstick;
+   then the exact backwarp B7 (``exact_backwarp``) at the 9 feature
+   warps' shapes of a bound-0 frame (5 shapes, bf16 and f32) and its 5
+   regularization warps (the 3-channel half of an f32 6-channel pair,
+   read in place), bit-equal to its plain version on flows of 8 px at L2
+   scaled to the level whose taps stay in the frame (where it is timed)
+   and on the same with a fifth of the pixels 1-3 frames outside; beside
+   it ``F.grid_sample`` on the first (where it is B7's function), held
+   to B7 within ``grid_sample_tol`` and timed as the yardstick;
 8. sharded correlation: kernel A2 (``sharded_correlation7x7``, one launch
    per card that reads each shard's halo rows in place) at the five
    correlation shapes in the slice's dtype pairs, over 4 and 2 shards that
@@ -209,7 +219,9 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    reset on both devices;
 10. kernel time: ``torch.profiler``'s kernel durations of A1 (the slice's
    dtype pairs), A2 (every sharded case), A3 beside ``F.grid_sample`` at
-   L2-L6 (phase 7's bf16 inputs within the bound), B1, B2a, B2b, B8 at
+   L2-L6 (phase 7's bf16 inputs within the bound), B7 beside
+   ``F.grid_sample`` at every phase 7 row (its time a level and a bound-0
+   frame, 9 bf16 feature warps and 5 image warps), B1, B2a, B2b, B8 at
    the four levels and B9-B12, B14 at theirs, B8 and B14 beside every
    device event of the path each replaced; then the Farneback Engine's
    (which must show no cuDNN kernel and none of ``F_REPLACED_OPS``),
@@ -287,8 +299,8 @@ C. after phase 9: the compositor's kernels (``ops/compositor.py``,
 
 Every Engine, CLI and bench run of the main path counts the compositor's
 launches beside the estimators' (``KERNEL_NAMES``: K0, K1, K2, then the
-pyramids' B8 and B14): one moveref layer updates through one K1 and
-renders through one K2 a frame
+pyramids' B8 and B14, then LiteFlowNet's exact backwarp B7): one moveref
+layer updates through one K1 and renders through one K2 a frame
 (``C_MOVEREF``), phase T's four layers take 1 K0, 2 K1 and 1 K2; under a
 mesh that splits the movement (phases 5 and M) the moveref layer updates
 through its plain ops and renders through K2 (``C_MESH``).
@@ -375,6 +387,17 @@ WARP_PER_FRAME = {"L6": 1, "L5": 2, "L4": 2, "L3": 2, "L2": 2}
 # kernel vs plain: the same bf16 staging and f32 terms in the same order
 WARP_ATOL = WARP_RTOL = 1e-5
 WARP_BOUND = 16
+# the exact backwarp (B7) a frame of a 1088x1920 input: with no bound the
+# 9 feature warps (matching at L5-L2, subpixel at L6-L2: WARP_SHAPES'
+# shapes, WARP_PER_FRAME times each) and the regularization's 5 warps of
+# the 3-channel half of the 6-channel image pair (B7_LEVELS); with a bound
+# only the regularization's (3 channels: under 16, never bounded)
+B7_EXACT = 14
+B7_BOUNDED = 5
+B7_LEVELS = ((34, 60, "L6"), (68, 120, "L5"), (136, 240, "L4"),
+             (272, 480, "L3"), (544, 960, "L2"))
+B7_REACH = 8.0   # px at L2 of the random flows, scaled with the level
+B7_FAR = 0.2     # their share of pixels 1-3 frames outside the frame
 # F.grid_sample against A3 within the bound: grid_sample finds each tap
 # from a normalised position ((x + u) * 2 / (W - 1) - 1, unnormalised
 # again), so its fractions carry a few ulp of the frame's size where A3's
@@ -529,6 +552,14 @@ def warp_bound_ms(h: int, w: int, c: int, dtype) -> tuple[float, str]:
     return _bound(nbytes, 8 * h * w * c)
 
 
+def exact_warp_bound_ms(h: int, w: int, c: int, dtype) -> tuple[float, str]:
+    """The exact backwarp's bound: the image's C channels and the f32 flow
+    read once, the f32 output written once; per value 3 products a tap
+    and 3 sums, per pixel the anchor's 18 operations."""
+    nbytes = h * w * (c * dtype.itemsize + 2 * 4 + c * 4)
+    return _bound(nbytes, h * w * (15 * c + 18))
+
+
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
     return (1e3 * max(by_bytes, by_ops),
@@ -611,7 +642,8 @@ def ptxas_reports(log: str) -> list[dict]:
 NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
             "aggregate_solve", "forward_scatter", "backward_resolve",
             "hs_derivatives", "hs_iterate", "lk_warp_products", "lk_window",
-            "pyramid_levels_kernel", "lk_pyramid_kernel")
+            "pyramid_levels_kernel", "lk_pyramid_kernel",
+            "exact_backwarp_kernel")
 
 
 def phase_build() -> list[dict]:
@@ -700,18 +732,21 @@ def pan_flow(h: int, w: int, device) -> torch.Tensor:
     return torch.full((h, w, 2), FB_PAN * w / WIDTH, device=device)
 
 
-def grid_sample_warp(image, flow):
+def grid_sample_warp(image, flow, to_bf16: bool = True):
     """``F.grid_sample`` (bilinear, zero padding, corners aligned) of the
-    (H, W, C) image, rounded to bf16 as bounded_backwarp reads it, at
+    (H, W, C) image, rounded to bf16 as bounded_backwarp reads it (or, with
+    ``to_bf16`` False, in its own dtype as exact_backwarp reads it), at
     pixel + flow: bounded_backwarp's function while every floor lies
-    within the bound. Returns the call on prepared inputs: an
-    (1, C, H, W) view of the image in f32 and the normalised grid."""
+    within the bound, exact_backwarp's while every tap lies in the frame.
+    Returns the call on prepared inputs: an (1, C, H, W) view of the image
+    in f32 and the normalised grid."""
     h, w = flow.shape[:2]
     ys = torch.arange(h, device=flow.device, dtype=torch.float32)[:, None]
     xs = torch.arange(w, device=flow.device, dtype=torch.float32)[None, :]
     grid = torch.stack([(xs + flow[..., 0]) * (2 / (w - 1)) - 1,
                         (ys + flow[..., 1]) * (2 / (h - 1)) - 1], -1)[None]
-    nchw = image.to(BF16).float().permute(2, 0, 1)[None]
+    nchw = (image.to(BF16) if to_bf16 else image).float() \
+        .permute(2, 0, 1)[None]
     return lambda: torch.nn.functional.grid_sample(
         nchw, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True)
@@ -791,6 +826,97 @@ def phase_warp_kernels(device) -> list[dict]:
     return rows
 
 
+def exact_warp_flow(h: int, w: int, gen, device, inside: bool = False):
+    """(h, w, 2) f32 flow of ``B7_REACH`` px at L2 scaled to the level;
+    ``B7_FAR`` of the pixels 1-3 frames outside it, or with ``inside``
+    every tap clamped into the frame (floors within [0, n-2])."""
+    reach = B7_REACH * w / B7_LEVELS[-1][1]
+    flow = reach * (2 * torch.rand((h, w, 2), generator=gen,
+                                   device=device) - 1)
+    ii = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    jj = torch.arange(w, device=device, dtype=torch.float32)[None, :]
+    if inside:
+        sx = (jj + flow[..., 0]).clamp(0, w - 1 - 1e-3)
+        sy = (ii + flow[..., 1]).clamp(0, h - 1 - 1e-3)
+        return torch.stack([sx - jj, sy - ii], -1)
+    far = torch.rand((h, w, 1), generator=gen, device=device) < B7_FAR
+    size = torch.tensor([w, h], dtype=torch.float32, device=device)
+    away = size * (1 + 2 * torch.rand((h, w, 2), generator=gen,
+                                      device=device))
+    return torch.where(far, torch.sign(flow) * away, flow)
+
+
+def phase_exact_warp_kernels(device) -> list[dict]:
+    """Phase 7's B7 rows: the exact backwarp at the 9 feature warps'
+    shapes of a 1088x1920 frame (bf16, the network's, and f32) and the 5
+    regularization warps' (the 3-channel half of an f32 6-channel pair,
+    read in place), bit-equal to the plain version on a flow whose taps
+    stay in the frame and on one with far-out pixels. It is timed on the
+    first (``far_ms``: on the second) beside ``F.grid_sample`` on the same
+    inputs, where that call computes the same function: held to B7
+    within ``grid_sample_tol`` and timed as the library-call yardstick."""
+    from transflow_tpu_torch.ops.warp import (exact_backwarp_cuda,
+                                              exact_backwarp_plain)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cases = [("feature", h, w, c, level, dtype)
+             for h, w, c, _, level in WARP_SHAPES for dtype in (BF16, F32)]
+    cases += [("image", h, w, 3, level, F32) for h, w, level in B7_LEVELS]
+    rows = []
+    for kind, h, w, c, level, dtype in cases:
+        if kind == "feature":
+            image = torch.randn((h, w, c), generator=gen,
+                                device=device).to(dtype)
+        else:
+            image = torch.rand((h, w, 6), generator=gen,
+                               device=device)[..., 3:]
+        flow = exact_warp_flow(h, w, gen, device, inside=True)
+        far = exact_warp_flow(h, w, gen, device)
+        errs = []
+        for f in (far, flow):
+            got = exact_backwarp_cuda(image, f)
+            want = exact_backwarp_plain(image, f)
+            torch.cuda.synchronize()
+            errs.append((got - want).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"exact backwarp disagrees at {level} {kind} {dtype}: "
+                    f"max_abs_err {errs[-1]}")
+        sample = grid_sample_warp(image, flow, to_bf16=False)
+        lib_err = (sample()[0].permute(1, 2, 0) - got).abs().max().item()
+        tol = grid_sample_tol(image, h, w)
+        if not lib_err <= tol:
+            raise AssertionError(f"grid_sample disagrees with B7 at {level} "
+                                 f"{kind} {dtype}: |diff| {lib_err} > {tol}")
+        row = {"level": level, "kind": kind, "dtype": dtype,
+               "err": max(errs), "main": dtype == BF16 or kind == "image",
+               "per_frame": (WARP_PER_FRAME[level] if kind == "feature"
+                             else 1)}
+        row["bound_ms"], row["bound_by"] = exact_warp_bound_ms(h, w, c,
+                                                               dtype)
+        row["device_ms"] = device_ms(lambda: exact_backwarp_cuda(image, flow))
+        row["far_ms"] = device_ms(lambda: exact_backwarp_cuda(image, far))
+        row["call_ms"] = call_ms(lambda: exact_backwarp_cuda(image, flow))
+        row["plain_ms"] = device_ms(lambda: exact_backwarp_plain(image, flow),
+                                    PLAIN_LAUNCHES)
+        row["plain_ops"] = aten_ops(lambda: exact_backwarp_plain(image, flow))
+        row["library_ms"] = device_ms(sample)
+        # profiled in phase 10
+        row["call"] = functools.partial(exact_backwarp_cuda, image, flow)
+        row["library_call"] = sample
+        print(f"B7 {level} {kind} ({h},{w},{c}) {str(dtype)[6:]}: bit-equal "
+              f"(max_abs_err {row['err']:.3e}) device_ms "
+              f"{row['device_ms']:.5f} (a fifth of the pixels far out "
+              f"{row['far_ms']:.5f}) bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']}) share "
+              f"{row['bound_ms'] / row['device_ms']:.1%}; call "
+              f"{row['call_ms']:.4f} ms (host-inclusive); plain "
+              f"{row['plain_ms']:.4f} ms ({row['plain_ops']} ATen ops); "
+              f"grid_sample {row['library_ms']:.5f} ms (|diff| "
+              f"{lib_err:.3e} <= {tol:.3e})")
+        rows.append(row)
+    return rows
+
+
 def panned_frames(n: int, height: int, width: int, device,
                   step: int = 3) -> torch.Tensor:
     """(n, H, W, 3) uint8 frames: a smooth random texture panned by
@@ -835,9 +961,10 @@ def run_frames(model, frames, pixmaps, key):
     return outs, flows
 
 
-def phase_slice(device, card: str) -> int:
+def phase_slice(device, card: str) -> dict:
     from transflow_tpu_torch import prng
     from transflow_tpu_torch.ops.correlation import correlation7x7_cuda
+    from transflow_tpu_torch.ops.warp import exact_backwarp_cuda
     os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
     model = flagship_model(HEIGHT, WIDTH, device)
     frames = panned_frames(SLICE_FRAMES + 2, HEIGHT, WIDTH, device)
@@ -845,7 +972,7 @@ def phase_slice(device, card: str) -> int:
     numbers = model.default_frame_numbers()
     keys = prng.split(prng.key(SEED), SLICE_FRAMES + 2)
     torch.cuda.synchronize()
-    correlation7x7_cuda.launches = 0
+    correlation7x7_cuda.launches = exact_backwarp_cuda.launches = 0
     state, _ = model.step(model.init_state(frames[0]), frames[1], pixmaps,
                           0.0, keys[1], numbers)  # warm-up frame
     # per-frame checks reduce on the card; one readback at the end
@@ -868,18 +995,21 @@ def phase_slice(device, card: str) -> int:
     finite, checksum, max_flow = (finite.item(), checksum.item(),
                                   max_flow.item())
     seconds = time.perf_counter() - start
-    launches = correlation7x7_cuda.launches
+    launches = {"A1": correlation7x7_cuda.launches,
+                "B7": exact_backwarp_cuda.launches}
     frames_run = 1 + SLICE_FRAMES
     if not finite:
         raise AssertionError("non-finite flow")
-    if launches != 5 * frames_run:
-        raise AssertionError(f"{launches} correlation launches over "
-                             f"{frames_run} frames, expected 5 per frame")
+    want = {"A1": 5 * frames_run, "B7": B7_EXACT * frames_run}
+    if launches != want:
+        raise AssertionError(f"launches {launches} over {frames_run} "
+                             f"frames, expected {want}")
     ms = 1e3 * seconds / SLICE_FRAMES
     print(f"slice {HEIGHT}x{WIDTH} liteflownet->moveref: {ms:.2f} ms/frame "
           f"{1e3 / ms:.2f} frames/s over {SLICE_FRAMES} frames "
           f"(max |flow| {max_flow:.4g}, checksum {checksum}) on {card}")
-    print(f"correlation launches: {launches} over {frames_run} frames")
+    print(f"correlation launches: {launches['A1']}, exact backwarp "
+          f"launches: {launches['B7']} over {frames_run} frames")
     return launches
 
 
@@ -940,19 +1070,20 @@ def _launch_counters():
     from transflow_tpu_torch.ops.pyramid import (lk_pyramid_cuda,
                                                  pyramid_levels_cuda)
     from transflow_tpu_torch.ops.scatter import forward_to_backward_cuda
-    from transflow_tpu_torch.ops.warp import bounded_backwarp_cuda
+    from transflow_tpu_torch.ops.warp import (bounded_backwarp_cuda,
+                                              exact_backwarp_cuda)
     return (bounded_backwarp_cuda, correlation7x7_cuda,
             sharded_correlation7x7, poly_expansion_cuda,
             update_equations_cuda, aggregate_solve_cuda,
             forward_to_backward_cuda, hs_derivatives_cuda, hs_iterate_cuda,
             lk_warp_products_cuda, lk_window_solve_cuda,
             leave_empty_sources_cuda, layer_update_cuda, composite_cuda,
-            pyramid_levels_cuda, lk_pyramid_cuda)
+            pyramid_levels_cuda, lk_pyramid_cuda, exact_backwarp_cuda)
 
 
 # the names of _launches()'s entries
 KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5", "B9", "B10",
-                "B11", "B12", "K0", "K1", "K2", "B8", "B14")
+                "B11", "B12", "K0", "K1", "K2", "B8", "B14", "B7")
 
 
 def fb_launches(launches) -> tuple:
@@ -1450,7 +1581,7 @@ T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
 # sources, and B5's two for the forward one
 # and K0, K1, K2: the moveref layer leaves empty spots (K0), the sum and
 # the moveref layer update through K1, the stack renders in one K2
-T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 2, 0)
+T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 2, 0, 0)
 T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
 T_SYNC_CALLS = 2
 T_PROFILE_CALLS = 3
@@ -1804,11 +1935,11 @@ def h_per_frame(config, height: int, width: int) -> tuple:
     from transflow_tpu_torch.ops import pyramid
     kw = config.estimator_kwargs()
     if config.method == "horn-schunck":
-        return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF, 0, 0)
+        return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF, 0, 0, 0)
     levels = len(pyramid.lk_shapes(height, width, kw["win_size"],
                                    kw["max_level"]))
     return (0,) * 7 + (0, 0, H_LK_ITERS * levels, (H_LK_ITERS + 1) * levels,
-                       *C_MOVEREF, 0, pyramid.lk_launches(levels))
+                       *C_MOVEREF, 0, pyramid.lk_launches(levels), 0)
 
 
 def phase_classic_engine(device, card: str) -> dict:
@@ -2012,7 +2143,7 @@ S_RESET = 0.05
 S_HALO = 8
 S_TOOL_FRAMES = 9     # frames of each sequence the batch renderer reads
 S_PER_FRAME = (0, 0, 0, 0, 0, 0, 0, 1, S_ITERS, 0, 0,
-               *C_MOVEREF, 0, 0)  # a stream-frame
+               *C_MOVEREF, 0, 0, 0)  # a stream-frame
 
 
 def s_model(device, halo: int | None = None):
@@ -2843,7 +2974,8 @@ K_FUZZ_CASES = 3
 K_FUZZ_SEED = 5          # the CPU tests' cases: a video source with a
 #                          checkpoint cadence, the archive with one, a lock
 K_FUZZ_SIZE = (96, 128)
-K_LFN_PER_FRAME = (5, 0)  # A1, A3 launches a LiteFlowNet frame at bound 0
+# A1, A3, B7 launches a LiteFlowNet frame at bound 0
+K_LFN_PER_FRAME = (5, 0, 14)
 K_FIELDS = ("metric", "value", "unit", "vs_baseline", "ms_per_frame",
             "best_fps", "noise_iqr_pct", "samples", "window_fps",
             "stage_ms", "hbm_io_gbps",
@@ -2858,8 +2990,8 @@ def phase_bench(device, card: str) -> dict:
     """Phase K: the port's bench (``transflow_tpu_torch/bench.py``) in
     this process with ``--e2e``, cut to K_CHUNKS_PER_SAMPLE chunks a
     sample, K_REPEATS samples and K_E2E_FRAMES frames: its record (printed
-    on its own line) has every field, B1/B2a/B2b/B8 4/12/12/1 and A1/A3
-    5/0 launches a frame, 0 host syncs a frame and this card; then
+    on its own line) has every field, B1/B2a/B2b/B8 4/12/12/1 and A1/A3/B7
+    5/0/14 launches a frame, 0 host syncs a frame and this card; then
     K_FUZZ_CASES cases of the chunk fuzzer on the card at K_FUZZ_SIZE,
     each bit-equal chunked, per frame and resumed."""
     from transflow_tpu_torch import bench
@@ -2887,10 +3019,10 @@ def phase_bench(device, card: str) -> dict:
     lfn = record["launches_per_frame"]["liteflownet"]
     if tuple(fb[n] for n in FB_NAMES) != FB_DEFAULT_PER_FRAME or \
             (fb["K0"], fb["K1"], fb["K2"]) != C_MOVEREF or \
-            (lfn["A1"], lfn["A3"]) != K_LFN_PER_FRAME:
+            (lfn["A1"], lfn["A3"], lfn["B7"]) != K_LFN_PER_FRAME:
         raise AssertionError(f"K: launches a frame {fb}, {lfn}; expected "
                              f"{FB_DEFAULT_PER_FRAME}, K0/K1/K2 {C_MOVEREF} "
-                             f"and A1/A3 {K_LFN_PER_FRAME}")
+                             f"and A1/A3/B7 {K_LFN_PER_FRAME}")
     if record["host_syncs_per_frame"] != 0:
         raise AssertionError(f"K: {record['host_syncs_per_frame']} host "
                              "syncs a frame")
@@ -3165,7 +3297,8 @@ def phase_engine(device, card: str) -> dict:
               f"process_frame calls: {run['launches']}")
         _check_engine_run(f"lfn_warp_bound={bound}", run,
                           (9 if bound else 0, 5, 0, 0, 0, 0, 0, 0, 0, 0,
-                           0, *C_MOVEREF, 0, 0))
+                           0, *C_MOVEREF, 0, 0,
+                           B7_BOUNDED if bound else B7_EXACT))
     diff = (runs[WARP_BOUND]["flows"] - runs[0]["flows"]).abs().max().item()
     print(f"engine max |flow(lfn_warp_bound={WARP_BOUND}) - "
           f"flow(lfn_warp_bound=0)| {diff:.3e} over the chunk")
@@ -3191,7 +3324,7 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
           f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
     _check_engine_run("mesh engine", run,
                       (0, 1, A2_PER_FRAME, 0, 0, 0, 0, 0, 0, 0, 0, *C_MESH,
-                       0, 0))
+                       0, 0, B7_EXACT))
     diff = max((run["flows"] - ref["flows"]).abs().max().item(),
                (run["call_flows"] - ref["call_flows"]).abs().max().item())
     same = (torch.equal(run["out"], ref["out"])
@@ -3940,13 +4073,13 @@ def phase_equivalence(device) -> None:
           f"bit-equal over {EQUIV_FRAMES} frames")
 
 
-def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
+def phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, fb_rows, b5_rows,
                       h_rows, c_rows) -> None:
     """``kernel_ms`` of every row that phases 6, 7, 8, B, T, H and C left
-    a call in; A3's beside ``F.grid_sample``'s; B8's and B14's beside the
-    path each replaced (every device event of it); B5's over every device
-    event of a call (its two kernels); K0-K2's of the row's kernel alone
-    (the leave-empty K1 row: K1's, without K0's)."""
+    a call in; A3's and B7's beside ``F.grid_sample``'s; B8's and B14's
+    beside the path each replaced (every device event of it); B5's over
+    every device event of a call (its two kernels); K0-K2's of the row's
+    kernel alone (the leave-empty K1 row: K1's, without K0's)."""
     for row in rows + a2_rows:
         if "call" not in row:
             continue
@@ -3968,6 +4101,17 @@ def phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows,
               f"{_ms_text(row['library_kernel_ms'])} (torch.profiler, per "
               f"call) against device_ms A3 {row['device_ms']:.5f}, "
               f"grid_sample {row['library_ms']:.5f}")
+    for row in b7_rows:
+        row["kernel_ms"] = kernel_ms(row.pop("call"), "exact_backwarp")
+        row["library_kernel_ms"] = kernel_ms(row.pop("library_call"), "")
+        share = ("not measured" if row["kernel_ms"] is None
+                 else f"{row['bound_ms'] / row['kernel_ms']:.1%}")
+        print(f"kernel time B7 {row['level']} {row['kind']} "
+              f"{str(row['dtype'])[6:]}: {_ms_text(row['kernel_ms'])}, "
+              f"grid_sample {_ms_text(row['library_kernel_ms'])} "
+              f"(torch.profiler, per call) against device_ms "
+              f"{row['device_ms']:.5f} and bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']}): share {share}")
     for row in fb_rows:
         if "call" not in row:
             continue
@@ -4828,6 +4972,7 @@ def main() -> int:
     mesh_run = phase_mesh_engine(device, card, engine_phase)
     rows = phase_kernels(device)
     warp_rows = phase_warp_kernels(device)
+    b7_rows = phase_exact_warp_kernels(device)
     a2_rows = phase_sharded_kernels(device)
     fb_rows = phase_farneback_kernels(device)
     b5_rows = phase_scatter_kernel(device, t_run["b5_flow"])
@@ -4836,8 +4981,8 @@ def main() -> int:
     phase_draw(device)
     c_rows = phase_compositor_kernels(device, fb_runs["CvFlowConfig()"],
                                       t_run)
-    phase_kernel_time(rows, a2_rows, warp_rows, fb_rows, b5_rows, h_rows,
-                      c_rows)
+    phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, fb_rows, b5_rows,
+                      h_rows, c_rows)
     f_profile = engine_profile("farneback engine CvFlowConfig()",
                                fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS,
                                card)
@@ -4935,7 +5080,7 @@ def main() -> int:
         "source": "transflow_tpu_torch/csrc/correlation.cu",
         "replaces": "transflow_tpu/ops/pallas_correlation.py:110",
         # the slice's and the three Engine runs'
-        "launches": slice_launches + sum(
+        "launches": slice_launches["A1"] + sum(
             run["launches"][1] for run in (*runs.values(), mesh_run)),
         "max_abs_err": max(r["err"] for r in rows),
         # per frame: the five levels in the slice's dtype pairs
@@ -4987,6 +5132,50 @@ def main() -> int:
         "library_ms": None,
         "library": no_library,
     }]}
+    # B7 per frame at bound 0: the 9 bf16 feature warps and the 5 image
+    # warps; its launches: the slice's and the bound-0, bound-16 and mesh
+    # Engines' (phases 3-5; the bench asserts its own 14 a frame)
+    b7_main = [r for r in b7_rows if r["main"]]
+    b7_n = [r["per_frame"] for r in b7_main]
+    b7 = KERNEL_NAMES.index("B7")
+    b7_launches = slice_launches["B7"] + sum(
+        run["launches"][b7] for run in (*runs.values(), mesh_run))
+    for r in b7_main:
+        print(f"exact_backwarp {r['level']} {r['kind']} x{r['per_frame']} "
+              f"a frame: kernel_ms {_ms_text(r['kernel_ms'])} each")
+    print(f"exact_backwarp per frame ({sum(b7_n)} launches): device_ms "
+          f"{_per_frame(b7_main, 'device_ms', b7_n):.5f}, kernel_ms "
+          f"{_ms_text(_per_frame(b7_main, 'kernel_ms', b7_n))}, bound "
+          f"{_per_frame(b7_main, 'bound_ms', b7_n):.5f}, call "
+          f"{_per_frame(b7_main, 'call_ms', b7_n):.4f} (host-inclusive), "
+          f"plain {_per_frame(b7_main, 'plain_ms', b7_n):.4f} "
+          f"({_per_frame(b7_main, 'plain_ops', b7_n)} ATen ops), grid_sample "
+          f"{_per_frame(b7_main, 'library_ms', b7_n):.5f} (kernel_ms "
+          f"{_ms_text(_per_frame(b7_main, 'library_kernel_ms', b7_n))}); "
+          f"{b7_launches} launches on the main path")
+    record["kernels"].append({
+        "name": "exact_backwarp",
+        "route": "cuda",
+        "source": "transflow_tpu_torch/csrc/exact_backwarp.cu",
+        "replaces": "transflow_tpu/flow/estimators/liteflownet.py:106",
+        "replaces_function": "liteflownet.py:106 backwarp, its unbounded "
+                             "path (:162-196, jnp ops)",
+        "launches": b7_launches,
+        "max_abs_err": max(r["err"] for r in b7_rows),
+        # per frame at bound 0: 9 feature warps, 5 image warps
+        "ms": _per_frame(b7_main, "device_ms", b7_n),
+        "device_ms": _per_frame(b7_main, "device_ms", b7_n),
+        "kernel_ms": _per_frame(b7_main, "kernel_ms", b7_n),
+        "call_ms": _per_frame(b7_main, "call_ms", b7_n),
+        "plain_ms": _per_frame(b7_main, "plain_ms", b7_n),
+        "bound_ms": _per_frame(b7_main, "bound_ms", b7_n),
+        "bound_by": _bound_by(b7_main),
+        "library_ms": _per_frame(b7_main, "library_ms", b7_n),
+        "library_kernel_ms": _per_frame(b7_main, "library_kernel_ms", b7_n),
+        "library": "torch.nn.functional.grid_sample (bilinear, zeros, "
+                   "align_corners=True) on an f32 NCHW view; both timed on "
+                   "flows whose taps stay in the frame",
+    })
     fb_sources = {"poly_expansion": "farneback.py:74 poly_expansion",
                   "update_equations": "farneback.py:102 _update_flow, "
                                       "warp and normal equations",

@@ -5,6 +5,7 @@ rung, the native IO runtime, the preview window (under a cv2 whose
 HighGUI calls are recorded), the MJPEG output, the realtime tool and the
 webcam probe."""
 import contextlib
+import ctypes
 import http.client
 import io
 import os
@@ -297,6 +298,14 @@ def _force(monkeypatch, tmp_path, rung):
     monkeypatch.setattr(shutil, "which", lambda name: None)
 
 
+def _jax_rung(out) -> str:
+    """The rung the JAX package's open writer took (it keeps no name)."""
+    rungs = {"libav": out.libav, "native": out.native,
+             "ffmpeg": out.process, "cv2": out.writer}
+    return next(name for name, writer in rungs.items()
+                if writer is not None)
+
+
 @pytest.mark.parametrize("rung,vcodec,suffix,opened_by", [
     ("libav", "h264", ".mp4", "libav"),
     ("native", "mjpeg", ".avi", "native IO"),
@@ -317,10 +326,15 @@ def test_encoder_rung_matches_jax(tmp_path, monkeypatch, rung, vcodec,
         path = str(tmp_path / f"{package}{suffix}")
         out = module.EncodedVideoOutput(path, W, H, FPS, vcodec=vcodec,
                                         replace=True).open()
-        for frame in frames:
-            out.feed(frame)
+        # both writers on the forced rung: the JAX writer falls through
+        # its chain silently, so a rung it left would otherwise show only
+        # as differing frames
         if package == "port":
             assert out.opened_by == opened_by
+        else:
+            assert _jax_rung(out) == rung
+        for frame in frames:
+            out.feed(frame)
         out.close()
         if rung == "ffmpeg":
             with open(path, "rb") as raw, open(path + ".argv") as argv:
@@ -334,6 +348,53 @@ def test_encoder_rung_matches_jax(tmp_path, monkeypatch, rung, vcodec,
     else:
         assert written["port"].shape == (5, H, W, 3)
         np.testing.assert_array_equal(written["port"], written["jax"])
+
+
+class _RecordingLib:
+    """The libav shim's library as a package loads it, recording what its
+    writer passes: ``tfav_enc_open``'s arguments and the bytes of each
+    frame given to ``tfav_enc_write``."""
+
+    def __init__(self, lib, calls):
+        self._lib, self._calls = lib, calls
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name == "tfav_enc_open":
+            def record_open(path, *args):
+                self._calls.append(("open", *args))
+                return fn(path, *args)
+            return record_open
+        if name == "tfav_enc_write":
+            def record_write(handle, ptr):
+                self._calls.append(("write", ctypes.string_at(ptr, H * W * 3)))
+                return fn(handle, ptr)
+            return record_write
+        return fn
+
+
+def test_libav_writers_pass_the_same_calls(tmp_path, monkeypatch):
+    """The libav rung of both packages hands libx264 the same options
+    (codec, size, rate, GOP, B-frames, references, CRF, preset) and the
+    same frame bytes: a difference between their encodes is then
+    libx264's own, not the port's."""
+    frames = write_clip(tmp_path / "src.avi", frames=5)
+    calls = {}
+    for package, module, loader in (("jax", jav, "_load"),
+                                    ("port", av_native, "_require")):
+        lib = getattr(module, loader)()
+        calls[package] = []
+        monkeypatch.setattr(module, loader, lambda lib=lib, c=calls[package]:
+                            _RecordingLib(lib, c))
+        encoding = jencoded if package == "jax" else encoded
+        out = encoding.EncodedVideoOutput(
+            str(tmp_path / f"{package}.mp4"), W, H, FPS, vcodec="h264",
+            replace=True).open()
+        for frame in frames:
+            out.feed(frame)
+        out.close()
+    assert [c[0] for c in calls["port"]] == ["open"] + ["write"] * 5
+    assert calls["port"] == calls["jax"]
 
 
 def test_encoder_chain_refusal_when_nothing_opens(tmp_path, monkeypatch):

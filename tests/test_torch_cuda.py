@@ -18,9 +18,13 @@ from transflow_tpu_torch.ops.correlation import (correlation,
                                                  correlation7x7,
                                                  correlation7x7_cuda,
                                                  sharded_correlation7x7)
+from transflow_tpu_torch.ops import warp
 from transflow_tpu_torch.ops.warp import (bounded_backwarp,
                                           bounded_backwarp_cuda,
-                                          bounded_backwarp_plain)
+                                          bounded_backwarp_plain,
+                                          exact_backwarp,
+                                          exact_backwarp_cuda,
+                                          exact_backwarp_plain)
 from transflow_tpu_torch.parallel import make_space_mesh
 
 pytestmark = pytest.mark.cuda
@@ -97,6 +101,162 @@ def test_bounded_backwarp_matches_plain(device, shape, dtype):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+# LiteFlowNet's exact backwarps of a 1088x1920 input: the matching and
+# subpixel heads' features (levels 6-2) and, beside them, odd shapes and
+# channel counts (3, 5, 33: one channel a thread; 8 on one-pixel rows and
+# columns)
+B7_SHAPES = [(34, 60, 192), (68, 120, 128), (136, 240, 96), (272, 480, 64),
+             (544, 960, 64), (9, 37, 5), (17, 23, 3), (13, 21, 33),
+             (1, 7, 8), (7, 1, 16)]
+# the regularization's 3-channel images at levels 6-2
+B7_LEVELS = [(34, 60), (68, 120), (136, 240), (272, 480), (544, 960)]
+
+
+def _b7_flow(h, w, gen, device):
+    """(h, w, 2) float32 flow: +-8 px at level 2 (544x960) scaled to the
+    level, a tenth on whole taps, a fifth 1-3 frames outside."""
+    reach = max(1.0, 8.0 * w / 960)
+    flow = reach * (2 * torch.rand((h, w, 2), generator=gen,
+                                   device=device) - 1)
+    whole = torch.rand((h, w, 1), generator=gen, device=device) < 0.1
+    flow = torch.where(whole, flow.round(), flow)
+    far = torch.rand((h, w, 1), generator=gen, device=device) < 0.2
+    size = torch.tensor([w, h], dtype=torch.float32, device=device)
+    away = size * (1 + 2 * torch.rand((h, w, 2), generator=gen,
+                                      device=device))
+    return torch.where(far, torch.sign(flow) * away, flow)
+
+
+def _b7_edge_flow(h, w, device):
+    """Every pixel's float floors on an edge case of each axis: -1 (the +1
+    tap falls back to the anchor's), n-1 (the +1 tap is the zero pad), n
+    and beyond, -2 and below, and inside, in every combination."""
+    def targets(n):
+        return torch.tensor([-1, n - 1, n, n + 3, -2, -7, 0, max(n - 2, 0),
+                             n // 2], dtype=torch.float32, device=device)
+    ii = torch.arange(h, device=device)[:, None].expand(h, w)
+    jj = torch.arange(w, device=device)[None, :].expand(h, w)
+    tx, ty = targets(w), targets(h)
+    sx = tx[(ii + 2 * jj) % len(tx)] + torch.where((ii + jj) % 2 == 1,
+                                                   0.25, 0.75)
+    sy = ty[(3 * ii + jj) % len(ty)] + torch.where(ii % 2 == 1, 0.75, 0.25)
+    return torch.stack([sx - jj, sy - ii], -1)
+
+
+def _check_b7(image, flow):
+    """B7 through the dispatcher against its plain version: one launch,
+    bit-equal."""
+    before = exact_backwarp_cuda.launches
+    got = exact_backwarp(image, flow)
+    torch.cuda.synchronize()
+    assert exact_backwarp_cuda.launches == before + 1
+    want = exact_backwarp_plain(image, flow)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    return got
+
+
+@pytest.mark.parametrize("kind", ["random", "edges"])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", B7_SHAPES, ids=str)
+def test_exact_backwarp_matches_plain(device, shape, dtype, kind):
+    """Kernel B7 against its plain version: both widen the image exactly
+    and round each product and sum in the same order, so bit-equal."""
+    h, w, c = shape
+    gen = torch.Generator(device=device).manual_seed(4)
+    image = torch.randn((h, w, c), generator=gen, device=device).to(dtype)
+    flow = (_b7_flow(h, w, gen, device) if kind == "random"
+            else _b7_edge_flow(h, w, device))
+    _check_b7(image, flow)
+
+
+@pytest.mark.parametrize("shape", B7_LEVELS, ids=str)
+def test_exact_backwarp_reads_the_strided_view(device, shape):
+    """The regularization's image: the second half of a 6-channel f32 pair
+    (pixels 6 elements apart, 12 bytes in), read in place and bit-equal
+    to its plain version and to the kernel on a contiguous copy."""
+    h, w = shape
+    gen = torch.Generator(device=device).manual_seed(5)
+    pair = torch.rand((h, w, 6), generator=gen, device=device)
+    view = pair[..., 3:]
+    assert view.stride() == (6 * w, 6, 1)
+    flow = _b7_flow(h, w, gen, device)
+    got = _check_b7(view, flow)
+    torch.testing.assert_close(got, exact_backwarp_cuda(view.contiguous(),
+                                                        flow),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_exact_backwarp_unaligned_and_bf16_flow(device, dtype):
+    """An image whose base is not on 16 bytes takes one channel a thread;
+    a bf16 flow is widened exactly: both bit-equal to the plain version."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    h, w, c = 68, 120, 128
+    flat = torch.randn(h * w * c + 1, generator=gen, device=device).to(dtype)
+    shifted = flat[1:].view(h, w, c)
+    assert shifted.data_ptr() % 16
+    _check_b7(shifted, _b7_flow(h, w, gen, device))
+    _check_b7(shifted, _b7_flow(h, w, gen, device).to(BF16))
+
+
+def test_exact_backwarp_refuses_misuse(device):
+    image = torch.zeros((6, 8, 4), device=device)
+    flow = torch.zeros((6, 8, 2), device=device)
+    with pytest.raises(ValueError, match="CUDA device"):
+        exact_backwarp_cuda(image, flow.cpu())
+    with pytest.raises(ValueError, match="rows of W pixels"):
+        exact_backwarp_cuda(torch.zeros((6, 10, 4), device=device)[:, :8],
+                            flow)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        exact_backwarp_cuda(image.half(), flow)
+
+
+@pytest.mark.parametrize("bound,per_frame", [(0, (0, 14)), (16, (9, 5))])
+def test_liteflownet_never_takes_the_plain_exact_backwarp(device,
+                                                          monkeypatch, bound,
+                                                          per_frame):
+    """A forward at bound 0 launches 14 B7 (4 matching, 5 subpixel and 5
+    regularization warps), at bound 16 9 A3 and 5 B7, and never the exact
+    backwarp's plain version."""
+    from transflow_tpu_torch.flow.estimators.liteflownet import get_weights
+    monkeypatch.setattr(warp, "exact_backwarp_plain", lambda *a: pytest.fail(
+        "the plain exact backwarp ran on the card"))
+    net = get_weights(allow_random=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    i1, i2 = (torch.rand((128, 192, 3), generator=gen, device=device)
+              for _ in range(2))
+    before = (bounded_backwarp_cuda.launches, exact_backwarp_cuda.launches)
+    with torch.no_grad():
+        flow = net(i1, i2, warp_bound=bound)
+    torch.cuda.synchronize()
+    assert flow.shape == (64, 96, 2) and torch.isfinite(flow).all()
+    assert (bounded_backwarp_cuda.launches - before[0],
+            exact_backwarp_cuda.launches - before[1]) == per_frame
+
+
+def test_liteflownet_1088p_equals_its_plain_warps(device, monkeypatch):
+    """A 1088x1920 forward at bound 0 through B7 is bit-equal to the same
+    forward with the dispatcher sent to the plain version on the card
+    (deterministic cuDNN, so the convolutions repeat exactly)."""
+    from transflow_tpu_torch.flow.estimators.liteflownet import get_weights
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    net = get_weights(allow_random=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(8)
+    i1, i2 = (torch.rand((1088, 1920, 3), generator=gen, device=device)
+              for _ in range(2))
+    before = exact_backwarp_cuda.launches
+    with torch.no_grad():
+        got = net(i1, i2, warp_bound=0)
+    assert exact_backwarp_cuda.launches == before + 14
+    monkeypatch.setattr(warp, "exact_backwarp_cuda", exact_backwarp_plain)
+    with torch.no_grad():
+        want = net(i1, i2, warp_bound=0)
+    assert got.shape == (544, 960, 2) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("pair", PAIRS, ids=lambda p: "/".join(
     str(t)[6:] for t in p))
 @pytest.mark.parametrize("shape", [(64, 48, 16, 1, 4), (128, 48, 32, 2, 4),
@@ -163,14 +323,17 @@ def test_slice_on_card_matches_cpu(device, exact_f32):
         state = model.init_state(clip[0])
         pix = model.default_pixmaps()
         keys = prng.split(prng.key(0), len(clip) - 1)
-        before = correlation7x7_cuda.launches
+        before = (correlation7x7_cuda.launches, exact_backwarp_cuda.launches)
         out = []
         for frame, key in zip(clip[1:], keys):
             state, rgb = model.step(state, frame, pix, 0.0, key,
                                     model.default_frame_numbers())
             out.append(state["prev_flow"].cpu())
-        launches = correlation7x7_cuda.launches - before
-        assert launches == (5 * (frames - 1) if dev.type == "cuda" else 0)
+        launches = (correlation7x7_cuda.launches - before[0],
+                    exact_backwarp_cuda.launches - before[1])
+        # a frame: 5 correlations (A1) and 14 exact backwarps (B7)
+        per_frame = (5, 14) if dev.type == "cuda" else (0, 0)
+        assert launches == tuple(n * (frames - 1) for n in per_frame)
         flows[dev.type] = torch.stack(out)
     assert torch.isfinite(flows["cuda"]).all()
     torch.testing.assert_close(flows["cuda"], flows["cpu"], atol=1e-3,

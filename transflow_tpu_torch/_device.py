@@ -40,6 +40,8 @@ _SIGNATURES = {
     "transflow_corr7x7_shards": (_P, _I, _I, _I, _I, _I, _I, _P),
     # image, dtype, flow, out, H, W, C, bound, stream
     "transflow_bounded_backwarp": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # image, dtype, pixel stride, flow, out, H, W, C, stream
+    "transflow_exact_backwarp": (_P, _I, _I, _P, _P, _I, _I, _I, _P),
     # image, dtype, out, storage dtype, H, W, n, params (host), stream
     "transflow_poly_expansion": (_P, _I, _P, _I, _I, _I, _I, _P, _P),
     # image1, image2, dtype, out1, out2, storage dtype, H, W, n, params

@@ -130,8 +130,8 @@ def _comp_counters():
 
 def _lfn_counters():
     from .ops.correlation import correlation7x7_cuda
-    from .ops.warp import bounded_backwarp_cuda
-    return correlation7x7_cuda, bounded_backwarp_cuda
+    from .ops.warp import bounded_backwarp_cuda, exact_backwarp_cuda
+    return correlation7x7_cuda, bounded_backwarp_cuda, exact_backwarp_cuda
 
 
 def _zero(counters) -> None:
@@ -317,9 +317,9 @@ def bench_liteflownet(device) -> dict:
     """LiteFlowNet at LFN_HEIGHT x LFN_WIDTH with random weights (the
     published network's graph; no download): LFN_CHAIN calls in a chain,
     each output perturbing the next call's inputs, ended by one readback;
-    the median of two samples after a first. The warp bound is 0 (the
-    exact backwarp), so a frame launches 5 correlations (A1) and no
-    bounded backwarp (A3): on the card anything else raises."""
+    the median of two samples after a first. The warp bound is 0, so a
+    frame launches 5 correlations (A1), no bounded backwarp (A3) and 14
+    exact backwarps (B7): on the card anything else raises."""
     from .flow.estimators.liteflownet import get_weights
     net = get_weights(allow_random=True, device=device)
     rng = np.random.default_rng(2)
@@ -342,14 +342,14 @@ def bench_liteflownet(device) -> dict:
         chained(torch.tensor(1e-3 * (i + 1), device=device))
         if i:  # the first sample builds the kernels
             times.append(time.perf_counter() - start)
-    a1, a3 = (fn.launches / LFN_CHAIN for fn in counters)
-    if device.type == "cuda" and (a1, a3) != (5, 0):
-        raise RuntimeError(f"liteflownet: A1/A3 launches a frame {a1}/{a3},"
-                           " expected 5/0")
+    a1, a3, b7 = (fn.launches / LFN_CHAIN for fn in counters)
+    if device.type == "cuda" and (a1, a3, b7) != (5, 0, 14):
+        raise RuntimeError(f"liteflownet: A1/A3/B7 launches a frame "
+                           f"{a1}/{a3}/{b7}, expected 5/0/14")
     ms = 1e3 * float(np.median(times)) / LFN_CHAIN
     return {"liteflownet_1088p_ms_per_frame": ms,
             "liteflownet_1088p_fps": 1e3 / ms,
-            "launches_per_frame": {"A1": a1, "A3": a3}}
+            "launches_per_frame": {"A1": a1, "A3": a3, "B7": b7}}
 
 
 def bench_cpu_reference() -> float:

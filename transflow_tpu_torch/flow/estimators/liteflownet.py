@@ -9,7 +9,9 @@ format, so the (H, W, C) operands of the correlation cost no copy.
 Plain convolutions are ``F.conv2d``; the 7x7 correlation is the CUDA kernel
 of ``ops/correlation.py`` on the card and its plain version on the CPU
 (``corr_kernel='pallas_halo'`` with a ``corr_mesh`` shards it over H), and
-so is the bounded backwarp of ``ops/warp.py`` (``warp_bound``, opt-in).
+so are the two backwarps of ``ops/warp.py``: the exact one (kernel B7,
+every warp by default and the regularization's always) and the bounded
+one (kernel A3, ``warp_bound``, opt-in).
 Parameters are f32; convolutions compute in ``_compute_dtype`` (bf16 on
 CUDA, f32 on the CPU), and everything else keeps JAX's dtype promotion so
 the correlation sees the same operand dtypes as on the TPU.
@@ -24,7 +26,7 @@ from torch import nn
 from ..._device import resolve_device
 from ...ops.correlation import check_kernel, correlation
 from ...ops.image import torch_bilinear_resize as bilinear_resize
-from ...ops.warp import bounded_backwarp
+from ...ops.warp import bounded_backwarp, exact_backwarp
 
 _LEVELS = (2, 3, 4, 5, 6)
 _FLT_BACKWARP = {2: 10.0, 3: 5.0, 4: 2.5, 5: 1.25, 6: 0.625}
@@ -119,10 +121,11 @@ def backwarp(image: torch.Tensor, flow: torch.Tensor,
              kernel: str | None = None) -> torch.Tensor:
     """Bilinear warp ``image[(i, j) + flow]`` with zero padding.
 
-    (H, W, C) image in any float dtype, (H, W, 2) flow in pixels; the result
-    is f32 (the bilinear weights are f32). Edge semantics of the exact path
-    follow JAX: the four taps are read at the clamped (y0, x0) anchor, so on
-    the low edges the +1 taps fall back to the anchor slot, and the
+    (H, W, C) image (f32 or bf16 on the card), (H, W, 2) flow in pixels;
+    the result is f32 (the bilinear weights are f32). The exact path is
+    ``ops/warp.py::exact_backwarp`` (kernel B7), whose edge semantics
+    follow JAX: the four taps are read at the clamped (y0, x0) anchor, so
+    on the low edges the +1 taps fall back to the anchor slot, and the
     in-bounds masks use the raw float floors.
 
     ``bound``: honoured when the image has at least 16 channels, as in JAX.
@@ -140,40 +143,7 @@ def backwarp(image: torch.Tensor, flow: torch.Tensor,
                 "variant was removed: it never compiled on the real TPU "
                 "toolchain)")
         return bounded_backwarp(image, flow, int(bound))
-    h, w, c = image.shape
-    zrow = image.new_zeros((1, w, c))
-    zcol = image.new_zeros((h, 1, c))
-    right = torch.cat([image[:, 1:], zcol], dim=1)
-    down = torch.cat([image[1:], zrow], dim=0)
-    downright = torch.cat([right[1:], zrow], dim=0)
-    v4 = torch.cat([image, right, down, downright], dim=-1)
-    yy = torch.arange(h, dtype=torch.float32, device=image.device)[:, None]
-    xx = torch.arange(w, dtype=torch.float32, device=image.device)[None, :]
-    sx = xx + flow[..., 0]
-    sy = yy + flow[..., 1]
-    x0f = torch.floor(sx)
-    y0f = torch.floor(sy)
-    wx = (sx - x0f)[..., None]
-    wy = (sy - y0f)[..., None]
-    x0 = x0f.clamp(-1, w).long()
-    y0 = y0f.clamp(-1, h).long()
-    g = v4[y0.clamp(0, h - 1), x0.clamp(0, w - 1)]
-    t00, t01, t10, t11 = g.split(c, dim=-1)
-    mx = (x0 < 0)[..., None]
-    my = (y0 < 0)[..., None]
-    t01e = torch.where(mx, t00, t01)
-    t10e = torch.where(my, t00, t10)
-    t11e = torch.where(mx & my, t00,
-                       torch.where(mx, t10, torch.where(my, t01, t11)))
-
-    def inb(xi, yi):
-        return (((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1))
-                .float()[..., None])
-
-    return (t00 * (1 - wx) * (1 - wy) * inb(x0f, y0f)
-            + t01e * wx * (1 - wy) * inb(x0f + 1, y0f)
-            + t10e * (1 - wx) * wy * inb(x0f, y0f + 1)
-            + t11e * wx * wy * inb(x0f + 1, y0f + 1))
+    return exact_backwarp(image, flow)
 
 
 def _upsample2x_phases(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
