@@ -2,6 +2,13 @@
 
     python3 chip_smoke.py [--against [NAME=]CSRC_DIR ...]
                           [--steps [NAME=]CSRC_DIR ...]
+    python3 chip_smoke.py --lfn-profile
+
+``--lfn-profile`` runs only phases 1-2's build and phase 4's bound-0
+LiteFlowNet Engine: its host syncs, ATen ops and profile a frame
+(``lfn_profile_only``). It needs nothing that the package lacked before
+kernels B16 and B17, so a copy of this script in another tree's checkout
+(the parent's, from ``git archive`` under ``_local/``) profiles that tree.
 
 Phases, in order; any failure exits non-zero:
 
@@ -149,26 +156,30 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
    1088x1920, the ``fastest`` preset and the CLI disk to disk over a cv2
    MJPG clip (still pixmap, video pixmap, ``.flow.zip`` replay), the
    record printed as its own JSON line; it must hold every field, B1/B2a/
-   B2b/B8 launches of 4/12/12/1 and A1/A3/B7 of 5/0/14 a frame, 0 host syncs a
-   frame and this card's name and power limit; then 3 cases of the chunk
+   B2b/B8 launches of 4/12/12/1 and A1/A3/B7/B16/B17 of 5/0/14/6/5 a frame, 0
+   host syncs a frame and this card's name and power limit; then 3 cases of
+   the chunk
    fuzzer (``tools/fuzz_chunks.py``, seed 5) on the card at 96x128, each
    chunked render bit-equal to the per-frame one and each resumed tail
    to the run;
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
-   the correlation kernel's launches (5 a frame) and the exact backwarp's
-   (B7, 14 a frame);
+   the correlation kernel's launches (5 a frame), the exact backwarp's
+   (B7, 14 a frame), the phase upsampler's (B16, 6) and the
+   regularization's tap apply's (B17, 5);
 4. engine: ``Engine`` at 1080x1920 over a frame source with
    ``CvFlowConfig(method="liteflownet", lfn_warp_bound=16)``, one moveref
    layer with random reset 0.01: a warm-up chunk, a timed chunk of 8
    frames, then ``process_frame`` calls, counting 9 A3, 5 B7 (the
-   regularization's 3-channel warps) and 5 correlation launches per
-   frame; then the same Engine with ``lfn_warp_bound=0`` (every warp
-   exact: 14 B7) on the same frames;
+   regularization's 3-channel warps), 5 correlation, 6 B16 and 5 B17
+   launches per frame and 0 host syncs per frame; then the same Engine
+   with ``lfn_warp_bound=0`` (every warp exact: 14 B7) on the same
+   frames;
 5. mesh engine: the bound-16 Engine under ``make_space_mesh(4)`` over
    four shards of the card with ``halo=8``: the bound is stripped, and
    each frame launches 4 A2 kernels (levels 2-5, one per level), 1 A1
-   (level 6), no A3 and 14 B7; its flows and frames against the bound-0 run of
+   (level 6), no A3, 14 B7, 6 B16 and 5 B17; its flows and frames against
+   the bound-0 run of
    phase 4; then the mesh and meshless Engines in turns (eight ABBA rounds
    of 3-frame ``process_frame`` windows) for the mesh's cost per frame;
 6. kernel vs plain: the correlation kernel against its plain PyTorch
@@ -189,6 +200,16 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
    and on the same with a fifth of the pixels 1-3 frames outside; beside
    it ``F.grid_sample`` on the first (where it is B7's function), held
    to B7 within ``grid_sample_tol`` and timed as the yardstick;
+7b. LiteFlowNet's heads vs plain: B16 (``upsample2x_phases``) at its six
+   shapes of a 1088x1920 frame (the flow at L6-L3 and the cost volume at
+   L3 and L2, each doubled) in float32 (the path's) and bfloat16, beside
+   ``F.conv_transpose2d`` on the same input (TF32 off), held to B16
+   within ``UP_LIBRARY_EPS`` epsilons and timed as the yardstick; B17
+   (``reg_apply``) at its five levels (S 3, 5, 7) with bf16 (the path's)
+   and f32 distances, the flow in the path's dtype, then NaN distances;
+   each bit-equal to its plain version on random inputs, with
+   ``device_ms``, the bound, the share, ``call_ms``, the plain version's
+   time and ATen ops (no single PyTorch call computes B17);
 8. sharded correlation: kernel A2 (``sharded_correlation7x7``, one launch
    per card that reads each shard's halo rows in place) at the five
    correlation shapes in the slice's dtype pairs, over 4 and 2 shards that
@@ -221,10 +242,13 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    dtype pairs), A2 (every sharded case), A3 beside ``F.grid_sample`` at
    L2-L6 (phase 7's bf16 inputs within the bound), B7 beside
    ``F.grid_sample`` at every phase 7 row (its time a level and a bound-0
-   frame, 9 bf16 feature warps and 5 image warps), B1, B2a, B2b, B8 at
-   the four levels and B9-B12, B14 at theirs, B8 and B14 beside every
+   frame, 9 bf16 feature warps and 5 image warps), B16 beside
+   ``F.conv_transpose2d`` and B17 at every phase 7b row, B1, B2a, B2b, B8
+   at the four levels and B9-B12, B14 at theirs, B8 and B14 beside every
    device event of the path each replaced; then the Farneback Engine's
    (which must show no cuDNN kernel and none of ``F_REPLACED_OPS``),
+   phase 4's bound-0 LiteFlowNet Engine's (with its ATen ops a frame and
+   each of its hand-written kernels' device time a frame, ``lfn_profile``),
    each phase H Engine's and phase S's device events, busy time and idle
    share per frame over a few ``process_frame`` (or one-frame
    ``sharded_scan``) calls, and their device time per frame by kernel
@@ -299,7 +323,8 @@ C. after phase 9: the compositor's kernels (``ops/compositor.py``,
 
 Every Engine, CLI and bench run of the main path counts the compositor's
 launches beside the estimators' (``KERNEL_NAMES``: K0, K1, K2, then the
-pyramids' B8 and B14, then LiteFlowNet's exact backwarp B7): one moveref
+pyramids' B8 and B14, then LiteFlowNet's exact backwarp B7 and its heads'
+B16 and B17, 6 and 5 a LiteFlowNet frame, ``LFN_HEADS``): one moveref
 layer updates through one K1 and renders through one K2 a frame
 (``C_MOVEREF``), phase T's four layers take 1 K0, 2 K1 and 1 K2; under a
 mesh that splits the movement (phases 5 and M) the moveref layer updates
@@ -335,6 +360,11 @@ K1's draw's integer operations counted at the f32 rate). They are
 hand-written for jnp code (no Pallas source) and no single PyTorch call
 computes any of them (``index_put_`` with duplicate indices writes in
 no fixed order on CUDA; no single call blurs and resizes).
+
+B16's bound counts the input, the taps and the output once and 7
+operations an output value; B17's the distances, the flow and the output
+once and 11 operations a tap (the exponential as one), 5 a pixel
+(``up_bound_ms``, ``reg_bound_ms``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -398,6 +428,28 @@ B7_LEVELS = ((34, 60, "L6"), (68, 120, "L5"), (136, 240, "L4"),
              (272, 480, "L3"), (544, 960, "L2"))
 B7_REACH = 8.0   # px at L2 of the random flows, scaled with the level
 B7_FAR = 0.2     # their share of pixels 1-3 frames outside the frame
+# the heads' kernels a LiteFlowNet frame at any bound, meshed or not: B16
+# upsamples the flow at L5-L2 and the cost volume at L3 and L2, B17 applies
+# the regularization's taps at each of the five levels
+LFN_HEADS = {"B16": 6, "B17": 5}
+# B16's shapes a 1088x1920 frame, one launch each: (h, w, C, name) of the
+# half-res input. The path gives it float32 (the flow after the
+# regularization, the correlation's float32 cost volume); the rows are
+# held in bfloat16 too
+B16_SHAPES = ((34, 60, 2, "flow L6->L5"), (68, 120, 2, "flow L5->L4"),
+              (136, 240, 2, "flow L4->L3"), (272, 480, 2, "flow L3->L2"),
+              (136, 240, 49, "cost L3"), (272, 480, 49, "cost L2"))
+# B17's shapes: (H, W, S, name), one launch a level; the network gives it
+# bf16 distances, and at L6 a bf16 flow (the matching and subpixel heads'
+# sum of two bf16 convolutions), elsewhere an f32 one
+B17_LEVELS = ((34, 60, 3, "L6"), (68, 120, 3, "L5"), (136, 240, 5, "L4"),
+              (272, 480, 5, "L3"), (544, 960, 7, "L2"))
+# F.conv_transpose2d against B16: each output is the sum of the same four
+# products in another order (and cuDNN's own rounding in bf16), so within
+# this many units of the dtype's epsilon of 4 * max|x| * max|taps|
+UP_LIBRARY_EPS = 4
+LFN_SYNC_CALLS = 1     # process_frame calls that count the host's syncs
+LFN_PROFILE_CALLS = 3  # process_frame calls under the profiler (phase 10)
 # F.grid_sample against A3 within the bound: grid_sample finds each tap
 # from a normalised position ((x + u) * 2 / (W - 1) - 1, unnormalised
 # again), so its fractions carry a few ulp of the frame's size where A3's
@@ -638,12 +690,14 @@ def ptxas_reports(log: str) -> list[dict]:
 # kernels whose ptxas report must show no spill: the correlation's 98 sums
 # per thread, the register windows of B1 and B2b and B2a's twenty tap loads
 # a sample stay in registers; so do B5's, B11's and B12's few values (16-40
-# registers), B9's strips and B10's strip of two rows (64 registers each)
+# registers), B9's strips and B10's strip of two rows (64 registers each),
+# and B17's 49 exponentials a pixel
 NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
             "aggregate_solve", "forward_scatter", "backward_resolve",
             "hs_derivatives", "hs_iterate", "lk_warp_products", "lk_window",
             "pyramid_levels_kernel", "lk_pyramid_kernel",
-            "exact_backwarp_kernel")
+            "exact_backwarp_kernel", "upsample2x_phases_kernel",
+            "reg_apply_kernel")
 
 
 def phase_build() -> list[dict]:
@@ -917,6 +971,170 @@ def phase_exact_warp_kernels(device) -> list[dict]:
     return rows
 
 
+def up_bound_ms(h: int, w: int, c: int, dtype) -> tuple[float, str]:
+    """B16's bound: the (h, w, C) input and the (C, 1, 4, 4) float32 taps
+    read once, the (2h, 2w, C) output written once; per output value 4
+    products and 3 sums."""
+    nbytes = h * w * c * dtype.itemsize * 5 + 64 * c
+    return _bound(nbytes, 7 * 4 * h * w * c)
+
+
+def reg_bound_ms(h: int, w: int, size: int, dist_dtype, flow_dtype
+                 ) -> tuple[float, str]:
+    """B17's bound: the (H, W, S*S) distances and the (H, W, 2) flow read
+    once, the f32 output written once (the 2 * S*S + 2 parameters too);
+    per tap the square, the max, the difference, the exponential (counted
+    as one operation), the sum, and two products and a sum an axis; per
+    pixel the reciprocal, two sums and two products."""
+    taps = size * size
+    nbytes = (h * w * (taps * dist_dtype.itemsize + 2 * flow_dtype.itemsize
+                       + 2 * 4) + 4 * (2 * taps + 2))
+    return _bound(nbytes, h * w * (11 * taps + 5))
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit-equal where neither is NaN (the signs of zeros included), and
+    NaN in the same places."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return False
+    got, want = (torch.where(nan, 0, t) for t in (got, want))
+    ints = torch.int16 if got.dtype == BF16 else torch.int32
+    return torch.equal(got.view(ints), want.view(ints))
+
+
+def conv_transpose_call(x, weight):
+    """``F.conv_transpose2d(x, weight, stride=2, padding=1, groups=C)`` on
+    an (1, C, h, w) float32 view of the (h, w, C) input, TF32 off: B16's
+    function in one PyTorch call (cuDNN), as (1, C, 2h, 2w) in float32."""
+    from transflow_tpu_torch.ops.image import exact_f32_convolutions
+    nchw = x.float().permute(2, 0, 1)[None]
+
+    def call():
+        with exact_f32_convolutions(x.device):
+            return torch.nn.functional.conv_transpose2d(
+                nchw, weight, stride=2, padding=1, groups=x.shape[2])
+    return call
+
+
+def phase_lfn_head_kernels(device) -> tuple[list[dict], list[dict]]:
+    """Phase 7b: B16 (``upsample2x_phases``) at its six 1088x1920 shapes in
+    float32 (the path's) and bfloat16, and B17 (``reg_apply``) at its five
+    levels with bf16 (the path's) and f32 distances, the flow in the
+    path's dtype (bf16 at L6), then one bf16 L2 case with NaN distances;
+    random inputs from the seed, each bit-equal to its plain version.
+    Each row is timed (``device_ms``, ``call_ms``, the plain version's time
+    and ATen ops; phase 10 adds the kernel time); B16's beside
+    ``F.conv_transpose2d`` on the same input (TF32 off), held to B16
+    within ``UP_LIBRARY_EPS`` epsilons of 4 max|x| max|taps| and timed as
+    the library-call yardstick. No single PyTorch call computes B17."""
+    from transflow_tpu_torch.ops.lfn_heads import (reg_apply_cuda,
+                                                   reg_apply_plain,
+                                                   upsample2x_phases_cuda,
+                                                   upsample2x_phases_plain)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    up_rows, reg_rows = [], []
+    for h, w, c, name in B16_SHAPES:
+        for dtype in (F32, BF16):
+            x = torch.randn((h, w, c), generator=gen, device=device).to(dtype)
+            weight = 0.5 * torch.randn((c, 1, 4, 4), generator=gen,
+                                       device=device)
+            got = upsample2x_phases_cuda(x, weight)
+            want = upsample2x_phases_plain(x, weight)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not _same_bits(got, want):
+                raise AssertionError(f"B16 disagrees at {name} {dtype}: "
+                                     f"max_abs_err {err}")
+            library = conv_transpose_call(x, weight)
+            lib_err = (library()[0].permute(1, 2, 0).float()
+                       - got.float()).abs().max().item()
+            eps = torch.finfo(dtype).eps
+            tol = (UP_LIBRARY_EPS * eps * 4 * x.float().abs().max().item()
+                   * weight.abs().max().item())
+            if not lib_err <= tol:
+                raise AssertionError(f"conv_transpose2d disagrees with B16 "
+                                     f"at {name} {dtype}: |diff| {lib_err} "
+                                     f"> {tol}")
+            row = {"kernel": "upsample2x_phases", "level": name,
+                   "dtype": dtype, "err": err, "main": dtype == F32}
+            row["bound_ms"], row["bound_by"] = up_bound_ms(h, w, c, dtype)
+            row["device_ms"] = device_ms(
+                lambda: upsample2x_phases_cuda(x, weight))
+            row["call_ms"] = call_ms(lambda: upsample2x_phases_cuda(x, weight))
+            row["plain_ms"] = device_ms(
+                lambda: upsample2x_phases_plain(x, weight), PLAIN_LAUNCHES)
+            row["plain_ops"] = aten_ops(
+                lambda: upsample2x_phases_plain(x, weight))
+            row["library_ms"] = device_ms(library)
+            # profiled in phase 10
+            row["call"] = functools.partial(upsample2x_phases_cuda, x, weight)
+            row["library_call"] = library
+            print(f"B16 {name} ({h},{w},{c}) {str(dtype)[6:]}: bit-equal "
+                  f"(max_abs_err {err:.3e}) device_ms "
+                  f"{row['device_ms']:.5f} bound {row['bound_ms']:.5f} "
+                  f"({row['bound_by']}) share "
+                  f"{row['bound_ms'] / row['device_ms']:.1%}; call "
+                  f"{row['call_ms']:.4f} ms (host-inclusive); plain "
+                  f"{row['plain_ms']:.4f} ms ({row['plain_ops']} ATen ops); "
+                  f"conv_transpose2d {row['library_ms']:.5f} ms (|diff| "
+                  f"{lib_err:.3e} <= {tol:.3e})")
+            up_rows.append(row)
+    cases = [(h, w, size, name, dist_dtype, BF16 if name == "L6" else F32,
+              False)
+             for h, w, size, name in B17_LEVELS for dist_dtype in (BF16, F32)]
+    cases.append((*B17_LEVELS[-1], BF16, F32, True))
+    for h, w, size, name, dist_dtype, flow_dtype, nan in cases:
+        taps = size * size
+        dist = (1.5 * torch.randn((h, w, taps), generator=gen,
+                                  device=device)).to(dist_dtype)
+        if nan:  # one NaN distance in a tenth of the pixels
+            hit = torch.rand((h, w), generator=gen, device=device) < 0.1
+            dist[..., taps // 2][hit] = float("nan")
+        reach = B7_REACH * w / B7_LEVELS[-1][1]
+        flow = (reach * (2 * torch.rand((h, w, 2), generator=gen,
+                                        device=device) - 1)).to(flow_dtype)
+        params = [torch.randn(shape, generator=gen, device=device)
+                  for shape in ((1, taps, 1, 1), (1,), (1, taps, 1, 1),
+                                (1,))]
+        got = reg_apply_cuda(dist, flow, *params)
+        want = reg_apply_plain(dist, flow, *params)
+        torch.cuda.synchronize()
+        err = (got - want).nan_to_num(0.0).abs().max().item()
+        if not _same_bits(got, want):
+            raise AssertionError(f"B17 disagrees at {name} dist "
+                                 f"{dist_dtype} flow {flow_dtype}"
+                                 f"{' with NaNs' if nan else ''}: "
+                                 f"max_abs_err {err}")
+        kind = "NaN distances" if nan else "random"
+        row = {"kernel": "reg_apply", "level": name, "dist": dist_dtype,
+               "flow": flow_dtype, "kind": kind, "err": err,
+               "main": dist_dtype == BF16 and not nan}
+        row["bound_ms"], row["bound_by"] = reg_bound_ms(h, w, size,
+                                                        dist_dtype, flow_dtype)
+        row["device_ms"] = device_ms(lambda: reg_apply_cuda(dist, flow,
+                                                            *params))
+        row["call_ms"] = call_ms(lambda: reg_apply_cuda(dist, flow, *params))
+        row["plain_ms"] = device_ms(lambda: reg_apply_plain(dist, flow,
+                                                            *params),
+                                    PLAIN_LAUNCHES)
+        row["plain_ops"] = aten_ops(lambda: reg_apply_plain(dist, flow,
+                                                            *params))
+        # profiled in phase 10
+        row["call"] = functools.partial(reg_apply_cuda, dist, flow, *params)
+        print(f"B17 {name} ({h},{w},{taps}) dist {str(dist_dtype)[6:]} flow "
+              f"{str(flow_dtype)[6:]} {kind}: bit-equal (max_abs_err "
+              f"{err:.3e}, NaNs where the plain version's) device_ms "
+              f"{row['device_ms']:.5f} bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']}) share "
+              f"{row['bound_ms'] / row['device_ms']:.1%}; call "
+              f"{row['call_ms']:.4f} ms (host-inclusive); plain "
+              f"{row['plain_ms']:.4f} ms ({row['plain_ops']} ATen ops); no "
+              "single PyTorch call computes it")
+        reg_rows.append(row)
+    return up_rows, reg_rows
+
+
 def panned_frames(n: int, height: int, width: int, device,
                   step: int = 3) -> torch.Tensor:
     """(n, H, W, 3) uint8 frames: a smooth random texture panned by
@@ -964,7 +1182,11 @@ def run_frames(model, frames, pixmaps, key):
 def phase_slice(device, card: str) -> dict:
     from transflow_tpu_torch import prng
     from transflow_tpu_torch.ops.correlation import correlation7x7_cuda
+    from transflow_tpu_torch.ops.lfn_heads import (reg_apply_cuda,
+                                                   upsample2x_phases_cuda)
     from transflow_tpu_torch.ops.warp import exact_backwarp_cuda
+    counters = {"A1": correlation7x7_cuda, "B7": exact_backwarp_cuda,
+                "B16": upsample2x_phases_cuda, "B17": reg_apply_cuda}
     os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
     model = flagship_model(HEIGHT, WIDTH, device)
     frames = panned_frames(SLICE_FRAMES + 2, HEIGHT, WIDTH, device)
@@ -972,7 +1194,8 @@ def phase_slice(device, card: str) -> dict:
     numbers = model.default_frame_numbers()
     keys = prng.split(prng.key(SEED), SLICE_FRAMES + 2)
     torch.cuda.synchronize()
-    correlation7x7_cuda.launches = exact_backwarp_cuda.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     state, _ = model.step(model.init_state(frames[0]), frames[1], pixmaps,
                           0.0, keys[1], numbers)  # warm-up frame
     # per-frame checks reduce on the card; one readback at the end
@@ -995,12 +1218,12 @@ def phase_slice(device, card: str) -> dict:
     finite, checksum, max_flow = (finite.item(), checksum.item(),
                                   max_flow.item())
     seconds = time.perf_counter() - start
-    launches = {"A1": correlation7x7_cuda.launches,
-                "B7": exact_backwarp_cuda.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     frames_run = 1 + SLICE_FRAMES
     if not finite:
         raise AssertionError("non-finite flow")
-    want = {"A1": 5 * frames_run, "B7": B7_EXACT * frames_run}
+    want = {name: n * frames_run
+            for name, n in ({"A1": 5, "B7": B7_EXACT} | LFN_HEADS).items()}
     if launches != want:
         raise AssertionError(f"launches {launches} over {frames_run} "
                              f"frames, expected {want}")
@@ -1009,7 +1232,8 @@ def phase_slice(device, card: str) -> dict:
           f"{1e3 / ms:.2f} frames/s over {SLICE_FRAMES} frames "
           f"(max |flow| {max_flow:.4g}, checksum {checksum}) on {card}")
     print(f"correlation launches: {launches['A1']}, exact backwarp "
-          f"launches: {launches['B7']} over {frames_run} frames")
+          f"launches: {launches['B7']}, phase upsampler: {launches['B16']}, "
+          f"tap apply: {launches['B17']} over {frames_run} frames")
     return launches
 
 
@@ -1065,6 +1289,8 @@ def _launch_counters():
                                                    update_equations_cuda)
     from transflow_tpu_torch.ops.horn_schunck import (hs_derivatives_cuda,
                                                       hs_iterate_cuda)
+    from transflow_tpu_torch.ops.lfn_heads import (reg_apply_cuda,
+                                                   upsample2x_phases_cuda)
     from transflow_tpu_torch.ops.lucas_kanade import (lk_warp_products_cuda,
                                                       lk_window_solve_cuda)
     from transflow_tpu_torch.ops.pyramid import (lk_pyramid_cuda,
@@ -1078,12 +1304,14 @@ def _launch_counters():
             forward_to_backward_cuda, hs_derivatives_cuda, hs_iterate_cuda,
             lk_warp_products_cuda, lk_window_solve_cuda,
             leave_empty_sources_cuda, layer_update_cuda, composite_cuda,
-            pyramid_levels_cuda, lk_pyramid_cuda, exact_backwarp_cuda)
+            pyramid_levels_cuda, lk_pyramid_cuda, exact_backwarp_cuda,
+            upsample2x_phases_cuda, reg_apply_cuda)
 
 
 # the names of _launches()'s entries
 KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5", "B9", "B10",
-                "B11", "B12", "K0", "K1", "K2", "B8", "B14", "B7")
+                "B11", "B12", "K0", "K1", "K2", "B8", "B14", "B7", "B16",
+                "B17")
 
 
 def fb_launches(launches) -> tuple:
@@ -1098,6 +1326,14 @@ def fb_row(per_frame: tuple, comp: tuple = C_MOVEREF) -> tuple:
     (K0, K1, K2), no other kernel."""
     named = dict(zip(FB_NAMES, per_frame)) | dict(zip(("K0", "K1", "K2"),
                                                        comp))
+    return tuple(named.get(n, 0) for n in KERNEL_NAMES)
+
+
+def lfn_row(comp: tuple = C_MOVEREF, **named: int) -> tuple:
+    """``KERNEL_NAMES`` launches a frame of a LiteFlowNet Engine: the
+    network's ``named`` counts, its heads' ``LFN_HEADS`` and the
+    compositor's ``comp`` (K0, K1, K2), no other kernel."""
+    named = LFN_HEADS | named | dict(zip(("K0", "K1", "K2"), comp))
     return tuple(named.get(n, 0) for n in KERNEL_NAMES)
 # the compositor's K0, K1, K2 launches a frame under a mesh that splits
 # the movement: the moveref layer updates through its plain ops and the
@@ -1581,7 +1817,7 @@ T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
 # sources, and B5's two for the forward one
 # and K0, K1, K2: the moveref layer leaves empty spots (K0), the sum and
 # the moveref layer update through K1, the stack renders in one K2
-T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 2, 0, 0)
+T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 2, 0, 0, 0, 0)
 T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
 T_SYNC_CALLS = 2
 T_PROFILE_CALLS = 3
@@ -1935,11 +2171,13 @@ def h_per_frame(config, height: int, width: int) -> tuple:
     from transflow_tpu_torch.ops import pyramid
     kw = config.estimator_kwargs()
     if config.method == "horn-schunck":
-        return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF, 0, 0, 0)
+        return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF, 0, 0, 0, 0,
+                           0)
     levels = len(pyramid.lk_shapes(height, width, kw["win_size"],
                                    kw["max_level"]))
     return (0,) * 7 + (0, 0, H_LK_ITERS * levels, (H_LK_ITERS + 1) * levels,
-                       *C_MOVEREF, 0, pyramid.lk_launches(levels), 0)
+                       *C_MOVEREF, 0, pyramid.lk_launches(levels), 0, 0,
+                       0)
 
 
 def phase_classic_engine(device, card: str) -> dict:
@@ -2143,7 +2381,7 @@ S_RESET = 0.05
 S_HALO = 8
 S_TOOL_FRAMES = 9     # frames of each sequence the batch renderer reads
 S_PER_FRAME = (0, 0, 0, 0, 0, 0, 0, 1, S_ITERS, 0, 0,
-               *C_MOVEREF, 0, 0, 0)  # a stream-frame
+               *C_MOVEREF, 0, 0, 0, 0, 0)  # a stream-frame
 
 
 def s_model(device, halo: int | None = None):
@@ -2974,8 +3212,8 @@ K_FUZZ_CASES = 3
 K_FUZZ_SEED = 5          # the CPU tests' cases: a video source with a
 #                          checkpoint cadence, the archive with one, a lock
 K_FUZZ_SIZE = (96, 128)
-# A1, A3, B7 launches a LiteFlowNet frame at bound 0
-K_LFN_PER_FRAME = (5, 0, 14)
+# A1, A3, B7, B16, B17 launches a LiteFlowNet frame at bound 0
+K_LFN_PER_FRAME = {"A1": 5, "A3": 0, "B7": B7_EXACT} | LFN_HEADS
 K_FIELDS = ("metric", "value", "unit", "vs_baseline", "ms_per_frame",
             "best_fps", "noise_iqr_pct", "samples", "window_fps",
             "stage_ms", "hbm_io_gbps",
@@ -2990,8 +3228,9 @@ def phase_bench(device, card: str) -> dict:
     """Phase K: the port's bench (``transflow_tpu_torch/bench.py``) in
     this process with ``--e2e``, cut to K_CHUNKS_PER_SAMPLE chunks a
     sample, K_REPEATS samples and K_E2E_FRAMES frames: its record (printed
-    on its own line) has every field, B1/B2a/B2b/B8 4/12/12/1 and A1/A3/B7
-    5/0/14 launches a frame, 0 host syncs a frame and this card; then
+    on its own line) has every field, B1/B2a/B2b/B8 4/12/12/1 and
+    A1/A3/B7/B16/B17 5/0/14/6/5 launches a frame, 0 host syncs a frame and
+    this card; then
     K_FUZZ_CASES cases of the chunk fuzzer on the card at K_FUZZ_SIZE,
     each bit-equal chunked, per frame and resumed."""
     from transflow_tpu_torch import bench
@@ -3019,10 +3258,10 @@ def phase_bench(device, card: str) -> dict:
     lfn = record["launches_per_frame"]["liteflownet"]
     if tuple(fb[n] for n in FB_NAMES) != FB_DEFAULT_PER_FRAME or \
             (fb["K0"], fb["K1"], fb["K2"]) != C_MOVEREF or \
-            (lfn["A1"], lfn["A3"], lfn["B7"]) != K_LFN_PER_FRAME:
+            lfn != K_LFN_PER_FRAME:
         raise AssertionError(f"K: launches a frame {fb}, {lfn}; expected "
                              f"{FB_DEFAULT_PER_FRAME}, K0/K1/K2 {C_MOVEREF} "
-                             f"and A1/A3/B7 {K_LFN_PER_FRAME}")
+                             f"and {K_LFN_PER_FRAME}")
     if record["host_syncs_per_frame"] != 0:
         raise AssertionError(f"K: {record['host_syncs_per_frame']} host "
                              "syncs a frame")
@@ -3275,10 +3514,13 @@ def phase_scatter_kernel(device, pan_flow) -> list[dict]:
 
 
 def phase_engine(device, card: str) -> dict:
-    """The Engine at lfn_warp_bound=16 and =0 on the same frames; returns
-    the runs, the frames and the pixmap."""
+    """The Engine at lfn_warp_bound=16 and =0 on the same frames, each
+    with 0 host syncs a frame; returns the runs, the frames and the
+    pixmap."""
     os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
-    n = 1 + ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS
+    # and the frames of the bound-0 Engine's profile (phase 10)
+    n = (1 + ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS + LFN_SYNC_CALLS
+         + 1 + LFN_PROFILE_CALLS)
     frames = panned_frames(n, HEIGHT, WIDTH, device)
     pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
@@ -3296,9 +3538,16 @@ def phase_engine(device, card: str) -> dict:
               f"sharded_correlation7x7 {a2}; with {ENGINE_CALLS} "
               f"process_frame calls: {run['launches']}")
         _check_engine_run(f"lfn_warp_bound={bound}", run,
-                          (9 if bound else 0, 5, 0, 0, 0, 0, 0, 0, 0, 0,
-                           0, *C_MOVEREF, 0, 0,
-                           B7_BOUNDED if bound else B7_EXACT))
+                          lfn_row(A3=9 if bound else 0, A1=5,
+                                  B7=B7_BOUNDED if bound else B7_EXACT))
+        run["syncs"] = host_syncs(run, LFN_SYNC_CALLS)
+        print(f"engine lfn_warp_bound={bound}: launches per frame "
+              f"{_per_frame_text(run)}; {run['syncs']:g} host syncs per "
+              f"frame (torch.cuda.set_sync_debug_mode, {LFN_SYNC_CALLS} "
+              "process_frame call)")
+        if run["syncs"]:
+            raise AssertionError(f"lfn_warp_bound={bound}: {run['syncs']} "
+                                 "host syncs per frame")
     diff = (runs[WARP_BOUND]["flows"] - runs[0]["flows"]).abs().max().item()
     print(f"engine max |flow(lfn_warp_bound={WARP_BOUND}) - "
           f"flow(lfn_warp_bound=0)| {diff:.3e} over the chunk")
@@ -3323,8 +3572,7 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
           f"correlation7x7 {a1}, sharded_correlation7x7 {a2}; with "
           f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
     _check_engine_run("mesh engine", run,
-                      (0, 1, A2_PER_FRAME, 0, 0, 0, 0, 0, 0, 0, 0, *C_MESH,
-                       0, 0, B7_EXACT))
+                      lfn_row(C_MESH, A1=1, A2=A2_PER_FRAME, B7=B7_EXACT))
     diff = max((run["flows"] - ref["flows"]).abs().max().item(),
                (run["call_flows"] - ref["call_flows"]).abs().max().item())
     same = (torch.equal(run["out"], ref["out"])
@@ -3962,14 +4210,31 @@ def phase_compositor_kernels(device, fb_run: dict, t_run: dict
 
 
 def phase_equivalence(device) -> None:
+    """Phase 9 in float32 with TF32 off; the caller's settings come back
+    after it, so that phase 10 profiles the main path's bf16 network."""
+    saved = (os.environ.get("TRANSFLOW_LITEFLOWNET_BF16"),
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    os.environ["TRANSFLOW_LITEFLOWNET_BF16"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _equivalence(device)
+    finally:
+        if saved[0] is None:
+            os.environ.pop("TRANSFLOW_LITEFLOWNET_BF16", None)
+        else:
+            os.environ["TRANSFLOW_LITEFLOWNET_BF16"] = saved[0]
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved[1:]
+
+
+def _equivalence(device) -> None:
     from transflow_tpu_torch import prng
     from transflow_tpu_torch.compositor.core import (build_compositor,
                                                      make_layer_params)
     from transflow_tpu_torch.config import LayerConfig
     from transflow_tpu_torch.flow.transforms import clip_to_frame
-    os.environ["TRANSFLOW_LITEFLOWNET_BF16"] = "0"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     h, w = 128, 192
     frames = panned_frames(EQUIV_FRAMES + 1, h, w, "cpu")
     flows = {}
@@ -4073,10 +4338,11 @@ def phase_equivalence(device) -> None:
           f"bit-equal over {EQUIV_FRAMES} frames")
 
 
-def phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, fb_rows, b5_rows,
-                      h_rows, c_rows) -> None:
-    """``kernel_ms`` of every row that phases 6, 7, 8, B, T, H and C left
-    a call in; A3's and B7's beside ``F.grid_sample``'s; B8's and B14's
+def phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, up_rows,
+                      reg_rows, fb_rows, b5_rows, h_rows, c_rows) -> None:
+    """``kernel_ms`` of every row that phases 6, 7, 7b, 8, B, T, H and C
+    left a call in; A3's and B7's beside ``F.grid_sample``'s, B16's beside
+    ``F.conv_transpose2d``'s; B8's and B14's
     beside the path each replaced (every device event of it); B5's over
     every device event of a call (its two kernels); K0-K2's of the row's
     kernel alone (the leave-empty K1 row: K1's, without K0's)."""
@@ -4112,6 +4378,23 @@ def phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, fb_rows, b5_rows,
               f"(torch.profiler, per call) against device_ms "
               f"{row['device_ms']:.5f} and bound {row['bound_ms']:.5f} "
               f"({row['bound_by']}): share {share}")
+    for row in up_rows + reg_rows:
+        kernel = row["kernel"]
+        row["kernel_ms"] = kernel_ms(row.pop("call"), f"{kernel}_kernel")
+        library = ""
+        if "library_call" in row:
+            row["library_kernel_ms"] = kernel_ms(row.pop("library_call"), "")
+            library = (f", conv_transpose2d "
+                       f"{_ms_text(row['library_kernel_ms'])}")
+        share = ("not measured" if row["kernel_ms"] is None
+                 else f"{row['bound_ms'] / row['kernel_ms']:.1%}")
+        dtypes = (str(row["dtype"])[6:] if "dtype" in row else
+                  f"dist {str(row['dist'])[6:]} flow {str(row['flow'])[6:]} "
+                  f"{row['kind']}")
+        print(f"kernel time {kernel} {row['level']} {dtypes}: "
+              f"{_ms_text(row['kernel_ms'])}{library} (torch.profiler, per "
+              f"call) against device_ms {row['device_ms']:.5f} and bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}): share {share}")
     for row in fb_rows:
         if "call" not in row:
             continue
@@ -4249,6 +4532,80 @@ def engine_profile(name: str, run: dict, calls: int, card: str,
           + ", ".join(f"{c} {ms:.5f} ms in {n / calls:g} events"
                       for c, (ms, n) in comp.items()))
     return result
+
+
+# the port's LiteFlowNet kernels in a profile, by a part of their names
+LFN_KERNEL_NAMES = {"A1": "corr7x7", "A3": "bounded_backwarp_kernel",
+                    "B7": "exact_backwarp_kernel",
+                    "B16": "upsample2x_phases_kernel",
+                    "B17": "reg_apply_kernel"}
+
+
+def lfn_profile(name: str, run: dict, card: str) -> dict:
+    """The LiteFlowNet Engine of ``run`` a frame: the ATen ops of one
+    ``process_frame`` call (views left out: about the launches of its plain
+    ops), then ``engine_profile`` over ``LFN_PROFILE_CALLS`` calls and the
+    device time a frame of each of the port's LiteFlowNet kernels
+    (``LFN_KERNEL_NAMES``) and of everything else."""
+    fno = run["next_fno"]
+    run["next_fno"] = fno + 1
+    ops = aten_ops(lambda: run["step"](fno))
+    print(f"profile {name}: {ops} ATen ops a frame (one process_frame "
+          f"call, views left out) on {card}")
+    profile = engine_profile(name, run, LFN_PROFILE_CALLS, card)
+    profile["aten_ops_per_frame"] = ops
+    if not profile["by_name"]:
+        return profile
+    ours = 0.0
+    for label, pattern in LFN_KERNEL_NAMES.items():
+        ms, n = (sum(v[i] for k, v in profile["by_name"].items()
+                     if pattern in k) for i in (0, 1))
+        ours += ms
+        print(f"profile {name}: {label} {ms:.5f} ms in {n:g} events a frame")
+    print(f"profile {name}: the port's LiteFlowNet kernels {ours:.5f} ms, "
+          f"every other device event {profile['busy_ms'] - ours:.5f} ms "
+          f"of {profile['busy_ms']:.3f} ms busy a frame on {card}")
+    return profile
+
+
+def lfn_profile_only(device, card: str) -> None:
+    """``--lfn-profile``: phase 4's bound-0 Engine alone: after a warm-up
+    its ms/frame over ``ENGINE_FRAMES`` ``process_frame`` calls, then its
+    host syncs, ATen ops and profile a frame. It uses nothing that
+    the package lacked before kernels B16 and B17, so this script copied
+    into another tree's checkout profiles that tree's package."""
+    from transflow_tpu_torch._device import kernel_library
+    os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
+    lib = kernel_library()
+    print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s")
+    warmup = ENGINE_WARMUP + ENGINE_CALLS
+    frames = panned_frames(1 + warmup + ENGINE_FRAMES + LFN_SYNC_CALLS + 1
+                           + LFN_PROFILE_CALLS, HEIGHT, WIDTH, device)
+    pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
+    engine, source = make_engine(device, frames, lfn_config(0))
+    items = iter(source)
+
+    def step(fno):
+        engine.process_frame([next(items)], ((pixmap,),), fno / 30.0,
+                             ((fno,),))
+
+    for fno in range(warmup):
+        step(fno)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for fno in range(warmup, warmup + ENGINE_FRAMES):
+        step(fno)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - start) / ENGINE_FRAMES
+    print(f"liteflownet engine lfn_warp_bound=0: {ms:.2f} ms/frame over "
+          f"{ENGINE_FRAMES} process_frame calls after {warmup} (host clock "
+          f"to a synchronize) on {card}")
+    run = {"step": step, "next_fno": warmup + ENGINE_FRAMES}
+    syncs = host_syncs(run, LFN_SYNC_CALLS)
+    print(f"liteflownet engine lfn_warp_bound=0: {syncs:g} host syncs per "
+          f"frame ({LFN_SYNC_CALLS} process_frame call) on {card}")
+    lfn_profile("liteflownet engine lfn_warp_bound=0", run, card)
 
 
 def build_others(csrcs: list[Path], mine: list[dict]) -> list[ctypes.CDLL]:
@@ -4948,11 +5305,18 @@ def main() -> int:
                              "its steps, in phase 11's turns, its outputs "
                              "not held to this tree's; repeat it for "
                              "several copies")
+    parser.add_argument("--lfn-profile", action="store_true",
+                        help="only phase 4's bound-0 LiteFlowNet Engine: its "
+                             "host syncs, ATen ops and profile a frame, "
+                             "with the package beside this script")
     parser.add_argument("--multihost-worker", type=int, nargs=2,
                         metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.multihost_worker:  # one of phase M's processes
         return multihost_worker(*args.multihost_worker)
+    if args.lfn_profile:
+        lfn_profile_only(torch.device("cuda", 0), phase_device())
+        return 0
     card = phase_device()
     libav = phase_libav()
     device = torch.device("cuda", 0)
@@ -4973,6 +5337,7 @@ def main() -> int:
     rows = phase_kernels(device)
     warp_rows = phase_warp_kernels(device)
     b7_rows = phase_exact_warp_kernels(device)
+    up_rows, reg_rows = phase_lfn_head_kernels(device)
     a2_rows = phase_sharded_kernels(device)
     fb_rows = phase_farneback_kernels(device)
     b5_rows = phase_scatter_kernel(device, t_run["b5_flow"])
@@ -4981,8 +5346,8 @@ def main() -> int:
     phase_draw(device)
     c_rows = phase_compositor_kernels(device, fb_runs["CvFlowConfig()"],
                                       t_run)
-    phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, fb_rows, b5_rows,
-                      h_rows, c_rows)
+    phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, up_rows, reg_rows,
+                      fb_rows, b5_rows, h_rows, c_rows)
     f_profile = engine_profile("farneback engine CvFlowConfig()",
                                fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS,
                                card)
@@ -5011,6 +5376,8 @@ def main() -> int:
               f"{sum(ms for ms, _ in b8) / b8_events:.5f} ms of kernel "
               f"time a launch, {b8_events:g} launches a frame seen of "
               f"{FB_DEFAULT_PER_FRAME[3]} (torch.profiler) on {card}")
+    lfn_profile("liteflownet engine lfn_warp_bound=0",
+                engine_phase["runs"][0], card)
     for name, run in h_runs.items():
         run["profile"] = engine_profile(f"classic engine {name}", run,
                                         H_PROFILE_CALLS, card)
@@ -5176,6 +5543,62 @@ def main() -> int:
                    "align_corners=True) on an f32 NCHW view; both timed on "
                    "flows whose taps stay in the frame",
     })
+    # B16 and B17 per frame: the six float32 upsamples, the five tap
+    # applies (bf16 distances); their launches: the slice's and phases
+    # 4-5's Engines' (the bench asserts its own 6 and 5 a frame)
+    heads = {
+        "upsample2x_phases": (
+            "B16", up_rows, "transflow_tpu/flow/estimators/liteflownet.py:220",
+            "liteflownet.py:220 _upsample2x_phases (jnp ops): the flow at "
+            "L5-L2 and the cost volume at L3 and L2"),
+        "reg_apply": (
+            "B17", reg_rows, "transflow_tpu/flow/estimators/liteflownet.py:420",
+            "liteflownet.py:420-448 Regularization's softmax and fused tap "
+            "apply (jnp ops)")}
+    for name, (label, group, replaces, function) in heads.items():
+        main = [r for r in group if r["main"]]
+        k = KERNEL_NAMES.index(label)
+        launches = slice_launches[label] + sum(
+            run["launches"][k] for run in (*runs.values(), mesh_run))
+        library = ("" if label == "B17" else
+                   f", conv_transpose2d {_per_frame(main, 'library_ms'):.5f} "
+                   f"(kernel_ms "
+                   f"{_ms_text(_per_frame(main, 'library_kernel_ms'))})")
+        print(f"{name} per frame ({len(main)} launches): device_ms "
+              f"{_per_frame(main, 'device_ms'):.5f}, kernel_ms "
+              f"{_ms_text(_per_frame(main, 'kernel_ms'))}, bound "
+              f"{_per_frame(main, 'bound_ms'):.5f}, call "
+              f"{_per_frame(main, 'call_ms'):.4f} (host-inclusive), plain "
+              f"{_per_frame(main, 'plain_ms'):.4f} "
+              f"({_per_frame(main, 'plain_ops')} ATen ops){library}; "
+              f"{launches} launches on the main path")
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "transflow_tpu_torch/csrc/lfn_heads.cu",
+            "replaces": replaces,
+            "replaces_function": function,
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in group),
+            "ms": _per_frame(main, "device_ms"),
+            "device_ms": _per_frame(main, "device_ms"),
+            "kernel_ms": _per_frame(main, "kernel_ms"),
+            "call_ms": _per_frame(main, "call_ms"),
+            "plain_ms": _per_frame(main, "plain_ms"),
+            "plain_ops": _per_frame(main, "plain_ops"),
+            "bound_ms": _per_frame(main, "bound_ms"),
+            "bound_by": _bound_by(main),
+            "library_ms": None,
+            "library": "none: no single PyTorch call takes the softmax over "
+                       "the taps and applies them to the flow",
+        }
+        if label == "B16":
+            entry["library_ms"] = _per_frame(main, "library_ms")
+            entry["library_kernel_ms"] = _per_frame(main, "library_kernel_ms")
+            entry["library"] = ("torch.nn.functional.conv_transpose2d "
+                                "(stride 2, padding 1, groups C; cuDNN, TF32 "
+                                "off) on an f32 NCHW view")
+        record["kernels"].append(entry)
     fb_sources = {"poly_expansion": "farneback.py:74 poly_expansion",
                   "update_equations": "farneback.py:102 _update_flow, "
                                       "warp and normal equations",

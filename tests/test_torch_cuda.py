@@ -12,6 +12,7 @@ import torch
 from transflow_tpu_torch import prng
 from transflow_tpu_torch.ops import farneback as fb
 from transflow_tpu_torch.ops import horn_schunck as hs
+from transflow_tpu_torch.ops import lfn_heads
 from transflow_tpu_torch.ops import lucas_kanade as lk
 from transflow_tpu_torch.ops import pyramid
 from transflow_tpu_torch.ops.correlation import (correlation,
@@ -19,6 +20,11 @@ from transflow_tpu_torch.ops.correlation import (correlation,
                                                  correlation7x7_cuda,
                                                  sharded_correlation7x7)
 from transflow_tpu_torch.ops import warp
+from transflow_tpu_torch.ops.lfn_heads import (reg_apply, reg_apply_cuda,
+                                               reg_apply_plain,
+                                               upsample2x_phases,
+                                               upsample2x_phases_cuda,
+                                               upsample2x_phases_plain)
 from transflow_tpu_torch.ops.warp import (bounded_backwarp,
                                           bounded_backwarp_cuda,
                                           bounded_backwarp_plain,
@@ -257,6 +263,182 @@ def test_liteflownet_1088p_equals_its_plain_warps(device, monkeypatch):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+# B16's shapes of a 1088x1920 input (the flow at levels 6-3, the cost
+# volume at 3 and 2, each doubled) and odd ones: one pixel, a column, a
+# row, C of 1, 3 and 64, H * W * C past many 256-thread blocks unevenly
+B16_SHAPES = [(34, 60, 2), (68, 120, 2), (136, 240, 2), (272, 480, 2),
+              (136, 240, 49), (272, 480, 49), (1, 1, 2), (7, 1, 3),
+              (1, 9, 49), (13, 17, 1), (5, 9, 64)]
+# B17's levels of a 1088x1920 input (H, W, S) and odd ones: frames smaller
+# than the window, one row or column, a frame of one pixel, pixels past a
+# 128-pixel block (11 * 13 = 143, 1 * 129, 3 * 50)
+B17_SHAPES = [(34, 60, 3), (68, 120, 3), (136, 240, 5), (272, 480, 5),
+              (544, 960, 7), (1, 1, 3), (2, 3, 7), (3, 2, 5), (11, 13, 7),
+              (1, 129, 5), (129, 1, 3), (3, 50, 7)]
+
+
+def _same_bits(got, want):
+    """Bit-equal (the signs of zeros included), NaN in the same places."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    got, want = (torch.where(nan, 0, t) for t in (got, want))
+    ints = torch.int16 if got.dtype == BF16 else torch.int32
+    assert torch.equal(got.view(ints), want.view(ints))
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", B16_SHAPES, ids=str)
+def test_upsample2x_phases_matches_plain(device, shape, dtype):
+    """Kernel B16 through its dispatcher against its plain version: one
+    launch, the four products summed in the same order, bit-equal; zeros
+    and negative taps give the plain version's signed zeros."""
+    h, w, c = shape
+    gen = torch.Generator(device=device).manual_seed(10)
+    x = torch.randn((h, w, c), generator=gen, device=device).to(dtype)
+    x[::2, ::3] = 0.0
+    weight = torch.randn((c, 1, 4, 4), generator=gen, device=device)
+    before = upsample2x_phases_cuda.launches
+    got = upsample2x_phases(x, weight)
+    torch.cuda.synchronize()
+    assert upsample2x_phases_cuda.launches == before + 1
+    want = upsample2x_phases_plain(x, weight)
+    assert got.dtype == dtype and got.shape == (2 * h, 2 * w, c)
+    _same_bits(got, want)
+
+
+def test_upsample2x_phases_keeps_non_finite_values(device):
+    """An inf or NaN input and an inf tap spread as the plain version's
+    products and sums spread them (inf * 0 at a padded tap is NaN)."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((9, 11, 5), generator=gen, device=device)
+    x[4, 5, 1] = float("inf")
+    x[0, 0, 2] = float("nan")
+    weight = torch.randn((5, 1, 4, 4), generator=gen, device=device)
+    weight[3, 0, 0, 0] = float("-inf")
+    _same_bits(upsample2x_phases_cuda(x, weight),
+               upsample2x_phases_plain(x, weight))
+
+
+def _reg_inputs(h, w, size, dist_dtype, flow_dtype, gen, device):
+    taps = size * size
+    dist = (1.5 * torch.randn((h, w, taps), generator=gen,
+                              device=device)).to(dist_dtype)
+    flow = (8 * (2 * torch.rand((h, w, 2), generator=gen, device=device)
+                 - 1)).to(flow_dtype)
+    flow[::4] = flow[::4].round()
+    flow[1::5, :, 0] = -0.0
+    params = [torch.randn(shape, generator=gen, device=device)
+              for shape in ((1, taps, 1, 1), (1,), (1, taps, 1, 1), (1,))]
+    return dist, flow, params
+
+
+@pytest.mark.parametrize("flow_dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dist_dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", B17_SHAPES, ids=str)
+def test_reg_apply_matches_plain(device, shape, dist_dtype, flow_dtype):
+    """Kernel B17 through its dispatcher against its plain version: one
+    launch, bit-equal (expf equals torch.exp on the card, every product and
+    sum rounded in the plain version's order)."""
+    h, w, size = shape
+    gen = torch.Generator(device=device).manual_seed(12)
+    dist, flow, params = _reg_inputs(h, w, size, dist_dtype, flow_dtype, gen,
+                                     device)
+    before = reg_apply_cuda.launches
+    got = reg_apply(dist, flow, *params)
+    torch.cuda.synchronize()
+    assert reg_apply_cuda.launches == before + 1
+    want = reg_apply_plain(dist, flow, *params)
+    assert got.dtype == F32 and got.shape == (h, w, 2)
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("dist_dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_reg_apply_keeps_nan_and_signed_zeros(device, dist_dtype):
+    """NaN distances make their pixels NaN as ``amax`` does; a zero flow
+    with zero biases gives +0.0, as the plain version's zeros start."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    dist, flow, params = _reg_inputs(40, 50, 7, dist_dtype, F32, gen, device)
+    dist[3, 4, 0] = float("nan")
+    dist[20, :, 48] = float("nan")
+    dist[30, 7] = 0.0
+    got = reg_apply_cuda(dist, flow, *params)
+    _same_bits(got, reg_apply_plain(dist, flow, *params))
+    assert torch.isnan(got[3, 4]).all() and torch.isnan(got[20]).all()
+    params[1].zero_()
+    params[3].zero_()
+    zero = torch.zeros_like(flow)
+    got = reg_apply_cuda(dist, zero, *params)
+    _same_bits(got, reg_apply_plain(dist, zero, *params))
+    assert not torch.signbit(got[~torch.isnan(got)]).any()
+
+
+def test_lfn_heads_refuse_misuse(device):
+    x = torch.zeros((6, 8, 4), device=device)
+    weight = torch.zeros((4, 1, 4, 4), device=device)
+    with pytest.raises(ValueError, match="CUDA device"):
+        upsample2x_phases_cuda(x, weight.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample2x_phases_cuda(torch.zeros((6, 16, 4), device=device)[:, ::2],
+                               weight)
+    dist = torch.zeros((6, 8, 25), device=device)
+    flow = torch.zeros((6, 8, 2), device=device)
+    params = [torch.zeros(n, device=device) for n in (25, 1, 25, 1)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        reg_apply_cuda(dist, flow.cpu(), *params)
+    with pytest.raises(ValueError, match="contiguous"):
+        reg_apply_cuda(dist, torch.zeros((6, 8, 4), device=device)[..., ::2],
+                       *params)
+    with pytest.raises(ValueError, match="float32 taps"):
+        reg_apply_cuda(dist, flow, params[0].to(BF16), *params[1:])
+
+
+@pytest.mark.parametrize("bound", [0, 16])
+def test_liteflownet_never_takes_the_plain_heads(device, monkeypatch, bound):
+    """A forward launches 6 B16 (the flow at levels 5-2, the cost volume
+    at 3 and 2) and 5 B17 (one a level) at any bound, and never the heads'
+    plain versions."""
+    from transflow_tpu_torch.flow.estimators.liteflownet import get_weights
+    for name in ("upsample2x_phases_plain", "reg_apply_plain"):
+        monkeypatch.setattr(lfn_heads, name, lambda *a: pytest.fail(
+            "a head's plain version ran on the card"))
+    net = get_weights(allow_random=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(14)
+    i1, i2 = (torch.rand((128, 192, 3), generator=gen, device=device)
+              for _ in range(2))
+    before = (upsample2x_phases_cuda.launches, reg_apply_cuda.launches)
+    with torch.no_grad():
+        flow = net(i1, i2, warp_bound=bound)
+    torch.cuda.synchronize()
+    assert flow.shape == (64, 96, 2) and torch.isfinite(flow).all()
+    assert (upsample2x_phases_cuda.launches - before[0],
+            reg_apply_cuda.launches - before[1]) == (6, 5)
+
+
+def test_liteflownet_1088p_equals_its_plain_heads(device, monkeypatch):
+    """A 1088x1920 forward through B16 and B17 (6 and 5 launches) is
+    bit-equal to the same forward with both dispatchers sent to the plain
+    versions on the card (deterministic cuDNN)."""
+    from transflow_tpu_torch.flow.estimators.liteflownet import get_weights
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    net = get_weights(allow_random=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(15)
+    i1, i2 = (torch.rand((1088, 1920, 3), generator=gen, device=device)
+              for _ in range(2))
+    before = (upsample2x_phases_cuda.launches, reg_apply_cuda.launches)
+    with torch.no_grad():
+        got = net(i1, i2, warp_bound=0)
+    assert (upsample2x_phases_cuda.launches - before[0],
+            reg_apply_cuda.launches - before[1]) == (6, 5)
+    monkeypatch.setattr(lfn_heads, "upsample2x_phases_cuda",
+                        upsample2x_phases_plain)
+    monkeypatch.setattr(lfn_heads, "reg_apply_cuda", reg_apply_plain)
+    with torch.no_grad():
+        want = net(i1, i2, warp_bound=0)
+    assert got.shape == (544, 960, 2) and torch.isfinite(got).all()
+    _same_bits(got, want)
+
+
 @pytest.mark.parametrize("pair", PAIRS, ids=lambda p: "/".join(
     str(t)[6:] for t in p))
 @pytest.mark.parametrize("shape", [(64, 48, 16, 1, 4), (128, 48, 32, 2, 4),
@@ -323,16 +505,20 @@ def test_slice_on_card_matches_cpu(device, exact_f32):
         state = model.init_state(clip[0])
         pix = model.default_pixmaps()
         keys = prng.split(prng.key(0), len(clip) - 1)
-        before = (correlation7x7_cuda.launches, exact_backwarp_cuda.launches)
+        before = (correlation7x7_cuda.launches, exact_backwarp_cuda.launches,
+                  upsample2x_phases_cuda.launches, reg_apply_cuda.launches)
         out = []
         for frame, key in zip(clip[1:], keys):
             state, rgb = model.step(state, frame, pix, 0.0, key,
                                     model.default_frame_numbers())
             out.append(state["prev_flow"].cpu())
         launches = (correlation7x7_cuda.launches - before[0],
-                    exact_backwarp_cuda.launches - before[1])
-        # a frame: 5 correlations (A1) and 14 exact backwarps (B7)
-        per_frame = (5, 14) if dev.type == "cuda" else (0, 0)
+                    exact_backwarp_cuda.launches - before[1],
+                    upsample2x_phases_cuda.launches - before[2],
+                    reg_apply_cuda.launches - before[3])
+        # a frame: 5 correlations (A1), 14 exact backwarps (B7), 6 phase
+        # upsamples (B16) and 5 tap applies (B17)
+        per_frame = (5, 14, 6, 5) if dev.type == "cuda" else (0, 0, 0, 0)
         assert launches == tuple(n * (frames - 1) for n in per_frame)
         flows[dev.type] = torch.stack(out)
     assert torch.isfinite(flows["cuda"]).all()

@@ -265,7 +265,8 @@ def test_port_imports_no_jax():
     with each of them and ``transflow_tpu`` blocked in ``sys.modules`` any
     import of one fails. The walk reaches the multi-host layer, the GUI,
     the window, MJPEG and native IO outputs, the tools (the chunk fuzzer
-    and the weights check among them) and the bench."""
+    and the weights check among them), the bench and LiteFlowNet's head
+    kernels' module."""
     blocked = ("jax", "flax", "transflow_tpu", "cv2", "PIL", "aiohttp",
                "websockets", "tkinter")
     code = (
@@ -295,7 +296,8 @@ def test_port_imports_no_jax():
         "        'transflow_tpu_torch.tools.list_webcams',\n"
         "        'transflow_tpu_torch.bench',\n"
         "        'transflow_tpu_torch.tools.fuzz_chunks',\n"
-        "        'transflow_tpu_torch.tools.verify_weights'}\n"
+        "        'transflow_tpu_torch.tools.verify_weights',\n"
+        "        'transflow_tpu_torch.ops.lfn_heads'}\n"
         "print('MODULES', len(names), 'IMPORTED', bad,\n"
         "      'MISSING', want - set(names))\n"
         "sys.exit(1 if bad or want - set(names) or len(names) < 25 else 0)\n")

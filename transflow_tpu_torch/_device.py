@@ -42,6 +42,12 @@ _SIGNATURES = {
     "transflow_bounded_backwarp": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     # image, dtype, pixel stride, flow, out, H, W, C, stream
     "transflow_exact_backwarp": (_P, _I, _I, _P, _P, _I, _I, _I, _P),
+    # x, dtype, weight, out, h, w, C, stream
+    "transflow_upsample2x_phases": (_P, _I, _P, _P, _I, _I, _I, _P),
+    # dist, dist dtype, flow, flow dtype, wx, bx, wy, by, out, H, W, S,
+    # stream
+    "transflow_reg_apply": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _P),
     # image, dtype, out, storage dtype, H, W, n, params (host), stream
     "transflow_poly_expansion": (_P, _I, _P, _I, _I, _I, _I, _P, _P),
     # image1, image2, dtype, out1, out2, storage dtype, H, W, n, params

@@ -130,8 +130,14 @@ def _comp_counters():
 
 def _lfn_counters():
     from .ops.correlation import correlation7x7_cuda
+    from .ops.lfn_heads import reg_apply_cuda, upsample2x_phases_cuda
     from .ops.warp import bounded_backwarp_cuda, exact_backwarp_cuda
-    return correlation7x7_cuda, bounded_backwarp_cuda, exact_backwarp_cuda
+    return (correlation7x7_cuda, bounded_backwarp_cuda, exact_backwarp_cuda,
+            upsample2x_phases_cuda, reg_apply_cuda)
+
+
+# A1, A3, B7, B16, B17 launches a LiteFlowNet frame at bound 0
+LFN_PER_FRAME = {"A1": 5, "A3": 0, "B7": 14, "B16": 6, "B17": 5}
 
 
 def _zero(counters) -> None:
@@ -318,8 +324,9 @@ def bench_liteflownet(device) -> dict:
     published network's graph; no download): LFN_CHAIN calls in a chain,
     each output perturbing the next call's inputs, ended by one readback;
     the median of two samples after a first. The warp bound is 0, so a
-    frame launches 5 correlations (A1), no bounded backwarp (A3) and 14
-    exact backwarps (B7): on the card anything else raises."""
+    frame launches 5 correlations (A1), no bounded backwarp (A3), 14
+    exact backwarps (B7), 6 phase upsamples (B16) and 5 regularization tap
+    applies (B17): on the card anything else raises."""
     from .flow.estimators.liteflownet import get_weights
     net = get_weights(allow_random=True, device=device)
     rng = np.random.default_rng(2)
@@ -342,14 +349,15 @@ def bench_liteflownet(device) -> dict:
         chained(torch.tensor(1e-3 * (i + 1), device=device))
         if i:  # the first sample builds the kernels
             times.append(time.perf_counter() - start)
-    a1, a3, b7 = (fn.launches / LFN_CHAIN for fn in counters)
-    if device.type == "cuda" and (a1, a3, b7) != (5, 0, 14):
-        raise RuntimeError(f"liteflownet: A1/A3/B7 launches a frame "
-                           f"{a1}/{a3}/{b7}, expected 5/0/14")
+    launches = {name: fn.launches / LFN_CHAIN
+                for name, fn in zip(LFN_PER_FRAME, counters)}
+    if device.type == "cuda" and launches != LFN_PER_FRAME:
+        raise RuntimeError(f"liteflownet: launches a frame {launches}, "
+                           f"expected {LFN_PER_FRAME}")
     ms = 1e3 * float(np.median(times)) / LFN_CHAIN
     return {"liteflownet_1088p_ms_per_frame": ms,
             "liteflownet_1088p_fps": 1e3 / ms,
-            "launches_per_frame": {"A1": a1, "A3": a3, "B7": b7}}
+            "launches_per_frame": launches}
 
 
 def bench_cpu_reference() -> float:

@@ -11,7 +11,9 @@ of ``ops/correlation.py`` on the card and its plain version on the CPU
 (``corr_kernel='pallas_halo'`` with a ``corr_mesh`` shards it over H), and
 so are the two backwarps of ``ops/warp.py``: the exact one (kernel B7,
 every warp by default and the regularization's always) and the bounded
-one (kernel A3, ``warp_bound``, opt-in).
+one (kernel A3, ``warp_bound``, opt-in), and the two head loops of
+``ops/lfn_heads.py``: the phase upsampler (kernel B16) and the
+regularization's softmax tap apply (kernel B17).
 Parameters are f32; convolutions compute in ``_compute_dtype`` (bf16 on
 CUDA, f32 on the CPU), and everything else keeps JAX's dtype promotion so
 the correlation sees the same operand dtypes as on the TPU.
@@ -25,7 +27,9 @@ from torch import nn
 
 from ..._device import resolve_device
 from ...ops.correlation import check_kernel, correlation
+from ...ops.image import _taps_on
 from ...ops.image import torch_bilinear_resize as bilinear_resize
+from ...ops.lfn_heads import reg_apply, upsample2x_phases
 from ...ops.warp import bounded_backwarp, exact_backwarp
 
 _LEVELS = (2, 3, 4, 5, 6)
@@ -146,34 +150,10 @@ def backwarp(image: torch.Tensor, flow: torch.Tensor,
     return exact_backwarp(image, flow)
 
 
-def _upsample2x_phases(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """``ConvTranspose2d(k=4, s=2, p=1, groups=C, bias=False)`` on (H, W, C).
-
-    ``weight``: (C, 1, 4, 4), the torch layout. The exact phase
-    decomposition of the JAX function: each output parity phase (r, s) is
-    four shift-multiply-accumulates of the half-res plane, summed in f32 in
-    the JAX order; reads and output keep x's dtype (bf16 or f32)."""
-    h, w, c = x.shape
-    out_dtype = x.dtype if x.dtype in (torch.bfloat16, torch.float32) \
-        else torch.float32
-    x = x.to(out_dtype)
-    # (4, 4, C) taps, flipped: the transposed conv as a correlation
-    rhs = weight[:, 0].permute(1, 2, 0).flip(0, 1).float()
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    rows = []
-    for r in (0, 1):
-        cols = []
-        for s in (0, 1):
-            acc = None
-            for ki, di in ((r, r - 1), (r + 2, r)):
-                for kj, dj in ((s, s - 1), (s + 2, s)):
-                    term = rhs[ki, kj] * xp[di + 1:di + 1 + h,
-                                            dj + 1:dj + 1 + w]
-                    acc = term if acc is None else acc + term
-            cols.append(acc)
-        rows.append(torch.stack(cols, dim=2))      # (h, w, 2s, c)
-    out = torch.stack(rows, dim=1)                 # (h, 2r, w, 2s, c)
-    return out.reshape(2 * h, 2 * w, c).to(out_dtype)
+# ``ConvTranspose2d(k=4, s=2, p=1, groups=C, bias=False)`` on (H, W, C)
+# with (C, 1, 4, 4) taps, the JAX function's exact phase decomposition:
+# kernel B16 on the card (ops/lfn_heads.py). Parity: liteflownet.py:220.
+_upsample2x_phases = upsample2x_phases
 
 
 def _bilinear_deconv_taps(channels: int) -> torch.Tensor:
@@ -283,8 +263,10 @@ class Subpixel(nn.Module):
 
 class Regularization(nn.Module):
     """Feature-driven local flow regularization, with the fused tap apply
-    of the JAX module (``fused_apply``, its default). Parity:
-    liteflownet.py:533-579."""
+    of the JAX module (``fused_apply``, its default): the softmax over the
+    distance convolution's taps and the tap apply are kernel B17 on the
+    card (``ops/lfn_heads.py::reg_apply``), reading the scale convolutions'
+    parameters in place. Parity: liteflownet.py:533-579."""
 
     def __init__(self, level: int):
         super().__init__()
@@ -308,7 +290,6 @@ class Regularization(nn.Module):
 
     def forward(self, img1, img2, feat1, flow, dtype):
         lvl = self.level
-        size = _KERNEL[lvl]
         difference = torch.sqrt(torch.sum(torch.square(
             img1 - backwarp(img2, flow * _FLT_BACKWARP[lvl])), dim=-1,
             keepdim=True))
@@ -323,27 +304,8 @@ class Regularization(nn.Module):
         dist = self.dist0(x, dtype)
         if lvl < 5:
             dist = self.dist1(dist, dtype)
-        dist = -torch.square(dist.float())
-        dist = torch.exp(dist - dist.amax(dim=-1, keepdim=True))
-        divisor = 1.0 / dist.sum(dim=-1, keepdim=True)
-        wx, bx = self.scalex.weight[0, :, 0, 0], self.scalex.bias[0]
-        wy, by = self.scaley.weight[0, :, 0, 0], self.scaley.bias[0]
-        pad = (size - 1) // 2
-        h, w = flow.shape[0], flow.shape[1]
-        px = F.pad(flow[..., 0], (pad, pad, pad, pad))
-        py = F.pad(flow[..., 1], (pad, pad, pad, pad))
-        acc_x = torch.zeros((h, w), dtype=torch.float32, device=flow.device)
-        acc_y = torch.zeros_like(acc_x)
-        k = 0
-        for dy in range(size):
-            for dx in range(size):
-                d = dist[..., k]
-                acc_x = acc_x + (wx[k] * d) * px[dy:dy + h, dx:dx + w]
-                acc_y = acc_y + (wy[k] * d) * py[dy:dy + h, dx:dx + w]
-                k += 1
-        scale_x = (acc_x + bx)[..., None]
-        scale_y = (acc_y + by)[..., None]
-        return torch.cat([scale_x * divisor, scale_y * divisor], dim=-1)
+        return reg_apply(dist, flow, self.scalex.weight, self.scalex.bias,
+                         self.scaley.weight, self.scaley.bias)
 
 
 class LiteFlowNet(nn.Module):
@@ -368,8 +330,9 @@ class LiteFlowNet(nn.Module):
     def forward(self, img1, img2, warp_bound=None, warp_kernel=None,
                 corr_kernel=None, corr_mesh=None):
         dtype = _compute_dtype(img1.device)
-        img1 = img1 - torch.tensor(_MEAN_ONE, device=img1.device)
-        img2 = img2 - torch.tensor(_MEAN_TWO, device=img2.device)
+        # the means copied to the device once, not every frame
+        img1 = img1 - _taps_on(_MEAN_ONE, img1.device)
+        img2 = img2 - _taps_on(_MEAN_TWO, img2.device)
         feats = self.features(torch.stack([img1, img2]), dtype)
         feats1 = [f[0] for f in feats]
         feats2 = [f[1] for f in feats]
@@ -582,5 +545,4 @@ def liteflownet(prev_gray_or_rgb, next_gray_or_rgb, *, net=None,
         img2 = bilinear_resize(img2, ph, pw)
     flow = bilinear_resize(net(img1, img2, warp_bound, warp_kernel,
                                corr_kernel, corr_mesh), h, w)
-    return flow * torch.tensor([w / pw, h / ph], dtype=torch.float32,
-                               device=device)
+    return flow * _taps_on((w / pw, h / ph), device)
