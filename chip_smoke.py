@@ -255,10 +255,10 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    name (the ``PROFILE_TOP`` largest) and that of the compositor's K0,
    K1 and K2;
 11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
-   kernel, B1, B2a, B2b, B9, B10, B5 and B8 against other trees'
-   ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu``,
-   ``scatter.cu`` and ``pyramid.cu`` (for example the parent
-   commit's, from ``git archive`` under the git-ignored ``_local/``),
+   kernel, B1, B2a, B2b, B9, B10, B5, B8, B14, B16 and B17 against other
+   trees' ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu``,
+   ``scatter.cu``, ``pyramid.cu`` and ``lfn_heads.cu`` (for example the
+   parent commit's, from ``git archive`` under the git-ignored ``_local/``),
    built with the package's flags, all through the raw C entries,
    ``device_ms`` in turns (others, this, this, others): the correlation at
    its five level shapes; B1 (both images of a level:
@@ -279,13 +279,19 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    (``against_lk_pyramid``) on the pan's 1080p uint8 pair as
    ``lukas-kanade.json``'s pyramid (``transflow_lk_pyramid`` once, or in
    an older tree ATen's two casts and a ``transflow_pyramid_reduce`` call
-   a level) and each reduce alone; bit-equal between the trees (B10's
+   a level) and each reduce alone; last, where the other tree has
+   ``lfn_heads.cu``, B16 and B17 (``against_lfn_heads``) at B16's six
+   shapes of a 1088x1920 frame in float32 and B17's five levels with bf16
+   distances (a bf16 flow at L6), ``device_ms`` in turns, each tree's
+   profiler kernel time of a call, and their sums over a frame's 6 and 5
+   launches; bit-equal between the trees (B10's
    flows and its control words ``[stop, iterations]`` too, B5's
-   mappings, B8's and B14's levels). ``--steps [NAME=]CSRC_DIR``
-   (repeatable, with or without ``--against``) adds to B8's and B14's
-   turns (each where it has the entry) a directory's ``pyramid.cu``, a
-   copy of a tree's cut to some of its steps, whose outputs are not held
-   to the others'.
+   mappings, B8's, B14's, B16's and B17's outputs).
+   ``--steps [NAME=]CSRC_DIR`` (repeatable, with or without
+   ``--against``) adds to B8's and B14's, or B16's and B17's, turns (each
+   where it has the entry) a directory's ``pyramid.cu`` or
+   ``lfn_heads.cu``, a copy of a tree's cut to some of its steps, whose
+   outputs are not held to the others'.
 
 B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
    version at 1080x1920 on a random forward flow, a converging one (every
@@ -4666,7 +4672,7 @@ def build_others(csrcs: list[Path], mine: list[dict]) -> list[ctypes.CDLL]:
 
 # the sources phase 11 builds from another tree, where it has them
 OTHER_SOURCES = ("correlation.cu", "farneback.cu", "horn_schunck.cu",
-                 "scatter.cu", "pyramid.cu")
+                 "scatter.cu", "pyramid.cu", "lfn_heads.cu")
 # C entries of other trees that this one no longer has: B8's first
 # design, one level a call (src0, src1, images, dtype, dst0, dst1, H, W,
 # OH, OW, vertical taps, horizontal taps, radius, ystart, yweights, ky,
@@ -5260,6 +5266,103 @@ def against_lk_pyramid(device, libs: dict, steps: dict, card: str) -> None:
                   + f"; torch.profiler) on {card}")
 
 
+def up_entry(lib: ctypes.CDLL, x, weight, out):
+    """B16 through ``lib``'s raw C entry into the preallocated ``out``."""
+    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
+    h, w, c = x.shape
+    return _entry(lib, "transflow_upsample2x_phases", x.data_ptr(),
+                  DTYPE_CODES[x.dtype], weight.data_ptr(), out.data_ptr(), h,
+                  w, c, cuda_stream(x))
+
+
+def reg_entry(lib: ctypes.CDLL, dist, flow, params, out):
+    """B17 through ``lib``'s raw C entry into the preallocated ``out``;
+    ``params`` are (wx, bx, wy, by)."""
+    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
+    h, w = flow.shape[:2]
+    size = int(round(dist.shape[-1] ** 0.5))
+    return _entry(lib, "transflow_reg_apply", dist.data_ptr(),
+                  DTYPE_CODES[dist.dtype], flow.data_ptr(),
+                  DTYPE_CODES[flow.dtype], *[p.data_ptr() for p in params],
+                  out.data_ptr(), h, w, size, cuda_stream(dist))
+
+
+def against_lfn_heads(device, libs: dict, steps: dict, card: str) -> None:
+    """Phase 11's LiteFlowNet heads: B16 at ``B16_SHAPES`` in float32 (the
+    path's) and B17 at ``B17_LEVELS`` with bf16 distances and the flow in
+    the path's dtype (bf16 at L6), in every library of ``libs`` (name to
+    ctypes library, this tree's as "this") and of ``steps`` (copies of a
+    tree's lfn_heads.cu cut to some of its steps, whose outputs are not
+    held to the others') that has them, through the raw C entries:
+    ``device_ms`` in turns and each library's profiler kernel time of a
+    call; the trees' outputs bit-equal; then both kernels' sums over a
+    frame's launches (one a shape)."""
+    def has_heads(lib):
+        return hasattr(lib, "transflow_upsample2x_phases")
+    held = [name for name, lib in libs.items() if has_heads(lib)]
+    heads = {name: lib for name, lib in (libs | steps).items()
+             if has_heads(lib)}
+    if len(heads) < 2:
+        return
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    cases = []
+    for h, w, c, name in B16_SHAPES:
+        x = torch.randn((h, w, c), generator=gen, device=device)
+        weight = 0.5 * torch.randn((c, 1, 4, 4), generator=gen,
+                                   device=device)
+        outs = {n: [torch.empty((2 * h, 2 * w, c), device=device)]
+                for n in heads}
+        cases.append(("B16", f"{name} ({h},{w},{c}) f32", (x, weight), outs,
+                      {n: up_entry(lib, x, weight, outs[n][0])
+                       for n, lib in heads.items()},
+                      up_bound_ms(h, w, c, F32), "upsample2x_phases_kernel"))
+    for h, w, size, name in B17_LEVELS:
+        taps = size * size
+        flow_dtype = BF16 if name == "L6" else F32
+        dist = (1.5 * torch.randn((h, w, taps), generator=gen,
+                                  device=device)).to(BF16)
+        reach = B7_REACH * w / B7_LEVELS[-1][1]
+        flow = (reach * (2 * torch.rand((h, w, 2), generator=gen,
+                                        device=device) - 1)).to(flow_dtype)
+        params = [torch.randn(shape, generator=gen, device=device)
+                  for shape in ((1, taps, 1, 1), (1,), (1, taps, 1, 1),
+                                (1,))]
+        outs = {n: [torch.empty((h, w, 2), device=device)] for n in heads}
+        cases.append(("B17", f"{name} ({h},{w},{taps}) dist bf16 flow "
+                      f"{str(flow_dtype)[6:]}", (dist, flow, params), outs,
+                      {n: reg_entry(lib, dist, flow, params, outs[n][0])
+                       for n, lib in heads.items()},
+                      reg_bound_ms(h, w, size, BF16, flow_dtype),
+                      "reg_apply_kernel"))
+    total = {k: {key: dict.fromkeys([*heads, "bound"], 0.0)
+                 for key in ("device_ms", "kernel_ms")}
+             for k in ("B16", "B17")}
+    # the raw calls hold pointers: each case keeps its inputs alive
+    for kernel, label, _, outs, calls, bound, pattern in cases:
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
+        _check_outputs(f"{kernel} {label}", {n: outs[n] for n in held})
+        turns = in_turns(calls)
+        times = {n: kernel_ms(call, pattern) for n, call in calls.items()}
+        for n in heads:
+            total[kernel]["device_ms"][n] += turns["ms"][n]
+            total[kernel]["kernel_ms"][n] += times[n] or float("nan")
+        for key in ("device_ms", "kernel_ms"):
+            total[kernel][key]["bound"] += bound[0]
+        cut = [n for n in heads if n not in held]
+        print(f"against {kernel} {label}: {_turns_text(turns)}; kernel_ms "
+              + " ".join(f"{n} {_ms_text(t)}" for n, t in times.items())
+              + f"; bound {bound[0]:.5f} ({bound[1]}); {', '.join(held)} "
+              "bit-equal"
+              + (f"; {', '.join(cut)} not held to them" if cut else "")
+              + f" on {card}")
+    for kernel, t in total.items():
+        print(f"against {kernel} per frame: device_ms "
+              f"{_totals_text(t['device_ms'])}; kernel_ms "
+              f"{_totals_text(t['kernel_ms'])} on {card}")
+
+
 def _short_name(event: str) -> str:
     """A device event's name short of its namespaces, template arguments
     and parameters."""
@@ -5294,17 +5397,19 @@ def main() -> int:
     parser.add_argument("--against", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
                         help="also time the correlation kernel, B1, B2a, "
-                             "B2b, B9, B10, B5, B8 and B14 against this "
-                             "directory's correlation.cu, farneback.cu, "
-                             "horn_schunck.cu, scatter.cu and pyramid.cu "
-                             "(phase 11); repeat it for several trees")
+                             "B2b, B9, B10, B5, B8, B14, B16 and B17 "
+                             "against this directory's correlation.cu, "
+                             "farneback.cu, horn_schunck.cu, scatter.cu, "
+                             "pyramid.cu and lfn_heads.cu (phase 11); "
+                             "repeat it for several trees")
     parser.add_argument("--steps", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
                         help="also time B8 and B14 of this directory's "
-                             "pyramid.cu, a copy of a tree's cut to some of "
-                             "its steps, in phase 11's turns, its outputs "
-                             "not held to this tree's; repeat it for "
-                             "several copies")
+                             "pyramid.cu, or B16 and B17 of its "
+                             "lfn_heads.cu, a copy of a tree's cut to some "
+                             "of its steps, in phase 11's turns, its "
+                             "outputs not held to this tree's; repeat it "
+                             "for several copies")
     parser.add_argument("--lfn-profile", action="store_true",
                         help="only phase 4's bound-0 LiteFlowNet Engine: its "
                              "host syncs, ATen ops and profile a frame, "
@@ -5400,6 +5505,7 @@ def main() -> int:
                           t_run["b5_flow"])
         against_pyramid(device, libs, steps, card)
         against_lk_pyramid(device, libs, steps, card)
+        against_lfn_heads(device, libs, steps, card)
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound

@@ -265,16 +265,32 @@ def test_liteflownet_1088p_equals_its_plain_warps(device, monkeypatch):
 
 # B16's shapes of a 1088x1920 input (the flow at levels 6-3, the cost
 # volume at 3 and 2, each doubled) and odd ones: one pixel, a column, a
-# row, C of 1, 3 and 64, H * W * C past many 256-thread blocks unevenly
+# row, C of 1, 3 and 64, H * W * C past many 256-thread blocks unevenly.
+# Then the tiling's edges: a block takes 256 consecutive (column, channel)
+# pairs of a row and a band of 8 input rows (halved on frames too small to
+# give each of 132 SMs two blocks), so 1057 rows are one past a band and
+# each width puts one or two pairs past a block's 256 (W * C of 257, 258,
+# 258, 10241 and 320 at C = 1, 2, 3, 49, 64); single rows and columns;
+# 4000 channels
 B16_SHAPES = [(34, 60, 2), (68, 120, 2), (136, 240, 2), (272, 480, 2),
               (136, 240, 49), (272, 480, 49), (1, 1, 2), (7, 1, 3),
-              (1, 9, 49), (13, 17, 1), (5, 9, 64)]
+              (1, 9, 49), (13, 17, 1), (5, 9, 64),
+              (1057, 257, 1), (1057, 129, 2), (1057, 86, 3),
+              (1057, 209, 49), (1057, 5, 64), (1, 300, 3), (300, 1, 1),
+              (1, 1000, 49), (999, 1, 49), (3, 5, 4000)]
 # B17's levels of a 1088x1920 input (H, W, S) and odd ones: frames smaller
 # than the window, one row or column, a frame of one pixel, pixels past a
-# 128-pixel block (11 * 13 = 143, 1 * 129, 3 * 50)
+# 128-pixel block (11 * 13 = 143, 1 * 129, 3 * 50). Then the tiling's
+# edges: a block walks tiles of 32 x 4 pixels, so S = 3, 5 and 7 on tiles
+# the frame cuts, and odd widths, where a tile row's distances start off
+# 16 bytes ((i * W + j0) * S * S not a multiple of 8 values) and its ends
+# take element loads
 B17_SHAPES = [(34, 60, 3), (68, 120, 3), (136, 240, 5), (272, 480, 5),
               (544, 960, 7), (1, 1, 3), (2, 3, 7), (3, 2, 5), (11, 13, 7),
-              (1, 129, 5), (129, 1, 3), (3, 50, 7)]
+              (1, 129, 5), (129, 1, 3), (3, 50, 7),
+              (9, 33, 7), (10, 65, 5), (17, 31, 3), (13, 101, 7),
+              (33, 77, 5), (5, 47, 3), (203, 333, 7), (1, 33, 7),
+              (31, 1, 5)]
 
 
 def _same_bits(got, want):
@@ -315,6 +331,22 @@ def test_upsample2x_phases_keeps_non_finite_values(device):
     x[0, 0, 2] = float("nan")
     weight = torch.randn((5, 1, 4, 4), generator=gen, device=device)
     weight[3, 0, 0, 0] = float("-inf")
+    _same_bits(upsample2x_phases_cuda(x, weight),
+               upsample2x_phases_plain(x, weight))
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_upsample2x_phases_reads_an_unaligned_base(device, dtype, offset):
+    """An input whose first value lies ``offset`` values past 16 bytes (a
+    contiguous view into a larger buffer): every staged row starts off 16
+    bytes, and the kernel still equals its plain version bit for bit."""
+    h, w, c = 37, 70, 49
+    gen = torch.Generator(device=device).manual_seed(16)
+    buf = torch.randn(h * w * c + offset, generator=gen,
+                      device=device).to(dtype)
+    x = buf[offset:].view(h, w, c)
+    weight = torch.randn((c, 1, 4, 4), generator=gen, device=device)
     _same_bits(upsample2x_phases_cuda(x, weight),
                upsample2x_phases_plain(x, weight))
 
@@ -370,6 +402,25 @@ def test_reg_apply_keeps_nan_and_signed_zeros(device, dist_dtype):
     got = reg_apply_cuda(dist, zero, *params)
     _same_bits(got, reg_apply_plain(dist, zero, *params))
     assert not torch.signbit(got[~torch.isnan(got)]).any()
+
+
+@pytest.mark.parametrize("size", [3, 5, 7])
+@pytest.mark.parametrize("dist_dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_reg_apply_reads_an_unaligned_base(device, dist_dtype, size):
+    """Distances whose first value lies 3 values past 16 bytes (a
+    contiguous view into a larger buffer), at an odd width: every tile
+    row's run starts off 16 bytes, and the kernel still equals its plain
+    version bit for bit."""
+    h, w = 19, 45
+    taps = size * size
+    gen = torch.Generator(device=device).manual_seed(17)
+    dist, flow, params = _reg_inputs(h, w, size, dist_dtype, F32, gen,
+                                     device)
+    buf = torch.empty(h * w * taps + 3, dtype=dist_dtype, device=device)
+    view = buf[3:].view(h, w, taps)
+    view.copy_(dist)
+    _same_bits(reg_apply_cuda(view, flow, *params),
+               reg_apply_plain(view, flow, *params))
 
 
 def test_lfn_heads_refuse_misuse(device):

@@ -34,9 +34,13 @@ REG_TOL = 1e-5
 F64_TOL = 1e-5
 BF16, F32 = torch.bfloat16, torch.float32
 # (h, w, C, dtype): the flow (C=2, f32) and the cost volume (C=49) on odd
-# and even shapes
+# and even shapes; then the card tests' edges of the kernel's tiling, where
+# this plain version is their reference: a single row, a single column,
+# one pixel, C of 1, 3 and 64
 UP_CASES = [(7, 9, 2, F32), (8, 12, 2, F32), (5, 6, 49, BF16),
-            (9, 11, 49, BF16), (6, 7, 49, F32), (4, 10, 2, BF16)]
+            (9, 11, 49, BF16), (6, 7, 49, F32), (4, 10, 2, BF16),
+            (1, 9, 49, F32), (7, 1, 3, BF16), (1, 1, 2, F32),
+            (13, 17, 1, F32), (5, 9, 64, BF16)]
 
 
 def _upsample_inputs(h, w, c, dtype, seed):
@@ -104,7 +108,10 @@ def _reg_f64(dist, flow, wx, bx, wy, by):
 @pytest.mark.parametrize("flow_dtype", [F32, BF16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("dist_dtype", [F32, BF16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("size,shape", [(3, (9, 13)), (5, (12, 17)),
-                                        (7, (11, 20)), (7, (3, 2))], ids=str)
+                                        (7, (11, 20)), (7, (3, 2)),
+                                        (7, (9, 33)), (5, (10, 65)),
+                                        (3, (1, 33)), (5, (31, 1))],
+                         ids=str)
 def test_reg_apply_plain_matches_float64(size, shape, dist_dtype,
                                          flow_dtype):
     dist, flow, params = _reg_inputs(*shape, size, dist_dtype, flow_dtype,

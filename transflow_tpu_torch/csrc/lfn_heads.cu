@@ -40,19 +40,44 @@
 // Every product and sum is __fmul_rn / __fadd_rn in the plain versions'
 // order (ops/lfn_heads.py), so nvcc contracts none into a multiply-add,
 // and the exponential is expf (never __expf, no fast math): both kernels
-// equal their plain versions bit for bit.
+// equal their plain versions bit for bit. Each output keeps its terms in
+// one thread, so no sum is split.
 //
-// Bound on the H100. B16 at the cost volume's level 2 (272x480x49 f32 in,
+// Bounds on the H100. B16 at the cost volume's level 2 (272x480x49 f32 in,
 // 544x960x49 f32 out) moves ~128 MB, ~38 us at 3.35 TB/s, against 0.2
-// GFLOP: bound by device memory. One thread an output element, channels
-// fastest, so that a warp's reads and writes are one contiguous run; each
-// input element is read by 16 threads from L1. B17 at level 2 reads 51 MB
-// of bf16 distances and writes 4 MB: ~17 us, against ~0.1 GFLOP and 26 M
-// exponentials. One thread a pixel: a block of 128 consecutive pixels
-// first stages their distance rows (98 bytes each in bf16, unaligned)
-// into shared memory with coalesced element loads, then each thread keeps
-// its S*S exponentials in registers and reads the flow's S*S taps through
-// L1. Tiling with TMA is later work.
+// GFLOP: bound by device memory, four fifths of it the output. B17 at
+// level 2 reads 51 MB of bf16 distances and writes 4 MB: ~17 us, against
+// ~0.1 GFLOP and 26 M exponentials. Its instructions weigh as much as its
+// bytes: CUDA's expf alone is 9 instructions (the result must equal it),
+// ~1,150 a pixel at S = 7 with the products and sums, ~20 us at one
+// instruction a cycle on every scheduler.
+//
+// B16's design: a thread takes one (column, channel) pair p = b C + c of
+// the input row (kThreads consecutive pairs a block, so a warp's loads and
+// stores are runs of consecutive channels) and a band of kUpRows input
+// rows (halved on frames too small to give each SM two blocks). It finds
+// b and c with one division (no division an output element), loads its
+// channel's 16 taps into registers once, and walks down the band with a
+// 3x3 window of x in registers: each row brings in 3 values, loaded a row
+// ahead (the neighbouring columns are the neighbouring pairs' loads, so
+// they come from L1), and each row's 2x2 output quad is four stores. No
+// shared memory: with the band staged there, or the quads written through
+// it, each block's staging, sums and stores ran in series and the kernel
+// was slower (PERF.md §6 has the times).
+//
+// B17's design: a persistent block walks tiles of kRegCols x kRegRows
+// pixels (the grid balanced over the resident blocks), staging the next
+// tile while it computes the current one: each tile row's distance run
+// (32 S*S values, contiguous) by 16-byte cp.async, each staged run
+// shifted so that its chunks line up with the device's 16 bytes (element
+// copies at its ends, where a row does not start on 16 bytes, as at odd
+// W), and the flow's tile with its P-pixel halo by 8- or 4-byte cp.async
+// (zeros outside the frame), so each tap reads shared memory. A thread
+// keeps its pixel's S*S squared distances in registers, takes their max
+// in 8 independent chains (the max of values <= -0 is the same in any
+// order; NaN from a sum of them), then makes each exponential once and
+// uses it at once for the softmax's sum and both axes' taps, the sums in
+// their order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,7 +87,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRegPixels = 128;  // B17: pixels (threads) a block
+constexpr int kMaxDevices = 64;
+// B16: input rows a band
+constexpr int kUpRows = 8;
+// B17: a tile's pixels a row and rows
+constexpr int kRegCols = 32;
+constexpr int kRegRows = 4;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -80,120 +110,307 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// B16: one thread an output element of the (2h, 2w, C) result.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The element offset, modulo 16 bytes, of element e of an array at base:
+// where a staged run starting at e sits in its 16-byte aligned slot, so
+// that its 16-byte chunks line up with the device's.
+template <typename T>
+__device__ __forceinline__ int run_shift(const T* base, long long e) {
+  constexpr int V = 16 / (int)sizeof(T);
+  return (int)((reinterpret_cast<uintptr_t>(base) / sizeof(T) +
+                (unsigned long long)e) &
+               (V - 1));
+}
+
+// Stage the n elements from src into dst + shift (dst 16-byte aligned,
+// shift = run_shift of src's first element) with the block's threads,
+// thread ``tid`` of ``threads``: 16-byte cp.async chunks where a chunk
+// lies inside the run, element copies at its ends.
+template <typename T>
+__device__ __forceinline__ void stage_run(T* dst, const T* src, int shift,
+                                          int n, int tid, int threads) {
+  constexpr int V = 16 / (int)sizeof(T);
+  for (int q = tid; q < (shift + n + V - 1) / V; q += threads) {
+    const int j = q * V - shift;
+    if (j >= 0 && j + V <= n) {
+      cp_async16(dst + q * V, src + j);
+    } else {
+#pragma unroll
+      for (int t = 0; t < V; ++t)
+        if (j + t >= 0 && j + t < n) dst[shift + j + t] = src[j + t];
+    }
+  }
+}
+
+// B16: a thread takes one (column, channel) pair p = b C + c of the input
+// row (kThreads consecutive pairs a block) and a band of ``band`` input
+// rows (blockIdx.y), and walks down it with a 3x3 window of x in
+// registers: each row brings in 3 values (from L1: the neighbouring
+// columns are the neighbouring pairs' loads), the next row's loaded while
+// this one's quad is made and stored.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     upsample2x_phases_kernel(const T* __restrict__ x,
                              const float* __restrict__ weight,
                              T* __restrict__ out, int h, int w, int C,
-                             unsigned int total) {
-  const unsigned int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int c = (int)(idx % (unsigned int)C);
-  const unsigned int pix = idx / (unsigned int)C;
-  const int ox = (int)(pix % (unsigned int)(2 * w));
-  const int oy = (int)(pix / (unsigned int)(2 * w));
-  const int a = oy >> 1, r = oy & 1;
-  const int b = ox >> 1, s = ox & 1;
-  const float* taps = weight + 16 * c;
-  float acc = 0.f;
+                             int band) {
+  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (p >= (long long)w * C) return;
+  const int b = (int)(p / C), c = (int)(p - (long long)b * C);
+  const int a0 = blockIdx.y * band, rows = min(band, h - a0);
+  const bool left = b > 0, right = b + 1 < w;
+  float tap[16];
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int ki = r + 2 * u;
-    const int yy = a + r - 1 + u;
-    const bool row_in = yy >= 0 && yy < h;
+  for (int k = 0; k < 16; ++k) tap[k] = __ldg(weight + 16 * c + k);
+  // input row y's three values around column b, zeros outside the frame
+  const T* col = x + p;
+  auto load = [&](int y, float* v) {
+    const bool in = y >= 0 && y < h;
+    const T* at = col + (long long)y * w * C;
+    v[0] = in && left ? widen(at[-C]) : 0.f;
+    v[1] = in ? widen(at[0]) : 0.f;
+    v[2] = in && right ? widen(at[C]) : 0.f;
+  };
+  float win[3][3], next[3];
+  load(a0 - 1, win[1]);
+  load(a0, win[2]);
+  load(a0 + 1, next);
+  const long long out_row = 2LL * w * C;  // elements an output row
+  T* o = out + 2LL * a0 * out_row + 2LL * b * C + c;
+  for (int a = 0; a < rows; ++a) {
 #pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int kj = s + 2 * v;
-      const int xx = b + s - 1 + v;
-      const float val =
-          row_in && xx >= 0 && xx < w
-              ? widen(x[((long long)yy * w + xx) * C + c])
-              : 0.f;
-      const float term = __fmul_rn(__ldg(taps + (3 - ki) * 4 + (3 - kj)), val);
-      acc = u == 0 && v == 0 ? term : __fadd_rn(acc, term);
+    for (int dx = 0; dx < 3; ++dx) {
+      win[0][dx] = win[1][dx];
+      win[1][dx] = win[2][dx];
+      win[2][dx] = next[dx];
     }
+    if (a + 1 < rows) load(a0 + a + 2, next);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        float acc = 0.f;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int ki = r + 2 * u, kj = s + 2 * v;
+            const float term =
+                __fmul_rn(tap[(3 - ki) * 4 + (3 - kj)], win[r + u][s + v]);
+            acc = u == 0 && v == 0 ? term : __fadd_rn(acc, term);
+          }
+        }
+        o[r * out_row + s * C] = narrow<T>(acc);
+      }
+    }
+    o += 2 * out_row;
   }
-  out[idx] = narrow<T>(acc);
 }
 
-// B17: one thread a pixel of the flattened (H, W) grid, kRegPixels a
-// block; S the tap window's side.
+// B17: a persistent block walks tiles of kRegCols x kRegRows
+// pixels, blockIdx.x + k gridDim.x, staging the next tile's distances and
+// flow (cp.async) while it computes the current one; S the window's side.
 template <typename TD, typename TF, int S>
-__global__ void __launch_bounds__(kRegPixels)
+struct RegLayout {
+  static constexpr int S2 = S * S, P = (S - 1) / 2;
+  static constexpr int TX = kRegCols, TY = kRegRows;
+  static constexpr int V = 16 / (int)sizeof(TD);
+  static constexpr int kPitch = (TX * S2 + 2 * V - 2) / V * V;
+  static constexpr int FX = TX + 2 * P, FY = TY + 2 * P;
+  static constexpr int kDist = TY * kPitch * (int)sizeof(TD);
+  static constexpr int kFlow =
+      (FY * FX * 2 * (int)sizeof(TF) + 15) / 16 * 16;
+  static constexpr int kStage = kDist + kFlow;
+  static constexpr int kSmem = 2 * kStage + S2 * 8;
+};
+
+// cp.async of ``bytes`` (8 or 4) from src, or zeros where ``in`` is false.
+__device__ __forceinline__ void cp_async_zfill(void* smem_dst, const void* src,
+                                               bool in, int bytes) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 8 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 4 : 0)
+                 : "memory");
+}
+
+template <typename TD, typename TF, int S>
+__device__ __forceinline__ void reg_stage(unsigned char* buf,
+                                          const TD* __restrict__ dist,
+                                          const TF* __restrict__ flow, int H,
+                                          int W, int i0, int j0, int tid) {
+  using L = RegLayout<TD, TF, S>;
+  TD* rows = reinterpret_cast<TD*>(buf);
+  TF* fl = reinterpret_cast<TF*>(buf + L::kDist);
+  const int n = min(L::TX, W - j0);
+  for (int ty = 0; ty < L::TY && i0 + ty < H; ++ty) {
+    const long long e = ((long long)(i0 + ty) * W + j0) * L::S2;
+    stage_run(rows + ty * L::kPitch, dist + e, run_shift(dist, e),
+              n * L::S2, tid, L::TX * L::TY);
+  }
+  for (int k = tid; k < L::FY * L::FX; k += L::TX * L::TY) {
+    const int y = i0 - L::P + k / L::FX, xx = j0 - L::P + k % L::FX;
+    const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
+    cp_async_zfill(fl + 2 * k, in ? flow + 2 * ((long long)y * W + xx) : flow,
+                   in, 2 * (int)sizeof(TF));
+  }
+}
+
+template <typename TD, typename TF, int S>
+__global__ void __launch_bounds__(kRegCols * kRegRows)
     reg_apply_kernel(const TD* __restrict__ dist, const TF* __restrict__ flow,
                      const float* __restrict__ wx,
                      const float* __restrict__ bx,
                      const float* __restrict__ wy,
                      const float* __restrict__ by, float* __restrict__ out,
                      int H, int W) {
-  constexpr int S2 = S * S;
-  constexpr int P = (S - 1) / 2;
-  __shared__ TD rows[kRegPixels * S2];
-  const long long npix = (long long)H * W;
-  const long long p0 = (long long)blockIdx.x * kRegPixels;
-  const int pixels = (int)min((long long)kRegPixels, npix - p0);
-  // stage the block's distance rows: one contiguous run, coalesced
-  const TD* src = dist + p0 * S2;
-  for (int e = threadIdx.x; e < pixels * S2; e += kRegPixels)
-    rows[e] = src[e];
-  __syncthreads();
-  if ((int)threadIdx.x >= pixels) return;
-  const long long p = p0 + threadIdx.x;
-  const int i = (int)(p / W);
-  const int j = (int)(p % W);
-  const TD* row = rows + threadIdx.x * S2;
-
-  float e[S2];
+  using L = RegLayout<TD, TF, S>;
+  constexpr int S2 = L::S2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* taps = reinterpret_cast<float2*>(smem + 2 * L::kStage);
+  const int tid = threadIdx.x;
+  const int tiles_x = (W + L::TX - 1) / L::TX;
+  const int tiles = tiles_x * ((H + L::TY - 1) / L::TY);
+  if (tid < S2) taps[tid] = make_float2(__ldg(wx + tid), __ldg(wy + tid));
+  int t = blockIdx.x;
+  if (t < tiles)
+    reg_stage<TD, TF, S>(smem, dist, flow, H, W, t / tiles_x * L::TY,
+                         t % tiles_x * L::TX, tid);
+  cp_async_commit();
+  for (int it = 0; t < tiles; ++it, t += gridDim.x) {
+    const int next = t + gridDim.x;
+    if (next < tiles)
+      reg_stage<TD, TF, S>(smem + ((it + 1) & 1) * L::kStage, dist, flow, H,
+                           W, next / tiles_x * L::TY, next % tiles_x * L::TX,
+                           tid);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* buf = smem + (it & 1) * L::kStage;
+    const TD* rows = reinterpret_cast<const TD*>(buf);
+    const TF* fl = reinterpret_cast<const TF*>(buf + L::kDist);
+    const int i0 = t / tiles_x * L::TY, j0 = t % tiles_x * L::TX;
+    const int tx = tid % L::TX, ty = tid / L::TX;
+    const int i = i0 + ty, j = j0 + tx;
+    if (i < H && j < W) {
+      const long long e = ((long long)i * W + j0) * S2;
+      const TD* row = rows + ty * L::kPitch + run_shift(dist, e) + tx * S2;
+      float d[S2];
 #pragma unroll
-  for (int k = 0; k < S2; ++k) {
-    const float v = widen(row[k]);
-    e[k] = -__fmul_rn(v, v);
-  }
-  // torch.amax's max: a NaN anywhere makes it NaN
-  float m = e[0];
-#pragma unroll
-  for (int k = 1; k < S2; ++k) m = (e[k] > m || e[k] != e[k]) ? e[k] : m;
-#pragma unroll
-  for (int k = 0; k < S2; ++k) e[k] = expf(__fsub_rn(e[k], m));
-  float sum = e[0];
-#pragma unroll
-  for (int k = 1; k < S2; ++k) sum = __fadd_rn(sum, e[k]);
-  const float divisor = __frcp_rn(sum);
-
-  float acc_x = 0.f, acc_y = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < S; ++dy) {
-    const int yy = i + dy - P;
-    const bool row_in = yy >= 0 && yy < H;
-#pragma unroll
-    for (int dx = 0; dx < S; ++dx) {
-      const int k = dy * S + dx;
-      const int xx = j + dx - P;
-      float fx = 0.f, fy = 0.f;
-      if (row_in && xx >= 0 && xx < W) {
-        const TF* f = flow + 2 * ((long long)yy * W + xx);
-        fx = widen(f[0]);
-        fy = widen(f[1]);
+      for (int k = 0; k < S2; ++k) {
+        const float v = widen(row[k]);
+        d[k] = -__fmul_rn(v, v);
       }
-      acc_x = __fadd_rn(acc_x, __fmul_rn(__fmul_rn(__ldg(wx + k), e[k]), fx));
-      acc_y = __fadd_rn(acc_y, __fmul_rn(__fmul_rn(__ldg(wy + k), e[k]), fy));
+      // torch.amax's max, NaN if any is NaN. Every d_k is -0 or negative,
+      // so the max of the non-NaN values is the same in any order, and the
+      // sum of all of them is NaN only where one is: both are taken in 8
+      // independent chains, then folded
+      float most[8], sum_d[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) most[k] = sum_d[k] = d[k];
+#pragma unroll
+      for (int k = 8; k < S2; ++k) {
+        most[k % 8] = fmaxf(most[k % 8], d[k]);
+        sum_d[k % 8] = __fadd_rn(sum_d[k % 8], d[k]);
+      }
+#pragma unroll
+      for (int k = 1; k < 8; ++k) {
+        most[0] = fmaxf(most[0], most[k]);
+        sum_d[0] = __fadd_rn(sum_d[0], sum_d[k]);
+      }
+      const float m = sum_d[0] != sum_d[0] ? sum_d[0] : most[0];
+      float sum = 0.f, acc_x = 0.f, acc_y = 0.f;
+      const TF* f = fl + 2 * (ty * L::FX + tx);
+#pragma unroll
+      for (int dy = 0; dy < S; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < S; ++dx) {
+          const int k = dy * S + dx;
+          const float ek = expf(__fsub_rn(d[k], m));
+          sum = k == 0 ? ek : __fadd_rn(sum, ek);
+          const float2 tk = taps[k];
+          const TF* v = f + 2 * (dy * L::FX + dx);
+          acc_x =
+              __fadd_rn(acc_x, __fmul_rn(__fmul_rn(tk.x, ek), widen(v[0])));
+          acc_y =
+              __fadd_rn(acc_y, __fmul_rn(__fmul_rn(tk.y, ek), widen(v[1])));
+        }
+      }
+      const float divisor = __frcp_rn(sum);
+      reinterpret_cast<float2*>(out)[(long long)i * W + j] =
+          make_float2(__fmul_rn(__fadd_rn(acc_x, __ldg(bx)), divisor),
+                      __fmul_rn(__fadd_rn(acc_y, __ldg(by)), divisor));
     }
+    __syncthreads();
   }
-  out[2 * p] = __fmul_rn(__fadd_rn(acc_x, __ldg(bx)), divisor);
-  out[2 * p + 1] = __fmul_rn(__fadd_rn(acc_y, __ldg(by)), divisor);
+}
+
+// B16's band: kUpRows input rows a block, halved until the grid gives
+// each of the ``sms`` SMs two blocks.
+int up_band(int h, int w, int C, int sms) {
+  const long long across = ((long long)w * C + kThreads - 1) / kThreads;
+  int band = kUpRows;
+  while (band > 1 && across * ((h + band - 1) / band) < 2LL * sms) band /= 2;
+  return band;
+}
+
+// The blocks of a persistent grid over ``tiles`` tiles with at most
+// ``slots`` resident: every block takes the same number of tiles, but
+// for the last ones.
+int balanced_grid(long long tiles, long long slots) {
+  const long long each = (tiles + slots - 1) / slots;
+  return (int)((tiles + each - 1) / each);
+}
+
+// The current device, its SM count (asked once a device).
+cudaError_t device_sms(int* device, int* sms) {
+  static int counts[kMaxDevices] = {};
+  cudaError_t err = cudaGetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (*device < kMaxDevices && counts[*device] > 0) {
+    *sms = counts[*device];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *device);
+  if (err == cudaSuccess && *device < kMaxDevices) counts[*device] = *sms;
+  return err;
 }
 
 template <typename T>
 cudaError_t launch_upsample(const void* x, const float* weight, void* out,
                             int h, int w, int C, cudaStream_t stream) {
-  const long long total = 4LL * h * w * C;
-  if (total > 0xffffffffLL - kThreads) return cudaErrorInvalidValue;
-  const unsigned int blocks =
-      (unsigned int)((total + kThreads - 1) / kThreads);
-  upsample2x_phases_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), weight, static_cast<T*>(out), h, w, C,
-      (unsigned int)total);
+  int device = 0, sms = 0;
+  cudaError_t err = device_sms(&device, &sms);
+  if (err != cudaSuccess) return err;
+  const int band = up_band(h, w, C, sms);
+  const long long across = ((long long)w * C + kThreads - 1) / kThreads;
+  const long long down = (h + band - 1) / band;
+  if (across > 0x7fffffffLL || down > 65535) return cudaErrorInvalidValue;
+  upsample2x_phases_kernel<T>
+      <<<dim3((unsigned)across, (unsigned)down), kThreads, 0, stream>>>(
+          static_cast<const T*>(x), weight, static_cast<T*>(out), h, w, C,
+          band);
   return cudaGetLastError();
 }
 
@@ -201,10 +418,32 @@ template <typename TD, typename TF, int S>
 cudaError_t launch_reg(const void* dist, const void* flow, const float* wx,
                        const float* bx, const float* wy, const float* by,
                        float* out, int H, int W, cudaStream_t stream) {
-  const long long blocks =
-      ((long long)H * W + kRegPixels - 1) / kRegPixels;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  reg_apply_kernel<TD, TF, S><<<(unsigned)blocks, kRegPixels, 0, stream>>>(
+  using L = RegLayout<TD, TF, S>;
+  // the blocks an SM holds, found once a device with the shared-memory
+  // limit raised where needed: both calls cost host time on every launch
+  static int resident[kMaxDevices] = {};
+  int device = 0, sms = 0;
+  cudaError_t err = device_sms(&device, &sms);
+  if (err != cudaSuccess) return err;
+  int per_sm = device < kMaxDevices ? resident[device] : 0;
+  if (per_sm == 0) {
+    if (L::kSmem > 48 * 1024) {
+      err = cudaFuncSetAttribute(reg_apply_kernel<TD, TF, S>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 L::kSmem);
+      if (err != cudaSuccess) return err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, reg_apply_kernel<TD, TF, S>, L::TX * L::TY, L::kSmem);
+    if (err != cudaSuccess) return err;
+    per_sm = per_sm > 0 ? per_sm : 1;
+    if (device < kMaxDevices) resident[device] = per_sm;
+  }
+  const long long tiles = (long long)((W + L::TX - 1) / L::TX) *
+                          ((H + L::TY - 1) / L::TY);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = balanced_grid(tiles, (long long)per_sm * sms);
+  reg_apply_kernel<TD, TF, S><<<grid, L::TX * L::TY, L::kSmem, stream>>>(
       static_cast<const TD*>(dist), static_cast<const TF*>(flow), wx, bx, wy,
       by, out, H, W);
   return cudaGetLastError();
@@ -234,7 +473,8 @@ cudaError_t launch_reg_size(int S, const void* dist, const void* flow,
 
 // dtype codes: 0 = float32, 1 = bfloat16. x: (h, w, C) contiguous;
 // weight: (C, 1, 4, 4) float32 contiguous; out: (2h, 2w, C) in x's dtype.
-// Returns a cudaError_t.
+// Returns a cudaError_t (cudaErrorInvalidValue where three rows of one
+// column exceed a block's shared memory: C above ~6,400 in float32).
 extern "C" int transflow_upsample2x_phases(const void* x, int dtype,
                                            const void* weight, void* out,
                                            int h, int w, int C,
