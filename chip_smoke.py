@@ -156,7 +156,8 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
    1088x1920, the ``fastest`` preset and the CLI disk to disk over a cv2
    MJPG clip (still pixmap, video pixmap, ``.flow.zip`` replay), the
    record printed as its own JSON line; it must hold every field, B1/B2a/
-   B2b/B8 launches of 4/12/12/1 and A1/A3/B7/B16/B17 of 5/0/14/6/5 a frame, 0
+   B2b/B8 launches of 4/12/12/1 and A1/A3/B7/B16/B17/B18 of 5/0/14/6/5/93 a
+   frame, 0
    host syncs a frame and this card's name and power limit; then 3 cases of
    the chunk
    fuzzer (``tools/fuzz_chunks.py``, seed 5) on the card at 96x128, each
@@ -165,20 +166,22 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
 3. slice: ``FlowTransferModel(1080, 1920, method="liteflownet")`` with random
    weights and one moveref layer over panned synthetic frames, counting
    the correlation kernel's launches (5 a frame), the exact backwarp's
-   (B7, 14 a frame), the phase upsampler's (B16, 6) and the
-   regularization's tap apply's (B17, 5);
+   (B7, 14 a frame), the phase upsampler's (B16, 6), the
+   regularization's tap apply's (B17, 5) and the convolution epilogue's
+   (B18, 93: one a convolution);
 4. engine: ``Engine`` at 1080x1920 over a frame source with
    ``CvFlowConfig(method="liteflownet", lfn_warp_bound=16)``, one moveref
    layer with random reset 0.01: a warm-up chunk, a timed chunk of 8
    frames, then ``process_frame`` calls, counting 9 A3, 5 B7 (the
-   regularization's 3-channel warps), 5 correlation, 6 B16 and 5 B17
-   launches per frame and 0 host syncs per frame; then the same Engine
+   regularization's 3-channel warps), 5 correlation, 6 B16, 5 B17 and 93
+   B18 launches per frame and 0 host syncs per frame; then the same Engine
    with ``lfn_warp_bound=0`` (every warp exact: 14 B7) on the same
    frames;
 5. mesh engine: the bound-16 Engine under ``make_space_mesh(4)`` over
    four shards of the card with ``halo=8``: the bound is stripped, and
    each frame launches 4 A2 kernels (levels 2-5, one per level), 1 A1
-   (level 6), no A3, 14 B7, 6 B16 and 5 B17; its flows and frames against
+   (level 6), no A3, 14 B7, 6 B16, 5 B17 and 93 B18; its flows and frames
+   against
    the bound-0 run of
    phase 4; then the mesh and meshless Engines in turns (eight ABBA rounds
    of 3-frame ``process_frame`` windows) for the mesh's cost per frame;
@@ -210,6 +213,16 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
    each bit-equal to its plain version on random inputs, with
    ``device_ms``, the bound, the share, ``call_ms``, the plain version's
    time and ATen ops (no single PyTorch call computes B17);
+7c. the convolution epilogue vs plain: B18 (``conv_epilogue``) on the 93
+   calls of one bound-0 1088x1920 forward (their shapes held to
+   ``B18_FRAME``, the layouts cuDNN returned printed), then at each of
+   ``B18_FRAME``'s 32 (N, H, W, C) in bf16 (and f32 at L2) from
+   channels_last and contiguous NCHW inputs, with and without the leaky
+   ReLU, bit-equal to its plain version; the path's row of each (bf16, its
+   layout and leaky ReLU) with ``device_ms`` (in place), the bound, the
+   share, ``call_ms``, the plain version's time and ATen ops, and the ops
+   it replaced (``b18_replaced``: the bias cast, the add on the permuted
+   view, ``F.leaky_relu``) timed on the same input;
 8. sharded correlation: kernel A2 (``sharded_correlation7x7``, one launch
    per card that reads each shard's halo rows in place) at the five
    correlation shapes in the slice's dtype pairs, over 4 and 2 shards that
@@ -243,12 +256,16 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    L2-L6 (phase 7's bf16 inputs within the bound), B7 beside
    ``F.grid_sample`` at every phase 7 row (its time a level and a bound-0
    frame, 9 bf16 feature warps and 5 image warps), B16 beside
-   ``F.conv_transpose2d`` and B17 at every phase 7b row, B1, B2a, B2b, B8
+   ``F.conv_transpose2d`` and B17 at every phase 7b row, B18 beside every
+   device event of the ops it replaced at every phase 7c path row (a
+   frame's 93 launches summed), B1, B2a, B2b, B8
    at the four levels and B9-B12, B14 at theirs, B8 and B14 beside every
    device event of the path each replaced; then the Farneback Engine's
    (which must show no cuDNN kernel and none of ``F_REPLACED_OPS``),
-   phase 4's bound-0 LiteFlowNet Engine's (with its ATen ops a frame and
-   each of its hand-written kernels' device time a frame, ``lfn_profile``),
+   phase 4's bound-0 LiteFlowNet Engine's (with its ATen ops a frame,
+   each of its hand-written kernels' device time a frame, ``lfn_profile``,
+   and ``epilogue_audit``: no bias add, no parameter cast and only the
+   correlation's 5 float32 leaky ReLUs a frame, else the run fails),
    each phase H Engine's and phase S's device events, busy time and idle
    share per frame over a few ``process_frame`` (or one-frame
    ``sharded_scan``) calls, and their device time per frame by kernel
@@ -284,7 +301,10 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    shapes of a 1088x1920 frame in float32 and B17's five levels with bf16
    distances (a bf16 flow at L6), ``device_ms`` in turns, each tree's
    profiler kernel time of a call, and their sums over a frame's 6 and 5
-   launches; bit-equal between the trees (B10's
+   launches; where the other tree has ``conv_epilogue.cu``, B18
+   (``against_conv_epilogue``) at every ``B18_FRAME`` entry in bf16 from a
+   channels_last input into each tree's own output, and its sum over a
+   frame's 93 launches; bit-equal between the trees (B10's
    flows and its control words ``[stop, iterations]`` too, B5's
    mappings, B8's, B14's, B16's and B17's outputs).
    ``--steps [NAME=]CSRC_DIR`` (repeatable, with or without
@@ -330,7 +350,8 @@ C. after phase 9: the compositor's kernels (``ops/compositor.py``,
 Every Engine, CLI and bench run of the main path counts the compositor's
 launches beside the estimators' (``KERNEL_NAMES``: K0, K1, K2, then the
 pyramids' B8 and B14, then LiteFlowNet's exact backwarp B7 and its heads'
-B16 and B17, 6 and 5 a LiteFlowNet frame, ``LFN_HEADS``): one moveref
+B16 and B17, 6 and 5 a LiteFlowNet frame, and its convolution epilogue
+B18, 93, ``LFN_HEADS``): one moveref
 layer updates through one K1 and renders through one K2 a frame
 (``C_MOVEREF``), phase T's four layers take 1 K0, 2 K1 and 1 K2; under a
 mesh that splits the movement (phases 5 and M) the moveref layer updates
@@ -370,7 +391,9 @@ no fixed order on CUDA; no single call blurs and resizes).
 B16's bound counts the input, the taps and the output once and 7
 operations an output value; B17's the distances, the flow and the output
 once and 11 operations a tap (the exponential as one), 5 a pixel
-(``up_bound_ms``, ``reg_bound_ms``).
+(``up_bound_ms``, ``reg_bound_ms``); B18's cuDNN's output read and the
+result written once and 1 operation an element, 3 with the leaky ReLU
+(``epilogue_bound_ms``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -434,10 +457,40 @@ B7_LEVELS = ((34, 60, "L6"), (68, 120, "L5"), (136, 240, "L4"),
              (272, 480, "L3"), (544, 960, "L2"))
 B7_REACH = 8.0   # px at L2 of the random flows, scaled with the level
 B7_FAR = 0.2     # their share of pixels 1-3 frames outside the frame
-# the heads' kernels a LiteFlowNet frame at any bound, meshed or not: B16
-# upsamples the flow at L5-L2 and the cost volume at L3 and L2, B17 applies
-# the regularization's taps at each of the five levels
-LFN_HEADS = {"B16": 6, "B17": 5}
+def b18_frame(h: int, w: int) -> tuple:
+    """B18's launches a frame of an H x W network input (multiples of 32)
+    at any bound, meshed or not, one a convolution: ((N, H, W, C) of
+    cuDNN's output, leaky or not, launches a frame, name). The features'
+    convolutions take both images; at each level the matching and subpixel
+    heads' main0-main2 (128, 64, 32 channels) and main3 (2, no leaky ReLU),
+    the regularization's feat0 (L2-L4) and main0-1 (128), main2-3 (64),
+    main4-5 (32) and its distances (dist0, and dist1 at L2-L4; no leaky
+    ReLU)."""
+    rows = [((2, h, w, 32), True, 1, "features one0")]
+    for k, (c, n, name) in enumerate(((32, 3, "two0-two2"),
+                                      (64, 2, "thr0-thr1"),
+                                      (96, 2, "fou0-fou1"), (128, 1, "fiv0"),
+                                      (192, 1, "six0")), 1):
+        rows.append(((2, h >> k, w >> k, c), True, n, f"features {name}"))
+    rows.append(((2, h >> 1, w >> 1, 64), True, 2, "L2 heads' feat0"))
+    for lvl, taps in ((2, 49), (3, 25), (4, 25), (5, 9), (6, 9)):
+        lh, lw, feat = h >> (lvl - 1), w >> (lvl - 1), int(lvl < 5)
+        rows += [((1, lh, lw, 128), True, 4 + feat, f"L{lvl} 128"),
+                 ((1, lh, lw, 64), True, 4, f"L{lvl} 64"),
+                 ((1, lh, lw, 32), True, 4, f"L{lvl} 32"),
+                 ((1, lh, lw, 2), False, 2, f"L{lvl} main3"),
+                 ((1, lh, lw, taps), False, 1 + feat, f"L{lvl} dist")]
+    return tuple(rows)
+
+
+# a 1088x1920 frame's; the network gives it bf16
+B18_FRAME = b18_frame(1088, 1920)
+B18_PER_FRAME = sum(row[2] for row in B18_FRAME)
+# the heads' and epilogue's kernels a LiteFlowNet frame at any bound,
+# meshed or not: B16 upsamples the flow at L5-L2 and the cost volume at L3
+# and L2, B17 applies the regularization's taps at each of the five
+# levels, B18 follows each of the 93 convolutions
+LFN_HEADS = {"B16": 6, "B17": 5, "B18": B18_PER_FRAME}
 # B16's shapes a 1088x1920 frame, one launch each: (h, w, C, name) of the
 # half-res input. The path gives it float32 (the flow after the
 # regularization, the correlation's float32 cost volume); the rows are
@@ -587,11 +640,15 @@ def kernel_split(fn, launches: int = DEVICE_LAUNCHES) -> dict[str, float]:
 def kernel_ms(fn, pattern: str, launches: int = DEVICE_LAUNCHES
               ) -> float | None:
     """The summed durations of the kernels whose name holds ``pattern``
-    per call (``kernel_split``); None where the profiler saw no device
-    time."""
-    total = sum(ms for name, ms in kernel_split(fn, launches).items()
-                if pattern in name)
-    return total or None
+    per call (``kernel_split``); the profiler misses a window's events now
+    and then, so a window with none is profiled once more; None where
+    neither saw device time."""
+    for _ in range(2):
+        total = sum(ms for name, ms in kernel_split(fn, launches).items()
+                    if pattern in name)
+        if total:
+            return total
+    return None
 
 
 def corr_bound_ms(h: int, w: int, c: int, stride: int, t1, t2
@@ -1141,6 +1198,144 @@ def phase_lfn_head_kernels(device) -> tuple[list[dict], list[dict]]:
     return up_rows, reg_rows
 
 
+def epilogue_bound_ms(shape, dtype, leaky: bool) -> tuple[float, str]:
+    """B18's bound: cuDNN's output read once, the result written once (the
+    C float32 biases too); per element the add, and with the leaky ReLU
+    the sign test and the product."""
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    nbytes = 2 * n * dtype.itemsize + 4 * shape[3]
+    return _bound(nbytes, n * (3 if leaky else 1))
+
+
+def b18_input(shape, dtype, kind: str, gen, device):
+    """Random (N, C, H, W) values (``shape`` is (N, H, W, C)) in the layout
+    ``kind`` with exact zeros of both signs, and a float32 bias."""
+    from transflow_tpu_torch.ops import conv_epilogue as ce
+    n, h, w, c = shape
+    y = 4 * torch.randn((n, h, w, c), generator=gen, device=device)
+    flat = y.view(-1)
+    flat[::13] = 0.0
+    flat[5::13] = -0.0
+    y = y.to(dtype).permute(0, 3, 1, 2)
+    if kind == ce.NCHW:
+        y = y.contiguous()
+    return y, torch.randn(c, generator=gen, device=device)
+
+
+def b18_replaced(y, bias, leaky: bool):
+    """The ops B18 replaced, as ``_Conv`` ran them before it: the bias cast
+    to y's dtype, the add on the permuted view made contiguous, then
+    ``F.leaky_relu(x, 0.1)``."""
+    out = (y.permute(0, 2, 3, 1) + bias.to(y.dtype)).contiguous()
+    return torch.nn.functional.leaky_relu(out, 0.1) if leaky else out
+
+
+def b18_path_calls(device) -> list[tuple]:
+    """B18's calls in one bound-0 forward of the network on a random
+    1088x1920 pair: ((N, H, W, C), dtype, layout, leaky) each."""
+    from transflow_tpu_torch.flow.estimators import liteflownet as lfn
+    from transflow_tpu_torch.ops import conv_epilogue as ce
+    epilogue, calls = lfn.conv_epilogue, []
+
+    def record(y, bias, leaky):
+        n, c, h, w = y.shape
+        calls.append(((n, h, w, c), y.dtype, ce.layout(y, bias, "B18"),
+                      leaky))
+        return epilogue(y, bias, leaky)
+    net = lfn.get_weights(allow_random=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    i1, i2 = (torch.rand((B18_FRAME[0][0][1], B18_FRAME[0][0][2], 3),
+                         generator=gen, device=device) for _ in range(2))
+    lfn.conv_epilogue = record
+    try:
+        with torch.no_grad():
+            net(i1, i2, warp_bound=0)
+    finally:
+        lfn.conv_epilogue = epilogue
+    torch.cuda.synchronize()
+    return calls
+
+
+def phase_conv_epilogue_kernels(device) -> list[dict]:
+    """Phase 7c: B18 (``conv_epilogue``) on the calls of one bound-0
+    1088x1920 forward (held to ``B18_FRAME``; prints the layouts cuDNN
+    returned), then at every (N, H, W, C) of ``B18_FRAME`` in bf16 (and
+    f32 at L2) from both layouts, with and without the leaky ReLU, random
+    inputs from the seed, each bit-equal to its plain version. The path's
+    row of each entry (bf16, its layout and leaky ReLU) is timed
+    (``device_ms`` in place, ``call_ms``, the plain version's time and ATen
+    ops, and the ops it replaced, ``b18_replaced``; phase 10 adds the
+    kernel times). No single PyTorch call adds a bias and takes a leaky
+    ReLU."""
+    from transflow_tpu_torch.ops import conv_epilogue as ce
+    calls = b18_path_calls(device)
+    seen = {}
+    for shape, dtype, kind, leaky in calls:
+        if dtype != BF16:
+            raise AssertionError(f"B18 got {dtype} at {shape} on the path")
+        seen.setdefault((shape, leaky), []).append(kind)
+    want = {(shape, leaky): n for shape, leaky, n, _ in B18_FRAME}
+    if {k: len(v) for k, v in seen.items()} != want:
+        raise AssertionError(f"B18's calls a frame {seen}, expected {want}")
+    kinds = [kind for _, _, kind, _ in calls]
+    h, w = B18_FRAME[0][0][1:3]
+    print(f"B18 a bound-0 {h}x{w} frame: {len(calls)} calls; cuDNN "
+          f"returned {kinds.count(ce.CHANNELS_LAST)} channels_last and "
+          f"{kinds.count(ce.NCHW)} contiguous NCHW outputs")
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    rows = []
+    for shape, path_leaky, count, name in B18_FRAME:
+        path_kind = max(set(seen[shape, path_leaky]),
+                        key=seen[shape, path_leaky].count)
+        dtypes = (BF16, F32) if shape[1] == B18_FRAME[0][0][1] // 2 \
+            else (BF16,)
+        for dtype, kind, leaky in itertools.product(
+                dtypes, (ce.CHANNELS_LAST, ce.NCHW), (True, False)):
+            y, bias = b18_input(shape, dtype, kind, gen, device)
+            want = ce.conv_epilogue_plain(y, bias, leaky)
+            got = ce.conv_epilogue_cuda(y.clone(), bias, leaky)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            label = (f"{name} {shape} {str(dtype)[6:]} {kind}"
+                     f"{' leaky' if leaky else ''}")
+            if not _same_bits(got, want):
+                raise AssertionError(f"B18 disagrees at {label}: "
+                                     f"max_abs_err {err}")
+            main = (dtype, kind, leaky) == (BF16, path_kind, path_leaky)
+            row = {"kernel": "conv_epilogue", "level": name, "shape": shape,
+                   "dtype": dtype, "err": err, "main": main, "count": count}
+            rows.append(row)
+            if not main:
+                continue
+            row["bound_ms"], row["bound_by"] = epilogue_bound_ms(
+                shape, dtype, leaky)
+            call = functools.partial(ce.conv_epilogue_cuda, y.clone(), bias,
+                                     leaky)
+            row["device_ms"] = device_ms(call)
+            row["call_ms"] = call_ms(call)
+            row["plain_ms"] = device_ms(
+                lambda: ce.conv_epilogue_plain(y, bias, leaky),
+                PLAIN_LAUNCHES)
+            row["plain_ops"] = aten_ops(
+                lambda: ce.conv_epilogue_plain(y, bias, leaky))
+            replaced = functools.partial(b18_replaced, y, bias, leaky)
+            row["replaced_ms"] = device_ms(replaced)
+            row["replaced_ops"] = aten_ops(replaced)
+            # profiled in phase 10
+            row["call"], row["replaced_call"] = call, replaced
+            print(f"B18 {label} x{count} a frame: bit-equal (max_abs_err "
+                  f"{err:.3e}) device_ms {row['device_ms']:.5f} bound "
+                  f"{row['bound_ms']:.5f} ({row['bound_by']}) share "
+                  f"{row['bound_ms'] / row['device_ms']:.1%}; call "
+                  f"{row['call_ms']:.4f} ms (host-inclusive); plain "
+                  f"{row['plain_ms']:.4f} ms ({row['plain_ops']} ATen ops); "
+                  f"the ops it replaced {row['replaced_ms']:.5f} ms "
+                  f"({row['replaced_ops']} ATen ops)")
+    print(f"B18: {len(rows)} cases bit-equal to the plain version "
+          f"({sum(r['main'] for r in rows)} the path's)")
+    return rows
+
+
 def panned_frames(n: int, height: int, width: int, device,
                   step: int = 3) -> torch.Tensor:
     """(n, H, W, 3) uint8 frames: a smooth random texture panned by
@@ -1187,12 +1382,14 @@ def run_frames(model, frames, pixmaps, key):
 
 def phase_slice(device, card: str) -> dict:
     from transflow_tpu_torch import prng
+    from transflow_tpu_torch.ops.conv_epilogue import conv_epilogue_cuda
     from transflow_tpu_torch.ops.correlation import correlation7x7_cuda
     from transflow_tpu_torch.ops.lfn_heads import (reg_apply_cuda,
                                                    upsample2x_phases_cuda)
     from transflow_tpu_torch.ops.warp import exact_backwarp_cuda
     counters = {"A1": correlation7x7_cuda, "B7": exact_backwarp_cuda,
-                "B16": upsample2x_phases_cuda, "B17": reg_apply_cuda}
+                "B16": upsample2x_phases_cuda, "B17": reg_apply_cuda,
+                "B18": conv_epilogue_cuda}
     os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
     model = flagship_model(HEIGHT, WIDTH, device)
     frames = panned_frames(SLICE_FRAMES + 2, HEIGHT, WIDTH, device)
@@ -1239,7 +1436,8 @@ def phase_slice(device, card: str) -> dict:
           f"(max |flow| {max_flow:.4g}, checksum {checksum}) on {card}")
     print(f"correlation launches: {launches['A1']}, exact backwarp "
           f"launches: {launches['B7']}, phase upsampler: {launches['B16']}, "
-          f"tap apply: {launches['B17']} over {frames_run} frames")
+          f"tap apply: {launches['B17']}, convolution epilogue: "
+          f"{launches['B18']} over {frames_run} frames")
     return launches
 
 
@@ -1288,6 +1486,7 @@ def _launch_counters():
     from transflow_tpu_torch.ops.compositor import (composite_cuda,
                                                     layer_update_cuda,
                                                     leave_empty_sources_cuda)
+    from transflow_tpu_torch.ops.conv_epilogue import conv_epilogue_cuda
     from transflow_tpu_torch.ops.correlation import (correlation7x7_cuda,
                                                      sharded_correlation7x7)
     from transflow_tpu_torch.ops.farneback import (aggregate_solve_cuda,
@@ -1311,13 +1510,13 @@ def _launch_counters():
             lk_warp_products_cuda, lk_window_solve_cuda,
             leave_empty_sources_cuda, layer_update_cuda, composite_cuda,
             pyramid_levels_cuda, lk_pyramid_cuda, exact_backwarp_cuda,
-            upsample2x_phases_cuda, reg_apply_cuda)
+            upsample2x_phases_cuda, reg_apply_cuda, conv_epilogue_cuda)
 
 
 # the names of _launches()'s entries
 KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5", "B9", "B10",
                 "B11", "B12", "K0", "K1", "K2", "B8", "B14", "B7", "B16",
-                "B17")
+                "B17", "B18")
 
 
 def fb_launches(launches) -> tuple:
@@ -1823,7 +2022,8 @@ T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
 # sources, and B5's two for the forward one
 # and K0, K1, K2: the moveref layer leaves empty spots (K0), the sum and
 # the moveref layer update through K1, the stack renders in one K2
-T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 2, 0, 0, 0, 0)
+T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 2, 0, 0, 0, 0,
+               0)
 T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
 T_SYNC_CALLS = 2
 T_PROFILE_CALLS = 3
@@ -2178,12 +2378,12 @@ def h_per_frame(config, height: int, width: int) -> tuple:
     kw = config.estimator_kwargs()
     if config.method == "horn-schunck":
         return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF, 0, 0, 0, 0,
-                           0)
+                           0, 0)
     levels = len(pyramid.lk_shapes(height, width, kw["win_size"],
                                    kw["max_level"]))
     return (0,) * 7 + (0, 0, H_LK_ITERS * levels, (H_LK_ITERS + 1) * levels,
                        *C_MOVEREF, 0, pyramid.lk_launches(levels), 0, 0,
-                       0)
+                       0, 0)
 
 
 def phase_classic_engine(device, card: str) -> dict:
@@ -2387,7 +2587,7 @@ S_RESET = 0.05
 S_HALO = 8
 S_TOOL_FRAMES = 9     # frames of each sequence the batch renderer reads
 S_PER_FRAME = (0, 0, 0, 0, 0, 0, 0, 1, S_ITERS, 0, 0,
-               *C_MOVEREF, 0, 0, 0, 0, 0)  # a stream-frame
+               *C_MOVEREF, 0, 0, 0, 0, 0, 0)  # a stream-frame
 
 
 def s_model(device, halo: int | None = None):
@@ -3218,7 +3418,7 @@ K_FUZZ_CASES = 3
 K_FUZZ_SEED = 5          # the CPU tests' cases: a video source with a
 #                          checkpoint cadence, the archive with one, a lock
 K_FUZZ_SIZE = (96, 128)
-# A1, A3, B7, B16, B17 launches a LiteFlowNet frame at bound 0
+# A1, A3, B7, B16, B17, B18 launches a LiteFlowNet frame at bound 0
 K_LFN_PER_FRAME = {"A1": 5, "A3": 0, "B7": B7_EXACT} | LFN_HEADS
 K_FIELDS = ("metric", "value", "unit", "vs_baseline", "ms_per_frame",
             "best_fps", "noise_iqr_pct", "samples", "window_fps",
@@ -3235,8 +3435,8 @@ def phase_bench(device, card: str) -> dict:
     this process with ``--e2e``, cut to K_CHUNKS_PER_SAMPLE chunks a
     sample, K_REPEATS samples and K_E2E_FRAMES frames: its record (printed
     on its own line) has every field, B1/B2a/B2b/B8 4/12/12/1 and
-    A1/A3/B7/B16/B17 5/0/14/6/5 launches a frame, 0 host syncs a frame and
-    this card; then
+    A1/A3/B7/B16/B17/B18 5/0/14/6/5/93 launches a frame, 0 host syncs a
+    frame and this card; then
     K_FUZZ_CASES cases of the chunk fuzzer on the card at K_FUZZ_SIZE,
     each bit-equal chunked, per frame and resumed."""
     from transflow_tpu_torch import bench
@@ -3526,7 +3726,7 @@ def phase_engine(device, card: str) -> dict:
     os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
     # and the frames of the bound-0 Engine's profile (phase 10)
     n = (1 + ENGINE_WARMUP + ENGINE_FRAMES + ENGINE_CALLS + LFN_SYNC_CALLS
-         + 1 + LFN_PROFILE_CALLS)
+         + 2 + LFN_PROFILE_CALLS)
     frames = panned_frames(n, HEIGHT, WIDTH, device)
     pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
@@ -4345,10 +4545,12 @@ def _equivalence(device) -> None:
 
 
 def phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, up_rows,
-                      reg_rows, fb_rows, b5_rows, h_rows, c_rows) -> None:
-    """``kernel_ms`` of every row that phases 6, 7, 7b, 8, B, T, H and C
-    left a call in; A3's and B7's beside ``F.grid_sample``'s, B16's beside
-    ``F.conv_transpose2d``'s; B8's and B14's
+                      reg_rows, b18_rows, fb_rows, b5_rows, h_rows,
+                      c_rows) -> None:
+    """``kernel_ms`` of every row that phases 6, 7, 7b, 7c, 8, B, T, H and
+    C left a call in; A3's and B7's beside ``F.grid_sample``'s, B16's beside
+    ``F.conv_transpose2d``'s, B18's beside the ops it replaced (every
+    device event of ``b18_replaced``); B8's and B14's
     beside the path each replaced (every device event of it); B5's over
     every device event of a call (its two kernels); K0-K2's of the row's
     kernel alone (the leave-empty K1 row: K1's, without K0's)."""
@@ -4401,6 +4603,17 @@ def phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, up_rows,
               f"{_ms_text(row['kernel_ms'])}{library} (torch.profiler, per "
               f"call) against device_ms {row['device_ms']:.5f} and bound "
               f"{row['bound_ms']:.5f} ({row['bound_by']}): share {share}")
+    for row in b18_rows:
+        if "call" not in row:
+            continue
+        row["kernel_ms"] = kernel_ms(row.pop("call"), "conv_epilogue")
+        share = ("not measured" if row["kernel_ms"] is None
+                 else f"{row['bound_ms'] / row['kernel_ms']:.1%}")
+        print(f"kernel time conv_epilogue {row['level']} {row['shape']}: "
+              f"{_ms_text(row['kernel_ms'])} (torch.profiler, per call) "
+              f"against device_ms {row['device_ms']:.5f} and bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}): share {share}"
+              f"{_replaced_text(row)}")
     for row in fb_rows:
         if "call" not in row:
             continue
@@ -4544,22 +4757,59 @@ def engine_profile(name: str, run: dict, calls: int, card: str,
 LFN_KERNEL_NAMES = {"A1": "corr7x7", "A3": "bounded_backwarp_kernel",
                     "B7": "exact_backwarp_kernel",
                     "B16": "upsample2x_phases_kernel",
-                    "B17": "reg_apply_kernel"}
+                    "B17": "reg_apply_kernel",
+                    "B18": "conv_epilogue"}
+
+
+def epilogue_audit(fn) -> dict:
+    """The ops of one call of ``fn`` that B18 replaced, by name: bias adds
+    (an ``add`` of a one-dimensional operand to a 4-D tensor), leaky
+    ReLUs by input dtype, and casts of a parameter (``_to_copy`` of an
+    ``nn.Parameter``); the correlation's float32 leaky ReLUs stay."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Audit(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.found = {"bias adds": 0, "parameter casts": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            if name in ("add", "add_") and len(tensors) == 2 and \
+                    sorted(t.dim() for t in tensors) == [1, 4]:
+                self.found["bias adds"] += 1
+            if name.startswith("leaky_relu"):
+                key = f"leaky_relu {str(tensors[0].dtype)[6:]}"
+                self.found[key] = self.found.get(key, 0) + 1
+            if name == "_to_copy" and \
+                    isinstance(tensors[0], torch.nn.Parameter):
+                self.found["parameter casts"] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Audit() as audit:
+        fn()
+    return audit.found
 
 
 def lfn_profile(name: str, run: dict, card: str) -> dict:
     """The LiteFlowNet Engine of ``run`` a frame: the ATen ops of one
     ``process_frame`` call (views left out: about the launches of its plain
-    ops), then ``engine_profile`` over ``LFN_PROFILE_CALLS`` calls and the
-    device time a frame of each of the port's LiteFlowNet kernels
+    ops), the ops B18 replaced in the next (``epilogue_audit``), then
+    ``engine_profile`` over ``LFN_PROFILE_CALLS`` calls and the device time
+    a frame of each of the port's LiteFlowNet kernels
     (``LFN_KERNEL_NAMES``) and of everything else."""
     fno = run["next_fno"]
-    run["next_fno"] = fno + 1
+    run["next_fno"] = fno + 2
     ops = aten_ops(lambda: run["step"](fno))
     print(f"profile {name}: {ops} ATen ops a frame (one process_frame "
           f"call, views left out) on {card}")
+    audit = epilogue_audit(lambda: run["step"](fno + 1))
+    print(f"profile {name}: the ops B18 replaced a frame: "
+          + ", ".join(f"{k} {n}" for k, n in audit.items()))
     profile = engine_profile(name, run, LFN_PROFILE_CALLS, card)
     profile["aten_ops_per_frame"] = ops
+    profile["audit"] = audit
     if not profile["by_name"]:
         return profile
     ours = 0.0
@@ -4585,7 +4835,7 @@ def lfn_profile_only(device, card: str) -> None:
     lib = kernel_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s")
     warmup = ENGINE_WARMUP + ENGINE_CALLS
-    frames = panned_frames(1 + warmup + ENGINE_FRAMES + LFN_SYNC_CALLS + 1
+    frames = panned_frames(1 + warmup + ENGINE_FRAMES + LFN_SYNC_CALLS + 2
                            + LFN_PROFILE_CALLS, HEIGHT, WIDTH, device)
     pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
@@ -4672,7 +4922,8 @@ def build_others(csrcs: list[Path], mine: list[dict]) -> list[ctypes.CDLL]:
 
 # the sources phase 11 builds from another tree, where it has them
 OTHER_SOURCES = ("correlation.cu", "farneback.cu", "horn_schunck.cu",
-                 "scatter.cu", "pyramid.cu", "lfn_heads.cu")
+                 "scatter.cu", "pyramid.cu", "lfn_heads.cu",
+                 "conv_epilogue.cu")
 # C entries of other trees that this one no longer has: B8's first
 # design, one level a call (src0, src1, images, dtype, dst0, dst1, H, W,
 # OH, OW, vertical taps, horizontal taps, radius, ystart, yweights, ky,
@@ -5363,6 +5614,60 @@ def against_lfn_heads(device, libs: dict, steps: dict, card: str) -> None:
               f"{_totals_text(t['kernel_ms'])} on {card}")
 
 
+def b18_entry(lib: ctypes.CDLL, y, bias, out, leaky: bool):
+    """B18 through ``lib``'s raw C entry from the (N, C, H, W) ``y`` into
+    the preallocated (N, H, W, C) ``out``."""
+    from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
+    n, c, h, w = y.shape
+    return _entry(lib, "transflow_conv_epilogue", y.data_ptr(),
+                  DTYPE_CODES[y.dtype], bias.data_ptr(), out.data_ptr(), n,
+                  h * w, c, int(not y.permute(0, 2, 3, 1).is_contiguous()),
+                  int(leaky), cuda_stream(y))
+
+
+def against_conv_epilogue(device, libs: dict, card: str) -> None:
+    """Phase 11's B18, where another tree of ``libs`` (name to ctypes
+    library, this tree's as "this") has it: every ``B18_FRAME`` entry in
+    bf16 from a channels_last input into each tree's own output, through
+    the raw C entries: ``device_ms`` in turns and each tree's profiler
+    kernel time of a call, the trees' outputs bit-equal; then their sums
+    over a frame's 93 launches."""
+    from transflow_tpu_torch.ops import conv_epilogue as ce
+    trees = {name: lib for name, lib in libs.items()
+             if hasattr(lib, "transflow_conv_epilogue")}
+    if len(trees) < 2:
+        return
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    total = {key: dict.fromkeys([*trees, "bound"], 0.0)
+             for key in ("device_ms", "kernel_ms")}
+    for shape, leaky, count, name in B18_FRAME:
+        y, bias = b18_input(shape, BF16, ce.CHANNELS_LAST, gen, device)
+        outs = {n: [torch.empty(shape, dtype=BF16, device=device)]
+                for n in trees}
+        calls = {n: b18_entry(lib, y, bias, outs[n][0], leaky)
+                 for n, lib in trees.items()}
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
+        _check_outputs(f"B18 {name}", outs)
+        turns = in_turns(calls)
+        times = {n: kernel_ms(call, "conv_epilogue")
+                 for n, call in calls.items()}
+        bound = epilogue_bound_ms(shape, BF16, leaky)
+        for n in trees:
+            total["device_ms"][n] += count * turns["ms"][n]
+            total["kernel_ms"][n] += count * (times[n] or float("nan"))
+        for key in total:
+            total[key]["bound"] += count * bound[0]
+        print(f"against B18 {name} {shape} x{count}: {_turns_text(turns)}; "
+              "kernel_ms "
+              + " ".join(f"{n} {_ms_text(t)}" for n, t in times.items())
+              + f"; bound {bound[0]:.5f} ({bound[1]}); bit-equal on {card}")
+    print(f"against B18 per frame: device_ms "
+          f"{_totals_text(total['device_ms'])}; kernel_ms "
+          f"{_totals_text(total['kernel_ms'])} on {card}")
+
+
 def _short_name(event: str) -> str:
     """A device event's name short of its namespaces, template arguments
     and parameters."""
@@ -5443,6 +5748,7 @@ def main() -> int:
     warp_rows = phase_warp_kernels(device)
     b7_rows = phase_exact_warp_kernels(device)
     up_rows, reg_rows = phase_lfn_head_kernels(device)
+    b18_rows = phase_conv_epilogue_kernels(device)
     a2_rows = phase_sharded_kernels(device)
     fb_rows = phase_farneback_kernels(device)
     b5_rows = phase_scatter_kernel(device, t_run["b5_flow"])
@@ -5452,7 +5758,7 @@ def main() -> int:
     c_rows = phase_compositor_kernels(device, fb_runs["CvFlowConfig()"],
                                       t_run)
     phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, up_rows, reg_rows,
-                      fb_rows, b5_rows, h_rows, c_rows)
+                      b18_rows, fb_rows, b5_rows, h_rows, c_rows)
     f_profile = engine_profile("farneback engine CvFlowConfig()",
                                fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS,
                                card)
@@ -5481,8 +5787,18 @@ def main() -> int:
               f"{sum(ms for ms, _ in b8) / b8_events:.5f} ms of kernel "
               f"time a launch, {b8_events:g} launches a frame seen of "
               f"{FB_DEFAULT_PER_FRAME[3]} (torch.profiler) on {card}")
-    lfn_profile("liteflownet engine lfn_warp_bound=0",
-                engine_phase["runs"][0], card)
+    lfn = lfn_profile("liteflownet engine lfn_warp_bound=0",
+                      engine_phase["runs"][0], card)
+    # the correlation's five float32 leaky ReLUs stay plain ops
+    if lfn["audit"] != {"bias adds": 0, "parameter casts": 0,
+                        "leaky_relu float32": 5}:
+        raise AssertionError(f"the bound-0 Engine still runs ops B18 "
+                             f"replaced: {lfn['audit']}")
+    b18_events = sum(n for k, (_, n) in lfn["by_name"].items()
+                     if LFN_KERNEL_NAMES["B18"] in k)
+    if lfn["by_name"] and not 0 < b18_events <= B18_PER_FRAME:
+        raise AssertionError(f"the bound-0 Engine's profile shows "
+                             f"{b18_events} B18 launches a frame")
     for name, run in h_runs.items():
         run["profile"] = engine_profile(f"classic engine {name}", run,
                                         H_PROFILE_CALLS, card)
@@ -5506,6 +5822,7 @@ def main() -> int:
         against_pyramid(device, libs, steps, card)
         against_lk_pyramid(device, libs, steps, card)
         against_lfn_heads(device, libs, steps, card)
+        against_conv_epilogue(device, libs, card)
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound
@@ -5705,6 +6022,53 @@ def main() -> int:
                                 "(stride 2, padding 1, groups C; cuDNN, TF32 "
                                 "off) on an f32 NCHW view")
         record["kernels"].append(entry)
+    # B18 per frame: each B18_FRAME entry's path row (bf16, its layout and
+    # leaky ReLU) times its launches a frame; its launches: the slice's and
+    # phases 4-5's Engines' (the bench asserts its own 93 a frame)
+    b18_main = [r for r in b18_rows if r["main"]]
+    b18_n = [r["count"] for r in b18_main]
+    b18 = KERNEL_NAMES.index("B18")
+    b18_launches = slice_launches["B18"] + sum(
+        run["launches"][b18] for run in (*runs.values(), mesh_run))
+    print(f"conv_epilogue per frame ({sum(b18_n)} launches): device_ms "
+          f"{_per_frame(b18_main, 'device_ms', b18_n):.5f}, kernel_ms "
+          f"{_ms_text(_per_frame(b18_main, 'kernel_ms', b18_n))}, bound "
+          f"{_per_frame(b18_main, 'bound_ms', b18_n):.5f}, call "
+          f"{_per_frame(b18_main, 'call_ms', b18_n):.4f} (host-inclusive), "
+          f"plain {_per_frame(b18_main, 'plain_ms', b18_n):.4f} "
+          f"({_per_frame(b18_main, 'plain_ops', b18_n)} ATen ops); the ops "
+          f"it replaced: device_ms "
+          f"{_per_frame(b18_main, 'replaced_ms', b18_n):.5f}, kernel_ms "
+          f"{_ms_text(_per_frame(b18_main, 'replaced_kernel_ms', b18_n))} "
+          f"({_per_frame(b18_main, 'replaced_ops', b18_n)} ATen ops); "
+          f"{b18_launches} launches on the main path")
+    record["kernels"].append({
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "transflow_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": "transflow_tpu/flow/estimators/liteflownet.py:60",
+        "replaces_function": "liteflownet.py:60 _conv (flax nn.Conv's bias "
+                             "add after the bf16 convolution) and :47 "
+                             "_leaky (jnp ops)",
+        "launches": b18_launches,
+        "max_abs_err": max(r["err"] for r in b18_rows),
+        # per frame: the 93 launches of B18_FRAME
+        "ms": _per_frame(b18_main, "device_ms", b18_n),
+        "device_ms": _per_frame(b18_main, "device_ms", b18_n),
+        "kernel_ms": _per_frame(b18_main, "kernel_ms", b18_n),
+        "call_ms": _per_frame(b18_main, "call_ms", b18_n),
+        "plain_ms": _per_frame(b18_main, "plain_ms", b18_n),
+        "plain_ops": _per_frame(b18_main, "plain_ops", b18_n),
+        "bound_ms": _per_frame(b18_main, "bound_ms", b18_n),
+        "bound_by": _bound_by(b18_main),
+        "library_ms": None,
+        "library": "none: no single PyTorch call adds a bias and takes a "
+                   "leaky ReLU; replaced_ms is the ops it replaced (the "
+                   "bias cast, the add on the permuted view, the leaky ReLU)",
+        "replaced_ms": _per_frame(b18_main, "replaced_ms", b18_n),
+        "replaced_kernel_ms": _per_frame(b18_main, "replaced_kernel_ms",
+                                         b18_n),
+    })
     fb_sources = {"poly_expansion": "farneback.py:74 poly_expansion",
                   "update_equations": "farneback.py:102 _update_flow, "
                                       "warp and normal equations",

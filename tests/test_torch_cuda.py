@@ -10,11 +10,15 @@ import pytest
 import torch
 
 from transflow_tpu_torch import prng
+from transflow_tpu_torch.ops import conv_epilogue as ce
 from transflow_tpu_torch.ops import farneback as fb
 from transflow_tpu_torch.ops import horn_schunck as hs
 from transflow_tpu_torch.ops import lfn_heads
 from transflow_tpu_torch.ops import lucas_kanade as lk
 from transflow_tpu_torch.ops import pyramid
+from transflow_tpu_torch.ops.conv_epilogue import (conv_epilogue,
+                                                   conv_epilogue_cuda,
+                                                   conv_epilogue_plain)
 from transflow_tpu_torch.ops.correlation import (correlation,
                                                  correlation7x7,
                                                  correlation7x7_cuda,
@@ -484,6 +488,170 @@ def test_liteflownet_1088p_equals_its_plain_heads(device, monkeypatch):
     monkeypatch.setattr(lfn_heads, "upsample2x_phases_cuda",
                         upsample2x_phases_plain)
     monkeypatch.setattr(lfn_heads, "reg_apply_cuda", reg_apply_plain)
+    with torch.no_grad():
+        want = net(i1, i2, warp_bound=0)
+    assert got.shape == (544, 960, 2) and torch.isfinite(got).all()
+    _same_bits(got, want)
+
+
+# B18's (N, H, W, C) a bound-0 1088x1920 frame: the features' ten
+# convolutions (both images), the L2 heads' 1x1 feature convolutions, and
+# at each level (H, W, distance taps) the heads' 128, 64, 32 and 2 channels
+# and the regularization's distances; the network gives them bf16, and the
+# L2 ones are held in f32 too
+B18_LEVELS = ((544, 960, 49), (272, 480, 25), (136, 240, 25), (68, 120, 9),
+              (34, 60, 9))
+B18_SHAPES = [(2, 1088, 1920, 32), (2, 544, 960, 32), (2, 272, 480, 64),
+              (2, 136, 240, 96), (2, 68, 120, 128), (2, 34, 60, 192),
+              (2, 544, 960, 64)] + [(1, h, w, c) for h, w, taps in B18_LEVELS
+                                    for c in (128, 64, 32, 2, taps)]
+B18_CASES = [(shape, BF16) for shape in B18_SHAPES] + [
+    (shape, F32) for shape in B18_SHAPES if shape[1] == 544]
+
+
+def _b18_input(shape, dtype, kind, gen, device):
+    """Random (N, C, H, W) values in ``kind``'s layout with exact zeros of
+    both signs, and a float32 bias with a +0.0 and a -0.0."""
+    n, h, w, c = shape
+    y = 4 * torch.randn((n, h, w, c), generator=gen, device=device)
+    flat = y.view(-1)
+    flat[::13] = 0.0
+    flat[5::13] = -0.0
+    y = y.to(dtype).permute(0, 3, 1, 2)
+    if kind == ce.NCHW:
+        y = y.contiguous()
+    bias = torch.randn(c, generator=gen, device=device)
+    bias[0] = 0.0
+    bias[-1] = -0.0
+    return y, bias
+
+
+def _check_b18(y, bias, leaky):
+    """B18 through its dispatcher against its plain version: one launch,
+    in place on a channels_last input, bit-equal."""
+    want = conv_epilogue_plain(y, bias, leaky)
+    in_place = ce.layout(y, bias, "test") == ce.CHANNELS_LAST
+    before = conv_epilogue_cuda.launches
+    got = conv_epilogue(y, bias, leaky)
+    torch.cuda.synchronize()
+    assert conv_epilogue_cuda.launches == before + 1
+    n, c, h, w = y.shape
+    assert got.shape == (n, h, w, c) and got.is_contiguous()
+    assert got.dtype == y.dtype
+    assert (got.data_ptr() == y.data_ptr()) == in_place
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("leaky", [True, False], ids=["leaky", "linear"])
+@pytest.mark.parametrize("kind", [ce.CHANNELS_LAST, ce.NCHW])
+@pytest.mark.parametrize("case", B18_CASES, ids=lambda c: "x".join(
+    map(str, c[0])) + "-" + str(c[1])[6:])
+def test_conv_epilogue_matches_plain(device, case, kind, leaky):
+    shape, dtype = case
+    gen = torch.Generator(device=device).manual_seed(18)
+    _check_b18(*_b18_input(shape, dtype, kind, gen, device), leaky)
+
+
+@pytest.mark.parametrize("kind", [ce.CHANNELS_LAST, ce.NCHW])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_conv_epilogue_keeps_non_finite_values(device, dtype, kind):
+    """Infinities, NaN, signed zeros, subnormals and the largest values:
+    the sign test keeps -0.0, NaN stays NaN, a sum past the range is
+    infinite, a subnormal is not flushed; as the plain version."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    y, bias = _b18_input((2, 11, 37, 9), dtype, kind, gen, device)
+    special = torch.tensor([float("inf"), -float("inf"), float("nan"), 0.0,
+                            -0.0, 3e38, -3e38, 1e-39, -3e-39, -1.2e-38],
+                           device=device).to(dtype)
+    flat = y.permute(0, 2, 3, 1).reshape(-1) if kind == ce.NCHW else \
+        y.permute(0, 2, 3, 1).view(-1)
+    flat[:special.numel() * 37:37] = special
+    if kind == ce.NCHW:
+        y = flat.view(2, 11, 37, 9).permute(0, 3, 1, 2).contiguous()
+    bias[1] = float("inf")
+    bias[2] = 3e38
+    bias[3] = -0.0
+    for leaky in (True, False):
+        _check_b18(y.clone(), bias, leaky)
+
+
+@pytest.mark.parametrize("kind", [ce.CHANNELS_LAST, ce.NCHW])
+@pytest.mark.parametrize("channels", [1, 2, 3, 9, 25, 49, 192])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_conv_epilogue_unaligned_base_and_odd_channels(device, dtype,
+                                                       channels, kind):
+    """A tensor whose first value lies 1 or 3 values past 16 bytes (a view
+    into a larger buffer: the one-element path) and an aligned one whose
+    element count is no multiple of the vector (the tail), at odd C."""
+    n, h, w, c = 1, 13, 29, channels
+    gen = torch.Generator(device=device).manual_seed(20)
+    for offset in (0, 1, 3):
+        buf = torch.randn(n * h * w * c + offset, generator=gen,
+                          device=device).to(dtype)
+        y = buf[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+        if kind == ce.NCHW:
+            y = buf[offset:].view(n, c, h, w)
+        assert (y.data_ptr() % 16 == 0) == (offset == 0)
+        bias = torch.randn(c, generator=gen, device=device)
+        for leaky in (True, False):
+            _check_b18(y, bias, leaky)
+
+
+def test_conv_epilogue_refuses_misuse(device):
+    y = torch.zeros((1, 4, 5, 6), device=device, dtype=BF16)
+    bias = torch.zeros(4, device=device)
+    with pytest.raises(ValueError, match="CUDA device"):
+        conv_epilogue_cuda(y, bias.cpu(), True)
+    with pytest.raises(ValueError, match="contiguous bias"):
+        conv_epilogue_cuda(y, torch.zeros(8, device=device)[::2], True)
+    with pytest.raises(ValueError, match="at most 1024"):
+        conv_epilogue_cuda(torch.zeros((1, 1025, 2, 2), device=device),
+                           torch.zeros(1025, device=device), True)
+    with pytest.raises(ValueError, match="channels_last or contiguous"):
+        conv_epilogue_cuda(y.transpose(2, 3), bias, True)
+    with pytest.raises(ValueError, match="bias of 4"):
+        conv_epilogue_cuda(y, bias[:3], True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        conv_epilogue_cuda(y.half(), bias, True)
+
+
+@pytest.mark.parametrize("bound", [0, 16])
+def test_liteflownet_never_takes_the_plain_epilogue(device, monkeypatch,
+                                                    bound):
+    """A forward launches 93 B18, one a convolution (the features 10, the
+    matching and subpixel heads 21 each, the regularization 41), at any
+    bound, and never the epilogue's plain version."""
+    from transflow_tpu_torch.flow.estimators.liteflownet import get_weights
+    monkeypatch.setattr(ce, "conv_epilogue_plain", lambda *a: pytest.fail(
+        "the plain epilogue ran on the card"))
+    net = get_weights(allow_random=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(21)
+    i1, i2 = (torch.rand((128, 192, 3), generator=gen, device=device)
+              for _ in range(2))
+    before = conv_epilogue_cuda.launches
+    with torch.no_grad():
+        flow = net(i1, i2, warp_bound=bound)
+    torch.cuda.synchronize()
+    assert flow.shape == (64, 96, 2) and torch.isfinite(flow).all()
+    assert conv_epilogue_cuda.launches - before == 93
+
+
+def test_liteflownet_1088p_equals_its_plain_epilogue(device, monkeypatch):
+    """A 1088x1920 forward through B18 (93 launches) is bit-equal to the
+    same forward with the dispatcher sent to the plain version on the card
+    (deterministic cuDNN)."""
+    from transflow_tpu_torch.flow.estimators.liteflownet import get_weights
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    net = get_weights(allow_random=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(22)
+    i1, i2 = (torch.rand((1088, 1920, 3), generator=gen, device=device)
+              for _ in range(2))
+    before = conv_epilogue_cuda.launches
+    with torch.no_grad():
+        got = net(i1, i2, warp_bound=0)
+    assert conv_epilogue_cuda.launches == before + 93
+    monkeypatch.setattr(ce, "conv_epilogue_cuda", conv_epilogue_plain)
     with torch.no_grad():
         want = net(i1, i2, warp_bound=0)
     assert got.shape == (544, 960, 2) and torch.isfinite(got).all()

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "transflow_bounded_backwarp": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     # image, dtype, pixel stride, flow, out, H, W, C, stream
     "transflow_exact_backwarp": (_P, _I, _I, _P, _P, _I, _I, _I, _P),
+    # y, dtype, bias, out, N, H*W, C, nchw, leaky, stream
+    "transflow_conv_epilogue": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, dtype, weight, out, h, w, C, stream
     "transflow_upsample2x_phases": (_P, _I, _P, _P, _I, _I, _I, _P),
     # dist, dist dtype, flow, flow dtype, wx, bx, wy, by, out, H, W, S,

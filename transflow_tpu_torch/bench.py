@@ -129,15 +129,16 @@ def _comp_counters():
 
 
 def _lfn_counters():
+    from .ops.conv_epilogue import conv_epilogue_cuda
     from .ops.correlation import correlation7x7_cuda
     from .ops.lfn_heads import reg_apply_cuda, upsample2x_phases_cuda
     from .ops.warp import bounded_backwarp_cuda, exact_backwarp_cuda
     return (correlation7x7_cuda, bounded_backwarp_cuda, exact_backwarp_cuda,
-            upsample2x_phases_cuda, reg_apply_cuda)
+            upsample2x_phases_cuda, reg_apply_cuda, conv_epilogue_cuda)
 
 
-# A1, A3, B7, B16, B17 launches a LiteFlowNet frame at bound 0
-LFN_PER_FRAME = {"A1": 5, "A3": 0, "B7": 14, "B16": 6, "B17": 5}
+# A1, A3, B7, B16, B17, B18 launches a LiteFlowNet frame at bound 0
+LFN_PER_FRAME = {"A1": 5, "A3": 0, "B7": 14, "B16": 6, "B17": 5, "B18": 93}
 
 
 def _zero(counters) -> None:
@@ -325,8 +326,9 @@ def bench_liteflownet(device) -> dict:
     each output perturbing the next call's inputs, ended by one readback;
     the median of two samples after a first. The warp bound is 0, so a
     frame launches 5 correlations (A1), no bounded backwarp (A3), 14
-    exact backwarps (B7), 6 phase upsamples (B16) and 5 regularization tap
-    applies (B17): on the card anything else raises."""
+    exact backwarps (B7), 6 phase upsamples (B16), 5 regularization tap
+    applies (B17) and 93 convolution epilogues (B18): on the card anything
+    else raises."""
     from .flow.estimators.liteflownet import get_weights
     net = get_weights(allow_random=True, device=device)
     rng = np.random.default_rng(2)

@@ -13,7 +13,8 @@ so are the two backwarps of ``ops/warp.py``: the exact one (kernel B7,
 every warp by default and the regularization's always) and the bounded
 one (kernel A3, ``warp_bound``, opt-in), and the two head loops of
 ``ops/lfn_heads.py``: the phase upsampler (kernel B16) and the
-regularization's softmax tap apply (kernel B17).
+regularization's softmax tap apply (kernel B17); each convolution's bias
+add and leaky ReLU are kernel B18 (``ops/conv_epilogue.py``).
 Parameters are f32; convolutions compute in ``_compute_dtype`` (bf16 on
 CUDA, f32 on the CPU), and everything else keeps JAX's dtype promotion so
 the correlation sees the same operand dtypes as on the TPU.
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..._device import resolve_device
+from ...ops.conv_epilogue import conv_epilogue, leaky_relu
 from ...ops.correlation import check_kernel, correlation
 from ...ops.image import _taps_on
 from ...ops.image import torch_bilinear_resize as bilinear_resize
@@ -48,8 +50,9 @@ WARP_BOUND_ENV = "TRANSFLOW_LITEFLOWNET_WARP_BOUND"
 WARP_KERNEL_ENV = "TRANSFLOW_LITEFLOWNET_WARP_KERNEL"
 
 
-def _leaky(x):
-    return F.leaky_relu(x, negative_slope=0.1)
+# JAX's nn.leaky_relu(x, 0.1), the slope rounded to x's dtype; a
+# convolution's runs in its epilogue (``_Conv(..., leaky=True)``)
+_leaky = leaky_relu
 
 
 def _compute_dtype(device) -> torch.dtype:
@@ -63,12 +66,16 @@ def _compute_dtype(device) -> torch.dtype:
 
 class _Conv(nn.Module):
     """Flax ``nn.Conv`` counterpart on (N, H, W, C) or (H, W, C): f32
-    parameters (OIHW), computed in the dtype the caller gives.
+    parameters (OIHW), computed in the dtype the caller gives, and with
+    ``leaky`` JAX's ``_leaky`` after it.
 
     Flax's order: the convolution is rounded to ``dtype``, then the bias,
     cast to ``dtype``, is added in ``dtype``. Passing the bias into
     ``F.conv2d`` would leave the order to the backend (a fused bias is
-    added before the one rounding)."""
+    added before the one rounding), so the convolution runs without it and
+    ``conv_epilogue`` (kernel B18 on the card) adds it, reading the f32
+    bias in place. The weight is cast to ``dtype`` once and kept until the
+    parameter changes (``load_state_dict``, ``.to``)."""
 
     def __init__(self, cin: int, cout: int, kernel, stride: int = 1,
                  pad=None):
@@ -80,13 +87,25 @@ class _Conv(nn.Module):
         self.stride = stride
         self.weight = nn.Parameter(torch.zeros(cout, cin, kh, kw))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self._cast = (None, None)  # (stamp, the weight in its dtype)
 
-    def forward(self, x, dtype):
+    def weight_as(self, dtype) -> torch.Tensor:
+        """The weight in ``dtype``, cast once for the parameter's device,
+        storage and in-place version (a reload or a move casts again)."""
+        w = self.weight
+        if w.dtype == dtype:
+            return w
+        stamp = (dtype, w.dtype, w.device, w.data_ptr(), w._version)
+        if self._cast[0] != stamp:
+            self._cast = (stamp, w.detach().to(dtype))
+        return self._cast[1]
+
+    def forward(self, x, dtype, leaky=False):
         batched = x.dim() == 4
         x = x if batched else x[None]
-        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
+        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight_as(dtype),
                      None, self.stride, self.padding)
-        y = (y.permute(0, 2, 3, 1) + self.bias.to(dtype)).contiguous()
+        y = conv_epilogue(y, self.bias, leaky)
         return y if batched else y[0]
 
 
@@ -179,16 +198,16 @@ class Features(nn.Module):
         self.six0 = _Conv(128, 192, 3, 2)
 
     def forward(self, x, dtype):
-        one = _leaky(self.one0(x, dtype))
-        two = _leaky(self.two0(one, dtype))
-        two = _leaky(self.two1(two, dtype))
-        two = _leaky(self.two2(two, dtype))
-        thr = _leaky(self.thr0(two, dtype))
-        thr = _leaky(self.thr1(thr, dtype))
-        fou = _leaky(self.fou0(thr, dtype))
-        fou = _leaky(self.fou1(fou, dtype))
-        fiv = _leaky(self.fiv0(fou, dtype))
-        six = _leaky(self.six0(fiv, dtype))
+        one = self.one0(x, dtype, leaky=True)
+        two = self.two0(one, dtype, leaky=True)
+        two = self.two1(two, dtype, leaky=True)
+        two = self.two2(two, dtype, leaky=True)
+        thr = self.thr0(two, dtype, leaky=True)
+        thr = self.thr1(thr, dtype, leaky=True)
+        fou = self.fou0(thr, dtype, leaky=True)
+        fou = self.fou1(fou, dtype, leaky=True)
+        fiv = self.fiv0(fou, dtype, leaky=True)
+        six = self.six0(fiv, dtype, leaky=True)
         return [one, two, thr, fou, fiv, six]
 
 
@@ -213,7 +232,8 @@ class Matching(nn.Module):
                 warp_kernel=None, corr_kernel=None, corr_mesh=None):
         lvl = self.level
         if lvl == 2:
-            both = _leaky(self.feat0(torch.stack([feat1, feat2]), dtype))
+            both = self.feat0(torch.stack([feat1, feat2]), dtype,
+                              leaky=True)
             feat1, feat2 = both[0], both[1]
         if flow is not None:
             flow = _upsample2x_phases(flow, self.upflow_kernel)
@@ -224,9 +244,9 @@ class Matching(nn.Module):
                                   kernel=corr_kernel, mesh=corr_mesh))
         if lvl < 4:
             corr = _upsample2x_phases(corr, self.upcorr_kernel)
-        x = _leaky(self.main0(corr, dtype))
-        x = _leaky(self.main1(x, dtype))
-        x = _leaky(self.main2(x, dtype))
+        x = self.main0(corr, dtype, leaky=True)
+        x = self.main1(x, dtype, leaky=True)
+        x = self.main2(x, dtype, leaky=True)
         delta = self.main3(x, dtype)
         return delta if flow is None else flow + delta
 
@@ -249,15 +269,16 @@ class Subpixel(nn.Module):
                 warp_kernel=None):
         lvl = self.level
         if lvl == 2:
-            both = _leaky(self.feat0(torch.stack([feat1, feat2]), dtype))
+            both = self.feat0(torch.stack([feat1, feat2]), dtype,
+                              leaky=True)
             feat1, feat2 = both[0], both[1]
         warped = backwarp(feat2, flow * _FLT_BACKWARP[lvl],
                           bound=_warp_bound(lvl, warp_bound),
                           kernel=warp_kernel)
         x = torch.cat([feat1, warped, flow], dim=-1)
-        x = _leaky(self.main0(x, dtype))
-        x = _leaky(self.main1(x, dtype))
-        x = _leaky(self.main2(x, dtype))
+        x = self.main0(x, dtype, leaky=True)
+        x = self.main1(x, dtype, leaky=True)
+        x = self.main2(x, dtype, leaky=True)
         return flow + self.main3(x, dtype)
 
 
@@ -294,13 +315,13 @@ class Regularization(nn.Module):
             img1 - backwarp(img2, flow * _FLT_BACKWARP[lvl])), dim=-1,
             keepdim=True))
         if lvl < 5:
-            feat1 = _leaky(self.feat0(feat1, dtype))
+            feat1 = self.feat0(feat1, dtype, leaky=True)
         x = torch.cat([difference,
                        flow - flow.mean(dim=(0, 1), keepdim=True), feat1],
                       dim=-1)
         for conv in (self.main0, self.main1, self.main2, self.main3,
                      self.main4, self.main5):
-            x = _leaky(conv(x, dtype))
+            x = conv(x, dtype, leaky=True)
         dist = self.dist0(x, dtype)
         if lvl < 5:
             dist = self.dist1(dist, dtype)
