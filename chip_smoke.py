@@ -3,12 +3,17 @@
     python3 chip_smoke.py [--against [NAME=]CSRC_DIR ...]
                           [--steps [NAME=]CSRC_DIR ...]
     python3 chip_smoke.py --lfn-profile
+    python3 chip_smoke.py --mesh-profile
 
 ``--lfn-profile`` runs only phases 1-2's build and phase 4's bound-0
 LiteFlowNet Engine: its host syncs, ATen ops and profile a frame
 (``lfn_profile_only``). It needs nothing that the package lacked before
 kernels B16 and B17, so a copy of this script in another tree's checkout
 (the parent's, from ``git archive`` under ``_local/``) profiles that tree.
+``--mesh-profile`` runs only the paths of phases 5, S (stream 2 x space
+2) and M, each timed and profiled (``mesh_profile_only``), with the
+package this process imports: ``--against``'s turns run it with another
+tree's package (``script_argv``).
 
 Phases, in order; any failure exits non-zero:
 
@@ -66,10 +71,10 @@ T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
    ``--move-mask-source``, ``--move-mask-destination`` and ``-r random
    0.01 -m`` a fractional mask image: a warm-up chunk, a timed chunk of
    8 frames and ``process_frame`` calls, counting 8 B1, 24 B2a, 24 B2b,
-   2 B8 and 2 B5 launches (B5's two kernels, no memset) per frame, finite
-   flows, the per-frame checksums read back once, 0 host syncs per frame,
-   and its profile (device busy time and idle share per frame); then the
-   same
+   2 B8 and 2 B5 launches (B5's two kernels, no memset) and the
+   compositor's 2 K0, 2 K1, 1 K3, 1 K4 and 1 K2 per frame, finite flows,
+   the per-frame checksums read back once, 0 host syncs per frame, and
+   its profile (device busy time and idle share per frame); then the same
    options through ``cli.main`` over 12 PGM frames of each pan (the CLI
    gives both sources ``-d forward``: 4 B5 a frame); then at 128x192 the
    post-process chain on the card against the CPU within the CPU tests'
@@ -106,7 +111,9 @@ S. streams: ``make_mesh(devices=[card] * 2, stream_axis=2)``, two 1080x1920
    bit-equal to its own ``model.scan`` alone with its key and pixmap,
    ms a stream-frame, 0 host syncs a stream-frame; then stream 2 x space
    2 (``[card] * 4``) with ``halo=8`` and ``clip=8`` against space 1
-   (flows within 1e-5, frames bit-equal); then ``tools/batch_render.py``
+   (flows within 1e-5, frames bit-equal; the same launches a
+   stream-frame, K1 with the halo, and 0 host syncs); then
+   ``tools/batch_render.py``
    over two 9-frame PGM sequences, its ``%04d`` frames equal to the
    first chunk's, and its MP4s reopened where the shim loads; in phase
    10 its profile (busy time and idle share a stream-frame);
@@ -116,8 +123,9 @@ M. multi-host: this script again as two worker processes
    stream 2 x space 2, a row a process; an all-reduce of a sharded
    tensor's sum; four 1080x1920 streams (pans of +3, -3, +2 and -2 px)
    of phase S's model with ``halo=8`` and ``clip=8`` through
-   ``sharded_scan``, two a process, two chunks of 8: 1 B9 + 8 B10 and 0
-   host syncs a stream-frame in each process, each stream's frames
+   ``sharded_scan``, two a process, two chunks of 8: 1 B9 + 8 B10, 1 K1
+   and 1 K2 and 0 host syncs a stream-frame in each process, each
+   stream's frames
    bit-equal (digests gathered with ``all_gather_object``) to its lone
    ``model.scan`` in this process; A2 on each process's row at L3
    (stride 2) bit-equal to A1. Prints ms a stream-frame for each process
@@ -180,10 +188,9 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
 5. mesh engine: the bound-16 Engine under ``make_space_mesh(4)`` over
    four shards of the card with ``halo=8``: the bound is stripped, and
    each frame launches 4 A2 kernels (levels 2-5, one per level), 1 A1
-   (level 6), no A3, 14 B7, 6 B16, 5 B17 and 93 B18; its flows and frames
-   against
-   the bound-0 run of
-   phase 4; then the mesh and meshless Engines in turns (eight ABBA rounds
+   (level 6), no A3, 14 B7, 6 B16, 5 B17, 93 B18 and the moveref layer's
+   1 K1 and 1 K2, and 0 host syncs; its flows and frames against the
+   bound-0 run of phase 4; then the mesh and meshless Engines in turns (eight ABBA rounds
    of 3-frame ``process_frame`` windows) for the mesh's cost per frame;
 6. kernel vs plain: the correlation kernel against its plain PyTorch
    version at the five shapes LiteFlowNet gives it on a 1088x1920 frame,
@@ -311,7 +318,12 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    ``--against``) adds to B8's and B14's, or B16's and B17's, turns (each
    where it has the entry) a directory's ``pyramid.cu`` or
    ``lfn_heads.cu``, a copy of a tree's cut to some of its steps, whose
-   outputs are not held to the others'.
+   outputs are not held to the others'. Last, where an ``--against``
+   directory is a tree's ``transflow_tpu_torch/csrc`` (the parent's
+   ``git archive``), that tree's and this one's paths of phases 5, S at 2
+   x 2 and M in turns (``against_mesh_paths``: one ``--mesh-profile``
+   process a turn, the other tree's package run by this script): ms a
+   stream-frame, device events and busy ms each.
 
 B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
    version at 1080x1920 on a random forward flow, a converging one (every
@@ -342,20 +354,26 @@ C. after phase 9: the compositor's kernels (``ops/compositor.py``,
    pixmap and its last pan flow (the moveref layer with random reset
    0.01), on a random flow, and with leave-empty (K0 then K1); K0
    (``leave_empty_sources``) alone; K2 (``composite``) over phase F's
-   layer and over phase T's four masked layers; each with ``device_ms``,
-   the bound (``comp_k1_bound_ms`` etc.: the bytes these inputs need),
-   its share, ``call_ms``, the plain version's time and its ATen ops, and
-   in phase 10 its kernel time.
+   layer and over phase T's four masked layers; K3
+   (``introduction_update``, after K0) on phase T's introduction layer,
+   its state, pixmap and last flow, and on the random flow, then on ten
+   sources in groups of three with a halo of 8 and ``introduce_once``
+   over two frames; K4 (``static_blit``) on phase T's static layer and on
+   ten sources in groups of three; each with ``device_ms``, the bound
+   (``comp_k1_bound_ms`` etc.: the bytes these inputs need), its share,
+   ``call_ms``, the plain version's time and its ATen ops, and in phase
+   10 its kernel time.
 
 Every Engine, CLI and bench run of the main path counts the compositor's
 launches beside the estimators' (``KERNEL_NAMES``: K0, K1, K2, then the
 pyramids' B8 and B14, then LiteFlowNet's exact backwarp B7 and its heads'
-B16 and B17, 6 and 5 a LiteFlowNet frame, and its convolution epilogue
-B18, 93, ``LFN_HEADS``): one moveref
+B16 and B17, 6 and 5 a LiteFlowNet frame, its convolution epilogue
+B18, 93, ``LFN_HEADS``, then the compositor's K3 and K4): one moveref
 layer updates through one K1 and renders through one K2 a frame
-(``C_MOVEREF``), phase T's four layers take 1 K0, 2 K1 and 1 K2; under a
-mesh that splits the movement (phases 5 and M) the moveref layer updates
-through its plain ops and renders through K2 (``C_MESH``).
+(``C_MOVEREF``), under a mesh that splits the movement too (phases 5, S
+at 2 x 2 and M: the halo's bounded gather in K1); phase T's four layers
+take 2 K0, 2 K1, 1 K3, 1 K4 and 1 K2. No layer updates through plain
+ops on the card.
 
 The main path (phases F, P, T, H, V, S, M, G, K and 3-5) runs right after
 the build:
@@ -381,7 +399,7 @@ two levels written), and the operations of the blurs and the resize's
 bands in the order that needs fewest (``pyramid_bound_ms``); B5's counts
 the flow read and the mapping written once (16 bytes a pixel); B9-B12's
 each input and output plane once a launch
-(``hs_bound_ms``, ``lk_bound_ms``); K0-K2's the bytes that their
+(``hs_bound_ms``, ``lk_bound_ms``); K0-K4's the bytes that their
 outputs need on these inputs, pixel by pixel (``comp_k*_bound_ms``;
 K1's draw's integer operations counted at the f32 rate). They are
 hand-written for jnp code (no Pallas source) and no single PyTorch call
@@ -411,6 +429,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1484,8 +1503,10 @@ def frame_source(frames, config, direction: str = "backward", **kwargs):
 
 def _launch_counters():
     from transflow_tpu_torch.ops.compositor import (composite_cuda,
+                                                    introduction_update_cuda,
                                                     layer_update_cuda,
-                                                    leave_empty_sources_cuda)
+                                                    leave_empty_sources_cuda,
+                                                    static_blit_cuda)
     from transflow_tpu_torch.ops.conv_epilogue import conv_epilogue_cuda
     from transflow_tpu_torch.ops.correlation import (correlation7x7_cuda,
                                                      sharded_correlation7x7)
@@ -1510,13 +1531,24 @@ def _launch_counters():
             lk_warp_products_cuda, lk_window_solve_cuda,
             leave_empty_sources_cuda, layer_update_cuda, composite_cuda,
             pyramid_levels_cuda, lk_pyramid_cuda, exact_backwarp_cuda,
-            upsample2x_phases_cuda, reg_apply_cuda, conv_epilogue_cuda)
+            upsample2x_phases_cuda, reg_apply_cuda, conv_epilogue_cuda,
+            introduction_update_cuda, static_blit_cuda)
 
 
 # the names of _launches()'s entries
 KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5", "B9", "B10",
                 "B11", "B12", "K0", "K1", "K2", "B8", "B14", "B7", "B16",
-                "B17", "B18")
+                "B17", "B18", "K3", "K4")
+# the compositor's kernels whose launches a moveref layer's bars name
+C_NAMES = ("K0", "K1", "K2")
+
+
+def named_row(**named: int) -> tuple:
+    """``KERNEL_NAMES`` launches with ``named``'s counts, 0 elsewhere."""
+    unknown = set(named) - set(KERNEL_NAMES)
+    if unknown:
+        raise ValueError(f"no kernels {sorted(unknown)}")
+    return tuple(named.get(n, 0) for n in KERNEL_NAMES)
 
 
 def fb_launches(launches) -> tuple:
@@ -1529,21 +1561,15 @@ def fb_row(per_frame: tuple, comp: tuple = C_MOVEREF) -> tuple:
     """``KERNEL_NAMES`` launches a frame of a Farneback Engine: the
     estimator's ``per_frame`` (``FB_NAMES``) and the compositor's ``comp``
     (K0, K1, K2), no other kernel."""
-    named = dict(zip(FB_NAMES, per_frame)) | dict(zip(("K0", "K1", "K2"),
-                                                       comp))
-    return tuple(named.get(n, 0) for n in KERNEL_NAMES)
+    return named_row(**dict(zip(FB_NAMES, per_frame)),
+                     **dict(zip(C_NAMES, comp)))
 
 
 def lfn_row(comp: tuple = C_MOVEREF, **named: int) -> tuple:
     """``KERNEL_NAMES`` launches a frame of a LiteFlowNet Engine: the
     network's ``named`` counts, its heads' ``LFN_HEADS`` and the
     compositor's ``comp`` (K0, K1, K2), no other kernel."""
-    named = LFN_HEADS | named | dict(zip(("K0", "K1", "K2"), comp))
-    return tuple(named.get(n, 0) for n in KERNEL_NAMES)
-# the compositor's K0, K1, K2 launches a frame under a mesh that splits
-# the movement: the moveref layer updates through its plain ops and the
-# stack renders through K2
-C_MESH = (0, 0, C_MOVEREF[2])
+    return named_row(**(LFN_HEADS | named | dict(zip(C_NAMES, comp))))
 
 
 def _launches() -> tuple[int, ...]:
@@ -2019,11 +2045,12 @@ T_MOVE_DST = "circle:48%"
 # 0 or 1, so only a 0/1 mask leaves it visible
 T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
 # the Engine's launches per frame: B1, B2a, B2b for two CvFlowConfig()
-# sources, and B5's two for the forward one
-# and K0, K1, K2: the moveref layer leaves empty spots (K0), the sum and
-# the moveref layer update through K1, the stack renders in one K2
-T_PER_FRAME = (0, 0, 0, 8, 24, 24, 2, 0, 0, 0, 0, 1, 2, 1, 2, 0, 0, 0, 0,
-               0)
+# sources, and B5's two for the forward one; and the compositor's: the
+# introduction and the moveref layer leave empty spots (two K0), the sum
+# and the moveref layer update through K1, the introduction layer through
+# K3, the static layer through K4, the stack renders in one K2
+T_PER_FRAME = named_row(B1=8, B2a=24, B2b=24, B5=2, B8=2, K0=2, K1=2, K2=1,
+                        K3=1, K4=1)
 T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
 T_SYNC_CALLS = 2
 T_PROFILE_CALLS = 3
@@ -2143,7 +2170,7 @@ def run_t_engine(device, grays, files: dict) -> dict:
     return {"ms": 1e3 * seconds / ENGINE_FRAMES, "out": out, "flows": flows,
             "finite": finite, "sums": sums, "chunk_launches": chunk_launches,
             "launches": _launches(), "engine": engine, "step": step,
-            "next_fno": fno0 + ENGINE_CALLS}
+            "next_fno": fno0 + ENGINE_CALLS, "pixmaps": pixmaps}
 
 
 def t_cli_argv(root: Path, files: dict) -> list[str]:
@@ -2376,14 +2403,13 @@ def h_per_frame(config, height: int, width: int) -> tuple:
     to two levels below L0 (``lk_launches``)."""
     from transflow_tpu_torch.ops import pyramid
     kw = config.estimator_kwargs()
+    comp = dict(zip(C_NAMES, C_MOVEREF))
     if config.method == "horn-schunck":
-        return (0,) * 7 + (1, kw["max_iters"], 0, 0, *C_MOVEREF, 0, 0, 0, 0,
-                           0, 0)
+        return named_row(B9=1, B10=kw["max_iters"], **comp)
     levels = len(pyramid.lk_shapes(height, width, kw["win_size"],
                                    kw["max_level"]))
-    return (0,) * 7 + (0, 0, H_LK_ITERS * levels, (H_LK_ITERS + 1) * levels,
-                       *C_MOVEREF, 0, pyramid.lk_launches(levels), 0, 0,
-                       0, 0)
+    return named_row(B11=H_LK_ITERS * levels, B12=(H_LK_ITERS + 1) * levels,
+                     B14=pyramid.lk_launches(levels), **comp)
 
 
 def phase_classic_engine(device, card: str) -> dict:
@@ -2586,8 +2612,8 @@ S_ITERS = 8
 S_RESET = 0.05
 S_HALO = 8
 S_TOOL_FRAMES = 9     # frames of each sequence the batch renderer reads
-S_PER_FRAME = (0, 0, 0, 0, 0, 0, 0, 1, S_ITERS, 0, 0,
-               *C_MOVEREF, 0, 0, 0, 0, 0, 0)  # a stream-frame
+# a stream-frame, with or without a space axis that splits the movement
+S_PER_FRAME = named_row(B9=1, B10=S_ITERS, **dict(zip(C_NAMES, C_MOVEREF)))
 
 
 def s_model(device, halo: int | None = None):
@@ -2647,6 +2673,26 @@ def s_chunks(run, model, grays, pixmaps, keys, chunks: int,
     result.update(state=state,
                   frames=[torch.cat(o) if o else None for o in outs])
     return result
+
+
+def s_steps(run, model, state, grays, pixmaps, keys) -> dict:
+    """One-frame calls of ``run`` (a ``sharded_scan``) from ``state``,
+    after ``s_chunks``' chunks, in the form ``host_syncs`` and
+    ``engine_profile`` step: each call takes the next frame of every
+    stream (None for another process's)."""
+    from transflow_tpu_torch import prng
+    cursor = {"state": state, "start": 1 + S_CHUNKS * S_CHUNK}
+
+    def step(_fno):
+        start = cursor["start"]
+        cursor["state"], _ = run(
+            cursor["state"],
+            [None if g is None else g[start:start + 1] for g in grays],
+            pixmaps, (start - 1) / model.framerate,
+            [prng.fold_in(k, start) for k in keys])
+        cursor["start"] = start + 1
+
+    return {"next_fno": 0, "step": step}
 
 
 def lone_scan(model):
@@ -2710,17 +2756,7 @@ def phase_streams(device, card: str) -> dict:
           f"on {card}")
     # one-frame calls after the chunks: host syncs, then (phase 10) the
     # profile
-    cursor = {"state": main["state"], "start": 1 + S_CHUNKS * S_CHUNK}
-
-    def step(_fno):
-        start = cursor["start"]
-        cursor["state"], _ = run(
-            cursor["state"], [g[start:start + 1] for g in grays], pixmaps,
-            (start - 1) / model.framerate,
-            [prng.fold_in(k, start) for k in keys])
-        cursor["start"] = start + 1
-
-    srun = {"next_fno": 0, "step": step}
+    srun = s_steps(run, model, main["state"], grays, pixmaps, keys)
     syncs = host_syncs(srun, S_SYNC_CALLS) / 2
     print(f"streams: {syncs:g} host syncs a stream-frame "
           f"(torch.cuda.set_sync_debug_mode, {S_SYNC_CALLS} one-frame "
@@ -2739,14 +2775,21 @@ def phase_streams(device, card: str) -> dict:
                for a, b in zip(sharded["state"], flat["state"]))
     same = all(torch.equal(a, b)
                for a, b in zip(sharded["frames"], flat["frames"]))
+    per_frame4 = tuple(x / frames_n for x in sharded["launches"])
+    syncs4 = host_syncs(s_steps(run4, halo_model, sharded["state"], grays,
+                                pixmaps, keys), S_SYNC_CALLS) / 2
     print(f"streams {mesh4} halo={S_HALO} clip={S_HALO}: "
           f"{sharded['ms'] / frames_n:.3f} ms a stream-frame; launches a "
-          f"stream-frame {tuple(x / frames_n for x in sharded['launches'])}"
-          f" {KERNEL_NAMES}; against stream 2 x space 1: max |dflow| "
+          f"stream-frame {per_frame4} {KERNEL_NAMES}, {syncs4:g} host syncs "
+          f"a stream-frame; against stream 2 x space 1: max |dflow| "
           f"{diff:.3e}, frames {'bit-equal' if same else 'DIFFER'}")
     if not diff <= MESH_FLOW_ATOL or not same:
         raise AssertionError(f"phase S: stream 2 x space 2 differs from "
                              f"space 1 (flow {diff}, frames equal {same})")
+    if per_frame4 != S_PER_FRAME or syncs4 != 0:
+        raise AssertionError(f"phase S: stream 2 x space 2 launches a "
+                             f"stream-frame {per_frame4}, expected "
+                             f"{S_PER_FRAME}; host syncs {syncs4}")
     # the batch renderer over two PGM sequences of the streams
     with tempfile.TemporaryDirectory(prefix="chip_smoke_s_") as tmp:
         root = Path(tmp)
@@ -2800,9 +2843,9 @@ M_SPACE = 2              # the devices a process gives, [card] * 2: one row
 M_TIMEOUT = 300          # seconds: a worker's collectives, and the wait
 M_A2_LEVEL = "L3"        # the LiteFlowNet level (stride 2) A2 runs on a row
 M_RESULT = "multihost-result "  # the start of a worker's result line
-# a stream-frame: phase S's, but the row's space axis splits the movement
-# (halo 8), so the moveref layer updates through its plain ops
-M_PER_FRAME = (*S_PER_FRAME[:11], *C_MESH, *S_PER_FRAME[14:])
+# a stream-frame: phase S's; the row's space axis splits the movement
+# (halo 8), which changes no kernel's launches
+M_PER_FRAME = S_PER_FRAME
 
 
 def m_inputs(device, streams) -> tuple[list, list, list]:
@@ -2821,6 +2864,29 @@ def m_inputs(device, streams) -> tuple[list, list, list]:
 
 def frames_digest(frames: torch.Tensor) -> str:
     return hashlib.sha256(frames.cpu().numpy().tobytes()).hexdigest()
+
+
+# runs a script with the package of another tree: python -c RUNNER ROOT
+# SCRIPT ARGS...
+RUNNER = ("import runpy, sys; sys.path.insert(0, sys.argv[1]); "
+          "sys.argv = sys.argv[2:]; "
+          "runpy.run_path(sys.argv[0], run_name='__main__')")
+
+
+def package_root() -> Path:
+    """The tree whose ``transflow_tpu_torch`` this process imported."""
+    import transflow_tpu_torch
+    return Path(transflow_tpu_torch.__file__).resolve().parent.parent
+
+
+def script_argv(*args: str, root: Path | None = None) -> list[str]:
+    """The command that runs this script with ``args`` and the package of
+    ``root`` (by default the tree this process imported it from)."""
+    script = Path(__file__).resolve()
+    root = package_root() if root is None else root.resolve()
+    if root == script.parent:
+        return [sys.executable, str(script), *args]
+    return [sys.executable, "-c", RUNNER, str(root), str(script), *args]
 
 
 def run_workers(commands: list[list[str]], timeout: float) -> list[str]:
@@ -2869,7 +2935,6 @@ def multihost_worker(rank: int, port: int, device=None) -> int:
     their launches and host syncs, profiles one-frame calls, holds A2 on
     its row to A1, and prints its figures and a result line."""
     import torch.distributed as dist
-    from transflow_tpu_torch import prng
     from transflow_tpu_torch.ops.correlation import (correlation,
                                                      sharded_correlation7x7)
     from transflow_tpu_torch.parallel import (RemoteRow, SpaceMesh,
@@ -2910,18 +2975,7 @@ def multihost_worker(rank: int, port: int, device=None) -> int:
         per_frame = tuple(x / frames_n for x in main["launches"])
         digests = {s: frames_digest(main["frames"][s]) for s in mine}
         # one-frame calls after the chunks: host syncs, then the profile
-        cursor = {"state": main["state"], "start": 1 + S_CHUNKS * S_CHUNK}
-
-        def step(_fno):
-            start = cursor["start"]
-            cursor["state"], _ = run(
-                cursor["state"],
-                [None if g is None else g[start:start + 1] for g in grays],
-                pixmaps, (start - 1) / model.framerate,
-                [prng.fold_in(k, start) for k in keys])
-            cursor["start"] = start + 1
-
-        srun = {"next_fno": 0, "step": step}
+        srun = s_steps(run, model, main["state"], grays, pixmaps, keys)
         syncs = host_syncs(srun, S_SYNC_CALLS) / len(mine)
         dist.barrier()
         profile = engine_profile(
@@ -2942,7 +2996,7 @@ def multihost_worker(rank: int, port: int, device=None) -> int:
                   "ms": main["ms"], "wall": main["wall"],
                   "launches": main["launches"], "per_frame": per_frame,
                   "syncs": syncs, "busy_ms": profile["busy_ms"],
-                  "wall_ms": profile["wall_ms"],
+                  "wall_ms": profile["wall_ms"], "events": profile["events"],
                   "a2": [level, h, w, c, stride, a2_launches, a2_equal]}
         gathered: list = [None] * M_PROCESSES
         dist.all_gather_object(gathered, result)
@@ -2999,10 +3053,9 @@ def phase_multihost(device, card: str) -> dict:
     with socket.socket() as probe:
         probe.bind(("127.0.0.1", 0))
         port = probe.getsockname()[1]
-    script = str(Path(__file__).resolve())
     start = time.perf_counter()
     outputs = run_workers(
-        [[sys.executable, script, "--multihost-worker", str(rank), str(port)]
+        [script_argv("--multihost-worker", str(rank), str(port))
          for rank in range(M_PROCESSES)], M_TIMEOUT + 60)
     seconds = time.perf_counter() - start
     results = []
@@ -3778,7 +3831,14 @@ def phase_mesh_engine(device, card: str, engine_phase: dict) -> dict:
           f"correlation7x7 {a1}, sharded_correlation7x7 {a2}; with "
           f"{ENGINE_CALLS} process_frame calls: {run['launches']}")
     _check_engine_run("mesh engine", run,
-                      lfn_row(C_MESH, A1=1, A2=A2_PER_FRAME, B7=B7_EXACT))
+                      lfn_row(A1=1, A2=A2_PER_FRAME, B7=B7_EXACT))
+    run["syncs"] = host_syncs(run, LFN_SYNC_CALLS)
+    print(f"mesh engine: launches per frame {_per_frame_text(run)}; "
+          f"{run['syncs']:g} host syncs per frame (torch.cuda."
+          f"set_sync_debug_mode, {LFN_SYNC_CALLS} process_frame call)")
+    if run["syncs"]:
+        raise AssertionError(f"mesh engine: {run['syncs']} host syncs per "
+                             "frame")
     diff = max((run["flows"] - ref["flows"]).abs().max().item(),
                (run["call_flows"] - ref["call_flows"]).abs().max().item())
     same = (torch.equal(run["out"], ref["out"])
@@ -4201,7 +4261,15 @@ def phase_draw(device) -> dict:
 
 # the compositor kernels' names in csrc/compositor.cu (phase C)
 C_KERNEL_NAMES = {"K0": "leave_empty_kernel", "K1": "layer_update_kernel",
-                  "K2": "composite_kernel"}
+                  "K2": "composite_kernel",
+                  "K3": "introduction_update_kernel",
+                  "K4": "static_blit_kernel"}
+# phase C's introduction and static layers of many sources: ten sources
+# of 3 and 4 channels in groups of three, the introduction layer leaving
+# empty spots under a halo of 8 rows, introducing once
+C_SOURCES = (3, 4, 4, 3, 3, 4, 3, 4, 4, 3)
+C_GROUP = 3
+C_HALO = 8
 # integer operations of K1's threefry draw a pixel (20 rounds of an add, a
 # rotate and a xor, 5 key injections of three, the float): the table has
 # no integer rate, so they are counted at the f32 peak; bytes bind anyway
@@ -4319,17 +4387,91 @@ def comp_k2_bound_ms(params_list, h: int, w: int) -> tuple[float, str]:
     return _bound(per_pixel * h * w, 0)
 
 
+def comp_k3_bound_ms(params, state: dict, flow, frame_numbers,
+                     halo: int | None) -> tuple[float, str]:
+    """K3's bound on these inputs: the bytes the layer's new state needs,
+    pixel by pixel, with every output (13 bytes: rgb, alpha, source, the
+    int16 positions, the int32 frame number) written once. Every pixel
+    reads the flow and its own alpha; a moving pixel the alpha and
+    ``mask_src`` at its source and its own ``mask_dst`` where set; a pixel
+    that is no target K0's mark where the layer leaves empty spots; the
+    old ``introduced_once`` once. A pixel no source introduces at takes
+    its other 12 bytes of state from its source pixel (a target) or its
+    own; an eligible pixel reads each source's introduction mask, and one
+    that a source introduces at the last such source's pixmap pixel
+    (3 or 4 bytes) instead of that state."""
+    from transflow_tpu_torch.compositor import core
+    cfg = params.cfg
+    n = params.height * params.width
+
+    def count(mask) -> int:
+        return int(mask.sum())
+
+    moved, moving, *_ = core.introduction_movement(params, state, flow,
+                                                   halo)
+    _, target, *_ = core.movement_targets(params, state["alpha"], flow,
+                                          halo)
+    eligible = core.introduction_eligible(params, moved, moving)
+    nbytes = n * (13 + 8 + 1) + 1
+    nbytes += count(moving) * (1 + (params.mask_src is not None)
+                               + (params.mask_dst is not None))
+    if cfg.moving_pixels_leave_empty_spot:
+        nbytes += count(~target)
+    introduced = torch.zeros_like(eligible)
+    pixmap_bytes = torch.zeros(eligible.shape, dtype=torch.int64,
+                               device=eligible.device)
+    for s, channels in enumerate(params.channel_counts):
+        hit = eligible & params.intro_masks[s]
+        introduced = introduced | hit
+        pixmap_bytes = torch.where(hit, torch.full_like(pixmap_bytes,
+                                                        channels),
+                                   pixmap_bytes)
+    nbytes += params.num_sources * count(eligible)
+    nbytes += int(pixmap_bytes.sum()) + 12 * count(~introduced)
+    return _bound(nbytes, 0)
+
+
+def comp_k4_bound_ms(params) -> tuple[float, str]:
+    """K4's bound: the new rgba written (4 bytes a pixel), each source's
+    introduction mask read once a pixel, and a pixel's rgb and alpha read
+    once each, from the last source that sets them or the old rgba."""
+    n = params.height * params.width
+    return _bound(n * (4 + params.num_sources + 4), 0)
+
+
+def c_layer_params(device, classname: str, **cfg):
+    """Phase C's 1080x1920 layer of ``C_SOURCES`` sources, their
+    introduction masks random from the seed (some pixels in none, some in
+    several), and its seeded pixmaps."""
+    from transflow_tpu_torch.compositor.core import make_layer_params
+    from transflow_tpu_torch.config import LayerConfig
+    rng = np.random.default_rng(SEED + len(classname))
+    sources = [(c, rng.random((HEIGHT, WIDTH)) < 0.45) for c in C_SOURCES]
+    params = make_layer_params([LayerConfig(0, classname=classname, **cfg)],
+                               HEIGHT, WIDTH, {0: sources},
+                               device=device)[0]
+    pixmaps = tuple(torch.from_numpy(rng.integers(
+        0, 256, (HEIGHT, WIDTH, c), dtype=np.uint8)).to(device)
+        for c in C_SOURCES)
+    return params, pixmaps
+
+
 def phase_compositor_kernels(device, fb_run: dict, t_run: dict
                              ) -> list[dict]:
-    """Phase C: K0, K1 and K2 against their plain versions at 1080x1920
-    on the main path's inputs, bit-equal, with ``device_ms``, the bound,
-    its share, ``call_ms`` and the plain version's time: K1 on phase F's
+    """Phase C: K0-K4 against their plain versions at 1080x1920 on the
+    main path's inputs, bit-equal, with ``device_ms``, the bound, its
+    share, ``call_ms`` and the plain version's time: K1 on phase F's
     Engine state and pan flow (its moveref layer, random reset 0.01) and
     on a random flow; K0, then K0 + K1, on the same layer with
     leave-empty; K2 over phase F's layer and over phase T's four masked
-    layers."""
+    layers; K0 + K3 on phase T's introduction layer, its state, pixmap and
+    last flow, and on the random flow, then on ``C_SOURCES``' ten sources
+    in groups of ``C_GROUP`` with a halo of ``C_HALO`` and
+    ``introduce_once`` over two frames; K4 on phase T's static layer and
+    on ten sources in groups of three."""
     from transflow_tpu_torch import prng
-    from transflow_tpu_torch.compositor.core import make_layer_params
+    from transflow_tpu_torch.compositor.core import (init_layer_state,
+                                                     make_layer_params)
     from transflow_tpu_torch.config import LayerConfig
     from transflow_tpu_torch.ops import compositor as ck
     from transflow_tpu_torch.ops.image import clip_to_frame
@@ -4412,6 +4554,58 @@ def phase_compositor_kernels(device, fb_run: dict, t_run: dict
             lambda ls=layers, ss=states: ck.composite_plain(ls, ss, bg,
                                                             HEIGHT, WIDTH),
             1)
+    # K3 (after K0) and K4: phase T's layers, then ten sources in groups
+    t_flow = t_run["flows"][-1].contiguous()
+    t_pix = t_run["pixmaps"]
+    intro, intro_pix = c_layer_params(device, "introduction",
+                                      moving_pixels_leave_empty_spot=True,
+                                      introduce_once=True)
+    numbers = tuple(range(len(C_SOURCES)))
+    first = init_layer_state(intro)
+    second = ck.introduction_update_plain(intro, first, random_flow,
+                                          intro_pix, numbers, C_HALO,
+                                          C_GROUP)
+    t_fno = (t_run["next_fno"],)
+    many = f"{len(C_SOURCES)} sources in groups of {C_GROUP}, halo {C_HALO}"
+    for name, p, st, flow, pix, fnos, halo, group in (
+            ("T introduction", t_engine.layer_params[0],
+             t_engine.comp_state[0], t_flow, t_pix[0], t_fno, None,
+             ck.MAX_SOURCES),
+            ("T introduction random flow", t_engine.layer_params[0],
+             t_engine.comp_state[0], random_flow, t_pix[0], t_fno, None,
+             ck.MAX_SOURCES),
+            (f"{many}, once: frame 1", intro, first, random_flow, intro_pix,
+             numbers, C_HALO, C_GROUP),
+            (f"{many}, once: frame 2", intro, second, t_flow, intro_pix,
+             numbers, C_HALO, C_GROUP)):
+        args = (p, st, flow, pix, fnos, halo, group)
+        got = ck.introduction_update_cuda(*args)
+        want = ck.introduction_update_plain(*args)
+        torch.cuda.synchronize()
+        diff = [k for k in want if not torch.equal(got[k], want[k])]
+        if diff:
+            raise AssertionError(f"K3 {name}: {diff} differ from plain")
+        add("K3", name, 0.0, comp_k3_bound_ms(p, st, flow, fnos, halo),
+            lambda a=args: ck.introduction_update_cuda(*a),
+            lambda a=args: ck.introduction_update_plain(*a),
+            p.cfg.moving_pixels_leave_empty_spot
+            + -(-p.num_sources // group),
+            f" ({int((want['alpha'] == 0).sum())} empty pixels)")
+    static, static_pix = c_layer_params(device, "static")
+    for name, p, st, pix, group in (
+            ("T static", t_engine.layer_params[2], t_engine.comp_state[2],
+             t_pix[2], ck.MAX_SOURCES),
+            (f"{len(C_SOURCES)} sources in groups of {C_GROUP}", static,
+             init_layer_state(static), static_pix, C_GROUP)):
+        got = ck.static_blit_cuda(p, st, pix, group)
+        want = ck.static_blit_plain(p, st, pix, group)
+        torch.cuda.synchronize()
+        if not torch.equal(got["rgba"], want["rgba"]):
+            raise AssertionError(f"K4 {name}: differs from plain")
+        add("K4", name, 0.0, comp_k4_bound_ms(p),
+            lambda a=(p, st, pix, group): ck.static_blit_cuda(*a),
+            lambda a=(p, st, pix, group): ck.static_blit_plain(*a),
+            -(-p.num_sources // group))
     return rows
 
 
@@ -4862,6 +5056,134 @@ def lfn_profile_only(device, card: str) -> None:
     print(f"liteflownet engine lfn_warp_bound=0: {syncs:g} host syncs per "
           f"frame ({LFN_SYNC_CALLS} process_frame call) on {card}")
     lfn_profile("liteflownet engine lfn_warp_bound=0", run, card)
+
+
+MESH_RESULT = "mesh-profile "  # the start of --mesh-profile's result line
+MESH_TURN_FRAMES = 6   # phase 5's timed process_frame calls a turn
+MESH_TURN_TIMEOUT = 900  # seconds for one --mesh-profile process
+# counters a tree from before kernels K3 and K4 lacks
+LATER_COUNTERS = ("introduction_update_cuda", "static_blit_cuda")
+
+
+def stand_in_later_counters() -> None:
+    """``--mesh-profile`` only: gives the package this process imported
+    a counter at 0 for each of ``LATER_COUNTERS`` it lacks, so that
+    another tree's package runs the paths' launch counts."""
+    from transflow_tpu_torch.ops import compositor
+    for name in LATER_COUNTERS:
+        if not hasattr(compositor, name):
+            setattr(compositor, name, types.SimpleNamespace(launches=0))
+
+
+def mesh_profile_only(device, card: str) -> None:
+    """``--mesh-profile``: the paths of phases 5, S (stream 2 x space 2)
+    and M with the package of the tree this process imported, each timed
+    on the host clock and profiled: ms a stream-frame (a frame for 5),
+    device events and busy ms. Prints one result line. It uses nothing
+    that the package lacked before kernels K3 and K4, so it runs another
+    tree's package for ``--against``'s turns."""
+    from transflow_tpu_torch import prng
+    from transflow_tpu_torch.parallel import (make_mesh, make_space_mesh,
+                                              sharded_scan)
+    os.environ["TRANSFLOW_LITEFLOWNET_RANDOM"] = "1"
+    print(f"mesh profile of {package_root()}")
+    result = {}
+    # 5: the bound-16 Engine over four shards of the card, halo 8
+    frames = panned_frames(3 + MESH_TURN_FRAMES + LFN_PROFILE_CALLS, HEIGHT,
+                           WIDTH, device)
+    pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
+    mesh = make_space_mesh(MESH_SHARDS, devices=[device] * MESH_SHARDS)
+    engine, source = make_engine(device, frames, lfn_config(WARP_BOUND),
+                                 mesh, MESH_HALO)
+    items = iter(source)
+
+    def step(fno):
+        engine.process_frame([next(items)], ((pixmap,),), fno / 30.0,
+                             ((fno,),))
+
+    for fno in range(2):
+        step(fno)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for fno in range(2, 2 + MESH_TURN_FRAMES):
+        step(fno)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - start) / MESH_TURN_FRAMES
+    profile = engine_profile("mesh engine", {
+        "step": step, "next_fno": 2 + MESH_TURN_FRAMES}, LFN_PROFILE_CALLS,
+        card)
+    result["5"] = {"ms": ms, "events": profile["events"],
+                   "busy_ms": profile["busy_ms"]}
+    del engine, source, items, frames
+    # S: two streams over stream 2 x space 2, halo 8
+    n = 1 + S_CHUNKS * S_CHUNK + S_PROFILE_CALLS
+    grays = [t_gray(n, pan, HEIGHT, WIDTH, device) for pan in S_PANS]
+    pixmaps = [((torch.from_numpy(np.random.default_rng(SEED + s).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device),),)
+        for s in range(2)]
+    keys = prng.split(prng.key(SEED), 2)
+    model = s_model(device, S_HALO)
+    run = sharded_scan(model, make_mesh(devices=[device] * 4, stream_axis=2),
+                       per_stream_pixmaps=True)
+    chunks = s_chunks(run, model, grays, pixmaps, keys, S_CHUNKS, timed=1)
+    profile = engine_profile("streams 2 x 2", s_steps(
+        run, model, chunks["state"], grays, pixmaps, keys), S_PROFILE_CALLS,
+        card, "one-frame sharded_scan calls")
+    result["S"] = {"ms": chunks["ms"] / (2 * S_CHUNK),
+                   "events": profile["events"] / 2,
+                   "busy_ms": profile["busy_ms"] / 2}
+    del grays, pixmaps, chunks, run, model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # M: two processes, stream 2 x space 2, two streams each
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    outputs = run_workers(
+        [script_argv("--mesh-profile", "--multihost-worker", str(rank),
+                     str(port)) for rank in range(M_PROCESSES)],
+        M_TIMEOUT + 60)
+    workers = [json.loads(line[len(M_RESULT):]) for out in outputs
+               for line in out.splitlines() if line.startswith(M_RESULT)]
+    streams = sum(len(r["streams"]) for r in workers)
+    result["M"] = {
+        "ms": statistics.mean(r["ms"] / (len(r["streams"]) * S_CHUNK)
+                              for r in workers),
+        "events": sum(r["events"] for r in workers) / streams,
+        "busy_ms": sum(r["busy_ms"] for r in workers) / streams}
+    print(MESH_RESULT + json.dumps(result), flush=True)
+
+
+def against_mesh_paths(others: dict, card: str) -> dict:
+    """Phases 5, S (2 x 2) and M's paths of this tree and of each tree in
+    ``others`` (name: root) in turns, one ``--mesh-profile`` process a
+    turn (others, this, this, others): each phase's ms a stream-frame,
+    device events and busy ms a stream-frame, every turn's beside the
+    others'. Findings, not bars: returns them by tree."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    roots = {"this": package_root(), **others}
+    order = [*others, "this", "this", *reversed(list(others))]
+    turns = {name: [] for name in roots}
+    for name in order:
+        out = run_workers([script_argv("--mesh-profile", root=roots[name])],
+                          MESH_TURN_TIMEOUT)[0]
+        for line in out.splitlines():
+            if line.startswith(MESH_RESULT):
+                turns[name].append(json.loads(line[len(MESH_RESULT):]))
+            else:
+                print(f"  [{name}] {line}")
+    for phase, unit in (("5", "a frame"), ("S", "a stream-frame"),
+                        ("M", "a stream-frame")):
+        print(f"against mesh phase {phase} ({unit}, turns "
+              f"{' / '.join(order)}): " + "; ".join(
+                  f"{name} ms {[round(t[phase]['ms'], 3) for t in runs]}, "
+                  f"device events "
+                  f"{[round(t[phase]['events'], 1) for t in runs]}, busy ms "
+                  f"{[round(t[phase]['busy_ms'], 3) for t in runs]}"
+                  for name, runs in turns.items()) + f" on {card}")
+    return turns
 
 
 def build_others(csrcs: list[Path], mine: list[dict]) -> list[ctypes.CDLL]:
@@ -5705,8 +6027,11 @@ def main() -> int:
                              "B2b, B9, B10, B5, B8, B14, B16 and B17 "
                              "against this directory's correlation.cu, "
                              "farneback.cu, horn_schunck.cu, scatter.cu, "
-                             "pyramid.cu and lfn_heads.cu (phase 11); "
-                             "repeat it for several trees")
+                             "pyramid.cu and lfn_heads.cu (phase 11), and "
+                             "where the directory is a tree's "
+                             "transflow_tpu_torch/csrc, that tree's paths "
+                             "of phases 5, S and M in turns with this "
+                             "one's; repeat it for several trees")
     parser.add_argument("--steps", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
                         help="also time B8 and B14 of this directory's "
@@ -5719,11 +6044,20 @@ def main() -> int:
                         help="only phase 4's bound-0 LiteFlowNet Engine: its "
                              "host syncs, ATen ops and profile a frame, "
                              "with the package beside this script")
+    parser.add_argument("--mesh-profile", action="store_true",
+                        help="only the paths of phases 5, S (2 x 2) and M, "
+                             "timed and profiled, with the package this "
+                             "process imports (--against's turns)")
     parser.add_argument("--multihost-worker", type=int, nargs=2,
                         metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.mesh_profile:
+        stand_in_later_counters()
     if args.multihost_worker:  # one of phase M's processes
         return multihost_worker(*args.multihost_worker)
+    if args.mesh_profile:
+        mesh_profile_only(torch.device("cuda", 0), phase_device())
+        return 0
     if args.lfn_profile:
         lfn_profile_only(torch.device("cuda", 0), phase_device())
         return 0
@@ -5823,6 +6157,13 @@ def main() -> int:
         against_lk_pyramid(device, libs, steps, card)
         against_lfn_heads(device, libs, steps, card)
         against_conv_epilogue(device, libs, card)
+        # where an --against directory is a tree's csrc, that tree's mesh
+        # paths in turns with this one's
+        trees = {name: d.parent.parent for name, d in args.against
+                 if (d.parent / "__init__.py").exists()
+                 and d.parent.name == "transflow_tpu_torch"}
+        if trees:
+            against_mesh_paths(trees, card)
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound
@@ -6247,8 +6588,8 @@ def main() -> int:
                        "no single PyTorch call computes it",
         })
     # the compositor's kernels: F's Engine runs, T's Engine and CLI runs,
-    # H's and S's (K0 runs in T alone; the meshes of phases 5 and M
-    # update through the plain ops)
+    # H's, S's, the mesh Engine's (phase 5) and M's processes' (K0, K3 and
+    # K4 run in T alone)
     c_sources = {
         "K0": ("leave_empty_sources", "transflow_tpu/ops/scatter.py:13",
                "scatter.py:13 scatter_any, as compositor/core.py:224-230 "
@@ -6259,9 +6600,17 @@ def main() -> int:
                "_reference_rgba (:321)"),
         "K2": ("composite", "transflow_tpu/compositor/core.py:457",
                "compositor/core.py:457 render_layer over "
-               "build_compositor's render_fn (:533)")}
-    c_main = {"K0": "F pan", "K1": "F pan", "K2": "F layer"}
-    main_runs = [*fb_runs.values(), *h_runs.values()]
+               "build_compositor's render_fn (:533)"),
+        "K3": ("introduction_update", "transflow_tpu/compositor/core.py:393",
+               "compositor/core.py:393 update_introduction: _movement "
+               "(:154), the eligibility mask (:410-425), "
+               "_gather_pixmap_slices (:244) and the introduction a source"),
+        "K4": ("static_blit", "transflow_tpu/compositor/core.py:378",
+               "compositor/core.py:378 update_static: a masked blit a "
+               "source")}
+    c_main = {"K0": "F pan", "K1": "F pan", "K2": "F layer",
+              "K3": "T introduction", "K4": "T static"}
+    main_runs = [*fb_runs.values(), *h_runs.values(), mesh_run, m_run]
     for kernel, (name, replaces, function) in c_sources.items():
         k = KERNEL_NAMES.index(kernel)
         row = next(r for r in c_rows

@@ -2202,7 +2202,8 @@ def test_composite_kernel_matches_plain(device, comp_gradient, n):
 
 
 def test_compositor_kernels_need_one_card(device):
-    """A wrapper given tensors on two devices, or a CPU pixmap, raises."""
+    """A wrapper given tensors on two devices, or a CPU pixmap, raises (K1,
+    K3, K4)."""
     from transflow_tpu_torch.compositor import core
     from transflow_tpu_torch.ops import compositor as ck
     params, pix = _comp_layers([{}], [[(3, None)]], 8, 8, device)
@@ -2212,3 +2213,231 @@ def test_compositor_kernels_need_one_card(device):
         ck.layer_update_cuda(params[0], state, flow, (pix[0][0].cpu(),))
     with pytest.raises(ValueError):
         ck.layer_update(params[0], state, flow.cpu(), pix[0])
+    with pytest.raises(ValueError):
+        ck.introduction_update_cuda(
+            *_comp_intro_args(device, pixmap_device="cpu"))
+    with pytest.raises(ValueError):
+        sparams, spix = _comp_layers([{"classname": "static"}],
+                                     [[(3, None)]], 8, 8, device)
+        ck.static_blit_cuda(sparams[0], core.init_layer_state(sparams[0]),
+                            (spix[0][0].cpu(),))
+
+
+# ---------------------------------------------------------------------------
+# K3 (an introduction layer's update) and K4 (a static layer's blit)
+# against their plain versions on the card, bit for bit
+# (tests/test_torch_compositor_layers.py holds the plain versions to JAX)
+# ---------------------------------------------------------------------------
+
+INTRO_CHANNELS = (3, 4, 4, 3, 3, 4, 3, 4, 4, 3)
+
+
+def _intro_sources(n, h, w, seed=0):
+    if n == 1:
+        return [(3, None)]
+    rng = np.random.default_rng(seed)
+    return [(INTRO_CHANNELS[s], rng.random((h, w)) < 0.45)
+            for s in range(n)]
+
+
+def _comp_intro_args(device, pixmap_device=None):
+    """An 8x8 introduction layer's K3 arguments, the pixmap on
+    ``pixmap_device`` (the card by default)."""
+    from transflow_tpu_torch.compositor import core
+    params, pix = _comp_layers([{"classname": "introduction"}],
+                               [[(3, None)]], 8, 8, device)
+    return (params[0], core.init_layer_state(params[0]),
+            torch.zeros((8, 8, 2), device=device),
+            tuple(x.to(pixmap_device or device) for x in pix[0]), (0,))
+
+
+def _check_intro_kernels(device, cfg, sources, h, w, halo=None,
+                         groups=(8,), frames=4, seed=0):
+    """K0/K3 (``introduction_update_cuda``) against
+    ``introduction_update_plain`` on the card, for every group size, frame
+    after frame with the state carried; checks the launches a frame."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.ops import compositor as ck
+    params, pix = _comp_layers([{"classname": "introduction", **cfg}],
+                               [sources], h, w, device)
+    p = params[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    want = core.init_layer_state(p)
+    states = dict.fromkeys(groups, want)
+    for k in range(frames):
+        flow = _comp_flow(h, w, gen, device)
+        numbers = tuple(5 * k + s for s in range(p.num_sources))
+        want = ck.introduction_update_plain(p, want, flow, pix[0], numbers,
+                                            halo)
+        for group in groups:
+            before = (ck.leave_empty_sources_cuda.launches,
+                      ck.introduction_update_cuda.launches)
+            states[group] = ck.introduction_update_cuda(
+                p, states[group], flow, pix[0], numbers, halo, group)
+            torch.cuda.synchronize()
+            launches = -(-max(p.num_sources, 1) // group)
+            assert (ck.leave_empty_sources_cuda.launches,
+                    ck.introduction_update_cuda.launches) == (
+                before[0] + int(p.cfg.moving_pixels_leave_empty_spot),
+                before[1] + launches)
+            _assert_comp_equal(states[group], want, f"frame {k} group {group}")
+    return states[groups[0]]
+
+
+COMP_INTRO_CASES = {
+    "default": ({}, 2, None),
+    "not-on-empty": ({"introduce_pixels_on_empty_spots": False,
+                      "moving_pixels_leave_empty_spot": True}, 2, None),
+    "not-on-filled": ({"introduce_pixels_on_filled_spots": False,
+                       "moving_pixels_leave_empty_spot": True}, 2, None),
+    "not-moving": ({"introduce_moving_pixels": False}, 2, None),
+    "not-unmoving": ({"introduce_unmoving_pixels": False}, 2, None),
+    "all-filled": ({"introduce_on_all_filled_spots": True,
+                    "introduce_pixels_on_empty_spots": False,
+                    "moving_pixels_leave_empty_spot": True}, 2, None),
+    "all-empty": ({"introduce_on_all_empty_spots": True,
+                   "introduce_pixels_on_filled_spots": False,
+                   "moving_pixels_leave_empty_spot": True}, 2, None),
+    "all-both": ({"introduce_on_all_filled_spots": True,
+                  "introduce_on_all_empty_spots": True,
+                  "introduce_moving_pixels": False}, 2, None),
+    "once": ({"introduce_once": True,
+              "moving_pixels_leave_empty_spot": True}, 3, None),
+    "leave-empty": ({"moving_pixels_leave_empty_spot": True}, 2, None),
+    "leave-empty-halo2": ({"moving_pixels_leave_empty_spot": True,
+                           "introduce_pixels_on_filled_spots": False}, 2, 2),
+    "masks-halo2": ({"mask_src": "circle:40%", "mask_dst": "rect:80%:70%",
+                     "moving_pixels_leave_empty_spot": True}, 2, 2),
+    "transparent": ({"transparent_pixels_can_move": True,
+                     "moving_pixels_leave_empty_spot": True}, 2, None),
+    "not-to-empty": ({"pixels_can_move_to_empty_spot": False,
+                      "moving_pixels_leave_empty_spot": True}, 2, None),
+    "not-to-filled": ({"pixels_can_move_to_filled_spot": False}, 2, None),
+    "one-rgb": ({"moving_pixels_leave_empty_spot": True}, 1, None),
+    "sources-10-halo3": ({"moving_pixels_leave_empty_spot": True,
+                          "introduce_pixels_on_filled_spots": False}, 10,
+                         3),
+}
+
+
+@pytest.mark.parametrize("case", list(COMP_INTRO_CASES))
+def test_introduction_kernel_matches_plain(device, case):
+    """K0 and K3 over every eligibility and movement flag, the two
+    all-spots flags, ``introduce_once`` over frames, leave-empty with and
+    without a halo, and 1, 2, 3 and 10 sources of 3 and 4 channels in
+    groups of 1, 3 and 8, at a small unaligned size, bit-equal to the
+    plain version frame after frame."""
+    h, w = 37, 53
+    cfg, n, halo = COMP_INTRO_CASES[case]
+    groups = (1, 3, 8) if n > 1 else (8,)
+    _check_intro_kernels(device, cfg, _intro_sources(n, h, w, n), h, w,
+                         halo, groups, seed=len(case))
+
+
+def test_introduction_kernel_four_channels(device):
+    """One full-frame 4-channel source: alpha is the pixmap's byte."""
+    _check_intro_kernels(device, {}, [(4, None)], 29, 31, frames=3, seed=3)
+
+
+def _check_static_kernel(device, sources, h, w, groups=(1, 3, 8),
+                         frames=3, seed=0):
+    """K4 (``static_blit_cuda``) against ``static_blit_plain`` on the card
+    for every group size, frame after frame, the pixmaps changing."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.ops import compositor as ck
+    params, pix = _comp_layers([{"classname": "static"}], [sources], h, w,
+                               device)
+    p = params[0]
+    want = core.init_layer_state(p)
+    states = dict.fromkeys(groups, want)
+    for k in range(frames):
+        frame_pix = tuple(x.roll(k, 1) for x in pix[0])
+        want = ck.static_blit_plain(p, want, frame_pix)
+        for group in groups:
+            before = ck.static_blit_cuda.launches
+            states[group] = ck.static_blit_cuda(p, states[group], frame_pix,
+                                                group)
+            torch.cuda.synchronize()
+            assert ck.static_blit_cuda.launches == \
+                before + -(-max(p.num_sources, 1) // group)
+            _assert_comp_equal(states[group], want, f"frame {k} group {group}")
+    return states[groups[0]]
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 10])
+def test_static_blit_kernel_matches_plain(device, n):
+    """No source, one, two and ten sources of 3 and 4 channels, in groups
+    of 1, 3 and 8, at a small unaligned size: bit-equal to plain."""
+    _check_static_kernel(device, [] if n == 0 else
+                         _intro_sources(n, 37, 53, 10 + n), 37, 53)
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (1079, 1917)], ids=str)
+def test_layer_kernels_at_1080p(device, shape):
+    """K3 (ten sources in groups of 3, leave-empty, a halo of 8,
+    ``introduce_once``) and K4 (ten sources in groups of 3) at 1080x1920
+    and an unaligned 1079x1917, bit-equal to plain."""
+    h, w = shape
+    sources = _intro_sources(10, h, w, 1)
+    _check_intro_kernels(device, {"moving_pixels_leave_empty_spot": True,
+                                  "introduce_once": True},
+                         sources, h, w, halo=8, groups=(3,), frames=2,
+                         seed=4)
+    _check_static_kernel(device, sources, h, w, groups=(3,), frames=2)
+
+
+def test_compositor_never_takes_a_plain_update(device, comp_gradient,
+                                               monkeypatch):
+    """``build_compositor`` on the card over the four classes, with a
+    halo of 4, as it runs meshless and under a mesh: every update runs
+    K0, K1, K3 or K4 (the plain versions fail if called), 2 K0, 2 K1, 1 K3, 1 K4 and 1 K2 launches a frame, and
+    the states and frames equal the plain versions' on the card."""
+    from transflow_tpu_torch.compositor import core
+    from transflow_tpu_torch.ops import compositor as ck
+    h, w = 64, 96
+    cfgs = [{"classname": "introduction",
+             "moving_pixels_leave_empty_spot": True},
+            {"classname": "sum", "reset_mode": "random",
+             "reset_random_factor": 0.05},
+            {"classname": "static", "mask_alpha": comp_gradient(h, w)},
+            {"reset_mode": "random", "reset_random_factor": 0.05,
+             "moving_pixels_leave_empty_spot": True,
+             "mask_src": "circle:45%"}]
+    params, pix = _comp_layers(cfgs, [_intro_sources(2, h, w)] * 4, h, w,
+                               device)
+    bg = torch.tensor([0x20, 0x40, 0x60], dtype=torch.uint8, device=device)
+    plain = {name: getattr(ck, name) for name in (
+        "layer_update_plain", "introduction_update_plain",
+        "static_blit_plain", "leave_empty_sources_plain")}
+    for name in plain:
+        monkeypatch.setattr(ck, name, lambda *a, _n=name: pytest.fail(
+            f"{_n} ran on the card"))
+    init, step = core.build_compositor(
+        params, h, w, "#204060", halo=4, device=device)
+    state = want = init()
+    gen = torch.Generator(device=device).manual_seed(9)
+    counters = (ck.leave_empty_sources_cuda, ck.layer_update_cuda,
+                ck.introduction_update_cuda, ck.static_blit_cuda,
+                ck.composite_cuda)
+    for k in range(4):
+        flow = _comp_flow(h, w, gen, device)
+        key = prng.fold_in(prng.key(2), k)
+        numbers = tuple((k, k + 1) for _ in params)
+        before = [fn.launches for fn in counters]
+        state, rgb = step(state, flow, pix, key, numbers)
+        torch.cuda.synchronize()
+        assert [fn.launches - b for fn, b in zip(counters, before)] == \
+            [2, 2, 1, 1, 1]
+        keys = prng.split(key, len(params))
+        want = [
+            plain["introduction_update_plain"](params[0], want[0], flow,
+                                               pix[0], numbers[0], 4),
+            plain["layer_update_plain"](params[1], want[1], flow, pix[1],
+                                        keys[1], 4),
+            plain["static_blit_plain"](params[2], want[2], pix[2]),
+            plain["layer_update_plain"](params[3], want[3], flow, pix[3],
+                                        keys[3], 4)]
+        want, want_rgb = ck.composite_plain(params, want, bg, h, w)
+        assert torch.equal(rgb, want_rgb), k
+        for got, exp in zip(state, want):
+            _assert_comp_equal(got, exp, f"frame {k}")

@@ -2,8 +2,10 @@
 package's, and the moveref compositor under ``halo`` and a mesh.
 
 The JAX side runs as tests/test_halo_gather.py runs it, on the virtual
-CPU mesh of tests/conftest.py; the port over ``SpaceMesh(["cpu"] * n)``.
-Both compositors draw the random reset from the same key.
+CPU mesh of tests/conftest.py; the port's gathers over
+``SpaceMesh(["cpu"] * n)``, and its compositor as it runs under a mesh,
+its state whole on one device. Both compositors draw the random reset from
+the same key.
 """
 import numpy as np
 import pytest
@@ -129,9 +131,8 @@ def _run_compositors(flags, halo, n_mesh, flow, frames=3, with_jax=True):
                                     {0: [(3, None)]}, device="cpu")
     jparams = jcore.make_layer_params([JaxLayerConfig(0, **cfg)], h, w,
                                       {0: [(3, np.ones((h, w), bool))]})
-    mesh = SpaceMesh(["cpu"] * n_mesh) if n_mesh else None
     jmesh = jax_space_mesh(n_mesh) if n_mesh else None
-    init, step = core.build_compositor(params, h, w, halo=halo, mesh=mesh,
+    init, step = core.build_compositor(params, h, w, halo=halo,
                                        device="cpu")
     jinit, jstep = jcore.build_compositor(jparams, h, w, halo=halo,
                                           mesh=jmesh)
@@ -191,7 +192,10 @@ def test_halo_matches_plain_within_the_halo(flags):
 @pytest.mark.parametrize("n_mesh", [0, 2], ids=["halo", "halo-mesh"])
 def test_leave_empty_vacates_clamped_row_with_halo(n_mesh):
     """|dy| > halo: the value gather reads the clamped row, and the
-    leave-empty scatter vacates that same row (test_halo_gather.py:174)."""
+    leave-empty scatter vacates that same row (test_halo_gather.py:174).
+    Under a mesh the JAX package's movement reads through the sharded
+    gather: the port's movement, which takes no mesh, gives its values
+    and alpha."""
     h, w, halo = 16, 8, 2
     params = core.make_layer_params(
         [LayerConfig(0, moving_pixels_leave_empty_spot=True)], h, w,
@@ -200,9 +204,20 @@ def test_leave_empty_vacates_clamped_row_with_halo(n_mesh):
     flow[4, 3, 1] = 5.0            # dy=5 > halo=2: the gather reads row 6
     alpha = torch.ones((h, w), dtype=torch.uint8)
     channels = {"v": torch.arange(h * w, dtype=torch.int32).reshape(h, w)}
-    mesh = SpaceMesh(["cpu"] * n_mesh) if n_mesh else None
     out, new_alpha, _ = core._movement(params, channels, alpha, flow,
-                                       halo=halo, mesh=mesh)
+                                       halo=halo)
+    if n_mesh:
+        jparams = jcore.make_layer_params(
+            [JaxLayerConfig(0, moving_pixels_leave_empty_spot=True)], h, w,
+            {0: [(3, np.ones((h, w), bool))]})[0]
+        jmesh = jax_space_mesh(n_mesh)
+        with jmesh:
+            jout, jalpha, _ = jcore._movement(
+                jparams, {"v": jnp.asarray(channels["v"].numpy())},
+                jnp.asarray(alpha.numpy()), jnp.asarray(flow.numpy()), halo,
+                jmesh)
+        np.testing.assert_array_equal(out["v"].numpy(), np.asarray(jout["v"]))
+        np.testing.assert_array_equal(new_alpha.numpy(), np.asarray(jalpha))
     assert int(out["v"][4, 3]) == 6 * w + 3
     assert new_alpha[6, 3] == 0                # clamped source vacated
     assert new_alpha[9, 3] == 1                # true source untouched

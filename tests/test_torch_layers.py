@@ -7,8 +7,8 @@ numbers and key; the port splits the key and draws the random reset with
 ``prng`` as the JAX step does with ``jax.random``. Float masks come from a
 PGM gradient image (fractional values, so ``mask_alpha``'s product and
 ``reset_mask``'s threshold round), bool masks from the mask DSL. The mesh
-cases run the port over ``SpaceMesh(["cpu"] * 2)`` and JAX on the virtual
-CPU mesh of tests/conftest.py.
+cases run JAX on the virtual CPU mesh of tests/conftest.py, and the port's
+compositor as it runs under a mesh, its state whole on one device.
 """
 import numpy as np
 import pytest
@@ -24,7 +24,6 @@ from transflow_tpu.flow.transforms import clip_to_frame as jax_clip
 from transflow_tpu.parallel.mesh import make_space_mesh as jax_space_mesh
 from transflow_tpu_torch.compositor import Compositor, core
 from transflow_tpu_torch.config import LayerConfig
-from transflow_tpu_torch.parallel import SpaceMesh
 from transflow_tpu_torch.utils.imageio import write_netpbm
 
 H, W = 48, 64
@@ -80,12 +79,11 @@ def run_both(cfgs: list[dict], sources: dict, seed: int = 0,
     pcfgs = [LayerConfig(i, **c) for i, c in enumerate(cfgs)]
     jparams = jcore.make_layer_params(jcfgs, h, w, sources)
     params = core.make_layer_params(pcfgs, h, w, sources, device="cpu")
-    mesh = SpaceMesh(["cpu"] * n_mesh) if n_mesh else None
     jmesh = jax_space_mesh(n_mesh) if n_mesh else None
     jinit, jstep = jcore.build_compositor(jparams, h, w, "#204060",
                                           halo=halo, mesh=jmesh)
     init, step = core.build_compositor(params, h, w, "#204060", halo=halo,
-                                       mesh=mesh, device="cpu")
+                                       device="cpu")
     rng = np.random.default_rng(seed + 100)
     pix = [[rng.integers(0, 256, (h, w, c), dtype=np.uint8)
             for c in p.channel_counts] for p in params]
@@ -223,10 +221,10 @@ def test_every_class_stacked(gradient):
 @pytest.mark.parametrize("classname", ["moveref", "introduction"])
 @pytest.mark.parametrize("masks", ["src", "dst", "all"])
 def test_masks_under_mesh_with_halo(classname, masks):
-    """``mask_src`` travels through the sharded bounded gather with the
-    state (and ``mask_dst`` stays at the target) under a two-shard mesh
-    with ``halo``, against the JAX virtual mesh. Flows reach past the
-    halo, so the clamp runs."""
+    """``mask_src`` travels through the bounded gather with the state (and
+    ``mask_dst`` stays at the target) under a two-shard mesh with
+    ``halo``, against the JAX virtual mesh, whose sharded gather it
+    equals. Flows reach past the halo, so the clamp runs."""
     run_both([{**CLASSES[classname], **_masks(masks, "hline:50%")}],
              {0: _sources("rgb", 24, 48)}, seed=13, frames=4, halo=3,
              n_mesh=2, h=24, w=48, reach=6)

@@ -27,7 +27,8 @@ from transflow_tpu.parallel.mesh import make_space_mesh as jax_space_mesh
 from transflow_tpu_torch import config, engine
 from transflow_tpu_torch.compositor import core
 from transflow_tpu_torch.flow.sources import base, cv
-from transflow_tpu_torch.ops import correlation, warp
+from transflow_tpu_torch.ops import compositor as ck
+from transflow_tpu_torch.ops import correlation, halo_gather, warp
 from transflow_tpu_torch.parallel import SpaceMesh
 
 H, W = 24, 32
@@ -130,18 +131,24 @@ def test_horn_schunck_mesh_engine_matches_meshless():
 
 
 def test_mesh_engine_runs_the_sharded_gather(monkeypatch):
-    """H=24 over 2 shards of 12 >= halo rows: the movement goes through
-    the sharded gather, five planes per frame."""
-    calls = []
-    sharded = core.sharded_bounded_gather
-    monkeypatch.setattr(core, "sharded_bounded_gather",
-                        lambda *a: calls.append(a[0].shape) or sharded(*a))
+    """H=24 over 2 shards of 12 >= halo rows, a mesh that splits the
+    movement: the moveref layer updates through K1's dispatcher with the
+    halo, once a frame, and the sharded gather is never called (it equals
+    the bounded gather that the halo selects, and the state lies whole on
+    one device)."""
+    sharded, halos = [], []
+    monkeypatch.setattr(halo_gather, "sharded_bounded_gather",
+                        lambda *a: sharded.append(a) or pytest.fail(
+                            "the sharded gather ran"))
+    layer_update = ck.layer_update
+    monkeypatch.setattr(ck, "layer_update",
+                        lambda *a: halos.append(a[5]) or layer_update(*a))
     flows = _flows(2)
     eng, _ = _mesh_engines(dict(reset_mode="linear"),
                            [(_source(base, flows, "flow"),
                              _source(jbase, flows, "flow"))])
     eng.process_chunk([flows], ((_pixmap(H, W),),), ((None,),), 0, 0)
-    assert len(calls) == 2 * 5       # pos_i, pos_j, source, alpha, filled
+    assert halos == [HALO] * 2 and sharded == []
 
 
 def test_mesh_places_unsharded_work_on_its_first_device():

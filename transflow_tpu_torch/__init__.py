@@ -9,7 +9,7 @@ expansion, warp and solve) and LiteFlowNet (with the bounded backwarp
 behind ``lfn_warp_bound``), through the flagship step
 ``model.FlowTransferModel`` and the device ``engine.Engine`` over flow
 sources whose ``CvFlowConfig`` selects the estimator, under a
-``parallel.SpaceMesh`` too (the sharded correlation and movement gather),
+``parallel.SpaceMesh`` too (the sharded correlation),
 with JAX's own random numbers (``prng``); the flow post-processing
 (filters, masks, kernels, ``-d forward`` through kernel B5), the merges
 and every layer class with its masks; and the disk-to-disk

@@ -77,11 +77,16 @@ _SIGNATURES = {
     "transflow_lk_structure_tensor": (_P, _P, _P, _I, _I, _I, _F, _P),
     # planes, tensor, flow, out, H, W, taps, eps^2, stream
     "transflow_lk_window_solve": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # 0 or 1 -> sizeof(UpdateArgs) or sizeof(CompositeArgs) (a value)
+    # 0-3 -> sizeof(UpdateArgs), sizeof(CompositeArgs), sizeof(IntroArgs)
+    # or sizeof(BlitArgs) (a value)
     "transflow_compositor_args_size": (_I,),
     # the address of an UpdateArgs (ops/compositor.py), stream
     "transflow_leave_empty_sources": (_P, _P),
     "transflow_layer_update": (_P, _P),
+    # the address of an IntroArgs, stream
+    "transflow_introduction_update": (_P, _P),
+    # the address of a BlitArgs, stream
+    "transflow_static_blit": (_P, _P),
     # the address of a CompositeArgs, stream
     "transflow_composite": (_P, _P),
     # the levels' table (host, 22 int64 a level), levels, images, dtype,

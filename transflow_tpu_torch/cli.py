@@ -317,12 +317,11 @@ def build_parser() -> argparse.ArgumentParser:
     group.add_argument("--mesh", type=str, default=None,
                        help="shard the render over N cards ('8' or '1x8'; "
                        "N views of the CPU on the CPU): LiteFlowNet's "
-                       "correlation and the movement gather split along H")
+                       "correlation splits along H")
     group.add_argument("--halo", type=int, default=None,
-                       help="movement-gather row bound under --mesh "
-                       "(neighbor-row exchange instead of full-state "
-                       "all-gathers; auto-derived from a constant clip "
-                       "filter)")
+                       help="movement-gather row bound under --mesh (the "
+                       "rows a pixel reads from; auto-derived from a "
+                       "constant clip filter)")
 
     group = parser.add_argument_group("processing options")
     group.add_argument("-S", "--safe", action="store_true",

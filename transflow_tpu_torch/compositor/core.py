@@ -9,8 +9,8 @@ and matches the JAX package bit for bit given the same flow and key: the
 random reset draws ``prng.uniform`` from the same threefry key as
 ``jax.random.uniform``.
 
-``build_compositor`` runs moveref and sum layers, and the render of the
-stack, through ``ops/compositor.py`` (kernels K0-K2 of
+``build_compositor`` runs every layer's update, and the render of the
+stack, through ``ops/compositor.py`` (kernels K0-K4 of
 ``csrc/compositor.cu`` on the card, which hash the draw in registers;
 this module's functions on the CPU).
 
@@ -33,8 +33,7 @@ from .. import prng
 from .._device import resolve_device
 from ..config import LayerConfig
 from ..ops import compositor as kernels
-from ..ops.halo_gather import (bounded_row_gather, clamped_rows,
-                               sharded_bounded_gather)
+from ..ops.halo_gather import bounded_row_gather, clamped_rows
 from ..ops.scatter import scatter_any
 from ..utils import load_bool_mask, load_float_mask, parse_color
 
@@ -164,26 +163,17 @@ def init_layer_state(params: LayerParams) -> dict:
     }
 
 
-def _mesh_splits(mesh, height: int, halo: int | None) -> bool:
-    """Whether the movement gather runs sharded: under a ``mesh`` whose
-    ``space`` axis splits H into shards of at least ``halo`` rows (JAX's
-    rule, core.py:191-204)."""
-    n = mesh.shape.get("space", 1) if mesh is not None else 1
-    return (halo is not None and n > 1 and height % n == 0
-            and 1 <= halo <= height // n)
-
-
 def movement_targets(params: LayerParams, alpha: torch.Tensor,
-                     flow: torch.Tensor, halo: int | None = None, mesh=None):
+                     flow: torch.Tensor, halo: int | None = None):
     """The movement's gather and its targets. Returns (gather, is_target,
     moving, src_i, src_j, eff_i): ``gather(x)`` reads ``x`` at each
     pixel's source, ``eff_i`` is the row it reads (``src_i`` without a
     halo).
 
     ``halo``: source reads go through the bounded-displacement gather
-    (ops/halo_gather.py), exact for |flow_y| <= halo; under a ``mesh``
-    whose ``space`` axis splits H into shards of at least ``halo`` rows,
-    through its sharded form (``_mesh_splits``)."""
+    (ops/halo_gather.py), exact for |flow_y| <= halo. Under a mesh that
+    splits H the JAX package reads through its sharded form, which equals
+    it; here the state is whole on one device."""
     cfg = params.cfg
     h, w = params.height, params.width
     di = torch.round(flow[..., 1]).to(torch.int32)
@@ -203,12 +193,9 @@ def movement_targets(params: LayerParams, alpha: torch.Tensor,
         # the row the bounded gather reads; the leave-empty scatter
         # vacates that same row (core.py:224-230)
         eff_i = clamped_rows(src_i, halo)
-        if _mesh_splits(mesh, h, halo):
-            def gather(x):
-                return sharded_bounded_gather(x, src_i, src_j, halo, mesh)
-        else:
-            def gather(x):
-                return bounded_row_gather(x, src_i, src_j, halo)
+
+        def gather(x):
+            return bounded_row_gather(x, src_i, src_j, halo)
 
     filled = alpha != 0
     # the source's mask plane, read through the same gather as the state
@@ -244,15 +231,15 @@ def _occupied(params: LayerParams, is_target: torch.Tensor,
 
 
 def _movement(params: LayerParams, channels: dict, alpha: torch.Tensor,
-              flow: torch.Tensor, halo: int | None = None, mesh=None):
+              flow: torch.Tensor, halo: int | None = None):
     """Apply the flow permutation to ``channels`` + ``alpha``.
 
     Parity: transflow/compositor/layers/movement.py:20-64 as a masked
-    gather. Returns (channels, alpha, (moving, src_i, src_j)); ``halo``
-    and ``mesh`` as in ``movement_targets``."""
+    gather. Returns (channels, alpha, (moving, src_i, src_j)); ``halo`` as
+    in ``movement_targets``."""
     cfg = params.cfg
     gather, is_target, moving, src_i, src_j, eff_i = movement_targets(
-        params, alpha, flow, halo, mesh)
+        params, alpha, flow, halo)
     g_alpha = gather(alpha)
 
     def sel(mask, a, b):
@@ -285,8 +272,9 @@ def _reset(params: LayerParams, state: dict, rand=None) -> dict:
     """Parity: transflow/compositor/layers/reference.py:58-91.
 
     ``rand``: the (H, W) f32 uniform draw of the random mode
-    (``build_compositor`` draws it with ``prng.uniform`` from the layer's
-    key, as core.py does with ``jax.random.uniform``)."""
+    (``ops/compositor.py::layer_update_plain`` draws it with
+    ``prng.uniform`` from the layer's key, as core.py does with
+    ``jax.random.uniform``)."""
     cfg = params.cfg
     mode = cfg.reset_mode
     if mode == "off":
@@ -367,28 +355,28 @@ def _reference_rgba(params: LayerParams, state: dict, pixmaps,
 
 
 def update_moveref(params: LayerParams, state: dict, flow, pixmaps,
-                   rand=None, halo: int | None = None, mesh=None) -> dict:
+                   rand=None, halo: int | None = None) -> dict:
     """MoveReferenceLayer.update (move_reference.py:12-14). ``rand`` is the
-    random reset's uniform draw (only read in that mode); ``halo`` and
-    ``mesh`` select the movement gather (``_movement``)."""
-    state = moveref_movement(params, state, flow, halo, mesh)
+    random reset's uniform draw (only read in that mode); ``halo`` selects
+    the movement gather (``_movement``)."""
+    state = moveref_movement(params, state, flow, halo)
     state = _reset(params, state, rand)
     return _reference_rgba(params, state, pixmaps)
 
 
 def moveref_movement(params: LayerParams, state: dict, flow,
-                     halo: int | None = None, mesh=None) -> dict:
+                     halo: int | None = None) -> dict:
     """A moveref layer's state moved by ``flow`` (``_movement`` of its
     positions, source and alpha)."""
     channels = {"pos_i": state["pos_i"], "pos_j": state["pos_j"],
                 "source": state["source"]}
     channels, alpha, _ = _movement(params, channels, state["alpha"], flow,
-                                   halo, mesh)
+                                   halo)
     return dict(state, **channels, alpha=alpha)
 
 
 def update_sum(params: LayerParams, state: dict, flow, pixmaps, rand=None,
-               halo: int | None = None, mesh=None) -> dict:
+               halo: int | None = None) -> dict:
     """SumLayer.update: additive displacement, then reset + regather.
 
     Parity: sum.py:9-14 with the component transposition fixed (dy -> i).
@@ -409,35 +397,92 @@ def sum_movement(state: dict, flow) -> dict:
 
 
 def update_static(params: LayerParams, state: dict, flow, pixmaps,
-                  rand=None, halo: int | None = None, mesh=None) -> dict:
-    """StaticLayer.update (static.py:14-17): masked blit, flow ignored."""
+                  rand=None, halo: int | None = None, groups=None) -> dict:
+    """StaticLayer.update (static.py:14-17): masked blit, flow ignored.
+
+    ``groups``: the sources as ranges, in order (by default one range of
+    all of them); a later range continues from the rgba an earlier one
+    made, as a later launch of kernel K4 does."""
     rgba = state["rgba"]
-    rgb = rgba[..., :3]
-    a = rgba[..., 3]
-    for s in range(params.num_sources):
-        mask = params.intro_masks[s]
-        pixmap = pixmaps[s]
-        rgb = torch.where(mask[..., None], pixmap[..., :3], rgb)
-        if params.channel_counts[s] == 4:
-            a = torch.where(mask, pixmap[..., 3], a)
-    return {"rgba": torch.cat([rgb, a[..., None]], dim=-1)}
+    for sources in (range(params.num_sources),) if groups is None \
+            else groups:
+        rgb = rgba[..., :3]
+        a = rgba[..., 3]
+        for s in sources:
+            mask = params.intro_masks[s]
+            pixmap = pixmaps[s]
+            rgb = torch.where(mask[..., None], pixmap[..., :3], rgb)
+            if params.channel_counts[s] == 4:
+                a = torch.where(mask, pixmap[..., 3], a)
+        rgba = torch.cat([rgb, a[..., None]], dim=-1)
+    return {"rgba": rgba}
 
 
 def update_introduction(params: LayerParams, state: dict, flow, pixmaps,
                         frame_numbers, halo: int | None = None,
-                        mesh=None) -> dict:
+                        groups=None) -> dict:
     """IntroductionLayer.update (introduction.py:16-67): move pixels
     carrying their RGB, then introduce new pixels from each source where
     the eligibility flags allow (their intended meaning, as in the JAX
-    package). ``frame_numbers`` holds one int per source."""
+    package). ``frame_numbers`` holds one int per source.
+
+    ``groups`` as in ``update_static``: the eligibility mask is made once,
+    before any source, and each range introduces over the state the one
+    before it left, as kernel K3's launches do."""
     cfg = params.cfg
+    state, moving, src_i, src_j = introduction_movement(params, state, flow,
+                                                        halo)
+    mask = introduction_eligible(params, state, moving)
+    if cfg.introduce_on_all_filled_spots or cfg.introduce_on_all_empty_spots:
+        gi, gj = _base_coords(params.height, params.width, flow.device)
+    else:
+        gi, gj = src_i, src_j
+    for sources in (range(params.num_sources),) if groups is None \
+            else groups:
+        slices = _gather_pixmap_slices(params, pixmaps, gi, gj, sources)
+        for s, gathered in zip(sources, slices):
+            tgt = mask & params.intro_masks[s]
+            if params.channel_counts[s] == 4:
+                new_a = gathered[..., 3].to(ALPHA_DTYPE)
+            else:
+                new_a = torch.ones_like(state["alpha"])
+            state["rgb"] = torch.where(tgt[..., None], gathered[..., :3],
+                                       state["rgb"])
+            state["alpha"] = torch.where(tgt, new_a, state["alpha"])
+            state["source"] = torch.where(
+                tgt, torch.full_like(state["source"], s), state["source"])
+            state["pos_i"] = torch.where(tgt, gi.to(POS_DTYPE),
+                                         state["pos_i"])
+            state["pos_j"] = torch.where(tgt, gj.to(POS_DTYPE),
+                                         state["pos_j"])
+            # a Python int: a fill on the device, no copy from the host
+            state["frame"] = torch.where(
+                tgt, torch.full_like(state["frame"], int(frame_numbers[s])),
+                state["frame"])
+    state["introduced_once"] = torch.ones_like(state["introduced_once"])
+    return state
+
+
+def introduction_movement(params: LayerParams, state: dict, flow,
+                          halo: int | None = None):
+    """An introduction layer's state moved by ``flow`` (``_movement`` of
+    its rgb, source, positions, frame numbers and alpha). Returns (state,
+    moving, src_i, src_j)."""
     channels = {"rgb": state["rgb"], "source": state["source"],
                 "pos_i": state["pos_i"], "pos_j": state["pos_j"],
                 "frame": state["frame"]}
     channels, alpha, (moving, src_i, src_j) = _movement(
-        params, channels, state["alpha"], flow, halo, mesh)
-    state = dict(state, **channels, alpha=alpha)
+        params, channels, state["alpha"], flow, halo)
+    return dict(state, **channels, alpha=alpha), moving, src_i, src_j
 
+
+def introduction_eligible(params: LayerParams, state: dict,
+                          moving: torch.Tensor) -> torch.Tensor:
+    """(H, W) bool: where the moved ``state`` takes new pixels, under the
+    layer's ``introduce_*`` flags in the JAX package's order
+    (core.py:410-425); ``introduce_once`` reads the state's
+    ``introduced_once``."""
+    cfg = params.cfg
     filled = state["alpha"] != 0
     mask = torch.ones_like(filled)
     if not cfg.introduce_pixels_on_empty_spots:
@@ -448,41 +493,13 @@ def update_introduction(params: LayerParams, state: dict, flow, pixmaps,
         mask = mask & ~moving
     if not cfg.introduce_unmoving_pixels:
         mask = mask & moving
-    consider_flow = not (cfg.introduce_on_all_filled_spots
-                         or cfg.introduce_on_all_empty_spots)
     if cfg.introduce_on_all_filled_spots:
         mask = mask | filled
     if cfg.introduce_on_all_empty_spots:
         mask = mask | ~filled
     if cfg.introduce_once:
         mask = mask & ~state["introduced_once"]
-
-    if consider_flow:
-        gi, gj = src_i, src_j
-    else:
-        gi, gj = _base_coords(params.height, params.width, flow.device)
-    slices = _gather_pixmap_slices(params, pixmaps, gi, gj,
-                                   range(params.num_sources))
-    for s, gathered in enumerate(slices):
-        tgt = mask & params.intro_masks[s]
-        if params.channel_counts[s] == 4:
-            new_a = gathered[..., 3].to(ALPHA_DTYPE)
-        else:
-            new_a = torch.ones_like(state["alpha"])
-        state["rgb"] = torch.where(tgt[..., None], gathered[..., :3],
-                                   state["rgb"])
-        state["alpha"] = torch.where(tgt, new_a, state["alpha"])
-        state["source"] = torch.where(tgt, torch.full_like(state["source"],
-                                                           s),
-                                      state["source"])
-        state["pos_i"] = torch.where(tgt, gi.to(POS_DTYPE), state["pos_i"])
-        state["pos_j"] = torch.where(tgt, gj.to(POS_DTYPE), state["pos_j"])
-        # a Python int: a fill on the device, no copy from the host
-        state["frame"] = torch.where(
-            tgt, torch.full_like(state["frame"], int(frame_numbers[s])),
-            state["frame"])
-    state["introduced_once"] = torch.ones_like(state["introduced_once"])
-    return state
+    return mask
 
 
 def render_layer(params: LayerParams, state: dict):
@@ -506,7 +523,7 @@ def render_layer(params: LayerParams, state: dict):
 
 def build_compositor(layer_params: Sequence[LayerParams], height: int,
                      width: int, background_color: str = "#ffffff",
-                     halo: int | None = None, mesh=None, device=None):
+                     halo: int | None = None, device=None):
     """Build the compositor functions.
 
     Returns (init_fn, step_fn) where
@@ -518,24 +535,23 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
     a ``prng`` key; it splits into one key per layer, and a random-reset
     layer draws its uniforms from its own (core.py:518, :278).
 
-    Moveref and sum layers update through ``ops/compositor.py``'s
-    ``layer_update`` (kernels K0 and K1 on the card, which draw the random
-    reset in registers), and the stack renders through its ``composite``
-    (K2); on the CPU both run their plain versions. Introduction and
-    static layers update through their plain ops, and so does a moveref
-    layer whose movement gather runs sharded (``halo`` under a ``mesh``
-    that splits H, ``_mesh_splits``): the route is fixed here, from the
-    configuration.
+    Every layer updates through ``ops/compositor.py``: moveref and sum
+    layers through ``layer_update`` (kernels K0 and K1 on the card, which
+    draw the random reset in registers), introduction layers through
+    ``introduction_update`` (K0 and K3), static layers through
+    ``static_blit`` (K4); the stack renders through ``composite`` (K2). On
+    the CPU each runs its plain version.
 
-    ``halo``: the bounded movement gather for H-sharded runs, under
-    ``mesh`` (a ``SpaceMesh``) its sharded form; see ``movement_targets``.
+    ``halo``: the bounded movement gather for H-sharded runs (see
+    ``movement_targets``). The state lies whole on one device, under a
+    mesh too: the JAX package's sharded gather under a mesh that splits H
+    equals the bounded one.
 
     Parity: transflow/compositor/compositor.py:17-53."""
     device = resolve_device(device)
     bg_color = torch.tensor(parse_color(background_color), dtype=torch.uint8,
                             device=device)
     default_params = list(layer_params)
-    sharded_movement = _mesh_splits(mesh, height, halo)
 
     def init_fn():
         return [init_layer_state(p) for p in default_params]
@@ -549,21 +565,15 @@ def build_compositor(layer_params: Sequence[LayerParams], height: int,
         new_state = []
         for idx, params in enumerate(params_list):
             classname = params.cfg.classname
-            random = params.cfg.reset_mode == "random"
             if classname == "introduction":
-                new_state.append(update_introduction(
+                new_state.append(kernels.introduction_update(
                     params, state[idx], flow, pixmaps[idx],
-                    frame_numbers[idx], halo, mesh))
+                    frame_numbers[idx], halo))
             elif classname == "static":
-                new_state.append(update_static(params, state[idx], flow,
-                                               pixmaps[idx]))
-            elif classname == "moveref" and sharded_movement:
-                rand = prng.uniform(keys[idx], (params.height, params.width),
-                                    flow.device) if random else None
-                new_state.append(update_moveref(
-                    params, state[idx], flow, pixmaps[idx], rand, halo,
-                    mesh))
+                new_state.append(kernels.static_blit(params, state[idx],
+                                                     pixmaps[idx]))
             else:
+                random = params.cfg.reset_mode == "random"
                 new_state.append(kernels.layer_update(
                     params, state[idx], flow, pixmaps[idx],
                     keys[idx] if random else None, halo))

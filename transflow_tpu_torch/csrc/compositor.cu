@@ -1,10 +1,13 @@
-// The compositor's moveref step for Hopper (sm_90a): kernels K0, K1, K2.
+// The compositor's layer updates and render for Hopper (sm_90a): kernels
+// K0-K4.
 //
 // They replace jnp code that XLA compiles (there is no Pallas source) in
 // transflow_tpu/compositor/core.py, as the port's compositor/core.py runs
-// it for moveref and sum layers:
-//  * K1 ``layer_update_kernel``: one layer's update, ``update_moveref``
-//    (:351) or ``update_sum`` (:363), in one pass a pixel:
+// it; ``build_compositor`` sends every layer class through them on the
+// card, with or without a mesh:
+//  * K1 ``layer_update_kernel``: a moveref or sum layer's update,
+//    ``update_moveref`` (:351) or ``update_sum`` (:363), in one pass a
+//    pixel:
 //    - the movement (``_movement``, :154-241): the flow rounded half to
 //      even, src = clip(base + d), with a halo the row clamped to the halo
 //      window (ops/halo_gather.py:27), alpha, pos_i, pos_j, source and
@@ -25,12 +28,30 @@
 //    source may be another pixel's target.
 //  * K0 ``leave_empty_kernel``: ``moving_pixels_leave_empty_spot``'s
 //    occupancy scatter (transflow_tpu/ops/scatter.py:13 scatter_any, as
-//    ``_movement`` runs it, :224-230). It computes each pixel's target
-//    flag from the old state, as K1 does, and marks the (clamped) source of
-//    each target with a byte. Every writer writes the same 1, so the order
-//    the stores land in does not matter. K1 reads its pixel's mark (alpha
-//    0, then ``arrived`` sets 1: JAX's order). The wrapper zeroes a new
-//    buffer for each K0 launch.
+//    ``_movement`` runs it, :224-230) of a moveref or an introduction
+//    layer. It computes each pixel's target flag from the old state, as
+//    K1 and K3 do, and marks the (halo-clamped) source of each target with
+//    a byte. Every writer writes the same 1, so the order the stores land
+//    in does not matter. K1 and K3 read their pixel's mark (alpha 0, then
+//    ``arrived`` sets 1: JAX's order). The wrapper zeroes a new buffer for
+//    each K0 launch.
+//  * K3 ``introduction_update_kernel``: an introduction layer's update,
+//    ``update_introduction`` (:393), in one pass a pixel: the same
+//    movement as K1's, carrying rgb, source, pos_i, pos_j and frame; the
+//    eligibility mask from the moved alpha, ``moving`` and the six
+//    ``introduce_*`` flags in JAX's order (:410-425), ``introduce_once``
+//    reading the old ``introduced_once`` on the device; then each source of
+//    the launch's group in order, where the mask and its introduction mask
+//    hold: rgb from the pixmap at the gather point (src, not halo-clamped,
+//    or the base with ``introduce_on_all_*``), alpha its 4th byte or 1,
+//    the source index, the gather point as positions and the source's
+//    frame number. The mask is computed once, before any source: a launch
+//    of a later group (kContinue) reads it from the plane the first launch
+//    wrote, and the new state in place. It never writes the old state.
+//  * K4 ``static_blit_kernel``: ``update_static`` (:378): each source's rgb
+//    (and alpha, for a 4-channel source) copied where its introduction mask
+//    holds, in source order, into a new rgba; a later group reads the
+//    running rgba in place.
 //  * K2 ``composite_kernel``: ``render_layer`` (:457) over the layer stack
 //    and ``build_compositor``'s ``render_fn`` (:533): alpha *= mask_alpha
 //    (the product in float32, then the cast to uint8 through int64 as
@@ -38,13 +59,20 @@
 //    written to a new state tensor where a mask is set, and the image
 //    ``where(alpha != 0, rgb, image)`` over the background.
 //
-// Launch arguments. A launch takes its sources (K1) or layers (K2) in a
-// struct passed by value, at most kMaxSources or kMaxLayers of them. More
-// go over several launches (ops/compositor.py): K1's later launches
+// Launch arguments. A launch takes its sources (K1, K3, K4) or layers (K2)
+// in a struct passed by value, at most kMaxSources or kMaxLayers of them.
+// More go over several launches (ops/compositor.py): K1's later launches
 // (kContinue) only regather over their group of sources, reading the new
-// state and carrying the running rgba in place; K2's later launches carry
-// the running image. Both loops are sequential selections, so the groups
-// give the one-pass result exactly.
+// state and carrying the running rgba in place; K3's only introduce their
+// group, K4's only blit theirs; K2's later launches carry the running
+// image. Every loop over sources or layers is a sequential selection, so
+// the groups give the one-pass result exactly.
+//
+// Meshes. Under a mesh whose ``space`` axis splits H the JAX package
+// gathers through ``sharded_bounded_gather``; in the port's one process the
+// state is whole on one device, and that gather equals
+// ``bounded_row_gather``, which the halo argument computes. So a mesh
+// changes nothing here.
 //
 // Numbers. Every value but the reset steps and the alpha product is an
 // integer or a selection. The steps and the product are single IEEE
@@ -59,7 +87,11 @@
 // state (6 B), the gathered state (6 B), the old rgba (4 B) and one pixmap
 // pixel (3 B), and writes the state (6 B) and the rgba (4 B): 37 B/pixel,
 // 76.7 MB, ~0.023 ms at 3.35 TB/s. The draw's ~100 integer operations a
-// pixel are ~0.2 G, ~0.003 ms even at the f32 rate. K2 on one unmasked layer
+// pixel are ~0.2 G, ~0.003 ms even at the f32 rate. K3 reads at most the
+// flow (8 B), the own and the gathered state (13 B each), the masks and
+// the mark (3 B), a pixmap pixel (3 B) and writes 13 B: ~50 B/pixel, ~0.03
+// ms. K4 on one 3-channel source reads the rgba, the mask and the pixmap
+// and writes the rgba: 12 B/pixel, ~0.0074 ms. K2 on one unmasked layer
 // reads 4 B and writes 3 B a pixel: ~0.0043 ms. The design is the simple
 // one: a thread a pixel, byte loads, rgba as one 4-byte word; the gathers
 // follow the flow, so a smooth flow keeps a warp's reads in a few lines.
@@ -86,6 +118,14 @@ constexpr int kPosIn32 = 1 << 7;      // the state's positions are int32
 constexpr int kPosOut32 = 1 << 8;     // the new positions are int32
 constexpr int kModeShift = 9;         // 2 bits: the reset mode
 constexpr int kModeRandom = 1, kModeConstant = 2, kModeLinear = 3;
+// K3's eligibility flags (the layer's introduce_* settings)
+constexpr int kOnEmpty = 1 << 11;    // introduce_pixels_on_empty_spots
+constexpr int kOnFilled = 1 << 12;   // introduce_pixels_on_filled_spots
+constexpr int kMovingOk = 1 << 13;   // introduce_moving_pixels
+constexpr int kUnmovingOk = 1 << 14;  // introduce_unmoving_pixels
+constexpr int kAllFilled = 1 << 15;  // introduce_on_all_filled_spots
+constexpr int kAllEmpty = 1 << 16;   // introduce_on_all_empty_spots
+constexpr int kOnce = 1 << 17;       // introduce_once
 constexpr uint8_t kNoSource = 255;    // reset_source plane: no source
 
 // One layer's update (K0, K1). Pointers first, so the layout is the same
@@ -118,6 +158,49 @@ struct UpdateArgs {
   int flags;
   int factor_plane;  // reset_factor is (H, W), else one value
   unsigned key0, key1;  // the layer's threefry key (random mode)
+};
+
+// An introduction layer's update (K3); the same layout rules.
+struct IntroArgs {
+  const float2* flow;     // (H, W, 2) float32 (dx, dy)
+  const uint8_t* rgb;     // (H, W, 3); kContinue: the new state, as below
+  const uint8_t* alpha;   // (H, W)
+  const uint8_t* source;  // (H, W)
+  const int16_t* pos_i;   // (H, W)
+  const int16_t* pos_j;
+  const int* frame;       // (H, W) int32
+  uint8_t* out_rgb;
+  uint8_t* out_alpha;
+  uint8_t* out_source;
+  int16_t* out_pos_i;
+  int16_t* out_pos_j;
+  int* out_frame;
+  const uint8_t* mask_src;         // bool (H, W), or null: all true
+  const uint8_t* mask_dst;         // bool (H, W), or null
+  const uint8_t* marks;            // K0's occupancy, kLeaveEmpty only
+  const uint8_t* introduced_once;  // the old state's 0-d bool, kOnce only
+  uint8_t* eligible;  // (H, W): the eligibility mask, written by the first
+                      // launch and read by kContinue; null for one launch
+  const uint8_t* intro_masks[kMaxSources];  // bool (H, W)
+  const uint8_t* pixmaps[kMaxSources];      // (H, W, channels) uint8
+  int channels[kMaxSources];                // 3 or 4
+  int frames[kMaxSources];                  // the sources' frame numbers
+  int num_sources;   // of this launch's group
+  int first_source;  // the group's first source index
+  int H, W;
+  int halo;          // < 0: none
+  int flags;
+};
+
+// A static layer's blit (K4).
+struct BlitArgs {
+  const uchar4* rgba;  // (H, W, 4): the old rgba, or the running one
+  uchar4* out;         // (H, W, 4)
+  const uint8_t* masks[kMaxSources];    // bool (H, W): introduction masks
+  const uint8_t* pixmaps[kMaxSources];  // (H, W, channels) uint8
+  int channels[kMaxSources];            // 3 or 4
+  int num_sources;
+  int n;  // H * W
 };
 
 struct RenderLayer {
@@ -195,8 +278,11 @@ struct Target {
   bool is_target;
 };
 
-__device__ __forceinline__ Target movement_target(const UpdateArgs& a,
-                                                  int p, int i, int j,
+// Args: UpdateArgs (K0, K1) or IntroArgs (K3), which share the fields read
+// here.
+template <class Args>
+__device__ __forceinline__ Target movement_target(const Args& a, int p,
+                                                  int i, int j,
                                                   bool filled) {
   const float2 f = a.flow[p];
   // torch.round(...).to(int32): round half to even, then the cast
@@ -328,6 +414,112 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
+    introduction_update_kernel(const IntroArgs a) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= a.H * a.W) return;
+  const int i = p / a.W, j = p - i * a.W;
+  // the gather point of the pixmaps: the movement's source (clipped to the
+  // frame, never to the halo) or, with introduce_on_all_*, the base
+  int gi = i, gj = j;
+  if (!(a.flags & (kAllFilled | kAllEmpty))) {
+    const float2 f = a.flow[p];
+    gi = clampi(wrap_add(i, (int)rintf(f.y)), 0, a.H - 1);
+    gj = clampi(wrap_add(j, (int)rintf(f.x)), 0, a.W - 1);
+  }
+  uint8_t r, g, b, alpha, source;
+  int16_t pi, pj;
+  int frame;
+  bool eligible;
+  if (!(a.flags & kContinue)) {
+    const uint8_t own_alpha = a.alpha[p];
+    const Target t = movement_target(a, p, i, j, own_alpha != 0);
+    const int q = t.is_target ? t.q : p;
+    r = a.rgb[3 * (size_t)q];
+    g = a.rgb[3 * (size_t)q + 1];
+    b = a.rgb[3 * (size_t)q + 2];
+    source = a.source[q];
+    pi = a.pos_i[q];
+    pj = a.pos_j[q];
+    frame = a.frame[q];
+    const uint8_t g_alpha = a.alpha[t.q];
+    uint8_t new_alpha = t.is_target ? g_alpha : own_alpha;
+    if ((a.flags & kLeaveEmpty) && a.marks[p] != 0) new_alpha = 0;
+    const bool arrived =
+        (a.flags & kTransparent) ? t.is_target && g_alpha != 0 : t.is_target;
+    alpha = arrived ? 1 : new_alpha;
+    // the eligibility mask from the moved alpha, in JAX's order
+    const bool filled = alpha != 0;
+    bool m = true;
+    if (!(a.flags & kOnEmpty)) m = m && filled;
+    if (!(a.flags & kOnFilled)) m = m && !filled;
+    if (!(a.flags & kMovingOk)) m = m && !t.moving;
+    if (!(a.flags & kUnmovingOk)) m = m && t.moving;
+    if (a.flags & kAllFilled) m = m || filled;
+    if (a.flags & kAllEmpty) m = m || !filled;
+    if ((a.flags & kOnce) && *a.introduced_once != 0) m = false;
+    eligible = m;
+    if (a.eligible != nullptr) a.eligible[p] = m;
+  } else {
+    // a later group: the new state in place, the mask the first launch
+    // wrote
+    r = a.rgb[3 * (size_t)p];
+    g = a.rgb[3 * (size_t)p + 1];
+    b = a.rgb[3 * (size_t)p + 2];
+    alpha = a.alpha[p];
+    source = a.source[p];
+    pi = a.pos_i[p];
+    pj = a.pos_j[p];
+    frame = a.frame[p];
+    eligible = a.eligible[p] != 0;
+  }
+  if (eligible) {
+    const size_t m = (size_t)gi * a.W + gj;
+#pragma unroll
+    for (int k = 0; k < kMaxSources; ++k) {
+      if (k >= a.num_sources) break;
+      if (a.intro_masks[k][p] == 0) continue;
+      const int ch = a.channels[k];
+      const uint8_t* px = a.pixmaps[k] + m * ch;
+      r = px[0];
+      g = px[1];
+      b = px[2];
+      alpha = ch == 4 ? px[3] : 1;
+      source = (uint8_t)(a.first_source + k);
+      pi = (int16_t)gi;
+      pj = (int16_t)gj;
+      frame = a.frames[k];
+    }
+  }
+  a.out_rgb[3 * (size_t)p] = r;
+  a.out_rgb[3 * (size_t)p + 1] = g;
+  a.out_rgb[3 * (size_t)p + 2] = b;
+  a.out_alpha[p] = alpha;
+  a.out_source[p] = source;
+  a.out_pos_i[p] = pi;
+  a.out_pos_j[p] = pj;
+  a.out_frame[p] = frame;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    static_blit_kernel(const BlitArgs a) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= a.n) return;
+  uchar4 px = a.rgba[p];
+#pragma unroll
+  for (int k = 0; k < kMaxSources; ++k) {
+    if (k >= a.num_sources) break;
+    if (a.masks[k][p] == 0) continue;
+    const int ch = a.channels[k];
+    const uint8_t* q = a.pixmaps[k] + (size_t)p * ch;
+    px.x = q[0];
+    px.y = q[1];
+    px.z = q[2];
+    if (ch == 4) px.w = q[3];
+  }
+  a.out[p] = px;
+}
+
+__global__ void __launch_bounds__(kThreads)
     composite_kernel(const CompositeArgs a) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= a.n) return;
@@ -377,18 +569,40 @@ bool aligned(const void* p, uintptr_t n) {
   return (reinterpret_cast<uintptr_t>(p) % n) == 0;
 }
 
+bool channels_ok(const int* channels, int n) {
+  for (int k = 0; k < n; ++k)
+    if (channels[k] != 3 && channels[k] != 4) return false;
+  return true;
+}
+
 int check_update(const UpdateArgs* a) {
   if (a == nullptr || a->H < 1 || a->W < 1 ||
       (long long)a->H * a->W > 0x7fffffffLL || a->num_sources < 0 ||
-      a->num_sources > kMaxSources)
+      a->num_sources > kMaxSources ||
+      !channels_ok(a->channels, a->num_sources))
     return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < a->num_sources; ++k)
-    if (a->channels[k] != 3 && a->channels[k] != 4)
-      return (int)cudaErrorInvalidValue;
   if (!aligned(a->flow, 8) || !aligned(a->rgba, 4) ||
       !aligned(a->out_rgba, 4))
     return (int)cudaErrorMisalignedAddress;
   if ((a->flags & kLeaveEmpty) && a->marks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+int check_intro(const IntroArgs* a) {
+  if (a == nullptr || a->H < 1 || a->W < 1 ||
+      (long long)a->H * a->W > 0x7fffffffLL || a->num_sources < 0 ||
+      a->num_sources > kMaxSources ||
+      !channels_ok(a->channels, a->num_sources))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned(a->flow, 8) || !aligned(a->pos_i, 2) ||
+      !aligned(a->pos_j, 2) || !aligned(a->frame, 4) ||
+      !aligned(a->out_pos_i, 2) || !aligned(a->out_pos_j, 2) ||
+      !aligned(a->out_frame, 4))
+    return (int)cudaErrorMisalignedAddress;
+  if (((a->flags & kLeaveEmpty) && a->marks == nullptr) ||
+      ((a->flags & kOnce) && a->introduced_once == nullptr) ||
+      ((a->flags & kContinue) && a->eligible == nullptr))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -399,15 +613,22 @@ unsigned blocks_for(long long n) {
 
 }  // namespace
 
-// sizeof(UpdateArgs) (which 0) or sizeof(CompositeArgs) (1): the wrapper
-// checks its ctypes mirrors against them.
+// sizeof(UpdateArgs) (which 0), sizeof(CompositeArgs) (1), sizeof(IntroArgs)
+// (2) or sizeof(BlitArgs) (3), -1 for another ``which``: the wrapper checks
+// its ctypes mirrors against them.
 extern "C" int transflow_compositor_args_size(int which) {
-  return which == 0 ? (int)sizeof(UpdateArgs) : (int)sizeof(CompositeArgs);
+  switch (which) {
+    case 0: return (int)sizeof(UpdateArgs);
+    case 1: return (int)sizeof(CompositeArgs);
+    case 2: return (int)sizeof(IntroArgs);
+    case 3: return (int)sizeof(BlitArgs);
+    default: return -1;
+  }
 }
 
-// K0 over the layer's old state: marks[q] = 1 for the source q of every
-// target pixel. marks: H*W bytes, all zero before the launch. Returns a
-// cudaError_t.
+// K0 over a moveref or an introduction layer's old state (its flow, alpha
+// and masks): marks[q] = 1 for the source q of every target pixel. marks:
+// H*W bytes, all zero before the launch. Returns a cudaError_t.
 extern "C" int transflow_leave_empty_sources(const void* args, void* stream) {
   const UpdateArgs* a = static_cast<const UpdateArgs*>(args);
   if (const int err = check_update(a)) return err;
@@ -418,6 +639,7 @@ extern "C" int transflow_leave_empty_sources(const void* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
+
 // K1: the layer's new state (kContinue: only the regather of a later
 // group, into out_rgba, reading rgba == out_rgba). Returns a cudaError_t.
 extern "C" int transflow_layer_update(const void* args, void* stream) {
@@ -425,6 +647,33 @@ extern "C" int transflow_layer_update(const void* args, void* stream) {
   if (const int err = check_update(a)) return err;
   layer_update_kernel<<<blocks_for((long long)a->H * a->W), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// K3: an introduction layer's new state (kContinue: only the introduction
+// of a later group, reading and writing the new state in place, with the
+// mask the first launch wrote to ``eligible``). Returns a cudaError_t.
+extern "C" int transflow_introduction_update(const void* args,
+                                             void* stream) {
+  const IntroArgs* a = static_cast<const IntroArgs*>(args);
+  if (const int err = check_intro(a)) return err;
+  introduction_update_kernel<<<blocks_for((long long)a->H * a->W), kThreads,
+                               0, static_cast<cudaStream_t>(stream)>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// K4: a static layer's new rgba over ``num_sources`` sources (a later group
+// passes rgba == out). Returns a cudaError_t.
+extern "C" int transflow_static_blit(const void* args, void* stream) {
+  const BlitArgs* a = static_cast<const BlitArgs*>(args);
+  if (a == nullptr || a->n < 1 || a->num_sources < 0 ||
+      a->num_sources > kMaxSources ||
+      !channels_ok(a->channels, a->num_sources))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned(a->rgba, 4) || !aligned(a->out, 4))
+    return (int)cudaErrorMisalignedAddress;
+  static_blit_kernel<<<blocks_for(a->n), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -8,9 +8,10 @@ JAX's threefry key of ``cfg.seed`` (``prng``), split once per frame on both
 paths as in the JAX Engine, so the random reset draws the JAX Engine's
 numbers and a chunk is bit-equal to the same frames one by one.
 
-Under a ``SpaceMesh`` the estimator's correlation and the compositor's
-movement gather are sharded over the mesh's devices (``mesh_safe_kwargs``,
-``halo``); everything else runs on ``mesh.devices[0]``.
+Under a ``SpaceMesh`` the estimator's correlation is sharded over the
+mesh's devices (``mesh_safe_kwargs``); everything else runs on
+``mesh.devices[0]``, the compositor's movement through the ``halo``'s
+bounded gather, which equals the JAX package's sharded one.
 """
 import logging
 from typing import Sequence
@@ -194,10 +195,10 @@ class Engine:
         by default (no card and no ``device`` raises). ``mesh``: a
         ``SpaceMesh``; the network and the state then live on
         ``mesh.devices[0]`` (the default ``device``; one that disagrees
-        raises), LiteFlowNet's correlation is sharded over the mesh and,
-        with ``halo``, so is the movement gather. ``halo``: the bounded
-        movement-gather displacement; pair it with a clip filter for
-        exactness."""
+        raises) and LiteFlowNet's correlation is sharded over the mesh.
+        ``halo``: the bounded movement-gather displacement (under a mesh
+        the JAX package shards that gather; its result is the same); pair
+        it with a clip filter for exactness."""
         self.cfg = cfg
         self.device = mesh_device(mesh, device)
         self.mesh = mesh
@@ -225,8 +226,7 @@ class Engine:
         self.layer_params = list(layer_params)
         init_fn, comp_step = build_compositor(
             self.layer_params, out_height, out_width,
-            cfg.compositor_background, halo=halo, mesh=mesh,
-            device=self.device)
+            cfg.compositor_background, halo=halo, device=self.device)
         self.comp_state = init_fn()
         render_mode = ("flow" if cfg.view_flow
                        else "magnitude" if cfg.view_flow_magnitude

@@ -9,7 +9,7 @@ so the random reset draws the JAX model's numbers.
 Ported: Farneback (``takes_prev``: the previous raw flow warm-starts it
 with flag 4) and LiteFlowNet (its weights loaded only for that method),
 both directions, the flow filters, mask and kernel, every layer class,
-and the ``halo``/``mesh`` movement gather. The other estimators raise
+and the ``halo``'s bounded movement gather. The other estimators raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from typing import Sequence
@@ -49,8 +49,9 @@ class FlowTransferModel:
                  mesh=None,
                  device=None):
         """``halo``: the bounded movement gather; ``mesh``: a
-        ``SpaceMesh``, under which the gather is sharded and everything
-        else runs on ``mesh.devices[0]`` (``device`` defaults to it, and
+        ``SpaceMesh``, under which LiteFlowNet's correlation is sharded
+        and everything else runs on ``mesh.devices[0]``, the movement
+        gather too (``device`` defaults to it, and
         without a mesh to the current CUDA device: with no card and no
         ``device`` the constructor raises; pass ``device="cpu"`` for the
         CPU). ``estimator_kwargs`` reach the
@@ -79,7 +80,7 @@ class FlowTransferModel:
             device=self.device)
         init_fn, comp_step = build_compositor(
             self.layer_params, self.out_height, self.out_width,
-            background_color, halo=halo, mesh=mesh, device=self.device)
+            background_color, halo=halo, device=self.device)
         self._comp_init = init_fn
         self._comp_step = comp_step
         estimator_kwargs = dict(estimator_kwargs or {})

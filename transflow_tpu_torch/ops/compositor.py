@@ -1,25 +1,36 @@
-"""The compositor's moveref step and render: kernels K0 (the leave-empty
-sources), K1 (a moveref or sum layer's update) and K2 (the composite).
+"""The compositor's layer updates and render: kernels K0 (the leave-empty
+sources), K1 (a moveref or sum layer's update), K3 (an introduction
+layer's update), K4 (a static layer's blit) and K2 (the composite).
 
 Counterpart of transflow_tpu/compositor/core.py's ``update_moveref``,
 ``update_sum`` (the movement, the random reset's draw, the reset and the
-regather) and ``render_layer`` over ``build_compositor``'s layer stack,
-which XLA compiles from jnp ops (there is no Pallas source). Each kernel
-has three functions, as the Farneback ops have: ``*_plain``, the plain
-PyTorch version (the port's compositor/core.py functions, called with the
-kernel's arguments, groups included); ``*_cuda``, which launches the
-hand-written kernel of ``csrc/compositor.cu`` and counts its launches; and
-the dispatcher, which sends CPU tensors to the first and CUDA tensors to
-the second, with no fallback between them. The two agree bit for bit.
+regather), ``update_introduction`` (the movement, the eligibility mask and
+the introduction of each source), ``update_static`` and ``render_layer``
+over ``build_compositor``'s layer stack, which XLA compiles from jnp ops
+(there is no Pallas source). Each kernel has three functions, as the
+Farneback ops have: ``*_plain``, the plain PyTorch version (the port's
+compositor/core.py functions, called with the kernel's arguments, groups
+included); ``*_cuda``, which launches the hand-written kernel of
+``csrc/compositor.cu`` and counts its launches; and the dispatcher, which
+sends CPU tensors to the first and CUDA tensors to the second, with no
+fallback between them. The two agree bit for bit.
 
-A launch takes at most ``MAX_SOURCES`` sources (K1) or ``MAX_LAYERS``
-layers (K2) by value; more go over several launches (``group``), each
-carrying the running rgba or image, which gives the one-pass result: both
-loops are sequential selections. The plain versions take ``group`` too and
-regather over the same groups.
+A launch takes at most ``MAX_SOURCES`` sources (K1, K3, K4) or
+``MAX_LAYERS`` layers (K2) by value; more go over several launches
+(``group``), each carrying the running state, rgba or image, which gives
+the one-pass result: every loop is a sequential selection. K3's later
+launches read the eligibility mask the first one wrote, since JAX computes
+it once, before any source. The plain versions take ``group`` too and run
+over the same groups.
+
+Every layer class updates through these kernels on the card, under a mesh
+too: with ``halo`` the movement reads through the bounded row gather,
+which equals the JAX package's sharded gather (ops/halo_gather.py), and
+the state lies whole on one device.
 
 The random reset's key is a layer's ``prng`` key (uint32 (2,)), passed to
-K1 as two launch arguments: no copy and no host sync.
+K1 as two launch arguments, and an introduction layer's frame numbers are
+ints in K3's arguments: no copy and no host sync.
 """
 import ctypes
 import functools
@@ -36,7 +47,7 @@ MAX_SOURCES = 8
 MAX_LAYERS = 8
 # K0, K1 and K2 launches of one compositor step (update and render) on
 # the card over one moveref or sum layer of at most MAX_SOURCES sources
-# that leaves no empty spots (the flagship's stack)
+# that leaves no empty spots (the flagship's stack), under a mesh or not
 MOVEREF_PER_FRAME = (0, 1, 1)
 
 # csrc/compositor.cu's flag bits
@@ -51,6 +62,14 @@ _POS_IN32 = 1 << 7
 _POS_OUT32 = 1 << 8
 _MODE_SHIFT = 9
 _MODES = {"off": 0, "random": 1, "constant": 2, "linear": 3}
+# K3's eligibility flags, by the layer setting that sets each
+_INTRO_FLAGS = {"introduce_pixels_on_empty_spots": 1 << 11,
+                "introduce_pixels_on_filled_spots": 1 << 12,
+                "introduce_moving_pixels": 1 << 13,
+                "introduce_unmoving_pixels": 1 << 14,
+                "introduce_on_all_filled_spots": 1 << 15,
+                "introduce_on_all_empty_spots": 1 << 16,
+                "introduce_once": 1 << 17}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,6 +85,27 @@ class _UpdateArgs(ctypes.Structure):
         (name, _I) for name in ("num_sources", "first_source", "H", "W",
                                 "halo", "flags", "factor_plane")] + [
         ("key0", ctypes.c_uint), ("key1", ctypes.c_uint)]
+
+
+class _IntroArgs(ctypes.Structure):
+    """csrc/compositor.cu's IntroArgs (K3)."""
+    _fields_ = [(name, _P) for name in (
+        "flow", "rgb", "alpha", "source", "pos_i", "pos_j", "frame",
+        "out_rgb", "out_alpha", "out_source", "out_pos_i", "out_pos_j",
+        "out_frame", "mask_src", "mask_dst", "marks", "introduced_once",
+        "eligible")] + [
+        ("intro_masks", _P * MAX_SOURCES), ("pixmaps", _P * MAX_SOURCES),
+        ("channels", _I * MAX_SOURCES), ("frames", _I * MAX_SOURCES)] + [
+        (name, _I) for name in ("num_sources", "first_source", "H", "W",
+                                "halo", "flags")]
+
+
+class _BlitArgs(ctypes.Structure):
+    """csrc/compositor.cu's BlitArgs (K4)."""
+    _fields_ = [("rgba", _P), ("out", _P), ("masks", _P * MAX_SOURCES),
+                ("pixmaps", _P * MAX_SOURCES),
+                ("channels", _I * MAX_SOURCES), ("num_sources", _I),
+                ("n", _I)]
 
 
 class _RenderLayer(ctypes.Structure):
@@ -84,7 +124,8 @@ class _CompositeArgs(ctypes.Structure):
 def _check_abi() -> None:
     """Raise unless the ctypes mirrors have the kernels' struct sizes."""
     lib = kernel_library()
-    for which, struct in enumerate((_UpdateArgs, _CompositeArgs)):
+    for which, struct in enumerate((_UpdateArgs, _CompositeArgs, _IntroArgs,
+                                    _BlitArgs)):
         size = lib.query("transflow_compositor_args_size", which)
         if size != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} is {ctypes.sizeof(struct)}"
@@ -120,24 +161,16 @@ def _check_group(group: int, most: int) -> None:
         raise ValueError(f"group must be an int in [1, {most}], got {group}")
 
 
-def _check_update(params, state: dict, flow: torch.Tensor, pixmaps, key,
-                  group: int) -> None:
-    """Raise unless the arguments are what K1 takes: a moveref or sum
-    layer's state, an (H, W, 2) float32 flow, one (H, W, C) uint8 pixmap a
-    source with C its channel count (3 or 4), a key in random mode."""
-    classname = params.cfg.classname
-    if classname not in ("moveref", "sum"):
-        raise ValueError(f"layer_update takes moveref and sum layers, not "
-                         f"{classname}")
+def _check_class(name: str, params, *classnames: str) -> None:
+    if params.cfg.classname not in classnames:
+        raise ValueError(f"{name} takes {' and '.join(classnames)} layers, "
+                         f"not {params.cfg.classname}")
+
+
+def _check_pixmaps(params, pixmaps) -> None:
+    """Raise unless ``pixmaps`` holds one (H, W, C) uint8 pixmap a source
+    with C its channel count (3 or 4)."""
     h, w = params.height, params.width
-    _check_plane("flow", flow, (h, w, 2), (torch.float32,))
-    for name in ("pos_i", "pos_j"):
-        _check_plane(name, state[name], (h, w), (torch.int16, torch.int32))
-    if state["pos_i"].dtype != state["pos_j"].dtype:
-        raise ValueError("pos_i and pos_j must have one dtype")
-    for name in ("alpha", "source"):
-        _check_plane(name, state[name], (h, w), (torch.uint8,))
-    _check_plane("rgba", state["rgba"], (h, w, 4), (torch.uint8,))
     if len(pixmaps) != params.num_sources:
         raise ValueError(f"the layer has {params.num_sources} sources, got "
                          f"{len(pixmaps)} pixmaps")
@@ -147,12 +180,77 @@ def _check_update(params, state: dict, flow: torch.Tensor, pixmaps, key,
             raise ValueError(f"source {s} has {channels} channels: pixmaps "
                              "have 3 or 4")
         _check_plane(f"pixmap {s}", pixmap, (h, w, channels), (torch.uint8,))
+
+
+def _check_update(params, state: dict, flow: torch.Tensor, pixmaps, key,
+                  group: int) -> None:
+    """Raise unless the arguments are what K1 takes: a moveref or sum
+    layer's state, an (H, W, 2) float32 flow, its pixmaps
+    (``_check_pixmaps``), a key in random mode."""
+    _check_class("layer_update", params, "moveref", "sum")
+    h, w = params.height, params.width
+    _check_plane("flow", flow, (h, w, 2), (torch.float32,))
+    for name in ("pos_i", "pos_j"):
+        _check_plane(name, state[name], (h, w), (torch.int16, torch.int32))
+    if state["pos_i"].dtype != state["pos_j"].dtype:
+        raise ValueError("pos_i and pos_j must have one dtype")
+    for name in ("alpha", "source"):
+        _check_plane(name, state[name], (h, w), (torch.uint8,))
+    _check_plane("rgba", state["rgba"], (h, w, 4), (torch.uint8,))
+    _check_pixmaps(params, pixmaps)
     if params.cfg.reset_mode == "random":
         k = np.asarray(key) if key is not None else None
         if k is None or k.shape != (2,) or k.dtype != np.uint32:
             raise ValueError("the random reset needs the layer's key, "
                              f"uint32 of shape (2,), got {key!r}")
     _check_group(group, MAX_SOURCES)
+
+
+def _check_introduction(params, state: dict, flow: torch.Tensor, pixmaps,
+                        frame_numbers, group: int) -> None:
+    """Raise unless the arguments are what K3 takes: an introduction
+    layer's state (rgb (H, W, 3), alpha and source (H, W) uint8, int16
+    positions, int32 frame numbers, a 0-d bool ``introduced_once``), an
+    (H, W, 2) float32 flow, its pixmaps and one frame number a source."""
+    _check_class("introduction_update", params, "introduction")
+    h, w = params.height, params.width
+    _check_plane("flow", flow, (h, w, 2), (torch.float32,))
+    _check_plane("rgb", state["rgb"], (h, w, 3), (torch.uint8,))
+    for name, dtype in (("alpha", torch.uint8), ("source", torch.uint8),
+                        ("pos_i", torch.int16), ("pos_j", torch.int16),
+                        ("frame", torch.int32)):
+        _check_plane(name, state[name], (h, w), (dtype,))
+    _check_plane("introduced_once", state["introduced_once"], (),
+                 (torch.bool,))
+    _check_pixmaps(params, pixmaps)
+    if len(frame_numbers) != params.num_sources:
+        raise ValueError(f"the layer has {params.num_sources} sources, got "
+                         f"{len(frame_numbers)} frame numbers")
+    _check_group(group, MAX_SOURCES)
+
+
+def _check_static(params, state: dict, pixmaps, group: int) -> None:
+    """Raise unless the arguments are what K4 takes: a static layer's
+    (H, W, 4) uint8 rgba and its pixmaps."""
+    _check_class("static_blit", params, "static")
+    _check_plane("rgba", state["rgba"], (params.height, params.width, 4),
+                 (torch.uint8,))
+    _check_pixmaps(params, pixmaps)
+    _check_group(group, MAX_SOURCES)
+
+
+def _groups(num_sources: int, group: int):
+    """(first, count) of each launch over ``num_sources`` sources in
+    groups of ``group``; one launch for none."""
+    for first in range(0, max(num_sources, 1), group):
+        yield first, min(group, num_sources - first)
+
+
+def _source_ranges(num_sources: int, group: int) -> list[range]:
+    """The sources of each launch over ``num_sources`` sources in groups
+    of ``group``."""
+    return [range(first, first + count)
+            for first, count in _groups(num_sources, group)]
 
 
 def _check_composite(params_list, states, background: torch.Tensor,
@@ -184,9 +282,10 @@ def _check_composite(params_list, states, background: torch.Tensor,
 
 def leave_empty_sources_plain(params, state: dict, flow: torch.Tensor,
                               halo: int | None = None) -> torch.Tensor:
-    """(H, W) bool: the pixels some target of the movement reads, where
-    ``moving_pixels_leave_empty_spot`` empties them (``scatter_any`` over
-    the movement's targets, core.py ``_movement``)."""
+    """(H, W) bool: the pixels some target of a moveref or introduction
+    layer's movement reads, where ``moving_pixels_leave_empty_spot``
+    empties them (``scatter_any`` over the movement's targets, core.py
+    ``_movement``)."""
     return _core().leave_empty_sources(params, state["alpha"], flow, halo)
 
 
@@ -204,7 +303,7 @@ def _update_args(params, state: dict, flow: torch.Tensor, halo,
     return _UpdateArgs(
         flow=flow.data_ptr(), pos_i=state["pos_i"].data_ptr(),
         pos_j=state["pos_j"].data_ptr(), alpha=state["alpha"].data_ptr(),
-        source=state["source"].data_ptr(), rgba=state["rgba"].data_ptr(),
+        source=state["source"].data_ptr(), rgba=_ptr(state.get("rgba")),
         mask_src=_ptr(params.mask_src), mask_dst=_ptr(params.mask_dst),
         H=params.height, W=params.width,
         halo=-1 if halo is None else int(halo), flags=flags)
@@ -214,14 +313,13 @@ def leave_empty_sources_cuda(params, state: dict, flow: torch.Tensor,
                              halo: int | None = None,
                              out: torch.Tensor | None = None
                              ) -> torch.Tensor:
-    """Kernel K0 on contiguous tensors on one CUDA device: marks (uint8 1)
-    in ``out`` (H, W) uint8, which must be all zero (a new zeroed buffer
-    when None), and returns it. ``leave_empty_sources_cuda.launches``
-    counts launches."""
+    """Kernel K0 on contiguous tensors on one CUDA device, over a moveref
+    or introduction layer's flow, alpha and masks: marks (uint8 1) in
+    ``out`` (H, W) uint8, which must be all zero (a new zeroed buffer when
+    None), and returns it. ``leave_empty_sources_cuda.launches`` counts
+    launches."""
     h, w = params.height, params.width
-    if params.cfg.classname != "moveref":
-        raise ValueError("leave_empty_sources takes moveref layers, not "
-                         f"{params.cfg.classname}")
+    _check_class("leave_empty_sources", params, "moveref", "introduction")
     _check_plane("flow", flow, (h, w, 2), (torch.float32,))
     if out is None:
         out = torch.zeros((h, w), dtype=torch.uint8, device=flow.device)
@@ -260,10 +358,8 @@ def layer_update_plain(params, state: dict, flow: torch.Tensor, pixmaps,
     else:
         state = core.moveref_movement(params, state, flow, halo)
     state = core._reset(params, state, rand)
-    for first in range(0, max(params.num_sources, 1), group):
-        state = core._reference_rgba(
-            params, state, pixmaps,
-            range(first, min(first + group, params.num_sources)))
+    for sources in _source_ranges(params.num_sources, group):
+        state = core._reference_rgba(params, state, pixmaps, sources)
     return state
 
 
@@ -315,7 +411,7 @@ def layer_update_cuda(params, state: dict, flow: torch.Tensor, pixmaps,
         args.reset_source = params.last_source_plane.data_ptr()
     if cfg.reset_mode == "random":
         args.key0, args.key1 = (int(k) for k in np.asarray(key))
-    for first in range(0, max(params.num_sources, 1), group):
+    for first, count in _groups(params.num_sources, group):
         if first:
             # a later group: the regather alone, over the new state and
             # the running rgba
@@ -323,7 +419,6 @@ def layer_update_cuda(params, state: dict, flow: torch.Tensor, pixmaps,
                                       else 0)
             for name in ("pos_i", "pos_j", "alpha", "source", "rgba"):
                 setattr(args, name, new[name].data_ptr())
-        count = min(group, params.num_sources - first)
         args.num_sources, args.first_source = count, first
         for k in range(count):
             args.pixmaps[k] = pixmaps[first + k].data_ptr()
@@ -349,6 +444,162 @@ def layer_update(params, state: dict, flow: torch.Tensor, pixmaps,
                   flow, *(state[k] for k in ("pos_i", "alpha", "rgba")),
                   *pixmaps)
     return fn(params, state, flow, pixmaps, key, halo, group)
+
+
+# ---------------------------------------------------------------------------
+# K3: an introduction layer's update
+# ---------------------------------------------------------------------------
+
+def introduction_update_plain(params, state: dict, flow: torch.Tensor,
+                              pixmaps, frame_numbers,
+                              halo: int | None = None,
+                              group: int = MAX_SOURCES) -> dict:
+    """An introduction layer's new state: the port's
+    ``update_introduction`` (core.py) over the sources in groups of
+    ``group``."""
+    _check_introduction(params, state, flow, pixmaps, frame_numbers, group)
+    return _core().update_introduction(
+        params, state, flow, pixmaps, frame_numbers, halo,
+        _source_ranges(params.num_sources, group))
+
+
+def introduction_update_cuda(params, state: dict, flow: torch.Tensor,
+                             pixmaps, frame_numbers,
+                             halo: int | None = None,
+                             group: int = MAX_SOURCES) -> dict:
+    """Kernel K3 on contiguous tensors on one CUDA device (after K0 where
+    the layer leaves empty spots), one launch a group of ``group``
+    sources; returns new state tensors (it never writes the caller's).
+    Where there is more than one group, the first launch writes the
+    eligibility mask to a plane the later ones read.
+    ``introduction_update_cuda.launches`` counts K3's launches."""
+    _check_introduction(params, state, flow, pixmaps, frame_numbers, group)
+    cfg = params.cfg
+    h, w = params.height, params.width
+    names = ("rgb", "alpha", "source", "pos_i", "pos_j", "frame")
+    masks = [m for m in (params.mask_src, params.mask_dst) if m is not None]
+    check_cuda("introduction_update_cuda", flow,
+               *(state[k] for k in names), state["introduced_once"],
+               *pixmaps, *masks, *params.intro_masks)
+    _check_abi()
+    device = flow.device
+    stream = cuda_stream(flow)
+    new = {k: torch.empty_like(state[k]) for k in names}
+    flags = 0
+    for on, bit in ((cfg.transparent_pixels_can_move, _TRANSPARENT),
+                    (cfg.pixels_can_move_to_empty_spot, _TO_EMPTY),
+                    (cfg.pixels_can_move_to_filled_spot, _TO_FILLED),
+                    *((getattr(cfg, name), bit)
+                      for name, bit in _INTRO_FLAGS.items())):
+        if on:
+            flags |= bit
+    args = _IntroArgs(
+        flow=flow.data_ptr(), mask_src=_ptr(params.mask_src),
+        mask_dst=_ptr(params.mask_dst),
+        introduced_once=state["introduced_once"].data_ptr(),
+        H=h, W=w, halo=-1 if halo is None else int(halo))
+    for name in names:
+        setattr(args, name, state[name].data_ptr())
+        setattr(args, f"out_{name}", new[name].data_ptr())
+    if cfg.moving_pixels_leave_empty_spot:
+        flags |= _LEAVE_EMPTY
+        marks = leave_empty_sources_cuda(params, state, flow, halo)
+        args.marks = marks.data_ptr()
+    if params.num_sources > group:
+        eligible = torch.empty((h, w), dtype=torch.uint8, device=device)
+        args.eligible = eligible.data_ptr()
+    args.flags = flags
+    for first, count in _groups(params.num_sources, group):
+        if first:
+            # a later group: its introduction alone, over the new state
+            # in place and the mask the first launch wrote
+            args.flags = flags | _CONTINUE
+            for name in names:
+                setattr(args, name, new[name].data_ptr())
+        args.num_sources, args.first_source = count, first
+        for k in range(count):
+            args.intro_masks[k] = params.intro_masks[first + k].data_ptr()
+            args.pixmaps[k] = pixmaps[first + k].data_ptr()
+            args.channels[k] = params.channel_counts[first + k]
+            args.frames[k] = int(frame_numbers[first + k])
+        launch(device, "transflow_introduction_update",
+               ctypes.addressof(args), stream)
+        introduction_update_cuda.launches += 1
+    # a fill on the device, as the plain version makes it
+    new["introduced_once"] = torch.ones_like(state["introduced_once"])
+    return new
+
+
+introduction_update_cuda.launches = 0
+
+
+def introduction_update(params, state: dict, flow: torch.Tensor, pixmaps,
+                        frame_numbers, halo: int | None = None,
+                        group: int = MAX_SOURCES) -> dict:
+    """Dispatcher of K3 (and K0) by the flow's device. ``frame_numbers``:
+    one int a source."""
+    flow = flow.contiguous()
+    state = {k: v.contiguous() for k, v in state.items()}
+    pixmaps = tuple(x.contiguous() for x in pixmaps)
+    fn = dispatch("introduction_update", introduction_update_plain,
+                  introduction_update_cuda, flow,
+                  *(state[k] for k in ("rgb", "alpha", "introduced_once")),
+                  *pixmaps)
+    return fn(params, state, flow, pixmaps, frame_numbers, halo, group)
+
+
+# ---------------------------------------------------------------------------
+# K4: a static layer's blit
+# ---------------------------------------------------------------------------
+
+def static_blit_plain(params, state: dict, pixmaps,
+                      group: int = MAX_SOURCES) -> dict:
+    """A static layer's new state: the port's ``update_static`` (core.py),
+    over the sources in groups of ``group``."""
+    _check_static(params, state, pixmaps, group)
+    return _core().update_static(
+        params, state, None, pixmaps,
+        groups=_source_ranges(params.num_sources, group))
+
+
+def static_blit_cuda(params, state: dict, pixmaps,
+                     group: int = MAX_SOURCES) -> dict:
+    """Kernel K4 on contiguous tensors on one CUDA device, one launch a
+    group of ``group`` sources (one for none), a later one carrying the
+    running rgba; returns the new state (it never writes the caller's).
+    ``static_blit_cuda.launches`` counts launches."""
+    _check_static(params, state, pixmaps, group)
+    rgba = state["rgba"]
+    check_cuda("static_blit_cuda", rgba, *pixmaps, *params.intro_masks)
+    _check_abi()
+    out = torch.empty_like(rgba)
+    args = _BlitArgs(rgba=rgba.data_ptr(), out=out.data_ptr(),
+                     n=params.height * params.width)
+    for first, count in _groups(params.num_sources, group):
+        if first:
+            args.rgba = out.data_ptr()   # the running rgba, in place
+        args.num_sources = count
+        for k in range(count):
+            args.masks[k] = params.intro_masks[first + k].data_ptr()
+            args.pixmaps[k] = pixmaps[first + k].data_ptr()
+            args.channels[k] = params.channel_counts[first + k]
+        launch(rgba.device, "transflow_static_blit", ctypes.addressof(args),
+               cuda_stream(rgba))
+        static_blit_cuda.launches += 1
+    return {"rgba": out}
+
+
+static_blit_cuda.launches = 0
+
+
+def static_blit(params, state: dict, pixmaps,
+                group: int = MAX_SOURCES) -> dict:
+    """Dispatcher of K4 by the rgba's device."""
+    state = {"rgba": state["rgba"].contiguous()}
+    pixmaps = tuple(x.contiguous() for x in pixmaps)
+    fn = dispatch("static_blit", static_blit_plain, static_blit_cuda,
+                  state["rgba"], *pixmaps)
+    return fn(params, state, pixmaps, group)
 
 
 # ---------------------------------------------------------------------------

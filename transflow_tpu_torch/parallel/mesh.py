@@ -6,10 +6,12 @@ single-controller layout: one process drives every device, ``shard_map``
 splits exactly two ops by hand (the sharded correlation and the sharded
 movement gather) and GSPMD places the rest. The port keeps that form in
 one process: a ``SpaceMesh`` is a list of torch devices, one per shard,
-and the two hand-sharded ops split their operands over it, exchange
-boundary rows between neighbours (the two ``ppermute``s of the JAX
-entries) and join the result. Every other op runs whole on
-``mesh.devices[0]``.
+and a hand-sharded op splits its operands over it, exchanges boundary
+rows between neighbours (the two ``ppermute``s of the JAX entries) and
+joins the result. The correlation runs so on the main path; the
+compositor's movement reads through the bounded gather whole on
+``mesh.devices[0]``, as every other op runs, which equals the sharded
+one (``ops/halo_gather.py::sharded_bounded_gather``, kept and tested).
 
 Devices may repeat: ``SpaceMesh(["cuda:0"] * 4)`` runs four real shards,
 with a real halo exchange, on one card, and ``SpaceMesh(["cpu"] * 4)``
