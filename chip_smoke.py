@@ -4,6 +4,7 @@
                           [--steps [NAME=]CSRC_DIR ...]
     python3 chip_smoke.py --lfn-profile
     python3 chip_smoke.py --mesh-profile
+    python3 chip_smoke.py --classic-profile
 
 ``--lfn-profile`` runs only phases 1-2's build and phase 4's bound-0
 LiteFlowNet Engine: its host syncs, ATen ops and profile a frame
@@ -13,7 +14,9 @@ kernels B16 and B17, so a copy of this script in another tree's checkout
 ``--mesh-profile`` runs only the paths of phases 5, S (stream 2 x space
 2) and M, each timed and profiled (``mesh_profile_only``), with the
 package this process imports: ``--against``'s turns run it with another
-tree's package (``script_argv``).
+tree's package (``script_argv``). ``--classic-profile`` runs only phase
+F's ``CvFlowConfig()`` Engine and phase H's ``lukas-kanade.json`` Engine,
+each timed and profiled (``classic_profile_only``), for the same turns.
 
 Phases, in order; any failure exits non-zero:
 
@@ -25,15 +28,16 @@ Phases, in order; any failure exits non-zero:
    git-ignored ``transflow_tpu_torch/_build``); prints each kernel
    instantiation's registers, shared memory and spills as ptxas reported
    them, and fails unless ptxas reported the correlation kernel,
-   Farneback's B1, B2a and B2b, B5's two kernels, B9-B12 and the
-   pyramids' kernels (B8, B14) free of spills;
+   Farneback's B1, B2a and B2b, B5's two kernels, B9-B13 and the
+   pyramids' kernels (B8, B14, B15) free of spills;
 F. farneback engine: ``Engine`` at 1080x1920 over a gray frame source with
    ``CvFlowConfig()`` (Farneback with cv2's defaults, the headline
    command's estimator), one moveref layer with random reset 0.01 over
    frames panned 3 px per frame: a warm-up chunk, a timed chunk of 8
    frames and ``process_frame`` calls, counting 4 B1 (one per level, both
-   images), 12 B2a, 12 B2b and 1 B8 (every level below L0 of both
-   images) launches per frame, the interior median flow of every frame
+   images), 12 B2a, 12 B2b, 1 B8 (every level below L0 of both images)
+   and 3 B15 (the flow's resizes between levels) launches per frame, the
+   interior median flow of every frame
    within 0.5 px of the pan; then the same Engine with ``assets/configs/
    fast.json``, ``fastest.json`` and ``fb_select_warp=16``, and with
    ``CvFlowConfig()`` once more (the first run of a process reads slower);
@@ -41,7 +45,8 @@ P. pipeline: the port's CLI disk to disk in a temporary directory over 24
    P5 frames at 1080x1920 panned as in phase F. P1: ``cli.main`` with
    the headline command's defaults, ``-p noise -r random 0.01 --seed 0
    -o out/%04d.ppm -F -C``: 23 frames that decode to 1080x1920x3, 4 B1
-   + 12 B2a + 12 B2b + 1 B8 launches per frame, every exported flow's interior
+   + 12 B2a + 12 B2b + 1 B8 + 3 B15 launches per frame, every exported
+   flow's interior
    median within 0.5 px of the pan, the Engine's state on the card; the
    same cut to 12 frames (``-t 00:00:00.480``), whose frames must be
    P1's first and whose host syncs against P1's give the syncs a frame
@@ -59,7 +64,7 @@ P. pipeline: the port's CLI disk to disk in a temporary directory over 24
    ``ControlSession`` over P1's end checkpoint (a 1080x1920 mapping, a
    paint shown in ``preview()``) and ``FlowClip.flow(0)`` over the PGM
    frames on the card (bit-equal to Farneback on the pair, 4 B1 + 12
-   B2a + 12 B2b + 1 B8 launches). Prints the disk-to-disk frames/s and
+   B2a + 12 B2b + 1 B8 + 3 B15 launches). Prints the disk-to-disk frames/s and
    ``StageTimers``' split per frame of P1, P2 and P4, and the bare
    Engine's ms/frame on the same frames;
 T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
@@ -71,7 +76,7 @@ T. post-processing, merges and layer classes: ``Engine`` at 1080x1920
    ``--move-mask-source``, ``--move-mask-destination`` and ``-r random
    0.01 -m`` a fractional mask image: a warm-up chunk, a timed chunk of
    8 frames and ``process_frame`` calls, counting 8 B1, 24 B2a, 24 B2b,
-   2 B8 and 2 B5 launches (B5's two kernels, no memset) and the
+   2 B8, 6 B15 and 2 B5 launches (B5's two kernels, no memset) and the
    compositor's 2 K0, 2 K1, 1 K3, 1 K4 and 1 K2 per frame, finite flows,
    the per-frame checksums read back once, 0 host syncs per frame, and
    its profile (device busy time and idle share per frame); then the same
@@ -87,10 +92,11 @@ H. the secondary estimators: ``Engine`` at 1080x1920 over phase F's pan
    ``lukas-kanade``, ``lk16``): a warm-up chunk, a timed chunk of 8
    frames and ``process_frame`` calls, counting 1 B9 and ``hs_iterations``
    B10 launches per frame, or 30 B11, 33 B12 (10 of each per level, and
-   B12's structure tensor once per level, at three levels) and 1 B14 (the
-   whole pyramid of both frames, their float32 casts included), finite
-   flows,
-   0 host syncs per frame, and for ``lukas-kanade.json`` every interior
+   B12's structure tensor once per level, at three levels), 3 B13 (the
+   Scharr derivatives, one a level), 2 B15 (the flow's resizes between
+   levels) and 1 B14 (the whole pyramid of both frames, their float32
+   casts included), finite flows, 0 host syncs per frame, and for
+   ``lukas-kanade.json`` every interior
    median within 0.5 px of the pan; then a static pair through
    Horn-Schunck (one iteration taken of 5, read back once after the
    frame), then ``cli.main`` over 4 PGM frames of the pan with ``-c
@@ -138,8 +144,9 @@ G. live tuning, video input, the MJPEG preview and the GUI. G1, on every
    pan, 4 frames through ``process_frame``, then
    ``CvFlowConfigWindow(config).apply_value("fb_iterations", "5")`` with
    no window opened, then 4 frames more: one estimator rebuild (on the
-   first frame after the change), B1/B2a/B2b/B8 launches a frame
-   4/12/12/1 then 4/20/20/1, 0 host syncs a frame after the rebuild frame, the
+   first frame after the change), B1/B2a/B2b/B8/B15 launches a frame
+   4/12/12/1/3 then 4/20/20/1/3, 0 host syncs a frame after the rebuild
+   frame, the
    rebuild frame's raw flow bit-equal to ``farneback`` with the new
    ``estimator_kwargs()`` on the same pair and warm start; ms/frame
    before, on and after the rebuild frame. G2, where cv2 and aiohttp
@@ -147,7 +154,8 @@ G. live tuning, video input, the MJPEG preview and the GUI. G1, on every
    in an .avi); ``CvFlowSource``'s gray frames bit-equal to
    ``cv2.VideoCapture``'s own; ``cli.main([clip, "-p", "noise",
    "--seed", "0", "-o", out/%04d.ppm])`` on the card (23 frames,
-   4/12/12/1 launches and, against a 12-frame cut, 0 host syncs a frame); ``-o
+   4/12/12/1/3 launches and, against a 12-frame cut, 0 host syncs a
+   frame); ``-o
    mjpeg:PORT`` with one multipart frame fetched over HTTP that decodes
    to 1080x1920; the headline ``clip.avi -p still.png -o out.mp4``
    (the encoder chain's first writer that opens; 23 frames reopened by
@@ -164,7 +172,8 @@ K. the bench: ``transflow_tpu_torch/bench.py``'s ``main(["--e2e"])`` in
    1088x1920, the ``fastest`` preset and the CLI disk to disk over a cv2
    MJPG clip (still pixmap, video pixmap, ``.flow.zip`` replay), the
    record printed as its own JSON line; it must hold every field, B1/B2a/
-   B2b/B8 launches of 4/12/12/1 and A1/A3/B7/B16/B17/B18 of 5/0/14/6/5/93 a
+   B2b/B8/B15 launches of 4/12/12/1/3 and A1/A3/B7/B16/B17/B18 of
+   5/0/14/6/5/93 a
    frame, 0
    host syncs a frame and this card's name and power limit; then 3 cases of
    the chunk
@@ -266,9 +275,11 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    ``F.conv_transpose2d`` and B17 at every phase 7b row, B18 beside every
    device event of the ops it replaced at every phase 7c path row (a
    frame's 93 launches summed), B1, B2a, B2b, B8
-   at the four levels and B9-B12, B14 at theirs, B8 and B14 beside every
-   device event of the path each replaced; then the Farneback Engine's
-   (which must show no cuDNN kernel and none of ``F_REPLACED_OPS``),
+   at the four levels and B9-B15 at theirs, B8, B13, B14 and B15 beside
+   every device event of the path each replaced (and its events a call),
+   B13 and B15 beside their library calls; then the Farneback Engine's
+   (which must show no cuDNN kernel and none of ``F_REPLACED_OPS``, as
+   must the Lucas-Kanade Engines' of phase H),
    phase 4's bound-0 LiteFlowNet Engine's (with its ATen ops a frame,
    each of its hand-written kernels' device time a frame, ``lfn_profile``,
    and ``epilogue_audit``: no bias add, no parameter cast and only the
@@ -323,7 +334,11 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    ``git archive``), that tree's and this one's paths of phases 5, S at 2
    x 2 and M in turns (``against_mesh_paths``: one ``--mesh-profile``
    process a turn, the other tree's package run by this script): ms a
-   stream-frame, device events and busy ms each.
+   stream-frame, device events and busy ms each; then phase F's
+   ``CvFlowConfig()`` Engine and phase H's ``lukas-kanade.json`` Engine
+   of both trees in turns (``against_classic_paths``: one
+   ``--classic-profile`` process a turn): ms, device events, busy ms and
+   idle share a frame.
 
 B5. after phase B: kernel B5 (``forward_to_backward``) against its plain
    version at 1080x1920 on a random forward flow, a converging one (every
@@ -345,9 +360,19 @@ B9. after B5: kernels B9 (``hs_derivatives``) and B10 (``hs_iterate``,
    that pyramid from the pan's uint8 pair in one launch (the main row,
    beside the path it replaced, ``b14_replaced``: the frames' casts and a
    reduce a level), then each level below L0 alone from one image of the
-   level above (``downsample2x``), each bit-equal to its plain version on
-   the same inputs, with ``device_ms``, the bound, its share and the
-   plain version's time.
+   level above (``downsample2x``), B13 (``lk_scharr``) at the three
+   levels, and B15 (``resize_flow``) on a random flow at each of
+   ``B15_CASES``: the flagship's three level changes at 1080p (also
+   Lucas-Kanade's two and the fast preset's upscale), the fastest
+   preset's x4 upscale, fb_pyr_scale 0.8's last change and a warm
+   start's fb_downscale 2 and 4 pre-resizes, each bit-equal to its plain
+   version on the same inputs, with ``device_ms``, the bound, its share
+   and the plain version's time; B13 and B15 beside the library call
+   that computes the same function (``scharr_library``: one
+   ``F.conv2d`` of the edge-replicated level, TF32 off;
+   ``resize_library``: ``F.interpolate`` and the product; each within
+   ``LIBRARY_REL`` of the kernel) and the path each replaced
+   (``b13_replaced``, ``b15_replaced``: ``device_ms`` and ATen ops).
 C. after phase 9: the compositor's kernels (``ops/compositor.py``,
    ``csrc/compositor.cu``) against their plain versions at 1080x1920,
    bit-equal: K1 (``layer_update``) on phase F's Engine state, its
@@ -368,7 +393,9 @@ Every Engine, CLI and bench run of the main path counts the compositor's
 launches beside the estimators' (``KERNEL_NAMES``: K0, K1, K2, then the
 pyramids' B8 and B14, then LiteFlowNet's exact backwarp B7 and its heads'
 B16 and B17, 6 and 5 a LiteFlowNet frame, its convolution epilogue
-B18, 93, ``LFN_HEADS``, then the compositor's K3 and K4): one moveref
+B18, 93, ``LFN_HEADS``, then the compositor's K3 and K4, then
+Lucas-Kanade's Scharr derivatives B13 and the flow's resize B15, one a
+change of level in Farneback and Lucas-Kanade): one moveref
 layer updates through one K1 and renders through one K2 a frame
 (``C_MOVEREF``), under a mesh that splits the movement too (phases 5, S
 at 2 x 2 and M: the halo's bounded gather in K1); phase T's four layers
@@ -399,7 +426,11 @@ two levels written), and the operations of the blurs and the resize's
 bands in the order that needs fewest (``pyramid_bound_ms``); B5's counts
 the flow read and the mapping written once (16 bytes a pixel); B9-B12's
 each input and output plane once a launch
-(``hs_bound_ms``, ``lk_bound_ms``); K0-K4's the bytes that their
+(``hs_bound_ms``, ``lk_bound_ms``); B13's the level read and both
+derivatives written once and 20 operations a pixel; B15's the flow read
+and the resized one written once and the bands' operations in the plain
+version's order (``scharr_bound_ms``, ``resize_bound_ms``); K0-K4's the
+bytes that their
 outputs need on these inputs, pixel by pixel (``comp_k*_bound_ms``;
 K1's draw's integer operations counted at the f32 rate). They are
 hand-written for jnp code (no Pallas source) and no single PyTorch call
@@ -567,12 +598,13 @@ AGAINST_ROUNDS = 3   # rounds of (others, this, this, others) in phase 11
 FB_PAN = 3
 FB_PAN_TOL = 0.5
 FB_MARGIN = 64        # rows and columns left out of the median check
-# B1, B2a, B2b, B8 launches per frame of CvFlowConfig(): 4 levels (both
-# images in one launch), 3 iterations x 4 levels, 3 x 4, and one pyramid
-# launch for the 3 levels below L0 of both images
-FB_DEFAULT_PER_FRAME = (4, 12, 12, 1)
+# B1, B2a, B2b, B8, B15 launches per frame of CvFlowConfig(): 4 levels
+# (both images in one launch), 3 iterations x 4 levels, 3 x 4, one pyramid
+# launch for the 3 levels below L0 of both images, and the flow's 3
+# resizes between levels
+FB_DEFAULT_PER_FRAME = (4, 12, 12, 1, 3)
 # the Farneback kernels in launches_per_frame's order
-FB_NAMES = ("B1", "B2a", "B2b", "B8")
+FB_NAMES = ("B1", "B2a", "B2b", "B8", "B15")
 FB_PROFILE_CALLS = 3  # process_frame calls under the profiler (phase 10)
 FB_SYNC_CALLS = 1     # process_frame calls that count the host's syncs
 # (H, W, name) of the pyramid of a 1080p frame at pyr_scale 0.5, levels 3
@@ -654,6 +686,22 @@ def kernel_split(fn, launches: int = DEVICE_LAUNCHES) -> dict[str, float]:
             split[e.name] = (split.get(e.name, 0.0)
                              + e.time_range.elapsed_us() / 1e3 / launches)
     return split
+
+
+def device_events(fn, launches: int = 10) -> float:
+    """Device events (kernels, copies, sets) a call of ``fn`` under
+    ``torch.profiler``, over ``launches`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "device_type", None) == DeviceType.CUDA
+               for e in prof.events()) / launches
 
 
 def kernel_ms(fn, pattern: str, launches: int = DEVICE_LAUNCHES
@@ -779,7 +827,7 @@ NO_SPILL = ("corr7x7", "poly_expansion", "update_equations",
             "hs_derivatives", "hs_iterate", "lk_warp_products", "lk_window",
             "pyramid_levels_kernel", "lk_pyramid_kernel",
             "exact_backwarp_kernel", "upsample2x_phases_kernel",
-            "reg_apply_kernel")
+            "reg_apply_kernel", "lk_scharr_kernel", "flow_resize_kernel")
 
 
 def phase_build() -> list[dict]:
@@ -1517,10 +1565,12 @@ def _launch_counters():
                                                       hs_iterate_cuda)
     from transflow_tpu_torch.ops.lfn_heads import (reg_apply_cuda,
                                                    upsample2x_phases_cuda)
-    from transflow_tpu_torch.ops.lucas_kanade import (lk_warp_products_cuda,
+    from transflow_tpu_torch.ops.lucas_kanade import (lk_scharr_cuda,
+                                                      lk_warp_products_cuda,
                                                       lk_window_solve_cuda)
     from transflow_tpu_torch.ops.pyramid import (lk_pyramid_cuda,
-                                                 pyramid_levels_cuda)
+                                                 pyramid_levels_cuda,
+                                                 resize_flow_cuda)
     from transflow_tpu_torch.ops.scatter import forward_to_backward_cuda
     from transflow_tpu_torch.ops.warp import (bounded_backwarp_cuda,
                                               exact_backwarp_cuda)
@@ -1532,13 +1582,14 @@ def _launch_counters():
             leave_empty_sources_cuda, layer_update_cuda, composite_cuda,
             pyramid_levels_cuda, lk_pyramid_cuda, exact_backwarp_cuda,
             upsample2x_phases_cuda, reg_apply_cuda, conv_epilogue_cuda,
-            introduction_update_cuda, static_blit_cuda)
+            introduction_update_cuda, static_blit_cuda, lk_scharr_cuda,
+            resize_flow_cuda)
 
 
 # the names of _launches()'s entries
 KERNEL_NAMES = ("A3", "A1", "A2", "B1", "B2a", "B2b", "B5", "B9", "B10",
                 "B11", "B12", "K0", "K1", "K2", "B8", "B14", "B7", "B16",
-                "B17", "B18", "K3", "K4")
+                "B17", "B18", "K3", "K4", "B13", "B15")
 # the compositor's kernels whose launches a moveref layer's bars name
 C_NAMES = ("K0", "K1", "K2")
 
@@ -1879,14 +1930,14 @@ def p_tools(root: Path, card: str, gray, flows, frames_arg: str) -> None:
             launches != per_pair:
         raise AssertionError(f"FlowClip.flow(0): bit-equal "
                              f"{torch.equal(torch.from_numpy(flow), direct)}"
-                             f", B1/B2a/B2b/B8 launches {launches} "
+                             f", B1/B2a/B2b/B8/B15 launches {launches} "
                              "against "
                              f"{per_pair}")
     print(f"tools control: ControlSession over P1's end checkpoint, a "
           f"{session.width}x{session.height} mapping, a paint shown in "
           f"preview(); viewflow_player: FlowClip over {len(clip) + 1} P5 "
           f"frames, flow(0) on the card bit-equal to farneback on the pair, "
-          f"B1/B2a/B2b/B8 launches {launches} (farneback's defaults: "
+          f"B1/B2a/B2b/B8/B15 launches {launches} (farneback's defaults: "
           f"{per_pair}); on {card}")
 
 
@@ -1984,7 +2035,7 @@ def phase_pipeline(device, card: str) -> dict:
                      "-r", "random", "0.01", "--seed", str(SEED), "-o",
                      str(root / "p4" / "%04d.ppm")])
         if p4["launches"] != tuple(flows_n * x for x in fb_row(
-                (0, 0, 0, 0))):
+                (0, 0, 0, 0, 0))):
             raise AssertionError(f"P4: launches {p4['launches']} "
                                  f"{KERNEL_NAMES}: only the compositor's "
                                  f"{C_MOVEREF} a frame may run")
@@ -2044,13 +2095,14 @@ T_MOVE_DST = "circle:48%"
 # each layer's --mask-alpha, bottom to top: a 3-channel pixmap's alpha is
 # 0 or 1, so only a 0/1 mask leaves it visible
 T_ALPHA = ("ones", "rect:90%:90%", "border:40", "circle:35%")
-# the Engine's launches per frame: B1, B2a, B2b for two CvFlowConfig()
-# sources, and B5's two for the forward one; and the compositor's: the
+# the Engine's launches per frame: B1, B2a, B2b, B8 and B15 for two
+# CvFlowConfig() sources, and B5's two for the forward one; and the
+# compositor's: the
 # introduction and the moveref layer leave empty spots (two K0), the sum
 # and the moveref layer update through K1, the introduction layer through
 # K3, the static layer through K4, the stack renders in one K2
-T_PER_FRAME = named_row(B1=8, B2a=24, B2b=24, B5=2, B8=2, K0=2, K1=2, K2=1,
-                        K3=1, K4=1)
+T_PER_FRAME = named_row(B1=8, B2a=24, B2b=24, B5=2, B8=2, B15=6, K0=2, K1=2,
+                        K2=1, K3=1, K4=1)
 T_CLI_FRAMES = 12     # frames written for the CLI run; 11 flows
 T_SYNC_CALLS = 2
 T_PROFILE_CALLS = 3
@@ -2356,6 +2408,7 @@ H_PRESETS = ("horn-schunck.json", "horn-schunck-diverge.json",
              "horn-schunck-smooth-inertia.json", "lukas-kanade.json",
              "lk16.json")
 H_CLI_PRESETS = ("horn-schunck.json", "lukas-kanade.json")
+H_LK_PRESETS = ("lukas-kanade.json", "lk16.json")
 H_LK_ITERS = 10       # lucas_kanade's iterations a level (no config knob)
 H_SYNC_CALLS = 1
 H_PROFILE_CALLS = 2   # process_frame calls under the profiler (phase 10)
@@ -2377,6 +2430,29 @@ B9_OPS = 2 * 2 * 9 + 2 * 3 * 7 + 5
 B10_OPS = 2 * 15 + 11
 B11_OPS = 6 + 9 + 3
 B12_OPS = {"solve": 2 * 2 * 14 + 13, "tensor": 3 + 3 * 2 * 14 + 5}
+# B13: two derivatives, two passes each of three products and two sums
+B13_OPS = 2 * 2 * 5
+# B15's rows: (source, target, scale, what runs it); the first three are
+# the flagship's level changes (``main``: a Farneback frame's three
+# launches; Lucas-Kanade's two are its last two, the fast preset's
+# upscale to full size its last), then the fastest preset's x4 upscale,
+# fb_pyr_scale 0.8's last level change (no whole ratio), and a warm
+# start's fb_downscale 2 and 4 pre-resizes
+B15_CASES = (((135, 240), (270, 480), 2.0, "flagship L3->L2", True),
+             ((270, 480), (540, 960), 2.0, "flagship L2->L1, lk L2->L1",
+              True),
+             ((540, 960), (1080, 1920), 2.0,
+              "flagship L1->L0, lk L1->L0, fast x2", True),
+             ((270, 480), (1080, 1920), 4.0, "fastest x4", False),
+             ((864, 1536), (1080, 1920), 1.25, "fb_pyr_scale 0.8 L1->L0",
+              False),
+             ((1080, 1920), (540, 960), 0.5, "fast warm start 1/2", False),
+             ((1080, 1920), (270, 480), 0.25, "fastest warm start 1/4",
+              False))
+# a library call beside B13 and B15 agrees with them within this share of
+# the result's largest value: its sums are the library's, and where a
+# resize's ratio is not whole so are its weights (the fifth digit)
+LIBRARY_REL = 1e-4
 # the CUDA kernel behind each of phase H's wrappers (profiler names)
 H_KERNEL_NAMES = {"hs_derivatives": "hs_derivatives_kernel",
                   "hs_iterate": "hs_iterate_kernel",
@@ -2385,22 +2461,25 @@ H_KERNEL_NAMES = {"hs_derivatives": "hs_derivatives_kernel",
                   "lk_structure_tensor": "lk_window_kernel",
                   "lk_window_solve": "lk_window_kernel",
                   "lk_pyramid": "lk_pyramid_kernel",
-                  "downsample2x": "lk_pyramid_kernel"}
+                  "downsample2x": "lk_pyramid_kernel",
+                  "lk_scharr": "lk_scharr_kernel",
+                  "resize_flow": "flow_resize_kernel"}
 # launches per 1080p frame of each of phase H's kernel rows on the main
 # path: horn-schunck.json's 1 B9 and 3 B10; per Lucas-Kanade level 10 B11,
 # 1 tensor and 10 solves of B12
 H_PER_LEVEL = {"hs_derivatives": 1, "hs_iterate": 3,
                "lk_warp_products": H_LK_ITERS, "lk_structure_tensor": 1,
-               "lk_window_solve": H_LK_ITERS}
+               "lk_window_solve": H_LK_ITERS, "lk_scharr": 1}
 
 
 def h_per_frame(config, height: int, width: int) -> tuple:
     """``KERNEL_NAMES`` launches per frame of a Horn-Schunck or
     Lucas-Kanade config at H x W: 1 B9 and ``max_iters`` B10; or per level
     of the pyramid (the estimator's rule, ``lk_shapes``: levels while the
-    short side is at least twice the window) 10 B11 and 11 B12 (the
-    tensor and 10 solves), and the whole pyramid's B14 launches, one up
-    to two levels below L0 (``lk_launches``)."""
+    short side is at least twice the window) 1 B13, 10 B11 and 11 B12 (the
+    tensor and 10 solves), one B15 a change of level, and the whole
+    pyramid's B14 launches, one up to two levels below L0
+    (``lk_launches``)."""
     from transflow_tpu_torch.ops import pyramid
     kw = config.estimator_kwargs()
     comp = dict(zip(C_NAMES, C_MOVEREF))
@@ -2409,7 +2488,8 @@ def h_per_frame(config, height: int, width: int) -> tuple:
     levels = len(pyramid.lk_shapes(height, width, kw["win_size"],
                                    kw["max_level"]))
     return named_row(B11=H_LK_ITERS * levels, B12=(H_LK_ITERS + 1) * levels,
-                     B14=pyramid.lk_launches(levels), **comp)
+                     B13=levels, B14=pyramid.lk_launches(levels),
+                     B15=levels - 1, **comp)
 
 
 def phase_classic_engine(device, card: str) -> dict:
@@ -3125,7 +3205,7 @@ G_BEFORE = 4          # process_frame calls before the change
 G_AFTER = 4           # calls from the change on (the first rebuilds)
 G_ITERATIONS = "5"    # fb_iterations as the window's widget sends it
 # B1, B2a, B2b, B8 before and after
-G_PER_FRAME = ((4, 12, 12, 1), (4, 20, 20, 1))
+G_PER_FRAME = ((4, 12, 12, 1, 3), (4, 20, 20, 1, 3))
 G_FRAMES = 24         # frames of the cv2-written clip; 23 flows
 G_FPS = 25.0
 G_CUT = "00:00:00.480"  # -t: 12 frames at the clip's 25 frames/s
@@ -3215,8 +3295,8 @@ def g_live_tuning(device, card: str) -> dict:
     after = statistics.mean(ms[G_BEFORE + 1:])
     print(f"G1 live tuning {HEIGHT}x{WIDTH} CvFlowConfig() -> "
           f"fb_iterations={G_ITERATIONS} through CvFlowConfigWindow."
-          f"apply_value: 1 rebuild (frame {G_BEFORE}); B1/B2a/B2b/B8 a "
-          "frame "
+          f"apply_value: 1 rebuild (frame {G_BEFORE}); B1/B2a/B2b/B8/B15 "
+          "a frame "
           f"{'/'.join(map(str, G_PER_FRAME[0]))} -> "
           f"{'/'.join(map(str, G_PER_FRAME[1]))}; 0 host syncs a frame "
           f"after the rebuild frame; the rebuild frame's flow bit-equal to "
@@ -3314,7 +3394,7 @@ def g_video(device, card: str, root: Path) -> str:
                              f"{per_frame}, expected {FB_DEFAULT_PER_FRAME}")
     print(f"G2 video CLI {HEIGHT}x{WIDTH} clip.avi (MJPG, cv2) -p noise -o "
           f"out/%04d.ppm {flows_n} frames: {_p_split(run, flows_n)}; "
-          f"launches B1/B2a/B2b/B8 a frame {per_frame}; host syncs "
+          f"launches B1/B2a/B2b/B8/B15 a frame {per_frame}; host syncs "
           f"{run['syncs']} against {cut['syncs']} for the {G_CUT_FRAMES}-"
           f"frame cut: {syncs:g} a frame; on {card}")
     if syncs != 0:
@@ -3487,7 +3567,7 @@ def phase_bench(device, card: str) -> dict:
     """Phase K: the port's bench (``transflow_tpu_torch/bench.py``) in
     this process with ``--e2e``, cut to K_CHUNKS_PER_SAMPLE chunks a
     sample, K_REPEATS samples and K_E2E_FRAMES frames: its record (printed
-    on its own line) has every field, B1/B2a/B2b/B8 4/12/12/1 and
+    on its own line) has every field, B1/B2a/B2b/B8/B15 4/12/12/1/3 and
     A1/A3/B7/B16/B17/B18 5/0/14/6/5/93 launches a frame, 0 host syncs a
     frame and this card; then
     K_FUZZ_CASES cases of the chunk fuzzer on the card at K_FUZZ_SIZE,
@@ -3578,6 +3658,94 @@ def lk_bound_ms(kernel: str, h: int, w: int) -> tuple[float, str]:
     return _bound(px * (8 + 16 + 8 + 8), B12_OPS["solve"] * px)
 
 
+def scharr_bound_ms(h: int, w: int) -> tuple[float, str]:
+    """B13's bound: the level read once, ix and iy written once, and
+    ``B13_OPS`` float32 operations a pixel."""
+    return _bound(h * w * (4 + 8), B13_OPS * h * w)
+
+
+def resize_bound_ms(h: int, w: int, lh: int, lw: int) -> tuple[float, str]:
+    """B15's bound: the (h, w, 2) flow read once, the (lh, lw, 2) one
+    written once; the operations of the plain version's order on both
+    channels: along H at (lh, w), ky products and ky - 1 sums a value;
+    along W at (lh, lw), kx and kx - 1; the scale, one product (an axis of
+    equal size is skipped)."""
+    from transflow_tpu_torch.ops import pyramid
+    ops = 2 * lh * lw
+    if lh != h:
+        ops += 2 * lh * w * (2 * pyramid.resize_weights(h, lh)[1].shape[1]
+                             - 1)
+    if lw != w:
+        ops += 2 * lh * lw * (2 * pyramid.resize_weights(w, lw)[1].shape[1]
+                              - 1)
+    return _bound(8 * (h * w + lh * lw), ops)
+
+
+def scharr_library(image):
+    """The library call beside B13 on a prepared input: one ``F.conv2d``
+    (TF32 off) of the edge-replicated level with the two 3x3 filters, the
+    outer products of ``SCHARR_SMOOTH`` and ``SCHARR`` (exact), padding
+    made once outside the call."""
+    import torch.nn.functional as F
+    from transflow_tpu_torch.ops.image import exact_f32_convolutions
+    from transflow_tpu_torch.ops.lucas_kanade import SCHARR, SCHARR_SMOOTH
+    deriv = torch.tensor(SCHARR, device=image.device)
+    smooth = torch.tensor(SCHARR_SMOOTH, device=image.device)
+    weight = torch.stack([torch.outer(smooth, deriv),
+                          torch.outer(deriv, smooth)])[:, None]
+    padded = F.pad(image[None, None], (1, 1, 1, 1), mode="replicate")
+
+    def call():
+        with exact_f32_convolutions(image.device):
+            return F.conv2d(padded, weight)[0]
+    return call
+
+
+def resize_library(flow, lh: int, lw: int, scale: float):
+    """The library call beside B15: ``F.interpolate`` (bilinear, half-pixel
+    centres, anti-aliased on a downscale as JAX's resize is) of the flow's
+    (1, 2, h, w) view, times the scale; (2, lh, lw)."""
+    import torch.nn.functional as F
+    h, w = flow.shape[:2]
+    view = flow.permute(2, 0, 1)[None]
+    down = lh < h or lw < w
+
+    def call():
+        return F.interpolate(view, size=(lh, lw), mode="bilinear",
+                             align_corners=False, antialias=down)[0] * scale
+    return call
+
+
+def b13_replaced(image) -> list:
+    """The path B13 replaced, timed as its yardstick: each derivative as
+    two ``separable_correlate`` passes (``pad_axis``'s symmetric index
+    built on the card, ``index_select``, a cuDNN ``F.conv2d`` with TF32
+    off)."""
+    from transflow_tpu_torch.ops.image import separable_correlate
+    from transflow_tpu_torch.ops.lucas_kanade import SCHARR, SCHARR_SMOOTH
+    return [separable_correlate(separable_correlate(image, SCHARR, axis),
+                                SCHARR_SMOOTH, 1 - axis) for axis in (1, 0)]
+
+
+def b15_replaced(flow, lh: int, lw: int, scale: float):
+    """The path B15 replaced, timed as its yardstick:
+    ``ops/image.py::bilinear_resize`` (a permute, ``F.interpolate``, a
+    contiguous copy) times the scale."""
+    from transflow_tpu_torch.ops.image import bilinear_resize
+    return bilinear_resize(flow, lh, lw) * scale
+
+
+def _library_err(name: str, got, want) -> float:
+    """Max |got - want| of a library call beside a kernel, held within
+    ``LIBRARY_REL`` of the kernel's largest value."""
+    err = (got.float() - want.float()).abs().max().item()
+    bar = LIBRARY_REL * want.abs().max().item()
+    if not err <= bar:
+        raise AssertionError(f"{name}: the library call is {err} from the "
+                             f"kernel, above {bar}")
+    return err
+
+
 def phase_classic_kernels(device) -> list[dict]:
     """B9 and B10 at 1080x1920 on the pan's frames, and B11, B12 (both
     modes) at the three levels of Lucas-Kanade's 1080p pyramid on the
@@ -3590,7 +3758,12 @@ def phase_classic_kernels(device) -> list[dict]:
     of its blocks' fixed costs. B14 makes the pyramid of the pan's uint8
     pair in one launch, beside the path it replaced (``b14_replaced``) on
     the same frames, then each level below L0 from one image of the level
-    above."""
+    above. B13 makes each level's derivatives, and B15 resizes a random
+    flow at each of ``B15_CASES``, each beside the library call that
+    computes the same function (``scharr_library``, ``resize_library``:
+    held within ``LIBRARY_REL``) and the path it replaced
+    (``b13_replaced``, ``b15_replaced``) on the same inputs: their
+    ``device_ms`` and ATen ops."""
     from transflow_tpu_torch.flow.estimators import lucas_kanade as lke
     from transflow_tpu_torch.ops import horn_schunck as hs
     from transflow_tpu_torch.ops import lucas_kanade as lk
@@ -3688,8 +3861,49 @@ def phase_classic_kernels(device) -> list[dict]:
                functools.partial(pyramid.downsample2x_plain, (x,)),
                pyramid_bound_ms("downsample2x", ph, pw, ((h, w, 0.0),), F32,
                                 images=1), f"from ({ph},{pw}), one image")
+    def beside(row, library, replaced, what):
+        row["library_ms"] = device_ms(library)
+        row["library_call"] = library  # profiled in phase 10
+        row["replaced_ms"] = device_ms(replaced, PLAIN_LAUNCHES * 10)
+        row["replaced_ops"] = aten_ops(replaced)
+        row["replaced_call"] = replaced
+        print(f"classic {row['kernel']} {row['level']}: the library call "
+              f"({what}) device_ms {row['library_ms']:.5f}; the path it "
+              f"replaced device_ms {row['replaced_ms']:.5f}, "
+              f"{row['replaced_ops']} ATen ops")
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for (src, dst, scale, what, main) in B15_CASES:
+        flow = torch.randn((*src, 2), generator=gen, device=device) * 4
+        args = (flow, *dst, scale)
+        got = pyramid.resize_flow_cuda(*args)
+        _fb_compare(f"B15 {what}", got, pyramid.resize_flow_plain(*args))
+        library = resize_library(*args)
+        err = _library_err(f"B15 {what}", library().permute(1, 2, 0), got)
+        label = f"{src[0]}x{src[1]}->{dst[0]}x{dst[1]}"
+        row = record("resize_flow", label, *dst, 0.0,
+                     functools.partial(pyramid.resize_flow_cuda, *args),
+                     functools.partial(pyramid.resize_flow_plain, *args),
+                     resize_bound_ms(*src, *dst), f"{what}, x{scale}")
+        row["main"] = main
+        row["library_err"] = err
+        beside(row, library, functools.partial(b15_replaced, *args),
+               f"F.interpolate and the product, within {err:.3g}")
     for (h, w, level), (prev, nxt) in zip(H_LK_LEVELS, levels):
-        ix, iy = lke._scharr(prev, 1), lke._scharr(prev, 0)
+        ix, iy = lk.lk_scharr_cuda(prev)
+        want_x, want_y = lk.lk_scharr_plain(prev)
+        _fb_compare(f"B13 ix {level}", ix, want_x)
+        _fb_compare(f"B13 iy {level}", iy, want_y)
+        library = scharr_library(prev)
+        err = _library_err(f"B13 {level}", library(),
+                           torch.stack([ix, iy]))
+        row = record("lk_scharr", level, h, w, 0.0,
+                     functools.partial(lk.lk_scharr_cuda, prev),
+                     functools.partial(lk.lk_scharr_plain, prev),
+                     scharr_bound_ms(h, w), "both derivatives")
+        row["library_err"] = err
+        beside(row, library, functools.partial(b13_replaced, prev),
+               f"F.conv2d of the replicate-padded level, within {err:.3g}")
         flow = pan_flow(h, w, device)
         args = (prev, nxt, ix, iy, flow)
         got = lk.lk_warp_products_cuda(*args)
@@ -4821,11 +5035,18 @@ def phase_kernel_time(rows, a2_rows, warp_rows, b7_rows, up_rows,
     for row in h_rows:
         row["kernel_ms"] = kernel_ms(row.pop("call"),
                                      H_KERNEL_NAMES[row["kernel"]])
-        print(f"kernel time classic {row['kernel']} {row['level']}: "
-              f"{_ms_text(row['kernel_ms'])} (torch.profiler, per call) "
-              f"against device_ms {row['device_ms']:.5f} and bound "
-              f"{row['bound_ms']:.5f} ({row['bound_by']})"
-              f"{_replaced_text(row)}")
+        library = ""
+        if "library_call" in row:
+            # every device event of the library call
+            row["library_kernel_ms"] = kernel_ms(row.pop("library_call"),
+                                                 "")
+            library = (f", the library call "
+                       f"{_ms_text(row['library_kernel_ms'])}")
+        print(f"kernel time classic {row['kernel']} {row['level']} "
+              f"{row['variant']}: {_ms_text(row['kernel_ms'])}{library} "
+              f"(torch.profiler, per call) against device_ms "
+              f"{row['device_ms']:.5f} and bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']}){_replaced_text(row)}")
     for row in b5_rows:
         row["kernel_ms"] = kernel_ms(row.pop("call"), "")
         print(f"kernel time B5 {row['flow']}: {_ms_text(row['kernel_ms'])} "
@@ -4849,12 +5070,16 @@ def _ms_text(ms: float | None) -> str:
 
 def _replaced_text(row: dict) -> str:
     """The kernel time of the path a row's kernel replaced (every device
-    event of a call), where the row has one."""
+    event of a call) and its device events a call, where the row has
+    one."""
     if "replaced_call" not in row:
         return ""
-    row["replaced_kernel_ms"] = kernel_ms(row.pop("replaced_call"), "")
+    fn = row.pop("replaced_call")
+    row["replaced_kernel_ms"] = kernel_ms(fn, "")
+    row["replaced_events"] = device_events(fn)
     return (f"; the path it replaced {_ms_text(row['replaced_kernel_ms'])} "
-            f"(device_ms {row['replaced_ms']:.5f})")
+            f"in {row['replaced_events']:g} device events (device_ms "
+            f"{row['replaced_ms']:.5f})")
 
 
 def host_syncs(run: dict, calls: int) -> float:
@@ -4877,10 +5102,25 @@ def host_syncs(run: dict, calls: int) -> float:
 
 
 PROFILE_TOP = 16  # kernel names in the Engine's device time by name
-# ATen ops of the pyramid's path before B8 (cuDNN's convolutions, the pad
-# indices' gathers): phase F's profile must show none
+# ATen ops of the paths B8, B13 and B15 replaced (cuDNN's convolutions,
+# the pad indices' gathers, torch's resizes): the profiles of phase F's
+# Engine and of phase H's Lucas-Kanade Engines must show none
 F_REPLACED_OPS = ("aten::convolution", "aten::cudnn_convolution",
-                  "aten::index_select")
+                  "aten::index_select", "aten::upsample_bilinear2d",
+                  "aten::_upsample_bilinear2d_aa")
+
+
+def check_replaced_ops(name: str, profile: dict) -> None:
+    """Raise where an Engine's profile shows one of ``F_REPLACED_OPS`` or a
+    cuDNN kernel: a replaced path still on the estimator's."""
+    found = sorted(op for op in F_REPLACED_OPS if op in profile["aten_ops"])
+    found += sorted(n for n in profile["device_names"]
+                    if "cudnn" in n.lower())
+    if found:
+        raise AssertionError(f"{name} profile shows a replaced path: "
+                             f"{found}")
+    print(f"profile {name}: none of {', '.join(F_REPLACED_OPS)} and no "
+          "cuDNN kernel")
 
 
 def engine_profile(name: str, run: dict, calls: int, card: str,
@@ -5061,18 +5301,23 @@ def lfn_profile_only(device, card: str) -> None:
 MESH_RESULT = "mesh-profile "  # the start of --mesh-profile's result line
 MESH_TURN_FRAMES = 6   # phase 5's timed process_frame calls a turn
 MESH_TURN_TIMEOUT = 900  # seconds for one --mesh-profile process
-# counters a tree from before kernels K3 and K4 lacks
-LATER_COUNTERS = ("introduction_update_cuda", "static_blit_cuda")
+# counters a tree from before kernels K3 and K4, or B13 and B15, lacks:
+# (module of transflow_tpu_torch.ops, wrapper)
+LATER_COUNTERS = (("compositor", "introduction_update_cuda"),
+                  ("compositor", "static_blit_cuda"),
+                  ("lucas_kanade", "lk_scharr_cuda"),
+                  ("pyramid", "resize_flow_cuda"))
 
 
 def stand_in_later_counters() -> None:
     """``--mesh-profile`` only: gives the package this process imported
     a counter at 0 for each of ``LATER_COUNTERS`` it lacks, so that
     another tree's package runs the paths' launch counts."""
-    from transflow_tpu_torch.ops import compositor
-    for name in LATER_COUNTERS:
-        if not hasattr(compositor, name):
-            setattr(compositor, name, types.SimpleNamespace(launches=0))
+    import importlib
+    for module, name in LATER_COUNTERS:
+        ops = importlib.import_module(f"transflow_tpu_torch.ops.{module}")
+        if not hasattr(ops, name):
+            setattr(ops, name, types.SimpleNamespace(launches=0))
 
 
 def mesh_profile_only(device, card: str) -> None:
@@ -5182,6 +5427,103 @@ def against_mesh_paths(others: dict, card: str) -> dict:
                   f"device events "
                   f"{[round(t[phase]['events'], 1) for t in runs]}, busy ms "
                   f"{[round(t[phase]['busy_ms'], 3) for t in runs]}"
+                  for name, runs in turns.items()) + f" on {card}")
+    return turns
+
+
+CLASSIC_RESULT = "classic-profile "  # --classic-profile's result line
+# process_frame calls an Engine a turn before the timed ones (a process's
+# first Engine reads slower, PERF.md §7) and timed; ABBA rounds of turns
+CLASSIC_TURN_WARMUP = 8
+CLASSIC_TURN_FRAMES = 24
+CLASSIC_ROUNDS = 2
+CLASSIC_TURN_TIMEOUT = 600  # seconds for one --classic-profile process
+# the Engines of --classic-profile: phase F's flagship and phase H's
+# Lucas-Kanade preset (None: CvFlowConfig())
+CLASSIC_ENGINES = {"F": None, "H": "lukas-kanade.json"}
+
+
+def classic_profile_only(device, card: str) -> None:
+    """``--classic-profile``: phase F's ``CvFlowConfig()`` Engine and phase
+    H's ``lukas-kanade.json`` Engine on phase F's pan with the package of
+    the tree this process imported, each timed over
+    ``CLASSIC_TURN_FRAMES`` ``process_frame`` calls on the host clock (to
+    a synchronize) and profiled: ms, device events, busy ms and idle share
+    a frame. Prints one result line. It uses nothing that the package
+    lacked before kernels B13 and B15, so it runs another tree's package
+    for ``--against``'s turns."""
+    from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
+    configs = Path(__file__).resolve().parent / "assets" / "configs"
+    print(f"classic profile of {package_root()}")
+    warm = CLASSIC_TURN_WARMUP
+    frames = gray_frames(warm + CLASSIC_TURN_FRAMES + FB_PROFILE_CALLS + 1,
+                         HEIGHT, WIDTH, device)
+    pixmap = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).to(device)
+    result = {}
+    for phase, preset in CLASSIC_ENGINES.items():
+        config = (CvFlowConfig() if preset is None
+                  else CvFlowConfig.from_file(configs / preset))
+        engine, source = make_engine(device, frames, config)
+        items = iter(source)
+
+        def step(fno):
+            engine.process_frame([next(items)], ((pixmap,),), fno / 30.0,
+                                 ((fno,),))
+
+        for fno in range(warm):
+            step(fno)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for fno in range(warm, warm + CLASSIC_TURN_FRAMES):
+            step(fno)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - start) / CLASSIC_TURN_FRAMES
+        profile = engine_profile(f"classic {phase}", {
+            "step": step, "next_fno": warm + CLASSIC_TURN_FRAMES},
+            FB_PROFILE_CALLS, card)
+        result[phase] = {"ms": ms, "events": profile["events"],
+                         "busy_ms": profile["busy_ms"],
+                         "idle": profile.get("idle")}
+        del engine, source, items
+    print(CLASSIC_RESULT + json.dumps(result), flush=True)
+
+
+def against_classic_paths(others: dict, card: str) -> dict:
+    """Phases F (``CvFlowConfig()``) and H (``lukas-kanade.json``)'s
+    Engines of this tree and of each tree in ``others`` (name: root) in
+    turns, one ``--classic-profile`` process a turn (others, this, this,
+    others; ``CLASSIC_ROUNDS`` times): ms, device events, busy ms and idle
+    share a frame, every turn's beside the others'. Findings, not bars:
+    returns them by tree."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    roots = {"this": package_root(), **others}
+    order = [*others, "this", "this",
+             *reversed(list(others))] * CLASSIC_ROUNDS
+    turns = {name: [] for name in roots}
+    for name in order:
+        out = run_workers([script_argv("--classic-profile",
+                                       root=roots[name])],
+                          CLASSIC_TURN_TIMEOUT)[0]
+        for line in out.splitlines():
+            if line.startswith(CLASSIC_RESULT):
+                turns[name].append(json.loads(line[len(CLASSIC_RESULT):]))
+            else:
+                print(f"  [{name}] {line}")
+    def column(runs, phase, key, digits):
+        return [None if t[phase][key] is None else round(t[phase][key],
+                                                         digits)
+                for t in runs]
+
+    for phase, preset in CLASSIC_ENGINES.items():
+        print(f"against classic phase {phase} "
+              f"({preset or 'CvFlowConfig()'}, a frame, turns "
+              f"{' / '.join(order)}): " + "; ".join(
+                  f"{name} ms {column(runs, phase, 'ms', 3)}, device events "
+                  f"{column(runs, phase, 'events', 1)}, busy ms "
+                  f"{column(runs, phase, 'busy_ms', 3)}, idle "
+                  f"{column(runs, phase, 'idle', 3)}"
                   for name, runs in turns.items()) + f" on {card}")
     return turns
 
@@ -6048,6 +6390,11 @@ def main() -> int:
                         help="only the paths of phases 5, S (2 x 2) and M, "
                              "timed and profiled, with the package this "
                              "process imports (--against's turns)")
+    parser.add_argument("--classic-profile", action="store_true",
+                        help="only phase F's CvFlowConfig() and phase H's "
+                             "lukas-kanade.json Engines, timed and "
+                             "profiled, with the package this process "
+                             "imports (--against's turns)")
     parser.add_argument("--multihost-worker", type=int, nargs=2,
                         metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -6060,6 +6407,9 @@ def main() -> int:
         return 0
     if args.lfn_profile:
         lfn_profile_only(torch.device("cuda", 0), phase_device())
+        return 0
+    if args.classic_profile:
+        classic_profile_only(torch.device("cuda", 0), phase_device())
         return 0
     card = phase_device()
     libav = phase_libav()
@@ -6096,14 +6446,8 @@ def main() -> int:
     f_profile = engine_profile("farneback engine CvFlowConfig()",
                                fb_runs["CvFlowConfig()"], FB_PROFILE_CALLS,
                                card)
-    found = sorted(op for op in F_REPLACED_OPS if op in f_profile["aten_ops"])
-    found += sorted(n for n in f_profile["device_names"]
-                    if "cudnn" in n.lower())
-    if found:
-        raise AssertionError(f"phase F's profile shows the replaced "
-                             f"pyramid path: {found}")
-    print(f"profile farneback engine CvFlowConfig(): none of "
-          f"{', '.join(F_REPLACED_OPS)} and no cuDNN kernel; "
+    check_replaced_ops("phase F's CvFlowConfig()", f_profile)
+    print(f"profile farneback engine CvFlowConfig(): "
           f"{f_profile['events']:.1f} device events and "
           f"{f_profile['busy_ms']:.3f} ms busy a frame, "
           f"{fb_runs['CvFlowConfig()']['syncs']:g} host syncs a frame")
@@ -6136,6 +6480,8 @@ def main() -> int:
     for name, run in h_runs.items():
         run["profile"] = engine_profile(f"classic engine {name}", run,
                                         H_PROFILE_CALLS, card)
+        if name in H_LK_PRESETS:
+            check_replaced_ops(f"phase H's {name}", run["profile"])
     profile = engine_profile("streams 2 x 1 horn-schunck, a frame of both "
                              "streams", s_run["step_run"], S_PROFILE_CALLS,
                              card, "one-frame sharded_scan calls")
@@ -6164,6 +6510,7 @@ def main() -> int:
                  and d.parent.name == "transflow_tpu_torch"}
         if trees:
             against_mesh_paths(trees, card)
+            against_classic_paths(trees, card)
     # one frame of the slice: the five levels in its dtype pairs
     main_rows = [r for r in rows if r["pair"] == MAIN_PAIR[r["level"]]]
     # one frame's launches: bf16 features, flows within the bound
@@ -6586,6 +6933,80 @@ def main() -> int:
             "library_ms": None,
             "library": "none: hand-written for jnp code (no Pallas source); "
                        "no single PyTorch call computes it",
+        })
+    # B13 per frame: lukas-kanade.json's three levels, a launch each; B15
+    # per frame: the flagship's three level changes (B15_CASES' main rows)
+    b13_index, b15_index = (KERNEL_NAMES.index("B13"),
+                            KERNEL_NAMES.index("B15"))
+    classic_groups = {
+        "lk_scharr": (
+            [r for r in h_rows if r["kernel"] == "lk_scharr"],
+            # phase H's Engine runs of the Lucas-Kanade presets
+            sum(run["launches"][b13_index] for run in h_runs.values()),
+            "csrc/lucas_kanade.cu", "transflow_tpu/flow/estimators/"
+            "lucas_kanade.py:26",
+            "lucas_kanade.py:26 _scharr at :34-35, both derivatives of a "
+            "level (jnp; XLA convolutions)",
+            "torch.nn.functional.conv2d (TF32 off) of the replicate-padded "
+            "level with the two 3x3 outer-product filters, padding "
+            "excluded"),
+        "resize_flow": (
+            [r for r in h_rows if r["kernel"] == "resize_flow"
+             and r["main"]],
+            # phase F's Engine runs, phase T's Engine and CLI runs, phase
+            # H's Engine runs
+            sum(run["launches"][b15_index]
+                for run in (*fb_runs.values(), *h_runs.values()))
+            + t_run["launches"][b15_index]
+            + t_run["cli_launches"][b15_index],
+            "csrc/pyramid.cu", "transflow_tpu/flow/estimators/"
+            "farneback.py:241",
+            "jax.image.resize(flow, (lh, lw, 2), 'bilinear') * s at "
+            "farneback.py:216, :232, :241, :267 and lucas_kanade.py:84 "
+            "(jnp)",
+            "torch.nn.functional.interpolate (bilinear, align_corners="
+            "False, antialias on a downscale) of the flow's NCHW view, "
+            "times the scale")}
+    for name, (group, launches, source, replaces, function, library) in \
+            classic_groups.items():
+        every = [r for r in h_rows if r["kernel"] == name]
+        print(f"{name} per frame ({len(group)} launches): device_ms "
+              f"{_per_frame(group, 'device_ms'):.5f}, kernel_ms "
+              f"{_ms_text(_per_frame(group, 'kernel_ms'))}, bound "
+              f"{_per_frame(group, 'bound_ms'):.5f}, call "
+              f"{_per_frame(group, 'call_ms'):.4f} (host-inclusive), plain "
+              f"{_per_frame(group, 'plain_ms'):.4f}, library "
+              f"{_per_frame(group, 'library_ms'):.5f} (kernel_ms "
+              f"{_ms_text(_per_frame(group, 'library_kernel_ms'))}); the "
+              f"path it replaced: device_ms "
+              f"{_per_frame(group, 'replaced_ms'):.5f}, kernel_ms "
+              f"{_ms_text(_per_frame(group, 'replaced_kernel_ms'))}, "
+              f"{_per_frame(group, 'replaced_events'):g} device events, "
+              f"{_per_frame(group, 'replaced_ops')} ATen ops; {launches} "
+              "launches on the main path")
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"transflow_tpu_torch/{source}",
+            "replaces": replaces,
+            "replaces_function": function,
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in every),
+            "ms": _per_frame(group, "device_ms"),
+            "device_ms": _per_frame(group, "device_ms"),
+            "kernel_ms": _per_frame(group, "kernel_ms"),
+            "call_ms": _per_frame(group, "call_ms"),
+            "plain_ms": _per_frame(group, "plain_ms"),
+            "bound_ms": _per_frame(group, "bound_ms"),
+            "bound_by": _bound_by(group),
+            "library_ms": _per_frame(group, "library_ms"),
+            "library_kernel_ms": _per_frame(group, "library_kernel_ms"),
+            "library": library,
+            "library_max_abs_err": max(r["library_err"] for r in every),
+            "replaced_ms": _per_frame(group, "replaced_ms"),
+            "replaced_kernel_ms": _per_frame(group, "replaced_kernel_ms"),
+            "replaced_events": _per_frame(group, "replaced_events"),
+            "replaced_aten_ops": _per_frame(group, "replaced_ops"),
         })
     # the compositor's kernels: F's Engine runs, T's Engine and CLI runs,
     # H's, S's, the mesh Engine's (phase 5) and M's processes' (K0, K3 and

@@ -101,8 +101,8 @@ def test_main_prints_one_record(tmp_path):
     # the card's figures are none off the card
     assert record["card"] == "cpu" and record["hbm_io_gbps"] is None
     assert record["launches_per_frame"] == {
-        "flagship": {"B1": 0, "B2a": 0, "B2b": 0, "B8": 0, "K0": 0,
-                     "K1": 0, "K2": 0},
+        "flagship": {"B1": 0, "B2a": 0, "B2b": 0, "B8": 0, "B15": 0,
+                     "K0": 0, "K1": 0, "K2": 0},
         "liteflownet": {"A1": 0, "A3": 0, "B7": 0, "B16": 0, "B17": 0,
                         "B18": 0}}
     assert record["host_syncs_per_frame"] == 0

@@ -1629,10 +1629,9 @@ def test_lucas_kanade_window_limit(device):
 
 def test_lucas_kanade_on_card_matches_cpu(device):
     """The estimator at 128x192 on the card against the CPU on a pan:
-    within 1e-4 (the CPU tests' bar against JAX: the Scharr derivatives
-    and the flow's resize run in cuDNN and torch's kernels on the card);
-    30 B11, 33 B12 and 1 B14 launch (the whole pyramid) at three
-    levels."""
+    every step is a kernel (B14, B15, B13, B12, B11) bit-equal to the
+    plain version the CPU runs, so the flows are equal; 30 B11, 33 B12, 1
+    B14 launch (the whole pyramid), 3 B13 and 2 B15 at three levels."""
     from transflow_tpu_torch.flow.estimators.lucas_kanade import (
         lucas_kanade)
     rng = np.random.default_rng(3)
@@ -1641,16 +1640,131 @@ def test_lucas_kanade_on_card_matches_cpu(device):
     canvas = torch.nn.functional.avg_pool2d(canvas[None, None], 5, 1, 2)
     canvas = canvas[0, 0].round().to(torch.uint8)
     a, b = canvas[6:134, 9:201], canvas[3:131, 5:197]
-    before = (lk.lk_warp_products_cuda.launches,
-              lk.lk_window_solve_cuda.launches,
-              pyramid.lk_pyramid_cuda.launches)
+    counters = (lk.lk_warp_products_cuda, lk.lk_window_solve_cuda,
+                pyramid.lk_pyramid_cuda, lk.lk_scharr_cuda,
+                pyramid.resize_flow_cuda)
+    before = [fn.launches for fn in counters]
     got = lucas_kanade(a.to(device), b.to(device)).cpu()
-    assert (lk.lk_warp_products_cuda.launches - before[0],
-            lk.lk_window_solve_cuda.launches - before[1],
-            pyramid.lk_pyramid_cuda.launches - before[2]) == (30, 33, 1)
+    assert tuple(fn.launches - n for fn, n in zip(counters, before)) == (
+        30, 33, 1, 3, 2)
     want = lucas_kanade(a, b)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(got, want)
     assert want.abs().max() > 1.0
+
+
+# B13's shapes: CLASSIC_SHAPES and one-row and one-column levels
+SCHARR_SHAPES = CLASSIC_SHAPES + [(1, 97), (97, 1), (33, 1920)]
+
+
+@pytest.mark.parametrize("shape", SCHARR_SHAPES, ids=str)
+def test_lk_scharr_matches_plain(device, shape):
+    """B13: both derivatives in one launch, each bit-equal to the plain
+    version on a level of integers and on one of arbitrary floats (with
+    zeros, so that a sum of signed zeros shows)."""
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    whole = torch.randint(0, 256, shape, generator=gen, device=device,
+                          dtype=torch.int32).float()
+    floats = torch.randn(shape, generator=gen, device=device) * 50
+    floats.view(-1)[::7] = 0.0
+    for image in (whole, floats):
+        before = lk.lk_scharr_cuda.launches
+        ix, iy = lk.lk_scharr(image)
+        assert lk.lk_scharr_cuda.launches == before + 1
+        want_x, want_y = lk.lk_scharr_plain(image.cpu())
+        torch.cuda.synchronize()
+        assert ix.shape == iy.shape == shape
+        assert ix.is_contiguous() and iy.is_contiguous()
+        assert torch.equal(ix.cpu(), want_x) and torch.equal(iy.cpu(),
+                                                             want_y)
+        assert torch.equal(torch.signbit(ix.cpu()), torch.signbit(want_x))
+
+
+def test_lk_scharr_cuda_refuses_misuse(device):
+    """A CPU, non-contiguous, 3-D or bf16 image raises before any
+    launch."""
+    before = lk.lk_scharr_cuda.launches
+    x = torch.zeros((16, 24), device=device)
+    for bad in (x.cpu(), x.t(), x[None], x.to(BF16)):
+        with pytest.raises(ValueError):
+            lk.lk_scharr_cuda(bad)
+    assert lk.lk_scharr_cuda.launches == before
+
+
+# B15's cases: (source, target, scale): Farneback's flagship transitions at
+# 1080p, the fast and fastest upscales to full size, fb_pyr_scale 0.8's
+# last transition (no whole ratio), a warm start's fb_downscale 2 and 4
+# pre-resizes (bands of 4 and 8 taps), Lucas-Kanade's transitions on a
+# 1080p frame and on an odd one, an equal size, a one-row flow
+RESIZE_CASES = [((135, 240), (270, 480), 2.0), ((270, 480), (540, 960), 2.0),
+                ((540, 960), (1080, 1920), 2.0),
+                ((270, 480), (1080, 1920), 4.0),
+                ((864, 1536), (1080, 1920), 1.25),
+                ((1080, 1920), (540, 960), 0.5),
+                ((1080, 1920), (270, 480), 0.25),
+                ((34, 61), (67, 121), 2.0), ((37, 45), (37, 45), 0.5),
+                ((1, 7), (1, 13), 2.0), ((5, 3), (1, 1), 0.1)]
+
+
+@pytest.mark.parametrize("case", RESIZE_CASES,
+                         ids=[f"{a}->{b}" for a, b, _ in RESIZE_CASES])
+def test_resize_flow_matches_plain(device, case):
+    """B15: one launch, bit-equal to the plain version, on a random flow
+    with inf and NaN entries (NaN where it is NaN)."""
+    (h, w), (lh, lw), scale = case
+    gen = torch.Generator(device=device).manual_seed(h * w)
+    flow = torch.randn((h, w, 2), generator=gen, device=device) * 8
+    flow.view(-1)[3::101] = float("nan")
+    flow.view(-1)[5::103] = float("-inf")
+    before = pyramid.resize_flow_cuda.launches
+    got = pyramid.resize_flow(flow, lh, lw, scale)
+    assert pyramid.resize_flow_cuda.launches == before + 1
+    want = pyramid.resize_flow_plain(flow.cpu(), lh, lw, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (lh, lw, 2) and got.is_contiguous()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
+                               equal_nan=True)
+
+
+def test_resize_flow_cuda_refuses_misuse(device):
+    """A CPU, non-contiguous, one-channel or float64 flow, or a size below
+    1, raises before any launch."""
+    before = pyramid.resize_flow_cuda.launches
+    flow = torch.zeros((16, 24, 2), device=device)
+    for bad, size in ((flow.cpu(), (8, 12)), (flow.transpose(0, 1), (8, 12)),
+                      (flow[..., :1], (8, 12)), (flow.double(), (8, 12)),
+                      (flow, (0, 12))):
+        with pytest.raises(ValueError):
+            pyramid.resize_flow_cuda(bad, *size, 2.0)
+    assert pyramid.resize_flow_cuda.launches == before
+
+
+@pytest.mark.parametrize("settings", [{}, {"downscale": 2},
+                                      {"downscale": 4, "flags": 4}],
+                         ids=["defaults", "fast", "warm fastest"])
+def test_farneback_resizes_through_b15_on_card(device, monkeypatch,
+                                               settings):
+    """Farneback on the card never takes the plain resize and launches
+    B15 as ``launches_per_frame`` says; float32 storage, so the flow
+    equals the CPU's (every step a kernel bit-equal to its plain
+    version)."""
+    from transflow_tpu_torch.flow.estimators import farneback as fb_est
+    monkeypatch.setenv("TRANSFLOW_FARNEBACK_BF16", "0")
+    gen = torch.Generator(device=device).manual_seed(4)
+    a, b = (torch.randint(0, 256, (192, 256), generator=gen, device=device,
+                          dtype=torch.uint8) for _ in "ab")
+    prev = torch.randn((192, 256, 2), generator=gen, device=device)
+    want = fb_est.farneback(a.cpu(), b.cpu(), prev.cpu(), **settings)
+
+    def refuse(*args):
+        raise AssertionError("the plain resize ran on the card")
+
+    monkeypatch.setattr(pyramid, "resize_flow_plain", refuse)
+    before = pyramid.resize_flow_cuda.launches
+    got = fb_est.farneback(a, b, prev, **settings)
+    torch.cuda.synchronize()
+    assert pyramid.resize_flow_cuda.launches - before == \
+        fb_est.launches_per_frame(192, 256, **settings)[4]
+    assert torch.equal(got.cpu(), want)
 
 
 

@@ -537,7 +537,7 @@ def test_translation_and_warm_start():
 @pytest.mark.parametrize("case", ["downscale-2", "downscale-4-it2"])
 def test_downscale_resizes_no_unused_prev_flow(case, monkeypatch):
     """Without flag 4 the warm start is unused, so a ``prev_flow`` given
-    with ``downscale`` > 1 is not resized (no ``bilinear_resize`` of a
+    with ``downscale`` > 1 is not resized (no ``resize_flow`` of a
     full-size flow); the flow equals the one without ``prev_flow`` and
     meets the bar against JAX's ``farneback``, which receives it."""
     a, b, _ = _warped_pair(96, 144, seed=5)
@@ -545,13 +545,13 @@ def test_downscale_resizes_no_unused_prev_flow(case, monkeypatch):
             ).astype(np.float32)
     kwargs = E2E_CASES[case]
     resized = []
-    plain_resize = fb.bilinear_resize
+    plain_resize = fb.pyramid.resize_flow
 
-    def counted(x, h, w):
+    def counted(x, h, w, scale):
         resized.append(tuple(x.shape))
-        return plain_resize(x, h, w)
+        return plain_resize(x, h, w, scale)
 
-    monkeypatch.setattr(fb, "bilinear_resize", counted)
+    monkeypatch.setattr(fb.pyramid, "resize_flow", counted)
     got = _port(a, b, prev, **kwargs)
     assert (96, 144, 2) not in resized
     without = len(resized)
@@ -625,15 +625,18 @@ def test_chip_smoke_launch_rule(settings, monkeypatch):
     the card) equal the calls the estimator makes, here to the kernels'
     plain versions (B1: one call per level for both images; B8: one for
     every level below L0 and one for the ``fb_downscale`` pre-resize, both
-    images a call; no level of a 90x160 frame is deep), and are 4, 12, 12,
-    1 at 1080p defaults."""
+    images a call; no level of a 90x160 frame is deep; B15: one a change
+    of level and one for the ``fb_downscale`` upscale), and are 4, 12, 12,
+    1, 3 at 1080p defaults."""
     import chip_smoke
     from transflow_tpu_torch.flow.sources.cv import CvFlowConfig
     from transflow_tpu_torch.ops import pyramid
     calls = {name: 0 for name in ("poly_expansion_pair", "update_equations",
-                                  "aggregate_solve", "pyramid_levels")}
+                                  "aggregate_solve", "pyramid_levels",
+                                  "resize_flow")}
     for name in calls:
-        module = pyramid if name == "pyramid_levels" else ops_fb
+        module = pyramid if name in ("pyramid_levels", "resize_flow") \
+            else ops_fb
         plain = getattr(module, f"{name}_plain")
 
         def counted(*args, _name=name, _plain=plain):
@@ -648,7 +651,7 @@ def test_chip_smoke_launch_rule(settings, monkeypatch):
     assert tuple(calls.values()) == fb.launches_per_frame(90, 160, **kwargs)
     assert fb.launches_per_frame(1080, 1920,
                                  **CvFlowConfig().estimator_kwargs()) == \
-        chip_smoke.FB_DEFAULT_PER_FRAME == (4, 12, 12, 1)
+        chip_smoke.FB_DEFAULT_PER_FRAME == (4, 12, 12, 1, 3)
 
 
 def test_chip_smoke_captures_engine_b2a_inputs(monkeypatch):

@@ -140,8 +140,7 @@ def test_structure_tensor_and_solve_match_jax(shape, win):
     Scharr derivatives of a smooth image and the products of a pan."""
     a, b = shifted_pair(*shape, dx=2, dy=1, seed=3)
     prev, nxt = a.astype(np.float32), b.astype(np.float32)
-    ix, iy = (LK_ESTIMATOR._scharr(torch.from_numpy(prev), axis).numpy()
-              for axis in (1, 0))
+    ix, iy = (d.numpy() for d in lk.lk_scharr(torch.from_numpy(prev)))
     flow = np.zeros((*shape, 2), np.float32)
     prods = lk.lk_warp_products(*map(torch.from_numpy,
                                      (prev, nxt, ix, iy, flow))).numpy()

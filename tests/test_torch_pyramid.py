@@ -141,18 +141,19 @@ def test_downsample2x_plain_matches_jax(shape):
 
 
 @pytest.mark.parametrize("settings,per_frame", [
-    ({}, (4, 12, 12, 1)),
-    ({"downscale": 2}, (4, 12, 12, 2)),
-    ({"downscale": 8, "levels": 1}, (2, 6, 6, 2)),
-    ({"pyr_scale": 0.8}, (4, 12, 12, 1)),
-    ({"levels": 8}, (7, 21, 21, 2)),
-    ({"levels": 8, "pyr_scale": 0.1}, (2, 6, 6, 1))],
+    ({}, (4, 12, 12, 1, 3)),
+    ({"downscale": 2}, (4, 12, 12, 2, 4)),
+    ({"downscale": 8, "levels": 1}, (2, 6, 6, 2, 2)),
+    ({"pyr_scale": 0.8}, (4, 12, 12, 1, 3)),
+    ({"levels": 8}, (7, 21, 21, 2, 6)),
+    ({"levels": 8, "pyr_scale": 0.1}, (2, 6, 6, 1, 1))],
     ids=["defaults", "downscale 2", "downscale 8", "pyr_scale 0.8",
          "levels 8", "pyr_scale 0.1"])
 def test_launch_rule_at_1080p(settings, per_frame):
-    """``launches_per_frame`` at 1080x1920: (B1, B2a, B2b, B8), B8 one for
-    every level below L0, one more where a level is deep (fb_levels 8's
-    deepest, radius 95) and one for the ``downscale`` pre-resize."""
+    """``launches_per_frame`` at 1080x1920: (B1, B2a, B2b, B8, B15), B8 one
+    for every level below L0, one more where a level is deep (fb_levels
+    8's deepest, radius 95) and one for the ``downscale`` pre-resize; B15
+    one a change of level and one for the ``downscale`` upscale."""
     assert fb.launches_per_frame(1080, 1920, **settings) == per_frame
 
 

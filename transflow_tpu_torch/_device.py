@@ -71,6 +71,8 @@ _SIGNATURES = {
     "transflow_hs_iterate": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # H, W -> B10's count of partial sums (a value, not an error code)
     "transflow_hs_iterate_partials": (_I, _I),
+    # image, ix, iy, H, W, stream
+    "transflow_lk_scharr": (_P, _P, _P, _I, _I, _P),
     # prev, next, ix, iy, flow, out, H, W, stream
     "transflow_lk_warp_products": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # ix, iy, out, H, W, taps, det floor, stream
@@ -92,6 +94,10 @@ _SIGNATURES = {
     # the levels' table (host, 22 int64 a level), levels, images, dtype,
     # shared bytes, stream
     "transflow_pyramid_levels": (_P, _I, _I, _I, _I, _P),
+    # flow, row starts, row weights, column starts, column weights, out,
+    # h, w, lh, lw, row taps, column taps, scale, stream
+    "transflow_flow_resize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _F, _P),
     # src0, src1, images, dtype (0 float32, 2 uint8), the levels' table
     # (host, 6 int64), H, W, reduces, stream
     "transflow_lk_pyramid": (_P, _P, _I, _I, _P, _I, _I, _I, _P),

@@ -1,7 +1,12 @@
-// Lucas-Kanade's hot loops for Hopper (sm_90a): kernels B11 and B12.
+// Lucas-Kanade's hot loops for Hopper (sm_90a): kernels B13, B11 and B12.
 //
 // They replace jnp code that XLA compiles (there is no Pallas source) in
 // transflow_tpu/flow/estimators/lucas_kanade.py's ``_lk_level`` (:32-62):
+//  * B13 ``lk_scharr_kernel``: the level's two Scharr derivatives (:34-35,
+//    ``_scharr`` at :26): ix is [-3, 0, 3] / 32 along x, then [3, 10, 3]
+//    along y; iy the same with the axes swapped; each pass pads with
+//    numpy's symmetric mode of width 1 (the edge sample repeats, so a
+//    padded index is the clamped one);
 //  * B11 ``lk_warp_products_kernel``: the loop body's (:49) warp and
 //    products (:50-54): the second image sampled at (y + v, x + u) by
 //    ``bilinear_sample_packed``'s rule (ops/image.py:265; the anchor floor
@@ -18,15 +23,24 @@
 //
 // Numbers. Every product and sum is rounded to float32 (__fmul_rn,
 // __fadd_rn: no contraction into FMAs) in the order of the plain versions
-// in ops/lucas_kanade.py: the window's rows in order, then its columns in
-// order; the lerps and the solve in the JAX expressions' order; 1 / det is
+// in ops/lucas_kanade.py: B13's three taps in order, the zero tap's
+// product included (it decides the sign of a zero sum), the first pass's
+// three values, then the second pass's; the window's rows in order, then
+// its columns in order; the lerps and the solve in the JAX expressions' order; 1 / det is
 // the IEEE division (built without --use_fast_math). So each kernel equals
 // its plain version bit for bit. A huge or infinite coordinate saturates
 // at the frame's edge (fminf/fmaxf before the conversion) and a NaN one
 // anchors at 0 (fmaxf(NaN, 0) is 0): its weights are NaN, so is the sample.
 //
 // Bounds on the H100 per launch at 1080x1920 (2.07 Mpixel), bytes each
-// read or written once. B11 reads prev, ix, iy, the flow and the sampled
+// read or written once. B13 reads the level (4) and writes ix and iy (8):
+// 12 B/pixel, ~0.0074 ms; its 20 float32 operations a pixel (5 a pass and
+// derivative) take ~0.0006 ms: bound by bytes. Its design: a block of 32x8
+// threads makes a 32 x 16 output tile from the (16 + 2) x (32 + 2) level
+// values staged once in shared memory with their clamped halo, each
+// thread two rows, each output's three first-pass values of each
+// derivative from the stage (no second buffer), ix and iy stored
+// coalesced along x. B11 reads prev, ix, iy, the flow and the sampled
 // image (4 + 4 + 4 + 8 + 4) and writes two planes (8): 32 B/pixel, ~0.020
 // ms. B12 reads two planes, the four tensor planes and the flow (8 + 16 +
 // 8) and writes the flow (8): 40 B/pixel, ~0.025 ms; in its tensor mode it
@@ -59,6 +73,56 @@ constexpr int kWinTaps = 15;   // cv2's default window
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// B13's output tile and taps (ops/lucas_kanade.py: SCHARR, SCHARR_SMOOTH)
+constexpr int kScharrH = 2 * kBlockY;
+constexpr int kScharrW = kBlockX;
+constexpr float kD0 = -0.09375f, kD1 = 0.0f, kD2 = 0.09375f;
+constexpr float kS0 = 3.0f, kS1 = 10.0f, kS2 = 3.0f;
+
+// one pass's three taps in order from the first: ((a d0 + b d1) + c d2)
+__device__ __forceinline__ float taps3(float a, float b, float c, float t0,
+                                       float t1, float t2) {
+  return add(add(mul(a, t0), mul(b, t1)), mul(c, t2));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    lk_scharr_kernel(const float* __restrict__ image, float* __restrict__ ix,
+                     float* __restrict__ iy, int H, int W) {
+  // stage row t, column s: the level at (i0 - 1 + t, j0 - 1 + s), each
+  // index clamped to the level (numpy's symmetric pad of width 1)
+  __shared__ float stage[kScharrH + 2][kScharrW + 2];
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  const int i0 = blockIdx.y * kScharrH, j0 = blockIdx.x * kScharrW;
+  constexpr int kStageW = kScharrW + 2;
+  for (int e = tid; e < (kScharrH + 2) * kStageW; e += kThreads) {
+    const int t = e / kStageW, s = e - t * kStageW;
+    const int gi = min(max(i0 - 1 + t, 0), H - 1);
+    const int gj = min(max(j0 - 1 + s, 0), W - 1);
+    stage[t][s] = image[(long long)gi * W + gj];
+  }
+  __syncthreads();
+  const int q = threadIdx.x, j = j0 + q;
+  if (j >= W) return;
+  for (int r = threadIdx.y; r < kScharrH; r += kBlockY) {
+    const int i = i0 + r;
+    if (i >= H) return;
+    // stage rows r..r+2 are the level's rows i-1..i+1, columns q..q+2 its
+    // columns j-1..j+1 (clamped): the derivative's pass at the three
+    // neighbours along the other axis, then the smoothing pass
+    float dx[3], dy[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      dx[k] = taps3(stage[r + k][q], stage[r + k][q + 1], stage[r + k][q + 2],
+                    kD0, kD1, kD2);
+      dy[k] = taps3(stage[r][q + k], stage[r + 1][q + k], stage[r + 2][q + k],
+                    kD0, kD1, kD2);
+    }
+    const long long p = (long long)i * W + j;
+    ix[p] = taps3(dx[0], dx[1], dx[2], kS0, kS1, kS2);
+    iy[p] = taps3(dy[0], dy[1], dy[2], kS0, kS1, kS2);
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
     lk_warp_products_kernel(const float* __restrict__ prev,
@@ -245,6 +309,20 @@ int launch_window(const float* in0, const float* in1, const float* tensor,
 }
 
 }  // namespace
+
+// image, ix, iy: (H, W) float32; ix and iy its Scharr derivatives along x
+// and y. Returns a cudaError_t.
+extern "C" int transflow_lk_scharr(const void* image, void* ix, void* iy,
+                                   int H, int W, void* stream) {
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + kScharrW - 1) / kScharrW,
+                  (H + kScharrH - 1) / kScharrH);
+  lk_scharr_kernel<<<grid, dim3(kBlockX, kBlockY), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(image), static_cast<float*>(ix),
+      static_cast<float*>(iy), H, W);
+  return (int)cudaGetLastError();
+}
 
 // prev, nxt, ix, iy: (H, W) float32; flow: (H, W, 2) float32; out: (2, H,
 // W) float32 [ix * it, iy * it]. Returns a cudaError_t.

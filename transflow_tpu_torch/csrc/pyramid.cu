@@ -1,6 +1,7 @@
 // The image pyramids' level construction for Hopper (sm_90a): B8, every
-// level of a Farneback pyramid in one launch, and B14, every level of a
-// Lucas-Kanade pyramid in one launch.
+// level of a Farneback pyramid in one launch; B14, every level of a
+// Lucas-Kanade pyramid in one launch; and B15, a flow's resize between
+// levels times a scale in one launch.
 //
 // It replaces jnp code that XLA fuses (there is no Pallas source):
 //  * B8: Farneback's pyramid levels,
@@ -18,7 +19,12 @@
 //    lucas_kanade.py:71-78: both uint8 frames cast to float32, then
 //    transflow_tpu/ops/image.py:234 downsample2x repeated (the binomial
 //    [1, 4, 6, 4, 1] / 16 along each axis with symmetric padding, then
-//    [::2, ::2]); also downsample2x alone on a float32 image.
+//    [::2, ::2]); also downsample2x alone on a float32 image;
+//  * B15: jax.image.resize(flow, (lh, lw, 2), "bilinear") * scale at
+//    transflow_tpu/flow/estimators/farneback.py:216-218, :232, :241-242,
+//    :267-268 and lucas_kanade.py:84: JAX's linear bands (B8's,
+//    ops/pyramid.py::resize_weights: anti-aliased on a downscale) along H,
+//    then along W, then the product by the float32 scale.
 //
 // Numbers. Every sum is taken in tap (or band) order from its first term,
 // each product __fmul_rn and each sum __fadd_rn (no contraction), the
@@ -33,7 +39,9 @@
 // so the pyramid is bound by operations (chip_smoke prints each bound).
 // B14 at 1080x1920 under lukas-kanade.json reads both uint8 frames (4.1
 // MB) and writes their float32 levels L0-L2 (21.8 MB): 7.7 us at 3.35
-// TB/s, bound by bytes.
+// TB/s, bound by bytes. B15 reads the flow once and writes the resized
+// one: at the fastest preset's last upscale, 270x480 -> 1080x1920, 1.0 MB
+// and 16.6 MB, 5.3 us, bound by bytes (a band of 2 x 2 taps a value).
 //
 // What the design does about it. B8: one launch makes every level of both
 // images: the grid enumerates (level, image, tile), the levels with the
@@ -89,6 +97,13 @@
 //     a value, a thread).
 // PERF.md times copies of this kernel cut after each step. A float32 image
 // (ops/image.py's downsample2x) takes the same kernel without the copy.
+// B15: a thread makes one output pixel's two channels: for each of its
+// column band's kx taps, the row band's ky-term sum of the input pixels
+// (float2 loads: both channels at once; the rows an output row reads are
+// shared by a block's threads and stay in L1), then the column band's sum
+// of those, then the scale; 128 x 2 threads a block, the float2 stores
+// coalesced along x. An axis of equal size takes the identity band (one
+// weight 1.0: the product is exact), as the plain version skips it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1203,4 +1218,70 @@ extern "C" int transflow_lk_pyramid(const void* src0, const void* src1,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_lk<float>(a, grid, s);
   return launch_lk<unsigned char>(a, grid, s);
+}
+
+namespace {
+
+constexpr int kResizeX = 128;  // B15: a block's output columns
+constexpr int kResizeY = 2;    // and rows
+
+__device__ __forceinline__ float2 mul2(float2 a, float w) {
+  return make_float2(mul(a.x, w), mul(a.y, w));
+}
+__device__ __forceinline__ float2 add2(float2 a, float2 b) {
+  return make_float2(add(a.x, b.x), add(a.y, b.y));
+}
+
+__global__ void __launch_bounds__(kResizeX * kResizeY)
+    flow_resize_kernel(const float2* __restrict__ flow,
+                       const int* __restrict__ ystart,
+                       const float* __restrict__ yweights,
+                       const int* __restrict__ xstart,
+                       const float* __restrict__ xweights,
+                       float2* __restrict__ out, int W, int LH, int LW,
+                       int ky, int kx, float scale) {
+  const int j = blockIdx.x * kResizeX + threadIdx.x;
+  const int i = blockIdx.y * kResizeY + threadIdx.y;
+  if (i >= LH || j >= LW) return;
+  const float2* rows = flow + (long long)__ldg(ystart + i) * W +
+                       __ldg(xstart + j);
+  const float* wy = yweights + (long long)i * ky;
+  const float* wx = xweights + (long long)j * kx;
+  float2 acc;
+  for (int c = 0; c < kx; ++c) {
+    // the row band's sum at input column xstart[j] + c, from its first term
+    float2 col = mul2(__ldg(rows + c), __ldg(wy));
+    for (int r = 1; r < ky; ++r)
+      col = add2(col, mul2(__ldg(rows + (long long)r * W + c), __ldg(wy + r)));
+    const float2 term = mul2(col, __ldg(wx + c));
+    acc = c ? add2(acc, term) : term;
+  }
+  out[(long long)i * LW + j] = mul2(acc, scale);
+}
+
+}  // namespace
+
+// B15: the (H, W, 2) float32 ``flow`` resized to (LH, LW, 2) float32
+// ``out`` by the bands of ops/pyramid.py::resize_weights, then times
+// ``scale``: output row i reads input rows ystart[i] + r with weights
+// yweights[i * ky + r] (r < ky), column j columns xstart[j] + c with
+// xweights[j * kx + c] (c < kx); every band lies inside the input.
+// Returns a cudaError_t.
+extern "C" int transflow_flow_resize(const void* flow, const void* ystart,
+                                     const void* yweights, const void* xstart,
+                                     const void* xweights, void* out, int H,
+                                     int W, int LH, int LW, int ky, int kx,
+                                     float scale, void* stream) {
+  if (H < 1 || W < 1 || LH < 1 || LW < 1 || ky < 1 || ky > H || kx < 1 ||
+      kx > W)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((LW + kResizeX - 1) / kResizeX,
+                  (LH + kResizeY - 1) / kResizeY);
+  flow_resize_kernel<<<grid, dim3(kResizeX, kResizeY), 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(flow), static_cast<const int*>(ystart),
+      static_cast<const float*>(yweights), static_cast<const int*>(xstart),
+      static_cast<const float*>(xweights), static_cast<float2*>(out), W, LH,
+      LW, ky, kx, scale);
+  return (int)cudaGetLastError();
 }

@@ -14,11 +14,13 @@ parameters):
    (and the ``downscale`` pre-resize) is the full-resolution images
    blurred and resized (kernel B8, ``ops/pyramid.py::pyramid_levels``:
    every level of both images in one launch, made before the
-   coarse-to-fine loop; the pre-resize is a launch of its own).
+   coarse-to-fine loop; the pre-resize is a launch of its own);
+4. the flow's resize between levels times the ratio of their scales (and
+   a warm start's, and the ``downscale`` upscale to full size: kernel
+   B15, ``ops/pyramid.py::resize_flow``).
 
-The flow's resizes between levels stay PyTorch (``F.interpolate``), as the
-JAX package leaves them to XLA outside any kernel. On a CPU tensor every
-step runs the plain versions; on a CUDA tensor the four kernels run.
+On a CPU tensor every step runs the plain versions; on a CUDA tensor the
+five kernels run.
 """
 import os
 
@@ -26,7 +28,6 @@ import torch
 
 from ...ops.farneback import (aggregate_solve, poly_expansion,
                                poly_expansion_pair, update_equations)
-from ...ops.image import bilinear_resize
 from ...ops import pyramid
 
 __all__ = ["farneback", "launches_per_frame", "poly_expansion",
@@ -75,23 +76,28 @@ def _level_shapes(h: int, w: int, pyr_scale: float, levels: int,
 
 def launches_per_frame(height: int, width: int, *, pyr_scale: float = 0.5,
                        levels: int = 3, iterations: int = 3, poly_n: int = 5,
-                       downscale: int = 1, **_
-                       ) -> tuple[int, int, int, int]:
-    """(B1, B2a, B2b, B8) launches of ``farneback`` on a height x width
-    frame with these arguments (the other estimator arguments change
-    none): one B1 a level (both images), ``iterations`` B2a and B2b a
-    level, and B8's ``ops/pyramid.py::launches`` for the levels below L0
-    (one for all of them, both images, and one more where a level takes
-    the deep route) and for the ``downscale`` > 1 pre-resize."""
-    h = int(round(height / int(downscale)))
-    w = int(round(width / int(downscale)))
+                       downscale: int = 1, flags: int = 0, **_
+                       ) -> tuple[int, int, int, int, int]:
+    """(B1, B2a, B2b, B8, B15) launches of ``farneback`` on a height x
+    width frame with these arguments and a ``prev_flow`` (the other
+    estimator arguments change none): one B1 a level (both images),
+    ``iterations`` B2a and B2b a level, B8's ``ops/pyramid.py::launches``
+    for the levels below L0 (one for all of them, both images, and one
+    more where a level takes the deep route) and for the ``downscale`` > 1
+    pre-resize, and one B15 a change of level, one for the ``downscale``
+    upscale to full size, and with OPTFLOW_USE_INITIAL_FLOW one for the
+    warm start (and one for its ``downscale`` pre-resize)."""
+    downscale = int(downscale)
+    h = int(round(height / downscale))
+    w = int(round(width / downscale))
     shapes = _level_shapes(h, w, pyr_scale, levels, poly_n)
     b8 = pyramid.launches(h, w, _pyramid_levels(shapes))
-    if int(downscale) > 1:
-        b8 += pyramid.launches(height, width,
-                               _pre_resize(int(downscale), h, w))
+    if downscale > 1:
+        b8 += pyramid.launches(height, width, _pre_resize(downscale, h, w))
     n = len(shapes)
-    return n, iterations * n, iterations * n, b8
+    warm = bool(flags & OPTFLOW_USE_INITIAL_FLOW)
+    b15 = n - 1 + (downscale > 1) + warm * (1 + (downscale > 1))
+    return n, iterations * n, iterations * n, b8, b15
 
 
 def _pyramid_levels(level_shapes) -> list[tuple[float, int, int]]:
@@ -142,8 +148,9 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
         prev, nxt = pyramid.pyramid_levels((prev, nxt),
                                            _pre_resize(downscale, h, w))[0]
         if flags & OPTFLOW_USE_INITIAL_FLOW and prev_flow is not None:
-            prev_flow = bilinear_resize(
-                torch.as_tensor(prev_flow).float(), h, w) * (1.0 / downscale)
+            prev_flow = pyramid.resize_flow(
+                torch.as_tensor(prev_flow, device=prev.device).float()
+                .contiguous(), h, w, 1.0 / downscale)
 
     # level sizes, coarsest last; drop levels that get degenerate
     level_shapes = _level_shapes(h, w, pyr_scale, levels, poly_n)
@@ -156,7 +163,7 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
     lh, lw, scale = level_shapes[-1]
     if flags & OPTFLOW_USE_INITIAL_FLOW and prev_flow is not None:
         flow = torch.as_tensor(prev_flow, device=prev.device).float()
-        flow = bilinear_resize(flow, lh, lw) * scale
+        flow = pyramid.resize_flow(flow.contiguous(), lh, lw, scale)
     else:
         flow = torch.zeros((lh, lw, 2), dtype=torch.float32,
                            device=prev.device)
@@ -165,7 +172,7 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
         lh, lw, scale = level_shapes[k]
         if tuple(flow.shape[:2]) != (lh, lw):
             prev_scale = level_shapes[k + 1][2]
-            flow = bilinear_resize(flow, lh, lw) * (scale / prev_scale)
+            flow = pyramid.resize_flow(flow, lh, lw, scale / prev_scale)
         img1, img2 = images[k]
         poly1, poly2 = poly_expansion_pair(img1, img2, poly_n, poly_sigma,
                                            sdt)
@@ -173,5 +180,5 @@ def farneback(prev_gray, next_gray, prev_flow=None, *, pyr_scale: float = 0.5,
             flow = _update_flow(poly1, poly2, flow, winsize, use_gaussian,
                                 select_warp)
     if downscale > 1:
-        flow = bilinear_resize(flow, full_h, full_w) * float(downscale)
+        flow = pyramid.resize_flow(flow, full_h, full_w, float(downscale))
     return flow

@@ -9,44 +9,32 @@ densely at every pixel, then subsamples and repeats to macroblocks):
    frames cast to float32, then ``downsample2x`` levels until a level's
    short side is below twice the window, every level of both frames in
    one launch (one more for each two levels beyond the second);
-2. per level, coarsest first: the flow resized up (``bilinear_resize``,
-   times 2), Scharr derivatives of the first image, the structure tensor
-   (kernel B12 in its tensor mode), then ``iters`` updates, each the warp
-   and products (kernel B11, ``lk_warp_products``) and the window sums
-   and solve (kernel B12, ``lk_window_solve``);
+2. per level, coarsest first: the flow resized up, times 2 (kernel B15,
+   ``ops/pyramid.py::resize_flow``), both Scharr derivatives of the first
+   image (kernel B13, ``lk_scharr``), the structure tensor (kernel B12 in
+   its tensor mode), then ``iters`` updates, each the warp and products
+   (kernel B11, ``lk_warp_products``) and the window sums and solve
+   (kernel B12, ``lk_window_solve``);
 3. with ``step`` > 1, every ``step``-th flow vector repeated over its
    ``step`` x ``step`` block.
 
-The derivatives and the flow's resize stay PyTorch (``F.conv2d`` with
-TF32 off, ``F.interpolate``), as the JAX package leaves them to XLA
-outside any kernel. On a CPU tensor every step runs the plain versions; on
-a CUDA tensor the three kernels run.
+On a CPU tensor every step runs the plain versions; on a CUDA tensor the
+five kernels run.
 """
-import numpy as np
 import torch
 
-from ...ops.image import bilinear_resize, separable_correlate
-from ...ops.lucas_kanade import (lk_structure_tensor, lk_warp_products,
-                                 lk_window_solve)
-from ...ops.pyramid import lk_pyramid
+from ...ops.lucas_kanade import (lk_scharr, lk_structure_tensor,
+                                 lk_warp_products, lk_window_solve)
+from ...ops.pyramid import lk_pyramid, resize_flow
 
 __all__ = ["lucas_kanade"]
 
-# cv2's Scharr derivative over 32 and its smoothing, the JAX module's taps
-SCHARR = np.asarray([-3.0, 0.0, 3.0], np.float32) / 32.0
-SCHARR_SMOOTH = np.asarray([3.0, 10.0, 3.0], np.float32)
 EPS = 0.01
-
-
-def _scharr(image: torch.Tensor, axis: int) -> torch.Tensor:
-    d = separable_correlate(image, SCHARR, axis=axis)
-    return separable_correlate(d, SCHARR_SMOOTH, axis=1 - axis)
 
 
 def _lk_level(prev: torch.Tensor, nxt: torch.Tensor, flow: torch.Tensor,
               win_size: int, iters: int) -> torch.Tensor:
-    ix = _scharr(prev, axis=1)
-    iy = _scharr(prev, axis=0)
+    ix, iy = lk_scharr(prev)
     tensor = lk_structure_tensor(ix, iy, win_size)
     for _ in range(iters):
         planes = lk_warp_products(prev, nxt, ix, iy, flow)
@@ -70,7 +58,7 @@ def lucas_kanade(prev_gray, next_gray, *, win_size: int = 15,
         prev, nxt = pyramid[level]
         lh, lw = prev.shape
         if tuple(flow.shape[:2]) != (lh, lw):
-            flow = 2.0 * bilinear_resize(flow, lh, lw)
+            flow = resize_flow(flow, lh, lw, 2.0)
         flow = _lk_level(prev, nxt, flow, win_size, iters)
     if step > 1:
         sampled = flow[::step, ::step]

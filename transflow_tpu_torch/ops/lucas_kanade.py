@@ -1,5 +1,5 @@
-"""Lucas-Kanade's hot loops: kernels B11 (warp and products) and B12
-(window sums and the 2x2 solve).
+"""Lucas-Kanade's hot loops: kernels B13 (the Scharr derivatives), B11
+(warp and products) and B12 (window sums and the 2x2 solve).
 
 Counterpart of transflow_tpu/flow/estimators/lucas_kanade.py's
 ``_lk_level``, which XLA compiles from jnp ops (there is no Pallas
@@ -8,6 +8,10 @@ version (``*_plain``), a wrapper that launches the hand-written kernel of
 ``csrc/lucas_kanade.cu`` and counts its launches (``*_cuda``), and a
 dispatcher by device with no fallback between the two.
 
+- B13 ``lk_scharr``: both Scharr derivatives of a level (``_scharr(image,
+  1)`` and ``_scharr(image, 0)``): the taps ``[-3, 0, 3] / 32`` along the
+  derivative's axis, then ``[3, 10, 3]`` along the other, each pass with
+  numpy's symmetric padding of width 1 (the edge sample repeats).
 - B11 ``lk_warp_products``: ``nxt`` sampled at ``(y + v, x + u)`` by the
   clamped-anchor bilinear rule (the JAX package's
   ``bilinear_sample_packed`` on the raw image: its tap pack is a TPU
@@ -25,7 +29,8 @@ correlate``: the vertical sum of the window's rows in order, then the
 horizontal one) with every product and sum rounded to float32, so a kernel
 and its plain version agree bit for bit.
 
-Layouts: (H, W) float32 images and derivatives; the products are one (2,
+Layouts: (H, W) float32 images and derivatives (B13 returns ``ix`` and
+``iy`` as the two planes of one (2, H, W) buffer); the products are one (2,
 H, W) stack ``[ix * it, iy * it]``; the structure tensor one (4, H, W)
 stack ``[g11, g12, g22, inv_det]``; flows (H, W, 2) float32 ``(u, v)``.
 """
@@ -35,6 +40,10 @@ import torch
 from .._device import check_cuda, cuda_stream, dispatch, launch
 from .image import ordered_correlate
 
+# cv2's Scharr derivative over 32 and its smoothing, the JAX module's
+# float32 taps (exact in float32: the kernel's literals)
+SCHARR = tuple((np.asarray([-3.0, 0.0, 3.0], np.float32) / 32.0).tolist())
+SCHARR_SMOOTH = (3.0, 10.0, 3.0)
 # the window sizes the kernel takes (csrc/lucas_kanade.cu: kMaxTaps)
 MAX_WINDOW = 63
 # the JAX function's thresholds, compared in float32
@@ -57,6 +66,47 @@ def _check_window(name: str, win: int) -> None:
     if not 1 <= win <= MAX_WINDOW:
         raise ValueError(f"{name}: the kernel takes windows of 1 to "
                          f"{MAX_WINDOW} pixels, got {win}")
+
+
+# ---------------------------------------------------------------------------
+# B13: the Scharr derivatives
+# ---------------------------------------------------------------------------
+
+def lk_scharr_plain(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ix, iy) of an (H, W) float32 image: ``SCHARR`` along the axis of the
+    derivative, then ``SCHARR_SMOOTH`` along the other, each pass padded
+    symmetrically (``ordered_correlate``: the products in tap order, the
+    zero tap's included, each rounded)."""
+    ix = ordered_correlate(ordered_correlate(image, SCHARR, 1, "symmetric"),
+                           SCHARR_SMOOTH, 0, "symmetric")
+    iy = ordered_correlate(ordered_correlate(image, SCHARR, 0, "symmetric"),
+                           SCHARR_SMOOTH, 1, "symmetric")
+    return ix, iy
+
+
+def lk_scharr_cuda(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel B13 on a contiguous (H, W) float32 image on a CUDA
+    device: both derivatives in one launch, the planes of one new (2, H, W)
+    buffer. ``lk_scharr_cuda.launches`` counts launches."""
+    check_cuda("lk_scharr_cuda", image)
+    if image.dim() != 2 or image.dtype != torch.float32:
+        raise ValueError(f"lk_scharr_cuda needs an (H, W) float32 image, "
+                         f"got {tuple(image.shape)} {image.dtype}")
+    h, w = image.shape
+    out = torch.empty((2, h, w), dtype=torch.float32, device=image.device)
+    launch(image.device, "transflow_lk_scharr", image.data_ptr(),
+           out[0].data_ptr(), out[1].data_ptr(), h, w, cuda_stream(image))
+    lk_scharr_cuda.launches += 1
+    return out[0], out[1]
+
+
+lk_scharr_cuda.launches = 0
+
+
+def lk_scharr(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatcher of B13 by the image's device."""
+    fn = dispatch("lk_scharr", lk_scharr_plain, lk_scharr_cuda, image)
+    return fn(image)
 
 
 # ---------------------------------------------------------------------------

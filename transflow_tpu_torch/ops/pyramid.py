@@ -1,6 +1,6 @@
 """The image pyramids' level construction: kernels B8 (Farneback's
-blur-and-resize pyramid) and B14 (Lucas-Kanade's pyramid), in one CUDA
-source (``csrc/pyramid.cu``).
+blur-and-resize pyramid), B14 (Lucas-Kanade's pyramid) and B15 (a flow's
+resize between levels), in one CUDA source (``csrc/pyramid.cu``).
 
 Counterpart of jnp code that XLA fuses (there is no Pallas source):
 
@@ -20,7 +20,14 @@ Counterpart of jnp code that XLA fuses (there is no Pallas source):
   rounds up) while a level's short side is at least twice the window:
   every level of both frames, the casts included, in one launch (a list
   of (prev, next) tuples, one a level); ``downsample2x``, one reduce of
-  one or two float32 images, is the same kernel.
+  one or two float32 images, is the same kernel;
+- B15 ``resize_flow``: ``jax.image.resize(flow, (lh, lw, 2), "bilinear")
+  * scale`` at transflow_tpu/flow/estimators/farneback.py:216-218, :232,
+  :241-242, :267-268 and lucas_kanade.py:84: an (h, w, 2) float32 flow
+  resized by JAX's linear bands (``resize_weights``, anti-aliased on a
+  downscale) along H, then along W, then times the scale rounded to
+  float32 (JAX's weak-typed Python float); an axis of equal size is
+  skipped, as JAX skips it.
 
 As in ``ops/farneback.py``, each has a plain PyTorch version (``*_plain``),
 a wrapper that launches the hand-written kernel and counts its launches
@@ -37,7 +44,11 @@ k]`` over the output's band of ``K`` weights (``resize_weights``). The
 plain versions add every sum in that order from its first term, each
 product and sum rounded to float32 (``ordered_correlate`` for the blurs),
 which is the kernel's order: a kernel and its plain version agree bit for
-bit. XLA leaves the order to itself.
+bit. XLA leaves the order to itself: its resize of a flow is a dot
+product per axis that accumulates with fused multiply-adds, in an axis
+order einsum picks by cost, so B15 lies within a few float32 ulps of the
+result's largest value of JAX's at whole ratios
+(tests/test_torch_flow_resize.py).
 """
 import functools
 
@@ -167,7 +178,9 @@ def _resize_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
     """``x`` resized along ``dim`` by the bands of ``resize_weights``: the
     band's products added in order from the first, each rounded."""
     index, weights = _plain_bands(x.shape[dim], out_size, x.device)
-    shape = (-1, 1) if dim == 0 else (1, -1)
+    # the weights along ``dim``, broadcast over every other axis
+    shape = [1] * x.dim()
+    shape[dim] = -1
     acc = x.index_select(dim, index[0]) * weights[:, 0].reshape(shape)
     for k in range(1, len(index)):
         acc = acc + x.index_select(dim, index[k]) * weights[:, k].reshape(
@@ -675,3 +688,60 @@ def downsample2x(images) -> tuple[torch.Tensor, ...]:
     fn = dispatch("downsample2x", downsample2x_plain, downsample2x_cuda,
                   *images)
     return fn(images)
+
+
+# ---------------------------------------------------------------------------
+# B15: a flow's resize between levels, times a scale
+# ---------------------------------------------------------------------------
+
+def _check_flow(name: str, flow: torch.Tensor, lh: int, lw: int) -> None:
+    if flow.dim() != 3 or flow.shape[2] != 2 or \
+            flow.dtype != torch.float32 or lh < 1 or lw < 1:
+        raise ValueError(f"{name} needs an (h, w, 2) float32 flow and a "
+                         f"positive size, got {tuple(flow.shape)} "
+                         f"{flow.dtype} -> ({lh}, {lw})")
+
+
+def resize_flow_plain(flow: torch.Tensor, lh: int, lw: int,
+                      scale: float) -> torch.Tensor:
+    """The (h, w, 2) float32 ``flow`` resized to (lh, lw) by the bands of
+    ``resize_weights`` along H, then along W (an axis of equal size
+    skipped), then times ``scale`` rounded to float32; (lh, lw, 2)
+    float32."""
+    _check_flow("resize_flow_plain", flow, lh, lw)
+    h, w = flow.shape[:2]
+    out = flow if lh == h else _resize_axis(flow, lh, 0)
+    out = out if lw == w else _resize_axis(out, lw, 1)
+    return out * float(np.float32(scale))
+
+
+def resize_flow_cuda(flow: torch.Tensor, lh: int, lw: int,
+                     scale: float) -> torch.Tensor:
+    """Launch kernel B15 on a contiguous (h, w, 2) float32 flow on a CUDA
+    device: the resize and the scale in one launch, into a new contiguous
+    (lh, lw, 2) flow; ``resize_flow_cuda.launches`` counts launches. The
+    bands are copied to the card once per size (``_bands_on``)."""
+    _check_flow("resize_flow_cuda", flow, lh, lw)
+    check_cuda("resize_flow_cuda", flow)
+    h, w = flow.shape[:2]
+    ystart, yweights = _bands_on(h, lh, flow.device)
+    xstart, xweights = _bands_on(w, lw, flow.device)
+    out = torch.empty((lh, lw, 2), dtype=torch.float32, device=flow.device)
+    launch(flow.device, "transflow_flow_resize", flow.data_ptr(),
+           ystart.data_ptr(), yweights.data_ptr(), xstart.data_ptr(),
+           xweights.data_ptr(), out.data_ptr(), h, w, lh, lw,
+           yweights.shape[1], xweights.shape[1], float(np.float32(scale)),
+           cuda_stream(flow))
+    resize_flow_cuda.launches += 1
+    return out
+
+
+resize_flow_cuda.launches = 0
+
+
+def resize_flow(flow: torch.Tensor, lh: int, lw: int,
+                scale: float) -> torch.Tensor:
+    """Dispatcher of B15 by the flow's device: ``jax.image.resize(flow,
+    (lh, lw, 2), "bilinear") * scale``."""
+    fn = dispatch("resize_flow", resize_flow_plain, resize_flow_cuda, flow)
+    return fn(flow, lh, lw, scale)
