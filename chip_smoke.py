@@ -290,8 +290,8 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    name (the ``PROFILE_TOP`` largest) and that of the compositor's K0,
    K1 and K2;
 11. with ``--against [NAME=]CSRC_DIR`` only (repeatable): the correlation
-   kernel, B1, B2a, B2b, B9, B10, B5, B8, B14, B16 and B17 against other
-   trees' ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu``,
+   kernel, B1, B2a, B2b, B9, B10, B5, B8, B14, B15, B16 and B17 against
+   other trees' ``correlation.cu``, ``farneback.cu``, ``horn_schunck.cu``,
    ``scatter.cu``, ``pyramid.cu`` and ``lfn_heads.cu`` (for example the
    parent commit's, from ``git archive`` under the git-ignored ``_local/``),
    built with the package's flags, all through the raw C entries,
@@ -314,20 +314,26 @@ B. farneback kernels vs plain: B1 (``poly_expansion_pair``, both images
    (``against_lk_pyramid``) on the pan's 1080p uint8 pair as
    ``lukas-kanade.json``'s pyramid (``transflow_lk_pyramid`` once, or in
    an older tree ATen's two casts and a ``transflow_pyramid_reduce`` call
-   a level) and each reduce alone; last, where the other tree has
-   ``lfn_heads.cu``, B16 and B17 (``against_lfn_heads``) at B16's six
-   shapes of a 1088x1920 frame in float32 and B17's five levels with bf16
-   distances (a bf16 flow at L6), ``device_ms`` in turns, each tree's
-   profiler kernel time of a call, and their sums over a frame's 6 and 5
-   launches; where the other tree has ``conv_epilogue.cu``, B18
-   (``against_conv_epilogue``) at every ``B18_FRAME`` entry in bf16 from a
-   channels_last input into each tree's own output, and its sum over a
-   frame's 93 launches; bit-equal between the trees (B10's
-   flows and its control words ``[stop, iterations]`` too, B5's
-   mappings, B8's, B14's, B16's and B17's outputs).
+   a level) and each reduce alone; then B15 (``against_resize``) on a
+   random flow at every ``B15_CASES`` entry, each tree into its own
+   output (``b15_entry``: ``transflow_flow_resize_tiled`` with
+   ``resize_plan``'s tile, or in an older tree ``transflow_flow_resize``),
+   ``device_ms`` in turns, each tree's profiler kernel time of a call and
+   both summed over the flagship frame's three launches; last, where the
+   other tree has ``lfn_heads.cu``, B16 and B17 (``against_lfn_heads``)
+   at B16's six shapes of a 1088x1920 frame in float32 and B17's five
+   levels with bf16 distances (a bf16 flow at L6), ``device_ms`` in
+   turns, each tree's profiler kernel time of a call, and their sums
+   over a frame's 6 and 5 launches; where the other tree has
+   ``conv_epilogue.cu``, B18 (``against_conv_epilogue``) at every
+   ``B18_FRAME`` entry in bf16 from a channels_last input into each
+   tree's own output, and its sum over a frame's 93 launches; bit-equal
+   between the trees (B10's flows and its control words ``[stop,
+   iterations]`` too, B5's mappings, B8's, B14's, B15's, B16's and B17's
+   outputs).
    ``--steps [NAME=]CSRC_DIR`` (repeatable, with or without
-   ``--against``) adds to B8's and B14's, or B16's and B17's, turns (each
-   where it has the entry) a directory's ``pyramid.cu`` or
+   ``--against``) adds to B8's, B14's and B15's, or B16's and B17's,
+   turns (each where it has the entry) a directory's ``pyramid.cu`` or
    ``lfn_heads.cu``, a copy of a tree's cut to some of its steps, whose
    outputs are not held to the others'. Last, where an ``--against``
    directory is a tree's ``transflow_tpu_torch/csrc`` (the parent's
@@ -5593,8 +5599,12 @@ OTHER_SOURCES = ("correlation.cu", "farneback.cu", "horn_schunck.cu",
 # OH, OW, vertical taps, horizontal taps, radius, ystart, yweights, ky,
 # xstart, xweights, kx, tile_h, tile_w, seg, cols, shared bytes, stream);
 # B14's first design, one reduce a call (src0, src1, images, dst0, dst1,
-# H, W, taps, stream)
-OTHER_SIGNATURES = {"transflow_pyramid_level": (
+# H, W, taps, stream); B15's first design, a thread an output pixel (the
+# tiled entry's arguments without the tile)
+OTHER_SIGNATURES = {"transflow_flow_resize": (
+    *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 6, ctypes.c_float,
+    ctypes.c_void_p),
+    "transflow_pyramid_level": (
     ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 2,
     *[ctypes.c_void_p] * 2, *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 2,
     ctypes.c_int, *[ctypes.c_void_p] * 2, ctypes.c_int,
@@ -6181,6 +6191,79 @@ def against_lk_pyramid(device, libs: dict, steps: dict, card: str) -> None:
                   + f"; torch.profiler) on {card}")
 
 
+def b15_entry(lib: ctypes.CDLL, flow, lh: int, lw: int, scale: float, out):
+    """B15 through ``lib``'s raw C entry into the preallocated ``out``:
+    ``transflow_flow_resize_tiled`` with ``pyramid.resize_plan``'s tile,
+    or in an older tree ``transflow_flow_resize`` (a thread an output
+    pixel). The bands come from ``pyramid._bands_on``'s cache."""
+    from transflow_tpu_torch._device import cuda_stream
+    from transflow_tpu_torch.ops import pyramid
+    h, w = flow.shape[:2]
+    ystart, yweights = pyramid._bands_on(h, lh, flow.device)
+    xstart, xweights = pyramid._bands_on(w, lw, flow.device)
+    args = (flow.data_ptr(), ystart.data_ptr(), yweights.data_ptr(),
+            xstart.data_ptr(), xweights.data_ptr(), out.data_ptr(), h, w,
+            lh, lw, yweights.shape[1], xweights.shape[1],
+            float(np.float32(scale)))
+    if hasattr(lib, "transflow_flow_resize_tiled"):
+        return _entry(lib, "transflow_flow_resize_tiled", *args,
+                      *pyramid.resize_plan(h, w, lh, lw).args,
+                      cuda_stream(flow))
+    return _entry(lib, "transflow_flow_resize", *args, cuda_stream(flow))
+
+
+def against_resize(device, libs: dict, steps: dict, card: str) -> None:
+    """B15 of this tree (``libs["this"]``) against the other trees'
+    (``libs``) and the ``steps`` copies (a tree's pyramid.cu cut to some
+    of its steps, whose outputs are not held to the others'), through the
+    raw C entries (``b15_entry``), each into its own output, at every
+    ``B15_CASES`` entry on a random flow: ``device_ms`` in turns and each
+    entry's profiler kernel time of a call, the other trees' outputs
+    bit-equal to this tree's; then both summed over the flagship frame's
+    three launches (the cases marked ``main``)."""
+    def has_b15(lib):
+        return hasattr(lib, "transflow_flow_resize_tiled") or hasattr(
+            lib, "transflow_flow_resize")
+    held = [name for name, lib in libs.items() if has_b15(lib)]
+    every = {name: lib for name, lib in (libs | steps).items()
+             if has_b15(lib)}
+    if len(every) < 2:
+        return
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    total = {key: dict.fromkeys([*every, "bound"], 0.0)
+             for key in ("device_ms", "kernel_ms")}
+    for src, dst, scale, what, main in B15_CASES:
+        flow = torch.randn((*src, 2), generator=gen, device=device) * 4
+        outs = {n: [torch.empty((*dst, 2), device=device)] for n in every}
+        calls = {n: b15_entry(lib, flow, *dst, scale, outs[n][0])
+                 for n, lib in every.items()}
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
+        _check_outputs(f"B15 {what}", {n: outs[n] for n in held})
+        turns = in_turns(calls)
+        times = {n: kernel_ms(call, "flow_resize_kernel")
+                 for n, call in calls.items()}
+        bound = resize_bound_ms(*src, *dst)
+        if main:
+            for n in every:
+                total["device_ms"][n] += turns["ms"][n]
+                total["kernel_ms"][n] += times[n] or float("nan")
+            for key in total:
+                total[key]["bound"] += bound[0]
+        cut = [n for n in every if n not in held]
+        print(f"against B15 {what} {src[0]}x{src[1]}->{dst[0]}x{dst[1]} "
+              f"x{scale}: {_turns_text(turns)}; kernel_ms "
+              + " ".join(f"{n} {_ms_text(t)}" for n, t in times.items())
+              + f"; bound {bound[0]:.5f} ({bound[1]}); {', '.join(held)} "
+              "bit-equal"
+              + (f"; {', '.join(cut)} not held to them" if cut else "")
+              + f" on {card}")
+    print(f"against B15 per frame (the flagship's 3 launches): device_ms "
+          f"{_totals_text(total['device_ms'])}; kernel_ms "
+          f"{_totals_text(total['kernel_ms'])} on {card}")
+
+
 def up_entry(lib: ctypes.CDLL, x, weight, out):
     """B16 through ``lib``'s raw C entry into the preallocated ``out``."""
     from transflow_tpu_torch._device import DTYPE_CODES, cuda_stream
@@ -6366,7 +6449,7 @@ def main() -> int:
     parser.add_argument("--against", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
                         help="also time the correlation kernel, B1, B2a, "
-                             "B2b, B9, B10, B5, B8, B14, B16 and B17 "
+                             "B2b, B9, B10, B5, B8, B14, B15, B16 and B17 "
                              "against this directory's correlation.cu, "
                              "farneback.cu, horn_schunck.cu, scatter.cu, "
                              "pyramid.cu and lfn_heads.cu (phase 11), and "
@@ -6376,8 +6459,8 @@ def main() -> int:
                              "one's; repeat it for several trees")
     parser.add_argument("--steps", type=against_arg, action="append",
                         default=[], metavar="[NAME=]CSRC_DIR",
-                        help="also time B8 and B14 of this directory's "
-                             "pyramid.cu, or B16 and B17 of its "
+                        help="also time B8, B14 and B15 of this "
+                             "directory's pyramid.cu, or B16 and B17 of its "
                              "lfn_heads.cu, a copy of a tree's cut to some "
                              "of its steps, in phase 11's turns, its "
                              "outputs not held to this tree's; repeat it "
@@ -6501,6 +6584,7 @@ def main() -> int:
                           t_run["b5_flow"])
         against_pyramid(device, libs, steps, card)
         against_lk_pyramid(device, libs, steps, card)
+        against_resize(device, libs, steps, card)
         against_lfn_heads(device, libs, steps, card)
         against_conv_epilogue(device, libs, card)
         # where an --against directory is a tree's csrc, that tree's mesh

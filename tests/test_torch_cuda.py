@@ -1694,7 +1694,14 @@ def test_lk_scharr_cuda_refuses_misuse(device):
 # 1080p, the fast and fastest upscales to full size, fb_pyr_scale 0.8's
 # last transition (no whole ratio), a warm start's fb_downscale 2 and 4
 # pre-resizes (bands of 4 and 8 taps), Lucas-Kanade's transitions on a
-# 1080p frame and on an odd one, an equal size, a one-row flow
+# 1080p frame and on an odd one, an equal size, a one-row flow; then the
+# edges of B15's tiles (ops/pyramid.py::resize_plan): outputs that are no
+# multiple of a tile, an odd width (8-byte copies) whose last bands end
+# at the last input column, a ratio that is not whole whose bands end at
+# the last input row and column, the 8-tap downscale's shrunk 1 x 128
+# tile over columns that do not fill the last one, an output smaller
+# than one tile, and a downscale whose 240 input rows a tile stages a
+# slab at a time
 RESIZE_CASES = [((135, 240), (270, 480), 2.0), ((270, 480), (540, 960), 2.0),
                 ((540, 960), (1080, 1920), 2.0),
                 ((270, 480), (1080, 1920), 4.0),
@@ -1702,7 +1709,13 @@ RESIZE_CASES = [((135, 240), (270, 480), 2.0), ((270, 480), (540, 960), 2.0),
                 ((1080, 1920), (540, 960), 0.5),
                 ((1080, 1920), (270, 480), 0.25),
                 ((34, 61), (67, 121), 2.0), ((37, 45), (37, 45), 0.5),
-                ((1, 7), (1, 13), 2.0), ((5, 3), (1, 1), 0.1)]
+                ((1, 7), (1, 13), 2.0), ((5, 3), (1, 1), 0.1),
+                ((541, 961), (1081, 1921), 2.0),
+                ((67, 99), (134, 198), 2.0),
+                ((100, 200), (250, 500), 2.5),
+                ((1080, 1900), (270, 475), 0.25),
+                ((7, 11), (13, 21), 2.0),
+                ((1080, 1920), (9, 16), 1 / 120)]
 
 
 @pytest.mark.parametrize("case", RESIZE_CASES,

@@ -26,6 +26,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_cuda import RESIZE_CASES
 from test_torch_pyramid import _dense, _jax_weights
 from transflow_tpu_torch.ops import pyramid
 
@@ -163,3 +164,96 @@ def test_farneback_resizes_through_b15(settings, monkeypatch):
     if settings.get("flags"):
         assert calls[0] == ((96, 144), calls[-1][0], 1.0 / down)
     assert _flow_psnr(got, _jax(a, b, prev, **settings)) >= 60.0
+
+
+def _level_changes() -> list[tuple[int, int, int, int]]:
+    """(h, w, lh, lw) of every resize the estimators make on a 1080x1920
+    and an odd 721x1283 frame: Farneback's level changes at
+    ``fb_pyr_scale`` 0.5 and 0.8 (cv2's 3 levels), a warm start to the
+    coarsest level, ``fb_downscale`` 2 and 4's pre-resize of the warm
+    start and upscale to full size, and ``lukas-kanade.json``'s level
+    changes."""
+    changes = set()
+    for full_h, full_w in ((1080, 1920), (721, 1283)):
+        for down, scales in ((1, (0.5, 0.8)), (2, (0.5,)), (4, (0.5,))):
+            h, w = round(full_h / down), round(full_w / down)
+            for pyr_scale in scales:
+                shapes = fb._level_shapes(h, w, pyr_scale, 3, 5)
+                changes.add((h, w, *shapes[-1][:2]))
+                changes.update((*a[:2], *b[:2])
+                               for a, b in zip(shapes[1:], shapes))
+            if down > 1:
+                changes.update({(full_h, full_w, h, w),
+                                (h, w, full_h, full_w)})
+        levels = pyramid.lk_shapes(full_h, full_w, 15, 2)
+        changes.update((*a, *b) for a, b in zip(levels[1:], levels))
+    return sorted(changes)
+
+
+PLAN_CASES = sorted({(*src, *dst) for src, dst, _ in RESIZE_CASES}
+                    | set(_level_changes()))
+
+
+def _staged(t0: int, n: int, m: int, lead: int, span: int,
+            even: bool) -> tuple[int, int]:
+    """The first input and the count B15's tile from output ``t0`` stages
+    along an axis, as csrc/pyramid.cu::resize_first and the kernel
+    compute them (the place in float32: t0 times n / m)."""
+    place = int(np.float32(t0) * (np.float32(n) / np.float32(m)))
+    first = max(place - lead, 0)
+    first = min(first - first % 2 if even else first, max(n - span, 0))
+    return first, min(span, n - first)
+
+
+@pytest.mark.parametrize("h,w,lh,lw", PLAN_CASES, ids=str)
+def test_resize_plan_stages_every_band(h, w, lh, lw):
+    """B15's tile plan (``resize_plan``): every output's row band lies in
+    the input rows its tile stages (a slab at a time) and its column band
+    in the columns staged from an even column, all inside the flow, the
+    column count even where the width is (16-byte pairs); the shared
+    bytes stay within ``RESIZE_SMEM``; a tile that does not stage its rows
+    at once is one output row."""
+    plan = pyramid.resize_plan(h, w, lh, lw)
+    ystart, yweights = pyramid.resize_weights(h, lh)
+    xstart, xweights = pyramid.resize_weights(w, lw)
+    ky, kx = yweights.shape[1], xweights.shape[1]
+    assert (plan.tile_h, plan.tile_w) in pyramid.RESIZE_TILES or (
+        plan.tile_h == 1 and plan.tile_w in pyramid.RESIZE_NARROW)
+    assert plan.smem == pyramid.resize_bytes(
+        ky, kx, plan.tile_h, plan.tile_w, plan.slab, plan.pitch) <= \
+        pyramid.RESIZE_SMEM
+    assert plan.pitch % 2 == 0 and 1 <= plan.slab <= plan.rows
+    assert plan.slab == plan.rows or plan.tile_h == 1
+    for i0 in range(0, lh, plan.tile_h):
+        first, count = _staged(i0, h, lh, plan.row_lead, plan.rows, False)
+        bands = ystart[i0:i0 + plan.tile_h].astype(np.int64)
+        assert 0 <= first <= bands.min() and bands.max() + ky <= first + \
+            count <= h
+    for j0 in range(0, lw, plan.tile_w):
+        first, count = _staged(j0, w, lw, plan.col_lead, plan.pitch, True)
+        bands = xstart[j0:j0 + plan.tile_w].astype(np.int64)
+        assert first % 2 == 0 or w % 2
+        assert 0 <= first <= bands.min() and bands.max() + kx <= first + \
+            count <= w
+        assert count % 2 == 0 or w % 2
+
+
+def test_resize_plan_fills_the_card_within_the_budget():
+    """The flagship's L1->L0 and ``fastest``'s 4x take a 32 x 128 tile
+    (510 blocks), its smaller level changes smaller tiles for at least
+    ``RESIZE_BLOCKS`` blocks, ``fb_pyr_scale`` 0.8's wider bands a 32 x 64
+    one; the warm start's 4- and 8-tap downscales shrink the tile to fit
+    ``RESIZE_SMEM``; a downscale by 120 stages its input rows a slab at a
+    time on a one-output-row tile; a resize whose one input row does not
+    fit raises."""
+    assert pyramid.resize_plan(540, 960, 1080, 1920)[:2] == (32, 128)
+    assert pyramid.resize_plan(270, 480, 1080, 1920)[:2] == (32, 128)
+    assert pyramid.resize_plan(864, 1536, 1080, 1920)[:2] == (32, 64)
+    assert pyramid.resize_plan(270, 480, 540, 960)[:2] == (32, 64)
+    assert pyramid.resize_plan(135, 240, 270, 480)[:2] == (8, 64)
+    assert pyramid.resize_plan(1080, 1920, 540, 960)[:2] == (8, 64)
+    assert pyramid.resize_plan(1080, 1920, 270, 480)[:2] == (2, 64)
+    plan = pyramid.resize_plan(1080, 1920, 9, 16)
+    assert plan.tile_h == 1 and plan.slab < plan.rows
+    with pytest.raises(ValueError, match="no room"):
+        pyramid.resize_plan(8, 9000, 4, 1)

@@ -95,9 +95,11 @@ _SIGNATURES = {
     # shared bytes, stream
     "transflow_pyramid_levels": (_P, _I, _I, _I, _I, _P),
     # flow, row starts, row weights, column starts, column weights, out,
-    # h, w, lh, lw, row taps, column taps, scale, stream
-    "transflow_flow_resize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _F, _P),
+    # h, w, lh, lw, row taps, column taps, scale, then
+    # ops/pyramid.py::resize_plan's tile rows and columns, row lead, rows,
+    # slab, column lead and pitch, stream
+    "transflow_flow_resize_tiled": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _F, *[_I] * 7, _P),
     # src0, src1, images, dtype (0 float32, 2 uint8), the levels' table
     # (host, 6 int64), H, W, reduces, stream
     "transflow_lk_pyramid": (_P, _P, _I, _I, _P, _I, _I, _I, _P),

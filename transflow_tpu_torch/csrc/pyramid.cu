@@ -97,13 +97,28 @@
 //     a value, a thread).
 // PERF.md times copies of this kernel cut after each step. A float32 image
 // (ops/image.py's downsample2x) takes the same kernel without the copy.
-// B15: a thread makes one output pixel's two channels: for each of its
-// column band's kx taps, the row band's ky-term sum of the input pixels
-// (float2 loads: both channels at once; the rows an output row reads are
-// shared by a block's threads and stay in L1), then the column band's sum
-// of those, then the scale; 128 x 2 threads a block, the float2 stores
-// coalesced along x. An axis of equal size takes the identity band (one
-// weight 1.0: the product is exact), as the plain version skips it.
+// B15: a block of 256 threads makes a tile of tile_h x tile_w outputs
+// (the host's plan, ops/pyramid.py::resize_plan: 32 x 128 at the 1080p
+// upscales, smaller tiles where a level gives fewer than ~2 blocks an SM
+// or a downscale's wider bands would pass 48 KB of shared memory):
+//  1. it copies the input rows and columns its bands read into shared
+//     memory, from a first row and column it computes from its place
+//     (the plan's leads and spans cover every tile's bands, so no band
+//     start is loaded before the copies), the rows a slab at a time where
+//     they pass the plan's ``slab`` (a downscale by a few hundred):
+//     cp.async 16-byte copies of column pairs where W is even, else
+//     8-byte ones; its bands (starts and weights) meanwhile;
+//  2. each output row's vertical sum at each staged column into shared
+//     memory, once (the bound counts this work at (LH, W));
+//  3. a thread two adjacent outputs at every (512 / tile_w)-th row of the
+//     tile from those sums, its column bands in registers, one 16-byte
+//     store a row where the pair is aligned.
+// The first design, a thread an output pixel from its bands' global
+// loads, waited on two dependent rounds of loads (the starts, then the
+// taps) and made each vertical sum once per output column that reads it;
+// PERF.md times copies of it and of this one cut after each step. An axis
+// of equal size takes the identity band (one weight 1.0: the product is
+// exact), as the plain version skips it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1222,8 +1237,7 @@ extern "C" int transflow_lk_pyramid(const void* src0, const void* src1,
 
 namespace {
 
-constexpr int kResizeX = 128;  // B15: a block's output columns
-constexpr int kResizeY = 2;    // and rows
+constexpr int kResizeThreads = 256;  // B15: a block's threads
 
 __device__ __forceinline__ float2 mul2(float2 a, float w) {
   return make_float2(mul(a.x, w), mul(a.y, w));
@@ -1232,31 +1246,206 @@ __device__ __forceinline__ float2 add2(float2 a, float2 b) {
   return make_float2(add(a.x, b.x), add(a.y, b.y));
 }
 
-__global__ void __launch_bounds__(kResizeX * kResizeY)
-    flow_resize_kernel(const float2* __restrict__ flow,
-                       const int* __restrict__ ystart,
-                       const float* __restrict__ yweights,
-                       const int* __restrict__ xstart,
-                       const float* __restrict__ xweights,
-                       float2* __restrict__ out, int W, int LH, int LW,
-                       int ky, int kx, float scale) {
-  const int j = blockIdx.x * kResizeX + threadIdx.x;
-  const int i = blockIdx.y * kResizeY + threadIdx.y;
-  if (i >= LH || j >= LW) return;
-  const float2* rows = flow + (long long)__ldg(ystart + i) * W +
-                       __ldg(xstart + j);
-  const float* wy = yweights + (long long)i * ky;
-  const float* wx = xweights + (long long)j * kx;
-  float2 acc;
-  for (int c = 0; c < kx; ++c) {
-    // the row band's sum at input column xstart[j] + c, from its first term
-    float2 col = mul2(__ldg(rows + c), __ldg(wy));
-    for (int r = 1; r < ky; ++r)
-      col = add2(col, mul2(__ldg(rows + (long long)r * W + c), __ldg(wy + r)));
-    const float2 term = mul2(col, __ldg(wx + c));
-    acc = c ? add2(acc, term) : term;
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// A B15 launch: the flow, its bands and its output (as the entry below
+// takes them) and the host's tile (ops/pyramid.py::resize_plan).
+struct ResizeArgs {
+  const float2* flow;
+  const int* ystart;
+  const float* yweights;
+  const int* xstart;
+  const float* xweights;
+  float2* out;
+  int H, W, LH, LW, ky, kx;
+  float scale;
+  int tile_h, tile_w;  // a block's output rows and columns
+  int row_lead, rows;  // the input rows a block stages (resize_extent)
+  int slab;            // of which it stages at once
+  int col_lead, pitch;  // the input columns (even) it stages
+  int vec;             // 16-byte copies: W even, the flow 16-byte aligned
+  int wide;            // 16-byte stores: the output 16-byte aligned
+};
+
+// The 4-byte words of a B15 block's bands in shared memory: its rows'
+// starts and weights, then its columns', rounded up to 16 bytes
+// (ops/pyramid.py::resize_bytes).
+__host__ __device__ constexpr int resize_band_words(int tile_h, int tile_w,
+                                                    int ky, int kx) {
+  return (tile_h * (1 + ky) + tile_w * (1 + kx) + 3) / 4 * 4;
+}
+
+// The first input a B15 tile stages along an axis of ``n`` inputs and
+// ``m`` outputs from output ``t0`` on: ``lead`` before t0's place in the
+// input (t0 times n / m, each rounded to float32, truncated), at least 0
+// (an even column where ``even``), at most ``n - span``
+// (ops/pyramid.py::_resize_place, resize_extent): known without a load,
+// so a block's copies start at once.
+__device__ __forceinline__ int resize_first(int t0, int n, int m, int lead,
+                                            int span, bool even) {
+  const float ratio = __fdiv_rn(__int2float_rn(n), __int2float_rn(m));
+  int first = __float2int_rz(__fmul_rn(__int2float_rn(t0), ratio)) - lead;
+  first = first > 0 ? first : 0;
+  if (even) first &= ~1;
+  return min(first, max(n - span, 0));
+}
+
+// A thread's walk over the (row, column) items of a grid ``cols`` wide,
+// kResizeThreads items apart, from item ``tid``: no division a step.
+struct ResizeWalk {
+  int r, c, dr, dc, cols;
+  __device__ __forceinline__ ResizeWalk(int tid, int cols_)
+      : r(tid / cols_), c(tid - tid / cols_ * cols_),
+        dr(kResizeThreads / cols_),
+        dc(kResizeThreads - kResizeThreads / cols_ * cols_), cols(cols_) {}
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
   }
-  out[(long long)i * LW + j] = mul2(acc, scale);
+};
+
+// B15: a block makes the outputs of its tile of tile_h x tile_w. It
+// starts copying the input rows and columns its bands read (a slab of
+// rows at a time where they pass ``slab``) into shared memory, and its
+// bands beside them; then each output row's vertical sums at every staged
+// column; then a thread's two adjacent outputs at every (512 /
+// tile_w)-th row of the tile, each from its column band's kx sums, times
+// the scale. K > 0 bounds ky and kx (the loops unrolled, the column
+// band's weights in registers); K = 0 takes any.
+template <int K>
+__global__ void __launch_bounds__(kResizeThreads)
+    flow_resize_kernel(const ResizeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.y * a.tile_h, j0 = blockIdx.x * a.tile_w;
+  const int th = min(a.tile_h, a.LH - i0), tw = min(a.tile_w, a.LW - j0);
+  const int row0 = resize_first(i0, a.H, a.LH, a.row_lead, a.rows, false);
+  const int rows = min(a.rows, a.H - row0);
+  const int col0 = resize_first(j0, a.W, a.LW, a.col_lead, a.pitch, true);
+  const int cols = min(a.pitch, a.W - col0);
+  int* ys = reinterpret_cast<int*>(smem);  // starts in the staged rows
+  float* wy = reinterpret_cast<float*>(ys + a.tile_h);
+  int* xs = reinterpret_cast<int*>(wy + a.tile_h * a.ky);
+  float* wx = reinterpret_cast<float*>(xs + a.tile_w);
+  float2* stage = reinterpret_cast<float2*>(
+      smem + 4 * resize_band_words(a.tile_h, a.tile_w, a.ky, a.kx));
+  float2* inter = stage + a.slab * a.pitch;  // vertical sums, tile_h rows
+  for (int s0 = 0; s0 < rows; s0 += a.slab) {
+    const int sn = min(a.slab, rows - s0);
+    if (s0) __syncthreads();  // the last slab's sums are made
+    // 1. the slab's rows: 16-byte copies of column pairs where W is even,
+    // else 8-byte ones
+    const float2* src = a.flow + (long long)(row0 + s0) * a.W + col0;
+    const int units = a.vec ? cols >> 1 : cols;
+    for (ResizeWalk k(tid, units); k.r < sn; k.next()) {
+      if (a.vec)
+        cp_async16(stage + k.r * a.pitch + 2 * k.c,
+                   src + (long long)k.r * a.W + 2 * k.c);
+      else
+        cp_async8(stage + k.r * a.pitch + k.c,
+                  src + (long long)k.r * a.W + k.c);
+    }
+    cp_async_commit();
+    if (!s0) {
+      // the bands, while the copies fly; every band lies in the staged
+      // rows and columns (the plan's promise, checked)
+      for (int k = tid; k < th; k += kResizeThreads) {
+        ys[k] = __ldg(a.ystart + i0 + k) - row0;
+        if (ys[k] < 0 || ys[k] + a.ky > rows) __trap();
+      }
+      for (int k = tid; k < th * a.ky; k += kResizeThreads)
+        wy[k] = __ldg(a.yweights + (long long)i0 * a.ky + k);
+      for (int k = tid; k < tw; k += kResizeThreads) {
+        xs[k] = __ldg(a.xstart + j0 + k) - col0;
+        if (xs[k] < 0 || xs[k] + a.kx > cols) __trap();
+      }
+      for (int k = tid; k < tw * a.kx; k += kResizeThreads)
+        wx[k] = __ldg(a.xweights + (long long)j0 * a.kx + k);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // 2. each output row's vertical sum at each staged column, its band's
+    // terms in order from the first; a band that began in an earlier slab
+    // goes on from its sum so far
+    for (ResizeWalk k(tid, cols); k.r < th; k.next()) {
+      const int first = ys[k.r] - s0;  // the band's first row in the slab
+      const int lo = max(0, -first), hi = min(a.ky, sn - first);
+      if (lo >= hi) continue;
+      const float* w = wy + k.r * a.ky;
+      const float2* col = stage + first * a.pitch + k.c;
+      float2* sum = inter + k.r * a.pitch + k.c;
+      float2 acc = lo ? *sum : mul2(col[0], w[0]);
+      if constexpr (K > 0) {
+#pragma unroll
+        for (int r = 1; r < K; ++r)
+          if (r >= lo && r < hi)
+            acc = add2(acc, mul2(col[r * a.pitch], w[r]));
+      } else {
+        for (int r = lo > 1 ? lo : 1; r < hi; ++r)
+          acc = add2(acc, mul2(col[r * a.pitch], w[r]));
+      }
+      *sum = acc;
+    }
+  }
+  __syncthreads();
+  // 3. a thread's column pair at every phases-th row of the tile: each
+  // output its column band's sum of the row's vertical sums, in order from
+  // the first, times the scale; a 16-byte store where the pair is aligned
+  const int pairs = a.tile_w >> 1;
+  const int phases = kResizeThreads / pairs;
+  const int jl = 2 * (tid % pairs);
+  if (jl >= tw) return;
+  const bool two = jl + 1 < tw;
+  const int x0 = xs[jl], x1 = two ? xs[jl + 1] : x0;
+  const float* wx0 = wx + jl * a.kx;
+  const float* wx1 = two ? wx0 + a.kx : wx0;
+  float w0[K ? K : 1], w1[K ? K : 1];
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      w0[k] = k < a.kx ? wx0[k] : 0.0f;
+      w1[k] = k < a.kx ? wx1[k] : 0.0f;
+    }
+  }
+  for (int i = tid / pairs; i < th; i += phases) {
+    const float2* row = inter + i * a.pitch;
+    float2 acc0, acc1;
+    if constexpr (K > 0) {
+      acc0 = mul2(row[x0], w0[0]);
+      acc1 = mul2(row[x1], w1[0]);
+#pragma unroll
+      for (int k = 1; k < K; ++k) {
+        if (k >= a.kx) break;
+        acc0 = add2(acc0, mul2(row[x0 + k], w0[k]));
+        acc1 = add2(acc1, mul2(row[x1 + k], w1[k]));
+      }
+    } else {
+      acc0 = mul2(row[x0], wx0[0]);
+      acc1 = mul2(row[x1], wx1[0]);
+      for (int k = 1; k < a.kx; ++k) {
+        acc0 = add2(acc0, mul2(row[x0 + k], wx0[k]));
+        acc1 = add2(acc1, mul2(row[x1 + k], wx1[k]));
+      }
+    }
+    acc0 = mul2(acc0, a.scale);
+    acc1 = mul2(acc1, a.scale);
+    const long long o = (long long)(i0 + i) * a.LW + j0 + jl;
+    if (two && a.wide && !(o & 1)) {
+      *reinterpret_cast<float4*>(a.out + o) =
+          make_float4(acc0.x, acc0.y, acc1.x, acc1.y);
+    } else {
+      a.out[o] = acc0;
+      if (two) a.out[o + 1] = acc1;
+    }
+  }
 }
 
 }  // namespace
@@ -1265,23 +1454,53 @@ __global__ void __launch_bounds__(kResizeX * kResizeY)
 // ``out`` by the bands of ops/pyramid.py::resize_weights, then times
 // ``scale``: output row i reads input rows ystart[i] + r with weights
 // yweights[i * ky + r] (r < ky), column j columns xstart[j] + c with
-// xweights[j * kx + c] (c < kx); every band lies inside the input.
-// Returns a cudaError_t.
-extern "C" int transflow_flow_resize(const void* flow, const void* ystart,
-                                     const void* yweights, const void* xstart,
-                                     const void* xweights, void* out, int H,
-                                     int W, int LH, int LW, int ky, int kx,
-                                     float scale, void* stream) {
+// xweights[j * kx + c] (c < kx); every band lies inside the input, and
+// the starts ascend. The tile (ops/pyramid.py::resize_plan): tile_h x
+// tile_w outputs a block (tile_w a power of two from 2 to 512); the
+// ``rows`` input rows from ``row_lead`` before the tile's first output
+// row's place (``slab`` of them at once) and the ``pitch`` (even) columns
+// likewise from ``col_lead`` hold every band of the tile; its shared
+// bytes within 48 KB. Both pointers 8-byte aligned. Returns a
+// cudaError_t.
+extern "C" int transflow_flow_resize_tiled(
+    const void* flow, const void* ystart, const void* yweights,
+    const void* xstart, const void* xweights, void* out, int H, int W, int LH,
+    int LW, int ky, int kx, float scale, int tile_h, int tile_w, int row_lead,
+    int rows, int slab, int col_lead, int pitch, void* stream) {
   if (H < 1 || W < 1 || LH < 1 || LW < 1 || ky < 1 || ky > H || kx < 1 ||
       kx > W)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((LW + kResizeX - 1) / kResizeX,
-                  (LH + kResizeY - 1) / kResizeY);
-  flow_resize_kernel<<<grid, dim3(kResizeX, kResizeY), 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(flow), static_cast<const int*>(ystart),
-      static_cast<const float*>(yweights), static_cast<const int*>(xstart),
-      static_cast<const float*>(xweights), static_cast<float2*>(out), W, LH,
-      LW, ky, kx, scale);
+  if (tile_h < 1 || tile_w < 2 || tile_w > 2 * kResizeThreads ||
+      (tile_w & (tile_w - 1)) || row_lead < 0 || rows < ky || slab < 1 ||
+      col_lead < 0 || pitch < kx || pitch % 2 || LH >= (1 << 24) ||
+      LW >= (1 << 24) || (LH + tile_h - 1) / tile_h > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long bytes =
+      4LL * resize_band_words(tile_h, tile_w, ky, kx) +
+      8LL * pitch * (slab + tile_h);
+  const auto misaligned = [](const void* p, uintptr_t n) {
+    return (reinterpret_cast<uintptr_t>(p) & (n - 1)) != 0;
+  };
+  if (bytes > kSmemDefault || misaligned(flow, 8) || misaligned(out, 8))
+    return (int)cudaErrorInvalidValue;
+  const ResizeArgs a = {static_cast<const float2*>(flow),
+                        static_cast<const int*>(ystart),
+                        static_cast<const float*>(yweights),
+                        static_cast<const int*>(xstart),
+                        static_cast<const float*>(xweights),
+                        static_cast<float2*>(out),
+                        H, W, LH, LW, ky, kx, scale, tile_h, tile_w,
+                        row_lead, rows, slab, col_lead, pitch,
+                        W % 2 == 0 && !misaligned(flow, 16),
+                        !misaligned(out, 16)};
+  const dim3 grid((LW + tile_w - 1) / tile_w, (LH + tile_h - 1) / tile_h);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int taps = ky > kx ? ky : kx;
+  if (taps <= 2)
+    flow_resize_kernel<2><<<grid, kResizeThreads, bytes, s>>>(a);
+  else if (taps <= 8)
+    flow_resize_kernel<8><<<grid, kResizeThreads, bytes, s>>>(a);
+  else
+    flow_resize_kernel<0><<<grid, kResizeThreads, bytes, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -51,6 +51,7 @@ result's largest value of JAX's at whole ratios
 (tests/test_torch_flow_resize.py).
 """
 import functools
+import typing
 
 import numpy as np
 import torch
@@ -702,6 +703,120 @@ def _check_flow(name: str, flow: torch.Tensor, lh: int, lw: int) -> None:
                          f"{flow.dtype} -> ({lh}, {lw})")
 
 
+# csrc/pyramid.cu: B15's tiles a plan weighs, the tallest first (a width
+# a power of two, a thread two adjacent outputs); the blocks its grid
+# should reach, near two an SM (fewer leave SMs idle; more, smaller tiles
+# pay each block's fixed latency more often: PERF.md §6, B15); the
+# shared bytes a block may hold without an opt-in; the narrower one-row
+# tiles of a downscale whose bands fit no other
+RESIZE_TILES = ((32, 128), (32, 64), (16, 128), (16, 64), (8, 128), (8, 64),
+                (4, 128), (4, 64), (2, 128), (2, 64), (1, 128), (1, 64))
+RESIZE_BLOCKS = 240
+RESIZE_SMEM = 48 * 1024
+RESIZE_NARROW = (32, 16, 8, 4, 2)
+
+
+class ResizePlan(typing.NamedTuple):
+    """B15's tile (``resize_plan``): a block's output rows and columns; the
+    input rows it stages (``resize_extent``), of which ``slab`` at once;
+    the input columns it stages (even); its shared bytes."""
+    tile_h: int
+    tile_w: int
+    row_lead: int
+    rows: int
+    slab: int
+    col_lead: int
+    pitch: int
+    smem: int
+
+    @property
+    def args(self) -> tuple[int, ...]:
+        """The plan as ``transflow_flow_resize_tiled`` takes it."""
+        return self[:7]
+
+
+def resize_bytes(ky: int, kx: int, tile_h: int, tile_w: int, slab: int,
+                 pitch: int) -> int:
+    """The shared bytes of a B15 block (csrc/pyramid.cu:
+    ``resize_band_words``): its rows' and columns' band starts (int32) and
+    weights (float32), 16-byte aligned; ``slab`` staged input rows and
+    ``tile_h`` rows of vertical sums, ``pitch`` float2 each."""
+    return _align16(4 * (tile_h * (1 + ky) + tile_w * (1 + kx))) + \
+        8 * pitch * (slab + tile_h)
+
+
+def _resize_place(t0: np.ndarray, n: int, m: int) -> np.ndarray:
+    """Outputs ``t0``'s place along an axis of ``n`` inputs and ``m``
+    outputs, as csrc/pyramid.cu::resize_first computes it: t0 times n / m,
+    each rounded to float32, truncated."""
+    ratio = np.float32(n) / np.float32(m)
+    return np.trunc(t0.astype(np.float32) * ratio).astype(np.int64)
+
+
+def resize_extent(starts: np.ndarray, taps: int, n: int, tile: int,
+                  even: bool) -> tuple[int, int]:
+    """(lead, span) of B15's staged inputs along an axis of ``n`` inputs
+    for tiles of ``tile`` outputs: the least lead and span (even where
+    ``even``) that give every tile every band it reads, where a tile
+    stages ``span`` inputs from ``lead`` before its place
+    (``_resize_place``), from at least 0 (an even column where ``even``)
+    and at most ``n - span`` (csrc/pyramid.cu::resize_first): no band's
+    start is loaded before the copies."""
+    m = len(starts)
+    t0 = np.arange(0, m, tile)
+    s = starts.astype(np.int64)
+    end = s[np.minimum(t0 + tile, m) - 1] + taps
+    place = _resize_place(t0, n, m)
+    lead = max(0, int((place - s[t0]).max()))
+    begin = np.maximum(place - lead, 0)
+    if even:
+        begin &= ~1
+    # the clamp to n - span moves a first input only down, to an end of n
+    span = int((end - begin).max())
+    return lead, span + span % 2 if even else span
+
+
+@functools.lru_cache(maxsize=None)
+def resize_plan(h: int, w: int, lh: int, lw: int) -> ResizePlan:
+    """B15's tile for a resize of (h, w) to (lh, lw): the first of
+    ``RESIZE_TILES`` whose bands, staged inputs and vertical sums fit
+    ``RESIZE_SMEM`` and whose grid reaches ``RESIZE_BLOCKS`` blocks, else
+    the fitting one with the most blocks; where none fits, one row of
+    ``RESIZE_NARROW`` columns, the narrowest staging its input rows a slab
+    at a time (a downscale by a few hundred). Raises where not even one
+    input row of that tile fits."""
+    ystart, yweights = resize_weights(h, lh)
+    xstart, xweights = resize_weights(w, lw)
+    ky, kx = yweights.shape[1], xweights.shape[1]
+
+    def plan(tile_h, tile_w):
+        row_lead, rows = resize_extent(ystart, ky, h, tile_h, False)
+        col_lead, pitch = resize_extent(xstart, kx, w, tile_w, True)
+        return ResizePlan(tile_h, tile_w, row_lead, rows, rows, col_lead,
+                          pitch, resize_bytes(ky, kx, tile_h, tile_w, rows,
+                                              pitch))
+
+    fits = [p for p in (plan(*tile) for tile in RESIZE_TILES)
+            if p.smem <= RESIZE_SMEM]
+    if fits:
+        blocks = [-(-lh // p.tile_h) * -(-lw // p.tile_w) for p in fits]
+        enough = [p for p, n in zip(fits, blocks) if n >= RESIZE_BLOCKS]
+        return enough[0] if enough else fits[blocks.index(max(blocks))]
+    for tile_w in RESIZE_NARROW:
+        narrow = plan(1, tile_w)
+        if narrow.smem <= RESIZE_SMEM:
+            return narrow
+    pitch = narrow.pitch
+    slab = (RESIZE_SMEM - resize_bytes(ky, kx, 1, narrow.tile_w, 0, pitch)
+            ) // (8 * pitch)
+    if slab < 1:
+        raise ValueError(f"resize_flow: {w} -> {lw} columns leave no room "
+                         f"for an input row in {RESIZE_SMEM} bytes of "
+                         "shared memory")
+    return narrow._replace(slab=slab, smem=resize_bytes(
+        ky, kx, 1, narrow.tile_w, slab, pitch))
+
+
 def resize_flow_plain(flow: torch.Tensor, lh: int, lw: int,
                       scale: float) -> torch.Tensor:
     """The (h, w, 2) float32 ``flow`` resized to (lh, lw) by the bands of
@@ -718,20 +833,22 @@ def resize_flow_plain(flow: torch.Tensor, lh: int, lw: int,
 def resize_flow_cuda(flow: torch.Tensor, lh: int, lw: int,
                      scale: float) -> torch.Tensor:
     """Launch kernel B15 on a contiguous (h, w, 2) float32 flow on a CUDA
-    device: the resize and the scale in one launch, into a new contiguous
-    (lh, lw, 2) flow; ``resize_flow_cuda.launches`` counts launches. The
-    bands are copied to the card once per size (``_bands_on``)."""
+    device: the resize and the scale in one launch of ``resize_plan``'s
+    tiles, into a new contiguous (lh, lw, 2) flow;
+    ``resize_flow_cuda.launches`` counts launches. The bands are copied to
+    the card once per size (``_bands_on``)."""
     _check_flow("resize_flow_cuda", flow, lh, lw)
     check_cuda("resize_flow_cuda", flow)
     h, w = flow.shape[:2]
+    plan = resize_plan(h, w, lh, lw)
     ystart, yweights = _bands_on(h, lh, flow.device)
     xstart, xweights = _bands_on(w, lw, flow.device)
     out = torch.empty((lh, lw, 2), dtype=torch.float32, device=flow.device)
-    launch(flow.device, "transflow_flow_resize", flow.data_ptr(),
+    launch(flow.device, "transflow_flow_resize_tiled", flow.data_ptr(),
            ystart.data_ptr(), yweights.data_ptr(), xstart.data_ptr(),
            xweights.data_ptr(), out.data_ptr(), h, w, lh, lw,
            yweights.shape[1], xweights.shape[1], float(np.float32(scale)),
-           cuda_stream(flow))
+           *plan.args, cuda_stream(flow))
     resize_flow_cuda.launches += 1
     return out
 
